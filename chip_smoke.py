@@ -1,20 +1,37 @@
-"""Smoke run of the PyTorch port of NeRFactor inference on one GPU.
+"""Smoke run of the PyTorch port of NeRFactor, inference and training, on
+one GPU.
 
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the CUDA kernels (nerfactor_tpu_torch/csrc) with nvcc for sm_90a.
-3. Writes a synthetic scene -- the analytic sphere, 3 test views at
-   imh 128 with light_h 16, two .npy light probes -- and seeded BRDF,
-   shape and joint checkpoints at the shipped nerfactor.ini widths
-   (128 x 4 MLPs, 512 lights, bf16 big chains, fused kernels on).
+3. Writes a synthetic scene -- the analytic sphere at imh 128 with
+   light_h 16: 3 train and 1 val views with a Lambertian rgba.png, 3 test
+   views, two .npy light probes -- and seeded BRDF, shape and joint
+   checkpoints at the shipped nerfactor.ini widths (128 x 4 MLPs, 512
+   lights, bf16 big chains, fused kernels on).
 4. Holds kernels K1-fwd and K2-fwd against their plain PyTorch versions
-   at the shapes the slice gives them, and times both.
-5. Runs ``nerfactor_tpu_torch.test.main`` over the 3 views (OLAT and
-   probe relights on the last), with the kernels' launch counters set to
-   0 just before and read just after, and checks the files it writes.
-6. Holds the model's GPU forward (kernels) against its CPU forward (plain
-   versions) on a few hundred rays of a test view.
+   at the shapes one inference chunk gives them, and times both.
+5. Inference path: runs ``nerfactor_tpu_torch.test.main`` over the 3 test
+   views (OLAT and probe relights on the last), with the kernels' launch
+   counters set to 0 just before and read just after, and checks the
+   files it writes; holds the model's GPU forward against its CPU forward
+   on a few hundred rays.
+6. Holds all four kernels against their plain versions (autograd of them
+   for K1-bwd and K2-bwd) at the shapes one training step gives them
+   (1024 rays x 512 lights, jitter twins on), reports what the f32
+   kernel reads against the bf16 plain version (how far the bf16 bounds
+   sit from a kernel that computed the f32 gradient), checks that
+   K1-bwd's dW is bit-identical across two launches, and times kernels
+   against plain versions, backward alone and forward + backward.
+7. Training path: runs ``nerfactor_tpu_torch.trainvali.main`` on
+   nerfactor.ini for 4 epochs (checkpoints every 2, vali at 4), with the
+   four kernels' counters zeroed before and read after, checks its
+   losses, checkpoints and vali images, and renders a view from the
+   trained checkpoint with ``test.main``.
+8. Times the steady-state train step at 1024 rays x 512 lights and
+   profiles a few steps for the device's idle share and the time by
+   kernel.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises, so the
@@ -22,6 +39,7 @@ run exits non-zero. The only cut from production is imh 128 (not 512).
 """
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -32,6 +50,7 @@ import numpy as np
 import torch
 
 from nerfactor_tpu_torch import test as test_cli
+from nerfactor_tpu_torch import trainvali
 from nerfactor_tpu_torch.datasets.nerf_shape import Dataset
 from nerfactor_tpu_torch.models import networks
 from nerfactor_tpu_torch.models.nerfactor import Model
@@ -41,19 +60,42 @@ from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.ops import kernel_lib
 from nerfactor_tpu_torch.ops.light import gen_light_xyz
+from nerfactor_tpu_torch.parallel.train import (
+    build_optimizer, make_train_step)
 from nerfactor_tpu_torch.utils import (
     ckpt as ckptutil, config as configutil, io as ioutil)
 
 ROOT = dirname(abspath(__file__))
 WORK = join(ROOT, 'build', 'smoke')
 IMH, LIGHT_H, N_VIEWS = 128, 16, 3
+N_LIGHTS = 2 * LIGHT_H * LIGHT_H
+N_TRAIN, N_VALI = 3, 1
+N_RAYS = 1024  # nerfactor.ini n_rays_per_step, bench.py's step
 
 # Tolerances of a kernel against its plain version (|err| <= atol + rtol
 # * |plain|): f32 chains differ only in summation order; bf16 chains
 # round activations at other places (the plain version also rounds each
-# pre-activation and the head to bf16).
+# pre-activation and the head to bf16). TOL_F32 holds the per-row outputs
+# of the f32 backward kernels too (dx, dz, dldir, dvdir).
 TOL_F32 = (1e-4, 1e-4)
 TOL_BF16 = (2e-2, 2e-2)
+# dW/db sum up to 1M rows: each f32 leaf is held by its relative norm
+# |got - plain| / |plain| (summation order only).
+DW_TOL_F32 = 1e-4
+# bf16 backward: the plain version rounds every cotangent to bf16 at each
+# cast, the kernel (as the TPU kernel) keeps d_h in f32 and rounds d_pre.
+# Every bf16 cotangent (each dW/db leaf; dx, dz, dldir, dvdir over the
+# rows kept) is held by its relative norm. Readings at this step's shapes
+# over 4 seeds (NVIDIA H100 80GB HBM3, 700.00 W): the kernel <= 0.013
+# (dW), 0.0047 (dx), 0.0060 (K2-bwd); the f32 kernel, i.e. a kernel that
+# computed the f32 gradient, >= 0.086, 0.042, 0.053. check_backward
+# reports the f32 kernel's reading in every run.
+NORM_TOL_BF16 = 0.025
+# The per-row bf16 cotangents of K2-bwd also get a bound per element, for
+# a fault confined to a few rows: over the same 4 seeds the kernel's worst
+# element needed atol 0.048 at rtol 0.1, the f32 kernel's 0.57 on dldir
+# and dvdir (0.037 on dz, which only the norm tells apart).
+TOL_BF16_GRAD = (1e-1, 1e-1)
 
 
 def gpu_name_and_power():
@@ -81,12 +123,19 @@ def look_at_c2w(cam_loc):
 
 
 def write_scene(data_root, nerf_root):
+    """Views on camera rings around the sphere: per view metadata.json and
+    the geometry buffers, and for train/val views an rgba.png shaded by a
+    Lambertian albedo under one directional light plus ambient."""
     lxyz = gen_light_xyz(LIGHT_H, 2 * LIGHT_H)[0].reshape(-1, 3)
-    for i in range(N_VIEWS):
-        az, el = np.deg2rad(70.0) + 2 * np.pi * i / N_VIEWS, np.deg2rad(30)
+    sun = np.array([0.5, 0.5, 1.0]) / np.linalg.norm([0.5, 0.5, 1.0])
+    views = [('test', i, N_VIEWS, 70.0) for i in range(N_VIEWS)] \
+        + [('train', i, N_TRAIN, 10.0) for i in range(N_TRAIN)] \
+        + [('val', i, N_VALI, 40.0) for i in range(N_VALI)]
+    for mode, i, n, phase in views:
+        az, el = np.deg2rad(phase) + 2 * np.pi * i / n, np.deg2rad(30)
         c2w = look_at_c2w(CAM_DIST * np.array(
             [np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)]))
-        vid = 'test_%03d' % i
+        vid = '%s_%03d' % (mode, i)
         ioutil.write_json({
             'cam_transform_mat': ','.join(str(x) for x in c2w.ravel()),
             'cam_angle_x': ANGLE_X, 'imh': IMH, 'imw': IMH},
@@ -112,6 +161,11 @@ def write_scene(data_root, nerf_root):
         ioutil.save_np(lvis.astype(np.float32), join(nerf_root, vid, 'lvis.npy'))
         ioutil.write_img(hit.astype(np.float32),
                          join(nerf_root, vid, 'alpha.png'))
+        if mode != 'test':
+            shade = 0.25 + 0.75 * np.clip(normal @ sun, 0.0, 1.0)
+            rgb = np.asarray([0.6, 0.3, 0.2]) * shade[..., None] * hit[..., None]
+            ioutil.write_img(np.dstack([rgb, hit]).astype(np.float32),
+                             join(data_root, vid, 'rgba.png'))
 
 
 def write_experiments(data_root, nerf_root, probe_dir):
@@ -141,16 +195,17 @@ def write_experiments(data_root, nerf_root, probe_dir):
     cs, shape_dir = experiment('shape', 'shape.ini', 'imh=%d' % IMH)
     ckptutil.save_pytree({'params': ShapeModel(cs).init_params(g)},
                          join(shape_dir, 'ckpt-2'))
-    cn, joint_dir = experiment('nerfactor', 'nerfactor.ini', ','.join([
+    joint_override = ','.join([
         'data_root=' + data_root, 'data_nerf_root=' + nerf_root,
-        'outroot=' + join(WORK, 'out', 'nerfactor'),
         'brdf_model_ckpt=' + join(brdf_dir, 'ckpt-50'),
         'shape_model_ckpt=' + join(shape_dir, 'ckpt-2'),
         'test_envmap_dir=' + probe_dir, 'imh=%d' % IMH,
-        'light_h=%d' % LIGHT_H]))
+        'light_h=%d' % LIGHT_H])
+    cn, joint_dir = experiment('nerfactor', 'nerfactor.ini', joint_override
+                               + ',outroot=' + join(WORK, 'out', 'nerfactor'))
     ckptutil.save_pytree({'params': Model(cn).init_params(g)},
                          join(joint_dir, 'ckpt-10'))
-    return cn, join(joint_dir, 'ckpt-10')
+    return cn, join(joint_dir, 'ckpt-10'), joint_override
 
 
 # ------ kernel checks ------
@@ -263,9 +318,363 @@ def check_forward(model_gpu, model_cpu, params, dataset):
     return errs
 
 
+def rel_norm(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def time_pair(run_k, run_p, iters=20):
+    """(kernel ms, plain ms) by CUDA events, in turns k, p, p, k."""
+    k1, p1, p2, k2 = (time_ms(f, iters) for f in (run_k, run_p, run_p, run_k))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def step_inputs(model, g):
+    """The chains' inputs at one training step's shapes: N_RAYS surface
+    points with their jitter twins (2N rows for the heads and 2N x L for
+    lvis) and the BRDF chain's N x L local-frame directions."""
+    dev = 'cuda'
+    pts = torch.randn(N_RAYS, 3, generator=g)
+    pts = SPHERE_R * pts / pts.norm(dim=1, keepdim=True)
+    twins = torch.cat([pts, pts + model.xyz_jitter_std * torch.randn(
+        N_RAYS, 3, generator=g)]).to(dev)
+    surf2l = model.calc_ldir(twins)
+    lvis_x = torch.cat((twins[:, None].expand(surf2l.shape).reshape(-1, 3),
+                        surf2l.reshape(-1, 3)), dim=1)
+    pts = pts.to(dev)
+    cam = torch.tensor([CAM_DIST, 0.0, 1.0], device=dev).expand(N_RAYS, 3)
+    w2l = geomops.gen_world2local(pts)
+    ldir = torch.einsum('jkl,jnl->jnk', w2l, model.calc_ldir(pts)).reshape(
+        -1, 3)
+    vdir = torch.einsum('jkl,jl->jk', w2l, model.calc_vdir(cam, pts))
+    vdir = vdir[:, None].expand(N_RAYS, model.n_lights, 3).reshape(-1, 3)
+    z = (0.5 * torch.randn(N_RAYS, model.z_dim, generator=g)).to(dev)
+    z = z[:, None].expand(N_RAYS, model.n_lights, model.z_dim).reshape(
+        -1, model.z_dim)
+    return twins, lvis_x, (z, ldir, vdir)
+
+
+def chain_f64(plan, x, params):
+    """The plain chain in float64 (the exact math the f32 kernels are held
+    to), and per row the smallest |pre-activation| over its ReLU layers:
+    a row whose gate sits within rounding of 0 may be gated differently
+    by an f32 version, and its gradient then differs by that unit's whole
+    contribution."""
+    e = fm._embed(plan, x)
+    h, low = e, None
+    for i, ((w, b), act) in enumerate(zip(params, plan.acts)):
+        w, b = w.double(), b.double()
+        if i > 0 and (i - 1) in plan.skip_at:
+            pre = torch.cat((h, e), dim=1) @ w + b
+        else:
+            pre = h @ w + b
+        if act == 'relu':
+            m = pre.detach().abs().min(dim=1).values
+            low = m if low is None else torch.minimum(low, m)
+        h = fm._act(act, pre)
+    return h, low
+
+
+# In the f32 per-row backward check, rows whose pre-activations come within
+# this of a ReLU kink are left out: a sum of 128 products of size up to ~1
+# in f32 moves by up to ~1e-5, enough to gate a unit the other way
+# (measured: rows at 6e-8 from a kink missed by 0.035). In bf16 rounding
+# moves pre-activations by ~1e-2, and nearly every row has one of its 512
+# units that close, so no row is left out for it: those gate flips are
+# inside TOL_BF16_GRAD.
+KINK_F32 = 1e-4
+
+
+def check_norm(name, errs, tol):
+    if max(errs) > tol:
+        raise AssertionError("%s: relative error %.3g > %g"
+                             % (name, max(errs), tol))
+    return max(errs)
+
+
+def flatten(pairs):
+    return [t for pair in pairs for t in pair]
+
+
+def check_backward(model, params):
+    """K1-fwd/K1-bwd on each chain and K2-fwd/K2-bwd on the BRDF chain at
+    one training step's shapes, against the plain versions (autograd for
+    the backward) on the same tensors; timings of backward alone and of
+    forward + backward."""
+    g = torch.Generator().manual_seed(2)
+    twins, lvis_x, (z, ldir, vdir) = step_inputs(model, g)
+    chains = [('normal', 'normal_mlp', 'normal_out', twins, None),
+              ('albedo', 'albedo_mlp', 'albedo_out', twins, None),
+              ('brdf_z', 'brdf_z_mlp', 'brdf_z_out', twins, None),
+              ('lvis', 'lvis_mlp', 'lvis_out', lvis_x,
+               model.chain_dtype('lvis'))]
+    k1 = []
+    for name, mlp, out, x, cd in chains:
+        plan = model.plans[name]
+        p = fm.params_from_tree(params[mlp], params[out])
+        flat = flatten(p)
+        dy = (2 * torch.rand(x.shape[0], plan.widths[-1], generator=g)
+              - 1).cuda()
+        bf16 = cd is not None
+        with torch.no_grad():
+            fwd_err = compare('K1-fwd %s (train)' % name,
+                              fm.chain_kernel(plan, x, p, cd),
+                              fm.chain_reference(plan, x, p, cd),
+                              TOL_BF16 if bf16 else TOL_F32)
+        # The step's flags: x is data, the weights train
+        _, got = fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False)
+        leaves = [t.clone().requires_grad_() for t in flat]
+        xg = x.clone().requires_grad_()
+        y_p = fm.chain_reference(plan, xg, list(zip(leaves[0::2],
+                                                    leaves[1::2])), cd)
+        want = torch.autograd.grad(y_p, [xg] + leaves, dy, retain_graph=True)
+        dw_tol = NORM_TOL_BF16 if bf16 else DW_TOL_F32
+        dw_err = check_norm('K1-bwd dW/db ' + name, [
+            rel_norm(a, b) for a, b in zip(flatten(got), want[1:])], dw_tol)
+        # The input cotangent branch (K2-bwd's path; the step needs none)
+        dx, _ = fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dw=False)
+        row = {'chain': name, 'rows': x.shape[0],
+               'dtype': 'bf16' if bf16 else 'f32',
+               'fwd_max_abs_err': fwd_err, 'dw_rel_err': dw_err,
+               'dw_tol': dw_tol}
+        if bf16:
+            row['dx_rel_err'] = check_norm('K1-bwd dx ' + name,
+                                           [rel_norm(dx, want[0])], dw_tol)
+            # What a kernel that computed the f32 gradient would read
+            dx32, got32 = fm.chain_kernel_bwd(plan, x, dy, p, None)
+            row['f32_kernel_dw_rel_err'] = max(
+                rel_norm(a, b) for a, b in zip(flatten(got32), want[1:]))
+            row['f32_kernel_dx_rel_err'] = rel_norm(dx32, want[0])
+            del dx32, got32
+        else:
+            row['dx_max_abs_err'] = compare('K1-bwd dx ' + name, dx, want[0],
+                                            TOL_F32)
+        if name == 'lvis':
+            again = fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False)[1]
+            row['dw_bit_identical'] = all(
+                torch.equal(a, b) for pa, pb in zip(got, again)
+                for a, b in zip(pa, pb))
+            if not row['dw_bit_identical']:
+                raise AssertionError("K1-bwd lvis: dW differs between two "
+                                     "launches on the same inputs")
+        row['ms'], row['plain_ms'] = time_pair(
+            lambda: fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False),
+            lambda: torch.autograd.grad(y_p, leaves, dy, retain_graph=True),
+            iters=10)
+        del y_p
+
+        def fwd_bwd(fn):
+            ls = [t.detach().requires_grad_() for t in flat]
+            y = fn(plan, x, list(zip(ls[0::2], ls[1::2])), compute_dtype=cd)
+            return torch.autograd.grad(y, ls, dy)
+        row['fwd_bwd_ms'], row['fwd_bwd_plain_ms'] = time_pair(
+            lambda: fwd_bwd(lambda *a, **k: fm.apply_chain(*a, needs_dx=False,
+                                                           **k)),
+            lambda: fwd_bwd(fm.chain_reference), iters=10)
+        k1.append(row)
+
+    plan, cd = model.plans['brdf'], model.chain_dtype('brdf')
+    p = fm.params_from_tree(params['brdf_mlp'], params['brdf_out'])
+    dy = (2 * torch.rand(z.shape[0], 1, generator=g) - 1).cuda()
+    rusink = geomops.dir2rusink(ldir, vdir)
+    # Rows left out everywhere: within 1e-3 of phi_d's wrap (0 == pi) the
+    # two sides disagree, and at |cos theta_d| or |cos theta_h| > 1 - 1e-4
+    # the safe-acos gradient is ~1e3 and ill-conditioned
+    off_wrap = (rusink[:, 0] > 1e-3) & (rusink[:, 0] < np.pi - 1e-3)
+    with torch.no_grad():
+        fwd_err = compare('K2-fwd brdf (train)',
+                          fr.rusink_kernel(plan, z, ldir, vdir, p, cd),
+                          fr.reference(plan, z, ldir, vdir, p, cd),
+                          TOL_BF16 if cd is not None else TOL_F32,
+                          mask=off_wrap[:, None])
+    keep = off_wrap & (torch.cos(rusink[:, 1]).abs() < 1 - 1e-4) \
+        & (torch.cos(rusink[:, 2]).abs() < 1 - 1e-4)
+    # Near a pole the VJP divides by sin(theta) (phi's cotangent by
+    # sin^2), which amplifies either version's rounding as much: rows
+    # within sin theta < 0.1 of either pole are left out too, and counted
+    keep = keep & (torch.sin(rusink[:, 1]) > 0.1) \
+        & (torch.sin(rusink[:, 2]) > 0.1)
+    k2 = {'chain': 'brdf', 'rows': z.shape[0],
+          'dtype': 'bf16' if cd is not None else 'f32',
+          'fwd_max_abs_err': fwd_err,
+          'fwd_rows_at_phi_d_wrap': int((~off_wrap).sum()),
+          'rows_left_out': int((~keep).sum())}
+
+    def plain(dtype):
+        ins = [t.clone().requires_grad_() for t in (z, ldir, vdir)]
+        return torch.autograd.grad(fr.reference(plan, *ins, p, dtype), ins,
+                                   dy)
+    # f32 is held to the exact math, the plain version in float64; the
+    # plain version in f32 is read against it on the same rows
+    ins = [t.double().requires_grad_() for t in (z, ldir, vdir)]
+    y64, low = chain_f64(plan, torch.cat(
+        (ins[0], geomops.dir2rusink(ins[1], ins[2])), dim=1), p)
+    want64 = [w.float() for w in torch.autograd.grad(y64, ins, dy.double())]
+    del y64, ins
+    mask = (keep & (low > KINK_F32))[:, None]
+    got32 = fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, None)
+    k2['f32_rows_at_relu_kink'] = int((low <= KINK_F32).sum())
+    k2['f32_max_abs_err'] = max(
+        compare('K2-bwd f32 ' + n, a, b, TOL_F32, mask=mask.expand_as(b))
+        for n, a, b in zip(('dz', 'dldir', 'dvdir'), got32, want64))
+    k2['f32_plain_max_abs_err'] = max(
+        (a - b).abs()[mask.expand_as(b)].max().item()
+        for a, b in zip(plain(None), want64))
+    del want64
+    # bf16 against the plain version in bf16, per element and in norm
+    want = plain(cd)
+    got = fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, cd)
+    k2['bf16_max_abs_err'] = max(
+        compare('K2-bwd bf16 ' + n, a, b, TOL_BF16_GRAD,
+                mask=keep[:, None].expand_as(b))
+        for n, a, b in zip(('dz', 'dldir', 'dvdir'), got, want))
+    k2['bf16_rel_err'] = check_norm('K2-bwd bf16', [
+        rel_norm(a[keep], b[keep]) for a, b in zip(got, want)], NORM_TOL_BF16)
+    # What a kernel that computed the f32 gradient would read
+    k2['f32_kernel_rel_err'] = max(
+        rel_norm(a[keep], b[keep]) for a, b in zip(got32, want))
+    k2['max_abs_err'] = k2['bf16_max_abs_err']
+    del got, got32, want
+    ins = [t.clone().requires_grad_() for t in (z, ldir, vdir)]
+    y_p = fr.reference(plan, *ins, p, cd)
+    k2['ms'], k2['plain_ms'] = time_pair(
+        lambda: fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, cd),
+        lambda: torch.autograd.grad(y_p, ins, dy, retain_graph=True),
+        iters=10)
+    del y_p
+
+    def fwd_bwd(fn):
+        args = [t.detach().requires_grad_() for t in (z, ldir, vdir)]
+        return torch.autograd.grad(fn(plan, *args, p, compute_dtype=cd),
+                                   args, dy)
+    k2['fwd_bwd_ms'], k2['fwd_bwd_plain_ms'] = time_pair(
+        lambda: fwd_bwd(fr.apply_rusink_chain),
+        lambda: fwd_bwd(fr.reference), iters=10)
+    return k1, k2
+
+
+COUNTERS = {'K1-fwd': fm.chain_kernel, 'K1-bwd': fm.chain_kernel_bwd,
+            'K2-fwd': fr.rusink_kernel, 'K2-bwd': fr.rusink_kernel_bwd}
+
+
+def zero_counters():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counters(names, path):
+    launches = {k: COUNTERS[k].launches for k in names}
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError("%s never launched on the %s path"
+                                 % (k, path))
+    return launches
+
+
+def run_training(joint_override):
+    """The training path through trainvali.main on nerfactor.ini; checks
+    what it writes. Returns (launches, outdir, losses)."""
+    outroot = join(WORK, 'out', 'train')
+    override = joint_override + ',' + ','.join([
+        'outroot=' + outroot, 'epochs=4', 'ckpt_period=2', 'vali_period=4',
+        'vali_batches=1'])
+    zero_counters()
+    run = trainvali.main(['--config', 'nerfactor.ini',
+                          '--config_override', override])
+    torch.cuda.synchronize()
+    launches = read_counters(COUNTERS, 'training')
+    outdir = run['outdir']
+    recs = [json.loads(line) for line in open(
+        join(outdir, 'summary_train', 'scalars.jsonl'))]
+    losses = [r['loss_train'] for r in recs]
+    if [r['step'] for r in recs] != [2, 4] \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError("train scalars: %s" % recs)
+    config = configutil.Config(configutil.read_config(outdir + '.ini'))
+    init = Model(config, device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    for n in (2, 4):
+        trained = ckptutil.restore_trained_params(
+            join(outdir, 'checkpoints', 'ckpt-%d' % n), init)
+        for k in init:
+            same = all(torch.equal(a, b) for a, b in zip(
+                ckptutil.tree_leaves(init[k]), ckptutil.tree_leaves(trained[k])))
+            # The BRDF prior is frozen; everything else trains
+            if same != (k in ('brdf_mlp', 'brdf_out', 'latent_code')):
+                raise AssertionError("ckpt-%d: '%s' %s" % (
+                    n, k, 'unchanged' if same else 'changed'))
+    vali_dir = join(outdir, 'vis_vali', 'epoch000000004', 'batch000000000')
+    meta = ioutil.read_json(join(vali_dir, 'metadata.json'))
+    img = ioutil.load_img(join(vali_dir, 'pred_rgb.png'))
+    if img.shape[:2] != (IMH, IMH) or not np.isfinite(meta['psnr']) \
+            or not os.path.exists(join(vali_dir, 'pred-vs-gt_rgb.apng')):
+        raise AssertionError("vali outputs: %s %s" % (img.shape, meta))
+    ckpt = join(outdir, 'checkpoints', 'ckpt-4')
+    rendered = test_cli.main(['--ckpt', ckpt, '--debug'])
+    img = ioutil.load_img(join(rendered['outroot'], 'batch000000000',
+                               'pred_rgb.png'))
+    if img.shape[:2] != (IMH, IMH):
+        raise AssertionError("render from ckpt-4: %s" % (img.shape,))
+    loss_vali = json.loads(open(join(outdir, 'summary_vali',
+                                     'scalars.jsonl')).readline())['loss_vali']
+    if not np.isfinite(loss_vali):
+        raise AssertionError("vali loss %r" % loss_vali)
+    return launches, outdir, {'loss_train': losses, 'loss_vali': loss_vali,
+                              'vali_psnr': meta['psnr']}
+
+
+def time_train_step(config, warmup=3, iters=20, profiled=5):
+    """Steady-state ms per make_train_step step at N_RAYS rays x 512
+    lights, full width, jitter on, on a batch of the train views; then a
+    torch.profiler window for the device's idle share and time by
+    kernel."""
+    model = Model(config, device='cuda')
+    params = model.init_params(torch.Generator().manual_seed(0))
+    optimizer = build_optimizer(config)
+    opt_state = optimizer.init(params)
+    step = make_train_step(model, optimizer, model.trainable_mask(params))
+    dataset = Dataset(config, 'train')
+    batch = next(iter(dataset.build_pipeline(prefetch=0)))
+    arrays = {k: torch.as_tensor(np.asarray(batch[k])).cuda()
+              for k in dataset.array_keys}
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for _ in range(warmup):
+        params, opt_state, loss = step(params, opt_state, arrays, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        params, opt_state, loss = step(params, opt_state, arrays, gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    if not torch.isfinite(loss):
+        raise AssertionError("train step loss %r" % float(loss))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            params, opt_state, loss = step(params, opt_state, arrays, gen)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + getattr(
+                e, 'self_device_time_total', 0.0)
+    busy_us = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return {'rays': N_RAYS, 'n_lights': model.n_lights, 'ms_per_step': ms,
+            'rays_per_sec': N_RAYS / (ms / 1e3), 'steps_timed': iters,
+            'profiled_steps': profiled,
+            'device_busy_ms_per_step': busy_us / 1e3 / profiled,
+            'device_idle_share': 1 - busy_us / wall_us if busy_us else None,
+            'device_ms_per_step_by_kernel': {
+                k[:80]: v / 1e3 / profiled for k, v in top}}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_name_and_power()
@@ -281,7 +690,8 @@ def main():
     for name in ('courtyard', 'sunset'):
         ioutil.save_np(rng.rand(LIGHT_H, 2 * LIGHT_H, 3).astype(np.float32),
                        join(probe_dir, name + '.npy'))
-    config, ckpt = write_experiments(data_root, nerf_root, probe_dir)
+    config, ckpt, joint_override = write_experiments(
+        data_root, nerf_root, probe_dir)
 
     model = Model(config, device='cuda')
     params = ckptutil.restore_trained_params(
@@ -289,15 +699,10 @@ def main():
     with torch.no_grad():
         k1, k2 = check_kernels(model, params)
 
-    # The main path, through the user's entry point
-    fm.chain_kernel.launches = 0
-    fr.rusink_kernel.launches = 0
+    # The inference path, through the user's entry point
+    zero_counters()
     run = test_cli.main(['--ckpt', ckpt])
-    launches = {'K1': fm.chain_kernel.launches,
-                'K2': fr.rusink_kernel.launches}
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError("%s-fwd never launched on the main path" % k)
+    launches_infer = read_counters(('K1-fwd', 'K2-fwd'), 'inference')
 
     batch_dirs = ioutil.sortglob(run['outroot'], 'batch?????????')
     if len(batch_dirs) != N_VIEWS:
@@ -319,23 +724,60 @@ def main():
     model_cpu = Model(config, device='cpu')
     fwd_err = check_forward(model, model_cpu, params, Dataset(config, 'test'))
 
+    k1b, k2b = check_backward(model, params)
+    del model, model_cpu, params
+    torch.cuda.empty_cache()
+
+    # The training path, through the user's entry point
+    t0 = time.perf_counter()
+    launches, outdir, train_out = run_training(joint_override)
+    train_s = time.perf_counter() - t0
+    train_config = configutil.Config(configutil.read_config(outdir + '.ini'))
+    step = time_train_step(train_config)
+
     src = 'nerfactor_tpu_torch/csrc/'
     lvis = [r for r in k1 if r['chain'] == 'lvis'][0]
+    lvis_b = [r for r in k1b if r['chain'] == 'lvis'][0]
+    by_path = {k: {'inference': launches_infer.get(k, 0),
+                   'training': launches[k]} for k in COUNTERS}
     print(json.dumps({'kernels': [
         {'name': 'K1-fwd chain_fwd_kernel', 'route': 'cuda',
          'source': src + 'fused_mlp.cu',
          'replaces': 'nerfactor_tpu/ops/pallas_mlp.py:1424',
-         'launches': launches['K1'],
-         'max_abs_err': max(r['max_abs_err'] for r in k1),
+         'launches': launches['K1-fwd'],
+         'launches_by_path': by_path['K1-fwd'],
+         'max_abs_err': max([r['max_abs_err'] for r in k1]
+                            + [r['fwd_max_abs_err'] for r in k1b]),
          'ms': lvis['ms'], 'plain_ms': lvis['plain_ms'], 'shapes': k1},
+        {'name': 'K1-bwd chain_bwd_kernel', 'route': 'cuda',
+         'source': src + 'fused_mlp.cu',
+         'replaces': 'nerfactor_tpu/ops/pallas_mlp.py:1497',
+         'launches': launches['K1-bwd'],
+         'launches_by_path': by_path['K1-bwd'],
+         'max_abs_err': max(r['dx_max_abs_err'] for r in k1b
+                            if 'dx_max_abs_err' in r),
+         'max_rel_err': {'dW_db': max(r['dw_rel_err'] for r in k1b),
+                         'dx_bf16': lvis_b['dx_rel_err']},
+         'ms': lvis_b['ms'], 'plain_ms': lvis_b['plain_ms'], 'shapes': k1b},
         {'name': 'K2-fwd rusink_chain_fwd_kernel', 'route': 'cuda',
          'source': src + 'fused_rusink.cu',
          'replaces': 'nerfactor_tpu/ops/pallas_rusink.py:187',
-         'launches': launches['K2'], 'max_abs_err': k2['max_abs_err'],
-         'ms': k2['ms'], 'plain_ms': k2['plain_ms'], 'shapes': [k2]}],
+         'launches': launches['K2-fwd'],
+         'launches_by_path': by_path['K2-fwd'],
+         'max_abs_err': max(k2['max_abs_err'], k2b['fwd_max_abs_err']),
+         'ms': k2['ms'], 'plain_ms': k2['plain_ms'], 'shapes': [k2]},
+        {'name': 'K2-bwd rusink_chain_bwd_kernel', 'route': 'cuda',
+         'source': src + 'fused_rusink.cu',
+         'replaces': 'nerfactor_tpu/ops/pallas_rusink.py:200',
+         'launches': launches['K2-bwd'],
+         'launches_by_path': by_path['K2-bwd'],
+         'max_abs_err': k2b['max_abs_err'],
+         'max_rel_err': {'bf16': k2b['bf16_rel_err']},
+         'ms': k2b['ms'], 'plain_ms': k2b['plain_ms'], 'shapes': [k2b]}],
         'build_s': build_s, 'view_seconds': run['view_seconds'],
-        'forward_max_abs_err': fwd_err, 'imh': IMH, 'n_lights':
-        model.n_lights}))
+        'forward_max_abs_err': fwd_err, 'imh': IMH, 'n_lights': N_LIGHTS,
+        'training': dict(train_out, seconds=train_s), 'train_step': step,
+        'smoke_s': time.perf_counter() - t_start}))
     print(gpu)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

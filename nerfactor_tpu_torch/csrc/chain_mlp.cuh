@@ -13,6 +13,12 @@
 // (float, or __nv_bfloat16 for the "bf16 operands, f32 accumulation"
 // mode) and accumulated in f32. Biases and heads stay f32; hidden
 // activations are stored back at type T.
+//
+// The backward (kernels K1-bwd and K2-bwd) recomputes a tile's forward,
+// keeping every hidden post-activation (nothing is saved by the forward),
+// then walks the layers in reverse: d_pre = act'(post) * d_h, db and dW
+// accumulate into the block's own slice of a scratch buffer, and
+// d_h = d_pre @ W^T streams W transposed through shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,7 +32,6 @@ constexpr int kRows = 64;       // input rows per block
 constexpr int kThreads = 256;   // 16 column groups x 16 row groups
 constexpr int kColChunk = 128;  // output columns per pass over K
 constexpr int kKTile = 32;      // weight rows per shared-memory tile
-constexpr int kRowsPerThread = kRows / (kThreads / 16);
 constexpr int kColsPerThread = kColChunk / 16;
 
 enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kSoftplus = 3 };
@@ -114,9 +119,9 @@ __device__ __forceinline__ float activate(int act, float v) {
 // Positional embedding of the tile's raw rows, in the JAX row order
 // [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...] per part. Precise sincosf:
 // the arguments reach 2^9 x, where the fast intrinsics are too coarse.
-template <typename T>
+template <typename T, int ROWS = kRows>
 __device__ void embed_rows(const ChainDesc& d, const float* xs, T* es, int lde) {
-  for (int idx = threadIdx.x; idx < kRows * d.raw_dim; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * d.raw_dim; idx += kThreads) {
     const int r = idx / d.raw_dim, c = idx % d.raw_dim;
     int p = 0, col0 = 0, e0 = 0;
     while (c >= col0 + d.part_dim[p]) {
@@ -142,13 +147,15 @@ __device__ void embed_rows(const ChainDesc& d, const float* xs, T* es, int lde) 
 // One dense layer over the tile: out = act([in1 | in2] @ W + b). W is
 // (k1 + k2, n) row-major in device memory, streamed through `ws`. The
 // result goes to shared memory (`out_s`, at type T) or, for the head, to
-// device memory (`out_g`, f32, rows < n_valid only).
-template <typename T>
+// device memory (`out_g`, f32, rows < n_valid only). ROWS is the tile's
+// row count, a multiple of 16.
+template <typename T, int ROWS = kRows>
 __device__ void layer_pass(const T* in1, int ld1, int k1, const T* in2, int ld2,
                            int k2, const T* __restrict__ w,
                            const float* __restrict__ bias, int n, int act, T* ws,
                            T* out_s, int ldo, float* __restrict__ out_g,
                            long long row0, long long n_valid) {
+  constexpr int kRowsPerThread = ROWS / (kThreads / 16);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k_total = k1 + k2;
   for (int c0 = 0; c0 < n; c0 += kColChunk) {
@@ -250,6 +257,318 @@ int launch_tiles(Kernel kernel, const ChainDesc& d, long long n,
   const long long blocks = (n + kRows - 1) / kRows;
   kernel<<<static_cast<unsigned>(blocks), kThreads, L.total, stream>>>(d, args..., n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ------ backward ------
+
+constexpr int kLdT = kColChunk + 1;  // leading dim of the transposed weight tile
+
+__host__ __device__ inline int layer_in_dim(const ChainDesc& d, int i) {
+  if (i == 0) return d.embed_dim;
+  return d.widths[i - 1] + (d.skip_after[i - 1] ? d.embed_dim : 0);
+}
+
+// Element counts of the packed weights and biases.
+__host__ __device__ inline long long total_weights(const ChainDesc& d) {
+  const int l = d.n_layers - 1;
+  return d.w_off[l] + static_cast<long long>(layer_in_dim(d, l)) * d.widths[l];
+}
+
+__host__ __device__ inline long long total_biases(const ChainDesc& d) {
+  return d.b_off[d.n_layers - 1] + d.widths[d.n_layers - 1];
+}
+
+// Shared-memory layout of one backward block: raw rows (f32) | embedding
+// (T) | every hidden post (T) | head post (f32) | two cotangent buffers
+// (f32) | embedding cotangent and raw-input cotangent (f32, needs_dx
+// only) | transposed weight tile (T).
+struct BwdLayout {
+  size_t xs, es, posts, hp, da, db, de, dxs, ws, total;
+  int lde, ldh, ldd, post_stride;
+};
+
+template <typename T, int ROWS>
+__host__ __device__ inline BwdLayout bwd_layout(const ChainDesc& d, bool needs_dx) {
+  BwdLayout s;
+  int widest = 0;
+  for (int i = 0; i < d.n_layers; ++i) widest = d.widths[i] > widest ? d.widths[i] : widest;
+  s.lde = padded_ld(d.embed_dim);
+  s.ldh = padded_ld(d.max_width);
+  s.ldd = padded_ld(widest);
+  s.post_stride = ROWS * s.ldh;
+  s.xs = 0;
+  s.es = align16(s.xs + sizeof(float) * ROWS * d.raw_dim);
+  s.posts = align16(s.es + sizeof(T) * ROWS * s.lde);
+  s.hp = align16(s.posts + sizeof(T) * (d.n_layers - 1) * s.post_stride);
+  s.da = align16(s.hp + sizeof(float) * ROWS * d.widths[d.n_layers - 1]);
+  s.db = align16(s.da + sizeof(float) * ROWS * s.ldd);
+  s.de = align16(s.db + sizeof(float) * ROWS * s.ldd);
+  s.dxs = align16(s.de + (needs_dx ? sizeof(float) * ROWS * s.lde : 0));
+  s.ws = align16(s.dxs + (needs_dx ? sizeof(float) * ROWS * d.raw_dim : 0));
+  s.total = align16(s.ws + sizeof(T) * kKTile * kLdT);
+  return s;
+}
+
+// The backward's row tile: 64 rows where that tile's shared memory fits
+// the block's opt-in maximum, else 32; 0 if neither fits.
+template <typename T>
+inline int bwd_rows(const ChainDesc& d, bool needs_dx, int max_smem) {
+  if (bwd_layout<T, 64>(d, needs_dx).total <= static_cast<size_t>(max_smem)) return 64;
+  if (bwd_layout<T, 32>(d, needs_dx).total <= static_cast<size_t>(max_smem)) return 32;
+  return 0;
+}
+
+// Activation derivative from the post-activation alone, as the TPU
+// kernel's _act_bwd: relu' from post > 0, sigmoid' = post (1 - post),
+// softplus' = sigmoid(pre) = 1 - exp(-post).
+__device__ __forceinline__ float activate_bwd(int act, float post, float g) {
+  switch (act) {
+    case kRelu: return post > 0.f ? g : 0.f;
+    case kSigmoid: return g * post * (1.f - post);
+    case kSoftplus: return g * (1.f - expf(-post));
+    default: return g;
+  }
+}
+
+// The input cotangent of one layer, d_pre @ W^T, for input columns
+// [0, k_hi). W is (K, n) row-major in device memory and is streamed
+// transposed through `ws` (kKTile x kLdT: the odd leading dimension keeps
+// the transposing stores on distinct banks). Columns below `hw` overwrite
+// `out_h`; the rest (the embedding segment of layer 0 or of a skip
+// consumer) are added into `out_e` at column k - hw.
+template <typename T, int ROWS>
+__device__ void dgrad_pass(const float* dpre, int ldd, int n, const T* __restrict__ w,
+                           int k_hi, int hw, T* ws, float* out_h, int ldh_out,
+                           float* out_e, int lde) {
+  constexpr int kRowsPerThread = ROWS / (kThreads / 16);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  for (int c0 = 0; c0 < k_hi; c0 += kColChunk) {
+    const int nc = min(kColChunk, k_hi - c0);
+    float acc[kRowsPerThread][kColsPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = 0.f;
+    for (int n0 = 0; n0 < n; n0 += kKTile) {
+      const int nt = min(kKTile, n - n0);
+      for (int idx = tid; idx < kKTile * kColChunk; idx += kThreads) {
+        const int nn = idx % kKTile, cc = idx / kKTile;
+        T v = from_f<T>(0.f);
+        if (nn < nt && cc < nc) v = w[static_cast<long long>(c0 + cc) * n + n0 + nn];
+        ws[nn * kLdT + cc] = v;
+      }
+      __syncthreads();
+      for (int nn = 0; nn < nt; ++nn) {
+        float a[kRowsPerThread], b[kColsPerThread];
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+          a[i] = dpre[(ty * kRowsPerThread + i) * ldd + n0 + nn];
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j) b[j] = to_f<T>(ws[nn * kLdT + tx + 16 * j]);
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+          for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int r = ty * kRowsPerThread + i;
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        const int c = tx + 16 * j;
+        if (c >= nc) continue;
+        const int k = c0 + c;
+        if (k < hw)
+          out_h[r * ldh_out + k] = acc[i][j];
+        else
+          out_e[r * lde + k - hw] += acc[i][j];
+      }
+    }
+  }
+}
+
+// dW += P^T @ d_pre over the tile's rows, added into `dw` (K x n
+// row-major), the block's own slice. P's columns [0, k1) come from `p1`
+// and [k1, k1 + k2) from `p2`: the [h | e] split of a skip consumer. A
+// warp owns 4 rows of dW and 128 columns, so P reads are broadcasts and
+// d_pre reads and the dW updates are contiguous.
+template <typename T, int ROWS>
+__device__ void wgrad_pass(const T* p1, int ld1, int k1, const T* p2, int ld2, int k2,
+                           const float* dpre, int ldd, int n, float* __restrict__ dw) {
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  const int k_total = k1 + k2;
+  for (int n0 = 0; n0 < n; n0 += 128) {
+    for (int k0 = 0; k0 < k_total; k0 += 4 * (kThreads / 32)) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int r = 0; r < ROWS; ++r) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k = k0 + 4 * ty + i;
+          a[i] = k < k1 ? to_f<T>(p1[r * ld1 + k])
+                        : (k < k_total ? to_f<T>(p2[r * ld2 + k - k1]) : 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + tx + 32 * j;
+          b[j] = c < n ? dpre[r * ldd + c] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + 4 * ty + i;
+        if (k >= k_total) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + tx + 32 * j;
+          if (c < n) dw[static_cast<long long>(k) * n + c] += acc[i][j];
+        }
+      }
+    }
+  }
+}
+
+// Cotangent of the raw input rows from the embedding's: the passthrough
+// columns plus d/dx sin(2^j x) = 2^j cos(2^j x) and d/dx cos(2^j x) =
+// -2^j sin(2^j x), with precise sincosf as in the forward. Rows below
+// `n_valid` are written to `out` (raw_dim columns, row-major).
+template <int ROWS>
+__device__ void embed_bwd(const ChainDesc& d, const float* xs, const float* de, int lde,
+                          float* __restrict__ out, long long n_valid) {
+  for (int idx = threadIdx.x; idx < ROWS * d.raw_dim; idx += kThreads) {
+    const int r = idx / d.raw_dim, c = idx % d.raw_dim;
+    if (r >= n_valid) continue;
+    int p = 0, col0 = 0, e0 = 0;
+    while (c >= col0 + d.part_dim[p]) {
+      col0 += d.part_dim[p];
+      e0 += d.part_dim[p] * (1 + 2 * d.part_freqs[p]);
+      ++p;
+    }
+    const int dim = d.part_dim[p], ci = c - col0;
+    const float x = xs[r * d.raw_dim + c];
+    const float* g = de + r * lde + e0;
+    float acc = g[ci];
+    float freq = 1.f;
+    for (int j = 0; j < d.part_freqs[p]; ++j) {
+      float s, co;
+      sincosf(freq * x, &s, &co);
+      acc += freq * (co * g[dim + 2 * j * dim + ci] - s * g[dim + (2 * j + 1) * dim + ci]);
+      freq *= 2.f;
+    }
+    out[r * d.raw_dim + c] = acc;
+  }
+}
+
+// The backward of the chain for one tile: the raw rows are in `xs`, the
+// output cotangent rows in the `da` buffer (ld L.ldd) and, with needs_dx,
+// `de` is zeroed. Leaves the embedding cotangent in `de` and adds the
+// tile's dW and db into `dw_slice` / `db_slice` (packed layout) when
+// needs_dw. In bf16 mode each d_pre is rounded to bf16 before its products
+// (db sums it unrounded), as the TPU kernel's _dpre_mat.
+template <typename T, int ROWS>
+__device__ void chain_tile_bwd(const ChainDesc& d, bool needs_dx, bool needs_dw,
+                               const T* __restrict__ w, const float* __restrict__ bias,
+                               unsigned char* smem, float* dw_slice, float* db_slice) {
+  const BwdLayout L = bwd_layout<T, ROWS>(d, needs_dx);
+  const float* xs = reinterpret_cast<const float*>(smem + L.xs);
+  T* es = reinterpret_cast<T*>(smem + L.es);
+  T* posts = reinterpret_cast<T*>(smem + L.posts);
+  float* hp = reinterpret_cast<float*>(smem + L.hp);
+  float* dcur = reinterpret_cast<float*>(smem + L.da);
+  float* dnext = reinterpret_cast<float*>(smem + L.db);
+  float* de = reinterpret_cast<float*>(smem + L.de);
+  T* ws = reinterpret_cast<T*>(smem + L.ws);
+  const int nl = d.n_layers;
+  // Forward recompute, every post kept
+  embed_rows<T, ROWS>(d, xs, es, L.lde);
+  __syncthreads();
+  const T* in = es;
+  int ld_in = L.lde, k_in = d.embed_dim;
+  for (int i = 0; i < nl; ++i) {
+    const bool head = i == nl - 1;
+    const bool skip_in = i > 0 && d.skip_after[i - 1];
+    T* out = head ? nullptr : posts + i * L.post_stride;
+    layer_pass<T, ROWS>(in, ld_in, k_in, skip_in ? es : nullptr, L.lde,
+                        skip_in ? d.embed_dim : 0, w + d.w_off[i], bias + d.b_off[i],
+                        d.widths[i], d.acts[i], ws, out, L.ldh, head ? hp : nullptr, 0,
+                        ROWS);
+    in = out;
+    ld_in = L.ldh;
+    k_in = d.widths[i];
+  }
+  __syncthreads();
+  // Reverse walk
+  for (int i = nl - 1; i >= 0; --i) {
+    const int n = d.widths[i];
+    const bool head = i == nl - 1;
+    const T* post = posts + i * L.post_stride;
+    for (int idx = threadIdx.x; idx < ROWS * n; idx += kThreads) {
+      const int r = idx / n, c = idx % n;
+      const float p = head ? hp[r * n + c] : to_f<T>(post[r * L.ldh + c]);
+      dcur[r * L.ldd + c] = activate_bwd(d.acts[i], p, dcur[r * L.ldd + c]);
+    }
+    __syncthreads();
+    if (needs_dw) {
+      for (int c = threadIdx.x; c < n; c += kThreads) {
+        float s = 0.f;
+        for (int r = 0; r < ROWS; ++r) s += dcur[r * L.ldd + c];
+        db_slice[d.b_off[i] + c] += s;
+      }
+    }
+    if (sizeof(T) < sizeof(float)) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < ROWS * n; idx += kThreads) {
+        float* g = dcur + (idx / n) * L.ldd + idx % n;
+        *g = to_f<T>(from_f<T>(*g));
+      }
+      __syncthreads();
+    }
+    const bool skip_in = i > 0 && d.skip_after[i - 1];
+    const int hw = i > 0 ? d.widths[i - 1] : 0;
+    if (needs_dw) {
+      const T* p1 = i > 0 ? posts + (i - 1) * L.post_stride : es;
+      wgrad_pass<T, ROWS>(p1, i > 0 ? L.ldh : L.lde, i > 0 ? hw : d.embed_dim,
+                          skip_in ? es : nullptr, L.lde, skip_in ? d.embed_dim : 0, dcur,
+                          L.ldd, n, dw_slice + d.w_off[i]);
+    }
+    const int k_hi = needs_dx && (i == 0 || skip_in) ? layer_in_dim(d, i) : hw;
+    if (k_hi > 0)
+      dgrad_pass<T, ROWS>(dcur, L.ldd, n, w + d.w_off[i], k_hi, hw, ws, dnext, L.ldd, de,
+                          L.lde);
+    __syncthreads();
+    float* t = dcur;
+    dcur = dnext;
+    dnext = t;
+  }
+}
+
+// Launches `kernel` on `blocks` blocks with `smem` bytes of dynamic shared
+// memory; returns 0 or an error code.
+template <typename Kernel, typename... Args>
+int launch_with_smem(Kernel kernel, size_t smem, long long blocks, cudaStream_t stream,
+                     Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int max_smem_optin() {
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return max_smem;
 }
 
 }  // namespace nfk

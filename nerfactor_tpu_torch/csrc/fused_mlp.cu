@@ -1,9 +1,22 @@
-// Kernel K1-fwd: fused posenc -> skip-MLP -> head chain, forward only.
+// Kernels K1-fwd and K1-bwd: the fused posenc -> skip-MLP -> head chain.
 //
-// Replaces the TPU kernel nerfactor_tpu/ops/pallas_mlp.py
+// K1-fwd replaces the TPU kernel nerfactor_tpu/ops/pallas_mlp.py
 // _pallas_forward_trig_t -> _fwd_kernel_trig_t: per row,
 // head(MLP(posenc(x))) with ReLU hidden layers, the embedding concatenated
 // after the layers in skip_after, and a sigmoid/softplus/linear head.
+//
+// K1-bwd replaces _pallas_backward_trig_t -> _bwd_kernel_trig_t (with
+// _bwd_layers_trig_t): it recomputes each tile's forward, then returns
+// the optional input cotangent dx and the optional dW/db (f32). It does
+// about twice the forward's multiply-adds on top of the recompute (dW and
+// d_h per layer), so it is bound by arithmetic like the forward.
+// Determinism: CUDA blocks run in no fixed order, so there is no float
+// atomicAdd into dW. The grid is fixed (the SM count times the blocks an
+// SM holds); block b walks row tiles b, b + grid, ... in order and
+// accumulates into its own slice of a scratch buffer, and a second kernel
+// sums the slices in slice order. The same input gives bit-identical
+// dW/db on the same card. The lvis chain's 72k weights x 132 slices are
+// ~38 MB, which stays in the 50 MB L2.
 //
 // What bounds it on Hopper: arithmetic. At full width (128 x 4, skip after
 // layer 2) the lvis chain does ~72k multiply-adds per row but reads 24 B
@@ -38,6 +51,121 @@ chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, const T* __restrict__
   chain_tile<T>(d, w, bias, smem, y, row0, n);
 }
 
+// Sums the per-block slices of the weight cotangents in a fixed order:
+// out[j] = sum_b part[b * stride + j].
+__global__ void sum_slices_kernel(const float* __restrict__ part, int slices,
+                                  long long stride, float* __restrict__ out) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= stride) return;
+  float s = 0.f;
+  for (int b = 0; b < slices; ++b) s += part[b * stride + j];
+  out[j] = s;
+}
+
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+chain_bwd_kernel(ChainDesc d, int needs_dx, int needs_dw, const float* __restrict__ x,
+                 const float* __restrict__ dy, const T* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ dx,
+                 float* __restrict__ dwb_part, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdLayout L = bwd_layout<T, ROWS>(d, needs_dx);
+  const long long w_total = total_weights(d);
+  const long long stride = w_total + total_biases(d);
+  float* dw_slice = needs_dw ? dwb_part + blockIdx.x * stride : nullptr;
+  if (needs_dw)
+    for (long long j = threadIdx.x; j < stride; j += kThreads) dw_slice[j] = 0.f;
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* da = reinterpret_cast<float*>(smem + L.da);
+  float* de = reinterpret_cast<float*>(smem + L.de);
+  const int n_out = d.widths[d.n_layers - 1];
+  const long long n_tiles = (n + ROWS - 1) / ROWS;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row0 = tile * ROWS;
+    for (int idx = threadIdx.x; idx < ROWS * d.raw_dim; idx += kThreads) {
+      const long long r = row0 + idx / d.raw_dim;
+      xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
+    }
+    // Padding rows get a zero cotangent, so they add nothing to dW/db
+    for (int idx = threadIdx.x; idx < ROWS * n_out; idx += kThreads) {
+      const int r = idx / n_out, c = idx % n_out;
+      da[r * L.ldd + c] = row0 + r < n ? dy[(row0 + r) * n_out + c] : 0.f;
+    }
+    if (needs_dx)
+      for (int idx = threadIdx.x; idx < ROWS * L.lde; idx += kThreads) de[idx] = 0.f;
+    __syncthreads();
+    chain_tile_bwd<T, ROWS>(d, needs_dx, needs_dw, w, bias, smem, dw_slice,
+                            needs_dw ? dw_slice + w_total : nullptr);
+    if (needs_dx) embed_bwd<ROWS>(d, xs, de, L.lde, dx + row0 * d.raw_dim, n - row0);
+    __syncthreads();
+  }
+}
+
+// Slices of the dW scratch: the blocks the card holds at once, at most
+// one per row tile.
+template <typename T, int ROWS>
+int chain_bwd_slices(const ChainDesc& d, int needs_dx, long long n, int* slices) {
+  const size_t smem = bwd_layout<T, ROWS>(d, needs_dx != 0).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_bwd_kernel<T, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_bwd_kernel<T, ROWS>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (n + ROWS - 1) / ROWS;
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *slices = static_cast<int>(tiles < cap ? tiles : cap);
+  return 0;
+}
+
+template <typename T, int ROWS>
+int chain_bwd(const ChainDesc& d, int needs_dx, int needs_dw, const float* x,
+              const float* dy, const T* w, const float* bias, float* dx, float* dwb_part,
+              float* dwb, int slices, long long n, cudaStream_t stream) {
+  const size_t smem = bwd_layout<T, ROWS>(d, needs_dx != 0).total;
+  const long long tiles = (n + ROWS - 1) / ROWS;
+  const long long blocks = needs_dw ? slices : tiles;
+  if (blocks < 1) return kErrBadPlan;
+  int err = launch_with_smem(chain_bwd_kernel<T, ROWS>, smem, blocks, stream, d, needs_dx,
+                             needs_dw, x, dy, w, bias, dx, dwb_part, n);
+  if (err || !needs_dw) return err;
+  const long long stride = total_weights(d) + total_biases(d);
+  sum_slices_kernel<<<static_cast<unsigned>((stride + kThreads - 1) / kThreads), kThreads, 0,
+                      stream>>>(dwb_part, slices, stride, dwb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int chain_bwd_dispatch(const ChainDesc& d, int needs_dx, int needs_dw, const float* x,
+                       const float* dy, const void* w, const float* bias, float* dx,
+                       float* dwb_part, float* dwb, int slices, long long n,
+                       cudaStream_t stream) {
+  const T* wt = static_cast<const T*>(w);
+  switch (bwd_rows<T>(d, needs_dx != 0, max_smem_optin())) {
+    case 64:
+      return chain_bwd<T, 64>(d, needs_dx, needs_dw, x, dy, wt, bias, dx, dwb_part, dwb,
+                              slices, n, stream);
+    case 32:
+      return chain_bwd<T, 32>(d, needs_dx, needs_dw, x, dy, wt, bias, dx, dwb_part, dwb,
+                              slices, n, stream);
+    default:
+      return kErrSmem;
+  }
+}
+
+template <typename T>
+int chain_bwd_slices_dispatch(const ChainDesc& d, int needs_dx, long long n, int* slices) {
+  switch (bwd_rows<T>(d, needs_dx != 0, max_smem_optin())) {
+    case 64: return chain_bwd_slices<T, 64>(d, needs_dx, n, slices);
+    case 32: return chain_bwd_slices<T, 32>(d, needs_dx, n, slices);
+    default: return kErrSmem;
+  }
+}
+
 }  // namespace nfk
 
 extern "C" {
@@ -59,6 +187,34 @@ int nfk_chain_fwd(const nfk::ChainDesc* desc, int bf16, const float* x,
         static_cast<const __nv_bfloat16*>(w), bias, y);
   return nfk::launch_tiles<float>(nfk::chain_fwd_kernel<float>, *desc, n, s, x,
                                   static_cast<const float*>(w), bias, y);
+}
+
+// Number of dW scratch slices nfk_chain_bwd uses for n rows (the wrapper
+// allocates slices x (weights + biases) floats).
+int nfk_chain_bwd_slices(const nfk::ChainDesc* desc, int bf16, int needs_dx, long long n,
+                         int* slices) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  *slices = 0;
+  if (n <= 0) return 0;
+  if (bf16) return nfk::chain_bwd_slices_dispatch<__nv_bfloat16>(*desc, needs_dx, n, slices);
+  return nfk::chain_bwd_slices_dispatch<float>(*desc, needs_dx, n, slices);
+}
+
+// K1-bwd. dx (n, raw_dim) is written when needs_dx; with needs_dw the
+// weight and bias cotangents land in dwb (packed like w then bias, f32),
+// summed from dwb_part (slices x stride floats of scratch).
+int nfk_chain_bwd(const nfk::ChainDesc* desc, int bf16, int needs_dx, int needs_dw,
+                  const float* x, const float* dy, const void* w, const float* bias,
+                  float* dx, float* dwb_part, float* dwb, int slices, long long n,
+                  void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (n <= 0 || (!needs_dx && !needs_dw)) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return nfk::chain_bwd_dispatch<__nv_bfloat16>(*desc, needs_dx, needs_dw, x, dy, w, bias,
+                                                  dx, dwb_part, dwb, slices, n, s);
+  return nfk::chain_bwd_dispatch<float>(*desc, needs_dx, needs_dw, x, dy, w, bias, dx,
+                                        dwb_part, dwb, slices, n, s);
 }
 
 }  // extern "C"

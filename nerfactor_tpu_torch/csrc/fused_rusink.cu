@@ -1,10 +1,18 @@
-// Kernel K2-fwd: Rusinkiewicz transform fused into the frozen BRDF chain,
-// forward only.
+// Kernels K2-fwd and K2-bwd: the Rusinkiewicz transform fused into the
+// frozen BRDF chain.
 //
-// Replaces the TPU kernel nerfactor_tpu/ops/pallas_rusink.py _pallas_fwd
-// -> _fwd_kernel: per row, rusink = dir2rusink(ldir, vdir) (phi_d,
-// theta_h, theta_d), then the chain [z | posenc(rusink)] -> 128 x 4 MLP ->
-// softplus head, without writing rusink or the embedding to device memory.
+// K2-fwd replaces the TPU kernel nerfactor_tpu/ops/pallas_rusink.py
+// _pallas_fwd -> _fwd_kernel: per row, rusink = dir2rusink(ldir, vdir)
+// (phi_d, theta_h, theta_d), then the chain [z | posenc(rusink)] -> 128 x
+// 4 MLP -> softplus head, without writing rusink or the embedding to
+// device memory.
+//
+// K2-bwd replaces _pallas_bwd -> _bwd_kernel: it recomputes the transform
+// and the chain, runs the chain backward for the input cotangent only (the
+// prior's weights are frozen: no dW, so no cross-block reduction), and
+// turns the rusink cotangent into (d_ldir, d_vdir) with the hand-derived
+// safe-gradient VJP of _rusink_bwd, one thread per row. About twice the
+// forward's multiply-adds on top of the recompute; bound by arithmetic.
 //
 // Bound by arithmetic like K1 (~54k multiply-adds per row against 36 B in
 // and 4 B out), so it shares K1's tiling (chain_mlp.cuh): 64 rows per
@@ -62,21 +70,84 @@ __device__ void dir2rusink(const float* l, const float* v, float* out) {
   out[2] = theta_d;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rusink_chain_fwd_kernel(ChainDesc d, const float* __restrict__ z,
-                        const float* __restrict__ ldir, const float* __restrict__ vdir,
-                        const T* __restrict__ w, const float* __restrict__ bias,
-                        float* __restrict__ y, long long n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int z_dim = d.raw_dim - 3;
-  float* xs = reinterpret_cast<float*>(smem + smem_layout<T>(d).xs);
-  for (int idx = threadIdx.x; idx < kRows * z_dim; idx += kThreads) {
+constexpr float kEps = 1e-6f;  // ops/math.py EPS
+
+// VJP of y = x / sqrt(max(|x|^2, EPS)) given s = |x|^2, r = 1/sqrt(max(s, EPS)).
+__device__ __forceinline__ void normalize_vjp(const float* x, float s, float r, const float* g,
+                                              float* out) {
+  const float dot = g[0] * x[0] + g[1] * x[1] + g[2] * x[2];
+  const float scale = s > kEps ? dot * r * r * r : 0.f;
+  for (int c = 0; c < 3; ++c) out[c] = g[c] * r - x[c] * scale;
+}
+
+// Cotangents (gl, gv) of dir2rusink's inputs from (g_pd, g_th, g_td), with
+// the safe-gradient rules of ops/math.py (nerfactor_tpu/ops/pallas_rusink.py
+// _rusink_fwd / _rusink_bwd, term for term): safe_atan2 divides by
+// a^2 + b^2 + EPS, safe_acos clips and uses -1/(sqrt(1 - x^2 + EPS) + EPS),
+// the mod passes its cotangent through, and each normalisation is the
+// where(s > EPS) VJP.
+__device__ void rusink_vjp(const float* l, const float* v, float g_pd, float g_th_out,
+                           float g_td, float* gl, float* gv) {
+  const float sa = l[0] * l[0] + l[1] * l[1] + l[2] * l[2];
+  const float ra = 1.f / sqrtf(fmaxf(sa, kEps));
+  const float sb = v[0] * v[0] + v[1] * v[1] + v[2] * v[2];
+  const float rb = 1.f / sqrtf(fmaxf(sb, kEps));
+  const float a[3] = {l[0] * ra, l[1] * ra, l[2] * ra};
+  const float b[3] = {v[0] * rb, v[1] * rb, v[2] * rb};
+  const float hv[3] = {(a[0] + b[0]) / 2.f, (a[1] + b[1]) / 2.f, (a[2] + b[2]) / 2.f};
+  const float sh = hv[0] * hv[0] + hv[1] * hv[1] + hv[2] * hv[2];
+  const float rh = 1.f / sqrtf(fmaxf(sh, kEps));
+  const float h0 = hv[0] * rh, h1 = hv[1] * rh, h2 = hv[2] * rh;
+  const float th = acosf(fminf(fmaxf(h2, -1.f), 1.f));
+  const float ph = atan2f(h1, h0);
+  const float c1 = cosf(ph), s1 = sinf(ph);
+  const float b1x = b[0] * c1 + b[1] * s1;
+  const float b1y = -b[0] * s1 + b[1] * c1;
+  const float b1z = b[2];
+  const float c2 = cosf(th), s2 = sinf(th);
+  const float dx = b1x * c2 - b1z * s2;
+  const float dy = b1y;
+  const float dz = b1z * c2 + b1x * s2;
+  // phi_d = mod(safe_atan2(dy, dx), pi)
+  const float den_d = dy * dy + dx * dx + kEps;
+  const float g_dy = g_pd * (dx / den_d);
+  const float g_dx = g_pd * (-dy / den_d);
+  // theta_d = safe_acos(dz)
+  const float dz_c = fminf(fmaxf(dz, -1.f), 1.f);
+  const float g_dz = g_td * (-1.f / (sqrtf(1.f - dz_c * dz_c + kEps) + kEps));
+  // diff = Ry(-theta_h) b1, theta_h an input too
+  const float g_b1x = g_dx * c2 + g_dz * s2;
+  const float g_b1y = g_dy;
+  const float g_b1z = -g_dx * s2 + g_dz * c2;
+  const float g_th = g_th_out + g_dx * (-b1x * s2 - b1z * c2) + g_dz * (b1x * c2 - b1z * s2);
+  // b1 = Rz(-phi_h) b, phi_h an input too
+  float g_b[3] = {g_b1x * c1 - g_b1y * s1, g_b1x * s1 + g_b1y * c1, g_b1z};
+  const float g_ph = g_b1x * (-b[0] * s1 + b[1] * c1) + g_b1y * (-b[0] * c1 - b[1] * s1);
+  // theta_h = safe_acos(h2); phi_h = safe_atan2(h1, h0)
+  const float h2_c = fminf(fmaxf(h2, -1.f), 1.f);
+  const float g_h2 = g_th * (-1.f / (sqrtf(1.f - h2_c * h2_c + kEps) + kEps));
+  const float den_h = h1 * h1 + h0 * h0 + kEps;
+  const float g_h[3] = {g_ph * (-h1 / den_h), g_ph * (h0 / den_h), g_h2};
+  // h = normalize(hv), hv = (a + b) / 2
+  float g_hv[3];
+  normalize_vjp(hv, sh, rh, g_h, g_hv);
+  const float g_a[3] = {g_hv[0] / 2.f, g_hv[1] / 2.f, g_hv[2] / 2.f};
+  for (int c = 0; c < 3; ++c) g_b[c] += g_hv[c] / 2.f;
+  // a = normalize(ldir), b = normalize(vdir)
+  normalize_vjp(l, sa, ra, g_a, gl);
+  normalize_vjp(v, sb, rb, g_b, gv);
+}
+
+// The tile's raw chain rows [z | dir2rusink(l, v)] into `xs`.
+__device__ void load_rusink_rows(const float* __restrict__ z, const float* __restrict__ ldir,
+                                 const float* __restrict__ vdir, int raw_dim, int rows,
+                                 long long row0, long long n, float* xs) {
+  const int z_dim = raw_dim - 3;
+  for (int idx = threadIdx.x; idx < rows * z_dim; idx += kThreads) {
     const int r = idx / z_dim, c = idx % z_dim;
-    xs[r * d.raw_dim + c] = row0 + r < n ? z[(row0 + r) * z_dim + c] : 0.f;
+    xs[r * raw_dim + c] = row0 + r < n ? z[(row0 + r) * z_dim + c] : 0.f;
   }
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
     float rusink[3] = {0.f, 0.f, 0.f};
     if (row0 + r < n) {
       const float l[3] = {ldir[(row0 + r) * 3], ldir[(row0 + r) * 3 + 1],
@@ -85,8 +156,80 @@ rusink_chain_fwd_kernel(ChainDesc d, const float* __restrict__ z,
                           vdir[(row0 + r) * 3 + 2]};
       dir2rusink(l, v, rusink);
     }
-    for (int c = 0; c < 3; ++c) xs[r * d.raw_dim + z_dim + c] = rusink[c];
+    for (int c = 0; c < 3; ++c) xs[r * raw_dim + z_dim + c] = rusink[c];
   }
+}
+
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+rusink_chain_bwd_kernel(ChainDesc d, const float* __restrict__ z,
+                        const float* __restrict__ ldir, const float* __restrict__ vdir,
+                        const float* __restrict__ dy, const T* __restrict__ w,
+                        const float* __restrict__ bias, float* __restrict__ dz,
+                        float* __restrict__ dl, float* __restrict__ dv, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdLayout L = bwd_layout<T, ROWS>(d, true);
+  const long long row0 = static_cast<long long>(blockIdx.x) * ROWS;
+  const int z_dim = d.raw_dim - 3, n_out = d.widths[d.n_layers - 1];
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* da = reinterpret_cast<float*>(smem + L.da);
+  float* de = reinterpret_cast<float*>(smem + L.de);
+  float* dxs = reinterpret_cast<float*>(smem + L.dxs);
+  load_rusink_rows(z, ldir, vdir, d.raw_dim, ROWS, row0, n, xs);
+  for (int idx = threadIdx.x; idx < ROWS * n_out; idx += kThreads) {
+    const int r = idx / n_out, c = idx % n_out;
+    da[r * L.ldd + c] = row0 + r < n ? dy[(row0 + r) * n_out + c] : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < ROWS * L.lde; idx += kThreads) de[idx] = 0.f;
+  __syncthreads();
+  chain_tile_bwd<T, ROWS>(d, true, false, w, bias, smem, nullptr, nullptr);
+  embed_bwd<ROWS>(d, xs, de, L.lde, dxs, ROWS);
+  __syncthreads();
+  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
+    const long long row = row0 + r;
+    if (row >= n) continue;
+    const float* g = dxs + r * d.raw_dim;
+    for (int c = 0; c < z_dim; ++c) dz[row * z_dim + c] = g[c];
+    const float l[3] = {ldir[row * 3], ldir[row * 3 + 1], ldir[row * 3 + 2]};
+    const float v[3] = {vdir[row * 3], vdir[row * 3 + 1], vdir[row * 3 + 2]};
+    float gl[3], gv[3];
+    rusink_vjp(l, v, g[z_dim], g[z_dim + 1], g[z_dim + 2], gl, gv);
+    for (int c = 0; c < 3; ++c) {
+      dl[row * 3 + c] = gl[c];
+      dv[row * 3 + c] = gv[c];
+    }
+  }
+}
+
+template <typename T>
+int rusink_chain_bwd(const ChainDesc& d, const float* z, const float* ldir, const float* vdir,
+                     const float* dy, const void* w, const float* bias, float* dz, float* dl,
+                     float* dv, long long n, cudaStream_t stream) {
+  const T* wt = static_cast<const T*>(w);
+  switch (bwd_rows<T>(d, true, max_smem_optin())) {
+    case 64:
+      return launch_with_smem(rusink_chain_bwd_kernel<T, 64>, bwd_layout<T, 64>(d, true).total,
+                              (n + 63) / 64, stream, d, z, ldir, vdir, dy, wt, bias, dz, dl,
+                              dv, n);
+    case 32:
+      return launch_with_smem(rusink_chain_bwd_kernel<T, 32>, bwd_layout<T, 32>(d, true).total,
+                              (n + 31) / 32, stream, d, z, ldir, vdir, dy, wt, bias, dz, dl,
+                              dv, n);
+    default:
+      return kErrSmem;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rusink_chain_fwd_kernel(ChainDesc d, const float* __restrict__ z,
+                        const float* __restrict__ ldir, const float* __restrict__ vdir,
+                        const T* __restrict__ w, const float* __restrict__ bias,
+                        float* __restrict__ y, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  float* xs = reinterpret_cast<float*>(smem + smem_layout<T>(d).xs);
+  load_rusink_rows(z, ldir, vdir, d.raw_dim, kRows, row0, n, xs);
   __syncthreads();
   chain_tile<T>(d, w, bias, smem, y, row0, n);
 }
@@ -106,6 +249,21 @@ int nfk_rusink_chain_fwd(const nfk::ChainDesc* desc, int bf16, const float* z,
         static_cast<const __nv_bfloat16*>(w), bias, y);
   return nfk::launch_tiles<float>(nfk::rusink_chain_fwd_kernel<float>, *desc, n, s,
                                   z, ldir, vdir, static_cast<const float*>(w), bias, y);
+}
+
+// K2-bwd: dz (n, z_dim), dl (n, 3), dv (n, 3), f32.
+int nfk_rusink_chain_bwd(const nfk::ChainDesc* desc, int bf16, const float* z,
+                         const float* ldir, const float* vdir, const float* dy,
+                         const void* w, const float* bias, float* dz, float* dl, float* dv,
+                         long long n, void* stream) {
+  if (desc->raw_dim < 4) return nfk::kErrBadPlan;
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return nfk::rusink_chain_bwd<__nv_bfloat16>(*desc, z, ldir, vdir, dy, w, bias, dz, dl, dv,
+                                                n, s);
+  return nfk::rusink_chain_bwd<float>(*desc, z, ldir, vdir, dy, w, bias, dz, dl, dv, n, s);
 }
 
 }  // extern "C"

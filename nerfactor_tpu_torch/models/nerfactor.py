@@ -1,5 +1,5 @@
 """NeRFactor: the joint shape/reflectance/illumination model (counterpart
-of nerfactor_tpu/models/nerfactor.py, inference parts).
+of nerfactor_tpu/models/nerfactor.py).
 
 Per surface point the model predicts albedo and a BRDF latent code (and,
 unless ``shape_mode = nerf``, normals and light visibility), evaluates
@@ -10,9 +10,11 @@ is channel-rank structured (brdf = albedo/pi + achromatic spec), so the
 render and every OLAT/probe relight are (N, L) matmuls and column slices
 (see :meth:`Model.render`).
 
-On CUDA tensors the four heads run kernel K1-fwd and the BRDF prior runs
-kernel K2-fwd (with ``fused_mlp``/``fused_rusink``, as the shipped config
-sets them); the render is plain f32 PyTorch.
+On CUDA tensors the four heads run kernel K1 and the BRDF prior runs
+kernel K2 (with ``fused_mlp``/``fused_rusink``, as the shipped config sets
+them), forward and, in training, backward; the render is plain f32
+PyTorch. Training supervises the render with the image loss plus the
+geometry, smoothness and light priors (:meth:`Model.compute_loss`).
 """
 
 import math
@@ -23,6 +25,7 @@ import torch
 
 from nerfactor_tpu_torch.utils import config as configutil
 from nerfactor_tpu_torch.utils.logging import Logger
+from nerfactor_tpu_torch.models.losses import mse_lastdim, mae_lastdim
 from nerfactor_tpu_torch.models.shape import Model as ShapeModel
 from nerfactor_tpu_torch.models import networks
 from nerfactor_tpu_torch.ops import encoding
@@ -34,7 +37,9 @@ from nerfactor_tpu_torch.ops.chunk import chunked_apply_tree
 from nerfactor_tpu_torch.ops.light import (
     make_olat_envmaps, vis_light, load_light)
 from nerfactor_tpu_torch.ops.math import safe_l2_normalize
-from nerfactor_tpu_torch.utils import ckpt as ckptutil, io as ioutil
+from nerfactor_tpu_torch.utils import (
+    ckpt as ckptutil, io as ioutil, vis as visutil)
+from nerfactor_tpu_torch.utils.metrics import psnr as psnr_fn, ssim as ssim_fn
 
 logger = Logger(loggee="models/nerfactor")
 
@@ -55,16 +60,24 @@ class Model(ShapeModel):
         if self.shape_mode in ('frozen', 'finetune'):
             self.config_shape = self._load_sub_config(self.shape_model_ckpt)
         super().__init__(config, debug=debug, device=device)
+        if self.shape_mode == 'frozen':
+            # Shape MLPs get zero updates (trainable_mask): their kernel
+            # backwards skip all dW/db work
+            self.shape_heads_need_dw = False
         # dir2rusink inside the BRDF chain kernel; False runs the unfused
         # program, as in the JAX package
         self.fused_rusink = config.getboolean('fused_rusink',
                                               fallback=False)
+        self.albedo_smooth_weight = config.getfloat('albedo_smooth_weight')
+        self.brdf_smooth_weight = config.getfloat('brdf_smooth_weight')
         self.albedo_slope = config.getfloat('albedo_slope', fallback=0.7)
         self.albedo_bias = config.getfloat('albedo_bias', fallback=0.1)
         self.learned_brdf_scale = config.getfloat(
             'learned_brdf_scale', fallback=1.0)
         self.default_z = config.getfloat('default_z', fallback=0.1)
         self.light_init_max = config.getfloat('light_init_max')
+        self.light_tv_weight = config.getfloat('light_tv_weight')
+        self.light_achro_weight = config.getfloat('light_achro_weight')
         self.linear2srgb = config.getboolean('linear2srgb')
         light_h = config.getint('light_h')
         self.light_res = (light_h, 2 * light_h)
@@ -226,6 +239,24 @@ class Model(ShapeModel):
         return ckptutil.restore_trained_params(self.shape_model_ckpt,
                                                template)
 
+    def needs_dw_false_keys(self):
+        """The BRDF prior chain always runs needs_dw=False (it is always
+        frozen); the shape chains do so only under shape_mode=frozen."""
+        keys = {'brdf_mlp', 'brdf_out'}
+        if not self.shape_heads_need_dw:
+            keys.update(SHAPE_PARAM_KEYS)
+        return frozenset(keys)
+
+    def trainable_mask(self, params):
+        """False leaves get zero gradient updates: the BRDF prior always,
+        the shape MLPs under shape_mode=frozen (reference nerfactor.py:60,
+        158)."""
+        frozen = set(BRDF_PARAM_KEYS)
+        if self.shape_mode == 'frozen':
+            frozen.update(SHAPE_PARAM_KEYS)
+        return {k: ckptutil.tree_map(lambda _, k=k: k not in frozen, v)
+                for k, v in params.items()}
+
     # ------ compute ------
 
     def light_from(self, params):
@@ -235,12 +266,14 @@ class Model(ShapeModel):
     def pred_albedo_at(self, params, pts):
         """Albedo in [bias, slope + bias]."""
         albedo = self._chain(params, 'albedo_mlp', 'albedo_out',
-                             self.plans['albedo'], self.xyz_scale * pts)
+                             self.plans['albedo'], self.xyz_scale * pts,
+                             needs_dx=False)
         return self.albedo_slope * albedo + self.albedo_bias
 
     def pred_brdf_at(self, params, pts):
         z = self._chain(params, 'brdf_z_mlp', 'brdf_z_out',
-                        self.plans['brdf_z'], self.xyz_scale * pts)
+                        self.plans['brdf_z'], self.xyz_scale * pts,
+                        needs_dx=False)
         if self.normalize_brdf_z:
             z = safe_l2_normalize(z, dim=1)
         return z
@@ -260,6 +293,8 @@ class Model(ShapeModel):
         vdir_flat = vdir[:, None, :].expand(n, l, 3).reshape(-1, 3)
         z_flat = brdf_prop[:, None, :].expand(n, l, self.z_dim).reshape(
             -1, self.z_dim)
+        # The BRDF prior is always frozen: its chain's backward computes
+        # input cotangents only
         if self.fused_rusink and self.fused_mlp and self.pos_enc_rusink:
             p = fused_mlp.params_from_tree(params['brdf_mlp'],
                                            params['brdf_out'])
@@ -271,7 +306,7 @@ class Model(ShapeModel):
             spec_flat = self._chain(
                 params, 'brdf_mlp', 'brdf_out', self.plans['brdf'],
                 torch.cat((z_flat, rusink), dim=1),
-                compute_dtype=self.chain_dtype('brdf'))
+                compute_dtype=self.chain_dtype('brdf'), needs_dw=False)
         # Zero out back-lit directions (local cos = ldir_z <= 0)
         front_lit = ldir_flat[:, 2:] > 0
         spec = torch.where(front_lit, spec_flat, 0.0).reshape(n, l)
@@ -321,8 +356,28 @@ class Model(ShapeModel):
     def _forward_rays(self, params, xyz, rayo, normal_init, lvis_init,
                       albedo_scales=None, albedo_override=None,
                       brdf_z_override=None, relight_olat=False,
-                      relight_probes=False):
-        """Full reflectance forward for a block of rays."""
+                      relight_probes=False, jitter_noise=None):
+        """Full reflectance forward for a block of rays.
+
+        ``jitter_noise`` (train only): the smoothness probes at
+        ``xyz + jitter_noise`` ride the same chain calls as the main rows:
+        each head whose smoothness weight is nonzero runs once on 2N
+        stacked rows. Their outputs come back under ``*_jitter`` keys."""
+        n = xyz.shape[0]
+        jit = jitter_noise is not None
+        jit_shape = jit and self.shape_mode != 'nerf'
+        jit_normal = jit_shape and self.normal_smooth_weight > 0
+        jit_lvis = jit_shape and self.lvis_smooth_weight > 0
+        jit_albedo = jit and self.albedo_smooth_weight > 0
+        jit_brdf = jit and self.pred_brdf and self.brdf_smooth_weight > 0
+        if jit:
+            xyz_j = xyz + jitter_noise
+            xyz_all = torch.cat([xyz, xyz_j], dim=0)
+
+        def stacked(twin_on):
+            return xyz_all if twin_on else xyz
+
+        out = {}
         surf2l = self.calc_ldir(xyz)  # (N,L,3)
         surf2c = self.calc_vdir(rayo, xyz)  # (N,3)
         if self.shape_mode == 'nerf':
@@ -330,16 +385,32 @@ class Model(ShapeModel):
             # 0 visibility in all directions leads to problematic gradients
             lvis_pred = torch.clamp(lvis_init, 1e-8, 1.0)
         else:
-            normal_pred = self.pred_normal_at(params, xyz)
-            lvis_pred = self.pred_lvis_at(params, xyz, surf2l)
+            normal_all = self.pred_normal_at(params, stacked(jit_normal))
+            normal_pred = normal_all[:n]
+            if jit_normal:
+                out['normal_jitter'] = safe_l2_normalize(normal_all[n:],
+                                                         dim=1)
+            surf2l_in = torch.cat([surf2l, self.calc_ldir(xyz_j)], dim=0) \
+                if jit_lvis else surf2l
+            lvis_all = self.pred_lvis_at(params, stacked(jit_lvis),
+                                         surf2l_in)
+            lvis_pred = lvis_all[:n]
+            if jit_lvis:
+                out['lvis_jitter'] = lvis_all[n:]
         normal_pred = safe_l2_normalize(normal_pred, dim=1)
-        albedo = self.pred_albedo_at(params, xyz)
+        albedo_all = self.pred_albedo_at(params, stacked(jit_albedo))
+        albedo = albedo_all[:n]
+        if jit_albedo:
+            out['albedo_jitter'] = albedo_all[n:]
         if albedo_scales is not None:
             albedo = albedo_scales.reshape(1, 3) * albedo
         if albedo_override is not None:
             albedo = albedo_override.expand(albedo.shape)
         if self.pred_brdf:
-            brdf_prop = self.pred_brdf_at(params, xyz)
+            brdf_all = self.pred_brdf_at(params, stacked(jit_brdf))
+            brdf_prop = brdf_all[:n]
+            if jit_brdf:
+                out['brdf_prop_jitter'] = brdf_all[n:]
         else:
             brdf_prop = self.default_brdf_at(xyz)
         if brdf_z_override is not None:
@@ -350,8 +421,8 @@ class Model(ShapeModel):
         rgb_pred, rgb_olat, rgb_probes = self.render(
             params, lvis_pred, spec, albedo, surf2l, normal_pred,
             relight_olat=relight_olat, relight_probes=relight_probes)
-        out = {'rgb': rgb_pred, 'normal': normal_pred, 'lvis': lvis_pred,
-               'albedo': albedo, 'brdf': brdf_prop}
+        out.update({'rgb': rgb_pred, 'normal': normal_pred,
+                    'lvis': lvis_pred, 'albedo': albedo, 'brdf': brdf_prop})
         if rgb_olat is not None:
             out['rgb_olat'] = rgb_olat
         if rgb_probes is not None:
@@ -362,37 +433,62 @@ class Model(ShapeModel):
         return None if x is None else torch.as_tensor(
             np.asarray(x, np.float32), device=self.device)
 
-    def apply(self, params, batch, mode='test', relight_olat=False,
-              relight_probes=False, albedo_scales=None,
-              albedo_override=None, brdf_z_override=None):
-        """Test/vali-mode forward over all rays of ``batch`` (a dict of
-        tensors on the model's device), in chunks of ``eval_ray_chunk``
-        rays. Training comes with the train step (ROADMAP.md)."""
+    JITTER_KEYS = ('normal_jitter', 'lvis_jitter', 'albedo_jitter',
+                   'brdf_prop_jitter')
+
+    def apply(self, params, batch, mode='train', generator=None,
+              jitter_noise=None, relight_olat=False, relight_probes=False,
+              albedo_scales=None, albedo_override=None,
+              brdf_z_override=None):
+        """Forward over all rays of ``batch`` (a dict of tensors on the
+        model's device). Train mode runs the batch in one block, with the
+        smoothness jitter ``xyz_jitter_std * N(0, 1)`` drawn from
+        ``generator`` (or given as ``jitter_noise``, already scaled);
+        vali/test modes walk chunks of ``eval_ray_chunk`` rays."""
         self._validate_mode(mode)
-        if mode == 'train':
-            raise NotImplementedError(
-                "Training is not ported yet (ROADMAP.md, Queue 1)")
         albedo_scales = self._as_tensor(albedo_scales)
         albedo_override = self._as_tensor(albedo_override)
         brdf_z_override = self._as_tensor(brdf_z_override)
-        inputs = {'xyz': batch['xyz'], 'rayo': batch['rayo'],
-                  'normal': batch['normal'], 'lvis': batch['lvis']}
-        # A per-ray albedo edit is chunked with the rays
-        per_ray_override = albedo_override is not None \
-            and albedo_override.shape[0] == batch['xyz'].shape[0] > 1
-        if per_ray_override:
-            inputs['albedo_override'] = albedo_override
-
-        def forward(tree):
-            return self._forward_rays(
-                params, tree['xyz'], tree['rayo'], tree['normal'],
-                tree['lvis'], albedo_scales=albedo_scales,
-                albedo_override=tree['albedo_override']
-                if per_ray_override else albedo_override,
+        xyz = batch['xyz']
+        if mode == 'train':
+            if self.xyz_jitter_std > 0 and jitter_noise is None:
+                if generator is None:
+                    raise ValueError(
+                        "Train mode with xyz_jitter_std > 0 draws the "
+                        "smoothness jitter: pass a generator or jitter_noise")
+                jitter_noise = self.xyz_jitter_std * torch.randn(
+                    xyz.shape, generator=generator, dtype=xyz.dtype,
+                    device=xyz.device)
+            if self.xyz_jitter_std <= 0:
+                jitter_noise = None
+            out = self._forward_rays(
+                params, xyz, batch['rayo'], batch['normal'], batch['lvis'],
+                albedo_scales=albedo_scales, albedo_override=albedo_override,
                 brdf_z_override=brdf_z_override, relight_olat=relight_olat,
-                relight_probes=relight_probes)
+                relight_probes=relight_probes, jitter_noise=jitter_noise)
+        else:
+            inputs = {'xyz': xyz, 'rayo': batch['rayo'],
+                      'normal': batch['normal'], 'lvis': batch['lvis']}
+            # A per-ray albedo edit is chunked with the rays
+            per_ray_override = albedo_override is not None \
+                and albedo_override.shape[0] == xyz.shape[0] > 1
+            if per_ray_override:
+                inputs['albedo_override'] = albedo_override
 
-        out = chunked_apply_tree(forward, inputs, self.eval_ray_chunk)
+            def forward(tree):
+                return self._forward_rays(
+                    params, tree['xyz'], tree['rayo'], tree['normal'],
+                    tree['lvis'], albedo_scales=albedo_scales,
+                    albedo_override=tree['albedo_override']
+                    if per_ray_override else albedo_override,
+                    brdf_z_override=brdf_z_override,
+                    relight_olat=relight_olat,
+                    relight_probes=relight_probes)
+
+            out = chunked_apply_tree(forward, inputs, self.eval_ray_chunk)
+        loss_kwargs = {'mode': mode}
+        for k in self.JITTER_KEYS:
+            loss_kwargs[k] = out.get(k)
         pred = {k: out[k] for k in ('rgb', 'normal', 'lvis', 'albedo',
                                     'brdf', 'rgb_olat', 'rgb_probes')
                 if k in out}
@@ -406,7 +502,54 @@ class Model(ShapeModel):
             to_vis['pred_' + k] = v
         for k, v in gt.items():
             to_vis['gt_' + k] = v
-        return pred, gt, {}, to_vis
+        return pred, gt, loss_kwargs, to_vis
+
+    # ------ loss ------
+
+    def compute_loss(self, params, pred, gt, mode='train',
+                     normal_jitter=None, lvis_jitter=None,
+                     albedo_jitter=None, brdf_prop_jitter=None, **kwargs):
+        """Reconstruction + geometry respect + smoothness + light priors
+        (reference nerfactor.py:463-541); a per-example vector."""
+        smooth_loss = mae_lastdim if self.smooth_use_l1 else mse_lastdim
+        alpha = gt['alpha']
+        bgv = 1.0 if self.white_bg else 0.0
+
+        def blend(x):
+            return x * alpha + bgv * (1.0 - alpha)
+
+        loss = mse_lastdim(blend(gt['rgb']), blend(pred['rgb']))
+        if mode == 'vali':
+            return loss
+        if self.shape_mode in ('scratch', 'finetune'):
+            normal_pred = blend(pred['normal'])
+            lvis_pred = blend(pred['lvis'])
+            loss = loss + self.normal_loss_weight * mse_lastdim(
+                blend(gt['normal']), normal_pred)
+            loss = loss + self.lvis_loss_weight * mse_lastdim(
+                blend(gt['lvis']), lvis_pred)
+            if normal_jitter is not None:
+                loss = loss + self.normal_smooth_weight * smooth_loss(
+                    normal_pred, blend(normal_jitter))
+            if lvis_jitter is not None:
+                loss = loss + self.lvis_smooth_weight * smooth_loss(
+                    lvis_pred, blend(lvis_jitter))
+        if albedo_jitter is not None:
+            loss = loss + self.albedo_smooth_weight * smooth_loss(
+                pred['albedo'], albedo_jitter)
+        if brdf_prop_jitter is not None:
+            loss = loss + self.brdf_smooth_weight * smooth_loss(
+                pred['brdf'], brdf_prop_jitter)
+        # Light priors: scalar TV terms broadcast onto the batch vector
+        light = self.light_from(params)
+        if self.light_tv_weight > 0:
+            dx = light - torch.roll(light, 1, 1)
+            dy = light - torch.roll(light, 1, 0)
+            loss = loss + self.light_tv_weight * torch.sum(dx ** 2 + dy ** 2)
+        if self.light_achro_weight > 0:
+            dc = light - torch.roll(light, 1, 2)
+            loss = loss + self.light_achro_weight * torch.sum(dc ** 2)
+        return loss
 
     # ------ host-side vis ------
 
@@ -424,23 +567,24 @@ class Model(ShapeModel):
             z_rgb = np.concatenate([z_rgb] * 3, axis=-1)
         return z_rgb
 
-    def vis_batch(self, data_dict, outdir, mode='test', light_vis_h=256,
+    def vis_batch(self, data_dict, outdir, mode='train', light_vis_h=256,
                   olat_vis=False, alpha_thres=0.8):
-        """Writes the per-view test images, as the JAX model's
-        ``vis_batch(mode='test')``: pred/gt maps, probe relights, and on
-        ``olat_vis`` the OLAT relights and per-light visibility."""
-        if mode != 'test':
-            raise NotImplementedError(
-                "Only test-mode vis is ported (ROADMAP.md, Queue 1)")
+        """Writes one view's images, as the JAX model's ``vis_batch``:
+        pred/gt maps and probe relights (and on ``olat_vis`` the OLAT
+        relights and per-light visibility); in vali mode also the
+        pred-vs-gt flipbooks and a metadata.json with PSNR and SSIM."""
+        self._validate_mode(mode)
         data_dict = dict(data_dict)
         pred_light = np.asarray(data_dict.pop('pred_light'))
         seen_z = np.asarray(data_dict.pop('seen_z'))
-        # Same for all views; written once
+        # Same for all views of an epoch; written once
         light_vis_path = join(dirname(outdir), 'pred_light.png')
         if not exists(light_vis_path):
             light_uint = vis_light(pred_light, h=light_vis_h)
             ioutil.write_img(
                 light_uint.astype(np.float32) / 255.0, light_vis_path)
+        if mode == 'train':
+            return
         hw = tuple(int(x) for x in data_dict.pop('hw'))
         id_ = data_dict.pop('id')
         # Flat rays back into images
@@ -479,8 +623,10 @@ class Model(ShapeModel):
             bg = np.tile(avg[None, None, :], render.shape[:2] + (1,))
             return imgops.alpha_blend(render, alpha, bg)
 
+        img_dict = {}
+
         def write(k, img):
-            ioutil.write_img(img, join(outdir, k + '.png'))
+            img_dict[k] = ioutil.write_img(img, join(outdir, k + '.png'))
 
         for k, v in imgs.items():
             if k == 'pred_rgb_olat':
@@ -516,4 +662,72 @@ class Model(ShapeModel):
                 write(k, imgops.alpha_blend(v_, alpha, bg_like(v_)))
             else:
                 write(k, v)
-        ioutil.write_json({'id': id_}, join(outdir, 'metadata.json'))
+        if mode == 'test':
+            ioutil.write_json({'id': id_}, join(outdir, 'metadata.json'))
+            return
+        # Pred-vs-GT flipbooks + PSNR/SSIM metadata (vali)
+        font_color = (0, 0, 0) if self.white_bg else (1.0, 1.0, 1.0)
+
+        def lbl(img, text):
+            return visutil.put_text(img, text, color=font_color)
+
+        visutil.make_anim(
+            (lbl(img_dict['gt_rgb'], "Ground Truth"),
+             lbl(img_dict['pred_rgb'], "Prediction")),
+            join(outdir, 'pred-vs-gt_rgb.apng'))
+        if self.shape_mode != 'nerf':
+            for k in ('normal', 'lvis'):
+                visutil.make_anim(
+                    (lbl(img_dict['gt_' + k], "Initial"),
+                     lbl(img_dict['pred_' + k], "Prediction")),
+                    join(outdir, 'pred-vs-gt_%s.apng' % k))
+        psnr = psnr_fn(img_dict['gt_rgb'], img_dict['pred_rgb'])
+        ssim = ssim_fn(img_dict['gt_rgb'], img_dict['pred_rgb'])
+        ioutil.write_json({'id': id_, 'psnr': psnr, 'ssim': ssim},
+                          join(outdir, 'metadata.json'))
+
+    def compile_batch_vis(self, batch_vis_dirs, outpref, mode='train'):
+        """Vali: one HTML page over the epoch's views; returns its path.
+        The test-mode video is not ported yet (ROADMAP.md, Queue 1)."""
+        self._validate_mode(mode)
+        if mode == 'train':
+            return None
+        if mode == 'test':
+            raise NotImplementedError(
+                "The test-mode video compile is not ported yet (ROADMAP.md, "
+                "Queue 1)")
+        rows = []
+        for batch_dir in batch_vis_dirs:
+            metadata = ioutil.read_json(join(batch_dir, 'metadata.json'))
+            row = [str(metadata),
+                   join(batch_dir, 'pred-vs-gt_rgb.apng'),
+                   join(batch_dir, 'pred_rgb.png'),
+                   join(batch_dir, 'pred_albedo.png'),
+                   join(batch_dir, 'pred_brdf.png')]
+            caps = ["Metadata", "RGB", "RGB (pred.)", "Albedo (pred.)",
+                    "BRDF (pred.)"]
+            if self.shape_mode == 'nerf':
+                row += [join(batch_dir, 'gt_normal.png'),
+                        join(batch_dir, 'gt_lvis.png')]
+                caps += ["Normal (initial)", "Light Visibility (initial)"]
+            else:
+                row += [join(batch_dir, 'pred-vs-gt_normal.apng'),
+                        join(batch_dir, 'pred_normal.png'),
+                        join(batch_dir, 'pred-vs-gt_lvis.apng'),
+                        join(batch_dir, 'pred_lvis.png')]
+                caps += ["Normal", "Normal (pred.)", "Light Visibility",
+                         "Light Visibility (pred.)"]
+            rows.append((row, caps))
+        if not rows:
+            raise ValueError("No validation views to compile")
+        html = visutil.HTML(
+            bgcolor='white' if self.white_bg else 'black',
+            text_color='black' if self.white_bg else 'white')
+        html.add_header("NeRFactor")
+        table = html.add_table()
+        for row, caps in rows:
+            table.add_row(row, ['text'] + ['image'] * (len(row) - 1),
+                          captions=caps)
+        out_html = outpref + '.html'
+        html.save(out_html)
+        return self.config.get('viewer_prefix', fallback='') + out_html

@@ -1,10 +1,11 @@
 """Shape model: surface MLPs for normal(xyz) and light visibility(xyz,
-ldir) (counterpart of nerfactor_tpu/models/shape.py, inference parts).
+ldir) (counterpart of nerfactor_tpu/models/shape.py, the parts the joint
+model uses).
 
 The joint NeRFactor model builds on this class for its shape heads and
 restores their weights from a shape checkpoint. Both heads run as fused
 chains (ops/fused_mlp.py): on the GPU the lvis chain, at rays x lights
-scale, is the largest kernel launch of inference.
+scale, is the largest kernel launch of inference and training.
 """
 
 import numpy as np
@@ -22,6 +23,20 @@ class Model(BaseModel):
     def __init__(self, config, debug=False, device='cpu'):
         super().__init__(config, debug=debug, device=device)
         self.white_bg = config.getboolean('white_bg')
+        self.normal_smooth_weight = config.getfloat(
+            'normal_smooth_weight', fallback=0.0)
+        self.lvis_smooth_weight = config.getfloat(
+            'lvis_smooth_weight', fallback=0.0)
+        self.normal_loss_weight = config.getfloat(
+            'normal_loss_weight', fallback=1.0)
+        self.lvis_loss_weight = config.getfloat(
+            'lvis_loss_weight', fallback=1.0)
+        self.smooth_use_l1 = config.getboolean('smooth_use_l1',
+                                               fallback=False)
+        self.xyz_jitter_std = config.getfloat('xyz_jitter_std', fallback=0.0)
+        # The joint model sets this False under shape_mode='frozen': the
+        # normal/lvis chains' backward then skips all dW/db work
+        self.shape_heads_need_dw = True
         self.xyz_scale = config.getfloat('xyz_scale', fallback=1.0)
         self.pos_enc = config.getboolean('pos_enc')
         self.n_freqs_xyz = config.getint('n_freqs_xyz')
@@ -102,12 +117,16 @@ class Model(BaseModel):
         return None if name in self.f32_chains else self.big_chain_dtype
 
     def _chain(self, params, mlp_name, out_name, plan, x_raw,
-               compute_dtype=None):
-        """One fused embed -> MLP -> head evaluation."""
+               compute_dtype=None, needs_dx=True, needs_dw=True):
+        """One fused embed -> MLP -> head evaluation. ``needs_dx=False``
+        (the inputs are data, e.g. xyz/surf2l) lets the kernel backward
+        skip the input cotangent; ``needs_dw=False`` (frozen weights, e.g.
+        the joint model's BRDF prior) skips all dW/db work."""
         p = fused_mlp.params_from_tree(params[mlp_name], params[out_name])
         return fused_mlp.apply_chain(
             plan, x_raw, p, force_reference=not self.fused_mlp,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, needs_dx=needs_dx,
+            needs_dw=needs_dw)
 
     def init_params(self, generator):
         return {name: spec.init(generator)
@@ -124,7 +143,9 @@ class Model(BaseModel):
 
     def pred_normal_at(self, params, pts, eps=1e-6):
         normal = self._chain(params, 'normal_mlp', 'normal_out',
-                             self.plans['normal'], self.xyz_scale * pts)
+                             self.plans['normal'], self.xyz_scale * pts,
+                             needs_dx=False,
+                             needs_dw=self.shape_heads_need_dw)
         # eps avoids all-zero normals producing zero tangents downstream
         return normal + eps
 
@@ -136,5 +157,7 @@ class Model(BaseModel):
             (surf_rep.reshape(-1, 3), surf2l.reshape(-1, 3)), dim=-1)
         lvis = self._chain(params, 'lvis_mlp', 'lvis_out',
                            self.plans['lvis'], x_raw,
-                           compute_dtype=self.chain_dtype('lvis'))
+                           compute_dtype=self.chain_dtype('lvis'),
+                           needs_dx=False,
+                           needs_dw=self.shape_heads_need_dw)
         return lvis.reshape(n, l)

@@ -1,20 +1,22 @@
 """Fused positional-encoding -> skip-MLP -> head chains (counterpart of
-nerfactor_tpu/ops/pallas_mlp.py, forward only).
+nerfactor_tpu/ops/pallas_mlp.py).
 
-Every hot path of NeRFactor inference is a small MLP (width 128, depth 4)
-evaluated over rays x 512 lights. :func:`apply_chain` runs one such chain:
+Every hot path of NeRFactor is a small MLP (width 128, depth 4) evaluated
+over rays x 512 lights. :func:`apply_chain` runs one such chain:
 
   * on a CUDA tensor it launches kernel K1-fwd (``csrc/fused_mlp.cu``),
     which keeps the embedding and all hidden activations on the chip;
+    under autograd the backward is kernel K1-bwd, which recomputes the
+    forward and returns the input and/or weight cotangents;
   * on a CPU tensor it runs :func:`chain_reference`, the plain PyTorch
-    version of the same math (the oracle the tests and ``chip_smoke.py``
-    hold the kernel against).
+    version of the same math under ordinary autograd (the oracle the
+    tests and ``chip_smoke.py`` hold the kernels against).
 
 Semantics mirror the JAX package: the embedding of each part is
 ``[x, sin(f0 x), cos(f0 x), ...]``; after layer i in ``skip_at`` the
 embedding is concatenated onto the activation (the next layer sees
 ``[h, e]``); weights keep the JAX layout, ``w`` (din, dout) applied as
-``x @ w``. The backward kernels (training) are not ported yet.
+``x @ w``.
 """
 
 import ctypes
@@ -130,7 +132,7 @@ def chain_reference(plan, x, params, compute_dtype=None):
     return y.float()
 
 
-# ------ kernel K1-fwd ------
+# ------ kernels K1-fwd and K1-bwd ------
 
 MAX_LAYERS, MAX_PARTS = 16, 4  # csrc/chain_mlp.cuh kMaxLayers, kMaxParts
 ACT_CODES = {None: 0, 'none': 0, 'relu': 1, 'sigmoid': 2, 'softplus': 3}
@@ -213,18 +215,20 @@ def kernel_dtype(compute_dtype):
     raise ValueError("Unsupported compute_dtype: %r" % (compute_dtype,))
 
 
-def launch(entry, plan, inputs, params, compute_dtype):
-    """Calls the C launcher ``entry`` of the kernel library for ``plan``
-    on ``inputs``, a list of (name, tensor, n_cols) that must be CUDA f32
-    (N, n_cols); returns the (N, out) f32 output. Forward only: raises if
-    autograd would need a backward (K1-bwd/K2-bwd are not ported yet).
-    Returns None for N == 0, where nothing is launched."""
-    if torch.is_grad_enabled() and (
-            any(t.requires_grad for _, t, _ in inputs)
-            or any(w.requires_grad for w, _ in params)):
-        raise NotImplementedError(
-            "%s has no backward yet (ROADMAP.md, Queue 2); run inference "
-            "under torch.no_grad()" % entry)
+def run(entry, device, *args, stream=True):
+    """Calls the C function ``entry`` of the kernel library with ``args``
+    (and ``device``'s current stream last); raises on its error code."""
+    with torch.cuda.device(device):  # the launchers use the current device
+        if stream:
+            args += (torch.cuda.current_stream(device).cuda_stream,)
+        code = getattr(kernel_lib.load(), entry)(*args)
+    kernel_lib.check(code, entry)
+
+
+def prepare(plan, inputs, params, compute_dtype):
+    """Checks ``inputs``, a list of (name, tensor, n_cols) that must be
+    CUDA f32 (N, n_cols) with one N, and packs ``params`` for ``plan``.
+    Returns (contiguous tensors, desc, bf16 flag, packed w, packed b)."""
     tensors = []
     for name, t, cols in inputs:
         if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 2 \
@@ -233,22 +237,31 @@ def launch(entry, plan, inputs, params, compute_dtype):
                              "%s %s %s" % (name, cols, t.device, t.dtype,
                                            tuple(t.shape)))
         tensors.append(t.contiguous())
-    device, n = tensors[0].device, tensors[0].shape[0]
     desc = make_desc(plan)
     kdt = kernel_dtype(compute_dtype)
     w_flat, b_flat = pack_params(plan, params, kdt)
-    if w_flat.device != device:
-        raise ValueError("params must lie on %s" % device)
+    if w_flat.device != tensors[0].device:
+        raise ValueError("params must lie on %s" % tensors[0].device)
+    return tensors, desc, int(kdt == torch.bfloat16), w_flat, b_flat
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch(entry, plan, inputs, params, compute_dtype):
+    """Calls the forward launcher ``entry`` for ``plan`` on ``inputs`` (see
+    :func:`prepare`); returns the (N, out) f32 output, or None for N == 0,
+    where nothing is launched."""
+    tensors, desc, bf16, w_flat, b_flat = prepare(plan, inputs, params,
+                                                  compute_dtype)
+    device, n = tensors[0].device, tensors[0].shape[0]
     if n == 0:
         return None
     y = torch.empty((n, plan.widths[-1]), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):  # the launcher uses the current device
-        code = getattr(kernel_lib.load(), entry)(
-            ctypes.addressof(desc), int(kdt == torch.bfloat16),
-            *[t.data_ptr() for t in tensors], w_flat.data_ptr(),
-            b_flat.data_ptr(), y.data_ptr(), n,
-            torch.cuda.current_stream(device).cuda_stream)
-    kernel_lib.check(code, entry)
+    run(entry, device, ctypes.addressof(desc), bf16,
+        *[t.data_ptr() for t in tensors], w_flat.data_ptr(), b_flat.data_ptr(),
+        y.data_ptr(), n)
     return y
 
 
@@ -266,7 +279,101 @@ def chain_kernel(plan, x, params, compute_dtype=None):
 chain_kernel.launches = 0
 
 
-def apply_chain(plan, x, params, force_reference=False, compute_dtype=None):
+def unpack_grads(plan, dwb):
+    """Splits a packed f32 (all weights | all biases) buffer into the
+    per-layer [(dW (din, dout), db (dout,))] of ``plan``."""
+    dims = layer_in_dims(plan)
+    w_off, b_off = 0, sum(d * w for d, w in zip(dims, plan.widths))
+    out = []
+    for d, w in zip(dims, plan.widths):
+        out.append((dwb[w_off:w_off + d * w].view(d, w), dwb[b_off:b_off + w]))
+        w_off += d * w
+        b_off += w
+    return out
+
+
+def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
+                     needs_dw=True):
+    """Launches K1-bwd: the cotangents of :func:`chain_kernel` for the
+    output cotangent ``dy`` (N, out). Returns (dx (N, raw_dim) or None,
+    [(dW, db)] or None), f32, as ``needs_dx`` / ``needs_dw`` ask. dW/db
+    are bit-identical for the same inputs on the same card. Counts its
+    launches in ``chain_kernel_bwd.launches``."""
+    if not (needs_dx or needs_dw):
+        raise ValueError("K1-bwd launched with nothing to compute")
+    (x, dy), desc, bf16, w_flat, b_flat = prepare(
+        plan, [('x', x, raw_dim(plan)), ('dy', dy, plan.widths[-1])], params,
+        compute_dtype)
+    device, n = x.device, x.shape[0]
+    dx = torch.empty_like(x) if needs_dx else None
+    dwb = part = None
+    slices = ctypes.c_int(0)
+    if needs_dw:
+        dwb = torch.zeros(w_flat.numel() + b_flat.numel(), dtype=torch.float32,
+                          device=device)
+        if n:
+            run('nfk_chain_bwd_slices', device, ctypes.addressof(desc), bf16,
+                int(needs_dx), n, ctypes.byref(slices), stream=False)
+            part = torch.empty(slices.value * dwb.numel(), dtype=torch.float32,
+                               device=device)
+    if n:
+        run('nfk_chain_bwd', device, ctypes.addressof(desc), bf16,
+            int(needs_dx), int(needs_dw), x.data_ptr(), dy.data_ptr(),
+            w_flat.data_ptr(), b_flat.data_ptr(), _ptr(dx), _ptr(part),
+            _ptr(dwb), slices.value, n)
+        chain_kernel_bwd.launches += 1
+    return dx, (unpack_grads(plan, dwb) if needs_dw else None)
+
+
+chain_kernel_bwd.launches = 0
+
+
+def grads_or_zeros(ctx, first, grads, inputs):
+    """Autograd's cotangents for ``inputs`` (the Function's arguments
+    from position ``first``): each of ``grads`` where given, zeros where
+    the kernel was told not to compute it, None where autograd needs
+    none."""
+    return tuple(
+        None if not ctx.needs_input_grad[first + i]
+        else (g if g is not None else torch.zeros_like(t))
+        for i, (g, t) in enumerate(zip(grads, inputs)))
+
+
+class ChainFunction(torch.autograd.Function):
+    """K1-fwd with K1-bwd as its backward (the JAX package's
+    ``_fused_chain_impl`` custom VJP): ``needs_dx`` / ``needs_dw`` select
+    the cotangents K1-bwd computes; the others come back as zeros, and
+    with both False no backward kernel is launched."""
+
+    @staticmethod
+    def forward(ctx, plan, compute_dtype, needs_dx, needs_dw, x, *flat):
+        ctx.save_for_backward(x, *flat)
+        ctx.plan, ctx.compute_dtype = plan, compute_dtype
+        ctx.needs = (needs_dx, needs_dw)
+        return chain_kernel(plan, x, list(zip(flat[0::2], flat[1::2])),
+                            compute_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *flat = ctx.saved_tensors
+        needs_dx, needs_dw = ctx.needs
+        dx, dparams = None, None
+        if needs_dx or needs_dw:
+            dx, dparams = chain_kernel_bwd(
+                ctx.plan, x, dy, list(zip(flat[0::2], flat[1::2])),
+                ctx.compute_dtype, needs_dx=needs_dx, needs_dw=needs_dw)
+        dflat = [g for pair in dparams for g in pair] if dparams \
+            else [None] * len(flat)
+        return (None, None, None, None) + grads_or_zeros(
+            ctx, 4, [dx] + dflat, [x] + list(flat))
+
+
+def needs_autograd(tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def apply_chain(plan, x, params, force_reference=False, compute_dtype=None,
+                needs_dx=True, needs_dw=True):
     """Runs the embed -> MLP -> head chain on ``x`` (N, raw_dim).
 
     ``params`` is the list of (w, b) over all layers (hidden + head);
@@ -274,8 +381,17 @@ def apply_chain(plan, x, params, force_reference=False, compute_dtype=None):
     operands, f32 accumulation). ``force_reference`` (the JAX package's
     ``fused_mlp = False``) runs the plain version on any device. Otherwise
     a CPU tensor takes the plain version and a CUDA tensor the kernel.
+
+    ``needs_dx`` / ``needs_dw`` have the JAX meaning for the kernel's
+    backward: pass ``needs_dx=False`` when ``x`` is data, and
+    ``needs_dw=False`` when the weights are frozen; K1-bwd then skips that
+    branch and returns zeros for it. The plain version ignores them.
     """
     params = [(w, b) for w, b in params]
     if force_reference or x.device.type == 'cpu':
         return chain_reference(plan, x, params, compute_dtype=compute_dtype)
+    flat = [t for pair in params for t in pair]
+    if needs_autograd([x] + flat):
+        return ChainFunction.apply(plan, compute_dtype, needs_dx, needs_dw, x,
+                                   *flat)
     return chain_kernel(plan, x, params, compute_dtype=compute_dtype)

@@ -97,6 +97,14 @@ def load():
     lib.nfk_rusink_chain_fwd.argtypes = [
         ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
     lib.nfk_rusink_chain_fwd.restype = i32
+    lib.nfk_chain_bwd_slices.argtypes = [ptr, i32, i32, i64, ptr]
+    lib.nfk_chain_bwd_slices.restype = i32
+    lib.nfk_chain_bwd.argtypes = [
+        ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
+    lib.nfk_chain_bwd.restype = i32
+    lib.nfk_rusink_chain_bwd.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.nfk_rusink_chain_bwd.restype = i32
     _lib = lib
     return lib
 

@@ -11,6 +11,7 @@ from collections import OrderedDict
 import numpy as np
 
 from nerfactor_tpu_torch.ops import img as imgops
+from nerfactor_tpu_torch.utils import exr as exrutil, hdr as hdrutil
 
 
 def gen_light_xyz(envmap_h, envmap_w, envmap_radius=1e2):
@@ -65,17 +66,13 @@ def vis_light(light_probe, h=None, gamma=4.0):
 def load_light(path, envmap_inten=1.0, envmap_h=None):
     """Loads a light probe (.npy, .hdr or .exr, the kinds the test
     test CLI globs for), optionally resized and scaled (reference
-    brdf/renderer.py:222-249). The .hdr/.exr readers are the JAX
-    package's pure-NumPy codecs, imported only when such a probe is
-    loaded."""
+    brdf/renderer.py:222-249)."""
     if path.endswith('.npy'):
         envmap = np.load(path).astype(np.float32)
     elif path.endswith('.hdr'):
-        from nerfactor_tpu.utils.hdr import read_hdr
-        envmap = read_hdr(path)
+        envmap = hdrutil.read_hdr(path)
     elif path.endswith('.exr'):
-        from nerfactor_tpu.utils.exr import read_exr
-        envmap = read_exr(path)
+        envmap = exrutil.read_exr(path)
     else:
         raise ValueError("Unsupported light probe: %s" % path)
     if envmap_h is not None and envmap.shape[0] != envmap_h:

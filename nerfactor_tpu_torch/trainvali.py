@@ -1,0 +1,349 @@
+"""Training and validation of the joint NeRFactor model on PyTorch
+(counterpart of nerfactor_tpu/trainvali.py, same CLI):
+
+  python -m nerfactor_tpu_torch.trainvali --config=nerfactor.ini \
+      --config_override='data_root=...,outroot=...' [--debug] \
+      [--device=cuda] [--profile_steps=N]
+
+Writes, under <outroot>/<xname>/: checkpoints/ckpt-N.npz every
+ckpt_period epochs ({'opt_state', 'params'} in JAX flatten order, so
+either package resumes the other's), summary_{train,vali}/scalars.jsonl,
+and every vali_period epochs vis_vali/epoch?????????/ with per-view images,
+flipbooks, PSNR/SSIM and an HTML page. A run resumes from its latest
+checkpoint. TensorBoard event files are not written (ROADMAP.md).
+"""
+
+import argparse
+import json
+import os
+import queue
+import shutil
+import threading
+from collections import deque
+from os.path import join, dirname
+from time import time
+
+import numpy as np
+import torch
+
+from nerfactor_tpu_torch import datasets, models
+from nerfactor_tpu_torch.parallel.train import (
+    build_optimizer, make_train_step, make_eval_step)
+from nerfactor_tpu_torch.utils import config as configutil, io as ioutil
+from nerfactor_tpu_torch.utils.ckpt import CheckpointManager
+from nerfactor_tpu_torch.utils.logging import Logger
+
+logger = Logger(loggee="trainvali")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument('--config', default='nerf.ini',
+                   help="base .ini in the shipped config dir, or a path")
+    p.add_argument('--config_override', default='',
+                   help="e.g. 'key1=value1,key2=value2'")
+    p.add_argument('--debug', action='store_true')
+    p.add_argument('--device', default='cuda', help="torch device")
+    p.add_argument('--profile_steps', type=int, default=0,
+                   help="trace the first N train steps with torch.profiler "
+                        "into <outdir>/profile")
+    p.add_argument('--multihost', action='store_true',
+                   help="data-parallel training across hosts (not ported)")
+    p.add_argument('--coordinator', default=None)
+    p.add_argument('--num_processes', type=int, default=None)
+    p.add_argument('--process_id', type=int, default=None)
+    return p.parse_args(argv)
+
+
+def load_config(config_flag, override=''):
+    parser = configutil.read_config(
+        configutil.resolve_config_path(config_flag))
+    configutil.apply_override(parser, override)
+    return parser
+
+
+class SummaryWriter:
+    """Append-only JSONL scalar log."""
+
+    def __init__(self, path):
+        self.path = path
+        os.makedirs(dirname(path), exist_ok=True)
+
+    def _write(self, rec):
+        with open(self.path, 'a') as h:
+            h.write(json.dumps(rec) + '\n')
+
+    def scalars(self, step, **kv):
+        rec = {'step': int(step)}
+        rec.update({k: None if v is None else float(v)
+                    for k, v in kv.items()})
+        self._write(rec)
+
+    def text(self, step, tag, value):
+        self._write({'step': int(step), tag: value})
+
+
+def split_batch(dataset, batch):
+    """A dataset batch -> (meta, f32/f16 numpy arrays for the device)."""
+    arrays, meta = {}, {}
+    for k, v in batch.items():
+        if k in dataset.array_keys:
+            v = np.asarray(v)
+            arrays[k] = v.astype(np.float32) if v.dtype == np.float64 else v
+        else:
+            meta[k] = v
+    return meta, arrays
+
+
+def to_device(arrays, device):
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in arrays.items()}
+
+
+def host_batches(dataset, datapipe, n_epochs=1, lookahead=3, group=1,
+                 pin=False):
+    """Iterator of (group of (meta, arrays), epoch_done) made by a
+    background thread, which assembles the next ``lookahead`` items (pinned
+    host tensors for a CUDA device) while the device trains on the current
+    one. One producer spans ``n_epochs`` passes over ``datapipe``; the last
+    item of each pass carries epoch_done=True. ``group`` batches travel
+    together (the config's ``scan_steps``); each still is one step."""
+    q = queue.Queue(maxsize=lookahead)
+    stop = threading.Event()
+    sentinel = object()
+    err = []
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def prepare(batch):
+        meta, arrays = split_batch(dataset, batch)
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in arrays.items()}
+        if pin:
+            arrays = {k: v.pin_memory() for k, v in arrays.items()}
+        return meta, arrays
+
+    def worker():
+        try:
+            for _ in range(n_epochs):
+                pend, pending = [], None  # one-item lag tags the last
+                for batch in datapipe:
+                    pend.append(prepare(batch))
+                    if len(pend) == group:
+                        if pending is not None and not put((pending, False)):
+                            return
+                        pending, pend = pend, []
+                if pend:
+                    if pending is not None and not put((pending, False)):
+                        return
+                    pending = pend
+                if pending is None:
+                    raise ValueError("Dataset is empty")
+                if not put((pending, True)):
+                    return
+        except BaseException as e:  # re-raised on the consumer's side
+            err.append(e)
+        finally:
+            put(sentinel)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+
+
+def maintain_epoch_queue(epochs, new_epoch_dir):
+    epochs.appendleft(new_epoch_dir)
+    for epoch_dir in ioutil.sortglob(dirname(new_epoch_dir), '*'):
+        if epoch_dir not in epochs:
+            shutil.rmtree(epoch_dir)
+
+
+def main(argv=None):
+    """Trains; returns {'outdir'}."""
+    args = parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost is not ported yet (ROADMAP.md, Queue 1, "
+            "multi-device)")
+    if args.debug:
+        logger.warn("Debug mode: on")
+    # The N-row heads and the render stay true f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(args.device)
+
+    parser = load_config(args.config, args.config_override)
+    config = configutil.Config(parser)
+    outdir = join(config.get('outroot'), configutil.get_xname(parser))
+    ioutil.prepare_outdir(outdir, overwrite=config.getboolean('overwrite'))
+    logger.info("For results, see:\n\t%s", outdir)
+    configutil.write_config(parser, outdir.rstrip('/') + '.ini')
+
+    Dataset = datasets.get_dataset_class(config.get('dataset'))
+    dataset_train = Dataset(config, 'train', debug=args.debug, seed=0)
+    datapipe_train = dataset_train.build_pipeline()
+    try:
+        dataset_vali = Dataset(config, 'vali', debug=args.debug)
+        datapipe_vali = dataset_vali.build_pipeline(
+            no_shuffle=True, take=config.getint('vali_batches'))
+    except FileNotFoundError:
+        dataset_vali, datapipe_vali = None, None
+
+    Model = models.get_model_class(config.get('model'))
+    model = Model(config, debug=args.debug, device=device)
+    seed = config.getint('seed', fallback=0) or 0
+    params = model.init_params(torch.Generator().manual_seed(seed))
+    optimizer = build_optimizer(config)
+    # Moments beside the params; the step count on the host, where the
+    # learning rate is computed
+    opt_state = optimizer.init(params)
+
+    ckptdir = join(outdir, 'checkpoints')
+    keep_recent_epochs = config.getint('keep_recent_epochs', fallback=-1)
+    max_to_keep = keep_recent_epochs if keep_recent_epochs > 0 else None
+    ckptmanager = CheckpointManager(ckptdir, max_to_keep=max_to_keep)
+    step_restored = ckptmanager.latest_step()
+    if step_restored > 0:
+        state = ckptmanager.restore({'params': params,
+                                     'opt_state': opt_state})
+        params, opt_state = state['params'], state['opt_state']
+        logger.info("Resumed from epoch %d", step_restored)
+    else:
+        logger.info("Started from scratch")
+
+    trainable_mask = model.trainable_mask(params) \
+        if hasattr(model, 'trainable_mask') else None
+    train_step = make_train_step(model, optimizer,
+                                 trainable_mask=trainable_mask)
+    vali_step = make_eval_step(model, mode='vali')
+    # Smoothness-jitter noise, drawn on the device
+    noise_gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    writer_train = SummaryWriter(join(outdir, 'summary_train',
+                                      'scalars.jsonl'))
+    writer_vali = SummaryWriter(join(outdir, 'summary_vali', 'scalars.jsonl'))
+    vali_vis_epoch_dir = join(outdir, 'vis_vali', 'epoch{e:09d}')
+    vali_epoch_deque = deque([], max_to_keep)
+
+    epochs = config.getint('epochs')
+    ckpt_period = config.getint('ckpt_period')
+    vali_period = config.getint('vali_period')
+    # scan_steps groups host batches; every batch is still one step
+    group = 1 if args.debug else config.getint('scan_steps', fallback=1)
+
+    profiler = None
+    profile_left = args.profile_steps
+    if profile_left > 0:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == 'cuda':
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        logger.info("Profiling %d steps", profile_left)
+
+    def stop_profiler():
+        profiler.stop()
+        os.makedirs(join(outdir, 'profile'), exist_ok=True)
+        profiler.export_chrome_trace(join(outdir, 'profile', 'trace.json'))
+        logger.info("Profiler trace written")
+
+    step = step_restored
+    period_t0, period_batches = time(), 0
+    # One producer across all epochs left (a resumed run numbers its
+    # epochs from the checkpoint's, and its datapipe from 0, as JAX's);
+    # debug mode breaks mid-epoch, so it gets one producer per epoch
+    batches = None
+    if not args.debug and epochs > step_restored:
+        batches = host_batches(dataset_train, datapipe_train,
+                               n_epochs=epochs - step_restored, group=group,
+                               pin=device.type == 'cuda')
+    for _ in range(step_restored, epochs):
+        # Losses stay on the device; one readback per epoch
+        batch_loss, n_batches = [], 0
+        epoch_iter = batches if batches is not None else host_batches(
+            dataset_train, datapipe_train, group=group)
+        for items, epoch_done in epoch_iter:
+            for _, arrays in items:
+                params, opt_state, loss = train_step(
+                    params, opt_state, to_device(arrays, device),
+                    generator=noise_gen)
+                batch_loss.append(loss)
+                n_batches += 1
+                if profiler is not None and profile_left > 0:
+                    profile_left -= 1
+                    if profile_left == 0:
+                        stop_profiler()
+            if args.debug:
+                if not torch.isfinite(loss):
+                    raise FloatingPointError(
+                        "Loss went non-finite: %r" % float(loss))
+                logger.warn("Debug mode: skipping the rest of this epoch")
+                break
+            if epoch_done:
+                break
+        if not n_batches:
+            raise ValueError("Dataset is empty")
+        last_loss = float(batch_loss[-1])
+        if not np.isfinite(last_loss):
+            raise FloatingPointError("Loss went non-finite at epoch %d: %r"
+                                     % (step + 1, last_loss))
+        step += 1
+        period_batches += n_batches
+
+        if step % ckpt_period == 0:
+            losses = torch.stack(batch_loss).cpu().numpy()
+            elapsed = time() - period_t0
+            saved = ckptmanager.save(step, {'params': params,
+                                            'opt_state': opt_state})
+            logger.info("Checkpointed epoch %d:\n\t%s", step, saved)
+            writer_train.scalars(
+                step, loss_train=np.mean(losses),
+                batch_time_train=elapsed / max(period_batches, 1),
+                rays_per_sec=dataset_train.bs * period_batches / elapsed)
+            period_t0, period_batches = time(), 0
+
+        if datapipe_vali is not None and vali_period > 0 \
+                and step % vali_period == 0:
+            vali_loss, vis_dirs = [], []
+            epoch_dir = vali_vis_epoch_dir.format(e=step)
+            for batch_i, batch in enumerate(datapipe_vali):
+                meta, arrays = split_batch(dataset_vali, batch)
+                loss, to_vis = vali_step(params, to_device(arrays, device))
+                vali_loss.append(float(loss))
+                to_vis_np = {k: v.cpu().numpy() for k, v in to_vis.items()}
+                to_vis_np.update(meta)
+                vis_dir = join(epoch_dir, 'batch{b:09d}'.format(b=batch_i))
+                model.vis_batch(to_vis_np, vis_dir, mode='vali')
+                vis_dirs.append(vis_dir)
+            writer_vali.scalars(step, loss_vali=np.mean(vali_loss))
+            view_at = model.compile_batch_vis(vis_dirs, join(epoch_dir, 'all'),
+                                              mode='vali')
+            if view_at is not None:
+                writer_vali.text(step, 'vis_vali', view_at)
+            maintain_epoch_queue(vali_epoch_deque, epoch_dir)
+
+    if profiler is not None and profile_left > 0:
+        stop_profiler()
+    logger.info("Training done (%d epochs)", epochs)
+    return {'outdir': outdir}
+
+
+if __name__ == '__main__':
+    main()

@@ -4,6 +4,7 @@ nerfactor_tpu/utils/config.py, so the port runs without the JAX package).
 Same contracts as nerfactor/util/config.py:
   * configs are .ini files with only a DEFAULT section;
   * ``'k1=v1,k2=v2'`` overrides merge on top;
+  * the experiment name ``xname`` is a template over config values;
   * a checkpoint path implies its config at '<two dirs up>.ini'.
 """
 
@@ -32,6 +33,29 @@ def apply_override(config, override_str):
         k, v = kv.split('=')
         config.set('DEFAULT', k, v)
     return config
+
+
+def config2dict(config):
+    return dict(config.items('DEFAULT'))
+
+
+def get_xname(config):
+    """The experiment name: the config's ``xname`` template filled in
+    with its own values (e.g. 'lr{lr}' -> 'lr5e-3')."""
+    return config.get('DEFAULT', 'xname').format(**config2dict(config))
+
+
+# The shipped configs, which both packages read
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), 'nerfactor_tpu', 'config')
+
+
+def resolve_config_path(name_or_path):
+    """A bare name like 'nerfactor.ini' resolves into the shipped config
+    directory."""
+    if os.path.exists(name_or_path):
+        return name_or_path
+    return os.path.join(CONFIG_DIR, name_or_path)
 
 
 def get_config_ini(ckpt_path):

@@ -1,5 +1,5 @@
-"""Host-side IO: json, npy/npz, globs, PNG images (counterpart of
-nerfactor_tpu/utils/io.py).
+"""Host-side IO: json, npy/npz, globs, output dirs, PNG images
+(counterpart of nerfactor_tpu/utils/io.py).
 
 Images are 8- or 16-bit PNGs, read and written here with ``zlib`` and
 ``struct`` alone, so the port needs no image codec package (the GPU
@@ -10,6 +10,7 @@ writing uses filter 0 ("None") on every row.
 import glob
 import json
 import os
+import shutil
 import struct
 import zlib
 from os.path import dirname, exists
@@ -41,6 +42,14 @@ def save_np(arr, path):
     os.makedirs(dirname(path), exist_ok=True)
     with open(path, 'wb') as h:
         np.save(h, arr)
+
+
+def prepare_outdir(outdir, overwrite=False):
+    """Creates ``outdir``; an existing one is wiped only with
+    ``overwrite`` (else kept as it is, so a run resumes in it)."""
+    if os.path.isdir(outdir) and overwrite:
+        shutil.rmtree(outdir)
+    os.makedirs(outdir, exist_ok=True)
 
 
 def all_exist(path_dict):

@@ -4,11 +4,15 @@ K1 (embed -> skip-MLP -> head) and K2 (dir2rusink -> frozen BRDF chain):
 the port's plain versions (what ``apply_chain`` / ``apply_rusink_chain``
 run on CPU tensors) against the JAX reference programs and against the
 JAX Pallas kernels run through the Pallas interpreter, in true f32 and
-in bf16-operand mode. The CUDA kernels themselves run only on a card:
-those tests carry the ``cuda`` marker and skip here.
+in bf16-operand mode, forward and gradients. The CUDA kernels themselves
+run only on a card: those tests carry the ``cuda`` marker and skip here.
 
 Tolerances: f32 1e-5 (summation order, transcendental kernels); bf16
-1e-2 (bf16 rounds activations at other places in the kernels)."""
+1e-2 (bf16 rounds activations at other places in the kernels). Gradients:
+f32 1e-4 (the TPU kernels' double-angle trig errs ~2^f ulp at octave f,
+as the JAX package's own gradient test allows); bf16 rtol 0.1, atol 0.05
+(the JAX package's own bf16 bound: the plain version rounds every
+cotangent to bf16 at each cast, the kernels round only d_pre)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +26,10 @@ from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.ops import kernel_lib
 
 TOL = {'f32': dict(rtol=1e-5, atol=1e-5), 'bf16': dict(rtol=1e-2, atol=1e-2)}
+GRAD_TOL = {'f32': dict(rtol=1e-4, atol=1e-4),
+            'bf16': dict(rtol=0.1, atol=0.05)}
+# (needs_dx, needs_dw) of every backward that launches a kernel
+FLAGS = [(True, True), (True, False), (False, True)]
 DTYPES = {'f32': (None, None), 'bf16': (jnp.bfloat16, torch.bfloat16)}
 
 # The shapes of the joint model's chains at test width: normal and
@@ -219,6 +227,78 @@ def test_rusink_chain_matches_interpreted_pallas_kernel(mode, interpret):
     assert_rusink_close(got.numpy(), want, mode, f32_tol=1e-4)
 
 
+# ------ gradients ------
+
+def torch_grads(y, inputs, dy):
+    return torch.autograd.grad(y, inputs, torch.from_numpy(dy))
+
+
+@pytest.mark.parametrize('flags', FLAGS)
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_chain_grads_match_interpreted_pallas_kernel(name, mode, flags,
+                                                     interpret):
+    """K1-bwd's contract: the JAX kernel's (dx, dW, db) for each
+    (needs_dx, needs_dw) against autograd of the port's plain version;
+    what a flag turns off comes back from the JAX kernel as zeros."""
+    import jax
+    needs_dx, needs_dw = flags
+    jplan, jp, tplan, tp = both(PLANS[name], seed=12)
+    x = chain_inputs(jplan, seed=13)
+    dy = np.random.RandomState(14).uniform(
+        -1, 1, (x.shape[0], jplan.widths[-1])).astype(np.float32)
+    jd, td = DTYPES[mode]
+
+    def loss(x_, p_):
+        return jnp.sum(pm.apply_chain(jplan, x_, p_, compute_dtype=jd,
+                                      needs_dx=needs_dx, needs_dw=needs_dw)
+                       * dy)
+
+    gx, gp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jp)
+    xt = torch.from_numpy(x).requires_grad_()
+    flat = [t.clone().requires_grad_() for pair in tp for t in pair]
+    y = fm.apply_chain(tplan, xt, list(zip(flat[0::2], flat[1::2])),
+                       compute_dtype=td, needs_dx=needs_dx, needs_dw=needs_dw)
+    got = torch_grads(y, [xt] + flat, dy)
+    want = [gx] + [g for pair in gp for g in pair]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (needs_dx if i == 0 else needs_dw):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg='cotangent %d' % i,
+                                       **GRAD_TOL[mode])
+        else:
+            assert not np.asarray(w).any()
+
+
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+def test_rusink_grads_match_interpreted_pallas_kernel(mode, interpret):
+    """K2-bwd's contract: the JAX kernel's (dz, dldir, dvdir) against
+    autograd of the port's plain version (dir2rusink with safe_acos /
+    safe_atan2, then the chain). f32 at 2e-3, the JAX package's own bound
+    for its kernel (atan polynomial) against its reference; the last 3
+    rows (a == b, where d theta_d / d x ~ 1e3) are held to finiteness."""
+    import jax
+    jplan, jp, tplan, tp = both(RUSINK_PLAN, seed=15)
+    z, a, b = rusink_case(seed=16)
+    dy = np.random.RandomState(17).uniform(-1, 1, (z.shape[0], 1)).astype(
+        np.float32)
+    jd, td = DTYPES[mode]
+
+    def loss(*args):
+        return jnp.sum(pr.apply_rusink_chain(jplan, *args, jp,
+                                             compute_dtype=jd) * dy)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(z), jnp.asarray(a), jnp.asarray(b))
+    ins = [torch.from_numpy(v).requires_grad_() for v in (z, a, b)]
+    got = torch_grads(fr.apply_rusink_chain(tplan, *ins, tp, compute_dtype=td),
+                      ins, dy)
+    tol = GRAD_TOL[mode] if mode == 'bf16' else dict(rtol=2e-3, atol=2e-3)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy()[:-3], np.asarray(w)[:-3], **tol)
+        assert np.isfinite(g.numpy()).all()
+
+
 # ------ kernel plumbing that runs without a card ------
 
 def test_desc_and_packing_follow_jax_layout():
@@ -254,8 +334,11 @@ def test_kernel_refuses_what_it_does_not_take():
         fm.chain_kernel(tplan, x, tp)
     with pytest.raises(ValueError):
         fm.kernel_dtype(torch.float16)
-    with pytest.raises(NotImplementedError):  # forward only
-        fm.chain_kernel(tplan, x.requires_grad_(), tp)
+    with pytest.raises(ValueError, match='nothing to compute'):
+        fm.chain_kernel_bwd(tplan, x, x[:, :3], tp, needs_dx=False,
+                            needs_dw=False)
+    with pytest.raises(ValueError, match='CUDA'):
+        fm.chain_kernel_bwd(tplan, x, x[:, :3], tp)
 
 
 def test_build_key_tracks_the_sources():
@@ -308,3 +391,109 @@ def test_rusink_kernel_matches_plain_on_card(mode, cuda):
     torch.cuda.synchronize()
     assert fr.rusink_kernel.launches == launches + 1
     assert_rusink_close(got.cpu().numpy(), want.cpu().numpy(), mode)
+
+
+def rel_norm(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+# Per-leaf relative norm of dW/db (sums over all rows): f32 differs only
+# in summation order; bf16 rounds at other places in the two versions
+# (see GRAD_TOL). bf16 dx is held to the same norm bound: dx sums
+# 2^j (cos g_sin - sin g_cos) over the octaves, and where that cancels the
+# two roundings part in single elements (4 of 12,297 beyond GRAD_TOL at
+# 4,099 rows). Readings on an H100 over these plans, 1 to 4,099 rows and
+# 6 seeds: bf16 kernel vs plain up to 0.072 (lvis, 50 rows), and the f32
+# kernel vs plain bf16 down to 0.052 there. At these widths and sizes the
+# bound cannot tell the bf16 gradient from the f32 one; the rounding
+# policy is held by test_torch_emu (against the TPU kernel's, at 0.01)
+# and by chip_smoke.py (against the plain version at 1M rows, at 0.025).
+DW_TOL = {'f32': 1e-4, 'bf16': 0.1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('flags', FLAGS + [(False, False)])
+@pytest.mark.parametrize('n', [1, 50, 4099])
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_chain_kernel_bwd_matches_plain_on_card(name, mode, n, flags, cuda):
+    """apply_chain under autograd launches K1-fwd and K1-bwd (none with
+    both flags off, zeros then) and matches autograd of the plain version."""
+    needs_dx, needs_dw = flags
+    _, _, tplan, tp = both(PLANS[name], seed=18)
+    x = torch.from_numpy(chain_inputs(tplan, n=n, seed=19)).to(cuda)
+    dy = np.random.RandomState(20).uniform(
+        -1, 1, (n, tplan.widths[-1])).astype(np.float32)
+    td = DTYPES[mode][1]
+    flat = [t.to(cuda) for pair in tp for t in pair]
+
+    def grads(fn, **kw):
+        ins = [x.clone().requires_grad_()] + [
+            t.clone().requires_grad_() for t in flat]
+        y = fn(tplan, ins[0], list(zip(ins[1::2], ins[2::2])),
+               compute_dtype=td, **kw)
+        return torch.autograd.grad(y, ins, torch.from_numpy(dy).to(cuda))
+
+    launches = fm.chain_kernel_bwd.launches
+    got = grads(fm.apply_chain, needs_dx=needs_dx, needs_dw=needs_dw)
+    want = grads(fm.chain_reference)
+    torch.cuda.synchronize()
+    assert fm.chain_kernel_bwd.launches == launches + int(needs_dx or needs_dw)
+    if needs_dx and mode == 'f32':
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), **GRAD_TOL[mode])
+    elif needs_dx:
+        assert rel_norm(got[0], want[0]) <= DW_TOL[mode]
+    else:
+        assert not got[0].any()
+    for g, w in zip(got[1:], want[1:]):
+        if needs_dw:
+            assert rel_norm(g, w) <= DW_TOL[mode]
+        else:
+            assert not g.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+def test_chain_kernel_bwd_is_deterministic(mode, cuda):
+    _, _, tplan, tp = both(PLANS['lvis'], seed=21)
+    x = torch.from_numpy(chain_inputs(tplan, n=70001, seed=22)).to(cuda)
+    dy = torch.rand(x.shape[0], 1, device=cuda)
+    tp = [(w.to(cuda), b.to(cuda)) for w, b in tp]
+    td = DTYPES[mode][1]
+    runs = [fm.chain_kernel_bwd(tplan, x, dy, tp, td, needs_dx=False)[1]
+            for _ in range(2)]
+    for (w1, b1), (w2, b2) in zip(*runs):
+        assert torch.equal(w1, w2) and torch.equal(b1, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+def test_rusink_kernel_bwd_matches_plain_on_card(mode, cuda):
+    """apply_rusink_chain under autograd launches K2-fwd and K2-bwd: input
+    cotangents as autograd of the plain version (the last 3 rows, a == b,
+    held to finiteness: see test_rusink_grads_match_interpreted_pallas_kernel),
+    zero weight cotangents."""
+    _, _, tplan, tp = both(RUSINK_PLAN, seed=23)
+    ins = [torch.from_numpy(v).to(cuda) for v in rusink_case(seed=24)]
+    dy = torch.from_numpy(np.random.RandomState(25).uniform(
+        -1, 1, (ins[0].shape[0], 1)).astype(np.float32)).to(cuda)
+    flat = [t.to(cuda) for pair in tp for t in pair]
+    td = DTYPES[mode][1]
+
+    def grads(fn):
+        args = [t.clone().requires_grad_() for t in ins + flat]
+        y = fn(tplan, *args[:3], list(zip(args[3::2], args[4::2])),
+               compute_dtype=td)
+        return torch.autograd.grad(y, args, dy)
+
+    launches = fr.rusink_kernel_bwd.launches
+    got = grads(fr.apply_rusink_chain)
+    want = grads(fr.reference)
+    torch.cuda.synchronize()
+    assert fr.rusink_kernel_bwd.launches == launches + 1
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.cpu().numpy()[:-3], w.cpu().numpy()[:-3],
+                                   **GRAD_TOL[mode])
+        assert torch.isfinite(g).all()
+    assert not any(g.any() for g in got[3:])

@@ -1,0 +1,305 @@
+"""The CUDA kernels' sources, run on the CPU through an emulation of the
+CUDA subset they use (``nerfactor_tpu_torch/csrc/emu``), against the
+plain PyTorch versions.
+
+g++ compiles ``csrc/*.cu`` with each ``kernel<<<grid, block, ...>>>(...)``
+rewritten to ``mock_launch(grid, block, ...)``, which runs the blocks one
+after another, each as ``block`` threads with a barrier for
+``__syncthreads()``. The library has the real one's C entry points and
+is bound through the same ctypes argtypes (``kernel_lib.load``), and the
+wrappers take CPU tensors while it is in place. So indexing, shared-memory
+layout, barrier and reduction faults of the kernels show here, without a
+card; what only the card decides (nvcc's code, FMA contraction, timing)
+does not. The card's own tests are the ``cuda``-marked ones.
+
+  JAX_PLATFORMS=cpu python -m tests.test_torch_emu [--csrc DIR]
+
+prints the emulated kernels' readings against the plain versions, and
+against the JAX Pallas kernels in interpret mode; ``--csrc`` runs a copy
+of the sources instead (e.g. one with a planted fault).
+"""
+
+import argparse
+import contextlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+from os.path import join
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfactor_tpu.ops import pallas_mlp as pm
+from nerfactor_tpu_torch.ops import fused_mlp as fm
+from nerfactor_tpu_torch.ops import fused_rusink as fr
+from nerfactor_tpu_torch.ops import kernel_lib
+from tests.test_torch_chain import (
+    DTYPES, DW_TOL, FLAGS, GRAD_TOL, PLANS, RUSINK_PLAN, TOL,
+    assert_rusink_close, both, chain_inputs, rel_norm, rusink_case)
+
+EMU_DIR = join(kernel_lib.CSRC_DIR, 'emu')
+LAUNCH = re.compile(r'(\S+?)<<<(.*?)>>>\((.*?)\);', re.S)
+SHARED = 'extern __shared__ __align__(16) unsigned char smem[];'
+
+
+def _translate(src):
+    """A CUDA source with its launches rewritten for the emulation."""
+    def launch(m):
+        grid, block = m.group(2).split(',')[:2]
+        return 'mock_launch(%s, %s, [=]() { %s(%s); });' % (
+            grid, block, m.group(1), m.group(3))
+    return LAUNCH.sub(launch, src).replace(SHARED, '')
+
+
+def build(csrc_dir, out_dir):
+    """Compiles the emulation of the kernel sources in ``csrc_dir`` into
+    ``out_dir``; returns the library's path."""
+    cpps = []
+    for name in sorted(os.listdir(csrc_dir)):
+        if not name.endswith(('.cu', '.cuh')):
+            continue
+        with open(join(csrc_dir, name)) as f:
+            src = _translate(f.read())
+        out = join(out_dir, name[:-3] + '.cpp' if name.endswith('.cu') else name)
+        with open(out, 'w') as f:
+            f.write(src)
+        if out.endswith('.cpp'):
+            cpps.append(out)
+    lib = join(out_dir, 'libnfk_emu.so')
+    subprocess.run(['g++', '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
+                    '-Wno-unknown-pragmas', '-I', EMU_DIR, '-I', out_dir,
+                    '-o', lib, *cpps], check=True, capture_output=True)
+    return lib
+
+
+def _prepare_on_cpu(plan, inputs, params, compute_dtype):
+    """fused_mlp.prepare without its device check."""
+    for name, t, cols in inputs:
+        if t.dtype != torch.float32 or tuple(t.shape) != (
+                inputs[0][1].shape[0], cols):
+            raise ValueError("%s: %s %s" % (name, t.dtype, tuple(t.shape)))
+    kdt = fm.kernel_dtype(compute_dtype)
+    w_flat, b_flat = fm.pack_params(plan, params, kdt)
+    return ([t.contiguous() for _, t, _ in inputs], fm.make_desc(plan),
+            int(kdt == torch.bfloat16), w_flat, b_flat)
+
+
+def _run_on_cpu(entry, device, *args, stream=True):
+    code = getattr(kernel_lib.load(), entry)(*(args + (None,) if stream
+                                               else args))
+    kernel_lib.check(code, entry)
+
+
+@contextlib.contextmanager
+def emulation(lib_path):
+    """Within: the kernel wrappers launch the emulated library on CPU
+    tensors."""
+    saved = (kernel_lib.build, kernel_lib._lib, fm.prepare, fm.run)
+    kernel_lib.build, kernel_lib._lib = (lambda: lib_path), None
+    fm.prepare, fm.run = _prepare_on_cpu, _run_on_cpu
+    try:
+        yield
+    finally:
+        kernel_lib.build, kernel_lib._lib, fm.prepare, fm.run = saved
+
+
+@pytest.fixture(scope='module')
+def emulated(tmp_path_factory):
+    if shutil.which('g++') is None:
+        pytest.skip("needs g++ to compile the emulation of the CUDA sources")
+    lib = build(kernel_lib.CSRC_DIR, str(tmp_path_factory.mktemp('emu')))
+    with emulation(lib):
+        yield
+
+
+def chain_case(name, n, seed):
+    _, _, plan, p = both(PLANS[name], seed=seed)
+    x = torch.from_numpy(chain_inputs(plan, n=n, seed=seed + 1))
+    dy = torch.from_numpy(np.random.RandomState(seed + 2).uniform(
+        -1, 1, (n, plan.widths[-1])).astype(np.float32))
+    return plan, p, x, dy
+
+
+def plain_grads(plan, x, dy, p, td):
+    ins = [x.clone().requires_grad_()] + [
+        t.clone().requires_grad_() for pair in p for t in pair]
+    y = fm.chain_reference(plan, ins[0], list(zip(ins[1::2], ins[2::2])), td)
+    return y.detach(), torch.autograd.grad(y, ins, dy)
+
+
+@pytest.mark.parametrize('n', [1, 50, 130])
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_emulated_chain_kernels_match_plain(name, mode, n, emulated):
+    """K1-fwd and K1-bwd (every flag combination) from the CUDA source
+    against the plain version, with the card tests' bounds; K1-bwd's dW is
+    bit-identical across two launches."""
+    plan, p, x, dy = chain_case(name, n, seed=30)
+    td = DTYPES[mode][1]
+    y, want = plain_grads(plan, x, dy, p, td)
+    np.testing.assert_allclose(fm.chain_kernel(plan, x, p, td).numpy(),
+                               y.numpy(), **TOL[mode])
+    for needs_dx, needs_dw in FLAGS:
+        dx, dparams = fm.chain_kernel_bwd(plan, x, dy, p, td, needs_dx,
+                                          needs_dw)
+        if needs_dx and mode == 'f32':
+            np.testing.assert_allclose(dx.numpy(), want[0].numpy(),
+                                       **GRAD_TOL[mode])
+        elif needs_dx:
+            assert rel_norm(dx, want[0]) <= DW_TOL[mode]
+        if needs_dw:
+            got = [t for pair in dparams for t in pair]
+            for g, w in zip(got, want[1:]):
+                assert rel_norm(g, w) <= DW_TOL[mode]
+            again = fm.chain_kernel_bwd(plan, x, dy, p, td, needs_dx,
+                                        needs_dw)[1]
+            assert all(torch.equal(a, b) for pa, pb in zip(dparams, again)
+                       for a, b in zip(pa, pb))
+
+
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+def test_emulated_rusink_kernels_match_plain(mode, emulated):
+    """K2-fwd and K2-bwd from the CUDA source against the plain version
+    (the last 3 rows, a == b, held as in test_torch_chain)."""
+    _, _, plan, p = both(RUSINK_PLAN, seed=31)
+    z, a, b = (torch.from_numpy(v) for v in rusink_case(seed=32))
+    dy = torch.from_numpy(np.random.RandomState(33).uniform(
+        -1, 1, (z.shape[0], 1)).astype(np.float32))
+    td = DTYPES[mode][1]
+    ins = [t.clone().requires_grad_() for t in (z, a, b)]
+    y = fr.reference(plan, *ins, p, td)
+    want = torch.autograd.grad(y, ins, dy)
+    assert_rusink_close(fr.rusink_kernel(plan, z, a, b, p, td).numpy(),
+                        y.detach().numpy(), mode)
+    got = fr.rusink_kernel_bwd(plan, z, a, b, dy, p, td)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy()[:-3], w.numpy()[:-3],
+                                   **GRAD_TOL[mode])
+        assert torch.isfinite(g).all()
+
+
+def kernel_grads(plan, x, dy, p, td):
+    """K1-bwd's [dx, dW0, db0, ...]."""
+    dx, dparams = fm.chain_kernel_bwd(plan, x, dy, p, td)
+    return [dx] + [t for pair in dparams for t in pair]
+
+
+def grad_errs(got, want):
+    """(dx, worst dW/db leaf) relative norms of ``got`` against ``want``."""
+    return rel_norm(got[0], want[0]), max(
+        rel_norm(g, w) for g, w in zip(got[1:], want[1:]))
+
+
+def pallas_grads(name, n, seed, mode):
+    """[dx, dW0, db0, ...] of the JAX Pallas kernel in interpret mode, on
+    chain_case's inputs."""
+    jplan, jp, _, _ = both(PLANS[name], seed=seed)
+    x = chain_inputs(jplan, n=n, seed=seed + 1)
+    dy = np.random.RandomState(seed + 2).uniform(
+        -1, 1, (n, jplan.widths[-1])).astype(np.float32)
+    pm.INTERPRET = True
+    try:
+        gx, gp = jax.grad(lambda x_, p_: jnp.sum(pm.apply_chain(
+            jplan, x_, p_, compute_dtype=DTYPES[mode][0]) * dy),
+            argnums=(0, 1))(jnp.asarray(x), jp)
+    finally:
+        pm.INTERPRET = False
+    return [torch.from_numpy(np.array(g)) for g in
+            [gx] + [t for pair in gp for t in pair]]
+
+
+# In bf16 the plain version rounds every cotangent at each cast, so at
+# these sizes it parts from the kernel by about as much as from the f32
+# gradient (test_torch_chain DW_TOL). The TPU kernel rounds where K1-bwd
+# does (d_h in f32, d_pre in bf16), so the two are held close. Readings
+# over the three plans at 50, 130 and 700 rows and 3 seeds (python -m
+# tests.test_torch_emu): K1-bwd <= 0.0070 (dW/db leaves) and 0.0044 (dx);
+# the f32 kernel, i.e. a kernel that computed the f32 gradient, >= 0.040
+# and 0.013.
+PALLAS_TOL_BF16 = 0.01
+
+
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_emulated_bf16_grads_match_interpreted_pallas_kernel(name, emulated):
+    plan, p, x, dy = chain_case(name, 130, seed=30)
+    dx, dw = grad_errs(kernel_grads(plan, x, dy, p, torch.bfloat16),
+                       pallas_grads(name, 130, 30, 'bf16'))
+    assert dx <= PALLAS_TOL_BF16 and dw <= PALLAS_TOL_BF16
+
+
+# ------ readings ------
+
+def readings(seeds=(30, 130, 230), sizes=(50, 130, 700)):
+    """Per chain, mode and size, the worst over ``seeds`` of: K1-fwd's max
+    error; K1-bwd's dx and dW/db relative norms against the plain version
+    and against the Pallas kernel (for bf16 also the least reading of the
+    f32 kernel against the bf16 Pallas kernel); K2-bwd's worst per-row
+    excess over GRAD_TOL's rtol."""
+    out = []
+    for name in sorted(PLANS):
+        for mode in ('f32', 'bf16'):
+            td = DTYPES[mode][1]
+            for n in sizes:
+                r = {'chain': name, 'mode': mode, 'n': n, 'fwd': 0.0,
+                     'dx_vs_plain': 0.0, 'dw_vs_plain': 0.0,
+                     'dx_vs_pallas': 0.0, 'dw_vs_pallas': 0.0}
+                if mode == 'bf16':
+                    r.update(f32_kernel_dx_vs_pallas=np.inf,
+                             f32_kernel_dw_vs_pallas=np.inf)
+                for seed in seeds:
+                    plan, p, x, dy = chain_case(name, n, seed)
+                    y, want = plain_grads(plan, x, dy, p, td)
+                    pallas = pallas_grads(name, n, seed, mode)
+                    r['fwd'] = max(r['fwd'], float(
+                        (fm.chain_kernel(plan, x, p, td) - y).abs().max()))
+                    got = kernel_grads(plan, x, dy, p, td)
+                    for ref, tag in ((want, 'plain'), (pallas, 'pallas')):
+                        dx, dw = grad_errs(got, ref)
+                        r['dx_vs_' + tag] = max(r['dx_vs_' + tag], dx)
+                        r['dw_vs_' + tag] = max(r['dw_vs_' + tag], dw)
+                    if mode == 'bf16':
+                        dx, dw = grad_errs(kernel_grads(plan, x, dy, p, None),
+                                           pallas)
+                        r['f32_kernel_dx_vs_pallas'] = min(
+                            r['f32_kernel_dx_vs_pallas'], dx)
+                        r['f32_kernel_dw_vs_pallas'] = min(
+                            r['f32_kernel_dw_vs_pallas'], dw)
+                out.append(r)
+    for mode in ('f32', 'bf16'):
+        td, rtol = DTYPES[mode][1], GRAD_TOL[mode]['rtol']
+        worst = 0.0
+        for seed in seeds:
+            _, _, plan, p = both(RUSINK_PLAN, seed=seed)
+            z, a, b = (torch.from_numpy(v) for v in rusink_case(seed=seed + 1))
+            dy = torch.from_numpy(np.random.RandomState(seed + 2).uniform(
+                -1, 1, (z.shape[0], 1)).astype(np.float32))
+            ins = [t.clone().requires_grad_() for t in (z, a, b)]
+            want = torch.autograd.grad(fr.reference(plan, *ins, p, td), ins, dy)
+            got = fr.rusink_kernel_bwd(plan, z, a, b, dy, p, td)
+            for g, w in zip(got, want):
+                worst = max(worst, float(((g - w).abs() - rtol * w.abs())[
+                    :-3].max()))
+        out.append({'chain': 'rusink', 'mode': mode, 'rtol': rtol,
+                    'atol_needed': worst})
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--csrc', default=kernel_lib.CSRC_DIR,
+                        help="directory of the kernel sources to emulate")
+    args = parser.parse_args()
+    with tempfile.TemporaryDirectory() as tmp:
+        with emulation(build(args.csrc, tmp)):
+            for r in readings():
+                print(json.dumps(r))
+
+
+if __name__ == '__main__':
+    main()

@@ -47,13 +47,12 @@ def _experiment(outdir, base_ini, overrides):
     return configutil.Config(parser)
 
 
-@pytest.fixture(scope='module')
-def scene(tmp_path_factory):
+def build_scene(tmp_path_factory, n_train=1):
     """Sphere scene, .npy probes, and BRDF + shape experiments written
     by the JAX package."""
     root = str(tmp_path_factory.mktemp('tnf_data'))
     out = str(tmp_path_factory.mktemp('tnf_out'))
-    synth.make_scene(root, n_train=1, n_vali=1, n_test=3, imh=IMH,
+    synth.make_scene(root, n_train=n_train, n_vali=1, n_test=3, imh=IMH,
                      with_buffers=True, light_h=LIGHT_H)
     probe_dir = join(root, 'envmaps')
     os.makedirs(probe_dir)
@@ -85,12 +84,16 @@ def scene(tmp_path_factory):
             'shape_ckpt': join(shape_out, 'checkpoints', 'ckpt-2')}
 
 
-def make_joint(scene, name, extra=''):
-    """A joint experiment on the shipped nerfactor.ini at test width;
-    mlp_chunk is large enough that the JAX side evaluates one chunk.
-    Returns (ckpt path, config, JAX model, JAX params)."""
-    outdir = join(scene['out'], name, 'run')
-    config = _experiment(outdir, 'nerfactor.ini', ','.join([
+@pytest.fixture(scope='module')
+def scene(tmp_path_factory):
+    return build_scene(tmp_path_factory)
+
+
+def joint_override(scene, name, extra=''):
+    """--config_override of a joint experiment on the shipped
+    nerfactor.ini at test width; mlp_chunk is large enough that the JAX
+    side evaluates one chunk."""
+    return ','.join([
         'data_root=%s' % scene['root'],
         'data_nerf_root=%s' % join(scene['root'], 'surf'),
         'outroot=%s' % join(scene['out'], name),
@@ -99,7 +102,15 @@ def make_joint(scene, name, extra=''):
         'test_envmap_dir=%s' % scene['probe_dir'],
         'imh=%d' % IMH, 'light_h=%d' % LIGHT_H, 'mlp_width=16',
         'mlp_depth=2', 'mlp_skip_at=1', 'mlp_chunk=8192'] + (
-            [extra] if extra else [])))
+            [extra] if extra else []))
+
+
+def make_joint(scene, name, extra=''):
+    """A joint experiment (see :func:`joint_override`) with a JAX-written
+    ckpt-4. Returns (ckpt path, config, JAX model, JAX params)."""
+    outdir = join(scene['out'], name, 'run')
+    config = _experiment(outdir, 'nerfactor.ini',
+                         joint_override(scene, name, extra))
     model = JModel(config)
     params = model.init_params(jax.random.PRNGKey(3))
     ckpt = join(outdir, 'checkpoints', 'ckpt-4')

@@ -373,3 +373,20 @@ def test_tree_leaves_follow_jax_flatten_order():
         np.testing.assert_array_equal(g, np.float32(w))
     assert jax.tree_util.tree_structure(back) \
         == jax.tree_util.tree_structure(tree)
+
+
+@pytest.mark.parametrize('ext', ['hdr', 'exr'])
+def test_probe_readers_match_jax(tmp_path, ext):
+    """The port's own .hdr/.exr readers decode what the JAX package's
+    writers write exactly as the JAX package's readers do."""
+    from nerfactor_tpu.utils import exr as jexr, hdr as jhdr
+    from nerfactor_tpu_torch.utils import exr as texr, hdr as thdr
+    rgb = 4 * np.random.RandomState(3).rand(8, 16, 3).astype(np.float32)
+    path = str(tmp_path / ('probe.' + ext))
+    if ext == 'hdr':
+        jhdr.write_hdr(path, rgb)
+        got, want = thdr.read_hdr(path), jhdr.read_hdr(path)
+    else:
+        jexr.write_exr(path, rgb)
+        got, want = texr.read_exr(path), jexr.read_exr(path)
+    np.testing.assert_array_equal(got, want)
