@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch port of NeRFactor, inference and training, on
-one GPU.
+"""Smoke run of the PyTorch port of NeRFactor on one GPU: the joint
+model's inference and training, and the NeRF stage's training and test
+rendering.
 
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
@@ -32,10 +33,25 @@ one GPU.
 8. Times the steady-state train step at 1024 rays x 512 lights and
    profiles a few steps for the device's idle share and the time by
    kernel.
+9. NeRF training path: runs ``trainvali.main`` on nerf.ini at full width
+   (8 x 256 trunk, 64 + 128 samples, 1024 rays, bf16, fused) for 4 epochs
+   on the scene's rgba.png views, with K3's counters zeroed before and
+   read after; checks its losses, that every parameter of ckpt-4 moved
+   from ckpt-2, and its vali images, flipbooks, PSNR and HTML.
+10. NeRF serving path: runs ``nerf_test.main`` on ckpt-4 over the 3 test
+   views (K3-fwd launched, K3-bwd not), checks the images, and holds the
+   model's GPU test render against its CPU render on 256 rays.
+11. Holds K3-fwd and K3-bwd against the plain version (autograd of it for
+   the backward) at one train step's shapes (1024 rays x 64 and x 192
+   samples), bf16 and f32, dW bit-identical across launches, and K1 on
+   NeRF's no-views chain (256 x 8, 4-wide head); times both.
+12. Times the steady-state NeRF train step with a profiler window.
 
-Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. Any failed check raises, so the
-run exits non-zero. The only cut from production is imh 128 (not 512).
+Prints a JSON line of per-kernel results (with each kernel's bound: the
+least time the card could take for the same work), the nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}. Any failed check
+raises, so the run exits non-zero. The only cut from production is imh
+128 (not 512).
 """
 
 import json
@@ -49,14 +65,18 @@ from os.path import abspath, dirname, join
 import numpy as np
 import torch
 
+from nerfactor_tpu_torch import nerf_test
 from nerfactor_tpu_torch import test as test_cli
 from nerfactor_tpu_torch import trainvali
+from nerfactor_tpu_torch.datasets.nerf import Dataset as NerfDataset
 from nerfactor_tpu_torch.datasets.nerf_shape import Dataset
 from nerfactor_tpu_torch.models import networks
+from nerfactor_tpu_torch.models.nerf import Model as NerfModel
 from nerfactor_tpu_torch.models.nerfactor import Model
 from nerfactor_tpu_torch.models.shape import Model as ShapeModel
 from nerfactor_tpu_torch.ops import encoding, geom as geomops
 from nerfactor_tpu_torch.ops import fused_mlp as fm
+from nerfactor_tpu_torch.ops import fused_nerf as fn
 from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.ops import kernel_lib
 from nerfactor_tpu_torch.ops.light import gen_light_xyz
@@ -193,8 +213,9 @@ def write_experiments(data_root, nerf_root, probe_dir):
                                                  std=0.5)}},
         join(brdf_dir, 'ckpt-50'))
     cs, shape_dir = experiment('shape', 'shape.ini', 'imh=%d' % IMH)
-    ckptutil.save_pytree({'params': ShapeModel(cs).init_params(g)},
-                         join(shape_dir, 'ckpt-2'))
+    ckptutil.save_pytree(
+        {'params': ShapeModel(cs, device='cpu').init_params(g)},
+        join(shape_dir, 'ckpt-2'))
     joint_override = ','.join([
         'data_root=' + data_root, 'data_nerf_root=' + nerf_root,
         'brdf_model_ckpt=' + join(brdf_dir, 'ckpt-50'),
@@ -203,7 +224,7 @@ def write_experiments(data_root, nerf_root, probe_dir):
         'light_h=%d' % LIGHT_H])
     cn, joint_dir = experiment('nerfactor', 'nerfactor.ini', joint_override
                                + ',outroot=' + join(WORK, 'out', 'nerfactor'))
-    ckptutil.save_pytree({'params': Model(cn).init_params(g)},
+    ckptutil.save_pytree({'params': Model(cn, device='cpu').init_params(g)},
                          join(joint_dir, 'ckpt-10'))
     return cn, join(joint_dir, 'ckpt-10'), joint_override
 
@@ -553,18 +574,22 @@ def check_backward(model, params):
 
 
 COUNTERS = {'K1-fwd': fm.chain_kernel, 'K1-bwd': fm.chain_kernel_bwd,
-            'K2-fwd': fr.rusink_kernel, 'K2-bwd': fr.rusink_kernel_bwd}
+            'K2-fwd': fr.rusink_kernel, 'K2-bwd': fr.rusink_kernel_bwd,
+            'K3-fwd': fn.nerf_kernel, 'K3-bwd': fn.nerf_kernel_bwd}
+JOINT_KERNELS = ('K1-fwd', 'K1-bwd', 'K2-fwd', 'K2-bwd')
 
 
 def zero_counters():
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    for f in COUNTERS.values():
+        f.launches = 0
 
 
 def read_counters(names, path):
-    launches = {k: COUNTERS[k].launches for k in names}
-    for k, v in launches.items():
-        if v <= 0:
+    """Every kernel's launches since zero_counters; raises if one of
+    ``names``, the kernels of ``path``, never launched."""
+    launches = {k: f.launches for k, f in COUNTERS.items()}
+    for k in names:
+        if launches[k] <= 0:
             raise AssertionError("%s never launched on the %s path"
                                  % (k, path))
     return launches
@@ -581,7 +606,7 @@ def run_training(joint_override):
     run = trainvali.main(['--config', 'nerfactor.ini',
                           '--config_override', override])
     torch.cuda.synchronize()
-    launches = read_counters(COUNTERS, 'training')
+    launches = read_counters(JOINT_KERNELS, 'training')
     outdir = run['outdir']
     recs = [json.loads(line) for line in open(
         join(outdir, 'summary_train', 'scalars.jsonl'))]
@@ -622,17 +647,18 @@ def run_training(joint_override):
                               'vali_psnr': meta['psnr']}
 
 
-def time_train_step(config, warmup=3, iters=20, profiled=5):
-    """Steady-state ms per make_train_step step at N_RAYS rays x 512
-    lights, full width, jitter on, on a batch of the train views; then a
-    torch.profiler window for the device's idle share and time by
+def time_train_step(model, dataset, warmup=3, iters=20, profiled=5):
+    """Steady-state ms per make_train_step step of ``model`` (on the card)
+    on a batch of ``dataset``'s train views (the config's rays per step);
+    then a torch.profiler window for the device's idle share and time by
     kernel."""
-    model = Model(config, device='cuda')
+    config = model.config
     params = model.init_params(torch.Generator().manual_seed(0))
     optimizer = build_optimizer(config)
     opt_state = optimizer.init(params)
-    step = make_train_step(model, optimizer, model.trainable_mask(params))
-    dataset = Dataset(config, 'train')
+    mask = model.trainable_mask(params) \
+        if hasattr(model, 'trainable_mask') else None
+    step = make_train_step(model, optimizer, mask)
     batch = next(iter(dataset.build_pipeline(prefetch=0)))
     arrays = {k: torch.as_tensor(np.asarray(batch[k])).cuda()
               for k in dataset.array_keys}
@@ -662,13 +688,406 @@ def time_train_step(config, warmup=3, iters=20, profiled=5):
                 e, 'self_device_time_total', 0.0)
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    return {'rays': N_RAYS, 'n_lights': model.n_lights, 'ms_per_step': ms,
-            'rays_per_sec': N_RAYS / (ms / 1e3), 'steps_timed': iters,
+    rays = dataset.bs
+    return {'rays': rays, 'ms_per_step': ms,
+            'rays_per_sec': rays / (ms / 1e3), 'steps_timed': iters,
             'profiled_steps': profiled,
             'device_busy_ms_per_step': busy_us / 1e3 / profiled,
             'device_idle_share': 1 - busy_us / wall_us if busy_us else None,
             'device_ms_per_step_by_kernel': {
                 k[:80]: v / 1e3 / profiled for k, v in top}}
+
+
+# ------ the NeRF slice ------
+
+NERF_RAYS, NERF_COARSE, NERF_FINE = 1024, 64, 128  # nerf.ini
+# bf16 K3 against the plain version (the plain version keeps its heads in
+# f32 where the kernel rounds the bottleneck's and rgb layer 0's operands,
+# and its autograd rounds every cotangent at each cast): rgb and sigma, and
+# each dW/db leaf, by relative norm. Readings at this step's shapes over 6
+# seeds of random weights (NVIDIA H100 80GB HBM3, 700.00 W): outputs
+# 0.0025-0.0030; dW/db 0.031-0.038 at 196,608 rows and 0.049-0.074 at
+# 65,536, where the f32 kernel, i.e. a kernel that computed the f32
+# gradient, reads 0.136-0.169. check_nerf_kernels reports the f32
+# kernel's readings in every run.
+NERF_OUT_TOL_BF16 = 0.01
+NERF_DW_TOL_BF16 = 0.1
+# f32 dW/db (K3, and K1 on the no-views chain) against the exact math
+# (nerf_f64, chain_f64): over 10^5 rows ReLU gates near 0 fall apart from
+# the float64 ones, and the plain f32 version parts from it as far.
+# Readings over the same seeds: the kernels 4.7e-4-1.7e-3, the plain
+# version 6.3e-4-2.2e-3 (check_nerf_kernels reports both).
+NERF_DW_TOL_F32 = 5e-3
+# The model's GPU test render (kernels) against its CPU render (plain
+# version), each output by relative norm. The fine level resamples its
+# depths from the coarse weights, and posenc carries a depth's rounding up
+# 2^9-fold into the field, so the two renders part by more than the field.
+# Readings on the trained checkpoint (same card): bf16 <= 0.0094, f32 <=
+# 1.6e-4, both at the fine disparity.
+NERF_FWD_TOL = {'bf16': 0.05, 'f32': 1e-3}
+
+
+def nerf_config(outdir):
+    return configutil.Config(configutil.read_config(outdir + '.ini'))
+
+
+def nerf_override(data_root):
+    """nerf.ini at full width, cut only in image size; 4 epochs of the 3
+    train views, checkpoints every 2, vali at 4."""
+    return ','.join(['data_root=' + data_root, 'imh=%d' % IMH,
+                     'outroot=' + join(WORK, 'out', 'nerf'), 'epochs=4',
+                     'ckpt_period=2', 'vali_period=4', 'vali_batches=1'])
+
+
+def run_nerf_training(data_root):
+    """The NeRF training path through trainvali.main on nerf.ini; checks
+    what it writes. Returns (launches, outdir, losses)."""
+    zero_counters()
+    run = trainvali.main(['--config', 'nerf.ini', '--config_override',
+                          nerf_override(data_root)])
+    torch.cuda.synchronize()
+    launches = read_counters(('K3-fwd', 'K3-bwd'), 'NeRF training')
+    outdir = run['outdir']
+    recs = [json.loads(line) for line in open(
+        join(outdir, 'summary_train', 'scalars.jsonl'))]
+    losses = [r['loss_train'] for r in recs]
+    if [r['step'] for r in recs] != [2, 4] \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError("NeRF train scalars: %s" % recs)
+    n_params = len(ckptutil.tree_leaves(NerfModel(
+        nerf_config(outdir), device='cpu').init_params(torch.Generator())))
+    ckpts = [ckptutil.read_leaves(join(outdir, 'checkpoints', 'ckpt-%d' % n))
+             for n in (2, 4)]
+    same = [i for i, (a, b) in enumerate(zip(ckpts[0][-n_params:],
+                                             ckpts[1][-n_params:]))
+            if np.array_equal(a, b)]
+    if same:
+        raise AssertionError("NeRF ckpt-4: params leaves %s as in ckpt-2"
+                             % same)
+    epoch_dir = join(outdir, 'vis_vali', 'epoch000000004')
+    vali_dir = join(epoch_dir, 'batch000000000')
+    meta = ioutil.read_json(join(vali_dir, 'metadata.json'))
+    img = ioutil.load_img(join(vali_dir, 'fine_rgb.png'))
+    files = [join(vali_dir, 'fine-vs-gt_rgb.apng'),
+             join(vali_dir, 'fine-vs-coarse_depth.apng'),
+             join(epoch_dir, 'all.html')]
+    if img.shape[:2] != (IMH, IMH) or not np.isfinite(meta['psnr']) \
+            or not all(os.path.exists(f) for f in files):
+        raise AssertionError("NeRF vali outputs: %s %s" % (img.shape, meta))
+    loss_vali = json.loads(open(join(outdir, 'summary_vali',
+                                     'scalars.jsonl')).readline())['loss_vali']
+    if not np.isfinite(loss_vali):
+        raise AssertionError("NeRF vali loss %r" % loss_vali)
+    return launches, outdir, {'loss_train': losses, 'loss_vali': loss_vali,
+                              'vali_psnr': meta['psnr']}
+
+
+def run_nerf_serving(ckpt):
+    """The NeRF inference path through nerf_test.main over the test views;
+    checks its images. Returns (launches, view seconds)."""
+    zero_counters()
+    run = nerf_test.main(['--ckpt', ckpt])
+    torch.cuda.synchronize()
+    launches = read_counters(('K3-fwd',), 'NeRF inference')
+    if launches['K3-bwd']:
+        raise AssertionError("K3-bwd launched %d times on the NeRF "
+                             "inference path" % launches['K3-bwd'])
+    batch_dirs = ioutil.sortglob(run['outroot'], 'batch?????????')
+    if len(batch_dirs) != N_VIEWS:
+        raise AssertionError("NeRF views: %d dirs" % len(batch_dirs))
+    for d in batch_dirs:
+        for f in ('fine_rgb', 'coarse_rgb', 'fine_depth', 'fine_occu'):
+            img = ioutil.load_img(join(d, f + '.png'))
+            if img.shape[:2] != (IMH, IMH):
+                raise AssertionError("%s/%s.png: %s" % (d, f, img.shape))
+    return launches, run['view_seconds']
+
+
+def check_nerf_forward(outdir, ckpt):
+    """The NeRF model's GPU test render (kernels) against its CPU render
+    (plain version) on 256 rays of the first test view that cross the
+    sphere, as trained (bf16) and with bf16_big_chains off (f32)."""
+    dataset = NerfDataset(nerf_config(outdir), 'test')
+    batch = next(iter(dataset.build_pipeline(no_shuffle=True, prefetch=0)))
+    rows = slice(IMH * IMH // 2, IMH * IMH // 2 + 256)
+    arrays = {k: torch.as_tensor(np.asarray(batch[k][rows], np.float32))
+              for k in dataset.array_keys}
+    errs = {}
+    for mode in ('bf16', 'f32'):
+        parser = configutil.read_config(outdir + '.ini')
+        if mode == 'f32':
+            configutil.apply_override(parser, 'bf16_big_chains=False')
+        outs = []
+        for dev in ('cuda', 'cpu'):
+            model = NerfModel(configutil.Config(parser), device=dev)
+            params = ckptutil.restore_trained_params(
+                ckpt, model.init_params(torch.Generator()), device=dev)
+            with torch.no_grad():
+                to_vis = model.apply(params, {k: v.to(dev) for k, v in
+                                              arrays.items()}, mode='test')[3]
+            outs.append({k: v.cpu() for k, v in to_vis.items()})
+        errs[mode] = {k: rel_norm(outs[0][k], v) for k, v in outs[1].items()}
+        check_norm('NeRF forward %s' % mode, list(errs[mode].values()),
+                   NERF_FWD_TOL[mode])
+    return errs
+
+
+def nerf_field_inputs(g, n_rays, n_samples):
+    """Points and view directions (n_rays x n_samples, 3) on rays from the
+    camera distance towards the sphere, at sorted depths in [2, 6]."""
+    cam = torch.randn(n_rays, 3, generator=g)
+    cam = CAM_DIST * cam / cam.norm(dim=1, keepdim=True)
+    aim = 0.5 * SPHERE_R * torch.randn(n_rays, 3, generator=g)
+    d = aim - cam
+    d = d / d.norm(dim=1, keepdim=True)
+    z = torch.sort(2 + 4 * torch.rand(n_rays, n_samples, generator=g)).values
+    pts = cam[:, None] + d[:, None] * z[:, :, None]
+    views = d[:, None].expand(pts.shape)
+    return pts.reshape(-1, 3).cuda(), views.reshape(-1, 3).contiguous().cuda()
+
+
+def nerf_f64(nplan, pts, views, params):
+    """The field's exact math: nerf_reference's program in float64 (the
+    f32 versions are held to it; two f32 sums over 10^5 rows of random-sign
+    cotangents cancel to ~1e-3 of each other)."""
+    trunk, sigma_p, bott_p, rgb_p = params
+    e = fm._embed(nplan.trunk_plan, pts)
+    h = e
+    for i, ((w, b), act) in enumerate(zip(trunk, nplan.trunk_plan.acts)):
+        if i > 0 and (i - 1) in nplan.trunk_plan.skip_at:
+            h = torch.cat((h, e), dim=1)
+        h = fm._act(act, h @ w + b)
+    (ws, bs), = sigma_p
+    (wb, bb), = bott_p
+    x = torch.cat([h @ wb + bb, encoding.posenc(views, nplan.n_freqs_view)],
+                  dim=1)
+    for (w, b), act in zip(rgb_p, nplan.rgb_acts):
+        x = fm._act(act, x @ w + b)
+    return x, h @ ws + bs
+
+
+def nerf_params(model, params, level):
+    pref = level + '_'
+    return tuple(model._pairs(params[pref + k]) for k in (
+        'enc', 'sigma_out', 'bottleneck', 'rgb_out'))
+
+
+def check_nerf_kernels(model, params):
+    """K3-fwd and K3-bwd against nerf_reference and autograd of it on the
+    same tensors, at one train step's shapes (1024 rays x 64 coarse and x
+    192 fine samples), bf16 and f32, with the trained fine level's
+    weights; dW bit-identical across two launches; kernel and plain times,
+    forward and backward alone, at the fine shape."""
+    g = torch.Generator().manual_seed(3)
+    nplan = model.nerf_plan
+    p = nerf_params(model, params, 'fine')
+    flat = fn.flatten(p)
+    rows = []
+    for n_s in (NERF_COARSE, NERF_COARSE + NERF_FINE):
+        pts, views = nerf_field_inputs(g, NERF_RAYS, n_s)
+        n = pts.shape[0]
+        drgb = (2 * torch.rand(n, 3, generator=g) - 1).cuda()
+        dsig = (2 * torch.rand(n, 1, generator=g) - 1).cuda()
+        for mode, cd in (('bf16', torch.bfloat16), ('f32', None)):
+            row = {'rows': n, 'dtype': mode}
+            with torch.no_grad():
+                got = fn.nerf_kernel(nplan, pts, views, p, cd)
+                want = fn.nerf_reference(nplan, pts, views, p, cd)
+            if mode == 'f32':
+                row['max_abs_err'] = max(
+                    compare('K3-fwd %s' % k, a, b, TOL_F32)
+                    for k, a, b in zip(('rgb', 'sigma'), got, want))
+            else:
+                row['max_abs_err'] = max((a - b).abs().max().item()
+                                         for a, b in zip(got, want))
+                row['out_rel_err'] = check_norm('K3-fwd bf16', [
+                    rel_norm(a, b) for a, b in zip(got, want)],
+                    NERF_OUT_TOL_BF16)
+                with torch.no_grad():
+                    row['f32_kernel_out_rel_err'] = max(
+                        rel_norm(a, b) for a, b in zip(fn.nerf_kernel(
+                            nplan, pts, views, p, None), want))
+            leaves = [t.clone().requires_grad_() for t in flat]
+            out = fn.nerf_reference(nplan, pts, views,
+                                    fn.unflatten(nplan, leaves), cd)
+            want = torch.autograd.grad(out, leaves, (drgb, dsig),
+                                       retain_graph=True)
+            got = fn.flatten(fn.nerf_kernel_bwd(nplan, pts, views, drgb,
+                                                dsig, p, cd))
+            if cd is None:
+                # f32 against the exact math, and the plain f32 beside it
+                l64 = [t.double().requires_grad_() for t in flat]
+                exact = [g.float() for g in torch.autograd.grad(
+                    nerf_f64(nplan, pts.double(), views.double(),
+                             fn.unflatten(nplan, l64)), l64,
+                    (drgb.double(), dsig.double()))]
+                row['plain_dw_rel_err'] = max(
+                    rel_norm(a, b) for a, b in zip(want, exact))
+                want = exact
+                del l64
+            tol = NERF_DW_TOL_BF16 if cd is not None else NERF_DW_TOL_F32
+            row['dw_rel_err'] = check_norm('K3-bwd dW/db %s' % mode, [
+                rel_norm(a, b) for a, b in zip(got, want)], tol)
+            row['dw_tol'] = tol
+            if cd is not None:
+                # What a kernel that computed the f32 gradient would read
+                row['f32_kernel_dw_rel_err'] = max(
+                    rel_norm(a, b) for a, b in zip(fn.flatten(
+                        fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig, p,
+                                           None)), want))
+            again = fn.flatten(fn.nerf_kernel_bwd(nplan, pts, views, drgb,
+                                                  dsig, p, cd))
+            row['dw_bit_identical'] = all(torch.equal(a, b)
+                                          for a, b in zip(got, again))
+            if not row['dw_bit_identical']:
+                raise AssertionError("K3-bwd: dW differs between two "
+                                     "launches on the same inputs")
+            if n_s > NERF_COARSE:
+                with torch.no_grad():
+                    row['ms'], row['plain_ms'] = time_pair(
+                        lambda: fn.nerf_kernel(nplan, pts, views, p, cd),
+                        lambda: fn.nerf_reference(nplan, pts, views, p, cd),
+                        iters=10)
+                row['bwd_ms'], row['bwd_plain_ms'] = time_pair(
+                    lambda: fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig,
+                                               p, cd),
+                    lambda: torch.autograd.grad(out, leaves, (drgb, dsig),
+                                                retain_graph=True),
+                    iters=5)
+            del out, want
+            rows.append(row)
+    return rows
+
+
+def check_no_views_chain(g):
+    """K1-fwd and K1-bwd on NeRF's no-views chain (nerf.ini widths with
+    use_views off: 256 x 8, skip after layer 4, a 4-wide head) at the
+    coarse level's 65,536 rows, bf16 and f32, against the plain version."""
+    parser = configutil.read_config(configutil.resolve_config_path(
+        'nerf.ini'))
+    configutil.apply_override(parser, 'use_views=False')
+    model = NerfModel(configutil.Config(parser), device='cuda')
+    params = model.init_params(torch.Generator().manual_seed(4))
+    plan = model.rgbs_plan
+    p = fm.params_from_tree(params['coarse_enc'], params['coarse_rgbs_out'])
+    x, _ = nerf_field_inputs(g, NERF_RAYS, NERF_COARSE)
+    dy = (2 * torch.rand(x.shape[0], 4, generator=g) - 1).cuda()
+    rows = []
+    for mode, cd in (('bf16', torch.bfloat16), ('f32', None)):
+        with torch.no_grad():
+            err = compare('K1-fwd no-views %s' % mode,
+                          fm.chain_kernel(plan, x, p, cd),
+                          fm.chain_reference(plan, x, p, cd),
+                          TOL_BF16 if cd is not None else TOL_F32)
+        leaves = [t.clone().requires_grad_() for t in flatten(p)]
+        y = fm.chain_reference(plan, x, list(zip(leaves[0::2], leaves[1::2])),
+                               cd)
+        want = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        _, got = fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False)
+        row = {'chain': 'nerf_rgbs', 'rows': x.shape[0], 'dtype': mode,
+               'fwd_max_abs_err': err}
+        if cd is None:
+            # f32 against the exact math, as K3's (see nerf_f64)
+            l64 = [t.double().requires_grad_() for t in flatten(p)]
+            exact = [g.float() for g in torch.autograd.grad(
+                chain_f64(plan, x.double(),
+                          list(zip(l64[0::2], l64[1::2])))[0],
+                l64, dy.double())]
+            row['plain_dw_rel_err'] = max(
+                rel_norm(a, b) for a, b in zip(want, exact))
+            want = exact
+            del l64
+        row['dw_tol'] = tol = NORM_TOL_BF16 if cd is not None \
+            else NERF_DW_TOL_F32
+        row['dw_rel_err'] = check_norm('K1-bwd no-views %s' % mode, [
+            rel_norm(a, b) for a, b in zip(flatten(got), want)], tol)
+        with torch.no_grad():
+            row['ms'], row['plain_ms'] = time_pair(
+                lambda: fm.chain_kernel(plan, x, p, cd),
+                lambda: fm.chain_reference(plan, x, p, cd), iters=10)
+        row['bwd_ms'], row['bwd_plain_ms'] = time_pair(
+            lambda: fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False),
+            lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+            iters=5)
+        del y, want
+        rows.append(row)
+    return rows
+
+
+# ------ the least time the card could take ------
+
+# Published H100 SXM peaks at 700 W (dense): bf16 operands on the tensor
+# cores; f32 off them (TF32 is off); HBM3 bytes per second.
+PEAK_FLOPS = {'bf16': 989e12, 'f32': 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flop, n_bytes, dtype):
+    """The larger of the operations over the peak for their operand type
+    and the bytes (each input read once, each output written once) over
+    the memory rate."""
+    t_ops, t_bytes = flop / PEAK_FLOPS[dtype], n_bytes / HBM_BYTES_PER_S
+    return {'bound_ms': 1e3 * max(t_ops, t_bytes),
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+            'flop': flop, 'bytes': n_bytes}
+
+
+def chain_macs(plan):
+    return sum(d * w for d, w in zip(fm.layer_in_dims(plan), plan.widths))
+
+
+def chain_bwd_macs(plan, needs_dx, needs_dw):
+    """Multiply-adds of K1-bwd: the recompute, dW (with needs_dw), and
+    d_pre @ W^T of every layer but the first (and, with needs_dx, of the
+    embedding's rows of the first layer and of a skip consumer)."""
+    dims = fm.layer_in_dims(plan)
+    dgrad = 0
+    for i, w in enumerate(plan.widths):
+        skip_in = i > 0 and (i - 1) in plan.skip_at
+        k = dims[i] if needs_dx and (i == 0 or skip_in) else \
+            (plan.widths[i - 1] if i else 0)
+        dgrad += k * w
+    return chain_macs(plan) * (2 if needs_dw else 1) + dgrad
+
+
+def weight_bytes(n_weights, n_biases, dtype):
+    return n_weights * (2 if dtype == 'bf16' else 4) + 4 * n_biases
+
+
+def chain_bound(plan, rows, dtype, in_cols, out_cols, bwd=None):
+    """bound() of K1/K2 over ``rows``: forward, or with ``bwd`` =
+    (needs_dx, needs_dw) the backward (inputs and output cotangent in,
+    input cotangents and/or f32 dW/db out)."""
+    n_w, n_b = chain_macs(plan), sum(plan.widths)
+    w_bytes = weight_bytes(n_w, n_b, dtype)
+    if bwd is None:
+        return bound(2 * rows * chain_macs(plan),
+                     4 * rows * (in_cols + out_cols) + w_bytes, dtype)
+    needs_dx, needs_dw = bwd
+    return bound(2 * rows * chain_bwd_macs(plan, needs_dx, needs_dw),
+                 4 * rows * (in_cols * (2 if needs_dx else 1) + out_cols)
+                 + w_bytes + (4 * (n_w + n_b) if needs_dw else 0), dtype)
+
+
+def nerf_bound(nplan, rows, dtype, bwd=False):
+    """bound() of K3-fwd (points and views in, rgb and sigma out) or K3-bwd
+    (also d_rgb and d_sigma in; f32 dW/db out; the recompute, dW, and
+    d_pre @ W^T of every layer but the first, only the bottleneck's rows
+    of rgb layer 0)."""
+    tp = nplan.trunk_plan
+    width, (hr, n_out) = tp.widths[-1], nplan.rgb_widths
+    dense = chain_macs(tp) + width * width \
+        + (width + fn.view_dim(nplan)) * hr
+    heads = width + hr * n_out
+    n_b = sum(tp.widths) + 1 + width + hr + n_out
+    w_bytes = weight_bytes(dense, 0, dtype) + 4 * (heads + n_b)
+    if not bwd:
+        return bound(2 * rows * (dense + heads), 4 * rows * 10 + w_bytes,
+                     dtype)
+    dgrad = sum(a * b for a, b in zip(tp.widths, tp.widths[1:])) \
+        + width + width * width + width * hr + hr * n_out
+    return bound(2 * rows * (2 * (dense + heads) + dgrad),
+                 4 * rows * 10 + w_bytes + 4 * (dense + heads + n_b), dtype)
 
 
 def main():
@@ -725,58 +1144,110 @@ def main():
     fwd_err = check_forward(model, model_cpu, params, Dataset(config, 'test'))
 
     k1b, k2b = check_backward(model, params)
+    plans, z_dim = model.plans, model.z_dim
     del model, model_cpu, params
     torch.cuda.empty_cache()
 
     # The training path, through the user's entry point
     t0 = time.perf_counter()
-    launches, outdir, train_out = run_training(joint_override)
+    launches_train, outdir, train_out = run_training(joint_override)
     train_s = time.perf_counter() - t0
     train_config = configutil.Config(configutil.read_config(outdir + '.ini'))
-    step = time_train_step(train_config)
+    step = dict(time_train_step(Model(train_config, device='cuda'),
+                                Dataset(train_config, 'train')),
+                n_lights=N_LIGHTS)
+    torch.cuda.empty_cache()
 
+    # The NeRF slice: training and serving through the user's entry points
+    t0 = time.perf_counter()
+    launches_nerf_train, nerf_dir, nerf_train = run_nerf_training(data_root)
+    nerf_train_s = time.perf_counter() - t0
+    nerf_ckpt = join(nerf_dir, 'checkpoints', 'ckpt-4')
+    launches_nerf_test, nerf_view_s = run_nerf_serving(nerf_ckpt)
+    nerf_fwd_err = check_nerf_forward(nerf_dir, nerf_ckpt)
+    nerf_model = NerfModel(nerf_config(nerf_dir), device='cuda')
+    k3 = check_nerf_kernels(nerf_model, ckptutil.restore_trained_params(
+        nerf_ckpt, nerf_model.init_params(torch.Generator()), device='cuda'))
+    torch.cuda.empty_cache()
+    k1_no_views = check_no_views_chain(torch.Generator().manual_seed(5))
+    torch.cuda.empty_cache()
+    nerf_step = time_train_step(nerf_model, NerfDataset(nerf_model.config,
+                                                        'train'))
+
+    paths = {'joint_inference': launches_infer,
+             'joint_training': launches_train,
+             'nerf_training': launches_nerf_train,
+             'nerf_inference': launches_nerf_test}
     src = 'nerfactor_tpu_torch/csrc/'
+
+    def entry(name, source, replaces, row, bound_, **extra):
+        by_path = {p: c[name.split()[0]] for p, c in paths.items()}
+        return dict({'name': name, 'route': 'cuda', 'source': src + source,
+                     'replaces': replaces,
+                     'launches': sum(by_path.values()),
+                     'launches_by_path': by_path, 'ms': row['ms'],
+                     'plain_ms': row['plain_ms'],
+                     'bound_ms': bound_['bound_ms'],
+                     'bound_by': bound_['bound_by'], 'library_ms': None,
+                     'bound_at': dict(bound_, rows=row['rows'],
+                                      dtype=row['dtype'])}, **extra)
+
     lvis = [r for r in k1 if r['chain'] == 'lvis'][0]
     lvis_b = [r for r in k1b if r['chain'] == 'lvis'][0]
-    by_path = {k: {'inference': launches_infer.get(k, 0),
-                   'training': launches[k]} for k in COUNTERS}
+    k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
+    k3_bf16 = [r for r in k3_fine if r['dtype'] == 'bf16'][0]
+    nplan = nerf_model.nerf_plan
     print(json.dumps({'kernels': [
-        {'name': 'K1-fwd chain_fwd_kernel', 'route': 'cuda',
-         'source': src + 'fused_mlp.cu',
-         'replaces': 'nerfactor_tpu/ops/pallas_mlp.py:1424',
-         'launches': launches['K1-fwd'],
-         'launches_by_path': by_path['K1-fwd'],
-         'max_abs_err': max([r['max_abs_err'] for r in k1]
-                            + [r['fwd_max_abs_err'] for r in k1b]),
-         'ms': lvis['ms'], 'plain_ms': lvis['plain_ms'], 'shapes': k1},
-        {'name': 'K1-bwd chain_bwd_kernel', 'route': 'cuda',
-         'source': src + 'fused_mlp.cu',
-         'replaces': 'nerfactor_tpu/ops/pallas_mlp.py:1497',
-         'launches': launches['K1-bwd'],
-         'launches_by_path': by_path['K1-bwd'],
-         'max_abs_err': max(r['dx_max_abs_err'] for r in k1b
-                            if 'dx_max_abs_err' in r),
-         'max_rel_err': {'dW_db': max(r['dw_rel_err'] for r in k1b),
-                         'dx_bf16': lvis_b['dx_rel_err']},
-         'ms': lvis_b['ms'], 'plain_ms': lvis_b['plain_ms'], 'shapes': k1b},
-        {'name': 'K2-fwd rusink_chain_fwd_kernel', 'route': 'cuda',
-         'source': src + 'fused_rusink.cu',
-         'replaces': 'nerfactor_tpu/ops/pallas_rusink.py:187',
-         'launches': launches['K2-fwd'],
-         'launches_by_path': by_path['K2-fwd'],
-         'max_abs_err': max(k2['max_abs_err'], k2b['fwd_max_abs_err']),
-         'ms': k2['ms'], 'plain_ms': k2['plain_ms'], 'shapes': [k2]},
-        {'name': 'K2-bwd rusink_chain_bwd_kernel', 'route': 'cuda',
-         'source': src + 'fused_rusink.cu',
-         'replaces': 'nerfactor_tpu/ops/pallas_rusink.py:200',
-         'launches': launches['K2-bwd'],
-         'launches_by_path': by_path['K2-bwd'],
-         'max_abs_err': k2b['max_abs_err'],
-         'max_rel_err': {'bf16': k2b['bf16_rel_err']},
-         'ms': k2b['ms'], 'plain_ms': k2b['plain_ms'], 'shapes': [k2b]}],
+        entry('K1-fwd chain_fwd_kernel', 'fused_mlp.cu',
+              'nerfactor_tpu/ops/pallas_mlp.py:1424', lvis,
+              chain_bound(plans['lvis'], lvis['rows'], lvis['dtype'], 6, 1),
+              max_abs_err=max([r['max_abs_err'] for r in k1]
+                              + [r['fwd_max_abs_err'] for r in k1b]
+                              + [r['fwd_max_abs_err'] for r in k1_no_views]),
+              shapes=k1, nerf_no_views=k1_no_views),
+        entry('K1-bwd chain_bwd_kernel', 'fused_mlp.cu',
+              'nerfactor_tpu/ops/pallas_mlp.py:1497', lvis_b,
+              chain_bound(plans['lvis'], lvis_b['rows'], lvis_b['dtype'], 6,
+                          1, bwd=(False, True)),
+              max_abs_err=max(r['dx_max_abs_err'] for r in k1b
+                              if 'dx_max_abs_err' in r),
+              max_rel_err={'dW_db': max(r['dw_rel_err']
+                                        for r in k1b + k1_no_views),
+                           'dx_bf16': lvis_b['dx_rel_err']},
+              shapes=k1b),
+        entry('K2-fwd rusink_chain_fwd_kernel', 'fused_rusink.cu',
+              'nerfactor_tpu/ops/pallas_rusink.py:187', k2,
+              chain_bound(plans['brdf'], k2['rows'], k2['dtype'], z_dim + 6,
+                          1),
+              max_abs_err=max(k2['max_abs_err'], k2b['fwd_max_abs_err']),
+              shapes=[k2]),
+        entry('K2-bwd rusink_chain_bwd_kernel', 'fused_rusink.cu',
+              'nerfactor_tpu/ops/pallas_rusink.py:200', k2b,
+              chain_bound(plans['brdf'], k2b['rows'], k2b['dtype'],
+                          z_dim + 6, 1, bwd=(True, False)),
+              max_abs_err=k2b['max_abs_err'],
+              max_rel_err={'bf16': k2b['bf16_rel_err']}, shapes=[k2b]),
+        entry('K3-fwd nerf_fwd_kernel', 'fused_nerf.cu',
+              'nerfactor_tpu/ops/pallas_nerf.py:153', k3_bf16,
+              nerf_bound(nplan, k3_bf16['rows'], 'bf16'),
+              max_abs_err=max(r['max_abs_err'] for r in k3
+                              if r['dtype'] == 'f32'),
+              max_rel_err={'bf16': max(r['out_rel_err'] for r in k3
+                                       if 'out_rel_err' in r)},
+              shapes=k3),
+        entry('K3-bwd nerf_bwd_kernel', 'fused_nerf.cu',
+              'nerfactor_tpu/ops/pallas_nerf.py:203',
+              dict(k3_bf16, ms=k3_bf16['bwd_ms'],
+                   plain_ms=k3_bf16['bwd_plain_ms']),
+              nerf_bound(nplan, k3_bf16['rows'], 'bf16', bwd=True),
+              max_rel_err={'dW_db': max(r['dw_rel_err'] for r in k3)},
+              shapes=k3)],
         'build_s': build_s, 'view_seconds': run['view_seconds'],
         'forward_max_abs_err': fwd_err, 'imh': IMH, 'n_lights': N_LIGHTS,
         'training': dict(train_out, seconds=train_s), 'train_step': step,
+        'nerf': {'training': dict(nerf_train, seconds=nerf_train_s),
+                 'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
+                 'train_step': nerf_step},
         'smoke_s': time.perf_counter() - t_start}))
     print(gpu)
     print(json.dumps({'ok': True, 'device': {

@@ -309,12 +309,14 @@ __host__ __device__ inline BwdLayout bwd_layout(const ChainDesc& d, bool needs_d
   return s;
 }
 
-// The backward's row tile: 64 rows where that tile's shared memory fits
-// the block's opt-in maximum, else 32; 0 if neither fits.
+// The backward's row tile: the largest of 64, 32 and 16 rows whose shared
+// memory fits the block's opt-in maximum; 0 if none fits (a 256-wide f32
+// chain of 8 hidden layers keeps its posts only at 16 rows).
 template <typename T>
 inline int bwd_rows(const ChainDesc& d, bool needs_dx, int max_smem) {
   if (bwd_layout<T, 64>(d, needs_dx).total <= static_cast<size_t>(max_smem)) return 64;
   if (bwd_layout<T, 32>(d, needs_dx).total <= static_cast<size_t>(max_smem)) return 32;
+  if (bwd_layout<T, 16>(d, needs_dx).total <= static_cast<size_t>(max_smem)) return 16;
   return 0;
 }
 
@@ -469,12 +471,43 @@ __device__ void embed_bwd(const ChainDesc& d, const float* xs, const float* de, 
   }
 }
 
+// One dense layer's backward once its pre-activation cotangent d_pre is in
+// `dcur` (ROWS x n, leading dimension ldd): db += column sums of d_pre
+// (unrounded); in bf16 mode d_pre is then rounded to bf16 before its
+// products, as the TPU kernel's _dpre_mat; dW += [p1 | p2]^T d_pre; and,
+// for k_hi > 0, d_pre @ W^T for input columns [0, k_hi) into `dnext`
+// (columns < hw, ld ldd) and `out_e` (the rest, added). db and dw may be
+// null (frozen weights). Ends at a barrier.
+template <typename T, int ROWS>
+__device__ void dense_bwd(float* dcur, int ldd, int n, const T* p1, int ld1, int k1,
+                          const T* p2, int ld2, int k2, const T* __restrict__ w, float* dw,
+                          float* db, int k_hi, int hw, T* ws, float* dnext, float* out_e,
+                          int lde) {
+  if (db != nullptr) {
+    for (int c = threadIdx.x; c < n; c += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < ROWS; ++r) s += dcur[r * ldd + c];
+      db[c] += s;
+    }
+  }
+  if (sizeof(T) < sizeof(float)) {
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < ROWS * n; idx += kThreads) {
+      float* g = dcur + (idx / n) * ldd + idx % n;
+      *g = to_f<T>(from_f<T>(*g));
+    }
+    __syncthreads();
+  }
+  if (dw != nullptr) wgrad_pass<T, ROWS>(p1, ld1, k1, p2, ld2, k2, dcur, ldd, n, dw);
+  if (k_hi > 0) dgrad_pass<T, ROWS>(dcur, ldd, n, w, k_hi, hw, ws, dnext, ldd, out_e, lde);
+  __syncthreads();
+}
+
 // The backward of the chain for one tile: the raw rows are in `xs`, the
 // output cotangent rows in the `da` buffer (ld L.ldd) and, with needs_dx,
 // `de` is zeroed. Leaves the embedding cotangent in `de` and adds the
 // tile's dW and db into `dw_slice` / `db_slice` (packed layout) when
-// needs_dw. In bf16 mode each d_pre is rounded to bf16 before its products
-// (db sums it unrounded), as the TPU kernel's _dpre_mat.
+// needs_dw.
 template <typename T, int ROWS>
 __device__ void chain_tile_bwd(const ChainDesc& d, bool needs_dx, bool needs_dw,
                                const T* __restrict__ w, const float* __restrict__ bias,
@@ -518,34 +551,15 @@ __device__ void chain_tile_bwd(const ChainDesc& d, bool needs_dx, bool needs_dw,
       dcur[r * L.ldd + c] = activate_bwd(d.acts[i], p, dcur[r * L.ldd + c]);
     }
     __syncthreads();
-    if (needs_dw) {
-      for (int c = threadIdx.x; c < n; c += kThreads) {
-        float s = 0.f;
-        for (int r = 0; r < ROWS; ++r) s += dcur[r * L.ldd + c];
-        db_slice[d.b_off[i] + c] += s;
-      }
-    }
-    if (sizeof(T) < sizeof(float)) {
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < ROWS * n; idx += kThreads) {
-        float* g = dcur + (idx / n) * L.ldd + idx % n;
-        *g = to_f<T>(from_f<T>(*g));
-      }
-      __syncthreads();
-    }
     const bool skip_in = i > 0 && d.skip_after[i - 1];
     const int hw = i > 0 ? d.widths[i - 1] : 0;
-    if (needs_dw) {
-      const T* p1 = i > 0 ? posts + (i - 1) * L.post_stride : es;
-      wgrad_pass<T, ROWS>(p1, i > 0 ? L.ldh : L.lde, i > 0 ? hw : d.embed_dim,
-                          skip_in ? es : nullptr, L.lde, skip_in ? d.embed_dim : 0, dcur,
-                          L.ldd, n, dw_slice + d.w_off[i]);
-    }
     const int k_hi = needs_dx && (i == 0 || skip_in) ? layer_in_dim(d, i) : hw;
-    if (k_hi > 0)
-      dgrad_pass<T, ROWS>(dcur, L.ldd, n, w + d.w_off[i], k_hi, hw, ws, dnext, L.ldd, de,
-                          L.lde);
-    __syncthreads();
+    dense_bwd<T, ROWS>(dcur, L.ldd, n, i > 0 ? posts + (i - 1) * L.post_stride : es,
+                       i > 0 ? L.ldh : L.lde, i > 0 ? hw : d.embed_dim,
+                       skip_in ? es : nullptr, L.lde, skip_in ? d.embed_dim : 0,
+                       w + d.w_off[i], needs_dw ? dw_slice + d.w_off[i] : nullptr,
+                       needs_dw ? db_slice + d.b_off[i] : nullptr, k_hi, hw, ws, dnext, de,
+                       L.lde);
     float* t = dcur;
     dcur = dnext;
     dnext = t;
@@ -570,5 +584,29 @@ inline int max_smem_optin() {
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return max_smem;
 }
+
+// The number of dW scratch slices of a deterministic backward: the blocks
+// of `kernel` (with `smem` bytes of shared memory) that the card holds at
+// once, at most one per row tile.
+template <typename Kernel>
+int dw_slices(Kernel kernel, size_t smem, long long tiles, int* slices) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *slices = static_cast<int>(tiles < cap ? tiles : cap);
+  return 0;
+}
+
+// Sums the per-block dW slices in slice order, out[j] = sum_b part[b *
+// stride + j], so the result does not depend on the order the blocks ran
+// in (defined in fused_mlp.cu). Returns 0 or an error code.
+int sum_slices(const float* part, int slices, long long stride, float* out,
+               cudaStream_t stream);
 
 }  // namespace nfk

@@ -51,15 +51,26 @@ chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, const T* __restrict__
   chain_tile<T>(d, w, bias, smem, y, row0, n);
 }
 
-// Sums the per-block slices of the weight cotangents in a fixed order:
-// out[j] = sum_b part[b * stride + j].
 __global__ void sum_slices_kernel(const float* __restrict__ part, int slices,
                                   long long stride, float* __restrict__ out) {
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= stride) return;
-  float s = 0.f;
-  for (int b = 0; b < slices; ++b) s += part[b * stride + j];
-  out[j] = s;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < stride; j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < slices; ++b) s += part[b * stride + j];
+    out[j] = s;
+  }
+}
+
+int sum_slices(const float* part, int slices, long long stride, float* out,
+               cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks = (stride + kThreads - 1) / kThreads;
+  const long long cap = 8LL * sms;  // a grid-stride loop over at most 8 blocks an SM
+  sum_slices_kernel<<<static_cast<unsigned>(blocks < cap ? blocks : cap), kThreads, 0,
+                      stream>>>(part, slices, stride, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int ROWS>
@@ -105,21 +116,8 @@ chain_bwd_kernel(ChainDesc d, int needs_dx, int needs_dw, const float* __restric
 // one per row tile.
 template <typename T, int ROWS>
 int chain_bwd_slices(const ChainDesc& d, int needs_dx, long long n, int* slices) {
-  const size_t smem = bwd_layout<T, ROWS>(d, needs_dx != 0).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_bwd_kernel<T, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_bwd_kernel<T, ROWS>,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (n + ROWS - 1) / ROWS;
-  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  *slices = static_cast<int>(tiles < cap ? tiles : cap);
-  return 0;
+  return dw_slices(chain_bwd_kernel<T, ROWS>, bwd_layout<T, ROWS>(d, needs_dx != 0).total,
+                   (n + ROWS - 1) / ROWS, slices);
 }
 
 template <typename T, int ROWS>
@@ -133,10 +131,7 @@ int chain_bwd(const ChainDesc& d, int needs_dx, int needs_dw, const float* x,
   int err = launch_with_smem(chain_bwd_kernel<T, ROWS>, smem, blocks, stream, d, needs_dx,
                              needs_dw, x, dy, w, bias, dx, dwb_part, n);
   if (err || !needs_dw) return err;
-  const long long stride = total_weights(d) + total_biases(d);
-  sum_slices_kernel<<<static_cast<unsigned>((stride + kThreads - 1) / kThreads), kThreads, 0,
-                      stream>>>(dwb_part, slices, stride, dwb);
-  return static_cast<int>(cudaGetLastError());
+  return sum_slices(dwb_part, slices, total_weights(d) + total_biases(d), dwb, stream);
 }
 
 template <typename T>
@@ -152,6 +147,9 @@ int chain_bwd_dispatch(const ChainDesc& d, int needs_dx, int needs_dw, const flo
     case 32:
       return chain_bwd<T, 32>(d, needs_dx, needs_dw, x, dy, wt, bias, dx, dwb_part, dwb,
                               slices, n, stream);
+    case 16:
+      return chain_bwd<T, 16>(d, needs_dx, needs_dw, x, dy, wt, bias, dx, dwb_part, dwb,
+                              slices, n, stream);
     default:
       return kErrSmem;
   }
@@ -162,6 +160,7 @@ int chain_bwd_slices_dispatch(const ChainDesc& d, int needs_dx, long long n, int
   switch (bwd_rows<T>(d, needs_dx != 0, max_smem_optin())) {
     case 64: return chain_bwd_slices<T, 64>(d, needs_dx, n, slices);
     case 32: return chain_bwd_slices<T, 32>(d, needs_dx, n, slices);
+    case 16: return chain_bwd_slices<T, 16>(d, needs_dx, n, slices);
     default: return kErrSmem;
   }
 }

@@ -215,6 +215,10 @@ int rusink_chain_bwd(const ChainDesc& d, const float* z, const float* ldir, cons
       return launch_with_smem(rusink_chain_bwd_kernel<T, 32>, bwd_layout<T, 32>(d, true).total,
                               (n + 31) / 32, stream, d, z, ldir, vdir, dy, wt, bias, dz, dl,
                               dv, n);
+    case 16:
+      return launch_with_smem(rusink_chain_bwd_kernel<T, 16>, bwd_layout<T, 16>(d, true).total,
+                              (n + 15) / 16, stream, d, z, ldir, vdir, dy, wt, bias, dz, dl,
+                              dv, n);
     default:
       return kErrSmem;
   }

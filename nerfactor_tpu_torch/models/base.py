@@ -20,7 +20,7 @@ logger = Logger(loggee="models/base")
 
 
 class BaseModel:
-    def __init__(self, config, debug=False, device='cpu'):
+    def __init__(self, config, debug=False, device='cuda'):
         self.config = config
         self.debug = debug
         self.device = device

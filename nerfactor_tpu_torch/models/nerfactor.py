@@ -50,7 +50,7 @@ BRDF_PARAM_KEYS = ('brdf_mlp', 'brdf_out', 'latent_code')
 class Model(ShapeModel):
     uses_learned_brdf = True
 
-    def __init__(self, config, debug=False, device='cpu'):
+    def __init__(self, config, debug=False, device='cuda'):
         self._init_brdf_config(config)
         self.shape_mode = config.get('shape_mode')
         if self.shape_mode not in ('scratch', 'frozen', 'finetune', 'nerf'):
@@ -234,7 +234,7 @@ class Model(ShapeModel):
 
     def _restore_shape(self):
         """The pre-trained shape MLPs (shape_mode frozen/finetune)."""
-        template = ShapeModel(self.config_shape).init_params(
+        template = ShapeModel(self.config_shape, device='cpu').init_params(
             torch.Generator())
         return ckptutil.restore_trained_params(self.shape_model_ckpt,
                                                template)

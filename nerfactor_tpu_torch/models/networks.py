@@ -44,18 +44,28 @@ def init_mlp(generator, in_dim, widths, skip_at=None):
     return params
 
 
-def apply_mlp(params, x, acts=None, skip_at=None):
-    """Applies a skip-MLP in f32; ``acts`` is one activation name per
-    layer, or one name for all."""
+def apply_mlp(params, x, acts=None, skip_at=None, compute_dtype=None):
+    """Applies a skip-MLP; ``acts`` is one activation name per layer, or
+    one name for all. ``compute_dtype`` (e.g. bf16) casts the input, the
+    weights and each layer's pre-activation, the products accumulating in
+    f32, and the output comes back as f32 (the JAX package's semantics)."""
     if acts is None or isinstance(acts, str):
         acts = [acts] * len(params)
     skip_at = set(skip_at or ())
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     y = x
     for i, (layer, act) in enumerate(zip(params, acts)):
-        y = ACTS[act](y @ layer['w'] + layer['b'])
+        w, b = layer['w'], layer['b']
+        if compute_dtype is None:
+            y = y @ w + b
+        else:
+            y = (torch.matmul(y.float(), w.to(compute_dtype).float())
+                 + b.to(compute_dtype)).to(compute_dtype)
+        y = ACTS[act](y)
         if i in skip_at:
             y = torch.cat((y, x), dim=-1)
-    return y
+    return y.float() if compute_dtype is not None else y
 
 
 class MLPSpec:
@@ -70,8 +80,9 @@ class MLPSpec:
     def init(self, generator):
         return init_mlp(generator, self.in_dim, self.widths, self.skip_at)
 
-    def apply(self, params, x):
-        return apply_mlp(params, x, self.acts, self.skip_at)
+    def apply(self, params, x, compute_dtype=None):
+        return apply_mlp(params, x, self.acts, self.skip_at,
+                         compute_dtype=compute_dtype)
 
     @property
     def out_dim(self):

@@ -20,7 +20,7 @@ from nerfactor_tpu_torch.ops.math import safe_l2_normalize
 
 
 class Model(BaseModel):
-    def __init__(self, config, debug=False, device='cpu'):
+    def __init__(self, config, debug=False, device='cuda'):
         super().__init__(config, debug=debug, device=device)
         self.white_bg = config.getboolean('white_bg')
         self.normal_smooth_weight = config.getfloat(

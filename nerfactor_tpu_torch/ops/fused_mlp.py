@@ -225,10 +225,9 @@ def run(entry, device, *args, stream=True):
     kernel_lib.check(code, entry)
 
 
-def prepare(plan, inputs, params, compute_dtype):
+def check_inputs(inputs):
     """Checks ``inputs``, a list of (name, tensor, n_cols) that must be
-    CUDA f32 (N, n_cols) with one N, and packs ``params`` for ``plan``.
-    Returns (contiguous tensors, desc, bf16 flag, packed w, packed b)."""
+    CUDA f32 (N, n_cols) with one N; returns the tensors, contiguous."""
     tensors = []
     for name, t, cols in inputs:
         if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 2 \
@@ -237,6 +236,14 @@ def prepare(plan, inputs, params, compute_dtype):
                              "%s %s %s" % (name, cols, t.device, t.dtype,
                                            tuple(t.shape)))
         tensors.append(t.contiguous())
+    return tensors
+
+
+def prepare(plan, inputs, params, compute_dtype):
+    """Checks ``inputs`` (see :func:`check_inputs`) and packs ``params``
+    for ``plan``. Returns (contiguous tensors, desc, bf16 flag, packed w,
+    packed b)."""
+    tensors = check_inputs(inputs)
     desc = make_desc(plan)
     kdt = kernel_dtype(compute_dtype)
     w_flat, b_flat = pack_params(plan, params, kdt)

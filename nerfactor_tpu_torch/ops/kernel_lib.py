@@ -22,7 +22,8 @@ CSRC_DIR = join(PKG_DIR, 'csrc')
 BUILD_ROOT = join(dirname(PKG_DIR), 'build')
 # No --use_fast_math: posenc reaches sin(2^9 x), where __sinf is too coarse
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+LINK_FLAGS = ('-shared',)
 LIB_NAME = 'libnfk.so'
 
 _lib = None
@@ -36,7 +37,7 @@ def _sources():
 
 def build_key():
     """Hash of the kernel sources and the compiler flags."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, 'rb') as f:
@@ -62,23 +63,42 @@ def find_nvcc():
 
 def build():
     """Compiles the kernels if this source hash has no library yet;
-    returns the library path. The compiler's register/shared-memory
-    report is kept beside it as ``build.log``."""
+    returns the library path. Each ``.cu`` compiles in its own ``nvcc``,
+    all at once, and one more links them. The compiler's
+    register/shared-memory report is kept beside the library as
+    ``build.log``."""
     out_dir = join(BUILD_ROOT, 'kernels-' + build_key())
     lib_path = join(out_dir, LIB_NAME)
     if exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = '%s.tmp%d' % (lib_path, os.getpid())
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *[p for p in _sources() if p.endswith('.cu')]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    nvcc, tag = find_nvcc(), '.tmp%d' % os.getpid()
+    objs, cmds = [], []
+    for src in (p for p in _sources() if p.endswith('.cu')):
+        obj = join(out_dir, '%s%s.o' % (os.path.basename(src)[:-3], tag))
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, '-c', '-o', obj, src])
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = [' '.join(cmd) + '\n' + out for cmd, out in zip(cmds, outs)]
+    failed = [out for p, out in zip(procs, outs) if p.returncode != 0]
+    if not failed:
+        link = [nvcc, *LINK_FLAGS, '-o', lib_path + tag, *objs]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, check=False)
+        log.append(' '.join(link) + '\n' + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
     with open(join(out_dir, 'build.log'), 'w') as f:
-        f.write(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (
-            proc.returncode, proc.stderr[-8000:]))
-    os.replace(tmp, lib_path)
+        f.write('\n'.join(log))
+    for obj in objs:
+        if exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n%s" % '\n'.join(failed)[-8000:])
+    os.replace(lib_path + tag, lib_path)
     return lib_path
 
 
@@ -105,6 +125,14 @@ def load():
     lib.nfk_rusink_chain_bwd.argtypes = [
         ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
     lib.nfk_rusink_chain_bwd.restype = i32
+    lib.nfk_nerf_fwd.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.nfk_nerf_fwd.restype = i32
+    lib.nfk_nerf_bwd_slices.argtypes = [ptr, i32, i64, ptr]
+    lib.nfk_nerf_bwd_slices.restype = i32
+    lib.nfk_nerf_bwd.argtypes = [
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
+    lib.nfk_nerf_bwd.restype = i32
     _lib = lib
     return lib
 

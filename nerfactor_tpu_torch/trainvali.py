@@ -1,7 +1,8 @@
-"""Training and validation of the joint NeRFactor model on PyTorch
-(counterpart of nerfactor_tpu/trainvali.py, same CLI):
+"""Training and validation on PyTorch (counterpart of
+nerfactor_tpu/trainvali.py, same CLI and configs); the ported models are
+NeRF (nerf.ini) and the joint NeRFactor model (nerfactor.ini):
 
-  python -m nerfactor_tpu_torch.trainvali --config=nerfactor.ini \
+  python -m nerfactor_tpu_torch.trainvali --config=nerf.ini \
       --config_override='data_root=...,outroot=...' [--debug] \
       [--device=cuda] [--profile_steps=N]
 

@@ -345,7 +345,8 @@ def test_build_key_tracks_the_sources():
     key = kernel_lib.build_key()
     assert len(key) == 16 and key == kernel_lib.build_key()
     names = [p.rsplit('/', 1)[-1] for p in kernel_lib._sources()]
-    assert names == ['chain_mlp.cuh', 'fused_mlp.cu', 'fused_rusink.cu']
+    assert names == ['chain_mlp.cuh', 'fused_mlp.cu', 'fused_nerf.cu',
+                     'fused_rusink.cu']
 
 
 # ------ on the card ------

@@ -36,12 +36,18 @@ import pytest
 import torch
 
 from nerfactor_tpu.ops import pallas_mlp as pm
+from nerfactor_tpu.ops import pallas_nerf as pn
 from nerfactor_tpu_torch.ops import fused_mlp as fm
+from nerfactor_tpu_torch.ops import fused_nerf as fn
 from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.ops import kernel_lib
 from tests.test_torch_chain import (
     DTYPES, DW_TOL, FLAGS, GRAD_TOL, PLANS, RUSINK_PLAN, TOL,
-    assert_rusink_close, both, chain_inputs, rel_norm, rusink_case)
+    assert_rusink_close, both, chain_inputs, make_params, rel_norm,
+    rusink_case)
+from tests.test_torch_nerf import (
+    field_inputs, field_params, jax_field, plain_field, small_plan,
+    torch_params)
 
 EMU_DIR = join(kernel_lib.CSRC_DIR, 'emu')
 LAUNCH = re.compile(r'(\S+?)<<<(.*?)>>>\((.*?)\);', re.S)
@@ -78,16 +84,13 @@ def build(csrc_dir, out_dir):
     return lib
 
 
-def _prepare_on_cpu(plan, inputs, params, compute_dtype):
-    """fused_mlp.prepare without its device check."""
+def _check_on_cpu(inputs):
+    """fused_mlp.check_inputs without its device check."""
     for name, t, cols in inputs:
         if t.dtype != torch.float32 or tuple(t.shape) != (
                 inputs[0][1].shape[0], cols):
             raise ValueError("%s: %s %s" % (name, t.dtype, tuple(t.shape)))
-    kdt = fm.kernel_dtype(compute_dtype)
-    w_flat, b_flat = fm.pack_params(plan, params, kdt)
-    return ([t.contiguous() for _, t, _ in inputs], fm.make_desc(plan),
-            int(kdt == torch.bfloat16), w_flat, b_flat)
+    return [t.contiguous() for _, t, _ in inputs]
 
 
 def _run_on_cpu(entry, device, *args, stream=True):
@@ -100,13 +103,13 @@ def _run_on_cpu(entry, device, *args, stream=True):
 def emulation(lib_path):
     """Within: the kernel wrappers launch the emulated library on CPU
     tensors."""
-    saved = (kernel_lib.build, kernel_lib._lib, fm.prepare, fm.run)
+    saved = (kernel_lib.build, kernel_lib._lib, fm.check_inputs, fm.run)
     kernel_lib.build, kernel_lib._lib = (lambda: lib_path), None
-    fm.prepare, fm.run = _prepare_on_cpu, _run_on_cpu
+    fm.check_inputs, fm.run = _check_on_cpu, _run_on_cpu
     try:
         yield
     finally:
-        kernel_lib.build, kernel_lib._lib, fm.prepare, fm.run = saved
+        kernel_lib.build, kernel_lib._lib, fm.check_inputs, fm.run = saved
 
 
 @pytest.fixture(scope='module')
@@ -233,6 +236,87 @@ def test_emulated_bf16_grads_match_interpreted_pallas_kernel(name, emulated):
     assert dx <= PALLAS_TOL_BF16 and dw <= PALLAS_TOL_BF16
 
 
+# ------ K3 ------
+
+# Width 32 (depth 4), and nerf.ini's width 256 (depth 8, skip after layer
+# 4, rgb 128): two column passes per layer, a 319-wide skip consumer, and
+# the backward's row tile chosen from its layout (32 rows in bf16, 16 in
+# f32), so that 70 rows span several tiles of a block and several slices.
+NERF_PLANS = {'w32': small_plan(),
+              'w256': dict(small_plan(), width=256, depth=8, skip_at=4,
+                           rgb_widths=(128, 3))}
+
+
+def nerf_case(name, n, seed):
+    nplan = fn.make_nerf_plan(**NERF_PLANS[name])
+    p = field_params(nplan, seed)
+    return nplan, p, [torch.from_numpy(a) for a in field_inputs(n, seed + 1)]
+
+
+def nerf_kernel_grads(nplan, ins, p, td):
+    return fn.flatten(fn.nerf_kernel_bwd(nplan, *ins, torch_params(p), td))
+
+
+@pytest.mark.parametrize('name,n', [('w32', 1), ('w32', 50), ('w32', 130),
+                                    ('w256', 1), ('w256', 70)])
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+def test_emulated_nerf_kernels_match_plain(name, n, mode, emulated):
+    """K3-fwd and K3-bwd from the CUDA source against the plain version:
+    f32 outputs within 1e-5 and each dW/db leaf within 1e-5 of its norm;
+    bf16 outputs within TOL (the kernel also rounds the bottleneck and rgb
+    layer 0's operands). K3-bwd's dW is bit-identical across launches."""
+    nplan, p, ins = nerf_case(name, n, seed=40)
+    td = DTYPES[mode][1]
+    rgb, sigma, want = plain_field(nplan, *ins, torch_params(p), td)
+    got_rgb, got_sigma = fn.nerf_kernel(nplan, ins[0], ins[1],
+                                        torch_params(p), td)
+    np.testing.assert_allclose(got_rgb.numpy(), rgb.numpy(), **TOL[mode])
+    np.testing.assert_allclose(got_sigma.numpy(), sigma.numpy(), **TOL[mode])
+    got = nerf_kernel_grads(nplan, ins, p, td)
+    if mode == 'f32':
+        for g, w in zip(got, want):
+            assert rel_norm(g, w) <= 1e-5
+    again = nerf_kernel_grads(nplan, ins, p, td)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# As K1's PALLAS_TOL_BF16: the plain version's autograd rounds every
+# cotangent at each cast, the TPU kernel where K3-bwd does (d_h f32, d_pre
+# bf16). K3 also stores the trunk's output and the rgb hidden layer at bf16
+# where the TPU kernel keeps them f32, so the two sit further apart than
+# K1's pair. Readings over 2 seeds (python -m tests.test_torch_emu): w32 at
+# 130 rows <= 0.028, w256 at 70 rows <= 0.048; the f32 kernel, i.e. a kernel
+# that computed the f32 gradient, >= 0.092.
+NERF_PALLAS_TOL_BF16 = 0.07
+
+
+def test_emulated_nerf_bf16_grads_match_interpreted_pallas_kernel(emulated):
+    nplan, p, ins = nerf_case('w32', 130, seed=20)
+    want = jax_field(pn.make_nerf_plan(**NERF_PLANS['w32']), p,
+                     *[a.numpy() for a in ins], jnp.bfloat16, True)[2]
+    got = nerf_kernel_grads(nplan, ins, p, torch.bfloat16)
+    assert max(rel_norm(g, torch.tensor(w))
+               for g, w in zip(got, want)) <= NERF_PALLAS_TOL_BF16
+
+
+def test_emulated_chain_kernels_at_nerf_width(emulated):
+    """K1 on NeRF's no-views chain (256 x 8, skip after layer 4, a 4-wide
+    head) in f32, whose backward keeps its posts only at 16 rows."""
+    plan = fm.make_plan([(3, 10)], (256,) * 8 + (4,),
+                        ('relu',) * 8 + (None,), (4,))
+    p = [(torch.from_numpy(w), torch.from_numpy(b))
+         for w, b in make_params(plan, seed=41)]
+    x = torch.from_numpy(chain_inputs(plan, n=40, seed=42))
+    dy = torch.from_numpy(np.random.RandomState(43).uniform(
+        -1, 1, (40, 4)).astype(np.float32))
+    y, want = plain_grads(plan, x, dy, p, None)
+    np.testing.assert_allclose(fm.chain_kernel(plan, x, p).numpy(),
+                               y.numpy(), **TOL['f32'])
+    _, dparams = fm.chain_kernel_bwd(plan, x, dy, p, needs_dx=False)
+    for g, w in zip([t for pair in dparams for t in pair], want[1:]):
+        assert rel_norm(g, w) <= 1e-5
+
+
 # ------ readings ------
 
 def readings(seeds=(30, 130, 230), sizes=(50, 130, 700)):
@@ -290,6 +374,28 @@ def readings(seeds=(30, 130, 230), sizes=(50, 130, 700)):
     return out
 
 
+def nerf_readings(seeds=(20, 21), cases=(('w32', 130), ('w256', 70))):
+    """Per K3 case, over ``seeds``: the worst dW/db relative norm of the
+    bf16 kernel against the Pallas kernel in interpret mode, and of the
+    f32 kernel against it (the least over seeds of its worst leaf)."""
+    out = []
+    for name, n in cases:
+        r = {'nerf': name, 'n': n, 'bf16_vs_pallas': 0.0,
+             'f32_kernel_vs_pallas': np.inf}
+        for seed in seeds:
+            nplan, p, ins = nerf_case(name, n, seed)
+            want = [torch.tensor(w) for w in jax_field(
+                pn.make_nerf_plan(**NERF_PLANS[name]), p,
+                *[a.numpy() for a in ins], jnp.bfloat16, True)[2]]
+            for td, key, agg in ((torch.bfloat16, 'bf16_vs_pallas', max),
+                                 (None, 'f32_kernel_vs_pallas', min)):
+                worst = max(rel_norm(g, w) for g, w in zip(
+                    nerf_kernel_grads(nplan, ins, p, td), want))
+                r[key] = agg(r[key], worst)
+        out.append(r)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--csrc', default=kernel_lib.CSRC_DIR,
@@ -297,7 +403,7 @@ def main():
     args = parser.parse_args()
     with tempfile.TemporaryDirectory() as tmp:
         with emulation(build(args.csrc, tmp)):
-            for r in readings():
+            for r in readings() + nerf_readings():
                 print(json.dumps(r))
 
 

@@ -120,7 +120,7 @@ def make_joint(scene, name, extra=''):
 
 def test_weight_bridge_round_trips(scene):
     ckpt, config, _, jparams = make_joint(scene, 'bridge')
-    model = TModel(config)
+    model = TModel(config, device='cpu')
     got = tckpt.restore_trained_params(
         ckpt, model.init_params(torch.Generator().manual_seed(0)))
     want = tckpt.params_from_jax(jparams)
@@ -164,7 +164,7 @@ def test_forward_matches_jax(scene, case):
     _, _, _, want = jmodel.apply(
         jparams, {k: jnp.asarray(v) for k, v in arrays.items()},
         mode='test', relight_olat=True, relight_probes=True, **kwargs)
-    tmodel = TModel(config)
+    tmodel = TModel(config, device='cpu')
     tparams = tckpt.params_from_jax(jparams)
     with torch.no_grad():
         _, _, _, got = tmodel.apply(
@@ -189,7 +189,7 @@ def test_forward_is_chunk_invariant(scene):
     batch = _last_view(config)
     arrays = {k: torch.as_tensor(np.asarray(batch[k], np.float32))
               for k in JDataset.array_keys}
-    model = TModel(config)
+    model = TModel(config, device='cpu')
     params = tckpt.params_from_jax(jparams)
     outs = []
     for chunk in (model.eval_ray_chunk, 7):
@@ -212,7 +212,7 @@ def test_per_ray_albedo_edit_spans_chunks(scene):
     batch = _last_view(config)
     arrays = {k: torch.as_tensor(np.asarray(batch[k], np.float32))
               for k in JDataset.array_keys}
-    model = TModel(config)
+    model = TModel(config, device='cpu')
     model.eval_ray_chunk = 16
     edit = np.random.RandomState(6).rand(IMH * IMH, 3).astype(np.float32)
     with torch.no_grad():

@@ -132,7 +132,7 @@ def test_joint_loss_and_grads_match_jax(scene, mode):
         np.float32)
     want_loss, want = jax.value_and_grad(
         _jax_loss_fn(jmodel, arrays, noise))(jparams)
-    model = TModel(config)
+    model = TModel(config, device='cpu')
     params = tckpt.tree_map(lambda t: t.requires_grad_(),
                             tckpt.params_from_jax(jparams))
     pred, gt, kwargs, _ = model.apply(
@@ -160,7 +160,7 @@ def test_trainable_mask_freezes_leaves(scene, shape_mode):
     _, config, _, jparams = make_joint(
         scene, 'mask_' + shape_mode, 'n_rays_per_step=%d,shape_mode=%s'
         % (N_RAYS, shape_mode))
-    model = TModel(config)
+    model = TModel(config, device='cpu')
     params = tckpt.params_from_jax(jparams)
     before = tckpt.tree_map(torch.clone, params)
     optimizer = ttrain.build_optimizer(config)
@@ -275,8 +275,8 @@ def test_cli_resumes_jax_checkpoint_like_jax(scene):
     assert [a.shape for a in jleaves] == [a.shape for a in tleaves]
     assert int(tleaves[0]) == int(jleaves[0]) == 9  # optimizer steps
     config = configutil.Config(configutil.read_config(tdir + '.ini'))
-    n_params = len(tckpt.tree_leaves(TModel(config).init_params(
-        torch.Generator())))
+    n_params = len(tckpt.tree_leaves(
+        TModel(config, device='cpu').init_params(torch.Generator())))
     for g, w in zip(tleaves[-n_params:], jleaves[-n_params:]):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
     # The port's checkpoint in the JAX package's manager
