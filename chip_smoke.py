@@ -46,12 +46,38 @@ rendering.
    samples), bf16 and f32, dW bit-identical across launches, and K1 on
    NeRF's no-views chain (256 x 8, 4-wide head); times both.
 12. Times the steady-state NeRF train step with a profiler window.
+13. The stash route (K1r): holds K1r-fwd (with and without the stash, and
+   the stash itself) and K1r-bwd against the stash route's plain version on
+   every chain of the joint step at its shapes (the normal, albedo and
+   brdf_z heads at 2,048 rows in f32, lvis at 1,048,576 rows in bf16, dW
+   only) and on 65,536 lvis rows in f32 with dx, dW bit-identical across
+   launches.
+14. The last-skip chain (K1w): the lvis chain and its weights with the
+   skip moved after the head, driven through apply_chain under autograd
+   (bf16 at 1,048,576 rows, f32 at 65,536 with dx) with the counters
+   zeroed before and read after; K1w-fwd and K1w-bwd against the plain
+   version at the same shapes, dW bit-identical across launches and to
+   K1's on the same layers without the last skip.
+15. The joint train step on the stash route (fused_mlp.TRANSPOSED_BOUNDARY
+   = False): its loss and gradients against the default route's on one
+   batch, then its steady-state step time, counters zeroed before and read
+   after (step 8 times the default route in the same run).
+16. tools.chain_probe with --impl fused, fused_rowmajor and ref (both
+   directions, bf16) through its entry point, each with the counters
+   zeroed before and read after.
+17. Kernel P against its plain version (width 128, every mode): at 4,096
+   rows, depths 4 and 8, and at the probe's shapes (1,048,576 rows, block
+   4,096, depths 12 and 32; the grid sweep's serial depth-8 chain at each
+   of its blocks); then tools.dot_probe's slope run and grid sweep at
+   their defaults through its entry point, counters zeroed before and read
+   after, and beside it the plain version's and one torch.matmul per
+   pass's slope (P's library yardstick, which the port never calls).
 
 Prints a JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the run exits non-zero. The only cut from production is imh
-128 (not 512).
+128 (not 512); the probes run at their own defaults, uncut.
 """
 
 import json
@@ -74,6 +100,7 @@ from nerfactor_tpu_torch.models import networks
 from nerfactor_tpu_torch.models.nerf import Model as NerfModel
 from nerfactor_tpu_torch.models.nerfactor import Model
 from nerfactor_tpu_torch.models.shape import Model as ShapeModel
+from nerfactor_tpu_torch.ops import dot_probe as dp
 from nerfactor_tpu_torch.ops import encoding, geom as geomops
 from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import fused_nerf as fn
@@ -81,7 +108,8 @@ from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.ops import kernel_lib
 from nerfactor_tpu_torch.ops.light import gen_light_xyz
 from nerfactor_tpu_torch.parallel.train import (
-    build_optimizer, make_train_step)
+    build_optimizer, make_train_step, upcast_batch)
+from nerfactor_tpu_torch.tools import chain_probe, dot_probe
 from nerfactor_tpu_torch.utils import (
     ckpt as ckptutil, config as configutil, io as ioutil)
 
@@ -575,7 +603,12 @@ def check_backward(model, params):
 
 COUNTERS = {'K1-fwd': fm.chain_kernel, 'K1-bwd': fm.chain_kernel_bwd,
             'K2-fwd': fr.rusink_kernel, 'K2-bwd': fr.rusink_kernel_bwd,
-            'K3-fwd': fn.nerf_kernel, 'K3-bwd': fn.nerf_kernel_bwd}
+            'K3-fwd': fn.nerf_kernel, 'K3-bwd': fn.nerf_kernel_bwd,
+            'K1r-fwd': fm.chain_kernel_stash,
+            'K1r-bwd': fm.chain_kernel_stash_bwd,
+            'K1w-fwd': fm.chain_kernel_last_skip,
+            'K1w-bwd': fm.chain_kernel_last_skip_bwd,
+            'P': dp.dot_chain_kernel}
 JOINT_KERNELS = ('K1-fwd', 'K1-bwd', 'K2-fwd', 'K2-bwd')
 
 
@@ -1014,6 +1047,386 @@ def check_no_views_chain(g):
     return rows
 
 
+# ------ the chain's other routes and the dot-chain probe ------
+
+# The stash's trig columns against trig_stash at the operand type: precise
+# sinf against torch.sin (f32, ~1 ulp), and in bf16 a value within that of
+# a rounding boundary lands one step of 2^-8 (|sin| <= 1) away.
+STASH_TOL = {'f32': (1e-6, 0.0), 'bf16': (2 ** -8 + 1e-6, 0.0)}
+
+
+def pairs(flat):
+    return list(zip(flat[0::2], flat[1::2]))
+
+
+def check_stash_route(model, params):
+    """K1r-fwd (with and without the stash) and K1r-bwd against the stash
+    route's plain version (chain_reference_stash, autograd of it) on every
+    chain the stash-route joint step runs, at its shapes: the normal,
+    albedo and brdf_z heads (2N twin rows, f32) and lvis (2N x L =
+    1,048,576 rows, bf16), dW only as the step asks; then 65,536 of the
+    lvis rows in f32 with dx. The forward within TOL_F32 / TOL_BF16, dW/db
+    by relative norm per leaf (DW_TOL_F32, NORM_TOL_BF16), f32 dx by
+    relative norm (DW_TOL_F32); dW bit-identical across two launches.
+    Returns the rows and the lvis inputs (for check_last_skip)."""
+    g = torch.Generator().manual_seed(6)
+    twins, lvis_x, _ = step_inputs(model, g)
+    cases = [(name, twins, None, False) for name in
+             ('normal', 'albedo', 'brdf_z')]
+    cases += [('lvis', lvis_x, model.chain_dtype('lvis'), False),
+              ('lvis', lvis_x[:65536].contiguous(), None, True)]
+    rows = []
+    for name, x, cd, needs_dx in cases:
+        plan = model.plans[name]
+        p = fm.params_from_tree(params[name + '_mlp'], params[name + '_out'])
+        flat = flatten(p)
+        n = x.shape[0]
+        mode = 'bf16' if cd is not None else 'f32'
+        dy = (2 * torch.rand(n, fm.out_dim(plan), generator=g) - 1).cuda()
+        tol = TOL_BF16 if cd is not None else TOL_F32
+        with torch.no_grad():
+            y, stash = fm.chain_kernel_stash(plan, x, p, cd, with_stash=True)
+            y_ns = fm.chain_kernel_stash(plan, x, p, cd)[0]
+            want_y = fm.chain_reference_stash(plan, x, p, cd)
+            want_stash = fm.trig_stash(plan, x).to(stash.dtype).float()
+        what = '%s %s %d rows' % (name, mode, n)
+        row = {'chain': name, 'rows': n, 'dtype': mode, 'needs_dx': needs_dx,
+               'max_abs_err': max(compare('K1r-fwd ' + what, y, want_y, tol),
+                                  compare('K1r-fwd no stash ' + what, y_ns,
+                                          want_y, tol)),
+               'stash_max_abs_err': compare('K1r-fwd stash ' + what,
+                                            stash.float(), want_stash,
+                                            STASH_TOL[mode]),
+               'fwd_same_with_and_without_stash': torch.equal(y, y_ns)}
+        if not row['fwd_same_with_and_without_stash']:
+            raise AssertionError("K1r-fwd %s: the output changes with the "
+                                 "stash" % what)
+        del want_y, want_stash
+        leaves = [t.clone().requires_grad_() for t in flat]
+        xg = x.clone().requires_grad_()
+        y_p = fm.chain_reference_stash(plan, xg, pairs(leaves), cd)
+        wrt = ([xg] if needs_dx else []) + leaves
+        want = torch.autograd.grad(y_p, wrt, dy, retain_graph=True)
+        dx, got = fm.chain_kernel_stash_bwd(plan, x, dy, stash, p, cd,
+                                            needs_dx=needs_dx)
+        dw_tol = NORM_TOL_BF16 if cd is not None else DW_TOL_F32
+        row['dw_tol'] = dw_tol
+        row['dw_rel_err'] = check_norm('K1r-bwd dW/db ' + what, [
+            rel_norm(a, b) for a, b in zip(flatten(got), want[-len(flat):])],
+            dw_tol)
+        if cd is not None:
+            # What a kernel that computed the f32 gradient would read
+            with torch.no_grad():
+                stash32 = fm.chain_kernel_stash(plan, x, p, None,
+                                                with_stash=True)[1]
+            got32 = fm.chain_kernel_stash_bwd(plan, x, dy, stash32, p, None,
+                                              needs_dx=False)[1]
+            row['f32_kernel_dw_rel_err'] = max(rel_norm(a, b) for a, b in zip(
+                flatten(got32), want[-len(flat):]))
+            del stash32, got32
+        if needs_dx:
+            row['dx_rel_err'] = check_norm('K1r-bwd dx ' + what,
+                                           [rel_norm(dx, want[0])], DW_TOL_F32)
+            row['dx_max_abs_err'] = (dx - want[0]).abs().max().item()
+        again = fm.chain_kernel_stash_bwd(plan, x, dy, stash, p, cd,
+                                          needs_dx=needs_dx)[1]
+        row['dw_bit_identical'] = all(torch.equal(a, b) for a, b in zip(
+            flatten(got), flatten(again)))
+        if not row['dw_bit_identical']:
+            raise AssertionError("K1r-bwd %s: dW differs between two launches "
+                                 "on the same inputs" % what)
+        del got, again, want
+        with torch.no_grad():
+            row['ms'], row['plain_ms'] = time_pair(
+                lambda: fm.chain_kernel_stash(plan, x, p, cd, with_stash=True),
+                lambda: fm.chain_reference_stash(plan, x, p, cd), iters=10)
+            row['no_stash_ms'] = time_ms(
+                lambda: fm.chain_kernel_stash(plan, x, p, cd), iters=10)
+        row['bwd_ms'], row['bwd_plain_ms'] = time_pair(
+            lambda: fm.chain_kernel_stash_bwd(plan, x, dy, stash, p, cd,
+                                              needs_dx=needs_dx),
+            lambda: torch.autograd.grad(y_p, wrt, dy, retain_graph=True),
+            iters=10)
+        del y_p, stash
+        rows.append(row)
+    return rows, lvis_x
+
+
+# The lvis chain with its skip moved after the head: the output is [lvis |
+# embedding], 1 + 90 columns. It runs in bf16 at the lvis chain's
+# 1,048,576 rows and in f32 at 65,536 rows with dx.
+LAST_SKIP_ROWS = {'bf16': 1048576, 'f32': 65536}
+LAST_SKIP_PLAN = fm.make_plan([(3, 10), (3, 4)], (128,) * 4 + (1,),
+                              ('relu',) * 4 + ('sigmoid',), (4,))
+# The same layers without the last skip: what K1 runs for K1w's head
+NO_LAST_SKIP_PLAN = LAST_SKIP_PLAN._replace(skip_at=())
+
+
+def last_skip_params(p_lvis):
+    """The lvis chain's weights on LAST_SKIP_PLAN: each layer's first
+    rows (the skip consumer loses its embedding rows). K1's bf16 dW bound
+    is read on the lvis chain's weights; under glorot-uniform weights K1
+    and K1w alike sit several times further from the bf16 plain version,
+    and no longer apart from a kernel computing the f32 gradient."""
+    return [(w[:d].contiguous(), b) for (w, b), d in
+            zip(p_lvis, fm.layer_in_dims(LAST_SKIP_PLAN))]
+
+
+def run_last_skip_path(cases, p):
+    """The last-skip chain's path: apply_chain under autograd (x and the
+    weights trainable) on each of ``cases`` (mode, dtype, x, dy), as a
+    caller of the chain API runs it. Returns the kernels' launches on it."""
+    zero_counters()
+    for _, cd, x, dy in cases:
+        ins = [x.clone().requires_grad_()] + [
+            t.clone().requires_grad_() for t in flatten(p)]
+        y = fm.apply_chain(LAST_SKIP_PLAN, ins[0], pairs(ins[1:]),
+                           compute_dtype=cd)
+        grads = torch.autograd.grad(y, ins, dy)
+        if not all(torch.isfinite(t).all() for t in (y,) + grads):
+            raise AssertionError("last-skip chain: non-finite values")
+        del ins, y, grads
+    torch.cuda.synchronize()
+    return read_counters(('K1w-fwd', 'K1w-bwd'), 'last-skip chain')
+
+
+def check_last_skip(params, lvis_x):
+    """K1w-fwd and K1w-bwd (dx and dW) against the plain version and
+    autograd of it on LAST_SKIP_PLAN with the lvis chain's weights at
+    LAST_SKIP_ROWS of the lvis rows, bf16 and f32, with K1's tolerances;
+    dW bit-identical across two launches. Witness: K1w's head column and
+    dW/db are bit-identical to K1's on NO_LAST_SKIP_PLAN with dy's head
+    column (dy's embedding columns reach dx alone). The path runs the
+    same shapes. Returns (launches on the path, rows)."""
+    g = torch.Generator().manual_seed(7)
+    plan = LAST_SKIP_PLAN
+    p = last_skip_params(fm.params_from_tree(params['lvis_mlp'],
+                                             params['lvis_out']))
+    flat = flatten(p)
+    cases = []
+    for mode, cd in (('bf16', torch.bfloat16), ('f32', None)):
+        n = LAST_SKIP_ROWS[mode]
+        cases.append((mode, cd, lvis_x[:n].contiguous(), (2 * torch.rand(
+            n, fm.out_dim(plan), generator=g) - 1).cuda()))
+    launches = run_last_skip_path(cases, p)
+    rows = []
+    for mode, cd, x, dy in cases:
+        n = x.shape[0]
+        tol = TOL_BF16 if cd is not None else TOL_F32
+        with torch.no_grad():
+            y = fm.chain_kernel_last_skip(plan, x, p, cd)
+            row = {'chain': 'lvis_last_skip', 'rows': n, 'dtype': mode,
+                   'out_cols': y.shape[1],
+                   'max_abs_err': compare('K1w-fwd %s' % mode, y,
+                                          fm.chain_reference(plan, x, p, cd),
+                                          tol)}
+        leaves = [t.clone().requires_grad_() for t in flat]
+        xg = x.clone().requires_grad_()
+        y_p = fm.chain_reference(plan, xg, pairs(leaves), cd)
+        want = torch.autograd.grad(y_p, [xg] + leaves, dy, retain_graph=True)
+        dx, got = fm.chain_kernel_last_skip_bwd(plan, x, dy, p, cd)
+        dw_tol = NORM_TOL_BF16 if cd is not None else DW_TOL_F32
+        row['dw_tol'] = dw_tol
+        row['dw_rel_err'] = check_norm('K1w-bwd dW/db %s' % mode, [
+            rel_norm(a, b) for a, b in zip(flatten(got), want[1:])], dw_tol)
+        row['dx_rel_err'] = check_norm(
+            'K1w-bwd dx %s' % mode, [rel_norm(dx, want[0])],
+            NORM_TOL_BF16 if cd is not None else DW_TOL_F32)
+        if cd is not None:
+            # What a kernel that computed the f32 gradient would read
+            dx32, got32 = fm.chain_kernel_last_skip_bwd(plan, x, dy, p, None)
+            row['f32_kernel_dw_rel_err'] = max(
+                rel_norm(a, b) for a, b in zip(flatten(got32), want[1:]))
+            row['f32_kernel_dx_rel_err'] = rel_norm(dx32, want[0])
+            del dx32, got32
+        row['dx_max_abs_err'] = (dx - want[0]).abs().max().item()
+        again = fm.chain_kernel_last_skip_bwd(plan, x, dy, p, cd)[1]
+        row['dw_bit_identical'] = all(torch.equal(a, b) for a, b in zip(
+            flatten(got), flatten(again)))
+        if not row['dw_bit_identical']:
+            raise AssertionError("K1w-bwd: dW differs between two launches "
+                                 "on the same inputs")
+        with torch.no_grad():
+            head = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
+        k1 = fm.chain_kernel_bwd(NO_LAST_SKIP_PLAN, x, dy[:, :1].contiguous(),
+                                 p, cd, needs_dx=False)[1]
+        row['same_as_k1'] = torch.equal(y[:, :1], head) and all(
+            torch.equal(a, b) for a, b in zip(flatten(got), flatten(k1)))
+        if not row['same_as_k1']:
+            raise AssertionError("K1w %s: head or dW differs from K1's on the "
+                                 "plan without the last skip" % mode)
+        del got, again, head, k1, y
+        with torch.no_grad():
+            row['ms'], row['plain_ms'] = time_pair(
+                lambda: fm.chain_kernel_last_skip(plan, x, p, cd),
+                lambda: fm.chain_reference(plan, x, p, cd), iters=10)
+        row['bwd_ms'], row['bwd_plain_ms'] = time_pair(
+            lambda: fm.chain_kernel_last_skip_bwd(plan, x, dy, p, cd),
+            lambda: torch.autograd.grad(y_p, [xg] + leaves, dy,
+                                        retain_graph=True), iters=10)
+        del y_p, want
+        rows.append(row)
+    return launches, rows
+
+
+def step_loss_grads(model, params, arrays, transposed):
+    """make_train_step's loss and gradients of the trainable leaves on the
+    chain route ``transposed`` (fused_mlp.TRANSPOSED_BOUNDARY), with the
+    jitter noise drawn from one seed."""
+    saved = fm.TRANSPOSED_BOUNDARY
+    fm.TRANSPOSED_BOUNDARY = transposed
+    try:
+        mask = ckptutil.tree_leaves(model.trainable_mask(params))
+        live = ckptutil.tree_map(lambda t: t.detach(), params)
+        wrt = [t.requires_grad_() for t, m in zip(ckptutil.tree_leaves(live),
+                                                  mask) if m]
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        with torch.enable_grad():
+            pred, gt, loss_kwargs, _ = model.apply(
+                live, upcast_batch(arrays), mode='train', generator=gen)
+            loss = torch.mean(model.compute_loss(live, pred, gt,
+                                                 **loss_kwargs))
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        return loss.detach(), grads
+    finally:
+        fm.TRANSPOSED_BOUNDARY = saved
+
+
+def run_stash_step(config):
+    """The joint train step on the stash route (TRANSPOSED_BOUNDARY =
+    False): its loss and every trainable leaf's gradient against the
+    default route's on one batch (loss within TOL_BF16, each gradient
+    leaf's relative norm within NORM_TOL_BF16); then its steady-state
+    step time through make_train_step, with the kernels' counters zeroed
+    before and read after. Returns (step record, launches)."""
+    model = Model(config, device='cuda')
+    dataset = Dataset(config, 'train')
+    params = model.init_params(torch.Generator().manual_seed(0))
+    batch = next(iter(dataset.build_pipeline(prefetch=0)))
+    arrays = {k: torch.as_tensor(np.asarray(batch[k])).cuda()
+              for k in dataset.array_keys}
+    loss_t, grads_t = step_loss_grads(model, params, arrays, True)
+    loss_s, grads_s = step_loss_grads(model, params, arrays, False)
+    errs = [rel_norm(a, b) for a, b in zip(grads_s, grads_t)
+            if a is not None and b is not None and b.norm() > 0]
+    check = {'loss_default': loss_t.item(), 'loss_stash': loss_s.item(),
+             'loss_abs_err': compare('stash-route step loss', loss_s[None],
+                                     loss_t[None], TOL_BF16),
+             'grad_leaves': len(errs),
+             'grad_rel_err': check_norm('stash-route step gradients', errs,
+                                        NORM_TOL_BF16),
+             'grad_tol': NORM_TOL_BF16}
+    del grads_t, grads_s, params
+    fm.TRANSPOSED_BOUNDARY = False
+    try:
+        zero_counters()
+        step = time_train_step(model, dataset)
+        torch.cuda.synchronize()
+        launches = read_counters(('K1r-fwd', 'K1r-bwd'),
+                                 'stash-route training step')
+    finally:
+        fm.TRANSPOSED_BOUNDARY = True
+    if launches['K1-fwd'] or launches['K1-bwd']:
+        raise AssertionError("K1 launched on the stash route: %s" % launches)
+    return dict(step, agreement=check), launches
+
+
+def run_chain_probe():
+    """tools.chain_probe at its defaults (524,288 rows, the 128 x 4 lvis
+    chain, forward and backward) in bf16, for each impl, with the
+    counters zeroed before and read after each: fused must launch K1,
+    fused_rowmajor K1r and ref no chain kernel. Returns ({impl: record},
+    {impl: launches})."""
+    expect = {'fused': ('K1-fwd', 'K1-bwd'),
+              'fused_rowmajor': ('K1r-fwd', 'K1r-bwd'), 'ref': ()}
+    records, launches = {}, {}
+    for impl, kernels in expect.items():
+        zero_counters()
+        records[impl] = chain_probe.main(['--impl', impl, '--mode', 'both',
+                                          '--compute_dtype', 'bf16'])
+        torch.cuda.synchronize()
+        launches[impl] = read_counters(kernels, 'chain_probe ' + impl)
+        chain = [k for k in ('K1-fwd', 'K1-bwd', 'K1r-fwd', 'K1r-bwd')
+                 if launches[impl][k] and k not in kernels]
+        if chain or not np.isfinite(records[impl]['checksum']):
+            raise AssertionError("chain_probe %s: %s, launched %s" % (
+                impl, records[impl], chain))
+    return records, launches
+
+
+# Kernel P against its plain version (relative norm): indep sums exact
+# bf16 products in f32, so only the order differs; serial and pair round
+# to bf16 after every pass, and a value the two f32 sums round to
+# neighbouring bf16 (2^-8 apart) carries on through the later passes.
+P_TOL = {'indep': 1e-5, 'serial': 1e-2, 'pair': 1e-2}
+P_COLS = 4096
+SLOPE_DEPTHS = (4, 16)
+
+
+def slope_ms(run_at_depth):
+    """ms per pass of a chain: the slope of CUDA-event time between depths
+    SLOPE_DEPTHS (what does not grow with depth cancels)."""
+    t = [time_ms(lambda d=d: run_at_depth(d), iters=10) for d in SLOPE_DEPTHS]
+    return (t[1] - t[0]) / (SLOPE_DEPTHS[1] - SLOPE_DEPTHS[0])
+
+
+def check_dot_probe():
+    """Kernel P against its plain version at width 128: at P_COLS rows,
+    depths 4 and 8, every mode; at the shapes the probe's path gives it
+    (its default rows and block at its shallowest and deepest default
+    depth, every mode; the grid sweep's serial depth-8 chain at each of
+    its blocks). Then the probe's path, tools.dot_probe at its defaults
+    (1,048,576 rows, depths 12-32, slope per mode) and its grid sweep,
+    with the counters zeroed before and read after; then the plain
+    version's and one torch.matmul per pass's slope (bf16 operands, bf16
+    out: the serial pass as cuBLAS computes it) on the probe's operand.
+    Returns (launches, record)."""
+    rng = np.random.RandomState(8)
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    args = dot_probe.parse_args([])
+    cols, depths = args.cols, [int(d) for d in args.depths.split(',')]
+    x = 0.1 * torch.randn(P_COLS, dp.WIDTH, generator=gen, device='cuda')
+    xl = 0.1 * torch.randn(cols, dp.WIDTH, generator=gen, device='cuda')
+    shapes = [(x, depth, mode, 1024) for depth in (4, 8) for mode in dp.MODES]
+    shapes += [(xl, depth, mode, args.block)
+               for depth in (min(depths), max(depths)) for mode in dp.MODES]
+    shapes += [(xl, 8, 'serial', block) for block in dot_probe.SWEEP_BLOCKS]
+    checks = []
+    for xs, depth, mode, block in shapes:
+        ws = dot_probe.make_weights(rng, depth, dp.WIDTH, 'cuda')
+        got = dp.dot_chain_kernel(xs, ws, mode, block=block)
+        want = dp.dot_chain_reference(xs, ws, mode)
+        err = rel_norm(got, want)
+        if not torch.isfinite(got).all() or err > P_TOL[mode]:
+            raise AssertionError(
+                "P %s depth %d, %d rows, block %d: relative error %.3g > %g"
+                % (mode, depth, xs.shape[0], block, err, P_TOL[mode]))
+        checks.append({'mode': mode, 'depth': depth, 'rows': xs.shape[0],
+                       'block': block, 'rel_err': err, 'tol': P_TOL[mode],
+                       'max_abs_err': (got - want).abs().max().item()})
+        del got, want
+    zero_counters()
+    summary = dot_probe.main([])
+    sweep = dot_probe.main(['--grid_sweep'])
+    torch.cuda.synchronize()
+    launches = read_counters(('P',), 'dot_probe')
+    ws = dot_probe.make_weights(rng, max(SLOPE_DEPTHS), dp.WIDTH,
+                                'cuda')
+
+    def matmul_chain(d):
+        y = xl.to(torch.bfloat16)
+        for w in ws[:d]:
+            y = torch.matmul(y, w.t())
+        return y
+    with torch.no_grad():
+        plain = slope_ms(lambda d: dp.dot_chain_reference(xl, ws[:d],
+                                                          'serial'))
+        library = slope_ms(matmul_chain)
+    return launches, {'checks': checks, 'summary': summary, 'sweep': sweep,
+                      'cols': cols, 'plain_ms_per_pass': plain,
+                      'library_ms_per_pass': library}
+
+
 # ------ the least time the card could take ------
 
 # Published H100 SXM peaks at 700 W (dense): bf16 operands on the tensor
@@ -1054,12 +1467,14 @@ def weight_bytes(n_weights, n_biases, dtype):
     return n_weights * (2 if dtype == 'bf16' else 4) + 4 * n_biases
 
 
-def chain_bound(plan, rows, dtype, in_cols, out_cols, bwd=None):
+def chain_bound(plan, rows, dtype, in_cols, out_cols, bwd=None,
+                stash_bytes=0):
     """bound() of K1/K2 over ``rows``: forward, or with ``bwd`` =
     (needs_dx, needs_dw) the backward (inputs and output cotangent in,
-    input cotangents and/or f32 dW/db out)."""
+    input cotangents and/or f32 dW/db out). ``stash_bytes`` a row: the
+    stash route's trig columns, written by K1r-fwd and read by K1r-bwd."""
     n_w, n_b = chain_macs(plan), sum(plan.widths)
-    w_bytes = weight_bytes(n_w, n_b, dtype)
+    w_bytes = weight_bytes(n_w, n_b, dtype) + rows * stash_bytes
     if bwd is None:
         return bound(2 * rows * chain_macs(plan),
                      4 * rows * (in_cols + out_cols) + w_bytes, dtype)
@@ -1067,6 +1482,14 @@ def chain_bound(plan, rows, dtype, in_cols, out_cols, bwd=None):
     return bound(2 * rows * chain_bwd_macs(plan, needs_dx, needs_dw),
                  4 * rows * (in_cols * (2 if needs_dx else 1) + out_cols)
                  + w_bytes + (4 * (n_w + n_b) if needs_dw else 0), dtype)
+
+
+def dot_pass_bound(rows):
+    """bound() of one pass of kernel P: 2 * 128 * 128 FLOP a row in bf16,
+    and the pass's own bytes, its bf16 weight (the operand is read and
+    written once whatever the depth, which the slope leaves out)."""
+    return bound(2 * dp.WIDTH * dp.WIDTH * rows, 2 * dp.WIDTH * dp.WIDTH,
+                 'bf16')
 
 
 def nerf_bound(nplan, rows, dtype, bwd=False):
@@ -1144,8 +1567,11 @@ def main():
     fwd_err = check_forward(model, model_cpu, params, Dataset(config, 'test'))
 
     k1b, k2b = check_backward(model, params)
+    k1r, x_last_skip = check_stash_route(model, params)
+    torch.cuda.empty_cache()
+    launches_last_skip, k1w = check_last_skip(params, x_last_skip)
     plans, z_dim = model.plans, model.z_dim
-    del model, model_cpu, params
+    del model, model_cpu, params, x_last_skip
     torch.cuda.empty_cache()
 
     # The training path, through the user's entry point
@@ -1156,6 +1582,8 @@ def main():
     step = dict(time_train_step(Model(train_config, device='cuda'),
                                 Dataset(train_config, 'train')),
                 n_lights=N_LIGHTS)
+    torch.cuda.empty_cache()
+    step_stash, launches_stash_step = run_stash_step(train_config)
     torch.cuda.empty_cache()
 
     # The NeRF slice: training and serving through the user's entry points
@@ -1173,30 +1601,47 @@ def main():
     torch.cuda.empty_cache()
     nerf_step = time_train_step(nerf_model, NerfDataset(nerf_model.config,
                                                         'train'))
+    nplan = nerf_model.nerf_plan
+    del nerf_model
+    torch.cuda.empty_cache()
+
+    # The probes, through their command-line entry points
+    probe_records, launches_probe = run_chain_probe()
+    torch.cuda.empty_cache()
+    launches_dot, p_run = check_dot_probe()
+    torch.cuda.empty_cache()
 
     paths = {'joint_inference': launches_infer,
              'joint_training': launches_train,
              'nerf_training': launches_nerf_train,
-             'nerf_inference': launches_nerf_test}
+             'nerf_inference': launches_nerf_test,
+             'last_skip_chain': launches_last_skip,
+             'joint_training_stash_route': launches_stash_step,
+             **{'chain_probe_' + k: v for k, v in launches_probe.items()},
+             'dot_probe': launches_dot}
     src = 'nerfactor_tpu_torch/csrc/'
 
-    def entry(name, source, replaces, row, bound_, **extra):
-        by_path = {p: c[name.split()[0]] for p, c in paths.items()}
+    def entry(name, source, replaces, row, bound_, library_ms=None,
+              **extra):
+        by_path = {p: c[name.split()[0]] for p, c in paths.items()
+                   if c[name.split()[0]]}
         return dict({'name': name, 'route': 'cuda', 'source': src + source,
                      'replaces': replaces,
                      'launches': sum(by_path.values()),
                      'launches_by_path': by_path, 'ms': row['ms'],
                      'plain_ms': row['plain_ms'],
                      'bound_ms': bound_['bound_ms'],
-                     'bound_by': bound_['bound_by'], 'library_ms': None,
+                     'bound_by': bound_['bound_by'], 'library_ms': library_ms,
                      'bound_at': dict(bound_, rows=row['rows'],
                                       dtype=row['dtype'])}, **extra)
 
     lvis = [r for r in k1 if r['chain'] == 'lvis'][0]
     lvis_b = [r for r in k1b if r['chain'] == 'lvis'][0]
+    k1r_lvis = [r for r in k1r if r['chain'] == 'lvis'
+                and r['dtype'] == 'bf16'][0]
+    k1w_bf16 = [r for r in k1w if r['dtype'] == 'bf16'][0]
     k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
     k3_bf16 = [r for r in k3_fine if r['dtype'] == 'bf16'][0]
-    nplan = nerf_model.nerf_plan
     print(json.dumps({'kernels': [
         entry('K1-fwd chain_fwd_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:1424', lvis,
@@ -1241,10 +1686,58 @@ def main():
                    plain_ms=k3_bf16['bwd_plain_ms']),
               nerf_bound(nplan, k3_bf16['rows'], 'bf16', bwd=True),
               max_rel_err={'dW_db': max(r['dw_rel_err'] for r in k3)},
-              shapes=k3)],
+              shapes=k3),
+        entry('K1r-fwd chain_fwd_kernel (stash route)', 'fused_mlp.cu',
+              'nerfactor_tpu/ops/pallas_mlp.py:851', k1r_lvis,
+              chain_bound(plans['lvis'], k1r_lvis['rows'], k1r_lvis['dtype'],
+                          6, 1, stash_bytes=2 * fm.trig_dim(plans['lvis'])),
+              max_abs_err=max(r['max_abs_err'] for r in k1r),
+              stash_max_abs_err=max(r['stash_max_abs_err'] for r in k1r),
+              shapes=k1r),
+        entry('K1r-bwd chain_bwd_kernel (stash route)', 'fused_mlp.cu',
+              'nerfactor_tpu/ops/pallas_mlp.py:878',
+              dict(k1r_lvis, ms=k1r_lvis['bwd_ms'],
+                   plain_ms=k1r_lvis['bwd_plain_ms']),
+              chain_bound(plans['lvis'], k1r_lvis['rows'], k1r_lvis['dtype'],
+                          6, 1, bwd=(False, True),
+                          stash_bytes=2 * fm.trig_dim(plans['lvis'])),
+              max_abs_err=max(r['dx_max_abs_err'] for r in k1r
+                              if 'dx_max_abs_err' in r),
+              max_rel_err={'dW_db': max(r['dw_rel_err'] for r in k1r),
+                           'dx_f32': max(r['dx_rel_err'] for r in k1r
+                                         if 'dx_rel_err' in r)},
+              shapes=k1r),
+        entry('K1w-fwd chain_fwd_kernel (last skip)', 'fused_mlp.cu',
+              'nerfactor_tpu/ops/pallas_mlp.py:416', k1w_bf16,
+              chain_bound(LAST_SKIP_PLAN, k1w_bf16['rows'], 'bf16', 6,
+                          fm.out_dim(LAST_SKIP_PLAN)),
+              max_abs_err=max(r['max_abs_err'] for r in k1w), shapes=k1w),
+        entry('K1w-bwd chain_bwd_kernel (last skip)', 'fused_mlp.cu',
+              'nerfactor_tpu/ops/pallas_mlp.py:452',
+              dict(k1w_bf16, ms=k1w_bf16['bwd_ms'],
+                   plain_ms=k1w_bf16['bwd_plain_ms']),
+              chain_bound(LAST_SKIP_PLAN, k1w_bf16['rows'], 'bf16', 6,
+                          fm.out_dim(LAST_SKIP_PLAN), bwd=(True, True)),
+              max_abs_err=max(r['dx_max_abs_err'] for r in k1w),
+              max_rel_err={'dW_db': max(r['dw_rel_err'] for r in k1w),
+                           'dx': max(r['dx_rel_err'] for r in k1w)},
+              shapes=k1w),
+        entry('P dot_chain_kernel', 'dot_probe.cu',
+              'tools/mosaic_dot_probe.py:74',
+              {'ms': p_run['summary']['serial']['ms_per_pass'],
+               'plain_ms': p_run['plain_ms_per_pass'], 'rows': p_run['cols'],
+               'dtype': 'bf16'},
+              dot_pass_bound(p_run['cols']),
+              library_ms=p_run['library_ms_per_pass'],
+              unit='ms per pass (slope over depth), serial chain',
+              max_abs_err=max(c['max_abs_err'] for c in p_run['checks']),
+              max_rel_err={m: max(c['rel_err'] for c in p_run['checks']
+                                  if c['mode'] == m) for m in dp.MODES},
+              probe=p_run)],
         'build_s': build_s, 'view_seconds': run['view_seconds'],
         'forward_max_abs_err': fwd_err, 'imh': IMH, 'n_lights': N_LIGHTS,
         'training': dict(train_out, seconds=train_s), 'train_step': step,
+        'train_step_stash_route': step_stash, 'chain_probe': probe_records,
         'nerf': {'training': dict(nerf_train, seconds=nerf_train_s),
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},

@@ -1,6 +1,12 @@
 // Device-side building blocks of the fused embed -> skip-MLP -> head
 // chains (kernels K1-fwd in fused_mlp.cu and K2-fwd in fused_rusink.cu).
 //
+// Two modes of the same chain: a plan with a skip after its last layer
+// (the output is [head | embedding], kernels K1w) and the stash route
+// (kernels K1r), whose embedding forms cos t as sin(t + pi/2) and whose
+// forward may write its trig columns to device memory for the backward to
+// read instead of recomputing them.
+//
 // One block owns a tile of kRows input rows. The positional embedding and
 // every hidden activation of that tile stay in shared memory for the whole
 // chain; device memory sees only the raw input rows and the output rows.
@@ -39,6 +45,7 @@ enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kSoftplus = 3 };
 // Error codes beyond cudaError_t's range.
 constexpr int kErrBadPlan = 10001;
 constexpr int kErrSmem = 10002;
+constexpr int kErrBadArgs = 10003;
 
 // Static description of one chain. The Python wrapper fills it in with the
 // same field order (nerfactor_tpu_torch/ops/fused_mlp.py, ChainDesc).
@@ -100,10 +107,51 @@ __host__ __device__ inline SmemLayout smem_layout(const ChainDesc& d) {
 inline int check_desc(const ChainDesc& d) {
   if (d.n_layers < 1 || d.n_layers > kMaxLayers) return kErrBadPlan;
   if (d.n_parts < 1 || d.n_parts > kMaxParts) return kErrBadPlan;
-  // A skip after the last layer (output includes the embedding) is not
-  // built by any shipped chain and is not supported here.
-  if (d.skip_after[d.n_layers - 1]) return kErrBadPlan;
   return 0;
+}
+
+// A skip after the last layer: the output row is [head | embedding].
+__host__ __device__ inline bool last_skip(const ChainDesc& d) {
+  return d.skip_after[d.n_layers - 1] != 0;
+}
+
+// Width of an output row (and of its cotangent).
+__host__ __device__ inline int out_dim(const ChainDesc& d) {
+  return d.widths[d.n_layers - 1] + (last_skip(d) ? d.embed_dim : 0);
+}
+
+// Width of a stash row: the sin and cos columns of every part.
+__host__ __device__ inline int trig_dim(const ChainDesc& d) {
+  int t = 0;
+  for (int p = 0; p < d.n_parts; ++p) t += 2 * d.part_dim[p] * d.part_freqs[p];
+  return t;
+}
+
+// float32(pi / 2): the stash route's phase of a cos column, as the TPU
+// kernel's P row (pallas_mlp._trig_mats).
+constexpr float kHalfPi = 1.57079637f;
+
+// How embed_rows forms the trig columns: precise sincosf; the stash
+// route's sin(2^j x + phase); or not at all (the backward of the stash
+// route loads them from the stash).
+enum EmbedTrig { kSincos = 0, kPhase = 1, kNoTrig = 2 };
+
+// Embedding column of stash column s. A stash row holds, per part, the
+// sines of every octave (octave-major, `dim` columns each), then the
+// cosines: the columns of the TPU kernel's sin(x @ A + P). The embedding
+// keeps the reference order [x, sin 2^0 x, cos 2^0 x, sin 2^1 x, ...].
+__device__ inline int stash_to_embed_col(const ChainDesc& d, int s) {
+  int e0 = 0;
+  for (int p = 0; p < d.n_parts; ++p) {
+    const int dim = d.part_dim[p], fd = d.part_freqs[p] * dim;
+    if (s < 2 * fd) {
+      const int cos_col = s / fd, j = (s % fd) / dim, k = s % dim;
+      return e0 + dim + (2 * j + cos_col) * dim + k;
+    }
+    s -= 2 * fd;
+    e0 += dim + 2 * fd;
+  }
+  return -1;
 }
 
 __device__ __forceinline__ float activate(int act, float v) {
@@ -119,8 +167,11 @@ __device__ __forceinline__ float activate(int act, float v) {
 // Positional embedding of the tile's raw rows, in the JAX row order
 // [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...] per part. Precise sincosf:
 // the arguments reach 2^9 x, where the fast intrinsics are too coarse.
+// kPhase forms the stash route's sin(2^j x) and sin(2^j x + pi/2): 2^j x
+// is exact, the add rounds in f32 (at 2^9 x by up to ~3e-5 against cos).
 template <typename T, int ROWS = kRows>
-__device__ void embed_rows(const ChainDesc& d, const float* xs, T* es, int lde) {
+__device__ void embed_rows(const ChainDesc& d, const float* xs, T* es, int lde,
+                           int trig = kSincos) {
   for (int idx = threadIdx.x; idx < ROWS * d.raw_dim; idx += kThreads) {
     const int r = idx / d.raw_dim, c = idx % d.raw_dim;
     int p = 0, col0 = 0, e0 = 0;
@@ -133,10 +184,16 @@ __device__ void embed_rows(const ChainDesc& d, const float* xs, T* es, int lde) 
     const float x = xs[r * d.raw_dim + c];
     T* er = es + r * lde + e0;
     er[ci] = from_f<T>(x);
+    if (trig == kNoTrig) continue;
     float freq = 1.f;
     for (int j = 0; j < d.part_freqs[p]; ++j) {
       float s, co;
-      sincosf(freq * x, &s, &co);
+      if (trig == kPhase) {
+        s = sinf(freq * x);
+        co = sinf(freq * x + kHalfPi);
+      } else {
+        sincosf(freq * x, &s, &co);
+      }
       er[dim + 2 * j * dim + ci] = from_f<T>(s);
       er[dim + (2 * j + 1) * dim + ci] = from_f<T>(co);
       freq *= 2.f;
@@ -144,20 +201,45 @@ __device__ void embed_rows(const ChainDesc& d, const float* xs, T* es, int lde) 
   }
 }
 
+// The stash rows of the tile (rows < n of the (n, trig_dim) stash, type
+// T) from the embedding's trig columns.
+template <typename T, int ROWS = kRows>
+__device__ void write_stash(const ChainDesc& d, const T* es, int lde, T* __restrict__ stash,
+                            long long row0, long long n) {
+  const int t = trig_dim(d);
+  for (int idx = threadIdx.x; idx < ROWS * t; idx += kThreads) {
+    const int r = idx / t, s = idx % t;
+    if (row0 + r < n) stash[(row0 + r) * t + s] = es[r * lde + stash_to_embed_col(d, s)];
+  }
+}
+
+// The embedding's trig columns from the stash rows (padding rows get 0).
+template <typename T, int ROWS>
+__device__ void read_stash(const ChainDesc& d, const T* __restrict__ stash, long long row0,
+                           long long n, T* es, int lde) {
+  const int t = trig_dim(d);
+  for (int idx = threadIdx.x; idx < ROWS * t; idx += kThreads) {
+    const int r = idx / t, s = idx % t;
+    es[r * lde + stash_to_embed_col(d, s)] =
+        row0 + r < n ? stash[(row0 + r) * t + s] : from_f<T>(0.f);
+  }
+}
+
 // One dense layer over the tile: out = act([in1 | in2] @ W + b). W is
 // (k1 + k2, n) row-major in device memory, streamed through `ws`. The
 // result goes to shared memory (`out_s`, at type T) or, for the head, to
-// device memory (`out_g`, f32, rows < n_valid only). ROWS is the tile's
-// row count, a multiple of 16.
+// device memory (`out_g`, f32, rows < n_valid only, leading dimension
+// `ldg`, or n if 0). ROWS is the tile's row count, a multiple of 16.
 template <typename T, int ROWS = kRows>
 __device__ void layer_pass(const T* in1, int ld1, int k1, const T* in2, int ld2,
                            int k2, const T* __restrict__ w,
                            const float* __restrict__ bias, int n, int act, T* ws,
                            T* out_s, int ldo, float* __restrict__ out_g,
-                           long long row0, long long n_valid) {
+                           long long row0, long long n_valid, int ldg = 0) {
   constexpr int kRowsPerThread = ROWS / (kThreads / 16);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k_total = k1 + k2;
+  const long long ld_out = ldg > 0 ? ldg : n;
   for (int c0 = 0; c0 < n; c0 += kColChunk) {
     const int nc = min(kColChunk, n - c0);
     float acc[kRowsPerThread][kColsPerThread];
@@ -202,7 +284,7 @@ __device__ void layer_pass(const T* in1, int ld1, int k1, const T* in2, int ld2,
         if (c >= nc) continue;
         const float v = activate(act, acc[i][j] + bias[c0 + c]);
         if (out_g != nullptr) {
-          if (row0 + r < n_valid) out_g[(row0 + r) * n + c0 + c] = v;
+          if (row0 + r < n_valid) out_g[(row0 + r) * ld_out + c0 + c] = v;
         } else {
           out_s[r * ldo + c0 + c] = from_f<T>(v);
         }
@@ -211,18 +293,23 @@ __device__ void layer_pass(const T* in1, int ld1, int k1, const T* in2, int ld2,
   }
 }
 
-// The whole chain for one tile whose raw rows are already in `xs`.
+// The whole chain for one tile whose raw rows are already in `xs`; y has
+// out_dim(d) columns. `trig` selects the embedding's form (embed_rows);
+// a non-null `stash` receives the tile's trig columns (write_stash).
 template <typename T>
 __device__ void chain_tile(const ChainDesc& d, const T* __restrict__ w,
                            const float* __restrict__ bias, unsigned char* smem,
-                           float* __restrict__ y, long long row0, long long n) {
+                           float* __restrict__ y, long long row0, long long n,
+                           int trig = kSincos, T* __restrict__ stash = nullptr) {
   const SmemLayout L = smem_layout<T>(d);
   const float* xs = reinterpret_cast<const float*>(smem + L.xs);
   T* es = reinterpret_cast<T*>(smem + L.es);
   T* bufs[2] = {reinterpret_cast<T*>(smem + L.ha), reinterpret_cast<T*>(smem + L.hb)};
   T* ws = reinterpret_cast<T*>(smem + L.ws);
-  embed_rows<T>(d, xs, es, L.lde);
+  embed_rows<T>(d, xs, es, L.lde, trig);
   __syncthreads();
+  if (stash != nullptr) write_stash<T>(d, es, L.lde, stash, row0, n);
+  const int ldy = out_dim(d);
   const T* in = es;
   int ld_in = L.lde, k_in = d.embed_dim;
   for (int i = 0; i < d.n_layers; ++i) {
@@ -232,10 +319,19 @@ __device__ void chain_tile(const ChainDesc& d, const T* __restrict__ w,
     layer_pass<T>(in, ld_in, k_in, skip_in ? es : nullptr, L.lde,
                   skip_in ? d.embed_dim : 0, w + d.w_off[i], bias + d.b_off[i],
                   d.widths[i], d.acts[i], ws, out, L.ldh, head ? y : nullptr,
-                  row0, n);
+                  row0, n, ldy);
     in = out;
     ld_in = L.ldh;
     k_in = d.widths[i];
+  }
+  if (last_skip(d)) {
+    // The row's trailing columns: the embedding as the layers saw it (at
+    // type T), in the reference order
+    const int n_out = d.widths[d.n_layers - 1];
+    for (int idx = threadIdx.x; idx < kRows * d.embed_dim; idx += kThreads) {
+      const int r = idx / d.embed_dim, c = idx % d.embed_dim;
+      if (row0 + r < n) y[(row0 + r) * ldy + n_out + c] = to_f<T>(es[r * L.lde + c]);
+    }
   }
 }
 
@@ -443,10 +539,13 @@ __device__ void wgrad_pass(const T* p1, int ld1, int k1, const T* p2, int ld2, i
 // Cotangent of the raw input rows from the embedding's: the passthrough
 // columns plus d/dx sin(2^j x) = 2^j cos(2^j x) and d/dx cos(2^j x) =
 // -2^j sin(2^j x), with precise sincosf as in the forward. Rows below
-// `n_valid` are written to `out` (raw_dim columns, row-major).
+// `n_valid` are written to `out` (raw_dim columns, row-major). On the
+// stash route (`phase`) both trig columns are sin(t + phase), and their
+// derivative is 2^j cos(t + phase) of the phase recomputed in f32, as the
+// TPU kernel's cos(x @ A + P).
 template <int ROWS>
 __device__ void embed_bwd(const ChainDesc& d, const float* xs, const float* de, int lde,
-                          float* __restrict__ out, long long n_valid) {
+                          float* __restrict__ out, long long n_valid, bool phase = false) {
   for (int idx = threadIdx.x; idx < ROWS * d.raw_dim; idx += kThreads) {
     const int r = idx / d.raw_dim, c = idx % d.raw_dim;
     if (r >= n_valid) continue;
@@ -462,9 +561,14 @@ __device__ void embed_bwd(const ChainDesc& d, const float* xs, const float* de, 
     float acc = g[ci];
     float freq = 1.f;
     for (int j = 0; j < d.part_freqs[p]; ++j) {
-      float s, co;
-      sincosf(freq * x, &s, &co);
-      acc += freq * (co * g[dim + 2 * j * dim + ci] - s * g[dim + (2 * j + 1) * dim + ci]);
+      const float g_sin = g[dim + 2 * j * dim + ci], g_cos = g[dim + (2 * j + 1) * dim + ci];
+      if (phase) {
+        acc += freq * (cosf(freq * x) * g_sin + cosf(freq * x + kHalfPi) * g_cos);
+      } else {
+        float s, co;
+        sincosf(freq * x, &s, &co);
+        acc += freq * (co * g_sin - s * g_cos);
+      }
       freq *= 2.f;
     }
     out[r * d.raw_dim + c] = acc;
@@ -504,14 +608,19 @@ __device__ void dense_bwd(float* dcur, int ldd, int n, const T* p1, int ld1, int
 }
 
 // The backward of the chain for one tile: the raw rows are in `xs`, the
-// output cotangent rows in the `da` buffer (ld L.ldd) and, with needs_dx,
-// `de` is zeroed. Leaves the embedding cotangent in `de` and adds the
-// tile's dW and db into `dw_slice` / `db_slice` (packed layout) when
-// needs_dw.
+// head's cotangent rows in the `da` buffer (ld L.ldd) and, with needs_dx,
+// `de` holds the embedding's own cotangent (zero, or for a last-skip plan
+// the output's trailing columns). Leaves the embedding cotangent in `de`
+// and adds the tile's dW and db into `dw_slice` / `db_slice` (packed
+// layout) when needs_dw. A non-null `stash` (rows of the whole input)
+// gives the embedding's trig columns for the tile at row0 of n rows; its
+// sin/cos are then not recomputed.
 template <typename T, int ROWS>
 __device__ void chain_tile_bwd(const ChainDesc& d, bool needs_dx, bool needs_dw,
                                const T* __restrict__ w, const float* __restrict__ bias,
-                               unsigned char* smem, float* dw_slice, float* db_slice) {
+                               unsigned char* smem, float* dw_slice, float* db_slice,
+                               const T* __restrict__ stash = nullptr, long long row0 = 0,
+                               long long n = 0) {
   const BwdLayout L = bwd_layout<T, ROWS>(d, needs_dx);
   const float* xs = reinterpret_cast<const float*>(smem + L.xs);
   T* es = reinterpret_cast<T*>(smem + L.es);
@@ -523,7 +632,12 @@ __device__ void chain_tile_bwd(const ChainDesc& d, bool needs_dx, bool needs_dw,
   T* ws = reinterpret_cast<T*>(smem + L.ws);
   const int nl = d.n_layers;
   // Forward recompute, every post kept
-  embed_rows<T, ROWS>(d, xs, es, L.lde);
+  if (stash != nullptr) {
+    embed_rows<T, ROWS>(d, xs, es, L.lde, kNoTrig);
+    read_stash<T, ROWS>(d, stash, row0, n, es, L.lde);
+  } else {
+    embed_rows<T, ROWS>(d, xs, es, L.lde);
+  }
   __syncthreads();
   const T* in = es;
   int ld_in = L.lde, k_in = d.embed_dim;

@@ -29,8 +29,24 @@
 // CUDA cores in f32 from f32 or bf16 operands; tensor cores (wgmma) and
 // TMA are left for later work.
 //
+// The same two kernels in two more modes replace the TPU package's other
+// chain kernels:
+//   * K1r-fwd / K1r-bwd, the stash route (pallas_mlp.py _pallas_forward_trig
+//     -> _fwd_kernel_trig, _pallas_backward_trig -> _bwd_kernel_trig): the
+//     embedding's trig columns are sin(2^j x + phase), phase 0 or pi/2 in
+//     f32; under autograd the forward writes them (at the operand type) to
+//     a (n, trig_dim) stash that the backward reads instead of recomputing
+//     sin/cos, and dx uses cos of the recomputed phase. The stash adds
+//     2 * trig_dim bytes a row each way (bf16) to a kernel bound by
+//     arithmetic.
+//   * K1w-fwd / K1w-bwd, plans with a skip after the last layer
+//     (pallas_mlp.py _pallas_forward -> _fwd_kernel, _pallas_backward ->
+//     _bwd_kernel): the output row is [head | embedding], and the backward
+//     seeds the embedding's cotangent from dy's trailing columns.
+//
 // Inputs: x (n, raw_dim) f32 row-major; weights packed in JAX layout
-// (w is (din, dout), applied as x @ w), biases f32. Output y (n, dout) f32.
+// (w is (din, dout), applied as x @ w), biases f32. Output y (n, out_dim)
+// f32.
 
 #include "chain_mlp.cuh"
 
@@ -38,8 +54,9 @@ namespace nfk {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, const T* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ y, long long n) {
+chain_fwd_kernel(ChainDesc d, int phase, const float* __restrict__ x, const T* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ y, T* __restrict__ stash,
+                 long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
   float* xs = reinterpret_cast<float*>(smem + smem_layout<T>(d).xs);
@@ -48,7 +65,7 @@ chain_fwd_kernel(ChainDesc d, const float* __restrict__ x, const T* __restrict__
     xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
   }
   __syncthreads();
-  chain_tile<T>(d, w, bias, smem, y, row0, n);
+  chain_tile<T>(d, w, bias, smem, y, row0, n, phase ? kPhase : kSincos, stash);
 }
 
 __global__ void sum_slices_kernel(const float* __restrict__ part, int slices,
@@ -75,10 +92,10 @@ int sum_slices(const float* part, int slices, long long stride, float* out,
 
 template <typename T, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-chain_bwd_kernel(ChainDesc d, int needs_dx, int needs_dw, const float* __restrict__ x,
-                 const float* __restrict__ dy, const T* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ dx,
-                 float* __restrict__ dwb_part, long long n) {
+chain_bwd_kernel(ChainDesc d, int phase, int needs_dx, int needs_dw, const float* __restrict__ x,
+                 const float* __restrict__ dy, const T* __restrict__ stash,
+                 const T* __restrict__ w, const float* __restrict__ bias,
+                 float* __restrict__ dx, float* __restrict__ dwb_part, long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const BwdLayout L = bwd_layout<T, ROWS>(d, needs_dx);
   const long long w_total = total_weights(d);
@@ -89,7 +106,8 @@ chain_bwd_kernel(ChainDesc d, int needs_dx, int needs_dw, const float* __restric
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   float* da = reinterpret_cast<float*>(smem + L.da);
   float* de = reinterpret_cast<float*>(smem + L.de);
-  const int n_out = d.widths[d.n_layers - 1];
+  const int n_out = d.widths[d.n_layers - 1], ldy = out_dim(d);
+  const bool seed_e = last_skip(d);
   const long long n_tiles = (n + ROWS - 1) / ROWS;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * ROWS;
@@ -100,14 +118,21 @@ chain_bwd_kernel(ChainDesc d, int needs_dx, int needs_dw, const float* __restric
     // Padding rows get a zero cotangent, so they add nothing to dW/db
     for (int idx = threadIdx.x; idx < ROWS * n_out; idx += kThreads) {
       const int r = idx / n_out, c = idx % n_out;
-      da[r * L.ldd + c] = row0 + r < n ? dy[(row0 + r) * n_out + c] : 0.f;
+      da[r * L.ldd + c] = row0 + r < n ? dy[(row0 + r) * ldy + c] : 0.f;
     }
+    // The embedding's own cotangent: a last-skip plan's output carries the
+    // embedding in its trailing columns (only dx depends on it)
     if (needs_dx)
-      for (int idx = threadIdx.x; idx < ROWS * L.lde; idx += kThreads) de[idx] = 0.f;
+      for (int idx = threadIdx.x; idx < ROWS * L.lde; idx += kThreads) {
+        const int r = idx / L.lde, c = idx % L.lde;
+        de[idx] = seed_e && c < d.embed_dim && row0 + r < n
+                      ? dy[(row0 + r) * ldy + n_out + c] : 0.f;
+      }
     __syncthreads();
     chain_tile_bwd<T, ROWS>(d, needs_dx, needs_dw, w, bias, smem, dw_slice,
-                            needs_dw ? dw_slice + w_total : nullptr);
-    if (needs_dx) embed_bwd<ROWS>(d, xs, de, L.lde, dx + row0 * d.raw_dim, n - row0);
+                            needs_dw ? dw_slice + w_total : nullptr, stash, row0, n);
+    if (needs_dx)
+      embed_bwd<ROWS>(d, xs, de, L.lde, dx + row0 * d.raw_dim, n - row0, phase != 0);
     __syncthreads();
   }
 }
@@ -121,35 +146,36 @@ int chain_bwd_slices(const ChainDesc& d, int needs_dx, long long n, int* slices)
 }
 
 template <typename T, int ROWS>
-int chain_bwd(const ChainDesc& d, int needs_dx, int needs_dw, const float* x,
-              const float* dy, const T* w, const float* bias, float* dx, float* dwb_part,
-              float* dwb, int slices, long long n, cudaStream_t stream) {
+int chain_bwd(const ChainDesc& d, int phase, int needs_dx, int needs_dw, const float* x,
+              const float* dy, const T* stash, const T* w, const float* bias, float* dx,
+              float* dwb_part, float* dwb, int slices, long long n, cudaStream_t stream) {
   const size_t smem = bwd_layout<T, ROWS>(d, needs_dx != 0).total;
   const long long tiles = (n + ROWS - 1) / ROWS;
   const long long blocks = needs_dw ? slices : tiles;
   if (blocks < 1) return kErrBadPlan;
-  int err = launch_with_smem(chain_bwd_kernel<T, ROWS>, smem, blocks, stream, d, needs_dx,
-                             needs_dw, x, dy, w, bias, dx, dwb_part, n);
+  int err = launch_with_smem(chain_bwd_kernel<T, ROWS>, smem, blocks, stream, d, phase,
+                             needs_dx, needs_dw, x, dy, stash, w, bias, dx, dwb_part, n);
   if (err || !needs_dw) return err;
   return sum_slices(dwb_part, slices, total_weights(d) + total_biases(d), dwb, stream);
 }
 
 template <typename T>
-int chain_bwd_dispatch(const ChainDesc& d, int needs_dx, int needs_dw, const float* x,
-                       const float* dy, const void* w, const float* bias, float* dx,
-                       float* dwb_part, float* dwb, int slices, long long n,
-                       cudaStream_t stream) {
+int chain_bwd_dispatch(const ChainDesc& d, int phase, int needs_dx, int needs_dw,
+                       const float* x, const float* dy, const void* stash, const void* w,
+                       const float* bias, float* dx, float* dwb_part, float* dwb, int slices,
+                       long long n, cudaStream_t stream) {
+  const T* st = static_cast<const T*>(stash);
   const T* wt = static_cast<const T*>(w);
   switch (bwd_rows<T>(d, needs_dx != 0, max_smem_optin())) {
     case 64:
-      return chain_bwd<T, 64>(d, needs_dx, needs_dw, x, dy, wt, bias, dx, dwb_part, dwb,
-                              slices, n, stream);
+      return chain_bwd<T, 64>(d, phase, needs_dx, needs_dw, x, dy, st, wt, bias, dx, dwb_part,
+                              dwb, slices, n, stream);
     case 32:
-      return chain_bwd<T, 32>(d, needs_dx, needs_dw, x, dy, wt, bias, dx, dwb_part, dwb,
-                              slices, n, stream);
+      return chain_bwd<T, 32>(d, phase, needs_dx, needs_dw, x, dy, st, wt, bias, dx, dwb_part,
+                              dwb, slices, n, stream);
     case 16:
-      return chain_bwd<T, 16>(d, needs_dx, needs_dw, x, dy, wt, bias, dx, dwb_part, dwb,
-                              slices, n, stream);
+      return chain_bwd<T, 16>(d, phase, needs_dx, needs_dw, x, dy, st, wt, bias, dx, dwb_part,
+                              dwb, slices, n, stream);
     default:
       return kErrSmem;
   }
@@ -172,20 +198,26 @@ extern "C" {
 const char* nfk_error_string(int code) {
   if (code == nfk::kErrBadPlan) return "chain plan not supported by the kernel";
   if (code == nfk::kErrSmem) return "chain needs more shared memory than a block has";
+  if (code == nfk::kErrBadArgs) return "arguments not supported by the kernel";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// bf16 != 0 selects bf16 operands (w must then hold bf16 values).
-int nfk_chain_fwd(const nfk::ChainDesc* desc, int bf16, const float* x,
-                  const void* w, const float* bias, float* y, long long n,
+// bf16 != 0 selects bf16 operands (w must then hold bf16 values). phase
+// != 0 selects the stash route's embedding (K1r-fwd); a non-null stash
+// (n, trig_dim) of the operand type then receives its trig columns. y is
+// (n, out_dim): [head | embedding] for a last-skip plan (K1w-fwd).
+int nfk_chain_fwd(const nfk::ChainDesc* desc, int bf16, int phase, const float* x,
+                  const void* w, const float* bias, float* y, void* stash, long long n,
                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stash != nullptr && (!phase || nfk::last_skip(*desc))) return nfk::kErrBadPlan;
   if (bf16)
     return nfk::launch_tiles<__nv_bfloat16>(
-        nfk::chain_fwd_kernel<__nv_bfloat16>, *desc, n, s, x,
-        static_cast<const __nv_bfloat16*>(w), bias, y);
-  return nfk::launch_tiles<float>(nfk::chain_fwd_kernel<float>, *desc, n, s, x,
-                                  static_cast<const float*>(w), bias, y);
+        nfk::chain_fwd_kernel<__nv_bfloat16>, *desc, n, s, phase, x,
+        static_cast<const __nv_bfloat16*>(w), bias, y, static_cast<__nv_bfloat16*>(stash));
+  return nfk::launch_tiles<float>(nfk::chain_fwd_kernel<float>, *desc, n, s, phase, x,
+                                  static_cast<const float*>(w), bias, y,
+                                  static_cast<float*>(stash));
 }
 
 // Number of dW scratch slices nfk_chain_bwd uses for n rows (the wrapper
@@ -201,19 +233,25 @@ int nfk_chain_bwd_slices(const nfk::ChainDesc* desc, int bf16, int needs_dx, lon
 
 // K1-bwd. dx (n, raw_dim) is written when needs_dx; with needs_dw the
 // weight and bias cotangents land in dwb (packed like w then bias, f32),
-// summed from dwb_part (slices x stride floats of scratch).
-int nfk_chain_bwd(const nfk::ChainDesc* desc, int bf16, int needs_dx, int needs_dw,
-                  const float* x, const float* dy, const void* w, const float* bias,
-                  float* dx, float* dwb_part, float* dwb, int slices, long long n,
-                  void* stream) {
+// summed from dwb_part (slices x stride floats of scratch). dy is (n,
+// out_dim). phase != 0 is the stash route (K1r-bwd): the trig columns come
+// from `stash` (n, trig_dim), which a plan with trig columns must give.
+int nfk_chain_bwd(const nfk::ChainDesc* desc, int bf16, int phase, int needs_dx,
+                  int needs_dw, const float* x, const float* dy, const void* stash,
+                  const void* w, const float* bias, float* dx, float* dwb_part, float* dwb,
+                  int slices, long long n, void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
+  if (phase ? nfk::last_skip(*desc) || (stash == nullptr && nfk::trig_dim(*desc) > 0)
+            : stash != nullptr)
+    return nfk::kErrBadPlan;
   if (n <= 0 || (!needs_dx && !needs_dw)) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return nfk::chain_bwd_dispatch<__nv_bfloat16>(*desc, needs_dx, needs_dw, x, dy, w, bias,
-                                                  dx, dwb_part, dwb, slices, n, s);
-  return nfk::chain_bwd_dispatch<float>(*desc, needs_dx, needs_dw, x, dy, w, bias, dx,
-                                        dwb_part, dwb, slices, n, s);
+    return nfk::chain_bwd_dispatch<__nv_bfloat16>(*desc, phase, needs_dx, needs_dw, x, dy,
+                                                  stash, w, bias, dx, dwb_part, dwb, slices,
+                                                  n, s);
+  return nfk::chain_bwd_dispatch<float>(*desc, phase, needs_dx, needs_dw, x, dy, stash, w,
+                                        bias, dx, dwb_part, dwb, slices, n, s);
 }
 
 }  // extern "C"

@@ -63,6 +63,7 @@ struct NerfDesc {
 
 inline int check_nerf(const NerfDesc& d) {
   if (int err = check_desc(d.trunk)) return err;
+  if (last_skip(d.trunk)) return kErrBadPlan;
   if (d.trunk.n_parts != 1 || d.trunk.raw_dim != 3) return kErrBadPlan;
   if (d.view.n_parts != 1 || d.view.raw_dim != 3) return kErrBadPlan;
   if (d.rgb_out < 1 || d.rgb_out > kMaxHeadOut || d.rgb_hidden < 1) return kErrBadPlan;

@@ -245,7 +245,7 @@ extern "C" {
 int nfk_rusink_chain_fwd(const nfk::ChainDesc* desc, int bf16, const float* z,
                          const float* ldir, const float* vdir, const void* w,
                          const float* bias, float* y, long long n, void* stream) {
-  if (desc->raw_dim < 4) return nfk::kErrBadPlan;
+  if (desc->raw_dim < 4 || nfk::last_skip(*desc)) return nfk::kErrBadPlan;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return nfk::launch_tiles<__nv_bfloat16>(
@@ -260,7 +260,7 @@ int nfk_rusink_chain_bwd(const nfk::ChainDesc* desc, int bf16, const float* z,
                          const float* ldir, const float* vdir, const float* dy,
                          const void* w, const float* bias, float* dz, float* dl, float* dv,
                          long long n, void* stream) {
-  if (desc->raw_dim < 4) return nfk::kErrBadPlan;
+  if (desc->raw_dim < 4 || nfk::last_skip(*desc)) return nfk::kErrBadPlan;
   if (int err = nfk::check_desc(*desc)) return err;
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

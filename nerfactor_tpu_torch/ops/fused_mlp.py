@@ -12,6 +12,30 @@ over rays x 512 lights. :func:`apply_chain` runs one such chain:
     version of the same math under ordinary autograd (the oracle the
     tests and ``chip_smoke.py`` hold the kernels against).
 
+The kernel has the JAX package's two routes, chosen by ``transposed`` of
+:func:`_fused_chain` (None reads :data:`TRANSPOSED_BOUNDARY`). On the TPU
+the names are about the layout of the kernel's operands in HBM; on the
+card both routes read row-major (N, raw) rows and write row-major output:
+
+  * ``transposed=True`` (the default): K1-fwd / K1-bwd, whose backward
+    recomputes sin/cos;
+  * ``transposed=False``: the stash route, K1r-fwd / K1r-bwd. Its
+    embedding forms cos t as sin(t + pi/2) with the phase added in f32
+    (:func:`trig_stash`, the TPU kernel's sin(x @ A + P)); under autograd
+    K1r-fwd writes those trig columns, at the kernel's operand type, to a
+    (N, trig_dim) stash in the column order of :func:`trig_perm`, and
+    K1r-bwd reads them instead of recomputing sin/cos. K1r-bwd always
+    computes dW/db, as the TPU route does. Its plain version is
+    :func:`chain_reference_stash`; at 2^9 x the pi/2 add rounds, so it
+    parts from :func:`chain_reference` by up to ~3e-5 in f32.
+
+A plan with a skip after its last layer (output ``[head | embedding]``)
+takes K1w-fwd / K1w-bwd on either route, as the JAX package sends such
+plans to its ``_pallas_forward`` / ``_pallas_backward``. Unlike that TPU
+route, which reads the global ``networks.MATMUL_DTYPE`` and so ignores a
+per-call bf16 ``compute_dtype``, K1w takes ``compute_dtype`` as every
+other route does (the semantics of :func:`chain_reference`).
+
 Semantics mirror the JAX package: the embedding of each part is
 ``[x, sin(f0 x), cos(f0 x), ...]``; after layer i in ``skip_at`` the
 embedding is concatenated onto the activation (the next layer sees
@@ -20,6 +44,7 @@ embedding is concatenated onto the activation (the next layer sees
 """
 
 import ctypes
+import math
 from collections import namedtuple
 
 import torch
@@ -73,10 +98,62 @@ def layer_in_dims(plan):
     return dims
 
 
+def last_skip(plan):
+    """Whether the plan skips after its last layer: its output is then
+    ``[head | embedding]``."""
+    return (len(plan.widths) - 1) in plan.skip_at
+
+
 def out_dim(plan):
-    last = len(plan.widths) - 1
-    return plan.widths[-1] + (embed_dim(plan) if last in plan.skip_at
-                              else 0)
+    return plan.widths[-1] + (embed_dim(plan) if last_skip(plan) else 0)
+
+
+# Selects the kernel route of _fused_chain when its ``transposed`` is None
+# (see the module docstring): True runs K1, False the stash route K1r.
+TRANSPOSED_BOUNDARY = True
+
+
+def trig_dim(plan):
+    """Width of a stash row: every part's sin and cos columns."""
+    return sum(2 * d * f for d, f in plan.embed_parts)
+
+
+def trig_perm(plan):
+    """Columns of the reference embedding regrouped as [all trig columns
+    (per part: the sines octave-major, then the cosines), then all raw-x
+    columns]. The stash's columns are the first trig_dim(plan) of them."""
+    xs, trigs = [], []
+    base = 0
+    for d, f in plan.embed_parts:
+        xs.extend(range(base, base + d))
+        for trig in range(2):
+            for j in range(f):
+                start = base + d + j * 2 * d + trig * d
+                trigs.extend(range(start, start + d))
+        base += d + 2 * d * f
+    return trigs + xs
+
+
+# float32(pi / 2), the phase of a cos column
+HALF_PI = float(torch.tensor(math.pi / 2, dtype=torch.float32))
+
+
+def _trig_mats(plan):
+    """Per stash column: its raw input column, octave frequency 2^j and
+    phase (0 for a sine, float32(pi/2) for a cosine). These are the one
+    nonzero of each column of the TPU kernel's constant A and its phase
+    row P (the JAX package's ``_trig_mats``)."""
+    cols, freqs, phases = [], [], []
+    row0 = 0
+    for d, f in plan.embed_parts:
+        for trig in range(2):
+            for j in range(f):
+                for k in range(d):
+                    cols.append(row0 + k)
+                    freqs.append(2.0 ** j)
+                    phases.append(HALF_PI if trig else 0.0)
+        row0 += d
+    return cols, freqs, phases
 
 
 # ------ plain PyTorch version ------
@@ -106,12 +183,42 @@ def _dot(a, b):
     return torch.matmul(a.float(), b.float())
 
 
+def trig_stash(plan, x):
+    """Plain version of the stash route's trig columns: sin(2^j x +
+    phase), phase 0 or pi/2, in f32; (N, trig_dim) in the stash's column
+    order. 2^j x is exact and the phase add rounds in f32, as the TPU
+    kernel's sin(x @ A + P): at 2^9 x a cos column parts from cos() by up
+    to ~3e-5."""
+    cols, freqs, phases = _trig_mats(plan)
+    freqs = torch.tensor(freqs, dtype=torch.float32, device=x.device)
+    phases = torch.tensor(phases, dtype=torch.float32, device=x.device)
+    return torch.sin(x[:, cols] * freqs + phases)
+
+
+def _embed_from_stash(plan, x, stash):
+    """The embedding in the reference order, its trig columns from
+    ``stash`` (the stash route's form)."""
+    inv = sorted(range(embed_dim(plan)), key=trig_perm(plan).__getitem__)
+    return torch.cat([stash, x], dim=1)[:, inv]
+
+
 def chain_reference(plan, x, params, compute_dtype=None):
     """Plain PyTorch chain, the math of the JAX package's
     ``chain_reference``: ``compute_dtype`` (e.g. bf16) casts the
     embedding, weights and pre-activations; products accumulate in f32;
     the output is f32."""
-    e = _embed(plan, x)
+    return _chain_on(plan, _embed(plan, x), params, compute_dtype)
+
+
+def chain_reference_stash(plan, x, params, compute_dtype=None):
+    """Plain version of the stash route (K1r): :func:`chain_reference`
+    on the embedding whose trig columns are :func:`trig_stash`'s."""
+    e = _embed_from_stash(plan, x, trig_stash(plan, x))
+    return _chain_on(plan, e, params, compute_dtype)
+
+
+def _chain_on(plan, e, params, compute_dtype):
+    """The layers of :func:`chain_reference` over the embedding ``e``."""
     if compute_dtype is not None:
         e = e.to(compute_dtype)
     h = e
@@ -127,12 +234,11 @@ def chain_reference(plan, x, params, compute_dtype=None):
         if compute_dtype is not None:
             pre = pre.to(compute_dtype)
         h = _act(act, pre)
-    last = len(plan.widths) - 1
-    y = torch.cat([h, e], dim=1) if last in plan.skip_at else h
+    y = torch.cat([h, e], dim=1) if last_skip(plan) else h
     return y.float()
 
 
-# ------ kernels K1-fwd and K1-bwd ------
+# ------ the chain kernels: K1, the stash route K1r, last-skip K1w ------
 
 MAX_LAYERS, MAX_PARTS = 16, 4  # csrc/chain_mlp.cuh kMaxLayers, kMaxParts
 ACT_CODES = {None: 0, 'none': 0, 'relu': 1, 'sigmoid': 2, 'softplus': 3}
@@ -157,11 +263,10 @@ class ChainDesc(ctypes.Structure):
 
 
 def kernel_supports(plan):
-    """Whether K1-fwd takes this plan: at most 16 layers and 4 embedding
-    parts, and no skip after the head (no shipped chain has one)."""
+    """Whether the chain kernels take this plan: at most 16 layers and 4
+    embedding parts (a skip after the last layer runs as K1w)."""
     return (len(plan.widths) <= MAX_LAYERS
-            and len(plan.embed_parts) <= MAX_PARTS
-            and (len(plan.widths) - 1) not in plan.skip_at)
+            and len(plan.embed_parts) <= MAX_PARTS)
 
 
 def make_desc(plan):
@@ -265,25 +370,81 @@ def launch(entry, plan, inputs, params, compute_dtype):
     device, n = tensors[0].device, tensors[0].shape[0]
     if n == 0:
         return None
-    y = torch.empty((n, plan.widths[-1]), dtype=torch.float32, device=device)
+    y = torch.empty((n, out_dim(plan)), dtype=torch.float32, device=device)
     run(entry, device, ctypes.addressof(desc), bf16,
         *[t.data_ptr() for t in tensors], w_flat.data_ptr(), b_flat.data_ptr(),
         y.data_ptr(), n)
     return y
 
 
+def _check_route(plan, kernel, for_last_skip):
+    """Raises unless ``kernel`` is the one for ``plan``'s kind: K1w for a
+    plan with a skip after its last layer, K1 or K1r otherwise."""
+    if last_skip(plan) != for_last_skip:
+        raise ValueError("%s takes plans %s a skip after the last layer, got "
+                         "%s" % (kernel, 'with' if for_last_skip else
+                                 'without', plan))
+
+
+def _chain_fwd(plan, x, params, compute_dtype, stash_route=False,
+               with_stash=False):
+    """Launches nfk_chain_fwd on ``x`` (N, raw_dim) CUDA f32. Returns the
+    (N, out_dim) f32 output, the (N, trig_dim) stash at the operand type
+    (or None) and whether a kernel ran (not for N == 0)."""
+    (x,), desc, bf16, w_flat, b_flat = prepare(
+        plan, [('x', x, raw_dim(plan))], params, compute_dtype)
+    n = x.shape[0]
+    y = torch.empty((n, out_dim(plan)), dtype=torch.float32, device=x.device)
+    stash = None
+    if with_stash and trig_dim(plan):
+        stash = torch.empty((n, trig_dim(plan)),
+                            dtype=kernel_dtype(compute_dtype), device=x.device)
+    if n:
+        run('nfk_chain_fwd', x.device, ctypes.addressof(desc), bf16,
+            int(stash_route), x.data_ptr(), w_flat.data_ptr(),
+            b_flat.data_ptr(), y.data_ptr(), _ptr(stash), n)
+    return y, stash, n > 0
+
+
 def chain_kernel(plan, x, params, compute_dtype=None):
     """Launches K1-fwd on ``x`` (N, raw_dim) CUDA f32; returns (N, out) f32.
     Counts its launches in ``chain_kernel.launches``."""
-    y = launch('nfk_chain_fwd', plan, [('x', x, raw_dim(plan))], params,
-               compute_dtype)
-    if y is None:
-        return x.new_empty((0, plan.widths[-1]))
-    chain_kernel.launches += 1
+    _check_route(plan, 'K1-fwd', False)
+    y, _, ran = _chain_fwd(plan, x, params, compute_dtype)
+    chain_kernel.launches += ran
     return y
 
 
 chain_kernel.launches = 0
+
+
+def chain_kernel_stash(plan, x, params, compute_dtype=None, with_stash=False):
+    """Launches K1r-fwd, the stash route's forward, on ``x`` (N, raw_dim)
+    CUDA f32. Returns ((N, out) f32, the (N, trig_dim) stash at the
+    kernel's operand type with ``with_stash``, else None). Counts its
+    launches in ``chain_kernel_stash.launches``."""
+    _check_route(plan, 'K1r-fwd', False)
+    y, stash, ran = _chain_fwd(plan, x, params, compute_dtype,
+                               stash_route=True, with_stash=with_stash)
+    chain_kernel_stash.launches += ran
+    return y, stash
+
+
+chain_kernel_stash.launches = 0
+
+
+def chain_kernel_last_skip(plan, x, params, compute_dtype=None):
+    """Launches K1w-fwd on ``x`` (N, raw_dim) CUDA f32 for a plan with a
+    skip after its last layer; returns (N, widths[-1] + embed_dim) f32,
+    ``[head | embedding]``. Counts its launches in
+    ``chain_kernel_last_skip.launches``."""
+    _check_route(plan, 'K1w-fwd', True)
+    y, _, ran = _chain_fwd(plan, x, params, compute_dtype)
+    chain_kernel_last_skip.launches += ran
+    return y
+
+
+chain_kernel_last_skip.launches = 0
 
 
 def unpack_grads(plan, dwb):
@@ -299,19 +460,24 @@ def unpack_grads(plan, dwb):
     return out
 
 
-def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
-                     needs_dw=True):
-    """Launches K1-bwd: the cotangents of :func:`chain_kernel` for the
-    output cotangent ``dy`` (N, out). Returns (dx (N, raw_dim) or None,
-    [(dW, db)] or None), f32, as ``needs_dx`` / ``needs_dw`` ask. dW/db
-    are bit-identical for the same inputs on the same card. Counts its
-    launches in ``chain_kernel_bwd.launches``."""
+def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
+               stash_route=False, stash=None):
+    """Launches nfk_chain_bwd for the output cotangent ``dy`` (N, out_dim).
+    Returns (dx or None, [(dW, db)] or None, whether a kernel ran)."""
     if not (needs_dx or needs_dw):
         raise ValueError("K1-bwd launched with nothing to compute")
     (x, dy), desc, bf16, w_flat, b_flat = prepare(
-        plan, [('x', x, raw_dim(plan)), ('dy', dy, plan.widths[-1])], params,
+        plan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
         compute_dtype)
     device, n = x.device, x.shape[0]
+    if stash_route and trig_dim(plan):
+        want = (n, trig_dim(plan))
+        if stash is None or stash.device != device \
+                or stash.dtype != kernel_dtype(compute_dtype) \
+                or tuple(stash.shape) != want:
+            raise ValueError("The stash must be a %s %s %s tensor" % (
+                device, kernel_dtype(compute_dtype), want))
+        stash = stash.contiguous()
     dx = torch.empty_like(x) if needs_dx else None
     dwb = part = None
     slices = ctypes.c_int(0)
@@ -325,14 +491,61 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
                                device=device)
     if n:
         run('nfk_chain_bwd', device, ctypes.addressof(desc), bf16,
-            int(needs_dx), int(needs_dw), x.data_ptr(), dy.data_ptr(),
-            w_flat.data_ptr(), b_flat.data_ptr(), _ptr(dx), _ptr(part),
-            _ptr(dwb), slices.value, n)
-        chain_kernel_bwd.launches += 1
-    return dx, (unpack_grads(plan, dwb) if needs_dw else None)
+            int(stash_route), int(needs_dx), int(needs_dw), x.data_ptr(),
+            dy.data_ptr(), _ptr(stash), w_flat.data_ptr(), b_flat.data_ptr(),
+            _ptr(dx), _ptr(part), _ptr(dwb), slices.value, n)
+    return dx, (unpack_grads(plan, dwb) if needs_dw else None), n > 0
+
+
+def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
+                     needs_dw=True):
+    """Launches K1-bwd: the cotangents of :func:`chain_kernel` for the
+    output cotangent ``dy`` (N, out). Returns (dx (N, raw_dim) or None,
+    [(dW, db)] or None), f32, as ``needs_dx`` / ``needs_dw`` ask. dW/db
+    are bit-identical for the same inputs on the same card. Counts its
+    launches in ``chain_kernel_bwd.launches``."""
+    _check_route(plan, 'K1-bwd', False)
+    dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
+                                needs_dw)
+    chain_kernel_bwd.launches += ran
+    return dx, grads
 
 
 chain_kernel_bwd.launches = 0
+
+
+def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,
+                           needs_dx=True):
+    """Launches K1r-bwd: the cotangents of :func:`chain_kernel_stash` for
+    ``dy`` (N, out), reading the trig columns from ``stash`` (K1r-fwd's,
+    None for a plan without trig columns). Returns (dx or None, [(dW,
+    db)]): dW/db always, as the TPU route computes them whatever the
+    caller declared. Counts its launches in
+    ``chain_kernel_stash_bwd.launches``."""
+    _check_route(plan, 'K1r-bwd', False)
+    dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
+                                True, stash_route=True, stash=stash)
+    chain_kernel_stash_bwd.launches += ran
+    return dx, grads
+
+
+chain_kernel_stash_bwd.launches = 0
+
+
+def chain_kernel_last_skip_bwd(plan, x, dy, params, compute_dtype=None,
+                               needs_dx=True, needs_dw=True):
+    """Launches K1w-bwd: the cotangents of :func:`chain_kernel_last_skip`
+    for ``dy`` (N, widths[-1] + embed_dim), as ``needs_dx`` / ``needs_dw``
+    ask; dy's trailing columns reach dx through the embedding. Counts its
+    launches in ``chain_kernel_last_skip_bwd.launches``."""
+    _check_route(plan, 'K1w-bwd', True)
+    dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
+                                needs_dw)
+    chain_kernel_last_skip_bwd.launches += ran
+    return dx, grads
+
+
+chain_kernel_last_skip_bwd.launches = 0
 
 
 def grads_or_zeros(ctx, first, grads, inputs):
@@ -346,37 +559,84 @@ def grads_or_zeros(ctx, first, grads, inputs):
         for i, (g, t) in enumerate(zip(grads, inputs)))
 
 
+def _pairs(flat):
+    return list(zip(flat[0::2], flat[1::2]))
+
+
+def _forward(plan, x, params, compute_dtype, stash_route, with_stash=False):
+    """The route's forward kernel: K1r with ``stash_route``, K1w for a
+    last-skip plan, else K1. Returns (y, the K1r stash with
+    ``with_stash``, else None)."""
+    if stash_route:
+        return chain_kernel_stash(plan, x, params, compute_dtype,
+                                  with_stash=with_stash)
+    if last_skip(plan):
+        return chain_kernel_last_skip(plan, x, params, compute_dtype), None
+    return chain_kernel(plan, x, params, compute_dtype), None
+
+
 class ChainFunction(torch.autograd.Function):
-    """K1-fwd with K1-bwd as its backward (the JAX package's
-    ``_fused_chain_impl`` custom VJP): ``needs_dx`` / ``needs_dw`` select
-    the cotangents K1-bwd computes; the others come back as zeros, and
-    with both False no backward kernel is launched."""
+    """The chain kernels' forward with their backward (the JAX package's
+    ``_fused_chain_impl`` custom VJP): K1, K1r (``stash_route``, whose
+    forward saves the stash for its backward) or, for a last-skip plan,
+    K1w. ``needs_dx`` / ``needs_dw`` select the cotangents the backward
+    computes (K1r computes dW/db in any case); the others come back as
+    zeros, and with both False no backward kernel is launched."""
 
     @staticmethod
-    def forward(ctx, plan, compute_dtype, needs_dx, needs_dw, x, *flat):
-        ctx.save_for_backward(x, *flat)
+    def forward(ctx, plan, compute_dtype, needs_dx, needs_dw, stash_route, x,
+                *flat):
+        y, stash = _forward(plan, x, _pairs(flat), compute_dtype, stash_route,
+                            with_stash=True)
+        ctx.save_for_backward(x, stash, *flat)
         ctx.plan, ctx.compute_dtype = plan, compute_dtype
-        ctx.needs = (needs_dx, needs_dw)
-        return chain_kernel(plan, x, list(zip(flat[0::2], flat[1::2])),
-                            compute_dtype)
+        ctx.needs, ctx.stash_route = (needs_dx, needs_dw), stash_route
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, *flat = ctx.saved_tensors
+        x, stash, *flat = ctx.saved_tensors
         needs_dx, needs_dw = ctx.needs
+        plan, cd, params = ctx.plan, ctx.compute_dtype, _pairs(flat)
         dx, dparams = None, None
-        if needs_dx or needs_dw:
-            dx, dparams = chain_kernel_bwd(
-                ctx.plan, x, dy, list(zip(flat[0::2], flat[1::2])),
-                ctx.compute_dtype, needs_dx=needs_dx, needs_dw=needs_dw)
+        if ctx.stash_route and (needs_dx or needs_dw):
+            dx, dparams = chain_kernel_stash_bwd(plan, x, dy, stash, params, cd,
+                                                 needs_dx=needs_dx)
+        elif needs_dx or needs_dw:
+            bwd = chain_kernel_last_skip_bwd if last_skip(plan) \
+                else chain_kernel_bwd
+            dx, dparams = bwd(plan, x, dy, params, cd, needs_dx=needs_dx,
+                              needs_dw=needs_dw)
         dflat = [g for pair in dparams for g in pair] if dparams \
             else [None] * len(flat)
-        return (None, None, None, None) + grads_or_zeros(
-            ctx, 4, [dx] + dflat, [x] + list(flat))
+        return (None,) * 5 + grads_or_zeros(ctx, 5, [dx] + dflat,
+                                            [x] + list(flat))
 
 
 def needs_autograd(tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _fused_chain(plan, x, params, needs_dx=True, needs_dw=True,
+                 transposed=None, compute_dtype=None):
+    """The chain through its kernels, on the route ``transposed`` selects
+    (None reads :data:`TRANSPOSED_BOUNDARY`; see the module docstring);
+    a plan with a skip after its last layer takes K1w on either route. A
+    CUDA tensor launches the route's kernels or raises; a CPU tensor takes
+    the route's plain version (:func:`chain_reference_stash` for the stash
+    route). ``needs_dx`` / ``needs_dw`` as in :func:`apply_chain`."""
+    if transposed is None:
+        transposed = TRANSPOSED_BOUNDARY
+    stash_route = not transposed and not last_skip(plan)
+    params = [(w, b) for w, b in params]
+    if x.device.type == 'cpu':
+        ref = chain_reference_stash if stash_route else chain_reference
+        return ref(plan, x, params, compute_dtype=compute_dtype)
+    flat = [t for pair in params for t in pair]
+    if needs_autograd([x] + flat):
+        return ChainFunction.apply(plan, compute_dtype, needs_dx, needs_dw,
+                                   stash_route, x, *flat)
+    return _forward(plan, x, params, compute_dtype, stash_route)[0]
 
 
 def apply_chain(plan, x, params, force_reference=False, compute_dtype=None,
@@ -385,20 +645,20 @@ def apply_chain(plan, x, params, force_reference=False, compute_dtype=None,
 
     ``params`` is the list of (w, b) over all layers (hidden + head);
     ``compute_dtype`` is None (true f32) or torch.bfloat16 (bf16
-    operands, f32 accumulation). ``force_reference`` (the JAX package's
-    ``fused_mlp = False``) runs the plain version on any device. Otherwise
-    a CPU tensor takes the plain version and a CUDA tensor the kernel.
+    operands, f32 accumulation), on every route. ``force_reference`` (the
+    JAX package's ``fused_mlp = False``) runs the plain version on any
+    device. Otherwise a CPU tensor takes the plain version and a CUDA
+    tensor the kernels of :func:`_fused_chain`.
 
     ``needs_dx`` / ``needs_dw`` have the JAX meaning for the kernel's
     backward: pass ``needs_dx=False`` when ``x`` is data, and
-    ``needs_dw=False`` when the weights are frozen; K1-bwd then skips that
-    branch and returns zeros for it. The plain version ignores them.
+    ``needs_dw=False`` when the weights are frozen; the backward then
+    skips that branch and returns zeros for it (the stash route computes
+    dW/db all the same). The plain version ignores them.
     """
     params = [(w, b) for w, b in params]
+    # As the JAX apply_chain off the TPU: chain_reference on either route
     if force_reference or x.device.type == 'cpu':
         return chain_reference(plan, x, params, compute_dtype=compute_dtype)
-    flat = [t for pair in params for t in pair]
-    if needs_autograd([x] + flat):
-        return ChainFunction.apply(plan, compute_dtype, needs_dx, needs_dw, x,
-                                   *flat)
-    return chain_kernel(plan, x, params, compute_dtype=compute_dtype)
+    return _fused_chain(plan, x, params, needs_dx=needs_dx, needs_dw=needs_dw,
+                        compute_dtype=compute_dtype)

@@ -85,11 +85,12 @@ class NerfDesc(ctypes.Structure):
 
 
 def kernel_supports(nplan):
-    """Whether K3 takes this plan: one trunk width, a trunk K1 takes, two
-    rgb layers, the first no wider than the trunk and the head at most 8
-    wide."""
+    """Whether K3 takes this plan: one trunk width, a trunk K1 takes with
+    no skip after its last layer, two rgb layers, the first no wider than
+    the trunk and the head at most 8 wide."""
     tp = nplan.trunk_plan
-    return (fm.kernel_supports(tp) and len(set(tp.widths)) == 1
+    return (fm.kernel_supports(tp) and not fm.last_skip(tp)
+            and len(set(tp.widths)) == 1
             and len(nplan.rgb_widths) == 2
             and nplan.rgb_widths[0] <= tp.widths[0]
             and nplan.rgb_widths[1] <= MAX_HEAD_OUT)

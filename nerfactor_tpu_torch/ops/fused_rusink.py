@@ -27,10 +27,12 @@ def reference(plan, z, ldir, vdir, params, compute_dtype=None):
 
 
 def _inputs(plan, z, ldir, vdir):
-    """The kernels' row inputs; ``plan`` must embed [(z_dim, 0), (3, f)]."""
+    """The kernels' row inputs; ``plan`` must embed [(z_dim, 0), (3, f)]
+    and have no skip after its last layer."""
     z_dim = fm.raw_dim(plan) - 3
-    if plan.embed_parts[-1][0] != 3 or z_dim < 1:
-        raise ValueError("Plan must end in a 3-d rusink part: %s" % (plan,))
+    if plan.embed_parts[-1][0] != 3 or z_dim < 1 or fm.last_skip(plan):
+        raise ValueError("Plan must end in a 3-d rusink part and skip after "
+                         "no last layer: %s" % (plan,))
     return [('z', z, z_dim), ('ldir', ldir, 3), ('vdir', vdir, 3)]
 
 

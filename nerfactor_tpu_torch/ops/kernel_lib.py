@@ -112,7 +112,8 @@ def load():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nfk_error_string.argtypes = [i32]
     lib.nfk_error_string.restype = ctypes.c_char_p
-    lib.nfk_chain_fwd.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64, ptr]
+    lib.nfk_chain_fwd.argtypes = [ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i64,
+                                  ptr]
     lib.nfk_chain_fwd.restype = i32
     lib.nfk_rusink_chain_fwd.argtypes = [
         ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
@@ -120,7 +121,8 @@ def load():
     lib.nfk_chain_bwd_slices.argtypes = [ptr, i32, i32, i64, ptr]
     lib.nfk_chain_bwd_slices.restype = i32
     lib.nfk_chain_bwd.argtypes = [
-        ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
+        ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+        i64, ptr]
     lib.nfk_chain_bwd.restype = i32
     lib.nfk_rusink_chain_bwd.argtypes = [
         ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
@@ -135,6 +137,19 @@ def load():
     lib.nfk_nerf_bwd.restype = i32
     _lib = lib
     return lib
+
+
+def dot_chain_entry():
+    """The library's ``nfk_dot_chain`` (kernel P), bound on first use: the
+    CPU emulation of the sources leaves out ``dot_probe.cu`` (its inline
+    ``mma.sync`` assembly needs the card), so :func:`load` binds only what
+    every build of the library has."""
+    fn = load().nfk_dot_chain
+    if fn.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i32, ptr, ptr, i32, i64, i64, ptr, ptr]
+        fn.restype = i32
+    return fn
 
 
 def check(code, what):

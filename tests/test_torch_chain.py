@@ -324,12 +324,29 @@ def test_desc_and_packing_follow_jax_layout():
 
 
 def test_kernel_refuses_what_it_does_not_take():
+    """A plan with a skip after its last layer runs (as K1w, on either
+    route; here its plain version), each wrapper refuses the other kind of
+    plan, and the kernels refuse CPU tensors and unknown types."""
     last_skip = fm.make_plan([(3, 2)], (8, 8), ('relu', 'relu'), (1,))
-    assert not fm.kernel_supports(last_skip)
-    with pytest.raises(NotImplementedError):
-        fm.make_desc(last_skip)
+    assert fm.kernel_supports(last_skip)
+    d = fm.make_desc(last_skip)
+    assert [d.skip_after[i] for i in range(2)] == [0, 1]
+    p8 = [(torch.ones(d_in, w), torch.zeros(w)) for d_in, w in
+          zip(fm.layer_in_dims(last_skip), last_skip.widths)]
+    x8 = torch.from_numpy(chain_inputs(last_skip, n=7))
+    for transposed in (True, False):
+        y = fm._fused_chain(last_skip, x8, p8, transposed=transposed)
+        assert y.shape == (7, 8 + fm.embed_dim(last_skip))
+        np.testing.assert_array_equal(y.numpy(), fm.chain_reference(
+            last_skip, x8, p8).numpy())
+    with pytest.raises(ValueError, match='K1-fwd'):
+        fm.chain_kernel(last_skip, x8, p8)
+    with pytest.raises(ValueError, match='K1r-fwd'):
+        fm.chain_kernel_stash(last_skip, x8, p8)
     _, _, tplan, tp = both(PLANS['normal'])
     x = torch.from_numpy(chain_inputs(tplan))
+    with pytest.raises(ValueError, match='K1w-fwd'):
+        fm.chain_kernel_last_skip(tplan, x, tp)
     with pytest.raises(ValueError, match='CUDA'):  # a CPU tensor
         fm.chain_kernel(tplan, x, tp)
     with pytest.raises(ValueError):
@@ -345,8 +362,8 @@ def test_build_key_tracks_the_sources():
     key = kernel_lib.build_key()
     assert len(key) == 16 and key == kernel_lib.build_key()
     names = [p.rsplit('/', 1)[-1] for p in kernel_lib._sources()]
-    assert names == ['chain_mlp.cuh', 'fused_mlp.cu', 'fused_nerf.cu',
-                     'fused_rusink.cu']
+    assert names == ['chain_mlp.cuh', 'dot_probe.cu', 'fused_mlp.cu',
+                     'fused_nerf.cu', 'fused_rusink.cu']
 
 
 # ------ on the card ------

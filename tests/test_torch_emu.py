@@ -45,6 +45,8 @@ from tests.test_torch_chain import (
     DTYPES, DW_TOL, FLAGS, GRAD_TOL, PLANS, RUSINK_PLAN, TOL,
     assert_rusink_close, both, chain_inputs, make_params, rel_norm,
     rusink_case)
+from tests.test_torch_chain_routes import (
+    LAST_SKIP, case, jax_apply_grads, jax_stash_route)
 from tests.test_torch_nerf import (
     field_inputs, field_params, jax_field, plain_field, small_plan,
     torch_params)
@@ -63,12 +65,16 @@ def _translate(src):
     return LAUNCH.sub(launch, src).replace(SHARED, '')
 
 
+# Sources that only the card compiles: kernel P's inline mma.sync assembly
+CARD_ONLY = ('dot_probe.cu',)
+
+
 def build(csrc_dir, out_dir):
-    """Compiles the emulation of the kernel sources in ``csrc_dir`` into
-    ``out_dir``; returns the library's path."""
+    """Compiles the emulation of the kernel sources in ``csrc_dir`` (all
+    but CARD_ONLY) into ``out_dir``; returns the library's path."""
     cpps = []
     for name in sorted(os.listdir(csrc_dir)):
-        if not name.endswith(('.cu', '.cuh')):
+        if not name.endswith(('.cu', '.cuh')) or name in CARD_ONLY:
             continue
         with open(join(csrc_dir, name)) as f:
             src = _translate(f.read())
@@ -129,10 +135,10 @@ def chain_case(name, n, seed):
     return plan, p, x, dy
 
 
-def plain_grads(plan, x, dy, p, td):
+def plain_grads(plan, x, dy, p, td, ref=fm.chain_reference):
     ins = [x.clone().requires_grad_()] + [
         t.clone().requires_grad_() for pair in p for t in pair]
-    y = fm.chain_reference(plan, ins[0], list(zip(ins[1::2], ins[2::2])), td)
+    y = ref(plan, ins[0], list(zip(ins[1::2], ins[2::2])), td)
     return y.detach(), torch.autograd.grad(y, ins, dy)
 
 
@@ -234,6 +240,141 @@ def test_emulated_bf16_grads_match_interpreted_pallas_kernel(name, emulated):
     dx, dw = grad_errs(kernel_grads(plan, x, dy, p, torch.bfloat16),
                        pallas_grads(name, 130, 30, 'bf16'))
     assert dx <= PALLAS_TOL_BF16 and dw <= PALLAS_TOL_BF16
+
+
+# ------ K1r (the stash route) and K1w (a skip after the last layer) ------
+
+def torch_case(plan_args, n, seed):
+    """test_torch_chain_routes.case with torch tensors."""
+    jplan, jp, tplan, tp, x, dy = case(plan_args, n, seed)
+    return jplan, jp, tplan, tp, torch.from_numpy(x), torch.from_numpy(dy)
+
+
+def assert_dparams(got, want, mode):
+    """Each dW/db leaf within DW_TOL of its norm."""
+    for g, w in zip([t for pair in got for t in pair], want):
+        assert rel_norm(g, torch.as_tensor(w)) <= DW_TOL[mode]
+
+
+def assert_same_dparams(a, b):
+    assert all(torch.equal(u, v) for pa, pb in zip(a, b)
+               for u, v in zip(pa, pb))
+
+
+@pytest.mark.parametrize('n', [50, 130])
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_emulated_stash_kernels_match_plain(name, mode, n, emulated):
+    """K1r-fwd (with and without the stash) and K1r-bwd (with and without
+    dx; dW/db always) from the CUDA source against the plain stash route;
+    the stash against trig_stash at the operand type (f32 1e-6, bf16 one
+    step of 2^-8); dW/db bit-identical across two launches."""
+    _, _, tplan, tp, x, dy = torch_case(PLANS[name], n, seed=50)
+    td = DTYPES[mode][1]
+    y_p, want = plain_grads(tplan, x, dy, tp, td, fm.chain_reference_stash)
+    y, stash = fm.chain_kernel_stash(tplan, x, tp, td, with_stash=True)
+    y2, none = fm.chain_kernel_stash(tplan, x, tp, td)
+    assert none is None and torch.equal(y, y2)
+    np.testing.assert_allclose(y.numpy(), y_p.numpy(), **TOL[mode])
+    assert stash.dtype == fm.kernel_dtype(td)
+    np.testing.assert_allclose(
+        stash.float().numpy(),
+        fm.trig_stash(tplan, x).to(stash.dtype).float().numpy(), rtol=0,
+        atol=1e-6 if mode == 'f32' else 2 ** -8)
+    for needs_dx in (True, False):
+        dx, dparams = fm.chain_kernel_stash_bwd(tplan, x, dy, stash, tp, td,
+                                                needs_dx=needs_dx)
+        if not needs_dx:
+            assert dx is None
+        elif mode == 'f32':
+            np.testing.assert_allclose(dx.numpy(), want[0].numpy(),
+                                       **GRAD_TOL[mode])
+        else:
+            assert rel_norm(dx, want[0]) <= DW_TOL[mode]
+        assert_dparams(dparams, want[1:], mode)
+        assert_same_dparams(dparams, fm.chain_kernel_stash_bwd(
+            tplan, x, dy, stash, tp, td, needs_dx=needs_dx)[1])
+
+
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_emulated_stash_kernels_match_interpreted_pallas_kernel(name, mode,
+                                                                emulated):
+    """K1r from the CUDA source against the JAX row-major trig kernels in
+    interpret mode: f32 within TOL / GRAD_TOL; bf16 output within TOL, the
+    stash one bf16 step, and dx and every dW/db leaf within
+    PALLAS_TOL_BF16 of their norms (both round where the TPU kernel does)."""
+    jplan, jp, tplan, tp, x, dy = torch_case(PLANS[name], 130, seed=51)
+    jd, td = DTYPES[mode]
+    y_j, stash_j, dx_j, dw_j = jax_stash_route(jplan, jp, x.numpy(),
+                                               dy.numpy(), jd)
+    y, stash = fm.chain_kernel_stash(tplan, x, tp, td, with_stash=True)
+    dx, dparams = fm.chain_kernel_stash_bwd(tplan, x, dy, stash, tp, td)
+    np.testing.assert_allclose(y.numpy(), y_j, **TOL[mode])
+    np.testing.assert_allclose(stash.float().numpy(), stash_j, rtol=0,
+                               atol=1e-6 if mode == 'f32' else 2 ** -8)
+    got = [dx] + [t for pair in dparams for t in pair]
+    for g, w in zip(got, [dx_j] + dw_j):
+        if mode == 'f32':
+            np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL[mode])
+        else:
+            assert rel_norm(g, torch.tensor(w)) <= PALLAS_TOL_BF16
+
+
+@pytest.mark.parametrize('n', [50, 130])
+@pytest.mark.parametrize('mode', ['f32', 'bf16'])
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_emulated_last_skip_kernels_match_plain(name, mode, n, emulated):
+    """K1w-fwd ([head | embedding]) and K1w-bwd (every flag combination;
+    dy's embedding columns reach dx) from the CUDA source against the
+    plain version; dW/db bit-identical across two launches."""
+    _, _, tplan, tp, x, dy = torch_case(LAST_SKIP[name], n, seed=52)
+    td = DTYPES[mode][1]
+    y_p, want = plain_grads(tplan, x, dy, tp, td)
+    y = fm.chain_kernel_last_skip(tplan, x, tp, td)
+    assert y.shape == (n, fm.out_dim(tplan))
+    np.testing.assert_allclose(y.numpy(), y_p.numpy(), **TOL[mode])
+    for needs_dx, needs_dw in FLAGS:
+        dx, dparams = fm.chain_kernel_last_skip_bwd(tplan, x, dy, tp, td,
+                                                    needs_dx, needs_dw)
+        if needs_dx and mode == 'f32':
+            np.testing.assert_allclose(dx.numpy(), want[0].numpy(),
+                                       **GRAD_TOL[mode])
+        elif needs_dx:
+            assert rel_norm(dx, want[0]) <= DW_TOL[mode]
+        if needs_dw:
+            assert_dparams(dparams, want[1:], mode)
+            assert_same_dparams(dparams, fm.chain_kernel_last_skip_bwd(
+                tplan, x, dy, tp, td, needs_dx, needs_dw)[1])
+
+
+@pytest.mark.parametrize('name', sorted(PLANS))
+def test_emulated_last_skip_kernels_match_interpreted_pallas_kernel(
+        name, emulated):
+    """f32 K1w from the CUDA source against the JAX package's K1w route in
+    interpret mode (output and gradients); in bf16 the emulated kernel
+    follows the JAX chain_reference(bf16) and parts from the JAX kernel's
+    bf16 call, which is its f32 call (the documented deviation)."""
+    jplan, jp, tplan, tp, x, dy = torch_case(LAST_SKIP[name], 130, seed=53)
+    pm.INTERPRET = True
+    try:
+        y_j, want = jax_apply_grads(pm.apply_chain, jplan, jp, x.numpy(),
+                                    dy.numpy())
+        y_j16 = np.asarray(pm.apply_chain(jplan, jnp.asarray(x.numpy()), jp,
+                                          compute_dtype=jnp.bfloat16))
+    finally:
+        pm.INTERPRET = False
+    np.testing.assert_allclose(fm.chain_kernel_last_skip(tplan, x, tp).numpy(),
+                               y_j, **TOL['f32'])
+    dx, dparams = fm.chain_kernel_last_skip_bwd(tplan, x, dy, tp)
+    for g, w in zip([dx] + [t for pair in dparams for t in pair], want):
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL['f32'])
+    y16 = fm.chain_kernel_last_skip(tplan, x, tp, torch.bfloat16).numpy()
+    np.testing.assert_array_equal(y_j16, y_j)
+    np.testing.assert_allclose(y16, np.asarray(pm.chain_reference(
+        jplan, jnp.asarray(x.numpy()), jp, compute_dtype=jnp.bfloat16)),
+        **TOL['bf16'])
+    assert np.abs(y16 - y_j16).max() > 1e-3
 
 
 # ------ K3 ------
