@@ -5,7 +5,10 @@ rendering.
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
 1. Requires CUDA and prints the card's name and power limit.
-2. Builds the CUDA kernels (nerfactor_tpu_torch/csrc) with nvcc for sm_90a.
+2. Builds the CUDA kernels (nerfactor_tpu_torch/csrc) with nvcc for sm_90a,
+   and holds the tensor-core building block of bf16 K3-bwd (mma.sync
+   fragments, loaders, cp.async pipeline; csrc/mma_bf16.cuh) against the
+   float64 product of the same bf16 values, 64 x 96 x 80 and ragged sizes.
 3. Writes a synthetic scene -- the analytic sphere at imh 128 with
    light_h 16: 3 train and 1 val views with a Lambertian rgba.png, 3 test
    views, two .npy light probes -- and seeded BRDF, shape and joint
@@ -44,7 +47,9 @@ rendering.
 11. Holds K3-fwd and K3-bwd against the plain version (autograd of it for
    the backward) at one train step's shapes (1024 rays x 64 and x 192
    samples), bf16 and f32, dW bit-identical across launches, and K1 on
-   NeRF's no-views chain (256 x 8, 4-wide head); times both.
+   NeRF's no-views chain (256 x 8, 4-wide head); times both, and each of
+   bf16 K3-bwd's kernels (phase 1, the dW pass, the sums: device time from
+   a profiler window) with its scratch bytes and TFLOP/s.
 12. Times the steady-state NeRF train step with a profiler window.
 13. The stash route (K1r): holds K1r-fwd (with and without the stash, and
    the stash itself) and K1r-bwd against the stash route's plain version on
@@ -78,10 +83,26 @@ least time the card could take for the same work), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the run exits non-zero. The only cut from production is imh
 128 (not 512); the probes run at their own defaults, uncut.
+
+  python3 chip_smoke.py --k3_limit_seeds 11,12,13,14
+
+prints only K3's error readings (bf16 and f32, both row counts, the f32
+kernel's beside the bf16 kernel's) over random nerf.ini weights and
+inputs of each seed: the readings behind K3's bounds.
+
+  python3 chip_smoke.py --k3_field_seed 0
+
+prints only bf16 K3-bwd's readings against float64 and the plain bf16
+version, its times and ptxas report, on nerf.ini's field under the tests'
+kind of weights (glorot-uniform, small random biases) at 196,608 rows.
+It calls only the K3 wrappers, so a copy of this script in an older
+checkout reads that checkout's kernels the same way.
 """
 
+import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -742,7 +763,11 @@ NERF_RAYS, NERF_COARSE, NERF_FINE = 1024, 64, 128  # nerf.ini
 # 0.0025-0.0030; dW/db 0.031-0.038 at 196,608 rows and 0.049-0.074 at
 # 65,536, where the f32 kernel, i.e. a kernel that computed the f32
 # gradient, reads 0.136-0.169. check_nerf_kernels reports the f32
-# kernel's readings in every run.
+# kernel's readings in every run. The margin holds for the model's own
+# weights (init_params: zero biases; trained): under random biases
+# (k3_field_readings) the plain bf16 version strays further, and every
+# bf16 kernel, tensor-core or CUDA-core, reads 0.097 against it, the f32
+# kernel 0.133.
 NERF_OUT_TOL_BF16 = 0.01
 NERF_DW_TOL_BF16 = 0.1
 # f32 dW/db (K3, and K1 on the no-views chain) against the exact math
@@ -905,13 +930,14 @@ def nerf_params(model, params, level):
         'enc', 'sigma_out', 'bottleneck', 'rgb_out'))
 
 
-def check_nerf_kernels(model, params):
+def check_nerf_kernels(model, params, seed=3, timing=True):
     """K3-fwd and K3-bwd against nerf_reference and autograd of it on the
     same tensors, at one train step's shapes (1024 rays x 64 coarse and x
-    192 fine samples), bf16 and f32, with the trained fine level's
-    weights; dW bit-identical across two launches; kernel and plain times,
-    forward and backward alone, at the fine shape."""
-    g = torch.Generator().manual_seed(3)
+    192 fine samples), bf16 and f32, with the fine level's weights of
+    ``params`` and inputs drawn from ``seed``; dW bit-identical across two
+    launches; with ``timing``, kernel and plain times, forward and backward
+    alone, and bf16 K3-bwd's stages apart, at the fine shape."""
+    g = torch.Generator().manual_seed(seed)
     nplan = model.nerf_plan
     p = nerf_params(model, params, 'fine')
     flat = fn.flatten(p)
@@ -968,6 +994,11 @@ def check_nerf_kernels(model, params):
                     rel_norm(a, b) for a, b in zip(fn.flatten(
                         fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig, p,
                                            None)), want))
+                if row['dw_rel_err'] >= row['f32_kernel_dw_rel_err']:
+                    raise AssertionError(
+                        "K3-bwd bf16: dW/db reads %.4g, not below the f32 "
+                        "kernel's %.4g" % (row['dw_rel_err'],
+                                           row['f32_kernel_dw_rel_err']))
             again = fn.flatten(fn.nerf_kernel_bwd(nplan, pts, views, drgb,
                                                   dsig, p, cd))
             row['dw_bit_identical'] = all(torch.equal(a, b)
@@ -975,7 +1006,7 @@ def check_nerf_kernels(model, params):
             if not row['dw_bit_identical']:
                 raise AssertionError("K3-bwd: dW differs between two "
                                      "launches on the same inputs")
-            if n_s > NERF_COARSE:
+            if timing and n_s > NERF_COARSE:
                 with torch.no_grad():
                     row['ms'], row['plain_ms'] = time_pair(
                         lambda: fn.nerf_kernel(nplan, pts, views, p, cd),
@@ -987,9 +1018,175 @@ def check_nerf_kernels(model, params):
                     lambda: torch.autograd.grad(out, leaves, (drgb, dsig),
                                                 retain_graph=True),
                     iters=5)
+                bnd = nerf_bound(nplan, n, mode, bwd=True)
+                row['bwd_tflops'] = bnd['flop'] / row['bwd_ms'] / 1e9
+                row['bwd_bound_ms'] = bnd['bound_ms']
+                if cd is not None:
+                    row.update(k3_bwd_phases(lambda: fn.nerf_kernel_bwd(
+                        nplan, pts, views, drgb, dsig, p, cd)))
+                    size = fn.bwd_sizes(nplan, n, cd, pts.device)
+                    row.update(scratch_bytes=2 * size['scratch'],
+                               dw_chunks=size['chunks'],
+                               phase1_blocks=size['slices'])
             del out, want
             rows.append(row)
     return rows
+
+
+# The kernels of a K3-bwd launch, by the names the profiler gives them
+K3_BWD_KERNELS = (('phase1_ms', 'nerf_bwd_tc_kernel'),
+                  ('dw_pass_ms', 'nerf_dw_kernel'),
+                  ('sums_ms', 'sum_slices_kernel'))
+
+
+def k3_bwd_phases(run, iters=10):
+    """Device ms per call of ``run`` (a K3-bwd launch) of each of its
+    kernels, from a torch.profiler window over ``iters`` calls: bf16
+    phase 1, the dW pass and the slice sums (0 for a kernel the build
+    lacks); the rest of its device time is the wrapper's weight packing."""
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.key] = us.get(e.key, 0.0) + getattr(
+                e, 'self_device_time_total', 0.0)
+    out = {key: sum(v for k, v in us.items() if name in k) / 1e3 / iters
+           for key, name in K3_BWD_KERNELS}
+    out['packing_ms'] = sum(us.values()) / 1e3 / iters - sum(out.values())
+    return out
+
+
+# The tensor-core building block alone (mma_bf16.cuh through
+# nfk_tc_matmul) against the float64 product of the same bf16 values:
+# 64 x 96 x 80 and sizes that are not multiples of the mma fragment. Only
+# the f32 accumulation's rounding parts them.
+TC_BLOCK_SHAPES = [(64, 96, 80), (37, 20, 45), (130, 300, 33)]
+TC_BLOCK_TOL = 1e-4
+
+
+def check_tc_block():
+    """Shows that the lane mapping the CPU emulation assumes is the
+    card's: each product within TC_BLOCK_TOL (abs + rel) of float64."""
+    g = torch.Generator(device='cuda').manual_seed(6)
+    out = []
+    for m, n, k in TC_BLOCK_SHAPES:
+        a, b = ((2 * torch.rand(r, k, generator=g, device='cuda') - 1).to(
+            torch.bfloat16) for r in (m, n))
+        got = fn.tc_matmul(a, b).double()
+        err = compare('tc_matmul %dx%dx%d' % (m, n, k), got,
+                      fn.tc_matmul_reference(a, b),
+                      (TC_BLOCK_TOL, TC_BLOCK_TOL))
+        out.append({'m': m, 'n': n, 'k': k, 'max_abs_err': err,
+                    'tol': TC_BLOCK_TOL})
+    return out
+
+
+def k3_limit_readings(seeds):
+    """What K3's bounds rest on: check_nerf_kernels' error readings (no
+    timing) at nerf.ini widths over ``seeds``, each seeding both the
+    weights (NerfModel.init_params) and the inputs."""
+    parser = configutil.read_config(configutil.resolve_config_path(
+        'nerf.ini'))
+    model = NerfModel(configutil.Config(parser), device='cuda')
+    keys = ('rows', 'dtype', 'out_rel_err', 'f32_kernel_out_rel_err',
+            'dw_rel_err', 'f32_kernel_dw_rel_err', 'plain_dw_rel_err')
+    out = []
+    for seed in seeds:
+        params = model.init_params(torch.Generator().manual_seed(seed))
+        for r in check_nerf_kernels(model, params, seed=seed, timing=False):
+            out.append(dict({k: r[k] for k in keys if k in r}, seed=seed))
+        torch.cuda.empty_cache()
+    return out
+
+
+# ptxas -v's report of one kernel in build.log
+PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+    r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+
+
+def ptxas_report(names):
+    """Registers and spill bytes of the built kernels whose mangled names
+    hold one of ``names``, from the build's ptxas report."""
+    with open(join(dirname(kernel_lib.build()), 'build.log')) as f:
+        log = f.read()
+    return {m.group(1): {'registers': int(m.group(4)),
+                         'spill_stores': int(m.group(2)),
+                         'spill_loads': int(m.group(3))}
+            for m in PTXAS_ENTRY.finditer(log)
+            if any(name in m.group(1) for name in names)}
+
+
+def k3_field_readings(seed, iters=10):
+    """bf16 K3-bwd at the NeRF step's fine shape (1024 rays x 192 samples)
+    on nerf.ini's field under glorot-uniform weights with biases of 0.05
+    randn (as the tests' fields), drawn from ``seed`` with the inputs:
+    dW/db of the bf16 kernel, the f32 kernel and the plain bf16 version
+    against the float64 gradient, and of both kernels against autograd of
+    the plain bf16 version (smoke's comparison); dW bits across two
+    launches; the bf16 backward's ms (CUDA events), each of its kernels'
+    device ms (k3_bwd_phases) and the ptxas report of the K3-bwd kernels.
+    It calls nothing but the K3 wrappers, so it runs the same against an
+    older tree's package."""
+    parser = configutil.read_config(configutil.resolve_config_path(
+        'nerf.ini'))
+    nplan = NerfModel(configutil.Config(parser), device='cuda').nerf_plan
+    tp = nplan.trunk_plan
+    g = torch.Generator().manual_seed(seed)
+
+    def dense(din, dout):
+        lim = (6.0 / (din + dout)) ** 0.5
+        return ((2 * torch.rand(din, dout, generator=g) - 1) * lim).cuda(), \
+            (0.05 * torch.randn(dout, generator=g)).cuda()
+    width, ev = tp.widths[-1], fn.view_dim(nplan)
+    p = ([dense(d, w) for d, w in zip(fm.layer_in_dims(tp), tp.widths)],
+         [dense(width, 1)], [dense(width, width)],
+         [dense(width + ev, nplan.rgb_widths[0]), dense(*nplan.rgb_widths)])
+    n = NERF_RAYS * (NERF_COARSE + NERF_FINE)
+    pts = (3 * torch.rand(n, 3, generator=g) - 1.5).cuda()
+    views = torch.nn.functional.normalize(torch.randn(n, 3, generator=g),
+                                          dim=1).cuda()
+    drgb = (2 * torch.rand(n, 3, generator=g) - 1).cuda()
+    dsig = (2 * torch.rand(n, 1, generator=g) - 1).cuda()
+    flat = fn.flatten(p)
+    bf16 = torch.bfloat16
+
+    def kernel(cd):
+        return fn.flatten(fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig,
+                                             p, cd))
+    leaves = [t.clone().requires_grad_() for t in flat]
+    plain = torch.autograd.grad(fn.nerf_reference(
+        nplan, pts, views, fn.unflatten(nplan, leaves), bf16), leaves,
+        (drgb, dsig))
+    l64 = [t.double().requires_grad_() for t in flat]
+    exact = [x.float() for x in torch.autograd.grad(
+        nerf_f64(nplan, pts.double(), views.double(),
+                 fn.unflatten(nplan, l64)), l64,
+        (drgb.double(), dsig.double()))]
+    del leaves, l64
+    got, got_f32 = kernel(bf16), kernel(None)
+
+    def worst(a, b):
+        return max(rel_norm(x, y) for x, y in zip(a, b))
+    out = {'seed': seed, 'rows': n,
+           'bf16_kernel_vs_plain_bf16': worst(got, plain),
+           'f32_kernel_vs_plain_bf16': worst(got_f32, plain),
+           'bf16_kernel_vs_f64': worst(got, exact),
+           'f32_kernel_vs_f64': worst(got_f32, exact),
+           'plain_bf16_vs_f64': worst(plain, exact),
+           'dw_bit_identical': all(torch.equal(a, b)
+                                   for a, b in zip(got, kernel(bf16))),
+           'bwd_ms': time_ms(lambda: kernel(bf16), iters=iters)}
+    out.update(k3_bwd_phases(lambda: kernel(bf16), iters=iters))
+    out['ptxas'] = ptxas_report(('nerf_bwd', 'nerf_dw'))
+    return out
 
 
 def check_no_views_chain(g):
@@ -1513,7 +1710,17 @@ def nerf_bound(nplan, rows, dtype, bwd=False):
                  4 * rows * 10 + w_bytes + 4 * (dense + heads + n_b), dtype)
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument(
+        '--k3_limit_seeds', default=None,
+        help="comma-separated seeds: print only K3's error readings over "
+             "them (k3_limit_readings), one JSON line each, and stop")
+    parser.add_argument(
+        '--k3_field_seed', type=int, default=None,
+        help="print only bf16 K3-bwd's readings, times and ptxas report "
+             "on a field drawn from this seed (k3_field_readings), and stop")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
     t_start = time.perf_counter()
@@ -1523,6 +1730,17 @@ def main():
     t0 = time.perf_counter()
     kernel_lib.load()
     build_s = time.perf_counter() - t0
+    if args.k3_limit_seeds:
+        for r in k3_limit_readings(
+                [int(x) for x in args.k3_limit_seeds.split(',')]):
+            print(json.dumps(r))
+        print(gpu)
+        return
+    if args.k3_field_seed is not None:
+        print(json.dumps(k3_field_readings(args.k3_field_seed)))
+        print(gpu)
+        return
+    tc_block = check_tc_block()
 
     shutil.rmtree(WORK, ignore_errors=True)
     data_root, nerf_root = join(WORK, 'data'), join(WORK, 'data', 'surf')
@@ -1686,7 +1904,11 @@ def main():
                    plain_ms=k3_bf16['bwd_plain_ms']),
               nerf_bound(nplan, k3_bf16['rows'], 'bf16', bwd=True),
               max_rel_err={'dW_db': max(r['dw_rel_err'] for r in k3)},
-              shapes=k3),
+              phase1_ms=k3_bf16['phase1_ms'],
+              dw_pass_ms=k3_bf16['dw_pass_ms'], sums_ms=k3_bf16['sums_ms'],
+              packing_ms=k3_bf16['packing_ms'],
+              scratch_bytes=k3_bf16['scratch_bytes'],
+              tflops=k3_bf16['bwd_tflops'], tc_block=tc_block, shapes=k3),
         entry('K1r-fwd chain_fwd_kernel (stash route)', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:851', k1r_lvis,
               chain_bound(plans['lvis'], k1r_lvis['rows'], k1r_lvis['dtype'],

@@ -19,3 +19,6 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fff + ((u >> 16) & 1);
   return {uint16_t(u >> 16)};
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.x; }
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short v) { return {v}; }

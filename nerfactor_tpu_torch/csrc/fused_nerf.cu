@@ -8,42 +8,75 @@
 // rgb (n, 3) and sigma (n, 1), f32.
 //
 // K3-bwd replaces _backward -> _bwd_kernel: it recomputes a row tile's
-// forward, keeping every activation on the chip, and returns dW and db of
-// every layer from d_rgb and d_sigma. There is no input cotangent: the
-// points and view directions are data.
+// forward and returns dW and db of every layer from d_rgb and d_sigma.
+// There is no input cotangent: the points and view directions are data.
+// d_h stays f32; in bf16 mode each dense layer's d_pre is rounded to bf16
+// before its products, db is the column sum of the unrounded d_pre, and
+// the two tiny heads (sigma, rgb) stay f32 dot products per row, as the
+// TPU kernel's VPU heads; their weights stay f32.
 //
-// What bounds it on Hopper: arithmetic. At nerf.ini width a row takes
-// ~593k multiply-adds against 24 B in and 16 B out, far above the card's
-// operations-per-byte ridge. So the design is K1's (chain_mlp.cuh, whose
-// device code it reuses): a block owns a row tile; both embeddings and all
+// What bounds K3 on Hopper: arithmetic. At nerf.ini width a row takes
+// ~593k multiply-adds forward (~1.74M backward) against 24 B in and 16 B
+// out, far above the card's operations-per-byte ridge.
+//
+// K3-fwd, and K3-bwd in f32: K1's design (chain_mlp.cuh, whose device code
+// they reuse). A block owns a row tile; both embeddings and all
 // activations of the tile stay in shared memory; each dense layer streams
-// its weights through a shared-memory tile, the skip consumer and rgb layer
-// 0 reading two K segments ([h | e], [bottleneck | e_view]). Products run on
-// the CUDA cores in f32 from f32 or bf16 operands (bf16: every dense layer
-// of the trunk, the bottleneck and rgb layer 0). The two tiny heads (sigma,
-// rgb) are f32 dot products per row, as the TPU kernel's VPU heads; their
-// weights stay f32.
+// its weights through a shared-memory tile, the skip consumer and rgb
+// layer 0 reading two K segments ([h | e], [bottleneck | e_view]).
+// Products run on the CUDA cores in f32 from f32 or bf16 operands. The f32
+// backward keeps 8 trunk posts, the bottleneck, both embeddings and two
+// f32 cotangent rows per row in shared memory (16 rows fit a block) and
+// adds each tile's dW/db into its block's f32 slice of a scratch buffer
+// (~2.4 MB a slice at nerf.ini width); sum_slices adds the slices in slice
+// order.
 //
-// The backward's shared memory: the tile keeps 8 trunk posts, the
-// bottleneck, both embeddings (type T) and two f32 cotangent rows 256 wide
-// (~7 KB a row in bf16). The rgb hidden layer lives in the second cotangent
-// buffer until rgb layer 0's backward needs that buffer. 32 rows fit a
-// block in bf16 (~229 KB), 16 in f32; the launcher computes the layout and
-// takes the largest tile that fits (kErrSmem if none does).
-//
-// Determinism, as K1-bwd: no float atomicAdd. The grid is the number of
-// blocks the card holds at once; block b walks row tiles b, b + grid, ...
-// and adds each tile's dW/db into its own f32 slice of a scratch buffer;
-// sum_slices adds the slices in slice order. At nerf.ini width a slice is
-// ~2.4 MB (132 slices: ~315 MB, outside the L2), and each row tile
-// read-modify-writes its block's slice once.
+// K3-bwd in bf16: two launches on the tensor cores (mma.sync m16n8k16,
+// bf16 operands, f32 accumulation; mma_bf16.cuh) and fixed-order sums.
+//   1. nerf_bwd_tc_kernel, one 64-row tile at a time: the forward
+//      recompute (trunk, bottleneck, rgb layer 0) and every d_pre @ W^T
+//      as tensor-core products of the tile's rows in shared memory, the
+//      weights streamed through a three-stage cp.async ring (transposed
+//      weights for the recompute, W itself for d_pre @ W^T). It writes
+//      each dense layer's input columns and its rounded d_pre to a bf16
+//      scratch in device memory (nerf.ini: 9,664 B a row, row pairs
+//      interleaved), and adds to its block's small f32 slice only the db
+//      of every layer, the sigma head's dW/db and rgb layer 1's (n_aux
+//      floats, ~3K). Each product's epilogue works in registers and in
+//      place: it writes its result over its own operand, stores the
+//      scratch words, and in the backward forms the next layer's d_pre
+//      (act' from the post it reads back from the scratch, still in the
+//      L2; db from warp-shuffle column sums; the rounding). So the tile
+//      needs one activation buffer and no f32 cotangent in shared memory
+//      (~112 KB; a trunk wider than 256, which takes two column passes a
+//      product, needs a second buffer). What bounds phase 1 is not the
+//      tensor cores' rate but the weight stream: each streamed weight serves the tile's 64 rows,
+//      and each 32-deep stage of the ring costs a barrier. Two blocks
+//      share an SM, so one's waits overlap the other's products (ptxas
+//      caps phase 1 at 128 registers for that).
+//   2. nerf_dw_kernel: dW = X^T D of every dense layer over all rows, a
+//      plain GEMM over the scratch. A block owns one 128 x 128 tile of one
+//      layer's dW in registers over one of a fixed number of row chunks;
+//      the skip consumer's [h | e_xyz] and rgb layer 0's [bottleneck |
+//      e_view] are two segments of its K. Its partials (chunks x the dense
+//      weights, f32; ~16 MB at 8 chunks) stay in the L2, where sum_slices
+//      adds them in chunk order.
+// The mma K step is 16, so the trunk and rgb hidden widths are multiples
+// of 16 (check_nerf_tc; the wrapper zero-pads other widths up to them).
+// No float atomicAdd anywhere: dW/db are bit-identical across launches.
+// The bytes: phase 1 writes the scratch once (~1.9 GB at 196,608 rows) and
+// the dW pass reads each column once per 128-wide tile of the layer it
+// feeds; the products, ~2.7x the forward's, sit on the tensor cores.
 //
 // Inputs: pts, views (n, 3) f32 row-major. Dense weights (trunk layers,
 // bottleneck, rgb layer 0) packed in JAX layout (w is (din, dout), applied
-// as x @ w) at type T; the heads' weights and all biases in one f32 "aux"
-// buffer. dW/db come back packed as [dense | aux], f32.
+// as x @ w) at type T, and for the bf16 backward each one's transpose
+// (dout x (round16(k1) + round16(k2)), zero-padded segments); the heads'
+// weights and all biases in one f32 "aux" buffer. dW/db come back packed
+// as [dense | aux], f32.
 
 #include "chain_mlp.cuh"
+#include "mma_bf16.cuh"
 
 namespace nfk {
 
@@ -102,17 +135,16 @@ __host__ __device__ inline NerfFwdLayout nerf_fwd_layout(const NerfDesc& d) {
   return s;
 }
 
-// Shared-memory layout of a backward block: raw points and views (f32) |
-// output cotangents [d_rgb | d_sigma] (f32) | embeddings (T) | every trunk
-// post (T) | bottleneck (T) | two f32 cotangent buffers | transposed weight
-// tile (T). The rgb hidden layer (T, ld ldo) borrows the second cotangent
-// buffer.
+// Shared-memory layout of an f32 backward block: raw points and views |
+// output cotangents [d_rgb | d_sigma] | embeddings | every trunk post |
+// bottleneck | two cotangent buffers | transposed weight tile, all f32.
+// The rgb hidden layer (ld ldo) borrows the second cotangent buffer.
 struct NerfBwdLayout {
   size_t xp, xv, dout, es, ev, posts, bott, da, db, ws, total;
   int lde, ldv, ldh, ldd, ldo, ldq, post_stride;
 };
 
-template <typename T, int ROWS>
+template <int ROWS>
 __host__ __device__ inline NerfBwdLayout nerf_bwd_layout(const NerfDesc& d) {
   NerfBwdLayout s;
   s.lde = padded_ld(d.trunk.embed_dim);
@@ -126,22 +158,21 @@ __host__ __device__ inline NerfBwdLayout nerf_bwd_layout(const NerfDesc& d) {
   s.xv = align16(s.xp + sizeof(float) * ROWS * 3);
   s.dout = align16(s.xv + sizeof(float) * ROWS * 3);
   s.es = align16(s.dout + sizeof(float) * ROWS * s.ldq);
-  s.ev = align16(s.es + sizeof(T) * ROWS * s.lde);
-  s.posts = align16(s.ev + sizeof(T) * ROWS * s.ldv);
-  s.bott = align16(s.posts + sizeof(T) * d.trunk.n_layers * s.post_stride);
-  s.da = align16(s.bott + sizeof(T) * ROWS * s.ldh);
+  s.ev = align16(s.es + sizeof(float) * ROWS * s.lde);
+  s.posts = align16(s.ev + sizeof(float) * ROWS * s.ldv);
+  s.bott = align16(s.posts + sizeof(float) * d.trunk.n_layers * s.post_stride);
+  s.da = align16(s.bott + sizeof(float) * ROWS * s.ldh);
   s.db = align16(s.da + sizeof(float) * ROWS * s.ldd);
   s.ws = align16(s.db + sizeof(float) * ROWS * s.ldd);
-  s.total = align16(s.ws + sizeof(T) * kKTile * kLdT);
+  s.total = align16(s.ws + sizeof(float) * kKTile * kLdT);
   return s;
 }
 
-// The backward's row tile: 32 rows where they fit the block's opt-in
+// The f32 backward's row tile: 32 rows where they fit the block's opt-in
 // shared memory, else 16; 0 if neither fits.
-template <typename T>
 inline int nerf_bwd_rows(const NerfDesc& d, int max_smem) {
-  if (nerf_bwd_layout<T, 32>(d).total <= static_cast<size_t>(max_smem)) return 32;
-  if (nerf_bwd_layout<T, 16>(d).total <= static_cast<size_t>(max_smem)) return 16;
+  if (nerf_bwd_layout<32>(d).total <= static_cast<size_t>(max_smem)) return 32;
+  if (nerf_bwd_layout<16>(d).total <= static_cast<size_t>(max_smem)) return 16;
   return 0;
 }
 
@@ -234,40 +265,38 @@ nerf_fwd_kernel(NerfDesc d, const float* __restrict__ pts, const float* __restri
                       d.rgb_acts[1], rgb + row0 * d.rgb_out, n - row0);
 }
 
-// The backward for one tile: points, views and the output cotangents
-// [d_rgb | d_sigma] are in shared memory. Adds the tile's dW/db into
-// `slice` (dense part first, then aux). In bf16 mode each dense layer's
-// d_pre is rounded to bf16 before its products (dense_bwd); the tiny heads'
-// cotangents stay f32, as the TPU kernel's VPU heads.
-template <typename T, int ROWS>
-__device__ void nerf_tile_bwd(const NerfDesc& d, const T* __restrict__ w,
+// The f32 backward for one tile on the CUDA cores: points, views and the
+// output cotangents [d_rgb | d_sigma] are in shared memory. Adds the
+// tile's dW/db into `slice` (dense part first, then aux).
+template <int ROWS>
+__device__ void nerf_tile_bwd(const NerfDesc& d, const float* __restrict__ w,
                               const float* __restrict__ aux, unsigned char* smem, float* slice) {
-  const NerfBwdLayout L = nerf_bwd_layout<T, ROWS>(d);
+  const NerfBwdLayout L = nerf_bwd_layout<ROWS>(d);
   const ChainDesc& tr = d.trunk;
   const float* xp = reinterpret_cast<const float*>(smem + L.xp);
   const float* xv = reinterpret_cast<const float*>(smem + L.xv);
   float* dout = reinterpret_cast<float*>(smem + L.dout);
-  T* es = reinterpret_cast<T*>(smem + L.es);
-  T* ev = reinterpret_cast<T*>(smem + L.ev);
-  T* posts = reinterpret_cast<T*>(smem + L.posts);
-  T* bott = reinterpret_cast<T*>(smem + L.bott);
+  float* es = reinterpret_cast<float*>(smem + L.es);
+  float* ev = reinterpret_cast<float*>(smem + L.ev);
+  float* posts = reinterpret_cast<float*>(smem + L.posts);
+  float* bott = reinterpret_cast<float*>(smem + L.bott);
   float* da = reinterpret_cast<float*>(smem + L.da);
   float* db = reinterpret_cast<float*>(smem + L.db);
-  T* h0 = reinterpret_cast<T*>(smem + L.db);
-  T* ws = reinterpret_cast<T*>(smem + L.ws);
+  float* h0 = reinterpret_cast<float*>(smem + L.db);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
   float* gaux = slice + d.n_dense;
   const int width = trunk_width(d), hr = d.rgb_hidden, no = d.rgb_out, ldq = L.ldq;
   const int nv = d.view.embed_dim;
   // Forward recompute, every activation kept
-  embed_rows<T, ROWS>(tr, xp, es, L.lde);
-  embed_rows<T, ROWS>(d.view, xv, ev, L.ldv);
+  embed_rows<float, ROWS>(tr, xp, es, L.lde);
+  embed_rows<float, ROWS>(d.view, xv, ev, L.ldv);
   __syncthreads();
-  const T* feat = trunk_fwd<T, ROWS>(tr, es, L.lde, w, aux, ws, posts, nullptr,
-                                     L.post_stride, L.ldh);
-  layer_pass<T, ROWS>(feat, L.ldh, width, nullptr, 0, 0, w + d.bott_w, aux + d.bott_b, width,
-                      kNone, ws, bott, L.ldh, nullptr, 0, ROWS);
-  layer_pass<T, ROWS>(bott, L.ldh, width, ev, L.ldv, nv, w + d.rgb0_w, aux + d.rgb0_b, hr,
-                      d.rgb_acts[0], ws, h0, L.ldo, nullptr, 0, ROWS);
+  const float* feat = trunk_fwd<float, ROWS>(tr, es, L.lde, w, aux, ws, posts, nullptr,
+                                             L.post_stride, L.ldh);
+  layer_pass<float, ROWS>(feat, L.ldh, width, nullptr, 0, 0, w + d.bott_w, aux + d.bott_b,
+                          width, kNone, ws, bott, L.ldh, nullptr, 0, ROWS);
+  layer_pass<float, ROWS>(bott, L.ldh, width, ev, L.ldv, nv, w + d.rgb0_w, aux + d.rgb0_b, hr,
+                          d.rgb_acts[0], ws, h0, L.ldo, nullptr, 0, ROWS);
   __syncthreads();
   // rgb head (tiny, f32): d_pre in place of d_rgb
   const float* w1 = aux + d.rgb1_w;
@@ -275,7 +304,7 @@ __device__ void nerf_tile_bwd(const NerfDesc& d, const T* __restrict__ w,
     for (int idx = threadIdx.x; idx < ROWS * no; idx += kThreads) {
       const int r = idx / no, c = idx % no;
       float s = aux[d.rgb1_b + c];
-      for (int k = 0; k < hr; ++k) s = fmaf(to_f<T>(h0[r * L.ldo + k]), w1[k * no + c], s);
+      for (int k = 0; k < hr; ++k) s = fmaf(h0[r * L.ldo + k], w1[k * no + c], s);
       dout[r * ldq + c] = activate_bwd(d.rgb_acts[1], activate(d.rgb_acts[1], s),
                                        dout[r * ldq + c]);
     }
@@ -289,7 +318,7 @@ __device__ void nerf_tile_bwd(const NerfDesc& d, const T* __restrict__ w,
   for (int idx = threadIdx.x; idx < hr * no; idx += kThreads) {
     const int k = idx / no, c = idx % no;
     float s = 0.f;
-    for (int r = 0; r < ROWS; ++r) s = fmaf(to_f<T>(h0[r * L.ldo + k]), dout[r * ldq + c], s);
+    for (int r = 0; r < ROWS; ++r) s = fmaf(h0[r * L.ldo + k], dout[r * ldq + c], s);
     gaux[d.rgb1_w + idx] += s;
   }
   // rgb layer 0's d_pre = act'(h0) * (d_pre1 @ w1^T), into da
@@ -297,15 +326,15 @@ __device__ void nerf_tile_bwd(const NerfDesc& d, const T* __restrict__ w,
     const int r = idx / hr, k = idx % hr;
     float g = 0.f;
     for (int c = 0; c < no; ++c) g = fmaf(dout[r * ldq + c], w1[k * no + c], g);
-    da[r * L.ldd + k] = activate_bwd(d.rgb_acts[0], to_f<T>(h0[r * L.ldo + k]), g);
+    da[r * L.ldd + k] = activate_bwd(d.rgb_acts[0], h0[r * L.ldo + k], g);
   }
   __syncthreads();
   // rgb layer 0, [bottleneck | e_view] -> hr: d_bottleneck into db (h0 is done)
-  dense_bwd<T, ROWS>(da, L.ldd, hr, bott, L.ldh, width, ev, L.ldv, nv, w + d.rgb0_w,
-                     slice + d.rgb0_w, gaux + d.rgb0_b, width, width, ws, db, nullptr, 0);
+  dense_bwd<float, ROWS>(da, L.ldd, hr, bott, L.ldh, width, ev, L.ldv, nv, w + d.rgb0_w,
+                         slice + d.rgb0_w, gaux + d.rgb0_b, width, width, ws, db, nullptr, 0);
   // bottleneck (linear): d_h of the trunk's output into da
-  dense_bwd<T, ROWS>(db, L.ldd, width, feat, L.ldh, width, nullptr, 0, 0, w + d.bott_w,
-                     slice + d.bott_w, gaux + d.bott_b, width, width, ws, da, nullptr, 0);
+  dense_bwd<float, ROWS>(db, L.ldd, width, feat, L.ldh, width, nullptr, 0, 0, w + d.bott_w,
+                         slice + d.bott_w, gaux + d.bott_b, width, width, ws, da, nullptr, 0);
   // sigma head (tiny, f32, linear): its db and dW, and d_h += d_sigma w^T
   const float* dsig = dout + no;
   if (threadIdx.x == 0) {
@@ -315,7 +344,7 @@ __device__ void nerf_tile_bwd(const NerfDesc& d, const T* __restrict__ w,
   }
   for (int k = threadIdx.x; k < width; k += kThreads) {
     float s = 0.f;
-    for (int r = 0; r < ROWS; ++r) s = fmaf(to_f<T>(feat[r * L.ldh + k]), dsig[r * ldq], s);
+    for (int r = 0; r < ROWS; ++r) s = fmaf(feat[r * L.ldh + k], dsig[r * ldq], s);
     gaux[d.sigma_w + k] += s;
   }
   for (int idx = threadIdx.x; idx < ROWS * width; idx += kThreads) {
@@ -328,34 +357,34 @@ __device__ void nerf_tile_bwd(const NerfDesc& d, const T* __restrict__ w,
   float* dnext = db;
   for (int i = tr.n_layers - 1; i >= 0; --i) {
     const int n = tr.widths[i];
-    const T* post = posts + i * L.post_stride;
+    const float* post = posts + i * L.post_stride;
     for (int idx = threadIdx.x; idx < ROWS * n; idx += kThreads) {
       const int r = idx / n, c = idx % n;
-      dcur[r * L.ldd + c] = activate_bwd(tr.acts[i], to_f<T>(post[r * L.ldh + c]),
+      dcur[r * L.ldd + c] = activate_bwd(tr.acts[i], post[r * L.ldh + c],
                                          dcur[r * L.ldd + c]);
     }
     __syncthreads();
     const bool skip_in = i > 0 && tr.skip_after[i - 1];
     const int hw = i > 0 ? tr.widths[i - 1] : 0;
-    dense_bwd<T, ROWS>(dcur, L.ldd, n, i > 0 ? post - L.post_stride : es,
-                       i > 0 ? L.ldh : L.lde, i > 0 ? hw : tr.embed_dim,
-                       skip_in ? es : nullptr, L.lde, skip_in ? tr.embed_dim : 0,
-                       w + tr.w_off[i], slice + tr.w_off[i], gaux + tr.b_off[i], hw, hw, ws,
-                       dnext, nullptr, 0);
+    dense_bwd<float, ROWS>(dcur, L.ldd, n, i > 0 ? post - L.post_stride : es,
+                           i > 0 ? L.ldh : L.lde, i > 0 ? hw : tr.embed_dim,
+                           skip_in ? es : nullptr, L.lde, skip_in ? tr.embed_dim : 0,
+                           w + tr.w_off[i], slice + tr.w_off[i], gaux + tr.b_off[i], hw, hw, ws,
+                           dnext, nullptr, 0);
     float* t = dcur;
     dcur = dnext;
     dnext = t;
   }
 }
 
-template <typename T, int ROWS>
+template <int ROWS>
 __global__ void __launch_bounds__(kThreads)
 nerf_bwd_kernel(NerfDesc d, const float* __restrict__ pts, const float* __restrict__ views,
                 const float* __restrict__ drgb, const float* __restrict__ dsigma,
-                const T* __restrict__ w, const float* __restrict__ aux,
+                const float* __restrict__ w, const float* __restrict__ aux,
                 float* __restrict__ part, long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const NerfBwdLayout L = nerf_bwd_layout<T, ROWS>(d);
+  const NerfBwdLayout L = nerf_bwd_layout<ROWS>(d);
   const long long stride = d.n_dense + d.n_aux;
   float* slice = part + blockIdx.x * stride;
   for (long long j = threadIdx.x; j < stride; j += kThreads) slice[j] = 0.f;
@@ -375,8 +404,602 @@ nerf_bwd_kernel(NerfDesc d, const float* __restrict__ pts, const float* __restri
       dout[idx] = r >= n ? 0.f : (c < no ? drgb[r * no + c] : dsigma[r]);
     }
     __syncthreads();
-    nerf_tile_bwd<T, ROWS>(d, w, aux, smem, slice);
+    nerf_tile_bwd<ROWS>(d, w, aux, smem, slice);
   }
+}
+
+// ------ K3-bwd in bf16: phase 1 and the dW pass on the tensor cores ------
+
+using tc::bf16;
+using tc::round16;
+
+// Columns of a scratch row: every dense layer's inputs (e_xyz, the trunk
+// posts, the bottleneck, e_view; the embeddings zero-padded to 16
+// columns), then every dense layer's rounded d_pre (trunk layers,
+// bottleneck, rgb layer 0). The scratch pairs its rows: 32-bit word (j, c)
+// of a 64-row tile holds rows 2j and 2j + 1 of column c (the lower row in
+// the low half), and a tile is 32 rows of `total` words. So phase 1 writes
+// a row pair of neighbouring columns with neighbouring threads, and the dW
+// pass loads the pair of neighbouring K values an mma fragment register
+// holds with one 32-bit load.
+struct NerfCols {
+  int es, post0, bott, ev, dpre0, dpre_bott, dpre_rgb0, total;
+};
+
+__host__ __device__ inline NerfCols nerf_cols(const NerfDesc& d) {
+  const int w = trunk_width(d), nl = d.trunk.n_layers;
+  NerfCols c;
+  c.es = 0;
+  c.post0 = round16(d.trunk.embed_dim);
+  c.bott = c.post0 + nl * w;
+  c.ev = c.bott + w;
+  c.dpre0 = c.ev + round16(d.view.embed_dim);
+  c.dpre_bott = c.dpre0 + nl * w;
+  c.dpre_rgb0 = c.dpre_bott + w;
+  c.total = c.dpre_rgb0 + d.rgb_hidden;
+  return c;
+}
+
+// Dense layer i of the field (trunk layers 0 .. n_layers - 1, the
+// bottleneck, rgb layer 0): its input columns [seg1, seg1 + k1) and [seg2,
+// seg2 + k2) of a scratch row, its d_pre columns from `dpre`, its width n,
+// and its W's offset in the dense weights.
+struct DenseLayer {
+  int seg1, k1, seg2, k2, dpre, n;
+  long long w_off;
+};
+
+__host__ __device__ inline int n_dense_layers(const NerfDesc& d) { return d.trunk.n_layers + 2; }
+
+__host__ __device__ inline DenseLayer dense_layer(const NerfDesc& d, int i) {
+  const NerfCols c = nerf_cols(d);
+  const ChainDesc& tr = d.trunk;
+  const int w = trunk_width(d), nl = tr.n_layers;
+  DenseLayer l;
+  l.seg2 = c.es;
+  l.k2 = 0;
+  l.n = w;
+  if (i < nl) {
+    l.seg1 = i == 0 ? c.es : c.post0 + (i - 1) * w;
+    l.k1 = i == 0 ? tr.embed_dim : w;
+    if (i > 0 && tr.skip_after[i - 1]) l.k2 = tr.embed_dim;
+    l.dpre = c.dpre0 + i * w;
+    l.w_off = tr.w_off[i];
+  } else if (i == nl) {
+    l.seg1 = c.post0 + (nl - 1) * w;
+    l.k1 = w;
+    l.dpre = c.dpre_bott;
+    l.w_off = d.bott_w;
+  } else {
+    l.seg1 = c.bott;
+    l.k1 = w;
+    l.seg2 = c.ev;
+    l.k2 = d.view.embed_dim;
+    l.dpre = c.dpre_rgb0;
+    l.n = d.rgb_hidden;
+    l.w_off = d.rgb0_w;
+  }
+  return l;
+}
+
+// Offset of dense layer i's transpose in the transposed weights: each
+// layer's W^T is (n, round16(k1) + round16(k2)), its segments zero-padded.
+__host__ __device__ inline long long wt_offset(const NerfDesc& d, int i) {
+  long long off = 0;
+  for (int j = 0; j < i; ++j) {
+    const DenseLayer l = dense_layer(d, j);
+    off += static_cast<long long>(l.n) * (round16(l.k1) + round16(l.k2));
+  }
+  return off;
+}
+
+// Shared-memory layout of a phase-1 block: raw points and views (f32) |
+// output cotangents [d_rgb | d_sigma] (f32) | embeddings (bf16) | one
+// activation buffer (bf16) | the ring of weight stages. The buffer holds,
+// in turn, each trunk post, the bottleneck, the rgb hidden layer and each
+// rounded d_pre: every product's epilogue writes its result over its own
+// operand, which the product has finished reading. ~112 KB at nerf.ini
+// width, so that two blocks share an SM. A trunk wider than one tc_gemm
+// pass (kTcCols) reads each operand once a pass, so it gets a second
+// buffer (h2; h2 == h otherwise) and each product writes the other one.
+struct NerfTcLayout {
+  size_t xp, xv, dout, es, ev, h, h2, ws, total;
+  int lde, ldv, ldh, ldq;
+};
+
+constexpr int kPairs = tc::kTcRows / 2;  // row pairs of a tile
+
+__host__ __device__ inline NerfTcLayout nerf_tc_layout(const NerfDesc& d) {
+  constexpr int R = tc::kTcRows;
+  NerfTcLayout s;
+  s.lde = tc::tc_ld(d.trunk.embed_dim);
+  s.ldv = tc::tc_ld(d.view.embed_dim);
+  s.ldh = tc::tc_ld(trunk_width(d));
+  s.ldq = d.rgb_out + 1;
+  s.xp = 0;
+  s.xv = align16(s.xp + sizeof(float) * R * 3);
+  s.dout = align16(s.xv + sizeof(float) * R * 3);
+  s.es = align16(s.dout + sizeof(float) * R * s.ldq);
+  s.ev = align16(s.es + sizeof(bf16) * R * s.lde);
+  s.h = align16(s.ev + sizeof(bf16) * R * s.ldv);
+  s.h2 = trunk_width(d) > tc::kTcCols ? align16(s.h + sizeof(bf16) * R * s.ldh) : s.h;
+  s.ws = align16(s.h2 + sizeof(bf16) * R * s.ldh);
+  s.total = align16(s.ws + sizeof(bf16) * tc::kTcStages * tc::kTcStage);
+  return s;
+}
+
+// The tensor-core backward takes widths that are multiples of 16 (the mma
+// K step) and a layout that fits the block's shared memory.
+inline int check_nerf_tc(const NerfDesc& d) {
+  if (trunk_width(d) % 16 || d.rgb_hidden % 16) return kErrBadPlan;
+  if (nerf_tc_layout(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  return 0;
+}
+
+// Writes columns [0, cols) of a tile's rows (bf16 in shared memory, ld)
+// to the scratch tile `st` (32-bit words, rows of `total`) from column
+// col0: word (j, col0 + c) packs rows 2j and 2j + 1 of column c.
+__device__ inline void store_pairs(const bf16* src, int ld, int cols, uint32_t* st, int total,
+                                   int col0) {
+  for (int idx = threadIdx.x; idx < kPairs * cols; idx += kThreads) {
+    const int j = idx / cols, c = idx % cols;
+    st[j * total + col0 + c] = tc::pack2(src[2 * j * ld + c], src[(2 * j + 1) * ld + c]);
+  }
+}
+
+// The scratch words of a tc_gemm result fragment's bf16 values y (y[m][e]
+// at row 16 m + g + 8 (e >> 1), column 2 t + (e & 1) of the fragment,
+// which starts at scratch column col): a lane swaps rows with its
+// neighbour (lane ^ 4 holds row r ^ 1) and stores one row pair, 8
+// neighbouring words a row pair per warp. All lanes of the warp call it.
+__device__ inline void store_frag_pairs(const bf16 (&y)[tc::kTcM][4], uint32_t* st, int total,
+                                 int col) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t mine = tc::pack2(y[m][2 * h], y[m][2 * h + 1]);
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 4);
+      // Even g: column 2t, rows (r, r + 1); odd g: column 2t + 1, rows (r - 1, r)
+      const uint32_t word =
+          g & 1 ? (other >> 16) | (mine & 0xffff0000u) : (mine & 0xffffu) | (other << 16);
+      st[((16 * m + g + 8 * h) >> 1) * total + col + 2 * t + (g & 1)] = word;
+    }
+}
+
+// The bf16 value of row r, column c of the scratch tile `st`.
+__device__ __forceinline__ float scratch_at(const uint32_t* st, int total, int r, int c) {
+  const uint32_t v = st[(r >> 1) * total + c];
+  return __bfloat162float(
+      __ushort_as_bfloat16(static_cast<unsigned short>(r & 1 ? v >> 16 : v & 0xffffu)));
+}
+
+// A forward product's epilogue: out = bf16(act(v + b)) into the tile's
+// buffer (ld ldo) and, for col >= 0, its scratch columns from col.
+template <bool kStore>
+__device__ inline void fwd_epilogue(int c0, const float (&v)[tc::kTcM][4], int act,
+                                    const float* __restrict__ b, bf16* out, int ldo, uint32_t* st,
+                                    int total, int col) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16 y[tc::kTcM][4];
+#pragma unroll
+  for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+      y[m][e] = from_f<bf16>(activate(act, v[m][e] + b[c]));
+      out[r * ldo + c] = y[m][e];
+    }
+  if (kStore) store_frag_pairs(y, st, total, col + c0);
+}
+
+// A d_pre @ W^T product's epilogue, which makes the next layer's d_pre:
+// u = f(r, c, v) (the d_h term and act'), db += the column sums of the
+// unrounded u (each column is one warp's: in-lane over its 8 rows, then
+// across the 8 lanes of its t, in a fixed order), and bf16(u) into the
+// tile's buffer (ld ldp) and the scratch columns from col.
+template <typename F>
+__device__ inline void dpre_epilogue(int c0, const float (&v)[tc::kTcM][4], F f, bf16* dpre, int ldp,
+                                     uint32_t* st, int total, int col, float* db) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16 y[tc::kTcM][4];
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+      const float u = f(r, c, v[m][e]);
+      s[e & 1] += u;
+      y[m][e] = from_f<bf16>(u);
+      dpre[r * ldp + c] = y[m][e];
+    }
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int off = 4; off < 32; off *= 2) s[e] += __shfl_xor_sync(0xffffffffu, s[e], off);
+  if (g == 0) {
+    db[c0 + 2 * t] += s[0];
+    db[c0 + 2 * t + 1] += s[1];
+  }
+  store_frag_pairs(y, st, total, col + c0);
+}
+
+// Phase 1 for one 64-row tile whose points, views and output cotangents
+// are in shared memory: the forward recompute and the cotangents of every
+// layer, writing the tile's scratch `st` (kPairs rows of the scratch's
+// `total` words) and adding the heads' dW/db and every db into `gaux`
+// (the aux part of the block's slice). kTwoBuffers: the trunk is wider
+// than one column pass (nerf_tc_layout's h2).
+template <bool kTwoBuffers>
+__device__ void nerf_tile_bwd_tc(const NerfDesc& d, const bf16* __restrict__ w,
+                                 const bf16* __restrict__ wt, const float* __restrict__ aux,
+                                 unsigned char* smem, uint32_t* st, float* gaux) {
+  constexpr int R = tc::kTcRows;
+  const NerfTcLayout L = nerf_tc_layout(d);
+  const NerfCols cols = nerf_cols(d);
+  const ChainDesc& tr = d.trunk;
+  const float* xp = reinterpret_cast<const float*>(smem + L.xp);
+  const float* xv = reinterpret_cast<const float*>(smem + L.xv);
+  float* dout = reinterpret_cast<float*>(smem + L.dout);
+  bf16* es = reinterpret_cast<bf16*>(smem + L.es);
+  bf16* ev = reinterpret_cast<bf16*>(smem + L.ev);
+  // h holds the latest result; each product writes ho, then the two swap.
+  // With one buffer ho is h, fixed (a swap would cost phase 1 registers)
+  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
+  bf16* ho = kTwoBuffers ? reinterpret_cast<bf16*>(smem + L.h2) : h;
+  const auto flip = [&] {
+    if (kTwoBuffers) {
+      bf16* t = h;
+      h = ho;
+      ho = t;
+    }
+  };
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  const int width = trunk_width(d), hr = d.rgb_hidden, no = d.rgb_out, ldq = L.ldq;
+  const int ne = tr.embed_dim, nv = d.view.embed_dim, nl = tr.n_layers, ldh = L.ldh;
+  const int e16 = round16(ne), v16 = round16(nv), total = cols.total;
+  // Forward recompute. The embeddings' columns up to the next 16 are zero:
+  // the products read them
+  embed_rows<bf16, R>(tr, xp, es, L.lde);
+  embed_rows<bf16, R>(d.view, xv, ev, L.ldv);
+  for (int idx = threadIdx.x; idx < R * 16; idx += kThreads) {
+    const int r = idx / 16, c = idx % 16;
+    if (ne + c < e16) es[r * L.lde + ne + c] = from_f<bf16>(0.f);
+    if (nv + c < v16) ev[r * L.ldv + nv + c] = from_f<bf16>(0.f);
+  }
+  __syncthreads();
+  store_pairs(es, L.lde, e16, st, total, cols.es);
+  store_pairs(ev, L.ldv, v16, st, total, cols.ev);
+  tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
+  for (int i = 0; i < nl; ++i) {
+    const int act = tr.acts[i], col = cols.post0 + i * width;
+    const float* b = aux + tr.b_off[i];
+    tc::tc_gemm(a, wt + wt_offset(d, i), a.k1 + a.k2, width, ws,
+                [&](int c0, const float (&v)[tc::kTcM][4]) {
+                  fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
+                });
+    flip();
+    const bool skip = tr.skip_after[i] != 0;
+    a = tc::TcA{h, ldh, width, skip ? es : nullptr, L.lde, skip ? e16 : 0};
+  }
+  __syncthreads();
+  // sigma head (tiny, f32, linear): its dW and db from the trunk's output
+  const float* dsig = dout + no;
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s += dsig[r * ldq];
+    gaux[d.sigma_b] += s;
+  }
+  for (int k = threadIdx.x; k < width; k += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s = fmaf(to_f<bf16>(h[r * ldh + k]), dsig[r * ldq], s);
+    gaux[d.sigma_w + k] += s;
+  }
+  // The bottleneck, then rgb layer 0 over [bottleneck | e_view] (their
+  // epilogues follow their products' barriers, so the sigma head's reads)
+  const float* bb = aux + d.bott_b;
+  tc::tc_gemm(tc::TcA{h, ldh, width, nullptr, 0, 0}, wt + wt_offset(d, nl), width, width, ws,
+              [&](int c0, const float (&v)[tc::kTcM][4]) {
+                fwd_epilogue<true>(c0, v, kNone, bb, ho, ldh, st, total, cols.bott);
+              });
+  flip();
+  const float* b0 = aux + d.rgb0_b;
+  const int act0 = d.rgb_acts[0];
+  tc::tc_gemm(tc::TcA{h, ldh, width, ev, L.ldv, v16}, wt + wt_offset(d, nl + 1), width + v16, hr,
+              ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+                fwd_epilogue<false>(c0, v, act0, b0, ho, ldh, st, total, 0);
+              });
+  flip();
+  __syncthreads();
+  // rgb head (tiny, f32): d_pre in place of d_rgb
+  const float* w1 = aux + d.rgb1_w;
+  if (d.rgb_acts[1] != kNone) {
+    for (int idx = threadIdx.x; idx < R * no; idx += kThreads) {
+      const int r = idx / no, c = idx % no;
+      float s = aux[d.rgb1_b + c];
+      for (int k = 0; k < hr; ++k) s = fmaf(to_f<bf16>(h[r * ldh + k]), w1[k * no + c], s);
+      dout[r * ldq + c] = activate_bwd(d.rgb_acts[1], activate(d.rgb_acts[1], s),
+                                       dout[r * ldq + c]);
+    }
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < no; c += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s += dout[r * ldq + c];
+    gaux[d.rgb1_b + c] += s;
+  }
+  for (int idx = threadIdx.x; idx < hr * no; idx += kThreads) {
+    const int k = idx / no, c = idx % no;
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s = fmaf(to_f<bf16>(h[r * ldh + k]), dout[r * ldq + c], s);
+    gaux[d.rgb1_w + idx] += s;
+  }
+  __syncthreads();
+  // rgb layer 0's d_pre = act'(h0) * (d_pre1 @ w1^T), a thread a column, in
+  // place of h0: db, the rounded d_pre and its scratch columns
+  for (int k = threadIdx.x; k < hr; k += kThreads) {
+    float s = 0.f;
+    for (int j = 0; j < kPairs; ++j) {
+      bf16 y[2];
+      for (int i = 0; i < 2; ++i) {
+        const int r = 2 * j + i;
+        float gr = 0.f;
+        for (int c = 0; c < no; ++c) gr = fmaf(dout[r * ldq + c], w1[k * no + c], gr);
+        const float u = activate_bwd(act0, to_f<bf16>(h[r * ldh + k]), gr);
+        s += u;
+        y[i] = from_f<bf16>(u);
+        h[r * ldh + k] = y[i];
+      }
+      st[j * total + cols.dpre_rgb0 + k] = tc::pack2(y[0], y[1]);
+    }
+    gaux[d.rgb0_b + k] += s;
+  }
+  // The cotangents down the field: each d_pre @ W^T's epilogue makes the
+  // next layer's d_pre. rgb layer 0 (W0's first `width` rows) gives the
+  // linear bottleneck's
+  tc::tc_gemm(tc::TcA{h, ldh, hr, nullptr, 0, 0}, w + d.rgb0_w, hr, width, ws,
+              [&](int c0, const float (&v)[tc::kTcM][4]) {
+                dpre_epilogue(c0, v, [](int, int, float x) { return x; }, ho, ldh, st, total,
+                              cols.dpre_bott, gaux + d.bott_b);
+              });
+  flip();
+  // the bottleneck gives the last trunk layer's, with d_sigma w_sigma^T
+  const int act_last = tr.acts[nl - 1], post_last = cols.post0 + (nl - 1) * width;
+  const float* ws_sigma = aux + d.sigma_w;
+  tc::tc_gemm(tc::TcA{h, ldh, width, nullptr, 0, 0}, w + d.bott_w, width, width, ws,
+              [&](int c0, const float (&v)[tc::kTcM][4]) {
+                dpre_epilogue(
+                    c0, v,
+                    [&](int r, int c, float x) {
+                      return activate_bwd(act_last, scratch_at(st, total, r, post_last + c),
+                                          fmaf(dsig[r * ldq], ws_sigma[c], x));
+                    },
+                    ho, ldh, st, total, cols.dpre0 + (nl - 1) * width, gaux + tr.b_off[nl - 1]);
+              });
+  flip();
+  // trunk layer i gives layer i - 1's (act' from its post, read back from
+  // the scratch columns this tile wrote)
+  for (int i = nl - 1; i > 0; --i) {
+    const int act = tr.acts[i - 1], post = cols.post0 + (i - 1) * width;
+    tc::tc_gemm(tc::TcA{h, ldh, width, nullptr, 0, 0}, w + tr.w_off[i], width, width, ws,
+                [&](int c0, const float (&v)[tc::kTcM][4]) {
+                  dpre_epilogue(
+                      c0, v,
+                      [&](int r, int c, float x) {
+                        return activate_bwd(act, scratch_at(st, total, r, post + c), x);
+                      },
+                      ho, ldh, st, total, cols.dpre0 + (i - 1) * width, gaux + tr.b_off[i - 1]);
+                });
+    flip();
+  }
+  __syncthreads();
+}
+
+// Phase 1: block b walks 64-row tiles b, b + grid, ... and writes each
+// tile's scratch; its aux sums (n_aux floats) go to its own slice of
+// `part`.
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+nerf_bwd_tc_kernel(NerfDesc d, const float* __restrict__ pts, const float* __restrict__ views,
+                   const float* __restrict__ drgb, const float* __restrict__ dsigma,
+                   const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                   const float* __restrict__ aux, uint32_t* scratch, float* __restrict__ part,
+                   long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const NerfTcLayout L = nerf_tc_layout(d);
+  const long long tile_words = static_cast<long long>(kPairs) * nerf_cols(d).total;
+  float* gaux = part + blockIdx.x * d.n_aux;
+  for (long long j = threadIdx.x; j < d.n_aux; j += kThreads) gaux[j] = 0.f;
+  float* xp = reinterpret_cast<float*>(smem + L.xp);
+  float* xv = reinterpret_cast<float*>(smem + L.xv);
+  float* dout = reinterpret_cast<float*>(smem + L.dout);
+  const int no = d.rgb_out, ldq = L.ldq;
+  const long long n_tiles = (n + R - 1) / R;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row0 = tile * R;
+    load_rows<R>(pts, 3, row0, n, xp);
+    load_rows<R>(views, 3, row0, n, xv);
+    // Padding rows get a zero cotangent, so they add nothing to dW/db
+    for (int idx = threadIdx.x; idx < R * ldq; idx += kThreads) {
+      const long long r = row0 + idx / ldq;
+      const int c = idx % ldq;
+      dout[idx] = r >= n ? 0.f : (c < no ? drgb[r * no + c] : dsigma[r]);
+    }
+    __syncthreads();
+    nerf_tile_bwd_tc<kTwoBuffers>(d, w, wt, aux, smem, scratch + tile * tile_words, gaux);
+  }
+}
+
+// Phase 1's instantiation for d's trunk width
+inline auto nerf_bwd_tc_for(const NerfDesc& d) {
+  return trunk_width(d) > tc::kTcCols ? nerf_bwd_tc_kernel<true> : nerf_bwd_tc_kernel<false>;
+}
+
+// The dW pass: a block owns a kDwTile x kDwTile tile of one dense layer's
+// dW and one of `chunks` row chunks (64-row tiles [t0, t1) of the
+// scratch), and writes its f32 partial to part[chunk * n_dense + ...].
+// Its operands keep the scratch's row pairs in shared memory: X^T's and
+// D's K dimension is the tile's rows, so a fragment register is one word.
+constexpr int kDwTile = 128;
+constexpr int kDwLd = kDwTile + 8;           // words of an operand's row pair
+constexpr int kDwOperand = kPairs * kDwLd;   // words of one operand's tile
+constexpr int kMaxDwChunks = 8;
+constexpr size_t kDwSmem = sizeof(uint32_t) * 4 * kDwOperand;  // 2 stages of [X | D]
+
+__host__ __device__ inline int dw_tiles(const NerfDesc& d, int i) {
+  const DenseLayer l = dense_layer(d, i);
+  return ((l.k1 + l.k2 + kDwTile - 1) / kDwTile) * ((l.n + kDwTile - 1) / kDwTile);
+}
+
+__host__ __device__ inline int dw_tiles_total(const NerfDesc& d) {
+  int t = 0;
+  for (int i = 0; i < n_dense_layers(d); ++i) t += dw_tiles(d, i);
+  return t;
+}
+
+// The number of row chunks of the dW pass for n rows: at most
+// kMaxDwChunks (8 x the dense weights in f32 stay in the L2), at most one
+// a 64-row tile.
+inline int nerf_dw_chunks(long long n) {
+  const long long tiles = (n + tc::kTcRows - 1) / tc::kTcRows;
+  return static_cast<int>(tiles < kMaxDwChunks ? tiles : kMaxDwChunks);
+}
+
+// Starts copying positions [c0, c0 + kDwTile) of a product's operand from
+// one scratch tile `src` (rows of `total` words) into dst (kPairs rows of
+// kDwLd words), 4 positions a 16-byte request: position m is scratch
+// column seg1 + m below k1, seg2 + m - k1 above (segments start at
+// multiples of 16 columns, k1 is one where k2 > 0); zeros from k on.
+__device__ inline void load_dw_operand(uint32_t* dst, const uint32_t* src, int total, int c0,
+                                       int seg1, int k1, int seg2, int k) {
+  constexpr int kPieces = kDwTile / 4;
+  for (int idx = threadIdx.x; idx < kPairs * kPieces; idx += kThreads) {
+    const int j = idx / kPieces, p = idx % kPieces, m = c0 + 4 * p;
+    uint32_t* to = dst + j * kDwLd + 4 * p;
+    if (m < k)
+      tc::cp_async16(to, src + static_cast<long long>(j) * total +
+                             (m < k1 ? seg1 + m : seg2 + m - k1));
+    else
+      tc::zero16(to);
+  }
+}
+
+// The m16n8k16 fragments from row-paired operands (word (j, m) holds K
+// values 2j and 2j + 1 of position m): A of positions [m0, m0 + 16) and
+// B of positions [n0, n0 + 8), both over K [16 kk, 16 kk + 16).
+__device__ __forceinline__ void pair_frag_a(const uint32_t* s, int m0, int kk,
+                                            uint32_t (&f)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t* p = s + (8 * kk + t) * kDwLd + m0 + g;
+  f[0] = p[0];
+  f[1] = p[8];
+  f[2] = p[4 * kDwLd];
+  f[3] = p[4 * kDwLd + 8];
+}
+
+__device__ __forceinline__ void pair_frag_b(const uint32_t* s, int n0, int kk, uint32_t& b0,
+                                            uint32_t& b1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t* p = s + (8 * kk + t) * kDwLd + n0 + g;
+  b0 = p[0];
+  b1 = p[4 * kDwLd];
+}
+
+__global__ void __launch_bounds__(kThreads)
+nerf_dw_kernel(NerfDesc d, const uint32_t* __restrict__ scratch, float* __restrict__ part,
+               int chunks, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  uint32_t* buf = reinterpret_cast<uint32_t*>(smem);
+  const int chunk = blockIdx.x % chunks;
+  int tile = blockIdx.x / chunks, li = 0;
+  while (tile >= dw_tiles(d, li)) tile -= dw_tiles(d, li++);
+  const DenseLayer l = dense_layer(d, li);
+  const int k = l.k1 + l.k2, n_tiles_n = (l.n + kDwTile - 1) / kDwTile;
+  const int m0 = (tile / n_tiles_n) * kDwTile, c0 = (tile % n_tiles_n) * kDwTile;
+  const int total = nerf_cols(d).total;
+  const long long row_tiles = (n + R - 1) / R;
+  const long long t0 = row_tiles * chunk / chunks, t1 = row_tiles * (chunk + 1) / chunks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+  float acc[4][4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.f;
+  auto load = [&](long long rt, uint32_t* stage) {
+    const uint32_t* src = scratch + rt * kPairs * total;
+    load_dw_operand(stage, src, total, m0, l.seg1, l.k1, l.seg2, k);
+    load_dw_operand(stage + kDwOperand, src, total, c0, l.dpre, l.n, 0, l.n);
+    tc::cp_async_commit();
+  };
+  if (t0 < t1) load(t0, buf);
+  for (long long rt = t0; rt < t1; ++rt) {
+    const int s = static_cast<int>((rt - t0) & 1);
+    // Tile rt has landed and every warp is done with the other stage
+    tc::cp_async_wait_all();
+    __syncthreads();
+    if (rt + 1 < t1) load(rt + 1, buf + (s ^ 1) * 2 * kDwOperand);
+    const uint32_t* xs = buf + s * 2 * kDwOperand;
+    const uint32_t* ds = xs + kDwOperand;
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) pair_frag_a(xs, 64 * wm + 16 * m, kk, af[m]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t b0, b1;
+        pair_frag_b(ds, 32 * wn + 8 * q, kk, b0, b1);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) tc::mma16816(acc[m][q], af[m], b0, b1);
+      }
+    }
+  }
+  float* out = part + chunk * d.n_dense + l.w_off;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + 64 * wm + 16 * m + g + 8 * (e >> 1);
+        const int c = c0 + 32 * wn + 8 * q + 2 * t + (e & 1);
+        if (r < k && c < l.n) out[static_cast<long long>(r) * l.n + c] = acc[m][q][e];
+      }
+}
+
+// The building block alone: c (m x n, f32) = a (m x k, bf16 row-major) @
+// bt^T, bt (n x round16(k), bf16, zero past k) through tc_gemm, a block a
+// 64-row tile of a.
+__global__ void __launch_bounds__(kThreads)
+tc_matmul_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bt,
+                 float* __restrict__ c, int m, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const int k16 = round16(k), lda = tc::tc_ld(k);
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* ws = as + R * lda;
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  for (int idx = threadIdx.x; idx < R * k16; idx += kThreads) {
+    const int r = idx / k16, j = idx % k16;
+    as[r * lda + j] = row0 + r < m && j < k ? a[(row0 + r) * k + j] : from_f<bf16>(0.f);
+  }
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  tc::tc_gemm(tc::TcA{as, lda, k16, nullptr, 0, 0}, bt, k16, n, ws,
+              [&](int c0, const float (&v)[tc::kTcM][4]) {
+                for (int i = 0; i < tc::kTcM; ++i)
+                  for (int e = 0; e < 4; ++e) {
+                    const long long r = row0 + 16 * i + g + 8 * (e >> 1);
+                    const int col = c0 + 2 * t + (e & 1);
+                    if (r < m && col < n) c[r * n + col] = v[i][e];
+                  }
+              });
 }
 
 template <typename T>
@@ -388,46 +1011,73 @@ int nerf_fwd(const NerfDesc& d, const float* pts, const float* views, const T* w
                           views, w, aux, rgb, sigma, n);
 }
 
-template <typename T, int ROWS>
-int nerf_bwd(const NerfDesc& d, const float* pts, const float* views, const float* drgb,
-             const float* dsigma, const T* w, const float* aux, float* part, float* dwb,
-             int slices, long long n, cudaStream_t stream) {
+// The f32 backward on the CUDA cores (nerf_bwd_kernel), then the slice sum.
+template <int ROWS>
+int nerf_bwd_f32(const NerfDesc& d, const float* pts, const float* views, const float* drgb,
+                 const float* dsigma, const float* w, const float* aux, float* part, float* dwb,
+                 int slices, long long n, cudaStream_t stream) {
   if (slices < 1) return kErrBadPlan;
-  int err = launch_with_smem(nerf_bwd_kernel<T, ROWS>, nerf_bwd_layout<T, ROWS>(d).total,
-                             slices, stream, d, pts, views, drgb, dsigma, w, aux, part, n);
+  int err = launch_with_smem(nerf_bwd_kernel<ROWS>,
+                             nerf_bwd_layout<ROWS>(d).total, slices, stream, d, pts, views,
+                             drgb, dsigma, w, aux, part, n);
   if (err) return err;
   return sum_slices(part, slices, d.n_dense + d.n_aux, dwb, stream);
 }
 
-template <typename T>
-int nerf_bwd_dispatch(const NerfDesc& d, const float* pts, const float* views,
-                      const float* drgb, const float* dsigma, const void* w, const float* aux,
-                      float* part, float* dwb, int slices, long long n, cudaStream_t stream) {
-  const T* wt = static_cast<const T*>(w);
-  switch (nerf_bwd_rows<T>(d, max_smem_optin())) {
+int nerf_bwd_f32_dispatch(const NerfDesc& d, const float* pts, const float* views,
+                          const float* drgb, const float* dsigma, const float* w,
+                          const float* aux, float* part, float* dwb, int slices, long long n,
+                          cudaStream_t stream) {
+  switch (nerf_bwd_rows(d, max_smem_optin())) {
     case 32:
-      return nerf_bwd<T, 32>(d, pts, views, drgb, dsigma, wt, aux, part, dwb, slices, n,
-                             stream);
+      return nerf_bwd_f32<32>(d, pts, views, drgb, dsigma, w, aux, part, dwb, slices, n, stream);
     case 16:
-      return nerf_bwd<T, 16>(d, pts, views, drgb, dsigma, wt, aux, part, dwb, slices, n,
-                             stream);
+      return nerf_bwd_f32<16>(d, pts, views, drgb, dsigma, w, aux, part, dwb, slices, n, stream);
     default:
       return kErrSmem;
   }
 }
 
-template <typename T>
-int nerf_bwd_slices(const NerfDesc& d, long long n, int* slices) {
-  switch (nerf_bwd_rows<T>(d, max_smem_optin())) {
+int nerf_bwd_f32_slices(const NerfDesc& d, long long n, int* slices) {
+  switch (nerf_bwd_rows(d, max_smem_optin())) {
     case 32:
-      return dw_slices(nerf_bwd_kernel<T, 32>, nerf_bwd_layout<T, 32>(d).total, (n + 31) / 32,
-                       slices);
+      return dw_slices(nerf_bwd_kernel<32>, nerf_bwd_layout<32>(d).total,
+                       (n + 31) / 32, slices);
     case 16:
-      return dw_slices(nerf_bwd_kernel<T, 16>, nerf_bwd_layout<T, 16>(d).total, (n + 15) / 16,
-                       slices);
+      return dw_slices(nerf_bwd_kernel<16>, nerf_bwd_layout<16>(d).total,
+                       (n + 15) / 16, slices);
     default:
       return kErrSmem;
   }
+}
+
+// The dW pass over a scratch of n rows, then the sum of its chunks into
+// dw (n_dense floats); part holds chunks x n_dense floats.
+int nerf_dw(const NerfDesc& d, const uint32_t* scratch, float* part, float* dw, int chunks,
+            long long n, cudaStream_t stream) {
+  if (chunks < 1) return kErrBadArgs;
+  int err = launch_with_smem(nerf_dw_kernel, kDwSmem,
+                             static_cast<long long>(dw_tiles_total(d)) * chunks, stream, d,
+                             scratch, part, chunks, n);
+  if (err) return err;
+  return sum_slices(part, chunks, d.n_dense, dw, stream);
+}
+
+// The bf16 backward: phase 1, the dW pass and its chunk sum, then the sum
+// of phase 1's slices.
+int nerf_bwd_tc(const NerfDesc& d, const float* pts, const float* views, const float* drgb,
+                const float* dsigma, const bf16* w, const bf16* wt, const float* aux,
+                uint32_t* scratch, float* part, float* dwb, int slices, int chunks, long long n,
+                cudaStream_t stream) {
+  if (int err = check_nerf_tc(d)) return err;
+  if (slices < 1 || chunks < 1) return kErrBadArgs;
+  float* part_aux = part;
+  float* part_dense = part + static_cast<long long>(slices) * d.n_aux;
+  if (int err = launch_with_smem(nerf_bwd_tc_for(d), nerf_tc_layout(d).total, slices, stream, d,
+                                 pts, views, drgb, dsigma, w, wt, aux, scratch, part_aux, n))
+    return err;
+  if (int err = nerf_dw(d, scratch, part_dense, dwb, chunks, n, stream)) return err;
+  return sum_slices(part_aux, slices, d.n_aux, dwb + d.n_dense, stream);
 }
 
 }  // namespace nfk
@@ -449,29 +1099,73 @@ int nfk_nerf_fwd(const nfk::NerfDesc* desc, int bf16, const float* pts, const fl
                               n, s);
 }
 
-// Number of dW scratch slices nfk_nerf_bwd uses for n rows (the wrapper
-// allocates slices x (n_dense + n_aux) floats).
-int nfk_nerf_bwd_slices(const nfk::NerfDesc* desc, int bf16, long long n, int* slices) {
+// The buffers nfk_nerf_bwd needs for n rows, which the wrapper allocates.
+// f32: `slices` x (n_dense + n_aux) floats of part. bf16: a scratch of
+// `scratch` bf16 values; the transposed dense weights, `wt` bf16 values;
+// part of slices x n_aux + chunks x n_dense floats.
+int nfk_nerf_bwd_sizes(const nfk::NerfDesc* desc, int bf16, long long n, long long* scratch,
+                       long long* wt, int* slices, int* chunks) {
   if (int err = nfk::check_nerf(*desc)) return err;
-  *slices = 0;
+  *scratch = *wt = 0;
+  *slices = *chunks = 0;
   if (n <= 0) return 0;
-  if (bf16) return nfk::nerf_bwd_slices<__nv_bfloat16>(*desc, n, slices);
-  return nfk::nerf_bwd_slices<float>(*desc, n, slices);
+  if (!bf16) return nfk::nerf_bwd_f32_slices(*desc, n, slices);
+  if (int err = nfk::check_nerf_tc(*desc)) return err;
+  const long long tiles = (n + nfk::tc::kTcRows - 1) / nfk::tc::kTcRows;
+  *scratch = tiles * nfk::tc::kTcRows * nfk::nerf_cols(*desc).total;
+  *wt = nfk::wt_offset(*desc, nfk::n_dense_layers(*desc));
+  *chunks = nfk::nerf_dw_chunks(n);
+  return nfk::dw_slices(nfk::nerf_bwd_tc_for(*desc), nfk::nerf_tc_layout(*desc).total, tiles,
+                        slices);
 }
 
-// K3-bwd: dW/db of every layer into dwb ([dense | aux] packing, f32),
-// summed from part (slices x (n_dense + n_aux) floats of scratch).
+// K3-bwd: dW/db of every layer into dwb ([dense | aux] packing, f32).
+// f32: the CUDA-core kernel and the sum of its slices (wt, scratch and
+// chunks unused). bf16: phase 1, the dW pass and the sums over the
+// buffers of nfk_nerf_bwd_sizes.
 int nfk_nerf_bwd(const nfk::NerfDesc* desc, int bf16, const float* pts, const float* views,
-                 const float* drgb, const float* dsigma, const void* w, const float* aux,
-                 float* part, float* dwb, int slices, long long n, void* stream) {
+                 const float* drgb, const float* dsigma, const void* w, const void* wt,
+                 const float* aux, void* scratch, float* part, float* dwb, int slices,
+                 int chunks, long long n, void* stream) {
   if (int err = nfk::check_nerf(*desc)) return err;
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return nfk::nerf_bwd_dispatch<__nv_bfloat16>(*desc, pts, views, drgb, dsigma, w, aux, part,
-                                                 dwb, slices, n, s);
-  return nfk::nerf_bwd_dispatch<float>(*desc, pts, views, drgb, dsigma, w, aux, part, dwb,
-                                       slices, n, s);
+    return nfk::nerf_bwd_tc(*desc, pts, views, drgb, dsigma,
+                            static_cast<const __nv_bfloat16*>(w),
+                            static_cast<const __nv_bfloat16*>(wt), aux,
+                            static_cast<uint32_t*>(scratch), part, dwb, slices, chunks, n, s);
+  return nfk::nerf_bwd_f32_dispatch(*desc, pts, views, drgb, dsigma,
+                                    static_cast<const float*>(w), aux, part, dwb, slices, n, s);
+}
+
+// The dW pass alone over a scratch of n rows (nfk_nerf_bwd_sizes' layout):
+// the dense dW (n_dense floats) into dw, from `chunks` partials in part
+// (chunks x n_dense floats).
+int nfk_nerf_dw(const nfk::NerfDesc* desc, const void* scratch, float* part, float* dw,
+                int chunks, long long n, void* stream) {
+  if (int err = nfk::check_nerf(*desc)) return err;
+  if (int err = nfk::check_nerf_tc(*desc)) return err;
+  if (n <= 0) return 0;
+  return nfk::nerf_dw(*desc, static_cast<const uint32_t*>(scratch), part, dw, chunks, n,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core building block alone: c (m x n f32) = a (m x k bf16) @
+// bt^T, bt (n x round16(k) bf16, zero past k), through the loaders,
+// fragments and pipeline that K3-bwd uses.
+int nfk_tc_matmul(const void* a, const void* bt, float* c, int m, int n, int k, void* stream) {
+  if (m < 0 || n < 1 || k < 1) return nfk::kErrBadArgs;
+  if (m == 0) return 0;
+  const size_t smem = nfk::align16(sizeof(__nv_bfloat16) * nfk::tc::kTcRows *
+                                   nfk::tc::tc_ld(k)) +
+                      sizeof(__nv_bfloat16) * nfk::tc::kTcStages * nfk::tc::kTcStage;
+  if (smem > static_cast<size_t>(nfk::max_smem_optin())) return nfk::kErrSmem;
+  return nfk::launch_with_smem(nfk::tc_matmul_kernel, smem,
+                               (m + nfk::tc::kTcRows - 1) / nfk::tc::kTcRows,
+                               static_cast<cudaStream_t>(stream),
+                               static_cast<const __nv_bfloat16*>(a),
+                               static_cast<const __nv_bfloat16*>(bt), c, m, n, k);
 }
 
 }  // extern "C"

@@ -211,34 +211,264 @@ def nerf_kernel(nplan, pts, views, params, compute_dtype=None):
 nerf_kernel.launches = 0
 
 
+# ------ K3-bwd ------
+
+TILE_ROWS = 64  # csrc/mma_bf16.cuh kTcRows: rows of a scratch tile
+
+
+def _round16(k):
+    return (k + 15) // 16 * 16
+
+
+def scratch_columns(nplan):
+    """Columns of a row of the bf16 backward's scratch (csrc/fused_nerf.cu
+    ``nerf_cols``): every dense layer's inputs (the embeddings zero-padded
+    to 16 columns), then every dense layer's rounded d_pre. The scratch
+    pairs its rows: bf16 values (2j, c) and (2j + 1, c) of a 64-row tile
+    are neighbours, and a tile is 32 such row pairs of ``total`` columns."""
+    tp = nplan.trunk_plan
+    w, nl, e = tp.widths[-1], len(tp.widths), fm.embed_dim(tp)
+    c = {'es': 0, 'post0': _round16(e)}
+    c['bott'] = c['post0'] + nl * w
+    c['ev'] = c['bott'] + w
+    c['dpre0'] = c['ev'] + _round16(view_dim(nplan))
+    c['dpre_bott'] = c['dpre0'] + nl * w
+    c['dpre_rgb0'] = c['dpre_bott'] + w
+    c['total'] = c['dpre_rgb0'] + nplan.rgb_widths[0]
+    return c
+
+
+def dense_layers(nplan):
+    """Per dense layer (trunk layers, bottleneck, rgb layer 0; the C
+    ``dense_layer``): (seg1, k1, seg2, k2, dpre, n), its input columns
+    [seg1, seg1 + k1) and [seg2, seg2 + k2) of a scratch row, its d_pre
+    columns from ``dpre`` and its width."""
+    tp = nplan.trunk_plan
+    c = scratch_columns(nplan)
+    w, e = tp.widths[-1], fm.embed_dim(tp)
+    out = []
+    for i in range(len(tp.widths)):
+        skip_in = i > 0 and (i - 1) in tp.skip_at
+        out.append((c['post0'] + (i - 1) * w if i else c['es'],
+                    w if i else e, c['es'], e if skip_in else 0,
+                    c['dpre0'] + i * w, w))
+    out.append((c['post0'] + (len(tp.widths) - 1) * w, w, c['es'], 0,
+                c['dpre_bott'], w))
+    out.append((c['bott'], w, c['ev'], view_dim(nplan), c['dpre_rgb0'],
+                nplan.rgb_widths[0]))
+    return out
+
+
+def pack_transposed(nplan, params, dtype):
+    """The dense weights transposed for the bf16 backward's recompute: per
+    dense layer W^T, (n, round16(k1) + round16(k2)), each K segment
+    zero-padded to a multiple of 16, one after another."""
+    trunk, _, bott_p, rgb_p = params
+    ws = [w for w, _ in trunk] + [bott_p[0][0], rgb_p[0][0]]
+    parts = []
+    for w, (_, k1, _, k2, _, n) in zip(ws, dense_layers(nplan)):
+        k1p = _round16(k1)
+        t = w.new_zeros(n, k1p + _round16(k2))
+        t[:, :k1] = w[:k1].t()
+        t[:, k1p:k1p + k2] = w[k1:].t()
+        parts.append(t.reshape(-1))
+    return torch.cat(parts).to(dtype)
+
+
+def check_tensor(name, t, dtype, numel):
+    """Raises unless ``t`` is a contiguous CUDA tensor of ``dtype`` with
+    ``numel`` elements."""
+    if not t.is_cuda or t.dtype != dtype or t.numel() != numel \
+            or not t.is_contiguous():
+        raise ValueError("%s must be a contiguous CUDA %s tensor of %d "
+                         "elements, got %s %s %s" % (
+                             name, dtype, numel, t.device, t.dtype,
+                             tuple(t.shape)))
+
+
+def bwd_sizes(nplan, n, compute_dtype, device):
+    """What one K3-bwd launch over ``n`` rows needs, as the library sizes
+    it (``nfk_nerf_bwd_sizes``): bf16 values of the scratch and of the
+    transposed weights, the slices of phase 1 (or of the f32 kernel) and
+    the dW pass's row chunks."""
+    desc = make_desc(nplan)
+    bf16 = int(fm.kernel_dtype(compute_dtype) == torch.bfloat16)
+    scratch, wt = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    slices, chunks = ctypes.c_int(0), ctypes.c_int(0)
+    fm.run('nfk_nerf_bwd_sizes', device, ctypes.addressof(desc), bf16, n,
+           ctypes.byref(scratch), ctypes.byref(wt), ctypes.byref(slices),
+           ctypes.byref(chunks), stream=False)
+    return {'scratch': scratch.value, 'wt': wt.value,
+            'slices': slices.value, 'chunks': chunks.value}
+
+
+def bwd_buffers(nplan, n, compute_dtype, device):
+    """The buffers of one K3-bwd launch (:func:`bwd_sizes`): f32 slices of
+    the dW/db sums (``part``), the bf16 scratch and the packed f32 result
+    ``dwb``."""
+    size = bwd_sizes(nplan, n, compute_dtype, device)
+    off = layout(nplan)
+    bf16 = fm.kernel_dtype(compute_dtype) == torch.bfloat16
+    stride = off['n_aux'] + (0 if bf16 else off['n_dense'])
+    return {'part': torch.empty(size['slices'] * stride + size['chunks']
+                                * off['n_dense'], dtype=torch.float32,
+                                device=device),
+            'scratch': torch.empty(size['scratch'], dtype=torch.bfloat16,
+                                   device=device),
+            'dwb': torch.zeros(off['n_dense'] + off['n_aux'],
+                               dtype=torch.float32, device=device),
+            'slices': size['slices'], 'chunks': size['chunks'],
+            'wt_numel': size['wt']}
+
+
+def mma_plan(nplan):
+    """The plan bf16 K3-bwd runs ``nplan`` as: its products step K by 16
+    (mma.sync m16n8k16), so the trunk and rgb hidden widths are rounded up
+    to multiples of 16."""
+    tp = nplan.trunk_plan
+    return nplan._replace(
+        trunk_plan=tp._replace(widths=tuple(_round16(w) for w in tp.widths)),
+        rgb_widths=(_round16(nplan.rgb_widths[0]),) + nplan.rgb_widths[1:])
+
+
+def _leaf_dims(nplan):
+    """Per leaf of :func:`flatten`'s order: (rows of the hidden layer a
+    weight reads first, columns); (None, columns) for a bias."""
+    tp = nplan.trunk_plan
+    w, (hr, n_out) = tp.widths[0], nplan.rgb_widths
+    dims = []
+    for i in range(len(tp.widths)):
+        dims += [(w if i else 0, w), (None, w)]
+    return dims + [(w, 1), (None, 1), (w, w), (None, w), (w, hr), (None, hr),
+                   (hr, n_out), (None, n_out)]
+
+
+def pad_params(nplan, params):
+    """``params`` zero-padded to :func:`mma_plan`'s widths: each padded
+    unit has zero weights in and out, so it changes no output and no dW/db
+    of a real unit (:func:`unpad_grads` drops its own)."""
+    flat = []
+    for t, (k, n), (k16, n16) in zip(flatten(params), _leaf_dims(nplan),
+                                     _leaf_dims(mma_plan(nplan))):
+        if k is None:
+            out = t.new_zeros(n16)
+            out[:n] = t
+        else:
+            out = t.new_zeros(k16 + t.shape[0] - k, n16)
+            out[:k, :n] = t[:k]
+            out[k16:, :n] = t[k:]
+        flat.append(out)
+    return unflatten(nplan, flat)
+
+
+def unpad_grads(nplan, grads):
+    """The real units' dW/db out of :func:`mma_plan`'s (trunk, sigma,
+    bottleneck, rgb) cotangents."""
+    flat = []
+    for g, (k, n), (k16, _) in zip(flatten(grads), _leaf_dims(nplan),
+                                   _leaf_dims(mma_plan(nplan))):
+        flat.append(g[:n] if k is None
+                    else torch.cat([g[:k, :n], g[k16:, :n]]))
+    return unflatten(nplan, flat)
+
+
 def nerf_kernel_bwd(nplan, pts, views, drgb, dsigma, params,
                     compute_dtype=None):
     """Launches K3-bwd: the weight cotangents of :func:`nerf_kernel` for
     the output cotangents ``drgb`` (N, 3) and ``dsigma`` (N, 1), as
-    (trunk, sigma, bottleneck, rgb) lists of (dW, db), f32. They are
-    bit-identical for the same inputs on the same card. Counts its
-    launches in ``nerf_kernel_bwd.launches``."""
+    (trunk, sigma, bottleneck, rgb) lists of (dW, db), f32. In bf16 that is
+    phase 1, the dW pass and their sums on the tensor cores, over the
+    weights padded to :func:`mma_plan`'s widths where they differ; in f32
+    the CUDA-core kernel. They are bit-identical for the same inputs on the
+    same card. Counts its launches in ``nerf_kernel_bwd.launches``."""
+    kplan = nplan
+    if fm.kernel_dtype(compute_dtype) == torch.bfloat16 \
+            and mma_plan(nplan) != nplan:
+        kplan, params = mma_plan(nplan), pad_params(nplan, params)
     pts, views, drgb, dsigma = fm.check_inputs([
         ('pts', pts, 3), ('views', views, 3),
-        ('drgb', drgb, nplan.rgb_widths[-1]), ('dsigma', dsigma, 1)])
-    desc, bf16, dense, aux = _prepare(nplan, params, compute_dtype,
+        ('drgb', drgb, kplan.rgb_widths[-1]), ('dsigma', dsigma, 1)])
+    desc, bf16, dense, aux = _prepare(kplan, params, compute_dtype,
                                       pts.device)
     n = pts.shape[0]
-    dwb = pts.new_zeros(dense.numel() + aux.numel())
+    bufs = bwd_buffers(kplan, n, compute_dtype, pts.device)
+    wt = None
+    if bf16:
+        wt = pack_transposed(kplan, params, torch.bfloat16)
+        if wt.numel() != bufs['wt_numel']:
+            raise RuntimeError("transposed weights: %d values, the kernel "
+                               "reads %d" % (wt.numel(), bufs['wt_numel']))
     if n:
-        slices = ctypes.c_int(0)
-        fm.run('nfk_nerf_bwd_slices', pts.device, ctypes.addressof(desc),
-               bf16, n, ctypes.byref(slices), stream=False)
-        part = pts.new_empty(slices.value * dwb.numel())
         fm.run('nfk_nerf_bwd', pts.device, ctypes.addressof(desc), bf16,
                pts.data_ptr(), views.data_ptr(), drgb.data_ptr(),
-               dsigma.data_ptr(), dense.data_ptr(), aux.data_ptr(),
-               part.data_ptr(), dwb.data_ptr(), slices.value, n)
+               dsigma.data_ptr(), dense.data_ptr(),
+               wt.data_ptr() if bf16 else None, aux.data_ptr(),
+               bufs['scratch'].data_ptr(), bufs['part'].data_ptr(),
+               bufs['dwb'].data_ptr(), bufs['slices'], bufs['chunks'], n)
         nerf_kernel_bwd.launches += 1
-    return unpack_grads(nplan, dwb)
+    grads = unpack_grads(kplan, bufs['dwb'])
+    return grads if kplan is nplan else unpad_grads(nplan, grads)
 
 
 nerf_kernel_bwd.launches = 0
+
+
+def dw_reference(nplan, scratch, n, dtype=torch.float64):
+    """Plain version of K3-bwd's dW pass: every dense layer's X^T D from
+    the scratch of ``n`` rows (:func:`scratch_columns`), in ``dtype``,
+    packed as the dense weights. The sums run over the whole 64-row tiles
+    (phase 1 writes a zero d_pre for rows past n)."""
+    cols = scratch_columns(nplan)['total']
+    tiles = -(-n // TILE_ROWS)
+    s = scratch.to(dtype).view(tiles, TILE_ROWS // 2, cols, 2) \
+        .transpose(2, 3).reshape(tiles * TILE_ROWS, cols)
+    out = []
+    for seg1, k1, seg2, k2, dpre, n_out in dense_layers(nplan):
+        x = torch.cat([s[:, seg1:seg1 + k1], s[:, seg2:seg2 + k2]], dim=1)
+        out.append((x.t() @ s[:, dpre:dpre + n_out]).reshape(-1))
+    return torch.cat(out)
+
+
+def nerf_dw_pass(nplan, scratch, n):
+    """Launches K3-bwd's dW pass alone over a bf16 scratch of ``n`` rows
+    (laid out as :func:`scratch_columns` says) and sums its chunks: the
+    dense dW, f32, packed as the dense weights. For tests of the pass; it
+    counts no launch."""
+    size = bwd_sizes(nplan, n, torch.bfloat16, scratch.device)
+    check_tensor('scratch', scratch, torch.bfloat16, size['scratch'])
+    n_dense = layout(nplan)['n_dense']
+    dw = torch.zeros(n_dense, dtype=torch.float32, device=scratch.device)
+    part = torch.empty(max(size['chunks'], 1) * n_dense, dtype=torch.float32,
+                       device=scratch.device)
+    desc = make_desc(nplan)
+    if n:
+        fm.run('nfk_nerf_dw', scratch.device, ctypes.addressof(desc),
+               scratch.data_ptr(), part.data_ptr(), dw.data_ptr(),
+               size['chunks'], n)
+    return dw
+
+
+def tc_matmul(a, b):
+    """The tensor-core building block alone (``nfk_tc_matmul``): a (M, K)
+    @ b (N, K)^T in f32 from bf16 operands, through the fragment loaders
+    and pipeline of K3-bwd. For tests; it counts no launch."""
+    m, k = a.shape
+    n = b.shape[0]
+    a = a.to(torch.bfloat16).contiguous()
+    bt = b.new_zeros(n, _round16(k), dtype=torch.bfloat16)
+    bt[:, :k] = b
+    check_tensor('a', a, torch.bfloat16, m * k)
+    check_tensor('b', bt, torch.bfloat16, n * _round16(k))
+    c = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    fm.run('nfk_tc_matmul', a.device, a.data_ptr(), bt.data_ptr(),
+           c.data_ptr(), m, n, k)
+    return c
+
+
+def tc_matmul_reference(a, b):
+    """Plain version of :func:`tc_matmul`, in float64 from the same bf16
+    values."""
+    return a.to(torch.bfloat16).double() @ b.to(torch.bfloat16).double().t()
 
 
 def flatten(params):

@@ -130,11 +130,16 @@ def load():
     lib.nfk_nerf_fwd.argtypes = [
         ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
     lib.nfk_nerf_fwd.restype = i32
-    lib.nfk_nerf_bwd_slices.argtypes = [ptr, i32, i64, ptr]
-    lib.nfk_nerf_bwd_slices.restype = i32
+    lib.nfk_nerf_bwd_sizes.argtypes = [ptr, i32, i64, ptr, ptr, ptr, ptr]
+    lib.nfk_nerf_bwd_sizes.restype = i32
     lib.nfk_nerf_bwd.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+        i64, ptr]
     lib.nfk_nerf_bwd.restype = i32
+    lib.nfk_nerf_dw.argtypes = [ptr, ptr, ptr, ptr, i32, i64, ptr]
+    lib.nfk_nerf_dw.restype = i32
+    lib.nfk_tc_matmul.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.nfk_tc_matmul.restype = i32
     _lib = lib
     return lib
 

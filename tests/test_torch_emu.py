@@ -3,9 +3,10 @@ CUDA subset they use (``nerfactor_tpu_torch/csrc/emu``), against the
 plain PyTorch versions.
 
 g++ compiles ``csrc/*.cu`` with each ``kernel<<<grid, block, ...>>>(...)``
-rewritten to ``mock_launch(grid, block, ...)``, which runs the blocks one
-after another, each as ``block`` threads with a barrier for
-``__syncthreads()``. The library has the real one's C entry points and
+rewritten to ``mock_launch(grid, block, smem, ...)``, which runs the blocks
+one after another, each as ``block`` threads with a barrier for
+``__syncthreads()``, and fails the launch if a block writes shared memory
+past ``smem`` bytes. The library has the real one's C entry points and
 is bound through the same ctypes argtypes (``kernel_lib.load``), and the
 wrappers take CPU tensors while it is in place. So indexing, shared-memory
 layout, barrier and reduction faults of the kernels show here, without a
@@ -21,6 +22,7 @@ of the sources instead (e.g. one with a planted fault).
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -59,9 +61,9 @@ SHARED = 'extern __shared__ __align__(16) unsigned char smem[];'
 def _translate(src):
     """A CUDA source with its launches rewritten for the emulation."""
     def launch(m):
-        grid, block = m.group(2).split(',')[:2]
-        return 'mock_launch(%s, %s, [=]() { %s(%s); });' % (
-            grid, block, m.group(1), m.group(3))
+        grid, block, *rest = m.group(2).split(',')
+        return 'mock_launch(%s, %s, %s, [=]() { %s(%s); });' % (
+            grid, block, rest[0] if rest else '0', m.group(1), m.group(3))
     return LAUNCH.sub(launch, src).replace(SHARED, '')
 
 
@@ -90,6 +92,30 @@ def build(csrc_dir, out_dir):
     return lib
 
 
+def test_emulated_launch_fails_on_a_shared_memory_overrun(tmp_path):
+    """A block that writes past its launch's dynamic shared memory fails
+    the launch, as an out-of-range shared access faults on the card."""
+    if shutil.which('g++') is None:
+        pytest.skip("needs g++ to compile the emulation")
+    src = tmp_path / 'src'
+    src.mkdir()
+    (src / 'overrun.cu').write_text(
+        '#include <cuda_runtime.h>\n'
+        'namespace {\n' + SHARED + '\n'
+        '__global__ void fill(int n) {\n'
+        '  for (int i = threadIdx.x; i < n; i += blockDim.x) smem[i] = 1;\n'
+        '}\n'
+        '}\n'
+        'extern "C" int run(int bytes, int n) {\n'
+        '  fill<<<2, 32, bytes, nullptr>>>(n);\n'
+        '  return cudaGetLastError();\n'
+        '}\n')
+    run = ctypes.CDLL(build(str(src), str(tmp_path))).run
+    assert run(256, 256) == 0
+    assert run(256, 257) != 0
+    assert run(256, 0) == 0
+
+
 def _check_on_cpu(inputs):
     """fused_mlp.check_inputs without its device check."""
     for name, t, cols in inputs:
@@ -105,17 +131,26 @@ def _run_on_cpu(entry, device, *args, stream=True):
     kernel_lib.check(code, entry)
 
 
+def _check_tensor_on_cpu(name, t, dtype, numel):
+    """fused_nerf.check_tensor without its device check."""
+    if t.dtype != dtype or t.numel() != numel or not t.is_contiguous():
+        raise ValueError("%s: %s %s" % (name, t.dtype, tuple(t.shape)))
+
+
 @contextlib.contextmanager
 def emulation(lib_path):
     """Within: the kernel wrappers launch the emulated library on CPU
     tensors."""
-    saved = (kernel_lib.build, kernel_lib._lib, fm.check_inputs, fm.run)
+    saved = (kernel_lib.build, kernel_lib._lib, fm.check_inputs, fm.run,
+             fn.check_tensor)
     kernel_lib.build, kernel_lib._lib = (lambda: lib_path), None
     fm.check_inputs, fm.run = _check_on_cpu, _run_on_cpu
+    fn.check_tensor = _check_tensor_on_cpu
     try:
         yield
     finally:
-        kernel_lib.build, kernel_lib._lib, fm.check_inputs, fm.run = saved
+        (kernel_lib.build, kernel_lib._lib, fm.check_inputs, fm.run,
+         fn.check_tensor) = saved
 
 
 @pytest.fixture(scope='module')
@@ -381,11 +416,14 @@ def test_emulated_last_skip_kernels_match_interpreted_pallas_kernel(
 
 # Width 32 (depth 4), and nerf.ini's width 256 (depth 8, skip after layer
 # 4, rgb 128): two column passes per layer, a 319-wide skip consumer, and
-# the backward's row tile chosen from its layout (32 rows in bf16, 16 in
-# f32), so that 70 rows span several tiles of a block and several slices.
+# the backward's row tile (64 rows in bf16, the f32 kernel's 16 from its
+# layout), so that 70 rows span several tiles and several slices. Width
+# 272: two column passes a product in bf16 K3-bwd too (its passes are 256
+# wide), each reading the whole operand.
 NERF_PLANS = {'w32': small_plan(),
               'w256': dict(small_plan(), width=256, depth=8, skip_at=4,
-                           rgb_widths=(128, 3))}
+                           rgb_widths=(128, 3)),
+              'w272': dict(small_plan(), width=272)}
 
 
 def nerf_case(name, n, seed):
@@ -425,9 +463,11 @@ def test_emulated_nerf_kernels_match_plain(name, n, mode, emulated):
 # cotangent at each cast, the TPU kernel where K3-bwd does (d_h f32, d_pre
 # bf16). K3 also stores the trunk's output and the rgb hidden layer at bf16
 # where the TPU kernel keeps them f32, so the two sit further apart than
-# K1's pair. Readings over 2 seeds (python -m tests.test_torch_emu): w32 at
-# 130 rows <= 0.028, w256 at 70 rows <= 0.048; the f32 kernel, i.e. a kernel
-# that computed the f32 gradient, >= 0.092.
+# K1's pair. Readings over 2 seeds (python -m tests.test_torch_emu), the
+# same for the CUDA-core and the tensor-core bf16 backward: w32 at 130 rows
+# <= 0.028, w256 at 70 rows <= 0.048; w272 at 70 rows (tensor cores)
+# <= 0.053; the f32 kernel, i.e. a kernel that computed the f32 gradient,
+# >= 0.088.
 NERF_PALLAS_TOL_BF16 = 0.07
 
 
@@ -438,6 +478,117 @@ def test_emulated_nerf_bf16_grads_match_interpreted_pallas_kernel(emulated):
     got = nerf_kernel_grads(nplan, ins, p, torch.bfloat16)
     assert max(rel_norm(g, torch.tensor(w))
                for g, w in zip(got, want)) <= NERF_PALLAS_TOL_BF16
+
+
+def test_emulated_bf16_nerf_bwd_past_one_column_pass(emulated):
+    """bf16 K3-bwd at trunk width 272, where every trunk, bottleneck and
+    d_pre @ W^T product takes two column passes, each over its whole
+    operand, against the Pallas kernel in interpret mode; f32 K3-bwd
+    against the plain version."""
+    nplan, p, ins = nerf_case('w272', 70, seed=22)
+    want = jax_field(pn.make_nerf_plan(**NERF_PLANS['w272']), p,
+                     *[a.numpy() for a in ins], jnp.bfloat16, True)[2]
+    got = nerf_kernel_grads(nplan, ins, p, torch.bfloat16)
+    assert max(rel_norm(g, torch.tensor(w))
+               for g, w in zip(got, want)) <= NERF_PALLAS_TOL_BF16
+    want = plain_field(nplan, *ins, torch_params(p), None)[2]
+    for g, w in zip(nerf_kernel_grads(nplan, ins, p, None), want):
+        assert rel_norm(g, w) <= 1e-5
+
+
+# The tensor-core building block (csrc/mma_bf16.cuh) at sizes that are
+# not multiples of its fragments: ragged rows, columns past one 256-wide
+# pass, K not a multiple of 16.
+TC_SHAPES = [(1, 8, 16), (37, 20, 45), (64, 96, 80), (130, 300, 33)]
+
+
+def bf16_values(rng, shape):
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)) \
+        .to(torch.bfloat16)
+
+
+@pytest.mark.parametrize('m,n,k', TC_SHAPES)
+def test_emulated_tc_matmul_matches_float64(m, n, k, emulated):
+    """The emulated mma.sync fragments, loaders and cp.async pipeline give
+    the float64 product of the same bf16 values to f32 accumulation."""
+    rng = np.random.RandomState(m + n + k)
+    a, b = bf16_values(rng, (m, k)), bf16_values(rng, (n, k))
+    got = fn.tc_matmul(a, b).double()
+    want = fn.tc_matmul_reference(a, b)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def dw_scratch(nplan, n, seed):
+    """A bf16 scratch of n rows (whole 64-row tiles) of values in [-1, 1)."""
+    cols = fn.scratch_columns(nplan)['total']
+    tiles = -(-n // fn.TILE_ROWS)
+    return bf16_values(np.random.RandomState(seed),
+                       (tiles * fn.TILE_ROWS * cols,))
+
+
+@pytest.mark.parametrize('name,n', [('w32', 1), ('w32', 50), ('w32', 130),
+                                    ('w256', 130)])
+def test_emulated_dw_pass_matches_float64(name, n, emulated):
+    """K3-bwd's dW pass alone against X^T D of the same scratch in float64
+    (every dense layer, the skip consumer's and rgb layer 0's two K
+    segments included), over 1 to 3 row chunks; bit-identical across two
+    launches."""
+    nplan = fn.make_nerf_plan(**NERF_PLANS[name])
+    scratch = dw_scratch(nplan, n, seed=n)
+    got = fn.nerf_dw_pass(nplan, scratch, n)
+    want = fn.dw_reference(nplan, scratch, n)
+    assert got.shape == want.shape == (fn.layout(nplan)['n_dense'],)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got, fn.nerf_dw_pass(nplan, scratch, n))
+
+
+# A field whose trunk and rgb hidden widths are off the mma K step (16)
+NERF_PLAN_W24 = dict(NERF_PLANS['w32'], width=24, rgb_widths=(8, 3))
+
+
+def test_padded_plan_keeps_the_field_and_its_gradients():
+    """bf16 K3-bwd runs a plan off the mma step as mma_plan's, over the
+    weights zero-padded to it: the plain version gives the same outputs
+    and, once unpadded, the same weight gradients on both (f32)."""
+    nplan = fn.make_nerf_plan(**NERF_PLAN_W24)
+    kplan = fn.mma_plan(nplan)
+    assert kplan.trunk_plan.widths == (32,) * 4 and kplan.rgb_widths == (16, 3)
+    assert fn.mma_plan(kplan) == kplan
+    p = torch_params(field_params(nplan, 7))
+    ins = [torch.from_numpy(a) for a in field_inputs(10, 8)]
+    padded = fn.pad_params(nplan, p)
+    for a, b in zip(fn.flatten(fn.unpad_grads(nplan, padded)), fn.flatten(p)):
+        assert torch.equal(a, b)
+    rgb, sigma, want = plain_field(nplan, *ins, p, None)
+    prgb, psigma, got = plain_field(kplan, *ins, padded, None)
+    np.testing.assert_allclose(prgb.numpy(), rgb.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(psigma.numpy(), sigma.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    got = fn.flatten(fn.unpad_grads(nplan, fn.unflatten(kplan, got)))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and rel_norm(g, w) <= 1e-6
+
+
+def test_emulated_bf16_nerf_bwd_pads_widths_off_the_mma_step(emulated):
+    """bf16 K3-bwd at trunk width 24 and rgb hidden width 8 (padded to 32
+    and 16 for the tensor cores) against the Pallas kernel in interpret
+    mode, as at the mma step's widths; f32 K3-bwd takes such widths as
+    they are."""
+    nplan = fn.make_nerf_plan(**NERF_PLAN_W24)
+    p = field_params(nplan, 7)
+    ins = [torch.from_numpy(a) for a in field_inputs(70, 8)]
+    want = jax_field(pn.make_nerf_plan(**NERF_PLAN_W24), p,
+                     *[a.numpy() for a in ins], jnp.bfloat16, True)[2]
+    got = nerf_kernel_grads(nplan, ins, p, torch.bfloat16)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert max(rel_norm(g, torch.tensor(w))
+               for g, w in zip(got, want)) <= NERF_PALLAS_TOL_BF16
+    want = plain_field(nplan, *ins, torch_params(p), None)[2]
+    for g, w in zip(nerf_kernel_grads(nplan, ins, p, None), want):
+        assert rel_norm(g, w) <= 1e-5
 
 
 def test_emulated_chain_kernels_at_nerf_width(emulated):
@@ -515,7 +666,8 @@ def readings(seeds=(30, 130, 230), sizes=(50, 130, 700)):
     return out
 
 
-def nerf_readings(seeds=(20, 21), cases=(('w32', 130), ('w256', 70))):
+def nerf_readings(seeds=(20, 21), cases=(('w32', 130), ('w256', 70),
+                                         ('w272', 70))):
     """Per K3 case, over ``seeds``: the worst dW/db relative norm of the
     bf16 kernel against the Pallas kernel in interpret mode, and of the
     f32 kernel against it (the least over seeds of its worst leaf)."""

@@ -4,11 +4,15 @@ These tests carry the ``cuda`` marker and skip without a card; on one:
 
   python -m pytest tests/test_torch_nerf_kernels.py -m cuda -q
 
-Widths 32 (depth 4) and nerf.ini's 256 (depth 8, skip after layer 4), f32
-and bf16, 1 to 5,000 rows. f32 outputs within 1e-5, dW/db per-leaf within
-1e-4 of the norm (summation order); bf16 outputs within 1e-2 (the kernel
-also rounds the bottleneck and rgb layer 0's operands) and dW/db within
-NERF_DW_TOL. K3-bwd's dW is bit-identical across launches.
+Widths 32 (depth 4), nerf.ini's 256 (depth 8, skip after layer 4) and 272
+(two column passes a product in bf16 K3-bwd), f32 and bf16, 1 to 5,000
+rows. f32 outputs within 1e-5, dW/db per-leaf within 1e-4 of the norm
+(summation order); bf16 outputs within 1e-2 (the kernel also rounds the
+bottleneck and rgb layer 0's operands) and dW/db within NERF_DW_TOL.
+K3-bwd's dW is bit-identical across launches. The bf16 backward's parts
+alone: the tensor-core building block (mma.sync fragments, loaders,
+cp.async pipeline) and the dW pass, each against the float64 product of
+the same bf16 values.
 """
 
 import numpy as np
@@ -17,8 +21,10 @@ import torch
 
 from nerfactor_tpu_torch.ops import fused_nerf as fn
 from tests.test_torch_chain import DTYPES, TOL, rel_norm
-from tests.test_torch_emu import NERF_PLANS, nerf_case
-from tests.test_torch_nerf import plain_field, torch_params
+from tests.test_torch_emu import (
+    NERF_PLAN_W24, NERF_PLANS, TC_SHAPES, bf16_values, dw_scratch, nerf_case)
+from tests.test_torch_nerf import (
+    field_inputs, field_params, plain_field, torch_params)
 
 
 # Per-leaf relative norm of dW/db against the plain version. In bf16 the
@@ -70,6 +76,27 @@ def test_nerf_kernels_match_plain_on_card(name, mode, n, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('n', [70, 5000])
+def test_bf16_bwd_pads_widths_off_the_mma_step_on_card(n, cuda):
+    """bf16 K3-bwd at trunk width 24 and rgb hidden width 8, run on the
+    tensor cores at widths 32 and 16 over zero-padded weights."""
+    nplan = fn.make_nerf_plan(**NERF_PLAN_W24)
+    params = torch_params(field_params(nplan, 52), cuda)
+    pts, views, drgb, dsig = (torch.from_numpy(a).to(cuda)
+                              for a in field_inputs(n, 53))
+    want = plain_field(nplan, pts, views, drgb, dsig, params,
+                       torch.bfloat16)[2]
+    got = fn.flatten(fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig,
+                                        params, torch.bfloat16))
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        assert rel_norm(g, w) <= NERF_DW_TOL['bf16']
+    again = fn.flatten(fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig,
+                                          params, torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 def test_nerf_kernel_rejects_cpu_and_bad_params(cuda):
     nplan, p, ins = nerf_case('w32', 8, seed=51)
     params = torch_params(p, cuda)
@@ -79,3 +106,36 @@ def test_nerf_kernel_rejects_cpu_and_bad_params(cuda):
         fn.nerf_kernel(fn.make_nerf_plan(**dict(NERF_PLANS['w32'],
                                                 width=16)),
                        ins[0].to(cuda), ins[1].to(cuda), params)
+
+
+# bf16 products accumulated in f32 on the tensor cores against float64:
+# the summation order and the tensor cores' f32 adds only (the emulation
+# reads <= 1e-5 at these sizes).
+TC_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,n,k', TC_SHAPES)
+def test_tc_matmul_matches_float64_on_card(m, n, k, cuda):
+    """The hardware's mma.sync lane mapping is the one the emulation
+    assumes."""
+    rng = np.random.RandomState(m + n + k)
+    a, b = (bf16_values(rng, s).to(cuda) for s in ((m, k), (n, k)))
+    got = fn.tc_matmul(a, b).double()
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               fn.tc_matmul_reference(a, b).cpu().numpy(),
+                               **TC_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name,n', [('w32', 1), ('w32', 130), ('w256', 130),
+                                    ('w256', 5000)])
+def test_dw_pass_matches_float64_on_card(name, n, cuda):
+    nplan = fn.make_nerf_plan(**NERF_PLANS[name])
+    scratch = dw_scratch(nplan, n, seed=n).to(cuda)
+    got = fn.nerf_dw_pass(nplan, scratch, n)
+    want = fn.dw_reference(nplan, scratch, n)
+    np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(),
+                               rtol=TC_TOL['rtol'],
+                               atol=TC_TOL['atol'] * np.sqrt(n))
+    assert torch.equal(got, fn.nerf_dw_pass(nplan, scratch, n))
