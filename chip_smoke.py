@@ -27,7 +27,11 @@ rendering.
    kernel reads against the bf16 plain version (how far the bf16 bounds
    sit from a kernel that computed the f32 gradient), checks that
    K1-bwd's dW is bit-identical across two launches, and times kernels
-   against plain versions, backward alone and forward + backward.
+   against plain versions, backward alone and forward + backward. bf16
+   K1-bwd lvis with dW only (the tensor-core design) must read below the
+   f32 kernel; its phase 1, dW pass and sums are timed apart (device ms
+   from a profiler window), beside its scratch bytes, TFLOP/s and the
+   HMMA count of its kernels in the built library.
 7. Training path: runs ``nerfactor_tpu_torch.trainvali.main`` on
    nerfactor.ini for 4 epochs (checkpoints every 2, vali at 4), with the
    four kernels' counters zeroed before and read after, checks its
@@ -61,8 +65,10 @@ rendering.
    skip moved after the head, driven through apply_chain under autograd
    (bf16 at 1,048,576 rows, f32 at 65,536 with dx) with the counters
    zeroed before and read after; K1w-fwd and K1w-bwd against the plain
-   version at the same shapes, dW bit-identical across launches and to
-   K1's on the same layers without the last skip.
+   version at the same shapes, dW bit-identical across launches; the head
+   column bit-identical to K1's on the same layers without the last skip,
+   and dW/db too in f32 (in bf16, where K1-bwd runs on the tensor cores,
+   within K1W_VS_K1_TOL_BF16 by relative norm).
 15. The joint train step on the stash route (fused_mlp.TRANSPOSED_BOUNDARY
    = False): its loss and gradients against the default route's on one
    batch, then its steady-state step time, counters zeroed before and read
@@ -84,22 +90,32 @@ and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the run exits non-zero. The only cut from production is imh
 128 (not 512); the probes run at their own defaults, uncut.
 
-  python3 chip_smoke.py --k3_limit_seeds 11,12,13,14
+  python3 chip_smoke.py --limit_seeds k3 11,12,13,14
+  python3 chip_smoke.py --limit_seeds k1 11,12,13,14
 
-prints only K3's error readings (bf16 and f32, both row counts, the f32
-kernel's beside the bf16 kernel's) over random nerf.ini weights and
-inputs of each seed: the readings behind K3's bounds.
+print only the readings behind a kernel's error bounds, over weights and
+inputs drawn from each seed: for K3, its error readings (bf16 and f32,
+both row counts, the f32 kernel's beside the bf16 kernel's) over random
+nerf.ini weights; for K1, its bf16 readings (k1_limit_readings: the lvis
+chain's tensor-core backward and the f32 kernel against the plain bf16
+version at the joint step's 1,048,576 rows, and K1w against K1) over
+lvis weights.
 
-  python3 chip_smoke.py --k3_field_seed 0
+  python3 chip_smoke.py --field_seed k3 0
+  python3 chip_smoke.py --field_seed k1 0
 
-prints only bf16 K3-bwd's readings against float64 and the plain bf16
-version, its times and ptxas report, on nerf.ini's field under the tests'
-kind of weights (glorot-uniform, small random biases) at 196,608 rows.
-It calls only the K3 wrappers, so a copy of this script in an older
-checkout reads that checkout's kernels the same way.
+print only a bf16 backward's readings against the plain bf16 version (and
+float64, for K3), its dW digest, times, per-kernel device ms and ptxas
+report, on one field drawn from the seed: nerf.ini's field under the
+tests' kind of weights (glorot-uniform, small random biases) at 196,608
+rows, or the lvis chain under the shape model's (glorot-uniform, zero
+biases) at 1,048,576 rows. Each calls only its kernel's wrapper, so a copy
+of this script in an older checkout reads that checkout's kernels the
+same way.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -157,8 +173,10 @@ DW_TOL_F32 = 1e-4
 # rows kept) is held by its relative norm. Readings at this step's shapes
 # over 4 seeds (NVIDIA H100 80GB HBM3, 700.00 W): the kernel <= 0.013
 # (dW), 0.0047 (dx), 0.0060 (K2-bwd); the f32 kernel, i.e. a kernel that
-# computed the f32 gradient, >= 0.086, 0.042, 0.053. check_backward
-# reports the f32 kernel's reading in every run.
+# computed the f32 gradient, >= 0.086, 0.042, 0.053. The lvis chain's
+# dW/db with dW only, on the tensor cores (k1_limit_readings, seeds
+# 11-14): 0.0052-0.0158 against the f32 kernel's 0.087-0.098.
+# check_backward reports the f32 kernel's reading in every run.
 NORM_TOL_BF16 = 0.025
 # The per-row bf16 cotangents of K2-bwd also get a bound per element, for
 # a fault confined to a few rows: over the same 4 seeds the kernel's worst
@@ -519,6 +537,11 @@ def check_backward(model, params):
             row['dx_max_abs_err'] = compare('K1-bwd dx ' + name, dx, want[0],
                                             TOL_F32)
         if name == 'lvis':
+            if row['dw_rel_err'] >= row['f32_kernel_dw_rel_err']:
+                raise AssertionError(
+                    "K1-bwd lvis: dW/db reads %.4g, not below the f32 "
+                    "kernel's %.4g" % (row['dw_rel_err'],
+                                       row['f32_kernel_dw_rel_err']))
             again = fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False)[1]
             row['dw_bit_identical'] = all(
                 torch.equal(a, b) for pa, pb in zip(got, again)
@@ -531,6 +554,16 @@ def check_backward(model, params):
             lambda: torch.autograd.grad(y_p, leaves, dy, retain_graph=True),
             iters=10)
         del y_p
+        if fm.bwd_on_tensor_cores(plan, cd, False, True, x.device):
+            # The tensor-core design's kernels, its scratch and its rate
+            row.update(bwd_phases(lambda: fm.chain_kernel_bwd(
+                plan, x, dy, p, cd, needs_dx=False), K1_BWD_KERNELS))
+            size = fm.tc_bwd_sizes(fm.mma_plan(plan), x.shape[0], x.device)
+            row.update(scratch_bytes=2 * size['scratch'],
+                       dw_chunks=size['chunks'], phase1_blocks=size['slices'])
+            bnd = chain_bound(plan, x.shape[0], 'bf16', 6, 1,
+                              bwd=(False, True))
+            row['tflops'] = bnd['flop'] / row['ms'] / 1e9
 
         def fwd_bwd(fn):
             ls = [t.detach().requires_grad_() for t in flat]
@@ -1022,8 +1055,8 @@ def check_nerf_kernels(model, params, seed=3, timing=True):
                 row['bwd_tflops'] = bnd['flop'] / row['bwd_ms'] / 1e9
                 row['bwd_bound_ms'] = bnd['bound_ms']
                 if cd is not None:
-                    row.update(k3_bwd_phases(lambda: fn.nerf_kernel_bwd(
-                        nplan, pts, views, drgb, dsig, p, cd)))
+                    row.update(bwd_phases(lambda: fn.nerf_kernel_bwd(
+                        nplan, pts, views, drgb, dsig, p, cd), K3_BWD_KERNELS))
                     size = fn.bwd_sizes(nplan, n, cd, pts.device)
                     row.update(scratch_bytes=2 * size['scratch'],
                                dw_chunks=size['chunks'],
@@ -1033,17 +1066,23 @@ def check_nerf_kernels(model, params, seed=3, timing=True):
     return rows
 
 
-# The kernels of a K3-bwd launch, by the names the profiler gives them
+# The kernels of a bf16 K3-bwd and K1-bwd launch, by the names the
+# profiler gives them (the dW pass, dw_kernel, is the two's own copy of
+# mma_bf16.cuh's)
 K3_BWD_KERNELS = (('phase1_ms', 'nerf_bwd_tc_kernel'),
-                  ('dw_pass_ms', 'nerf_dw_kernel'),
+                  ('dw_pass_ms', 'dw_kernel'),
+                  ('sums_ms', 'sum_slices_kernel'))
+K1_BWD_KERNELS = (('phase1_ms', 'chain_bwd_tc_kernel'),
+                  ('dw_pass_ms', 'dw_kernel'),
                   ('sums_ms', 'sum_slices_kernel'))
 
 
-def k3_bwd_phases(run, iters=10):
-    """Device ms per call of ``run`` (a K3-bwd launch) of each of its
-    kernels, from a torch.profiler window over ``iters`` calls: bf16
-    phase 1, the dW pass and the slice sums (0 for a kernel the build
-    lacks); the rest of its device time is the wrapper's weight packing."""
+def bwd_phases(run, kernels, iters=10):
+    """Device ms per call of ``run`` (a bf16 K3-bwd or K1-bwd launch) of
+    each of ``kernels``, from a torch.profiler window over ``iters``
+    calls: phase 1, the dW pass and the slice sums (0 for a kernel the
+    build lacks); the rest of its device time is the wrapper's weight
+    packing."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1058,7 +1097,7 @@ def k3_bwd_phases(run, iters=10):
             us[e.key] = us.get(e.key, 0.0) + getattr(
                 e, 'self_device_time_total', 0.0)
     out = {key: sum(v for k, v in us.items() if name in k) / 1e3 / iters
-           for key, name in K3_BWD_KERNELS}
+           for key, name in kernels}
     out['packing_ms'] = sum(us.values()) / 1e3 / iters - sum(out.values())
     return out
 
@@ -1131,8 +1170,9 @@ def k3_field_readings(seed, iters=10):
     dW/db of the bf16 kernel, the f32 kernel and the plain bf16 version
     against the float64 gradient, and of both kernels against autograd of
     the plain bf16 version (smoke's comparison); dW bits across two
-    launches; the bf16 backward's ms (CUDA events), each of its kernels'
-    device ms (k3_bwd_phases) and the ptxas report of the K3-bwd kernels.
+    launches and their digest; the bf16 backward's ms (CUDA events), each
+    of its kernels' device ms (bwd_phases) and the ptxas report of the
+    K3-bwd kernels.
     It calls nothing but the K3 wrappers, so it runs the same against an
     older tree's package."""
     parser = configutil.read_config(configutil.resolve_config_path(
@@ -1171,21 +1211,73 @@ def k3_field_readings(seed, iters=10):
                  fn.unflatten(nplan, l64)), l64,
         (drgb.double(), dsig.double()))]
     del leaves, l64
-    got, got_f32 = kernel(bf16), kernel(None)
+    return dict(seed=seed, rows=n, plain_bf16_vs_f64=worst_leaf(plain, exact),
+                **field_readings(kernel, {'plain_bf16': plain, 'f64': exact},
+                                 K3_BWD_KERNELS, ('nerf_bwd', 'dw_kernel'),
+                                 iters))
 
-    def worst(a, b):
-        return max(rel_norm(x, y) for x, y in zip(a, b))
-    out = {'seed': seed, 'rows': n,
-           'bf16_kernel_vs_plain_bf16': worst(got, plain),
-           'f32_kernel_vs_plain_bf16': worst(got_f32, plain),
-           'bf16_kernel_vs_f64': worst(got, exact),
-           'f32_kernel_vs_f64': worst(got_f32, exact),
-           'plain_bf16_vs_f64': worst(plain, exact),
-           'dw_bit_identical': all(torch.equal(a, b)
-                                   for a, b in zip(got, kernel(bf16))),
-           'bwd_ms': time_ms(lambda: kernel(bf16), iters=iters)}
-    out.update(k3_bwd_phases(lambda: kernel(bf16), iters=iters))
-    out['ptxas'] = ptxas_report(('nerf_bwd', 'nerf_dw'))
+
+def k1_field_readings(seed, iters=10):
+    """bf16 K1-bwd with dW only on the lvis chain (LVIS_PLAN) at the joint
+    step's 1,048,576 rows, under glorot-uniform weights and zero biases
+    (the shape model's init) and inputs drawn from ``seed``: dW/db of the
+    bf16 kernel and of the f32 kernel against autograd of the plain bf16
+    version; dW bits across two launches and their digest; the backward's
+    ms (CUDA events), each of its kernels' device ms (bwd_phases) and the
+    ptxas report of the K1-bwd kernels. It calls nothing but
+    chain_kernel_bwd, so it runs the same against an older tree's
+    package."""
+    plan = LVIS_PLAN
+    g = torch.Generator().manual_seed(seed)
+    p = []
+    for din, dout in zip(fm.layer_in_dims(plan), plan.widths):
+        lim = (6.0 / (din + dout)) ** 0.5
+        p.append((((2 * torch.rand(din, dout, generator=g) - 1) * lim).cuda(),
+                  torch.zeros(dout).cuda()))
+    n = LAST_SKIP_ROWS['bf16']
+    pts = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    ldir = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    x = torch.cat((SPHERE_R * pts, ldir), dim=1).cuda()
+    dy = (2 * torch.rand(n, 1, generator=g) - 1).cuda()
+    bf16 = torch.bfloat16
+
+    def kernel(cd):
+        return flatten(fm.chain_kernel_bwd(plan, x, dy, p, cd,
+                                           needs_dx=False)[1])
+    leaves = [t.clone().requires_grad_() for t in flatten(p)]
+    plain = torch.autograd.grad(fm.chain_reference(plan, x, pairs(leaves),
+                                                   bf16), leaves, dy)
+    del leaves
+    return dict(seed=seed, rows=n, **field_readings(
+        kernel, {'plain_bf16': plain}, K1_BWD_KERNELS,
+        ('chain_bwd', 'dw_kernel'), iters))
+
+
+def worst_leaf(a, b):
+    """The worst relative norm over the leaves of ``a`` against ``b``."""
+    return max(rel_norm(x, y) for x, y in zip(a, b))
+
+
+def field_readings(kernel, refs, kernels, ptxas_names, iters):
+    """What --field_seed prints of a backward ``kernel(compute_dtype)``
+    (its flat dW/db): the bf16 and the f32 kernel's worst dW/db leaf
+    against each of ``refs`` (name: flat dW/db); the bf16 dW bits across
+    two launches and their digest; the bf16 backward's ms (CUDA events),
+    each of ``kernels``' device ms (bwd_phases) and the ptxas report of
+    the kernels ``ptxas_names`` name."""
+    bf16 = torch.bfloat16
+    got, got_f32 = kernel(bf16), kernel(None)
+    out = {}
+    for name, ref in refs.items():
+        out['bf16_kernel_vs_' + name] = worst_leaf(got, ref)
+        out['f32_kernel_vs_' + name] = worst_leaf(got_f32, ref)
+    out['dw_bit_identical'] = all(torch.equal(a, b)
+                                  for a, b in zip(got, kernel(bf16)))
+    out['dw_sha256'] = hashlib.sha256(b''.join(
+        t.cpu().numpy().tobytes() for t in got)).hexdigest()
+    out['bwd_ms'] = time_ms(lambda: kernel(bf16), iters=iters)
+    out.update(bwd_phases(lambda: kernel(bf16), kernels, iters=iters))
+    out['ptxas'] = ptxas_report(ptxas_names)
     return out
 
 
@@ -1353,8 +1445,11 @@ def check_stash_route(model, params):
 # embedding], 1 + 90 columns. It runs in bf16 at the lvis chain's
 # 1,048,576 rows and in f32 at 65,536 rows with dx.
 LAST_SKIP_ROWS = {'bf16': 1048576, 'f32': 65536}
-LAST_SKIP_PLAN = fm.make_plan([(3, 10), (3, 4)], (128,) * 4 + (1,),
-                              ('relu',) * 4 + ('sigmoid',), (4,))
+# The joint model's lvis chain (nerfactor.ini: xyz and light directions
+# at 10 and 4 octaves, 128 x 4, the embedding concatenated after layer 2)
+LVIS_PLAN = fm.make_plan([(3, 10), (3, 4)], (128,) * 4 + (1,),
+                         ('relu',) * 4 + ('sigmoid',), (2,))
+LAST_SKIP_PLAN = LVIS_PLAN._replace(skip_at=(4,))
 # The same layers without the last skip: what K1 runs for K1w's head
 NO_LAST_SKIP_PLAN = LAST_SKIP_PLAN._replace(skip_at=())
 
@@ -1367,6 +1462,39 @@ def last_skip_params(p_lvis):
     and no longer apart from a kernel computing the f32 gradient."""
     return [(w[:d].contiguous(), b) for (w, b), d in
             zip(p_lvis, fm.layer_in_dims(LAST_SKIP_PLAN))]
+
+
+# bf16 K1-bwd with dW only runs on the tensor cores (phase 1 and the dW
+# pass), K1w-bwd on the CUDA cores: both round where the TPU kernel does,
+# but sum in another order, and a d_pre that lands next to a bf16 rounding
+# boundary rounds the other way. So in bf16 K1w's dW/db are held to K1's
+# on NO_LAST_SKIP_PLAN by relative norm (worst leaf), in f32 bit for bit.
+# Readings at LAST_SKIP_ROWS (chip_smoke.py --limit_seeds k1 11,12,13,14;
+# NVIDIA H100 80GB HBM3, 700.00 W): 0.0015-0.0026, and 0.0019 on the lvis
+# chain's trained weights in the smoke (the f32 kernel, in the same
+# readings, sits 0.087-0.098 from the plain bf16 version).
+K1W_VS_K1_TOL_BF16 = 0.005
+
+
+def last_skip_vs_k1(x, dy, p, cd, y, got):
+    """K1w against K1 on the same layers without the last skip: K1w-fwd's
+    head column ``y[:, :1]`` against K1-fwd's (bit for bit), and
+    K1w-bwd's dW/db ``got`` against K1-bwd's with dy's head column (dy's
+    embedding columns reach dx alone): bit for bit in f32, the worst
+    leaf's relative norm in bf16."""
+    with torch.no_grad():
+        head = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
+    k1 = flatten(fm.chain_kernel_bwd(NO_LAST_SKIP_PLAN, x,
+                                     dy[:, :1].contiguous(), p, cd,
+                                     needs_dx=False)[1])
+    out = {'head_same_as_k1': torch.equal(y[:, :1], head)}
+    if cd is None:
+        out['dw_same_as_k1'] = all(torch.equal(a, b)
+                                   for a, b in zip(flatten(got), k1))
+    else:
+        out['dw_rel_err_vs_k1'] = max(rel_norm(a, b)
+                                      for a, b in zip(flatten(got), k1))
+    return out
 
 
 def run_last_skip_path(cases, p):
@@ -1391,10 +1519,11 @@ def check_last_skip(params, lvis_x):
     """K1w-fwd and K1w-bwd (dx and dW) against the plain version and
     autograd of it on LAST_SKIP_PLAN with the lvis chain's weights at
     LAST_SKIP_ROWS of the lvis rows, bf16 and f32, with K1's tolerances;
-    dW bit-identical across two launches. Witness: K1w's head column and
-    dW/db are bit-identical to K1's on NO_LAST_SKIP_PLAN with dy's head
-    column (dy's embedding columns reach dx alone). The path runs the
-    same shapes. Returns (launches on the path, rows)."""
+    dW bit-identical across two launches. Witness (last_skip_vs_k1): K1w's
+    head column is bit-identical to K1's on NO_LAST_SKIP_PLAN, and its
+    dW/db with dy's head column are K1's bit for bit in f32 and within
+    K1W_VS_K1_TOL_BF16 in bf16 (K1-bwd on the tensor cores). The path runs
+    the same shapes. Returns (launches on the path, rows)."""
     g = torch.Generator().manual_seed(7)
     plan = LAST_SKIP_PLAN
     p = last_skip_params(fm.params_from_tree(params['lvis_mlp'],
@@ -1443,16 +1572,13 @@ def check_last_skip(params, lvis_x):
         if not row['dw_bit_identical']:
             raise AssertionError("K1w-bwd: dW differs between two launches "
                                  "on the same inputs")
-        with torch.no_grad():
-            head = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
-        k1 = fm.chain_kernel_bwd(NO_LAST_SKIP_PLAN, x, dy[:, :1].contiguous(),
-                                 p, cd, needs_dx=False)[1]
-        row['same_as_k1'] = torch.equal(y[:, :1], head) and all(
-            torch.equal(a, b) for a, b in zip(flatten(got), flatten(k1)))
-        if not row['same_as_k1']:
+        row.update(last_skip_vs_k1(x, dy, p, cd, y, got))
+        dw_ok = row['dw_same_as_k1'] if cd is None else \
+            row['dw_rel_err_vs_k1'] <= K1W_VS_K1_TOL_BF16
+        if not (row['head_same_as_k1'] and dw_ok):
             raise AssertionError("K1w %s: head or dW differs from K1's on the "
-                                 "plan without the last skip" % mode)
-        del got, again, head, k1, y
+                                 "plan without the last skip: %s" % (mode, row))
+        del got, again, y
         with torch.no_grad():
             row['ms'], row['plain_ms'] = time_pair(
                 lambda: fm.chain_kernel_last_skip(plan, x, p, cd),
@@ -1464,6 +1590,79 @@ def check_last_skip(params, lvis_x):
         del y_p, want
         rows.append(row)
     return launches, rows
+
+
+def k1_limit_readings(model, seeds):
+    """What K1's bf16 bounds rest on, at the joint step's shapes, over
+    ``seeds`` (each seeding the lvis chain's weights, drawn as the shape
+    model initialises them, and the inputs): bf16 K1-bwd lvis with dW only
+    (the tensor cores) and the f32 kernel against autograd of the plain
+    bf16 version (worst dW/db leaf), and K1w against K1 on those weights
+    at LAST_SKIP_ROWS['bf16'] rows (last_skip_vs_k1)."""
+    plan, cd = model.plans['lvis'], model.chain_dtype('lvis')
+    out = []
+    for seed in seeds:
+        g = torch.Generator().manual_seed(seed)
+        p = [(w.cuda(), b.cuda()) for w, b in fm.params_from_tree(
+            model.specs['lvis_mlp'].init(g), model.specs['lvis_out'].init(g))]
+        _, x, _ = step_inputs(model, g)
+        dy = (2 * torch.rand(x.shape[0], 1, generator=g) - 1).cuda()
+        leaves = [t.clone().requires_grad_() for t in flatten(p)]
+        want = torch.autograd.grad(fm.chain_reference(plan, x, pairs(leaves),
+                                                      cd), leaves, dy)
+
+        def worst(dtype):
+            got = fm.chain_kernel_bwd(plan, x, dy, p, dtype, needs_dx=False)[1]
+            return max(rel_norm(a, b) for a, b in zip(flatten(got), want))
+        r = {'seed': seed, 'rows': x.shape[0], 'dw_rel_err': worst(cd),
+             'f32_kernel_dw_rel_err': worst(None)}
+        del want, leaves
+        n = LAST_SKIP_ROWS['bf16']
+        xs, pk = x[:n].contiguous(), last_skip_params(p)
+        dyw = (2 * torch.rand(n, fm.out_dim(LAST_SKIP_PLAN), generator=g)
+               - 1).cuda()
+        with torch.no_grad():
+            y = fm.chain_kernel_last_skip(LAST_SKIP_PLAN, xs, pk, cd)
+        got = fm.chain_kernel_last_skip_bwd(LAST_SKIP_PLAN, xs, dyw, pk, cd)[1]
+        r.update(last_skip_vs_k1(xs, dyw, pk, cd, y, got))
+        out.append(r)
+        del x, xs, dy, dyw, y, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def sass_hmma(names):
+    """Per kernel of the built library whose mangled name holds one of
+    ``names``: its HMMA (tensor-core) instructions in ``cuobjdump
+    --dump-sass``, one entry per copy of the kernel."""
+    tool = join(dirname(kernel_lib.find_nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '--dump-sass', kernel_lib.build()],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, fn = [], None
+    for line in sass.splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            fn = m.group(1) if any(n in m.group(1) for n in names) else None
+            if fn:
+                out.append({'function': fn, 'hmma': 0})
+        elif fn and 'HMMA' in line:
+            out[-1]['hmma'] += 1
+    return out
+
+
+def check_tc_sass():
+    """bf16 K1-bwd's and K3-bwd's kernels run their products on the tensor
+    cores: every copy of phase 1 and of the dW pass in the library holds
+    HMMA instructions."""
+    kernels = sass_hmma(('chain_bwd_tc_kernel', 'nerf_bwd_tc_kernel',
+                         'dw_kernel'))
+    for name in ('chain_bwd_tc_kernel', 'nerf_bwd_tc_kernel', 'dw_kernel'):
+        found = [k for k in kernels if name in k['function']]
+        if not found or not all(k['hmma'] for k in found):
+            raise AssertionError("%s: no HMMA in the built kernels: %s"
+                                 % (name, kernels))
+    return kernels
 
 
 def step_loss_grads(model, params, arrays, transposed):
@@ -1710,17 +1909,34 @@ def nerf_bound(nplan, rows, dtype, bwd=False):
                  4 * rows * 10 + w_bytes + 4 * (dense + heads + n_b), dtype)
 
 
+# The reading modes, per kernel: its bf16 backward on one seeded field
+# (--field_seed), and the readings behind its error bounds (--limit_seeds;
+# each takes the joint experiment's config and the seeds)
+FIELD_READINGS = {'k1': k1_field_readings, 'k3': k3_field_readings}
+LIMIT_READINGS = {
+    'k1': lambda config, seeds: k1_limit_readings(
+        Model(config, device='cuda'), seeds),
+    'k3': lambda config, seeds: k3_limit_readings(seeds),
+}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument(
-        '--k3_limit_seeds', default=None,
-        help="comma-separated seeds: print only K3's error readings over "
-             "them (k3_limit_readings), one JSON line each, and stop")
+        '--field_seed', nargs=2, metavar=('KERNEL', 'SEED'),
+        help="k1 or k3 and a seed: print only that bf16 backward's "
+             "readings, times and ptxas report on one field drawn from the "
+             "seed (FIELD_READINGS), and stop")
     parser.add_argument(
-        '--k3_field_seed', type=int, default=None,
-        help="print only bf16 K3-bwd's readings, times and ptxas report "
-             "on a field drawn from this seed (k3_field_readings), and stop")
+        '--limit_seeds', nargs=2, metavar=('KERNEL', 'SEEDS'),
+        help="k1 or k3 and comma-separated seeds: print only the readings "
+             "behind that kernel's error bounds over them (LIMIT_READINGS), "
+             "one JSON line each, and stop")
     args = parser.parse_args(argv)
+    for opt, table in (('field_seed', FIELD_READINGS),
+                       ('limit_seeds', LIMIT_READINGS)):
+        if getattr(args, opt) and getattr(args, opt)[0] not in table:
+            parser.error("--%s takes one of %s" % (opt, sorted(table)))
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
     t_start = time.perf_counter()
@@ -1730,18 +1946,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernel_lib.load()
     build_s = time.perf_counter() - t0
-    if args.k3_limit_seeds:
-        for r in k3_limit_readings(
-                [int(x) for x in args.k3_limit_seeds.split(',')]):
-            print(json.dumps(r))
+    if args.field_seed:
+        kernel, seed = args.field_seed
+        print(json.dumps(FIELD_READINGS[kernel](int(seed))))
         print(gpu)
         return
-    if args.k3_field_seed is not None:
-        print(json.dumps(k3_field_readings(args.k3_field_seed)))
-        print(gpu)
-        return
-    tc_block = check_tc_block()
-
     shutil.rmtree(WORK, ignore_errors=True)
     data_root, nerf_root = join(WORK, 'data'), join(WORK, 'data', 'surf')
     probe_dir = join(WORK, 'data', 'envmaps')
@@ -1752,6 +1961,15 @@ def main(argv=None):
                        join(probe_dir, name + '.npy'))
     config, ckpt, joint_override = write_experiments(
         data_root, nerf_root, probe_dir)
+    if args.limit_seeds:
+        kernel, seeds = args.limit_seeds
+        for r in LIMIT_READINGS[kernel](
+                config, [int(x) for x in seeds.split(',')]):
+            print(json.dumps(r))
+        print(gpu)
+        return
+    tc_block = check_tc_block()
+    tc_sass = check_tc_sass()
 
     model = Model(config, device='cuda')
     params = ckptutil.restore_trained_params(
@@ -1868,7 +2086,7 @@ def main(argv=None):
                               + [r['fwd_max_abs_err'] for r in k1b]
                               + [r['fwd_max_abs_err'] for r in k1_no_views]),
               shapes=k1, nerf_no_views=k1_no_views),
-        entry('K1-bwd chain_bwd_kernel', 'fused_mlp.cu',
+        entry('K1-bwd chain_bwd_tc_kernel + dw_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:1497', lvis_b,
               chain_bound(plans['lvis'], lvis_b['rows'], lvis_b['dtype'], 6,
                           1, bwd=(False, True)),
@@ -1877,6 +2095,12 @@ def main(argv=None):
               max_rel_err={'dW_db': max(r['dw_rel_err']
                                         for r in k1b + k1_no_views),
                            'dx_bf16': lvis_b['dx_rel_err']},
+              phase1_ms=lvis_b['phase1_ms'], dw_pass_ms=lvis_b['dw_pass_ms'],
+              sums_ms=lvis_b['sums_ms'], packing_ms=lvis_b['packing_ms'],
+              scratch_bytes=lvis_b['scratch_bytes'], tflops=lvis_b['tflops'],
+              ptxas=ptxas_report(('chain_bwd_tc', 'dw_kernel')),
+              sass_hmma=[k for k in tc_sass
+                         if 'nerf_bwd' not in k['function']],
               shapes=k1b),
         entry('K2-fwd rusink_chain_fwd_kernel', 'fused_rusink.cu',
               'nerfactor_tpu/ops/pallas_rusink.py:187', k2,
@@ -1908,7 +2132,9 @@ def main(argv=None):
               dw_pass_ms=k3_bf16['dw_pass_ms'], sums_ms=k3_bf16['sums_ms'],
               packing_ms=k3_bf16['packing_ms'],
               scratch_bytes=k3_bf16['scratch_bytes'],
-              tflops=k3_bf16['bwd_tflops'], tc_block=tc_block, shapes=k3),
+              tflops=k3_bf16['bwd_tflops'], tc_block=tc_block,
+              sass_hmma=[k for k in tc_sass
+                         if 'chain_bwd' not in k['function']], shapes=k3),
         entry('K1r-fwd chain_fwd_kernel (stash route)', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:851', k1r_lvis,
               chain_bound(plans['lvis'], k1r_lvis['rows'], k1r_lvis['dtype'],

@@ -20,11 +20,12 @@
 // mode) and accumulated in f32. Biases and heads stay f32; hidden
 // activations are stored back at type T.
 //
-// The backward (kernels K1-bwd and K2-bwd) recomputes a tile's forward,
-// keeping every hidden post-activation (nothing is saved by the forward),
-// then walks the layers in reverse: d_pre = act'(post) * d_h, db and dW
-// accumulate into the block's own slice of a scratch buffer, and
-// d_h = d_pre @ W^T streams W transposed through shared memory.
+// The CUDA-core backward (kernel K2-bwd, and K1-bwd but for bf16 with dW
+// only, which fused_mlp.cu runs on the tensor cores) recomputes a tile's
+// forward, keeping every hidden post-activation (nothing is saved by the
+// forward), then walks the layers in reverse: d_pre = act'(post) * d_h,
+// db and dW accumulate into the block's own slice of a scratch buffer,
+// and d_h = d_pre @ W^T streams W transposed through shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,6 +40,7 @@ constexpr int kThreads = 256;   // 16 column groups x 16 row groups
 constexpr int kColChunk = 128;  // output columns per pass over K
 constexpr int kKTile = 32;      // weight rows per shared-memory tile
 constexpr int kColsPerThread = kColChunk / 16;
+constexpr int kMaxHeadOut = 8;  // widest tiny head (the TPU's TINY_HEAD_MAX)
 
 enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kSoftplus = 3 };
 

@@ -1,36 +1,66 @@
 // Kernels K1-fwd and K1-bwd: the fused posenc -> skip-MLP -> head chain.
 //
-// K1-fwd replaces the TPU kernel nerfactor_tpu/ops/pallas_mlp.py
-// _pallas_forward_trig_t -> _fwd_kernel_trig_t: per row,
-// head(MLP(posenc(x))) with ReLU hidden layers, the embedding concatenated
-// after the layers in skip_after, and a sigmoid/softplus/linear head.
+// K1-fwd (chain_fwd_kernel) replaces the TPU kernel
+// nerfactor_tpu/ops/pallas_mlp.py _pallas_forward_trig_t ->
+// _fwd_kernel_trig_t: per row, head(MLP(posenc(x))) with ReLU hidden
+// layers, the embedding concatenated after the layers in skip_after, and
+// a sigmoid/softplus/linear head.
 //
 // K1-bwd replaces _pallas_backward_trig_t -> _bwd_kernel_trig_t (with
 // _bwd_layers_trig_t): it recomputes each tile's forward, then returns
-// the optional input cotangent dx and the optional dW/db (f32). It does
-// about twice the forward's multiply-adds on top of the recompute (dW and
-// d_h per layer), so it is bound by arithmetic like the forward.
-// Determinism: CUDA blocks run in no fixed order, so there is no float
-// atomicAdd into dW. The grid is fixed (the SM count times the blocks an
-// SM holds); block b walks row tiles b, b + grid, ... in order and
-// accumulates into its own slice of a scratch buffer, and a second kernel
-// sums the slices in slice order. The same input gives bit-identical
-// dW/db on the same card. The lvis chain's 72k weights x 132 slices are
-// ~38 MB, which stays in the 50 MB L2.
+// the optional input cotangent dx and the optional dW/db (f32). d_h stays
+// f32; in bf16 each layer's d_pre is rounded to bf16 before its products
+// and db is the column sum of the unrounded d_pre; a head of at most 8
+// columns is a tiny f32 product (the TPU kernel's _tiny_head). No float
+// atomicAdd: the same input gives bit-identical dW/db on the same card.
+// It runs as one of two designs, chosen by a rule on the plan and the
+// flags (ops/fused_mlp.py bwd_on_tensor_cores):
 //
-// What bounds it on Hopper: arithmetic. At full width (128 x 4, skip after
-// layer 2) the lvis chain does ~72k multiply-adds per row but reads 24 B
-// and writes 4 B, far above the card's operations-per-byte ridge. So the
-// design keeps everything between the input row and the output row on the
-// chip (chain_mlp.cuh): a block owns 64 rows, their embedding and hidden
-// activations live in shared memory, and the weights stream through a
-// 32 x 128 shared-memory tile layer by layer, since the whole chain's
-// weights (~290 KB in f32) exceed a block's 227 KB. Products run on the
-// CUDA cores in f32 from f32 or bf16 operands; tensor cores (wgmma) and
-// TMA are left for later work.
+//   * bf16 with dW only on the default route, a head of at most 8 columns
+//     with no skip after it or into it, and a phase-1 block that fits the
+//     card's shared memory (the joint step's lvis chain): the tensor-core
+//     design, three launches that together replace _bwd_kernel_trig_t.
+//     1. chain_bwd_tc_kernel, persistent blocks (two an SM) over 64-row
+//        tiles: the forward recompute and d_pre @ W^T of every hidden
+//        layer but the first as mma.sync products of the tile's rows in
+//        shared memory (mma_bf16.cuh tc_gemm), the weights streamed
+//        through a three-stage cp.async ring. Each product's epilogue
+//        writes over its own operand (one bf16 activation buffer, ~94 KB
+//        of shared memory a block at the lvis width, where the CUDA-core
+//        layout's f32 rows took ~150 KB) and stores the embedding, the
+//        posts that feed a later hidden layer and every rounded d_pre to a
+//        bf16 scratch in device memory (992 columns, 1,984 B a row at the
+//        lvis width, row pairs interleaved); the backward's epilogues form
+//        the next d_pre (act' from the post read back from the scratch, db
+//        from warp-shuffle sums, the rounding). The head's forward, d_pre,
+//        db and dW and the last hidden layer's d_pre are f32 loops on the
+//        CUDA cores. The block's small f32 slice holds only the head's dW
+//        and every db, so no dW crosses the L2 per tile. Hidden layers
+//        wider than 256 (two column passes a product) take a second
+//        activation buffer in their own instantiation.
+//     2. dw_kernel (mma_bf16.cuh, shared with K3-bwd): dW = X^T D of every
+//        hidden layer over the scratch, a 64 x 64 tile of one layer's dW a
+//        block (20 tiles at the lvis width, x 8 row chunks: 160 blocks).
+//     3. sum_slices: the chunks' partials and phase 1's slices, each in
+//        order.
+//     What bounds it is not the tensor cores' rate: phase 1 waits on its
+//     weight stages (a barrier every 32 K; two blocks an SM hide part of
+//     it) and runs its epilogues and f32 head on the CUDA cores; the dW
+//     pass reads each scratch column once per dW tile of the other
+//     dimension (~5 GB at 1,048,576 rows), so it is bound by bytes.
+//   * every other call (f32, dx, the stash route, a skip after the head
+//     or into it, a wider head, hidden layers too wide for phase 1's
+//     block, from ~600 columns): chain_bwd_kernel on the CUDA cores. A block keeps a
+//     row tile's embedding, every hidden post and two f32 cotangent rows
+//     in shared memory, streams each layer's weights through a 32 x 128
+//     tile, and runs the recompute (layer_pass), d_pre @ W^T (dgrad_pass)
+//     and X^T d_pre (wgrad_pass) as f32 FMA loops; each tile adds its dW
+//     into its block's f32 slice of a scratch buffer (in the L2: the lvis
+//     chain's 72k weights x 132 slices are ~38 MB), and sum_slices adds
+//     the slices in slice order. Bound by arithmetic on the CUDA cores.
 //
-// The same two kernels in two more modes replace the TPU package's other
-// chain kernels:
+// The same two CUDA-core kernels in two more modes replace the TPU
+// package's other chain kernels:
 //   * K1r-fwd / K1r-bwd, the stash route (pallas_mlp.py _pallas_forward_trig
 //     -> _fwd_kernel_trig, _pallas_backward_trig -> _bwd_kernel_trig): the
 //     embedding's trig columns are sin(2^j x + phase), phase 0 or pi/2 in
@@ -44,11 +74,20 @@
 //     _bwd_kernel): the output row is [head | embedding], and the backward
 //     seeds the embedding's cotangent from dy's trailing columns.
 //
+// K1-fwd is bound by arithmetic too: at full width (128 x 4, skip after
+// layer 2) the lvis chain does ~72k multiply-adds a row against 24 B in
+// and 4 B out. A block keeps a row tile's embedding and activations in
+// shared memory and streams each layer's weights (~290 KB in f32, more
+// than a block's 227 KB) through a 32 x 128 tile; products on the CUDA
+// cores in f32 from f32 or bf16 operands.
+//
 // Inputs: x (n, raw_dim) f32 row-major; weights packed in JAX layout
-// (w is (din, dout), applied as x @ w), biases f32. Output y (n, out_dim)
-// f32.
+// (w is (din, dout), applied as x @ w), biases f32; for the tensor-core
+// K1-bwd also each hidden layer's transpose (n x (round16(k1) +
+// round16(k2)), zero-padded segments). Output y (n, out_dim) f32.
 
 #include "chain_mlp.cuh"
+#include "mma_bf16.cuh"
 
 namespace nfk {
 
@@ -191,6 +230,352 @@ int chain_bwd_slices_dispatch(const ChainDesc& d, int needs_dx, long long n, int
   }
 }
 
+// ------ K1-bwd in bf16 with dW only: phase 1 and the dW pass ------
+
+// The chain's dW tile (dw_kernel): 64, so that the lvis chain's four
+// 128-wide layers make 20 tiles (160 blocks over 8 row chunks), not 5
+constexpr int kChainDwTile = 64;
+
+// The tensor-core backward's plans: a head of at most kMaxHeadOut columns
+// after at least one hidden layer, no skip after the head or into it (its
+// tiny forward and dW read the last post alone, as the TPU kernel's
+// _tiny_head, which takes no skip consumer), hidden widths on the mma K
+// step (16).
+inline bool chain_tc_plan(const ChainDesc& d) {
+  if (d.n_layers < 2 || last_skip(d) || d.skip_after[d.n_layers - 2] ||
+      d.widths[d.n_layers - 1] > kMaxHeadOut)
+    return false;
+  for (int i = 0; i < d.n_layers - 1; ++i)
+    if (d.widths[i] % 16) return false;
+  return true;
+}
+
+// Columns of a scratch row (mma_bf16.cuh's row-paired scratch): the
+// embedding zero-padded to 16 columns; the posts of the hidden layers
+// that feed a later hidden layer (all but the last); every hidden layer's
+// rounded d_pre. The lvis chain: 96 + 3 x 128 + 4 x 128 = 992 columns.
+struct ChainCols {
+  int post[kMaxLayers], dpre[kMaxLayers], total;
+};
+
+__host__ __device__ inline ChainCols chain_cols(const ChainDesc& d) {
+  const int nh = d.n_layers - 1;
+  ChainCols c;
+  int col = round16(d.embed_dim);
+  for (int i = 0; i < nh; ++i) {
+    c.post[i] = i < nh - 1 ? col : -1;
+    if (i < nh - 1) col += d.widths[i];
+  }
+  for (int i = 0; i < nh; ++i) {
+    c.dpre[i] = col;
+    col += d.widths[i];
+  }
+  c.total = col;
+  return c;
+}
+
+// Hidden layer i as the dW pass reads it: [embedding] for layer 0, [post
+// of layer i - 1 | embedding] for a skip consumer, else [post of i - 1].
+__host__ __device__ inline DenseLayer chain_dense_layer(const ChainDesc& d, int i) {
+  const ChainCols c = chain_cols(d);
+  DenseLayer l;
+  l.seg1 = i ? c.post[i - 1] : 0;
+  l.k1 = layer_in_dim(d, i) - (i > 0 && d.skip_after[i - 1] ? d.embed_dim : 0);
+  l.seg2 = 0;
+  l.k2 = i > 0 && d.skip_after[i - 1] ? d.embed_dim : 0;
+  l.dpre = c.dpre[i];
+  l.n = d.widths[i];
+  l.w_off = d.w_off[i];
+  return l;
+}
+
+// The dW pass's table: every hidden layer; its dW is the packed weights up
+// to the head's, [0, w_off[head]).
+inline DwTable chain_dw_table(const ChainDesc& d) {
+  DwTable t;
+  t.n_layers = d.n_layers - 1;
+  t.total = chain_cols(d).total;
+  t.n_dense = d.w_off[d.n_layers - 1];
+  for (int i = 0; i < t.n_layers; ++i) t.layers[i] = chain_dense_layer(d, i);
+  return t;
+}
+
+// Floats of phase 1's slice, the packed dW/db past the hidden dW: the
+// head's dW, then every bias.
+__host__ __device__ inline long long chain_n_aux(const ChainDesc& d) {
+  return total_weights(d) + total_biases(d) - d.w_off[d.n_layers - 1];
+}
+
+// Offset of hidden layer i's transpose in the transposed weights: each
+// W^T is (n, round16(k1) + round16(k2)), its segments zero-padded.
+__host__ __device__ inline long long chain_wt_offset(const ChainDesc& d, int i) {
+  long long off = 0;
+  for (int j = 0; j < i; ++j) {
+    const DenseLayer l = chain_dense_layer(d, j);
+    off += static_cast<long long>(l.n) * (round16(l.k1) + round16(l.k2));
+  }
+  return off;
+}
+
+// Shared-memory layout of a phase-1 block: raw rows (f32) | the head's
+// cotangent rows (f32) | embedding (bf16) | one activation buffer (bf16) |
+// the ring of weight stages. The buffer holds, in turn, each hidden post
+// and each rounded d_pre: every product's epilogue writes over its own
+// operand (~94 KB at the lvis width, two blocks an SM). Hidden layers
+// wider than one tc_gemm pass (kTcCols) get a second buffer (h2; h2 == h
+// otherwise), and each product writes the other one.
+struct ChainTcLayout {
+  size_t xs, dq, es, h, h2, ws, total;
+  int lde, ldh;
+};
+
+__host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d) {
+  constexpr int R = tc::kTcRows;
+  ChainTcLayout s;
+  s.lde = tc::tc_ld(d.embed_dim);
+  s.ldh = tc::tc_ld(d.max_width);
+  s.xs = 0;
+  s.dq = align16(s.xs + sizeof(float) * R * d.raw_dim);
+  s.es = align16(s.dq + sizeof(float) * R * d.widths[d.n_layers - 1]);
+  s.h = align16(s.es + sizeof(bf16) * R * s.lde);
+  s.h2 = d.max_width > tc::kTcCols ? align16(s.h + sizeof(bf16) * R * s.ldh) : s.h;
+  s.ws = align16(s.h2 + sizeof(bf16) * R * s.ldh);
+  s.total = align16(s.ws + sizeof(bf16) * tc::kTcStages * tc::kTcStage);
+  return s;
+}
+
+inline int check_chain_tc(const ChainDesc& d) {
+  if (!chain_tc_plan(d)) return kErrBadPlan;
+  if (chain_tc_layout(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  return 0;
+}
+
+// Phase 1 for one 64-row tile whose raw rows and head cotangent rows are
+// in shared memory: the forward recompute on the tensor cores, the tiny
+// head's backward on the CUDA cores in f32, then d_pre @ W^T of every
+// hidden layer but the first on the tensor cores. Writes the tile's
+// scratch `st` (kPairs rows of `total` words) and adds the head's dW and
+// every db into `gaux` (chain_n_aux floats: [head dW | biases]). Rounds
+// where chain_tile_bwd does: posts and d_pre at bf16, d_h in f32, db from
+// the unrounded d_pre.
+template <bool kTwoBuffers>
+__device__ void chain_tile_bwd_tc(const ChainDesc& d, const bf16* __restrict__ w,
+                                  const bf16* __restrict__ wt, const float* __restrict__ bias,
+                                  unsigned char* smem, uint32_t* st, float* gaux) {
+  constexpr int R = tc::kTcRows;
+  const ChainTcLayout L = chain_tc_layout(d);
+  const ChainCols cols = chain_cols(d);
+  const float* xs = reinterpret_cast<const float*>(smem + L.xs);
+  float* dq = reinterpret_cast<float*>(smem + L.dq);
+  bf16* es = reinterpret_cast<bf16*>(smem + L.es);
+  // h holds the latest result; each product writes ho, then the two swap.
+  // With one buffer ho is h, fixed
+  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
+  bf16* ho = kTwoBuffers ? reinterpret_cast<bf16*>(smem + L.h2) : h;
+  const auto flip = [&] {
+    if (kTwoBuffers) {
+      bf16* t = h;
+      h = ho;
+      ho = t;
+    }
+  };
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  const int nh = d.n_layers - 1, ne = d.embed_dim, e16 = round16(ne), ldh = L.ldh;
+  const int total = cols.total;
+  // Forward recompute. The embedding's columns up to the next 16 are zero:
+  // the products read them
+  embed_rows<bf16, R>(d, xs, es, L.lde);
+  for (int idx = threadIdx.x; idx < R * 16; idx += kThreads) {
+    const int r = idx / 16, c = idx % 16;
+    if (ne + c < e16) es[r * L.lde + ne + c] = from_f<bf16>(0.f);
+  }
+  __syncthreads();
+  store_pairs(es, L.lde, e16, st, total, 0);
+  tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
+  for (int i = 0; i < nh; ++i) {
+    const int act = d.acts[i], col = cols.post[i], k = a.k1 + a.k2;
+    const float* b = bias + d.b_off[i];
+    const bf16* wti = wt + chain_wt_offset(d, i);
+    if (i < nh - 1)
+      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
+      });
+    else
+      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<false>(c0, v, act, b, ho, ldh, st, total, 0);
+      });
+    flip();
+    const bool skip = d.skip_after[i] != 0;
+    a = tc::TcA{h, ldh, d.widths[i], skip ? es : nullptr, L.lde, skip ? e16 : 0};
+  }
+  __syncthreads();
+  // The head (tiny, f32 on the CUDA cores, as chain_tile_bwd's). Each of
+  // its sums is split over 2 or 4 neighbouring lanes and joined by
+  // shuffles in a fixed order, so that all threads share the work; every
+  // loop runs the same trips on every thread (the shuffles need whole
+  // warps).
+  const int no = d.widths[nh], kl = d.widths[nh - 1], act_h = d.acts[nh];
+  const bf16* wh = w + d.w_off[nh];  // (kl, no) row-major
+  const float* bh = bias + d.b_off[nh];
+  float* dbias = gaux + (total_weights(d) - d.w_off[nh]);
+  // Its forward from the last post (4 lanes a row and column, each a
+  // quarter of K), its d_pre in place of dy
+  for (int base = 0; base < 4 * R * no; base += kThreads) {
+    const int idx = base + threadIdx.x, item = idx >> 2, part = idx & 3;
+    const bool live = item < R * no;
+    const int r = live ? item / no : 0, c = live ? item % no : 0;
+    float s = 0.f;
+    if (live)
+      for (int k = part; k < kl; k += 4)
+        s = fmaf(to_f<bf16>(h[r * ldh + k]), to_f<bf16>(wh[k * no + c]), s);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (live && part == 0) dq[item] = activate_bwd(act_h, activate(act_h, s + bh[c]), dq[item]);
+  }
+  __syncthreads();
+  // db from the unrounded d_pre (warp c sums column c), then the rounding
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < no; c += kThreads / 32) {
+    float* col = dq + c;
+    float s = col[lane * no] + col[(lane + 32) * no];
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) dbias[d.b_off[nh] + c] += s;
+    col[lane * no] = to_f<bf16>(from_f<bf16>(col[lane * no]));
+    col[(lane + 32) * no] = to_f<bf16>(from_f<bf16>(col[(lane + 32) * no]));
+  }
+  __syncthreads();
+  // dW (2 lanes a weight, each half of the rows)
+  for (int base = 0; base < 2 * kl * no; base += kThreads) {
+    const int idx = base + threadIdx.x, item = idx >> 1, half = idx & 1;
+    const bool live = item < kl * no;
+    const int k = live ? item / no : 0, c = live ? item % no : 0;
+    float s = 0.f;
+    if (live)
+      for (int r = half * R / 2; r < (half + 1) * R / 2; ++r)
+        s = fmaf(to_f<bf16>(h[r * ldh + k]), dq[r * no + c], s);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (live && half == 0) gaux[item] += s;
+  }
+  __syncthreads();
+  // The last hidden layer's d_pre = act'(post) * (d_pre_head @ W_head^T)
+  // in place of its post (2 lanes a column, each half of the row pairs):
+  // db, the rounding, the scratch
+  const int act_l = d.acts[nh - 1], dcol_l = cols.dpre[nh - 1];
+  for (int base = 0; base < 2 * kl; base += kThreads) {
+    const int idx = base + threadIdx.x, k = idx >> 1, half = idx & 1;
+    const bool live = k < kl;
+    float wk[kMaxHeadOut];
+    for (int c = 0; c < no; ++c) wk[c] = live ? to_f<bf16>(wh[k * no + c]) : 0.f;
+    float s = 0.f;
+    if (live)
+      for (int j = half * kPairs / 2; j < (half + 1) * kPairs / 2; ++j) {
+        bf16 y[2];
+        for (int i = 0; i < 2; ++i) {
+          const int r = 2 * j + i;
+          float gr = 0.f;
+          for (int c = 0; c < no; ++c) gr = fmaf(dq[r * no + c], wk[c], gr);
+          const float u = activate_bwd(act_l, to_f<bf16>(h[r * ldh + k]), gr);
+          s += u;
+          y[i] = from_f<bf16>(u);
+          h[r * ldh + k] = y[i];
+        }
+        st[j * total + dcol_l + k] = tc::pack2(y[0], y[1]);
+      }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (live && half == 0) dbias[d.b_off[nh - 1] + k] += s;
+  }
+  // The cotangents down the chain: hidden layer i's d_pre @ W_i^T (W_i's
+  // rows of layer i - 1's post; no dx, so none of the embedding's) and its
+  // epilogue make layer i - 1's d_pre, act' from the post read back from
+  // the scratch columns this tile wrote. ReLU's act' takes its own
+  // epilogue (see fwd_epilogue)
+  for (int i = nh - 1; i > 0; --i) {
+    const int act = d.acts[i - 1], post = cols.post[i - 1], dcol = cols.dpre[i - 1];
+    float* db = dbias + d.b_off[i - 1];
+    const tc::TcA a{h, ldh, d.widths[i], nullptr, 0, 0};
+    if (act == kRelu)
+      tc::tc_gemm(a, w + d.w_off[i], d.widths[i], d.widths[i - 1], ws,
+                  [&](int c0, const float (&v)[tc::kTcM][4]) {
+                    dpre_epilogue(
+                        c0, v,
+                        [&](int r, int c, float x) {
+                          return scratch_at(st, total, r, post + c) > 0.f ? x : 0.f;
+                        },
+                        ho, ldh, st, total, dcol, db);
+                  });
+    else
+      tc::tc_gemm(a, w + d.w_off[i], d.widths[i], d.widths[i - 1], ws,
+                  [&](int c0, const float (&v)[tc::kTcM][4]) {
+                    dpre_epilogue(
+                        c0, v,
+                        [&](int r, int c, float x) {
+                          return activate_bwd(act, scratch_at(st, total, r, post + c), x);
+                        },
+                        ho, ldh, st, total, dcol, db);
+                  });
+    flip();
+  }
+  __syncthreads();
+}
+
+// Phase 1: block b walks 64-row tiles b, b + grid, ... and writes each
+// tile's scratch; its sums (chain_n_aux floats) go to its own slice of
+// `part`.
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const float* __restrict__ dy,
+                    const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                    const float* __restrict__ bias, uint32_t* scratch, float* __restrict__ part,
+                    long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const ChainTcLayout L = chain_tc_layout(d);
+  const long long tile_words = static_cast<long long>(kPairs) * chain_cols(d).total;
+  const long long n_aux = chain_n_aux(d);
+  float* gaux = part + blockIdx.x * n_aux;
+  for (long long j = threadIdx.x; j < n_aux; j += kThreads) gaux[j] = 0.f;
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* dq = reinterpret_cast<float*>(smem + L.dq);
+  const int no = d.widths[d.n_layers - 1];
+  const long long n_tiles = (n + R - 1) / R;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row0 = tile * R;
+    for (int idx = threadIdx.x; idx < R * d.raw_dim; idx += kThreads) {
+      const long long r = row0 + idx / d.raw_dim;
+      xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
+    }
+    // Padding rows get a zero cotangent, so they add nothing to dW/db
+    for (int idx = threadIdx.x; idx < R * no; idx += kThreads) {
+      const long long r = row0 + idx / no;
+      dq[idx] = r < n ? dy[r * no + idx % no] : 0.f;
+    }
+    __syncthreads();
+    chain_tile_bwd_tc<kTwoBuffers>(d, w, wt, bias, smem, scratch + tile * tile_words, gaux);
+  }
+}
+
+// Phase 1's instantiation for d's widest hidden layer
+inline auto chain_bwd_tc_for(const ChainDesc& d) {
+  return d.max_width > tc::kTcCols ? chain_bwd_tc_kernel<true> : chain_bwd_tc_kernel<false>;
+}
+
+// bf16 K1-bwd with dW only: phase 1, the dW pass and its chunk sum, then
+// the sum of phase 1's slices.
+int chain_bwd_tc(const ChainDesc& d, const float* x, const float* dy, const bf16* w,
+                 const bf16* wt, const float* bias, uint32_t* scratch, float* part, float* dwb,
+                 int slices, int chunks, long long n, cudaStream_t stream) {
+  if (int err = check_chain_tc(d)) return err;
+  if (slices < 1 || chunks < 1) return kErrBadArgs;
+  const DwTable tab = chain_dw_table(d);
+  float* part_aux = part;
+  float* part_dense = part + static_cast<long long>(slices) * chain_n_aux(d);
+  if (int err = launch_with_smem(chain_bwd_tc_for(d), chain_tc_layout(d).total, slices, stream, d,
+                                 x, dy, w, wt, bias, scratch, part_aux, n))
+    return err;
+  if (int err = dw_pass<kChainDwTile>(tab, scratch, part_dense, dwb, chunks, n, stream)) return err;
+  return sum_slices(part_aux, slices, chain_n_aux(d), dwb + tab.n_dense, stream);
+}
+
 }  // namespace nfk
 
 extern "C" {
@@ -252,6 +637,78 @@ int nfk_chain_bwd(const nfk::ChainDesc* desc, int bf16, int phase, int needs_dx,
                                                   n, s);
   return nfk::chain_bwd_dispatch<float>(*desc, phase, needs_dx, needs_dw, x, dy, stash, w,
                                         bias, dx, dwb_part, dwb, slices, n, s);
+}
+
+// Whether nfk_chain_bwd_tc runs the plan (*runs = 1): chain_tc_plan's
+// plans whose phase-1 block fits the card's shared memory. The wrapper's
+// rule (ops/fused_mlp.py bwd_on_tensor_cores) asks it; every other plan
+// keeps chain_bwd_kernel, whose row tile steps down to fit.
+int nfk_chain_bwd_tc_runs(const nfk::ChainDesc* desc, int* runs) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  *runs = nfk::check_chain_tc(*desc) == 0;
+  return 0;
+}
+
+// The buffers nfk_chain_bwd_tc needs for n rows, which the wrapper
+// allocates: a scratch of `scratch` bf16 values; the transposed hidden
+// weights, `wt` bf16 values; part of slices x n_aux + chunks x n_dense
+// floats (n_aux: the head's dW and every bias; n_dense: the hidden dW).
+int nfk_chain_bwd_tc_sizes(const nfk::ChainDesc* desc, long long n, long long* scratch,
+                           long long* wt, int* slices, int* chunks) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (int err = nfk::check_chain_tc(*desc)) return err;
+  *scratch = *wt = 0;
+  *slices = *chunks = 0;
+  if (n <= 0) return 0;
+  const long long tiles = (n + nfk::tc::kTcRows - 1) / nfk::tc::kTcRows;
+  *scratch = tiles * nfk::tc::kTcRows * nfk::chain_cols(*desc).total;
+  *wt = nfk::chain_wt_offset(*desc, desc->n_layers - 1);
+  *chunks = nfk::dw_chunks(n);
+  return nfk::dw_slices(nfk::chain_bwd_tc_for(*desc), nfk::chain_tc_layout(*desc).total, tiles,
+                        slices);
+}
+
+// K1-bwd in bf16 with dW only, on the tensor cores: dW/db of every layer
+// into dwb (packed like w then bias, f32) over the buffers of
+// nfk_chain_bwd_tc_sizes. w holds the bf16 weights, wt each hidden
+// layer's transpose (n x (round16(k1) + round16(k2)), zero-padded
+// segments).
+int nfk_chain_bwd_tc(const nfk::ChainDesc* desc, const float* x, const float* dy, const void* w,
+                     const void* wt, const float* bias, void* scratch, float* part, float* dwb,
+                     int slices, int chunks, long long n, void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (n <= 0) return 0;
+  return nfk::chain_bwd_tc(*desc, x, dy, static_cast<const __nv_bfloat16*>(w),
+                           static_cast<const __nv_bfloat16*>(wt), bias,
+                           static_cast<uint32_t*>(scratch), part, dwb, slices, chunks, n,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The dense layers of the scratch (nfk_chain_bwd_tc_sizes' layout: every
+// hidden layer) and the dW pass's tile over them, for nfk_dw_pass and the
+// wrapper's transposed weights.
+int nfk_chain_dw_table(const nfk::ChainDesc* desc, nfk::DwTable* tab, int* tile) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (int err = nfk::check_chain_tc(*desc)) return err;
+  *tab = nfk::chain_dw_table(*desc);
+  *tile = nfk::kChainDwTile;
+  return 0;
+}
+
+// The dW pass alone, K1-bwd's and K3-bwd's, over a scratch of n rows laid
+// out as a table of nfk_chain_dw_table or nfk_nerf_dw_table says, with its
+// tile: the dense dW (tab->n_dense floats) into dw, from the row chunks'
+// partials in part (kMaxDwChunks x n_dense floats).
+int nfk_dw_pass(const nfk::DwTable* tab, int tile, const void* scratch, float* part, float* dw,
+                long long n, void* stream) {
+  if (tab->n_layers < 1 || tab->n_layers > nfk::kMaxDense) return nfk::kErrBadArgs;
+  if (n <= 0) return 0;
+  const uint32_t* s = static_cast<const uint32_t*>(scratch);
+  const int chunks = nfk::dw_chunks(n);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile == 64) return nfk::dw_pass<64>(*tab, s, part, dw, chunks, n, st);
+  if (tile == 128) return nfk::dw_pass<128>(*tab, s, part, dw, chunks, n, st);
+  return nfk::kErrBadArgs;
 }
 
 }  // extern "C"

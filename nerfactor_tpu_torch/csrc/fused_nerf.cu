@@ -54,9 +54,10 @@
 //      and each 32-deep stage of the ring costs a barrier. Two blocks
 //      share an SM, so one's waits overlap the other's products (ptxas
 //      caps phase 1 at 128 registers for that).
-//   2. nerf_dw_kernel: dW = X^T D of every dense layer over all rows, a
-//      plain GEMM over the scratch. A block owns one 128 x 128 tile of one
-//      layer's dW in registers over one of a fixed number of row chunks;
+//   2. dw_kernel (mma_bf16.cuh, shared with bf16 K1-bwd): dW = X^T D of
+//      every dense layer over all rows, a plain GEMM over the scratch. A
+//      block owns one 128 x 128 tile of one layer's dW in registers over
+//      one of a fixed number of row chunks;
 //      the skip consumer's [h | e_xyz] and rgb layer 0's [bottleneck |
 //      e_view] are two segments of its K. Its partials (chunks x the dense
 //      weights, f32; ~16 MB at 8 chunks) stay in the L2, where sum_slices
@@ -79,8 +80,6 @@
 #include "mma_bf16.cuh"
 
 namespace nfk {
-
-constexpr int kMaxHeadOut = 8;  // widest tiny head (the TPU's TINY_HEAD_MAX)
 
 // Static description of one NeRF field. The Python wrapper fills it in with
 // the same field order (nerfactor_tpu_torch/ops/fused_nerf.py, NerfDesc).
@@ -410,18 +409,10 @@ nerf_bwd_kernel(NerfDesc d, const float* __restrict__ pts, const float* __restri
 
 // ------ K3-bwd in bf16: phase 1 and the dW pass on the tensor cores ------
 
-using tc::bf16;
-using tc::round16;
-
-// Columns of a scratch row: every dense layer's inputs (e_xyz, the trunk
-// posts, the bottleneck, e_view; the embeddings zero-padded to 16
-// columns), then every dense layer's rounded d_pre (trunk layers,
-// bottleneck, rgb layer 0). The scratch pairs its rows: 32-bit word (j, c)
-// of a 64-row tile holds rows 2j and 2j + 1 of column c (the lower row in
-// the low half), and a tile is 32 rows of `total` words. So phase 1 writes
-// a row pair of neighbouring columns with neighbouring threads, and the dW
-// pass loads the pair of neighbouring K values an mma fragment register
-// holds with one 32-bit load.
+// Columns of a scratch row (mma_bf16.cuh's row-paired scratch): every
+// dense layer's inputs (e_xyz, the trunk posts, the bottleneck, e_view;
+// the embeddings zero-padded to 16 columns), then every dense layer's
+// rounded d_pre (trunk layers, bottleneck, rgb layer 0).
 struct NerfCols {
   int es, post0, bott, ev, dpre0, dpre_bott, dpre_rgb0, total;
 };
@@ -440,15 +431,8 @@ __host__ __device__ inline NerfCols nerf_cols(const NerfDesc& d) {
   return c;
 }
 
-// Dense layer i of the field (trunk layers 0 .. n_layers - 1, the
-// bottleneck, rgb layer 0): its input columns [seg1, seg1 + k1) and [seg2,
-// seg2 + k2) of a scratch row, its d_pre columns from `dpre`, its width n,
-// and its W's offset in the dense weights.
-struct DenseLayer {
-  int seg1, k1, seg2, k2, dpre, n;
-  long long w_off;
-};
-
+// Dense layer i of the field: trunk layers 0 .. n_layers - 1, the
+// bottleneck, rgb layer 0 (the dW pass's DenseLayer).
 __host__ __device__ inline int n_dense_layers(const NerfDesc& d) { return d.trunk.n_layers + 2; }
 
 __host__ __device__ inline DenseLayer dense_layer(const NerfDesc& d, int i) {
@@ -507,8 +491,6 @@ struct NerfTcLayout {
   int lde, ldv, ldh, ldq;
 };
 
-constexpr int kPairs = tc::kTcRows / 2;  // row pairs of a tile
-
 __host__ __device__ inline NerfTcLayout nerf_tc_layout(const NerfDesc& d) {
   constexpr int R = tc::kTcRows;
   NerfTcLayout s;
@@ -534,96 +516,6 @@ inline int check_nerf_tc(const NerfDesc& d) {
   if (trunk_width(d) % 16 || d.rgb_hidden % 16) return kErrBadPlan;
   if (nerf_tc_layout(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
   return 0;
-}
-
-// Writes columns [0, cols) of a tile's rows (bf16 in shared memory, ld)
-// to the scratch tile `st` (32-bit words, rows of `total`) from column
-// col0: word (j, col0 + c) packs rows 2j and 2j + 1 of column c.
-__device__ inline void store_pairs(const bf16* src, int ld, int cols, uint32_t* st, int total,
-                                   int col0) {
-  for (int idx = threadIdx.x; idx < kPairs * cols; idx += kThreads) {
-    const int j = idx / cols, c = idx % cols;
-    st[j * total + col0 + c] = tc::pack2(src[2 * j * ld + c], src[(2 * j + 1) * ld + c]);
-  }
-}
-
-// The scratch words of a tc_gemm result fragment's bf16 values y (y[m][e]
-// at row 16 m + g + 8 (e >> 1), column 2 t + (e & 1) of the fragment,
-// which starts at scratch column col): a lane swaps rows with its
-// neighbour (lane ^ 4 holds row r ^ 1) and stores one row pair, 8
-// neighbouring words a row pair per warp. All lanes of the warp call it.
-__device__ inline void store_frag_pairs(const bf16 (&y)[tc::kTcM][4], uint32_t* st, int total,
-                                 int col) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int m = 0; m < tc::kTcM; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t mine = tc::pack2(y[m][2 * h], y[m][2 * h + 1]);
-      const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 4);
-      // Even g: column 2t, rows (r, r + 1); odd g: column 2t + 1, rows (r - 1, r)
-      const uint32_t word =
-          g & 1 ? (other >> 16) | (mine & 0xffff0000u) : (mine & 0xffffu) | (other << 16);
-      st[((16 * m + g + 8 * h) >> 1) * total + col + 2 * t + (g & 1)] = word;
-    }
-}
-
-// The bf16 value of row r, column c of the scratch tile `st`.
-__device__ __forceinline__ float scratch_at(const uint32_t* st, int total, int r, int c) {
-  const uint32_t v = st[(r >> 1) * total + c];
-  return __bfloat162float(
-      __ushort_as_bfloat16(static_cast<unsigned short>(r & 1 ? v >> 16 : v & 0xffffu)));
-}
-
-// A forward product's epilogue: out = bf16(act(v + b)) into the tile's
-// buffer (ld ldo) and, for col >= 0, its scratch columns from col.
-template <bool kStore>
-__device__ inline void fwd_epilogue(int c0, const float (&v)[tc::kTcM][4], int act,
-                                    const float* __restrict__ b, bf16* out, int ldo, uint32_t* st,
-                                    int total, int col) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16 y[tc::kTcM][4];
-#pragma unroll
-  for (int m = 0; m < tc::kTcM; ++m)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
-      y[m][e] = from_f<bf16>(activate(act, v[m][e] + b[c]));
-      out[r * ldo + c] = y[m][e];
-    }
-  if (kStore) store_frag_pairs(y, st, total, col + c0);
-}
-
-// A d_pre @ W^T product's epilogue, which makes the next layer's d_pre:
-// u = f(r, c, v) (the d_h term and act'), db += the column sums of the
-// unrounded u (each column is one warp's: in-lane over its 8 rows, then
-// across the 8 lanes of its t, in a fixed order), and bf16(u) into the
-// tile's buffer (ld ldp) and the scratch columns from col.
-template <typename F>
-__device__ inline void dpre_epilogue(int c0, const float (&v)[tc::kTcM][4], F f, bf16* dpre, int ldp,
-                                     uint32_t* st, int total, int col, float* db) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16 y[tc::kTcM][4];
-  float s[2] = {0.f, 0.f};
-#pragma unroll
-  for (int m = 0; m < tc::kTcM; ++m)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
-      const float u = f(r, c, v[m][e]);
-      s[e & 1] += u;
-      y[m][e] = from_f<bf16>(u);
-      dpre[r * ldp + c] = y[m][e];
-    }
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-#pragma unroll
-    for (int off = 4; off < 32; off *= 2) s[e] += __shfl_xor_sync(0xffffffffu, s[e], off);
-  if (g == 0) {
-    db[c0 + 2 * t] += s[0];
-    db[c0 + 2 * t + 1] += s[1];
-  }
-  store_frag_pairs(y, st, total, col + c0);
 }
 
 // Phase 1 for one 64-row tile whose points, views and output cotangents
@@ -838,142 +730,6 @@ inline auto nerf_bwd_tc_for(const NerfDesc& d) {
   return trunk_width(d) > tc::kTcCols ? nerf_bwd_tc_kernel<true> : nerf_bwd_tc_kernel<false>;
 }
 
-// The dW pass: a block owns a kDwTile x kDwTile tile of one dense layer's
-// dW and one of `chunks` row chunks (64-row tiles [t0, t1) of the
-// scratch), and writes its f32 partial to part[chunk * n_dense + ...].
-// Its operands keep the scratch's row pairs in shared memory: X^T's and
-// D's K dimension is the tile's rows, so a fragment register is one word.
-constexpr int kDwTile = 128;
-constexpr int kDwLd = kDwTile + 8;           // words of an operand's row pair
-constexpr int kDwOperand = kPairs * kDwLd;   // words of one operand's tile
-constexpr int kMaxDwChunks = 8;
-constexpr size_t kDwSmem = sizeof(uint32_t) * 4 * kDwOperand;  // 2 stages of [X | D]
-
-__host__ __device__ inline int dw_tiles(const NerfDesc& d, int i) {
-  const DenseLayer l = dense_layer(d, i);
-  return ((l.k1 + l.k2 + kDwTile - 1) / kDwTile) * ((l.n + kDwTile - 1) / kDwTile);
-}
-
-__host__ __device__ inline int dw_tiles_total(const NerfDesc& d) {
-  int t = 0;
-  for (int i = 0; i < n_dense_layers(d); ++i) t += dw_tiles(d, i);
-  return t;
-}
-
-// The number of row chunks of the dW pass for n rows: at most
-// kMaxDwChunks (8 x the dense weights in f32 stay in the L2), at most one
-// a 64-row tile.
-inline int nerf_dw_chunks(long long n) {
-  const long long tiles = (n + tc::kTcRows - 1) / tc::kTcRows;
-  return static_cast<int>(tiles < kMaxDwChunks ? tiles : kMaxDwChunks);
-}
-
-// Starts copying positions [c0, c0 + kDwTile) of a product's operand from
-// one scratch tile `src` (rows of `total` words) into dst (kPairs rows of
-// kDwLd words), 4 positions a 16-byte request: position m is scratch
-// column seg1 + m below k1, seg2 + m - k1 above (segments start at
-// multiples of 16 columns, k1 is one where k2 > 0); zeros from k on.
-__device__ inline void load_dw_operand(uint32_t* dst, const uint32_t* src, int total, int c0,
-                                       int seg1, int k1, int seg2, int k) {
-  constexpr int kPieces = kDwTile / 4;
-  for (int idx = threadIdx.x; idx < kPairs * kPieces; idx += kThreads) {
-    const int j = idx / kPieces, p = idx % kPieces, m = c0 + 4 * p;
-    uint32_t* to = dst + j * kDwLd + 4 * p;
-    if (m < k)
-      tc::cp_async16(to, src + static_cast<long long>(j) * total +
-                             (m < k1 ? seg1 + m : seg2 + m - k1));
-    else
-      tc::zero16(to);
-  }
-}
-
-// The m16n8k16 fragments from row-paired operands (word (j, m) holds K
-// values 2j and 2j + 1 of position m): A of positions [m0, m0 + 16) and
-// B of positions [n0, n0 + 8), both over K [16 kk, 16 kk + 16).
-__device__ __forceinline__ void pair_frag_a(const uint32_t* s, int m0, int kk,
-                                            uint32_t (&f)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t* p = s + (8 * kk + t) * kDwLd + m0 + g;
-  f[0] = p[0];
-  f[1] = p[8];
-  f[2] = p[4 * kDwLd];
-  f[3] = p[4 * kDwLd + 8];
-}
-
-__device__ __forceinline__ void pair_frag_b(const uint32_t* s, int n0, int kk, uint32_t& b0,
-                                            uint32_t& b1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t* p = s + (8 * kk + t) * kDwLd + n0 + g;
-  b0 = p[0];
-  b1 = p[4 * kDwLd];
-}
-
-__global__ void __launch_bounds__(kThreads)
-nerf_dw_kernel(NerfDesc d, const uint32_t* __restrict__ scratch, float* __restrict__ part,
-               int chunks, long long n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int R = tc::kTcRows;
-  uint32_t* buf = reinterpret_cast<uint32_t*>(smem);
-  const int chunk = blockIdx.x % chunks;
-  int tile = blockIdx.x / chunks, li = 0;
-  while (tile >= dw_tiles(d, li)) tile -= dw_tiles(d, li++);
-  const DenseLayer l = dense_layer(d, li);
-  const int k = l.k1 + l.k2, n_tiles_n = (l.n + kDwTile - 1) / kDwTile;
-  const int m0 = (tile / n_tiles_n) * kDwTile, c0 = (tile % n_tiles_n) * kDwTile;
-  const int total = nerf_cols(d).total;
-  const long long row_tiles = (n + R - 1) / R;
-  const long long t0 = row_tiles * chunk / chunks, t1 = row_tiles * (chunk + 1) / chunks;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  float acc[4][4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.f;
-  auto load = [&](long long rt, uint32_t* stage) {
-    const uint32_t* src = scratch + rt * kPairs * total;
-    load_dw_operand(stage, src, total, m0, l.seg1, l.k1, l.seg2, k);
-    load_dw_operand(stage + kDwOperand, src, total, c0, l.dpre, l.n, 0, l.n);
-    tc::cp_async_commit();
-  };
-  if (t0 < t1) load(t0, buf);
-  for (long long rt = t0; rt < t1; ++rt) {
-    const int s = static_cast<int>((rt - t0) & 1);
-    // Tile rt has landed and every warp is done with the other stage
-    tc::cp_async_wait_all();
-    __syncthreads();
-    if (rt + 1 < t1) load(rt + 1, buf + (s ^ 1) * 2 * kDwOperand);
-    const uint32_t* xs = buf + s * 2 * kDwOperand;
-    const uint32_t* ds = xs + kDwOperand;
-#pragma unroll
-    for (int kk = 0; kk < R / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) pair_frag_a(xs, 64 * wm + 16 * m, kk, af[m]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t b0, b1;
-        pair_frag_b(ds, 32 * wn + 8 * q, kk, b0, b1);
-#pragma unroll
-        for (int m = 0; m < 4; ++m) tc::mma16816(acc[m][q], af[m], b0, b1);
-      }
-    }
-  }
-  float* out = part + chunk * d.n_dense + l.w_off;
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + 64 * wm + 16 * m + g + 8 * (e >> 1);
-        const int c = c0 + 32 * wn + 8 * q + 2 * t + (e & 1);
-        if (r < k && c < l.n) out[static_cast<long long>(r) * l.n + c] = acc[m][q][e];
-      }
-}
-
 // The building block alone: c (m x n, f32) = a (m x k, bf16 row-major) @
 // bt^T, bt (n x round16(k), bf16, zero past k) through tc_gemm, a block a
 // 64-row tile of a.
@@ -1051,16 +807,17 @@ int nerf_bwd_f32_slices(const NerfDesc& d, long long n, int* slices) {
   }
 }
 
-// The dW pass over a scratch of n rows, then the sum of its chunks into
-// dw (n_dense floats); part holds chunks x n_dense floats.
-int nerf_dw(const NerfDesc& d, const uint32_t* scratch, float* part, float* dw, int chunks,
-            long long n, cudaStream_t stream) {
-  if (chunks < 1) return kErrBadArgs;
-  int err = launch_with_smem(nerf_dw_kernel, kDwSmem,
-                             static_cast<long long>(dw_tiles_total(d)) * chunks, stream, d,
-                             scratch, part, chunks, n);
-  if (err) return err;
-  return sum_slices(part, chunks, d.n_dense, dw, stream);
+// The field's dW tile (dw_kernel): 128
+constexpr int kNerfDwTile = 128;
+
+// The dW pass's table of the field's dense layers
+inline DwTable nerf_dw_table(const NerfDesc& d) {
+  DwTable t;
+  t.n_layers = n_dense_layers(d);
+  t.total = nerf_cols(d).total;
+  t.n_dense = d.n_dense;
+  for (int i = 0; i < t.n_layers; ++i) t.layers[i] = dense_layer(d, i);
+  return t;
 }
 
 // The bf16 backward: phase 1, the dW pass and its chunk sum, then the sum
@@ -1076,7 +833,9 @@ int nerf_bwd_tc(const NerfDesc& d, const float* pts, const float* views, const f
   if (int err = launch_with_smem(nerf_bwd_tc_for(d), nerf_tc_layout(d).total, slices, stream, d,
                                  pts, views, drgb, dsigma, w, wt, aux, scratch, part_aux, n))
     return err;
-  if (int err = nerf_dw(d, scratch, part_dense, dwb, chunks, n, stream)) return err;
+  if (int err = dw_pass<kNerfDwTile>(nerf_dw_table(d), scratch, part_dense, dwb, chunks, n,
+                                     stream))
+    return err;
   return sum_slices(part_aux, slices, d.n_aux, dwb + d.n_dense, stream);
 }
 
@@ -1114,7 +873,7 @@ int nfk_nerf_bwd_sizes(const nfk::NerfDesc* desc, int bf16, long long n, long lo
   const long long tiles = (n + nfk::tc::kTcRows - 1) / nfk::tc::kTcRows;
   *scratch = tiles * nfk::tc::kTcRows * nfk::nerf_cols(*desc).total;
   *wt = nfk::wt_offset(*desc, nfk::n_dense_layers(*desc));
-  *chunks = nfk::nerf_dw_chunks(n);
+  *chunks = nfk::dw_chunks(n);
   return nfk::dw_slices(nfk::nerf_bwd_tc_for(*desc), nfk::nerf_tc_layout(*desc).total, tiles,
                         slices);
 }
@@ -1139,16 +898,15 @@ int nfk_nerf_bwd(const nfk::NerfDesc* desc, int bf16, const float* pts, const fl
                                     static_cast<const float*>(w), aux, part, dwb, slices, n, s);
 }
 
-// The dW pass alone over a scratch of n rows (nfk_nerf_bwd_sizes' layout):
-// the dense dW (n_dense floats) into dw, from `chunks` partials in part
-// (chunks x n_dense floats).
-int nfk_nerf_dw(const nfk::NerfDesc* desc, const void* scratch, float* part, float* dw,
-                int chunks, long long n, void* stream) {
+// The dense layers of the bf16 backward's scratch (nfk_nerf_bwd_sizes'
+// layout) and the dW pass's tile over them, for nfk_dw_pass and the
+// wrapper's transposed weights.
+int nfk_nerf_dw_table(const nfk::NerfDesc* desc, nfk::DwTable* tab, int* tile) {
   if (int err = nfk::check_nerf(*desc)) return err;
   if (int err = nfk::check_nerf_tc(*desc)) return err;
-  if (n <= 0) return 0;
-  return nfk::nerf_dw(*desc, static_cast<const uint32_t*>(scratch), part, dw, chunks, n,
-                      static_cast<cudaStream_t>(stream));
+  *tab = nfk::nerf_dw_table(*desc);
+  *tile = nfk::kNerfDwTile;
+  return 0;
 }
 
 // The tensor-core building block alone: c (m x n f32) = a (m x k bf16) @

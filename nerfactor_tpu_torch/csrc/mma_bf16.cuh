@@ -1,6 +1,9 @@
-// Tensor-core building blocks: bf16 products with f32 accumulation on
-// mma.sync.aligned.m16n8k16, fed from shared memory with plain 32-bit
-// loads, and cp.async copies for a ring of operand tiles.
+// Tensor-core building blocks of the bf16 backwards (K1-bwd with dW only,
+// fused_mlp.cu; K3-bwd, fused_nerf.cu): bf16 products with f32
+// accumulation on mma.sync.aligned.m16n8k16, fed from shared memory with
+// plain 32-bit loads, and cp.async copies for a ring of operand tiles
+// (tc_gemm); the row-paired bf16 scratch that phase 1 writes, its
+// epilogues, and the dW pass over it (dw_kernel).
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), lane = 4 g + t:
@@ -277,4 +280,313 @@ __device__ void tc_gemm(const TcA& a, const bf16* __restrict__ bt, long long ldb
 }
 
 }  // namespace tc
+
+// ------ the row-paired scratch of the bf16 backwards (K1-bwd, K3-bwd) ------
+//
+// Phase 1 of a bf16 backward writes, per 64-row tile, the bf16 inputs and
+// the rounded d_pre of every dense layer to a scratch in device memory,
+// and the dW pass forms dW = X^T D from it. The scratch pairs its rows:
+// 32-bit word (j, c) of a tile holds rows 2j and 2j + 1 of column c (the
+// lower row in the low half), and a tile is kPairs rows of `total` words.
+// So phase 1 writes a row pair of neighbouring columns with neighbouring
+// threads, and the dW pass loads the pair of neighbouring K values an mma
+// fragment register holds with one 32-bit load.
+
+using tc::bf16;
+using tc::round16;
+
+constexpr int kPairs = tc::kTcRows / 2;  // row pairs of a tile
+
+// A dense layer of a scratch: its input columns [seg1, seg1 + k1) and
+// [seg2, seg2 + k2) of a scratch row (segments start at multiples of 16
+// columns; k1 is one where k2 > 0), its d_pre columns from `dpre`, its
+// width n, and its dW's offset in the packed dW.
+struct DenseLayer {
+  int seg1, k1, seg2, k2, dpre, n;
+  long long w_off;
+};
+
+// What the dW pass reads: the dense layers of a scratch of `total` words a
+// row pair, and n_dense, the floats of the packed dW (one row chunk's
+// partial). Passed to the kernel by value.
+constexpr int kMaxDense = kMaxLayers + 2;
+struct DwTable {
+  int n_layers, total;
+  long long n_dense;
+  DenseLayer layers[kMaxDense];
+};
+
+// Writes columns [0, cols) of a tile's rows (bf16 in shared memory, ld)
+// to the scratch tile `st` (32-bit words, rows of `total`) from column
+// col0: word (j, col0 + c) packs rows 2j and 2j + 1 of column c.
+__device__ inline void store_pairs(const bf16* src, int ld, int cols, uint32_t* st, int total,
+                                   int col0) {
+  for (int idx = threadIdx.x; idx < kPairs * cols; idx += kThreads) {
+    const int j = idx / cols, c = idx % cols;
+    st[j * total + col0 + c] = tc::pack2(src[2 * j * ld + c], src[(2 * j + 1) * ld + c]);
+  }
+}
+
+// The scratch words of a tc_gemm result fragment's bf16 values y (y[m][e]
+// at row 16 m + g + 8 (e >> 1), column 2 t + (e & 1) of the fragment,
+// which starts at scratch column col): a lane swaps rows with its
+// neighbour (lane ^ 4 holds row r ^ 1) and stores one row pair, 8
+// neighbouring words a row pair per warp. All lanes of the warp call it.
+__device__ inline void store_frag_pairs(const bf16 (&y)[tc::kTcM][4], uint32_t* st, int total,
+                                 int col) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t mine = tc::pack2(y[m][2 * h], y[m][2 * h + 1]);
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 4);
+      // Even g: column 2t, rows (r, r + 1); odd g: column 2t + 1, rows (r - 1, r)
+      const uint32_t word =
+          g & 1 ? (other >> 16) | (mine & 0xffff0000u) : (mine & 0xffffu) | (other << 16);
+      st[((16 * m + g + 8 * h) >> 1) * total + col + 2 * t + (g & 1)] = word;
+    }
+}
+
+// The bf16 value of row r, column c of the scratch tile `st`.
+__device__ __forceinline__ float scratch_at(const uint32_t* st, int total, int r, int c) {
+  const uint32_t v = st[(r >> 1) * total + c];
+  return __bfloat162float(
+      __ushort_as_bfloat16(static_cast<unsigned short>(r & 1 ? v >> 16 : v & 0xffffu)));
+}
+
+// A forward product's epilogue: out = bf16(act(v + b)) into the tile's
+// buffer (ld ldo) and, for col >= 0, its scratch columns from col. ReLU,
+// every hidden layer's act in the shipped chains and fields, takes its own
+// loop: `activate`'s switch on each of the 16 values costs phase 1 more
+// than its products (the same values either way).
+template <bool kStore>
+__device__ inline void fwd_epilogue(int c0, const float (&v)[tc::kTcM][4], int act,
+                                    const float* __restrict__ b, bf16* out, int ldo, uint32_t* st,
+                                    int total, int col) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16 y[tc::kTcM][4];
+  if (act == kRelu) {
+#pragma unroll
+    for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+        y[m][e] = from_f<bf16>(fmaxf(v[m][e] + b[c], 0.f));
+        out[r * ldo + c] = y[m][e];
+      }
+  } else {
+#pragma unroll
+    for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+        y[m][e] = from_f<bf16>(activate(act, v[m][e] + b[c]));
+        out[r * ldo + c] = y[m][e];
+      }
+  }
+  if (kStore) store_frag_pairs(y, st, total, col + c0);
+}
+
+// A d_pre @ W^T product's epilogue, which makes the next layer's d_pre:
+// u = f(r, c, v) (the d_h term and act'), db += the column sums of the
+// unrounded u (each column is one warp's: in-lane over its 8 rows, then
+// across the 8 lanes of its t, in a fixed order), and bf16(u) into the
+// tile's buffer (ld ldp) and the scratch columns from col.
+template <typename F>
+__device__ inline void dpre_epilogue(int c0, const float (&v)[tc::kTcM][4], F f, bf16* dpre, int ldp,
+                                     uint32_t* st, int total, int col, float* db) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16 y[tc::kTcM][4];
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+      const float u = f(r, c, v[m][e]);
+      s[e & 1] += u;
+      y[m][e] = from_f<bf16>(u);
+      dpre[r * ldp + c] = y[m][e];
+    }
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int off = 4; off < 32; off *= 2) s[e] += __shfl_xor_sync(0xffffffffu, s[e], off);
+  if (g == 0) {
+    db[c0 + 2 * t] += s[0];
+    db[c0 + 2 * t + 1] += s[1];
+  }
+  store_frag_pairs(y, st, total, col + c0);
+}
+
+// ------ the dW pass ------
+//
+// A block owns a kTile x kTile tile of one dense layer's dW and one of
+// `chunks` row chunks (64-row tiles [t0, t1) of the scratch), and writes
+// its f32 partial to part[chunk * n_dense + ...]. Its operands keep the
+// scratch's row pairs in shared memory: X^T's and D's K dimension is the
+// tile's rows, so a fragment register is one word. 8 warps of (kTile / 2)
+// x (kTile / 4). K3-bwd's dW tiles are 128 wide; the lvis chain's four
+// 128-wide layers make only 5 such tiles, so the chain takes 64 (20
+// tiles, four times the blocks). The tile changes no sum (each dW entry
+// adds the same mma products over the same rows in the same order), so
+// not the bits either.
+constexpr int kMaxDwChunks = 8;
+
+template <int kTile>
+struct DwShape {
+  static constexpr int ld = kTile + 8;             // words of an operand's row pair
+  static constexpr int operand = kPairs * ld;      // words of one operand's tile
+  static constexpr int frags = kTile / 32;         // m16 and n8 fragments a warp
+  static constexpr size_t smem = sizeof(uint32_t) * 4 * operand;  // 2 stages of [X | D]
+};
+
+template <int kTile>
+__host__ __device__ inline int dw_tiles(const DenseLayer& l) {
+  return ((l.k1 + l.k2 + kTile - 1) / kTile) * ((l.n + kTile - 1) / kTile);
+}
+
+template <int kTile>
+__host__ __device__ inline int dw_tiles_total(const DwTable& t) {
+  int n = 0;
+  for (int i = 0; i < t.n_layers; ++i) n += dw_tiles<kTile>(t.layers[i]);
+  return n;
+}
+
+// The number of row chunks of the dW pass for n rows: at most
+// kMaxDwChunks (8 x the dense weights in f32 stay in the L2), at most one
+// a 64-row tile.
+inline int dw_chunks(long long n) {
+  const long long tiles = (n + tc::kTcRows - 1) / tc::kTcRows;
+  return static_cast<int>(tiles < kMaxDwChunks ? tiles : kMaxDwChunks);
+}
+
+// Starts copying positions [c0, c0 + kTile) of a product's operand from
+// one scratch tile `src` (rows of `total` words) into dst (kPairs rows of
+// DwShape::ld words), 4 positions a 16-byte request: position m is
+// scratch column seg1 + m below k1, seg2 + m - k1 above; zeros from k on.
+template <int kTile>
+__device__ inline void load_dw_operand(uint32_t* dst, const uint32_t* src, int total, int c0,
+                                       int seg1, int k1, int seg2, int k) {
+  constexpr int kPieces = kTile / 4, ld = DwShape<kTile>::ld;
+  for (int idx = threadIdx.x; idx < kPairs * kPieces; idx += kThreads) {
+    const int j = idx / kPieces, p = idx % kPieces, m = c0 + 4 * p;
+    uint32_t* to = dst + j * ld + 4 * p;
+    if (m < k)
+      tc::cp_async16(to, src + static_cast<long long>(j) * total +
+                             (m < k1 ? seg1 + m : seg2 + m - k1));
+    else
+      tc::zero16(to);
+  }
+}
+
+// The m16n8k16 fragments from row-paired operands (word (j, m) holds K
+// values 2j and 2j + 1 of position m; rows of ld words): A of positions
+// [m0, m0 + 16) and B of positions [n0, n0 + 8), both over K [16 kk, 16 kk
+// + 16).
+template <int ld>
+__device__ __forceinline__ void pair_frag_a(const uint32_t* s, int m0, int kk,
+                                            uint32_t (&f)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t* p = s + (8 * kk + t) * ld + m0 + g;
+  f[0] = p[0];
+  f[1] = p[8];
+  f[2] = p[4 * ld];
+  f[3] = p[4 * ld + 8];
+}
+
+template <int ld>
+__device__ __forceinline__ void pair_frag_b(const uint32_t* s, int n0, int kk, uint32_t& b0,
+                                            uint32_t& b1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t* p = s + (8 * kk + t) * ld + n0 + g;
+  b0 = p[0];
+  b1 = p[4 * ld];
+}
+
+// Each source that includes this header compiles its own copy (static).
+template <int kTile>
+static __global__ void __launch_bounds__(kThreads)
+dw_kernel(DwTable tab, const uint32_t* __restrict__ scratch, float* __restrict__ part,
+          int chunks, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using S = DwShape<kTile>;
+  constexpr int R = tc::kTcRows, F = S::frags;
+  uint32_t* buf = reinterpret_cast<uint32_t*>(smem);
+  const int chunk = blockIdx.x % chunks;
+  int tile = blockIdx.x / chunks, li = 0;
+  while (tile >= dw_tiles<kTile>(tab.layers[li])) tile -= dw_tiles<kTile>(tab.layers[li++]);
+  const DenseLayer l = tab.layers[li];
+  const int k = l.k1 + l.k2, n_tiles_n = (l.n + kTile - 1) / kTile;
+  const int m0 = (tile / n_tiles_n) * kTile, c0 = (tile % n_tiles_n) * kTile;
+  const int total = tab.total;
+  const long long row_tiles = (n + R - 1) / R;
+  const long long t0 = row_tiles * chunk / chunks, t1 = row_tiles * (chunk + 1) / chunks;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of (kTile / 2) x (kTile / 4)
+  float acc[F][F][4];
+#pragma unroll
+  for (int m = 0; m < F; ++m)
+#pragma unroll
+    for (int q = 0; q < F; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.f;
+  auto load = [&](long long rt, uint32_t* stage) {
+    const uint32_t* src = scratch + rt * kPairs * total;
+    load_dw_operand<kTile>(stage, src, total, m0, l.seg1, l.k1, l.seg2, k);
+    load_dw_operand<kTile>(stage + S::operand, src, total, c0, l.dpre, l.n, 0, l.n);
+    tc::cp_async_commit();
+  };
+  if (t0 < t1) load(t0, buf);
+  for (long long rt = t0; rt < t1; ++rt) {
+    const int s = static_cast<int>((rt - t0) & 1);
+    // Tile rt has landed and every warp is done with the other stage
+    tc::cp_async_wait_all();
+    __syncthreads();
+    if (rt + 1 < t1) load(rt + 1, buf + (s ^ 1) * 2 * S::operand);
+    const uint32_t* xs = buf + s * 2 * S::operand;
+    const uint32_t* ds = xs + S::operand;
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk) {
+      uint32_t af[F][4];
+#pragma unroll
+      for (int m = 0; m < F; ++m)
+        pair_frag_a<S::ld>(xs, kTile / 2 * wm + 16 * m, kk, af[m]);
+#pragma unroll
+      for (int q = 0; q < F; ++q) {
+        uint32_t b0, b1;
+        pair_frag_b<S::ld>(ds, kTile / 4 * wn + 8 * q, kk, b0, b1);
+#pragma unroll
+        for (int m = 0; m < F; ++m) tc::mma16816(acc[m][q], af[m], b0, b1);
+      }
+    }
+  }
+  float* out = part + chunk * tab.n_dense + l.w_off;
+#pragma unroll
+  for (int m = 0; m < F; ++m)
+#pragma unroll
+    for (int q = 0; q < F; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + kTile / 2 * wm + 16 * m + g + 8 * (e >> 1);
+        const int c = c0 + kTile / 4 * wn + 8 * q + 2 * t + (e & 1);
+        if (r < k && c < l.n) out[static_cast<long long>(r) * l.n + c] = acc[m][q][e];
+      }
+}
+
+// The dW pass (dW tiles of kTile x kTile) over a scratch of n rows, then
+// the sum of its chunks in chunk order into dw (n_dense floats); part
+// holds chunks x n_dense floats. Returns 0 or an error code.
+template <int kTile>
+inline int dw_pass(const DwTable& tab, const uint32_t* scratch, float* part, float* dw,
+                   int chunks, long long n, cudaStream_t stream) {
+  if (chunks < 1) return kErrBadArgs;
+  int err = launch_with_smem(dw_kernel<kTile>, DwShape<kTile>::smem,
+                             static_cast<long long>(dw_tiles_total<kTile>(tab)) * chunks, stream,
+                             tab, scratch, part, chunks, n);
+  if (err) return err;
+  return sum_slices(part, chunks, tab.n_dense, dw, stream);
+}
+
 }  // namespace nfk

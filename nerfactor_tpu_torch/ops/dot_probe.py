@@ -82,7 +82,7 @@ def dot_chain_kernel(x, ws, mode, block=4096):
     out = torch.empty_like(x)
     if x.shape[0]:
         with torch.cuda.device(x.device):
-            code = kernel_lib.dot_chain_entry()(
+            code = kernel_lib.entry('nfk_dot_chain')(
                 MODES.index(mode), x.data_ptr(), ws.data_ptr(), ws.shape[0],
                 block, x.shape[0], out.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)

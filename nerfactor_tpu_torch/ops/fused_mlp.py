@@ -326,7 +326,7 @@ def run(entry, device, *args, stream=True):
     with torch.cuda.device(device):  # the launchers use the current device
         if stream:
             args += (torch.cuda.current_stream(device).cuda_stream,)
-        code = getattr(kernel_lib.load(), entry)(*args)
+        code = kernel_lib.entry(entry)(*args)
     kernel_lib.check(code, entry)
 
 
@@ -460,12 +460,235 @@ def unpack_grads(plan, dwb):
     return out
 
 
+# ------ the bf16 backwards' scratch and dW pass (K1-bwd and K3-bwd) ------
+
+TILE_ROWS = 64  # csrc tc::kTcRows: rows of a phase-1 tile and a scratch tile
+MAX_DENSE = MAX_LAYERS + 2  # csrc kMaxDense
+MAX_DW_CHUNKS = 8  # csrc kMaxDwChunks: row chunks of the dW pass
+
+
+def round16(k):
+    return -(-k // 16) * 16
+
+
+class DenseLayer(ctypes.Structure):
+    """csrc/mma_bf16.cuh ``DenseLayer``: a dense layer's input columns
+    [seg1, seg1 + k1) and [seg2, seg2 + k2) of a scratch row, its d_pre
+    columns from ``dpre``, its width ``n`` and its dW's offset in the
+    packed dW."""
+    _fields_ = [('seg1', ctypes.c_int), ('k1', ctypes.c_int),
+                ('seg2', ctypes.c_int), ('k2', ctypes.c_int),
+                ('dpre', ctypes.c_int), ('n', ctypes.c_int),
+                ('w_off', ctypes.c_longlong)]
+
+
+class DwTable(ctypes.Structure):
+    """csrc/mma_bf16.cuh ``DwTable``: the dense layers of a scratch of
+    ``total`` bf16 columns (row pairs of ``total`` 32-bit words) and
+    ``n_dense``, the floats of their packed dW."""
+    _fields_ = [('n_layers', ctypes.c_int), ('total', ctypes.c_int),
+                ('n_dense', ctypes.c_longlong),
+                ('layers', DenseLayer * MAX_DENSE)]
+
+    def dense(self):
+        return self.layers[:self.n_layers]
+
+
+def dw_table(entry, desc, device):
+    """The dense layers of a bf16 backward's scratch as the library lays
+    them out (``entry``: ``nfk_chain_dw_table`` or ``nfk_nerf_dw_table``
+    for ``desc``): (:class:`DwTable`, the dW pass's tile)."""
+    tab, tile = DwTable(), ctypes.c_int(0)
+    run(entry, device, ctypes.addressof(desc), ctypes.byref(tab),
+        ctypes.byref(tile), stream=False)
+    return tab, tile.value
+
+
+def chain_dw_table(plan, device):
+    """The hidden layers of the tensor-core K1-bwd's scratch as the
+    library lays them out (``nfk_chain_dw_table``): the embedding
+    zero-padded to 16 columns, the posts that feed a later hidden layer,
+    every hidden layer's rounded d_pre. Returns (:class:`DwTable`, the dW
+    pass's tile)."""
+    return dw_table('nfk_chain_dw_table', make_desc(plan), device)
+
+
+def pack_transposed(ws, tab):
+    """The dense layers' weights ``ws`` (each (k1 + k2, n)) transposed for
+    phase 1's recompute, bf16: per layer of ``tab`` W^T, (n, round16(k1) +
+    round16(k2)), each K segment zero-padded to a multiple of 16, one after
+    another."""
+    parts = []
+    for w, l in zip(ws, tab.dense()):
+        k1p = round16(l.k1)
+        t = w.new_zeros(l.n, k1p + round16(l.k2))
+        t[:, :l.k1] = w[:l.k1].t()
+        t[:, k1p:k1p + l.k2] = w[l.k1:].t()
+        parts.append(t.reshape(-1))
+    return torch.cat(parts).to(torch.bfloat16)
+
+
+def scratch_values(tab, n):
+    """bf16 values of a scratch of ``n`` rows (whole 64-row tiles)."""
+    return -(-n // TILE_ROWS) * TILE_ROWS * tab.total
+
+
+def dw_pass(tab, tile, scratch, n):
+    """Launches the dW pass alone (``nfk_dw_pass``) over a bf16 scratch of
+    ``n`` rows laid out as ``tab`` says, and sums its chunks: the dense
+    dW, f32, packed as the dense weights. For tests of the pass; it counts
+    no launch."""
+    if scratch.dtype != torch.bfloat16 or not scratch.is_contiguous() \
+            or scratch.numel() != scratch_values(tab, n):
+        raise ValueError("the scratch must hold %d contiguous bf16 values, "
+                         "got %s %s" % (scratch_values(tab, n), scratch.dtype,
+                                        tuple(scratch.shape)))
+    dw = torch.zeros(tab.n_dense, dtype=torch.float32, device=scratch.device)
+    part = torch.empty(MAX_DW_CHUNKS * tab.n_dense, dtype=torch.float32,
+                       device=scratch.device)
+    if n:
+        run('nfk_dw_pass', scratch.device, ctypes.addressof(tab), tile,
+            scratch.data_ptr(), part.data_ptr(), dw.data_ptr(), n)
+    return dw
+
+
+def dw_reference(tab, scratch, n, dtype=torch.float64):
+    """Plain version of the dW pass: every dense layer's X^T D from the
+    scratch of ``n`` rows laid out as ``tab`` says, in ``dtype``, packed as
+    the dense weights. The sums run over whole 64-row tiles (phase 1 writes
+    a zero d_pre for rows past n)."""
+    tiles = -(-n // TILE_ROWS)
+    s = scratch.to(dtype).view(tiles, TILE_ROWS // 2, tab.total, 2) \
+        .transpose(2, 3).reshape(tiles * TILE_ROWS, tab.total)
+    out = []
+    for l in tab.dense():
+        x = torch.cat([s[:, l.seg1:l.seg1 + l.k1], s[:, l.seg2:l.seg2 + l.k2]],
+                      dim=1)
+        out.append((x.t() @ s[:, l.dpre:l.dpre + l.n]).reshape(-1))
+    return torch.cat(out)
+
+
+# ------ bf16 K1-bwd with dW only, on the tensor cores ------
+
+def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device,
+                        stash_route=False):
+    """Whether a K1-bwd launch on ``device`` runs the tensor-core design
+    (phase 1 and the dW pass, ``nfk_chain_bwd_tc``): bf16 operands, dW
+    without dx, on the default route, and a plan that the library says
+    phase 1 runs (``nfk_chain_bwd_tc_runs`` over :func:`mma_plan`'s
+    widths): a head of at most 8 columns after at least one hidden layer,
+    with no skip after it or into it, and a phase-1 block that fits the
+    card's shared memory. Every other launch (f32, dx, the stash route
+    K1r, a last skip K1w, any other plan) runs the CUDA-core
+    ``chain_bwd_kernel``."""
+    if kernel_dtype(compute_dtype) != torch.bfloat16 or needs_dx \
+            or not needs_dw or stash_route:
+        return False
+    desc, runs = make_desc(mma_plan(plan)), ctypes.c_int(0)
+    run('nfk_chain_bwd_tc_runs', device, ctypes.addressof(desc),
+        ctypes.byref(runs), stream=False)
+    return runs.value != 0
+
+
+def mma_plan(plan):
+    """The plan the tensor-core K1-bwd runs ``plan`` as: its products step
+    K by 16 (mma.sync m16n8k16), so the hidden widths are rounded up to
+    multiples of 16 (the head keeps its width)."""
+    return plan._replace(widths=tuple(round16(w) for w in plan.widths[:-1])
+                         + plan.widths[-1:])
+
+
+def _hidden_rows(plan, i):
+    """Rows of layer i's W that read the previous hidden layer (the
+    embedding's for layer 0)."""
+    return plan.widths[i - 1] if i else embed_dim(plan)
+
+
+def pad_params(plan, params):
+    """``params`` zero-padded to :func:`mma_plan`'s widths: a padded unit
+    has zero weights in and out, so it changes no output and no dW/db of a
+    real unit (:func:`unpad_grads` drops its own)."""
+    kplan, out = mma_plan(plan), []
+    for i, (w, b) in enumerate(params):
+        k, k16 = _hidden_rows(plan, i), _hidden_rows(kplan, i)
+        n, n16 = plan.widths[i], kplan.widths[i]
+        pw = w.new_zeros(k16 + w.shape[0] - k, n16)
+        pw[:k, :n] = w[:k]
+        pw[k16:, :n] = w[k:]
+        pb = b.new_zeros(n16)
+        pb[:n] = b
+        out.append((pw, pb))
+    return out
+
+
+def unpad_grads(plan, grads):
+    """The real units' [(dW, db)] out of :func:`mma_plan`'s."""
+    kplan = mma_plan(plan)
+    return [(torch.cat([dw[:k, :n], dw[k16:, :n]]), db[:n])
+            for (dw, db), k, k16, n in zip(
+                grads, [_hidden_rows(plan, i) for i in range(len(grads))],
+                [_hidden_rows(kplan, i) for i in range(len(grads))],
+                plan.widths)]
+
+
+def tc_bwd_sizes(plan, n, device):
+    """What one tensor-core K1-bwd launch over ``n`` rows needs, as the
+    library sizes it (``nfk_chain_bwd_tc_sizes``): bf16 values of the
+    scratch and of the transposed weights, phase 1's slices and the dW
+    pass's row chunks."""
+    desc = make_desc(plan)
+    scratch, wt = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    slices, chunks = ctypes.c_int(0), ctypes.c_int(0)
+    run('nfk_chain_bwd_tc_sizes', device, ctypes.addressof(desc), n,
+        ctypes.byref(scratch), ctypes.byref(wt), ctypes.byref(slices),
+        ctypes.byref(chunks), stream=False)
+    return {'scratch': scratch.value, 'wt': wt.value, 'slices': slices.value,
+            'chunks': chunks.value}
+
+
+def _chain_bwd_tc(plan, x, dy, params):
+    """Launches ``nfk_chain_bwd_tc`` (phase 1, the dW pass, their sums)
+    over the weights padded to :func:`mma_plan`'s widths where they
+    differ. Returns [(dW, db)] of ``plan``, f32."""
+    kplan = mma_plan(plan)
+    if kplan != plan:
+        params = pad_params(plan, params)
+    (x, dy), desc, _, w_flat, b_flat = prepare(
+        kplan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
+        torch.bfloat16)
+    device, n = x.device, x.shape[0]
+    size = tc_bwd_sizes(kplan, n, device)
+    tab, _ = chain_dw_table(kplan, device)
+    wt = pack_transposed([w for w, _ in params[:-1]], tab)
+    if wt.numel() != size['wt']:
+        raise RuntimeError("transposed weights: %d values, the kernel reads "
+                           "%d" % (wt.numel(), size['wt']))
+    dwb = torch.zeros(w_flat.numel() + b_flat.numel(), dtype=torch.float32,
+                      device=device)
+    part = torch.empty(size['slices'] * (dwb.numel() - tab.n_dense)
+                       + size['chunks'] * tab.n_dense, dtype=torch.float32,
+                       device=device)
+    scratch = torch.empty(size['scratch'], dtype=torch.bfloat16, device=device)
+    if n:
+        run('nfk_chain_bwd_tc', device, ctypes.addressof(desc), x.data_ptr(),
+            dy.data_ptr(), w_flat.data_ptr(), wt.data_ptr(), b_flat.data_ptr(),
+            scratch.data_ptr(), part.data_ptr(), dwb.data_ptr(),
+            size['slices'], size['chunks'], n)
+    grads = unpack_grads(kplan, dwb)
+    return grads if kplan == plan else unpad_grads(plan, grads)
+
+
 def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
                stash_route=False, stash=None):
-    """Launches nfk_chain_bwd for the output cotangent ``dy`` (N, out_dim).
-    Returns (dx or None, [(dW, db)] or None, whether a kernel ran)."""
+    """Launches K1-bwd for the output cotangent ``dy`` (N, out_dim): the
+    tensor-core design where :func:`bwd_on_tensor_cores` says so, else
+    nfk_chain_bwd. Returns (dx or None, [(dW, db)] or None, whether a
+    kernel ran)."""
     if not (needs_dx or needs_dw):
         raise ValueError("K1-bwd launched with nothing to compute")
+    if bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
+                           x.device, stash_route):
+        return None, _chain_bwd_tc(plan, x, dy, params), x.shape[0] > 0
     (x, dy), desc, bf16, w_flat, b_flat = prepare(
         plan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
         compute_dtype)

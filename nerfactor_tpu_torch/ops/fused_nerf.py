@@ -213,66 +213,20 @@ nerf_kernel.launches = 0
 
 # ------ K3-bwd ------
 
-TILE_ROWS = 64  # csrc/mma_bf16.cuh kTcRows: rows of a scratch tile
+def dw_table(nplan, device):
+    """The dense layers (trunk layers, bottleneck, rgb layer 0) of the bf16
+    backward's scratch as the library lays them out
+    (``nfk_nerf_dw_table``): every dense layer's inputs (the embeddings
+    zero-padded to 16 columns), then every dense layer's rounded d_pre.
+    Returns (fused_mlp.DwTable, the dW pass's tile)."""
+    return fm.dw_table('nfk_nerf_dw_table', make_desc(nplan), device)
 
 
-def _round16(k):
-    return (k + 15) // 16 * 16
-
-
-def scratch_columns(nplan):
-    """Columns of a row of the bf16 backward's scratch (csrc/fused_nerf.cu
-    ``nerf_cols``): every dense layer's inputs (the embeddings zero-padded
-    to 16 columns), then every dense layer's rounded d_pre. The scratch
-    pairs its rows: bf16 values (2j, c) and (2j + 1, c) of a 64-row tile
-    are neighbours, and a tile is 32 such row pairs of ``total`` columns."""
-    tp = nplan.trunk_plan
-    w, nl, e = tp.widths[-1], len(tp.widths), fm.embed_dim(tp)
-    c = {'es': 0, 'post0': _round16(e)}
-    c['bott'] = c['post0'] + nl * w
-    c['ev'] = c['bott'] + w
-    c['dpre0'] = c['ev'] + _round16(view_dim(nplan))
-    c['dpre_bott'] = c['dpre0'] + nl * w
-    c['dpre_rgb0'] = c['dpre_bott'] + w
-    c['total'] = c['dpre_rgb0'] + nplan.rgb_widths[0]
-    return c
-
-
-def dense_layers(nplan):
-    """Per dense layer (trunk layers, bottleneck, rgb layer 0; the C
-    ``dense_layer``): (seg1, k1, seg2, k2, dpre, n), its input columns
-    [seg1, seg1 + k1) and [seg2, seg2 + k2) of a scratch row, its d_pre
-    columns from ``dpre`` and its width."""
-    tp = nplan.trunk_plan
-    c = scratch_columns(nplan)
-    w, e = tp.widths[-1], fm.embed_dim(tp)
-    out = []
-    for i in range(len(tp.widths)):
-        skip_in = i > 0 and (i - 1) in tp.skip_at
-        out.append((c['post0'] + (i - 1) * w if i else c['es'],
-                    w if i else e, c['es'], e if skip_in else 0,
-                    c['dpre0'] + i * w, w))
-    out.append((c['post0'] + (len(tp.widths) - 1) * w, w, c['es'], 0,
-                c['dpre_bott'], w))
-    out.append((c['bott'], w, c['ev'], view_dim(nplan), c['dpre_rgb0'],
-                nplan.rgb_widths[0]))
-    return out
-
-
-def pack_transposed(nplan, params, dtype):
-    """The dense weights transposed for the bf16 backward's recompute: per
-    dense layer W^T, (n, round16(k1) + round16(k2)), each K segment
-    zero-padded to a multiple of 16, one after another."""
+def dense_weights(params):
+    """The dense layers' weights of (trunk, sigma, bottleneck, rgb), in
+    :func:`dw_table`'s order."""
     trunk, _, bott_p, rgb_p = params
-    ws = [w for w, _ in trunk] + [bott_p[0][0], rgb_p[0][0]]
-    parts = []
-    for w, (_, k1, _, k2, _, n) in zip(ws, dense_layers(nplan)):
-        k1p = _round16(k1)
-        t = w.new_zeros(n, k1p + _round16(k2))
-        t[:, :k1] = w[:k1].t()
-        t[:, k1p:k1p + k2] = w[k1:].t()
-        parts.append(t.reshape(-1))
-    return torch.cat(parts).to(dtype)
+    return [w for w, _ in trunk] + [bott_p[0][0], rgb_p[0][0]]
 
 
 def check_tensor(name, t, dtype, numel):
@@ -327,8 +281,8 @@ def mma_plan(nplan):
     to multiples of 16."""
     tp = nplan.trunk_plan
     return nplan._replace(
-        trunk_plan=tp._replace(widths=tuple(_round16(w) for w in tp.widths)),
-        rgb_widths=(_round16(nplan.rgb_widths[0]),) + nplan.rgb_widths[1:])
+        trunk_plan=tp._replace(widths=tuple(fm.round16(w) for w in tp.widths)),
+        rgb_widths=(fm.round16(nplan.rgb_widths[0]),) + nplan.rgb_widths[1:])
 
 
 def _leaf_dims(nplan):
@@ -394,7 +348,8 @@ def nerf_kernel_bwd(nplan, pts, views, drgb, dsigma, params,
     bufs = bwd_buffers(kplan, n, compute_dtype, pts.device)
     wt = None
     if bf16:
-        wt = pack_transposed(kplan, params, torch.bfloat16)
+        wt = fm.pack_transposed(dense_weights(params),
+                                dw_table(kplan, pts.device)[0])
         if wt.numel() != bufs['wt_numel']:
             raise RuntimeError("transposed weights: %d values, the kernel "
                                "reads %d" % (wt.numel(), bufs['wt_numel']))
@@ -413,41 +368,6 @@ def nerf_kernel_bwd(nplan, pts, views, drgb, dsigma, params,
 nerf_kernel_bwd.launches = 0
 
 
-def dw_reference(nplan, scratch, n, dtype=torch.float64):
-    """Plain version of K3-bwd's dW pass: every dense layer's X^T D from
-    the scratch of ``n`` rows (:func:`scratch_columns`), in ``dtype``,
-    packed as the dense weights. The sums run over the whole 64-row tiles
-    (phase 1 writes a zero d_pre for rows past n)."""
-    cols = scratch_columns(nplan)['total']
-    tiles = -(-n // TILE_ROWS)
-    s = scratch.to(dtype).view(tiles, TILE_ROWS // 2, cols, 2) \
-        .transpose(2, 3).reshape(tiles * TILE_ROWS, cols)
-    out = []
-    for seg1, k1, seg2, k2, dpre, n_out in dense_layers(nplan):
-        x = torch.cat([s[:, seg1:seg1 + k1], s[:, seg2:seg2 + k2]], dim=1)
-        out.append((x.t() @ s[:, dpre:dpre + n_out]).reshape(-1))
-    return torch.cat(out)
-
-
-def nerf_dw_pass(nplan, scratch, n):
-    """Launches K3-bwd's dW pass alone over a bf16 scratch of ``n`` rows
-    (laid out as :func:`scratch_columns` says) and sums its chunks: the
-    dense dW, f32, packed as the dense weights. For tests of the pass; it
-    counts no launch."""
-    size = bwd_sizes(nplan, n, torch.bfloat16, scratch.device)
-    check_tensor('scratch', scratch, torch.bfloat16, size['scratch'])
-    n_dense = layout(nplan)['n_dense']
-    dw = torch.zeros(n_dense, dtype=torch.float32, device=scratch.device)
-    part = torch.empty(max(size['chunks'], 1) * n_dense, dtype=torch.float32,
-                       device=scratch.device)
-    desc = make_desc(nplan)
-    if n:
-        fm.run('nfk_nerf_dw', scratch.device, ctypes.addressof(desc),
-               scratch.data_ptr(), part.data_ptr(), dw.data_ptr(),
-               size['chunks'], n)
-    return dw
-
-
 def tc_matmul(a, b):
     """The tensor-core building block alone (``nfk_tc_matmul``): a (M, K)
     @ b (N, K)^T in f32 from bf16 operands, through the fragment loaders
@@ -455,10 +375,10 @@ def tc_matmul(a, b):
     m, k = a.shape
     n = b.shape[0]
     a = a.to(torch.bfloat16).contiguous()
-    bt = b.new_zeros(n, _round16(k), dtype=torch.bfloat16)
+    bt = b.new_zeros(n, fm.round16(k), dtype=torch.bfloat16)
     bt[:, :k] = b
     check_tensor('a', a, torch.bfloat16, m * k)
-    check_tensor('b', bt, torch.bfloat16, n * _round16(k))
+    check_tensor('b', bt, torch.bfloat16, n * fm.round16(k))
     c = torch.empty(m, n, dtype=torch.float32, device=a.device)
     fm.run('nfk_tc_matmul', a.device, a.data_ptr(), bt.data_ptr(),
            c.data_ptr(), m, n, k)

@@ -102,58 +102,57 @@ def build():
     return lib_path
 
 
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C entry points' argument types (every one returns an int error code)
+ARGTYPES = {
+    'nfk_chain_fwd': [_PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
+                      _PTR],
+    'nfk_rusink_chain_fwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                             _I64, _PTR],
+    'nfk_chain_bwd_slices': [_PTR, _I32, _I32, _I64, _PTR],
+    'nfk_chain_bwd': [_PTR, _I32, _I32, _I32, _I32, _PTR, _PTR, _PTR, _PTR,
+                      _PTR, _PTR, _PTR, _PTR, _I32, _I64, _PTR],
+    'nfk_chain_bwd_tc_runs': [_PTR, _PTR],
+    'nfk_chain_bwd_tc_sizes': [_PTR, _I64, _PTR, _PTR, _PTR, _PTR],
+    'nfk_chain_bwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                         _PTR, _I32, _I32, _I64, _PTR],
+    'nfk_chain_dw_table': [_PTR, _PTR, _PTR],
+    'nfk_dw_pass': [_PTR, _I32, _PTR, _PTR, _PTR, _I64, _PTR],
+    'nfk_rusink_chain_bwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                             _PTR, _PTR, _PTR, _I64, _PTR],
+    'nfk_nerf_fwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
+                     _PTR],
+    'nfk_nerf_bwd_sizes': [_PTR, _I32, _I64, _PTR, _PTR, _PTR, _PTR],
+    'nfk_nerf_bwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                     _PTR, _PTR, _PTR, _I32, _I32, _I64, _PTR],
+    'nfk_nerf_dw_table': [_PTR, _PTR, _PTR],
+    'nfk_tc_matmul': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
+    'nfk_dot_chain': [_I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR],
+}
+
+
 def load():
     """Builds (if needed) and loads the kernel library, once per
     process."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(build())
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nfk_error_string.argtypes = [i32]
-    lib.nfk_error_string.restype = ctypes.c_char_p
-    lib.nfk_chain_fwd.argtypes = [ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i64,
-                                  ptr]
-    lib.nfk_chain_fwd.restype = i32
-    lib.nfk_rusink_chain_fwd.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
-    lib.nfk_rusink_chain_fwd.restype = i32
-    lib.nfk_chain_bwd_slices.argtypes = [ptr, i32, i32, i64, ptr]
-    lib.nfk_chain_bwd_slices.restype = i32
-    lib.nfk_chain_bwd.argtypes = [
-        ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-        i64, ptr]
-    lib.nfk_chain_bwd.restype = i32
-    lib.nfk_rusink_chain_bwd.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
-    lib.nfk_rusink_chain_bwd.restype = i32
-    lib.nfk_nerf_fwd.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr]
-    lib.nfk_nerf_fwd.restype = i32
-    lib.nfk_nerf_bwd_sizes.argtypes = [ptr, i32, i64, ptr, ptr, ptr, ptr]
-    lib.nfk_nerf_bwd_sizes.restype = i32
-    lib.nfk_nerf_bwd.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-        i64, ptr]
-    lib.nfk_nerf_bwd.restype = i32
-    lib.nfk_nerf_dw.argtypes = [ptr, ptr, ptr, ptr, i32, i64, ptr]
-    lib.nfk_nerf_dw.restype = i32
-    lib.nfk_tc_matmul.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.nfk_tc_matmul.restype = i32
-    _lib = lib
-    return lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        lib.nfk_error_string.argtypes = [_I32]
+        lib.nfk_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
 
 
-def dot_chain_entry():
-    """The library's ``nfk_dot_chain`` (kernel P), bound on first use: the
-    CPU emulation of the sources leaves out ``dot_probe.cu`` (its inline
-    ``mma.sync`` assembly needs the card), so :func:`load` binds only what
-    every build of the library has."""
-    fn = load().nfk_dot_chain
+def entry(name):
+    """The library's C function ``name``, bound to its ARGTYPES on first
+    use. Binding by name keeps a library that lacks an entry loadable: the
+    CPU emulation of the sources leaves out ``dot_probe.cu`` (kernel P's
+    inline ``mma.sync`` assembly needs the card), and an older tree's
+    sources lack later entries."""
+    fn = getattr(load(), name)
     if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i32, ptr, ptr, i32, i64, i64, ptr, ptr]
-        fn.restype = i32
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = _I32
     return fn
 
 

@@ -1,0 +1,285 @@
+"""bf16 K1-bwd with dW only: the tensor-core design (phase 1 and the dW
+pass, ``nfk_chain_bwd_tc``), which the joint step's lvis chain runs.
+
+On the CPU: the rule that sends a K1-bwd launch to it and the scratch's
+layout, both asked of the g++ emulation of the CUDA sources
+(``test_torch_emu``, where the kernel itself is held against the Pallas
+kernel), and the zero padding that takes hidden widths off the mma step
+(16) onto it. On a card (the ``cuda`` marker; they skip here): the kernel
+at the lvis chain's width (128 x 4, the embedding concatenated after
+layer 2, a 1-wide sigmoid head), past one column pass (272) and off the
+mma step (24), against the CUDA-core kernel and autograd of the plain
+version, bit-identical across launches; and the plans the rule keeps on
+the CUDA-core kernel.
+
+  python -m tests.test_torch_chain_tc [--seeds 40,41,42,43]
+
+prints, on a card, the readings behind the card tests' bf16 bounds.
+"""
+
+import argparse
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from nerfactor_tpu_torch.ops import fused_mlp as fm
+from tests.test_torch_chain import PLANS, both, chain_inputs, rel_norm
+
+# The lvis chain at the shipped nerfactor.ini widths
+LVIS = ([(3, 10), (3, 4)], (128,) * 4 + (1,), ('relu',) * 4 + ('sigmoid',),
+        (2,))
+TC_PLANS = {
+    'lvis': LVIS,
+    'w272': ([(3, 4), (3, 2)], (272,) * 3 + (1,),
+             ('relu',) * 3 + ('sigmoid',), (1,)),
+    'w24': ([(3, 4), (3, 2)], (24,) * 4 + (2,), ('relu',) * 4 + (None,),
+            (2,)),
+}
+# Two plans whose bf16 dW-only backward the rule keeps on the CUDA-core
+# kernel: the embedding concatenated into a 1-wide sigmoid head (a skip
+# consumer, which phase 1's tiny head does not take), and hidden layers of
+# 704 (phase 1's block would pass the card's shared memory).
+OFF_TC_PLANS = {
+    'skip_head': ([(3, 4), (3, 2)], (32, 32, 1), ('relu', 'relu', 'sigmoid'),
+                  (1,)),
+    'w704': ([(3, 2)], (704, 704, 1), ('relu', 'relu', 'sigmoid'), (0,)),
+}
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(scope='module')
+def emulated(tmp_path_factory):
+    """The kernel wrappers over the g++ emulation of the CUDA sources, on
+    CPU tensors (test_torch_emu): the rule asks the library."""
+    from tests.test_torch_emu import emulated_library  # it imports TC_PLANS
+    with emulated_library(str(tmp_path_factory.mktemp('emu'))):
+        yield
+
+
+def test_bwd_on_tensor_cores_rule(emulated):
+    """bf16 with dW only on the default route takes the tensor cores;
+    f32, dx, no dW, the stash route, a skip after the head or into it, a
+    head wider than 8, a head-only chain and hidden layers too wide for
+    phase 1's block (640; 512 fits) keep the CUDA-core kernel."""
+    plan = fm.make_plan(*LVIS)
+
+    def rule(pl, cd, needs_dx, needs_dw, **kw):
+        return fm.bwd_on_tensor_cores(pl, cd, needs_dx, needs_dw,
+                                      torch.device('cpu'), **kw)
+    assert rule(plan, BF16, False, True)
+    assert rule(fm.make_plan(*TC_PLANS['w24']), BF16, False, True)
+    assert not rule(plan, None, False, True)
+    assert not rule(plan, torch.float32, False, True)
+    assert not rule(plan, BF16, True, True)
+    assert not rule(plan, BF16, True, False)
+    assert not rule(plan, BF16, False, False)
+    assert not rule(plan, BF16, False, True, stash_route=True)
+    assert not rule(plan._replace(skip_at=(4,)), BF16, False, True)
+    assert not rule(plan._replace(skip_at=(3,)), BF16, False, True)
+    assert not rule(plan._replace(skip_at=(1, 3)), BF16, False, True)
+    for head, ok in ((8, True), (9, False)):
+        wide = plan._replace(widths=plan.widths[:-1] + (head,))
+        assert rule(wide, BF16, False, True) == ok
+    head_only = fm.make_plan([(3, 2)], (1,), ('sigmoid',), ())
+    assert not rule(head_only, BF16, False, True)
+    for width, ok in ((512, True), (640, False)):
+        wide = plan._replace(widths=(width,) * 4 + plan.widths[-1:])
+        assert rule(wide, BF16, False, True) == ok
+
+
+def test_padded_plan_keeps_the_chain_and_its_gradients():
+    """mma_plan rounds the hidden widths up to 16 and keeps the head's;
+    the plain version over pad_params' weights gives the same output and,
+    once unpadded, the same weight gradients (f32)."""
+    _, _, plan, p = both(TC_PLANS['w24'], seed=7)
+    kplan = fm.mma_plan(plan)
+    assert kplan.widths == (32,) * 4 + (2,) and fm.mma_plan(kplan) == kplan
+    assert fm.mma_plan(fm.make_plan(*LVIS)) == fm.make_plan(*LVIS)
+    padded = fm.pad_params(plan, p)
+    assert [tuple(w.shape) for w, _ in padded] == [
+        (d, w) for d, w in zip(fm.layer_in_dims(kplan), kplan.widths)]
+    for (a, b), (w, c) in zip(fm.unpad_grads(plan, padded), p):
+        assert torch.equal(a, w) and torch.equal(b, c)
+    x = torch.from_numpy(chain_inputs(plan, n=10, seed=8))
+    dy = torch.from_numpy(np.random.RandomState(9).uniform(
+        -1, 1, (10, 2)).astype(np.float32))
+
+    def grads(pl, params):
+        leaves = [t.clone().requires_grad_() for pair in params for t in pair]
+        y = fm.chain_reference(pl, x, list(zip(leaves[0::2], leaves[1::2])))
+        return y.detach(), torch.autograd.grad(y, leaves, dy)
+    y, want = grads(plan, p)
+    y_pad, got = grads(kplan, padded)
+    np.testing.assert_allclose(y_pad.numpy(), y.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    got = fm.unpad_grads(plan, list(zip(got[0::2], got[1::2])))
+    for g, w in zip([t for pair in got for t in pair], want):
+        assert g.shape == w.shape and rel_norm(g, w) <= 1e-6
+
+
+def test_scratch_columns_and_dense_layers(emulated):
+    """The lvis chain's scratch row as the library lays it out: the
+    embedding (90, padded to 96), the posts of hidden layers 0-2, the d_pre
+    of all four: 992 columns; the skip consumer (layer 3) reads [post 2 |
+    embedding]; the dW pass takes 64-wide tiles."""
+    plan = fm.make_plan(*LVIS)
+    tab, tile = fm.chain_dw_table(plan, torch.device('cpu'))
+    assert tab.total == 96 + 3 * 128 + 4 * 128 == 992 and tile == 64
+    assert tab.n_dense == 90 * 128 + 2 * 128 * 128 + 218 * 128
+    assert [(l.seg1, l.k1, l.seg2, l.k2, l.dpre, l.n, l.w_off)
+            for l in tab.dense()] == [
+        (0, 90, 0, 0, 480, 128, 0), (96, 128, 0, 0, 608, 128, 90 * 128),
+        (224, 128, 0, 0, 736, 128, 218 * 128),
+        (352, 128, 0, 90, 864, 128, 346 * 128)]
+    assert fm.scratch_values(tab, 65) == 128 * 992
+    ws = [torch.arange(d * w, dtype=torch.float32).view(d, w)
+          for d, w in zip(fm.layer_in_dims(plan), plan.widths[:-1])]
+    wt = fm.pack_transposed(ws, tab)
+    assert wt.dtype == torch.bfloat16
+    assert wt.numel() == 128 * (96 + 128 + 128 + 128 + 96)
+    last = wt[-128 * 224:].view(128, 224).float()
+    assert torch.equal(last[:, :128], ws[3][:128].t().bfloat16().float())
+    assert torch.equal(last[:, 128:218], ws[3][128:].t().bfloat16().float())
+    assert not last[:, 218:].any()
+
+
+# ------ on the card ------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+def card_case(plan_args, n, seed, device):
+    _, _, plan, p = both(plan_args, seed=seed)
+    x = torch.from_numpy(chain_inputs(plan, n=n, seed=seed + 1)).to(device)
+    dy = torch.from_numpy(np.random.RandomState(seed + 2).uniform(
+        -1, 1, (n, plan.widths[-1])).astype(np.float32)).to(device)
+    return plan, [(w.to(device), b.to(device)) for w, b in p], x, dy
+
+
+def leaves(dparams):
+    return [t for pair in dparams for t in pair]
+
+
+def plain_dparams(plan, x, dy, p, td):
+    flat = [t.clone().requires_grad_() for t in leaves(p)]
+    y = fm.chain_reference(plan, x, list(zip(flat[0::2], flat[1::2])), td)
+    return torch.autograd.grad(y, flat, dy)
+
+
+# The two kernels round at the same places and sum in another order; on
+# the card a d_pre that mma.sync's sum puts next to a bf16 rounding
+# boundary rounds the other way. Readings (python -m
+# tests.test_torch_chain_tc, seeds 40-43, the plans of both card tests at
+# 1, 50 and 4,099 rows; NVIDIA H100 80GB HBM3, 700.00 W): the tensor-core
+# kernel <= 0.0051 from the CUDA-core one (worst dW/db leaf; 1.2e-7 where
+# no d_pre flips).
+TC_VS_CUDA_CORE_TOL = 0.01
+# Against autograd of the plain bf16 version, which rounds every cotangent
+# at each cast: at these sizes the bf16 kernels read up to 0.145 (w24, 50
+# rows; w272, 1 row: 0.113), the f32 kernel as close (0.0046-0.10), as for
+# K3's card tests (NERF_DW_TOL): the bound catches a wrong layer or layout
+# (~1), the rounding policy is held by test_torch_emu (against the TPU
+# kernel) and chip_smoke.py (at the joint step's 1,048,576 rows).
+TC_DW_TOL_BF16 = 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 4099, 70001])
+@pytest.mark.parametrize('name', sorted(TC_PLANS))
+def test_tc_bwd_on_card(name, n, cuda, monkeypatch):
+    """One K1-bwd launch through the tensor-core entry: dW/db within
+    TC_VS_CUDA_CORE_TOL of the CUDA-core kernel's, within TC_DW_TOL_BF16
+    of autograd of the plain bf16 version, bit-identical across
+    launches."""
+    plan, p, x, dy = card_case(TC_PLANS[name], n, 60, cuda)
+    calls, run = [], fm.run
+
+    def record(entry, *args, **kw):
+        calls.append(entry)
+        return run(entry, *args, **kw)
+    monkeypatch.setattr(fm, 'run', record)
+    launches = fm.chain_kernel_bwd.launches
+    got = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16, needs_dx=False)[1])
+    torch.cuda.synchronize()
+    assert 'nfk_chain_bwd_tc' in calls and 'nfk_chain_bwd' not in calls
+    assert fm.chain_kernel_bwd.launches == launches + 1
+    core = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16, needs_dx=True)[1])
+    assert max(rel_norm(g, c) for g, c in zip(got, core)) \
+        <= TC_VS_CUDA_CORE_TOL
+    for g, w in zip(got, plain_dparams(plan, x, dy, p, BF16)):
+        assert g.shape == w.shape and rel_norm(g, w) <= TC_DW_TOL_BF16
+    again = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16,
+                                       needs_dx=False)[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(OFF_TC_PLANS))
+def test_off_tc_plans_keep_the_cuda_core_kernel_on_card(name, cuda,
+                                                        monkeypatch):
+    """bf16 K1-bwd with dW only on a plan that the rule keeps off the
+    tensor cores launches the CUDA-core kernel, within TC_DW_TOL_BF16 of
+    autograd of the plain bf16 version."""
+    plan, p, x, dy = card_case(OFF_TC_PLANS[name], 4099, 60, cuda)
+    calls, run = [], fm.run
+
+    def record(entry, *args, **kw):
+        calls.append(entry)
+        return run(entry, *args, **kw)
+    monkeypatch.setattr(fm, 'run', record)
+    got = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16, needs_dx=False)[1])
+    torch.cuda.synchronize()
+    assert 'nfk_chain_bwd' in calls and 'nfk_chain_bwd_tc' not in calls
+    for g, w in zip(got, plain_dparams(plan, x, dy, p, BF16)):
+        assert g.shape == w.shape and rel_norm(g, w) <= TC_DW_TOL_BF16
+
+
+def card_readings(seeds, sizes=(1, 50, 4099)):
+    """Per plan of the card tests (PLANS' widths 16 and 32, TC_PLANS) and
+    size, over ``seeds``: the worst dW/db leaf of bf16 K1-bwd with dW only
+    (the tensor cores) against autograd of the plain bf16 version and
+    against the CUDA-core bf16 kernel, and the least reading of the f32
+    kernel against the plain bf16 version."""
+    out = []
+    device = torch.device('cuda')
+    for name, args in sorted(dict(PLANS, **TC_PLANS).items()):
+        for n in sizes:
+            r = {'chain': name, 'n': n, 'tc_vs_plain': 0.0,
+                 'tc_vs_cuda_core': 0.0, 'f32_kernel_vs_plain': np.inf}
+            for seed in seeds:
+                plan, p, x, dy = card_case(args, n, seed, device)
+                want = plain_dparams(plan, x, dy, p, BF16)
+                got = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16,
+                                                 needs_dx=False)[1])
+                core = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16)[1])
+                f32 = leaves(fm.chain_kernel_bwd(plan, x, dy, p, None)[1])
+
+                def worst(a, b):
+                    return max(rel_norm(u, v) for u, v in zip(a, b))
+                r['tc_vs_plain'] = max(r['tc_vs_plain'], worst(got, want))
+                r['tc_vs_cuda_core'] = max(r['tc_vs_cuda_core'],
+                                           worst(got, core))
+                r['f32_kernel_vs_plain'] = min(r['f32_kernel_vs_plain'],
+                                               worst(f32, want))
+            out.append(r)
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--seeds', default='40,41,42,43')
+    args = parser.parse_args()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for r in card_readings([int(s) for s in args.seeds.split(',')]):
+        print(json.dumps(r))
+
+
+if __name__ == '__main__':
+    main()

@@ -17,12 +17,16 @@ does not. The card's own tests are the ``cuda``-marked ones.
 
 prints the emulated kernels' readings against the plain versions, and
 against the JAX Pallas kernels in interpret mode; ``--csrc`` runs a copy
-of the sources instead (e.g. one with a planted fault).
+of the sources instead (e.g. one with a planted fault; it must have the C
+entry points these wrappers call); ``--k3_bits`` prints only digests of
+bf16 K3-bwd's dW bits, which two trees compare by running it each in its
+own checkout.
 """
 
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -49,10 +53,12 @@ from tests.test_torch_chain import (
     rusink_case)
 from tests.test_torch_chain_routes import (
     LAST_SKIP, case, jax_apply_grads, jax_stash_route)
+from tests.test_torch_chain_tc import OFF_TC_PLANS, TC_PLANS
 from tests.test_torch_nerf import (
     field_inputs, field_params, jax_field, plain_field, small_plan,
     torch_params)
 
+CPU = torch.device('cpu')
 EMU_DIR = join(kernel_lib.CSRC_DIR, 'emu')
 LAUNCH = re.compile(r'(\S+?)<<<(.*?)>>>\((.*?)\);', re.S)
 SHARED = 'extern __shared__ __align__(16) unsigned char smem[];'
@@ -125,9 +131,13 @@ def _check_on_cpu(inputs):
     return [t.contiguous() for _, t, _ in inputs]
 
 
+# The library entries the wrappers called, in order (emulation only)
+CALLS = []
+
+
 def _run_on_cpu(entry, device, *args, stream=True):
-    code = getattr(kernel_lib.load(), entry)(*(args + (None,) if stream
-                                               else args))
+    CALLS.append(entry)
+    code = kernel_lib.entry(entry)(*(args + (None,) if stream else args))
     kernel_lib.check(code, entry)
 
 
@@ -153,17 +163,32 @@ def emulation(lib_path):
          fn.check_tensor) = saved
 
 
-@pytest.fixture(scope='module')
-def emulated(tmp_path_factory):
+@contextlib.contextmanager
+def emulated_library(out_dir):
+    """Within: the kernel wrappers launch the emulation of the package's
+    CUDA sources, compiled into ``out_dir``, on CPU tensors."""
     if shutil.which('g++') is None:
         pytest.skip("needs g++ to compile the emulation of the CUDA sources")
-    lib = build(kernel_lib.CSRC_DIR, str(tmp_path_factory.mktemp('emu')))
-    with emulation(lib):
+    with emulation(build(kernel_lib.CSRC_DIR, out_dir)):
         yield
 
 
+@pytest.fixture(scope='module')
+def emulated(tmp_path_factory):
+    with emulated_library(str(tmp_path_factory.mktemp('emu'))):
+        yield
+
+
+# The joint model's chains (test_torch_chain.PLANS) and two plans only the
+# tensor-core K1-bwd treats apart: hidden width 272, two column passes a
+# product, with a skip consumer; width 24, off the mma step (padded to 32),
+# with a 2-wide linear head.
+CHAIN_PLANS = dict(PLANS, w272=TC_PLANS['w272'], w24=TC_PLANS['w24'])
+ALL_PLANS = dict(CHAIN_PLANS, **OFF_TC_PLANS)
+
+
 def chain_case(name, n, seed):
-    _, _, plan, p = both(PLANS[name], seed=seed)
+    _, _, plan, p = both(ALL_PLANS[name], seed=seed)
     x = torch.from_numpy(chain_inputs(plan, n=n, seed=seed + 1))
     dy = torch.from_numpy(np.random.RandomState(seed + 2).uniform(
         -1, 1, (n, plan.widths[-1])).astype(np.float32))
@@ -243,7 +268,7 @@ def grad_errs(got, want):
 def pallas_grads(name, n, seed, mode):
     """[dx, dW0, db0, ...] of the JAX Pallas kernel in interpret mode, on
     chain_case's inputs."""
-    jplan, jp, _, _ = both(PLANS[name], seed=seed)
+    jplan, jp, _, _ = both(ALL_PLANS[name], seed=seed)
     x = chain_inputs(jplan, n=n, seed=seed + 1)
     dy = np.random.RandomState(seed + 2).uniform(
         -1, 1, (n, jplan.widths[-1])).astype(np.float32)
@@ -265,7 +290,8 @@ def pallas_grads(name, n, seed, mode):
 # over the three plans at 50, 130 and 700 rows and 3 seeds (python -m
 # tests.test_torch_emu): K1-bwd <= 0.0070 (dW/db leaves) and 0.0044 (dx);
 # the f32 kernel, i.e. a kernel that computed the f32 gradient, >= 0.040
-# and 0.013.
+# and 0.013. With dW only, on the tensor cores (tc_readings, CHAIN_PLANS
+# at 50 and 130 rows): <= 0.0070 against >= 0.040.
 PALLAS_TOL_BF16 = 0.01
 
 
@@ -275,6 +301,110 @@ def test_emulated_bf16_grads_match_interpreted_pallas_kernel(name, emulated):
     dx, dw = grad_errs(kernel_grads(plan, x, dy, p, torch.bfloat16),
                        pallas_grads(name, 130, 30, 'bf16'))
     assert dx <= PALLAS_TOL_BF16 and dw <= PALLAS_TOL_BF16
+
+
+# ------ bf16 K1-bwd with dW only: the tensor-core design ------
+
+def tc_dparams(plan, x, dy, p):
+    """bf16 K1-bwd's [dW0, db0, ...] with dW only, checking that the call
+    ran the tensor-core entry."""
+    del CALLS[:]
+    _, dparams = fm.chain_kernel_bwd(plan, x, dy, p, torch.bfloat16,
+                                     needs_dx=False)
+    assert 'nfk_chain_bwd_tc' in CALLS and 'nfk_chain_bwd' not in CALLS
+    return [t for pair in dparams for t in pair]
+
+
+def cuda_core_dparams(plan, x, dy, p, td):
+    """The CUDA-core K1-bwd's [dW0, db0, ...] (with dx, which keeps it on
+    that kernel)."""
+    del CALLS[:]
+    _, dparams = fm.chain_kernel_bwd(plan, x, dy, p, td, needs_dx=True)
+    assert 'nfk_chain_bwd' in CALLS
+    return [t for pair in dparams for t in pair]
+
+
+# The tensor-core K1-bwd rounds where the CUDA-core one does (posts and
+# d_pre at bf16, d_h in f32); only the order of its sums differs. The
+# emulated mma sums its 16 products in order with fmaf, so here the two
+# kernels part by a few f32 roundings. Readings (python -m
+# tests.test_torch_emu, tc_readings) over CHAIN_PLANS at 50 and 130 rows
+# and 3 seeds: the two kernels <= 2.7e-7 apart (worst dW/db leaf); the
+# tensor-core kernel against the Pallas kernel <= 0.0070, the f32 kernel
+# against it >= 0.040. On the card, where a d_pre that mma.sync's sum
+# puts next to a bf16 rounding boundary rounds the other way, the two
+# kernels part by more (test_torch_chain_tc).
+TC_VS_CUDA_CORE_TOL = 1e-5
+
+
+@pytest.mark.parametrize('name', sorted(CHAIN_PLANS))
+def test_emulated_bf16_dw_only_matches_interpreted_pallas_kernel(name,
+                                                                 emulated):
+    """bf16 K1-bwd with dW only (the joint step's lvis call), which runs
+    phase 1 and the dW pass on the tensor cores: every dW/db leaf within
+    PALLAS_TOL_BF16 of the Pallas kernel's in interpret mode, within
+    TC_VS_CUDA_CORE_TOL of the CUDA-core kernel's, and bit-identical across
+    two launches."""
+    plan, p, x, dy = chain_case(name, 130, seed=30)
+    got = tc_dparams(plan, x, dy, p)
+    want = pallas_grads(name, 130, 30, 'bf16')[1:]
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert max(rel_norm(g, w) for g, w in zip(got, want)) <= PALLAS_TOL_BF16
+    core = cuda_core_dparams(plan, x, dy, p, torch.bfloat16)
+    assert max(rel_norm(g, w) for g, w in zip(got, core)) \
+        <= TC_VS_CUDA_CORE_TOL
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, tc_dparams(plan, x, dy, p)))
+
+
+@pytest.mark.parametrize('name', sorted(OFF_TC_PLANS))
+def test_emulated_bf16_dw_only_off_the_tensor_cores(name, emulated):
+    """bf16 K1-bwd with dW only on a plan that the rule keeps off the
+    tensor cores runs the CUDA-core kernel: every dW/db leaf within
+    PALLAS_TOL_BF16 of the Pallas kernel's in interpret mode."""
+    plan, p, x, dy = chain_case(name, 70, seed=30)
+    del CALLS[:]
+    _, dparams = fm.chain_kernel_bwd(plan, x, dy, p, torch.bfloat16,
+                                     needs_dx=False)
+    assert 'nfk_chain_bwd' in CALLS and 'nfk_chain_bwd_tc' not in CALLS
+    got = [t for pair in dparams for t in pair]
+    want = pallas_grads(name, 70, 30, 'bf16')[1:]
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert max(rel_norm(g, w) for g, w in zip(got, want)) <= PALLAS_TOL_BF16
+
+
+@pytest.mark.parametrize('name,n', [('w24', 1), ('w24', 70), ('w272', 1),
+                                    ('w272', 70)])
+def test_emulated_tc_bwd_matches_plain(name, n, emulated):
+    """Past one column pass (272) and off the mma step (24), at 1 and 70
+    rows: the tensor-core K1-bwd's dW/db against autograd of the plain
+    bf16 version within DW_TOL, as every bf16 K1-bwd."""
+    plan, p, x, dy = chain_case(name, n, seed=31)
+    want = plain_grads(plan, x, dy, p, torch.bfloat16)[1][1:]
+    got = tc_dparams(plan, x, dy, p)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and rel_norm(g, w) <= DW_TOL['bf16']
+
+
+@pytest.mark.parametrize('name,n', [('lvis', 1), ('lvis', 130),
+                                    ('normal', 70), ('w272', 130)])
+def test_emulated_chain_dw_pass_matches_float64(name, n, emulated):
+    """The dW pass that K1-bwd shares with K3-bwd, over the chain's table,
+    against X^T D of the same scratch in float64 (a skip consumer's two K
+    segments and a 272-wide layer's two tiles of K and of N included);
+    bit-identical across two launches."""
+    _, _, plan, _ = both(CHAIN_PLANS[name])
+    plan = fm.mma_plan(plan)
+    tab, tile = fm.chain_dw_table(plan, CPU)
+    scratch = dw_scratch(tab, n, seed=n)
+    got = fm.dw_pass(tab, tile, scratch, n)
+    want = fm.dw_reference(tab, scratch, n)
+    n_hidden = sum(d * w for d, w in zip(fm.layer_in_dims(plan),
+                                         plan.widths[:-1]))
+    assert got.shape == want.shape == (n_hidden,)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got, fm.dw_pass(tab, tile, scratch, n))
 
 
 # ------ K1r (the stash route) and K1w (a skip after the last layer) ------
@@ -519,12 +649,11 @@ def test_emulated_tc_matmul_matches_float64(m, n, k, emulated):
                                atol=1e-5)
 
 
-def dw_scratch(nplan, n, seed):
-    """A bf16 scratch of n rows (whole 64-row tiles) of values in [-1, 1)."""
-    cols = fn.scratch_columns(nplan)['total']
-    tiles = -(-n // fn.TILE_ROWS)
+def dw_scratch(tab, n, seed):
+    """A bf16 scratch of n rows (whole 64-row tiles) laid out as the
+    fused_mlp.DwTable ``tab`` says, of values in [-1, 1)."""
     return bf16_values(np.random.RandomState(seed),
-                       (tiles * fn.TILE_ROWS * cols,))
+                       (fm.scratch_values(tab, n),))
 
 
 @pytest.mark.parametrize('name,n', [('w32', 1), ('w32', 50), ('w32', 130),
@@ -535,13 +664,14 @@ def test_emulated_dw_pass_matches_float64(name, n, emulated):
     segments included), over 1 to 3 row chunks; bit-identical across two
     launches."""
     nplan = fn.make_nerf_plan(**NERF_PLANS[name])
-    scratch = dw_scratch(nplan, n, seed=n)
-    got = fn.nerf_dw_pass(nplan, scratch, n)
-    want = fn.dw_reference(nplan, scratch, n)
+    tab, tile = fn.dw_table(nplan, CPU)
+    scratch = dw_scratch(tab, n, seed=n)
+    got = fm.dw_pass(tab, tile, scratch, n)
+    want = fm.dw_reference(tab, scratch, n)
     assert got.shape == want.shape == (fn.layout(nplan)['n_dense'],)
     np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5)
-    assert torch.equal(got, fn.nerf_dw_pass(nplan, scratch, n))
+    assert torch.equal(got, fm.dw_pass(tab, tile, scratch, n))
 
 
 # A field whose trunk and rgb hidden widths are off the mma K step (16)
@@ -666,6 +796,35 @@ def readings(seeds=(30, 130, 230), sizes=(50, 130, 700)):
     return out
 
 
+def tc_readings(seeds=(30, 130, 230), sizes=(50, 130)):
+    """Per chain of CHAIN_PLANS and size, over ``seeds``: the worst dW/db
+    leaf of bf16 K1-bwd with dW only (the tensor-core design) against the
+    CUDA-core bf16 kernel and against the Pallas kernel in interpret mode,
+    and the least reading of the f32 kernel against the Pallas kernel."""
+    out = []
+    for name in sorted(CHAIN_PLANS):
+        for n in sizes:
+            r = {'chain': name, 'n': n, 'tc_vs_cuda_core': 0.0,
+                 'tc_vs_pallas': 0.0, 'f32_kernel_vs_pallas': np.inf}
+            for seed in seeds:
+                plan, p, x, dy = chain_case(name, n, seed)
+                got = tc_dparams(plan, x, dy, p)
+                pallas = pallas_grads(name, n, seed, 'bf16')[1:]
+                for key, ref in (
+                        ('tc_vs_cuda_core', cuda_core_dparams(
+                            plan, x, dy, p, torch.bfloat16)),
+                        ('tc_vs_pallas', pallas)):
+                    r[key] = max(r[key], max(
+                        rel_norm(g, w) for g, w in zip(got, ref)))
+                r['f32_kernel_vs_pallas'] = min(
+                    r['f32_kernel_vs_pallas'], max(rel_norm(g, w) for g, w in
+                                                   zip(cuda_core_dparams(
+                                                       plan, x, dy, p, None),
+                                                       pallas)))
+            out.append(r)
+    return out
+
+
 def nerf_readings(seeds=(20, 21), cases=(('w32', 130), ('w256', 70),
                                          ('w272', 70))):
     """Per K3 case, over ``seeds``: the worst dW/db relative norm of the
@@ -689,14 +848,36 @@ def nerf_readings(seeds=(20, 21), cases=(('w32', 130), ('w256', 70),
     return out
 
 
+def k3_bits(seed=20, cases=(('w32', 130), ('w256', 70), ('w272', 70))):
+    """Per K3 case, a digest of bf16 K3-bwd's dW/db bits and of the dW
+    pass's alone (on dw_scratch's values): the same digest from two source
+    trees means the same bits."""
+    out = []
+    for name, n in cases:
+        nplan, p, ins = nerf_case(name, n, seed)
+        grads = nerf_kernel_grads(nplan, ins, p, torch.bfloat16)
+        tab, tile = fn.dw_table(nplan, CPU)
+        dw = fm.dw_pass(tab, tile, dw_scratch(tab, n, seed), n)
+        out.append({'nerf': name, 'n': n, 'seed': seed,
+                    'dw_db_sha256': hashlib.sha256(b''.join(
+                        g.numpy().tobytes() for g in grads)).hexdigest(),
+                    'dw_pass_sha256': hashlib.sha256(
+                        dw.numpy().tobytes()).hexdigest()})
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--csrc', default=kernel_lib.CSRC_DIR,
                         help="directory of the kernel sources to emulate")
+    parser.add_argument('--k3_bits', action='store_true',
+                        help="print only the digests of k3_bits")
     args = parser.parse_args()
     with tempfile.TemporaryDirectory() as tmp:
         with emulation(build(args.csrc, tmp)):
-            for r in readings() + nerf_readings():
+            rows = k3_bits() if args.k3_bits else \
+                readings() + tc_readings() + nerf_readings()
+            for r in rows:
                 print(json.dumps(r))
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import fused_nerf as fn
 from tests.test_torch_chain import DTYPES, TOL, rel_norm
 from tests.test_torch_emu import (
@@ -132,10 +133,11 @@ def test_tc_matmul_matches_float64_on_card(m, n, k, cuda):
                                     ('w256', 5000)])
 def test_dw_pass_matches_float64_on_card(name, n, cuda):
     nplan = fn.make_nerf_plan(**NERF_PLANS[name])
-    scratch = dw_scratch(nplan, n, seed=n).to(cuda)
-    got = fn.nerf_dw_pass(nplan, scratch, n)
-    want = fn.dw_reference(nplan, scratch, n)
+    tab, tile = fn.dw_table(nplan, cuda)
+    scratch = dw_scratch(tab, n, seed=n).to(cuda)
+    got = fm.dw_pass(tab, tile, scratch, n)
+    want = fm.dw_reference(tab, scratch, n)
     np.testing.assert_allclose(got.double().cpu().numpy(), want.cpu().numpy(),
                                rtol=TC_TOL['rtol'],
                                atol=TC_TOL['atol'] * np.sqrt(n))
-    assert torch.equal(got, fn.nerf_dw_pass(nplan, scratch, n))
+    assert torch.equal(got, fm.dw_pass(tab, tile, scratch, n))
