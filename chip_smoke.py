@@ -6,16 +6,20 @@ rendering.
 
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the CUDA kernels (nerfactor_tpu_torch/csrc) with nvcc for sm_90a,
-   and holds the tensor-core building block of bf16 K3-bwd (mma.sync
-   fragments, loaders, cp.async pipeline; csrc/mma_bf16.cuh) against the
-   float64 product of the same bf16 values, 64 x 96 x 80 and ragged sizes.
+   checks that every tensor-core kernel of the library (the bf16 K1-fwd
+   and K3-fwd, the backwards' phase 1 and dW pass) holds HMMA
+   instructions, and holds their building block (mma.sync fragments,
+   loaders, cp.async pipeline; csrc/mma_bf16.cuh) against the float64
+   product of the same bf16 values, 64 x 96 x 80 and ragged sizes.
 3. Writes a synthetic scene -- the analytic sphere at imh 128 with
    light_h 16: 3 train and 1 val views with a Lambertian rgba.png, 3 test
    views, two .npy light probes -- and seeded BRDF, shape and joint
    checkpoints at the shipped nerfactor.ini widths (128 x 4 MLPs, 512
    lights, bf16 big chains, fused kernels on).
 4. Holds kernels K1-fwd and K2-fwd against their plain PyTorch versions
-   at the shapes one inference chunk gives them, and times both.
+   at the shapes one inference chunk gives them, and times both; the bf16
+   lvis chain's K1-fwd runs on the tensor cores, and is also held against
+   the CUDA-core kernel it replaces and timed beside it.
 5. Inference path: runs ``nerfactor_tpu_torch.test.main`` over the 3 test
    views (OLAT and probe relights on the last), with the kernels' launch
    counters set to 0 just before and read just after, and checks the
@@ -27,7 +31,9 @@ rendering.
    kernel reads against the bf16 plain version (how far the bf16 bounds
    sit from a kernel that computed the f32 gradient), checks that
    K1-bwd's dW is bit-identical across two launches, and times kernels
-   against plain versions, backward alone and forward + backward. bf16
+   against plain versions, backward alone and forward + backward; bf16
+   K1-fwd lvis alone at 1,048,576 rows (tensor cores) against the plain
+   version and the CUDA-core kernel, with its device ms and TFLOP/s. bf16
    K1-bwd lvis with dW only (the tensor-core design) must read below the
    f32 kernel; its phase 1, dW pass and sums are timed apart (device ms
    from a profiler window), beside its scratch bytes, TFLOP/s and the
@@ -53,7 +59,9 @@ rendering.
    samples), bf16 and f32, dW bit-identical across launches, and K1 on
    NeRF's no-views chain (256 x 8, 4-wide head); times both, and each of
    bf16 K3-bwd's kernels (phase 1, the dW pass, the sums: device time from
-   a profiler window) with its scratch bytes and TFLOP/s.
+   a profiler window) with its scratch bytes and TFLOP/s; bf16 K3-fwd
+   (tensor cores) beside the CUDA-core kernel it replaces, with its device
+   ms and TFLOP/s.
 12. Times the steady-state NeRF train step with a profiler window.
 13. The stash route (K1r): holds K1r-fwd (with and without the stash, and
    the stash itself) and K1r-bwd against the stash route's plain version on
@@ -106,12 +114,19 @@ lvis weights.
 
 print only a bf16 backward's readings against the plain bf16 version (and
 float64, for K3), its dW digest, times, per-kernel device ms and ptxas
-report, on one field drawn from the seed: nerf.ini's field under the
+report, with the bf16 forward's output against the plain version, its ms
+and device ms, on one field drawn from the seed: nerf.ini's field under the
 tests' kind of weights (glorot-uniform, small random biases) at 196,608
 rows, or the lvis chain under the shape model's (glorot-uniform, zero
-biases) at 1,048,576 rows. Each calls only its kernel's wrapper, so a copy
-of this script in an older checkout reads that checkout's kernels the
-same way.
+biases) at 1,048,576 rows. Each calls only its kernel's wrappers, so a
+copy of this script in an older checkout reads that checkout's kernels
+the same way.
+
+  python3 chip_smoke.py --view_repeats 4
+
+prints only the seconds per view of test.py and nerf_test.py on the smoke's
+scene, each run 4 times in turns (view_readings; it calls only the entry
+points, so an older checkout reads the same way).
 """
 
 import argparse
@@ -361,11 +376,20 @@ def check_kernels(model, params):
         run_k = lambda: fm.chain_kernel(plan, x, p, cd)  # noqa: E731
         run_p = lambda: fm.chain_reference(plan, x, p, cd)  # noqa: E731
         tol = TOL_BF16 if cd is not None else TOL_F32
-        k1.append({
-            'chain': name, 'rows': x.shape[0],
-            'dtype': 'bf16' if cd is not None else 'f32',
-            'max_abs_err': compare('K1-fwd ' + name, run_k(), run_p(), tol),
-            'tol': tol, 'ms': time_ms(run_k), 'plain_ms': time_ms(run_p)})
+        row = {'chain': name, 'rows': x.shape[0],
+               'dtype': 'bf16' if cd is not None else 'f32',
+               'max_abs_err': compare('K1-fwd ' + name, run_k(), run_p(),
+                                      tol),
+               'tol': tol}
+        if fm.fwd_on_tensor_cores(plan, cd, x.device):
+            row.update(tc_fwd_readings(
+                run_k, lambda: fm.chain_kernel_cuda_core(plan, x, p, cd),
+                lambda: fm.chain_kernel_cuda_core(plan, x, p, None), run_p,
+                chain_bound(plan, x.shape[0], 'bf16', 6, 1)['flop'],
+                K1_FWD_KERNELS))
+        else:
+            row.update(ms=time_ms(run_k), plain_ms=time_ms(run_p))
+        k1.append(row)
     plan, cd = model.plans['brdf'], model.chain_dtype('brdf')
     p = fm.params_from_tree(params['brdf_mlp'], params['brdf_out'])
     run_k = lambda: fr.rusink_kernel(plan, z, ldir, vdir, p, cd)  # noqa: E731
@@ -414,6 +438,33 @@ def time_pair(run_k, run_p, iters=20):
     """(kernel ms, plain ms) by CUDA events, in turns k, p, p, k."""
     k1, p1, p2, k2 = (time_ms(f, iters) for f in (run_k, run_p, run_p, run_k))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def tc_fwd_readings(run, run_core, run_f32, run_plain, flop, kernels,
+                    iters=10):
+    """What the smoke reads of a bf16 forward on the tensor cores (``run``,
+    its output one tensor) at a path's shape: its output against the
+    CUDA-core bf16 kernel's (``run_core``), and the f32 kernel's
+    (``run_f32``, the control) against both that and the plain bf16
+    version (``run_plain``); the output bit-identical across two launches;
+    its ms and the plain version's (CUDA events, in turns), the CUDA-core
+    kernel's ms (the kernel it replaces, timed in the same run), its
+    device ms (kernel_device_ms) and TFLOP/s (``flop``)."""
+    with torch.no_grad():
+        got, core, f32, plain = run(), run_core(), run_f32(), run_plain()
+        out = {'tc_vs_cuda_core_rel_err': rel_norm(got, core),
+               'f32_kernel_vs_cuda_core_rel_err': rel_norm(f32, core),
+               'f32_kernel_max_abs_err': (f32 - plain).abs().max().item(),
+               'fwd_bit_identical': torch.equal(got, run())}
+        if not out['fwd_bit_identical']:
+            raise AssertionError("tensor-core forward: output differs "
+                                 "between two launches on the same inputs")
+        del got, core, f32, plain
+        out['ms'], out['plain_ms'] = time_pair(run, run_plain, iters=iters)
+        out['cuda_core_ms'] = time_ms(run_core, iters=iters)
+        out.update(kernel_device_ms(run, kernels, iters=iters))
+    out['tflops'] = flop / out['ms'] / 1e9
+    return out
 
 
 def step_inputs(model, g):
@@ -508,6 +559,16 @@ def check_backward(model, params):
                               fm.chain_kernel(plan, x, p, cd),
                               fm.chain_reference(plan, x, p, cd),
                               TOL_BF16 if bf16 else TOL_F32)
+        fwd = None
+        if fm.fwd_on_tensor_cores(plan, cd, x.device):
+            # The forward alone at the step's shapes (the tensor cores)
+            fwd = tc_fwd_readings(
+                lambda: fm.chain_kernel(plan, x, p, cd),
+                lambda: fm.chain_kernel_cuda_core(plan, x, p, cd),
+                lambda: fm.chain_kernel_cuda_core(plan, x, p, None),
+                lambda: fm.chain_reference(plan, x, p, cd),
+                chain_bound(plan, x.shape[0], 'bf16', 6, 1)['flop'],
+                K1_FWD_KERNELS)
         # The step's flags: x is data, the weights train
         _, got = fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False)
         leaves = [t.clone().requires_grad_() for t in flat]
@@ -524,6 +585,8 @@ def check_backward(model, params):
                'dtype': 'bf16' if bf16 else 'f32',
                'fwd_max_abs_err': fwd_err, 'dw_rel_err': dw_err,
                'dw_tol': dw_tol}
+        if fwd is not None:
+            row['fwd'] = dict(fwd, rows=x.shape[0], dtype='bf16')
         if bf16:
             row['dx_rel_err'] = check_norm('K1-bwd dx ' + name,
                                            [rel_norm(dx, want[0])], dw_tol)
@@ -556,7 +619,7 @@ def check_backward(model, params):
         del y_p
         if fm.bwd_on_tensor_cores(plan, cd, False, True, x.device):
             # The tensor-core design's kernels, its scratch and its rate
-            row.update(bwd_phases(lambda: fm.chain_kernel_bwd(
+            row.update(kernel_device_ms(lambda: fm.chain_kernel_bwd(
                 plan, x, dy, p, cd, needs_dx=False), K1_BWD_KERNELS))
             size = fm.tc_bwd_sizes(fm.mma_plan(plan), x.shape[0], x.device)
             row.update(scratch_bytes=2 * size['scratch'],
@@ -655,26 +718,39 @@ def check_backward(model, params):
     return k1, k2
 
 
-COUNTERS = {'K1-fwd': fm.chain_kernel, 'K1-bwd': fm.chain_kernel_bwd,
-            'K2-fwd': fr.rusink_kernel, 'K2-bwd': fr.rusink_kernel_bwd,
-            'K3-fwd': fn.nerf_kernel, 'K3-bwd': fn.nerf_kernel_bwd,
-            'K1r-fwd': fm.chain_kernel_stash,
-            'K1r-bwd': fm.chain_kernel_stash_bwd,
-            'K1w-fwd': fm.chain_kernel_last_skip,
-            'K1w-bwd': fm.chain_kernel_last_skip_bwd,
-            'P': dp.dot_chain_kernel}
-JOINT_KERNELS = ('K1-fwd', 'K1-bwd', 'K2-fwd', 'K2-bwd')
+# Each kernel's counter: its wrapper and the wrapper's attribute. K1-fwd
+# and K3-fwd count every launch of their wrappers; "K1-fwd tc" and "K3-fwd
+# tc" those of the tensor-core kernels among them (bf16), the rest being
+# the CUDA-core kernels' (f32).
+COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
+            'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
+            'K1-bwd': (fm.chain_kernel_bwd, 'launches'),
+            'K2-fwd': (fr.rusink_kernel, 'launches'),
+            'K2-bwd': (fr.rusink_kernel_bwd, 'launches'),
+            'K3-fwd': (fn.nerf_kernel, 'launches'),
+            'K3-fwd tc': (fn.nerf_kernel, 'tc_launches'),
+            'K3-bwd': (fn.nerf_kernel_bwd, 'launches'),
+            'K1r-fwd': (fm.chain_kernel_stash, 'launches'),
+            'K1r-bwd': (fm.chain_kernel_stash_bwd, 'launches'),
+            'K1w-fwd': (fm.chain_kernel_last_skip, 'launches'),
+            'K1w-bwd': (fm.chain_kernel_last_skip_bwd, 'launches'),
+            'P': (dp.dot_chain_kernel, 'launches')}
+JOINT_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K2-fwd', 'K2-bwd')
 
 
 def zero_counters():
-    for f in COUNTERS.values():
-        f.launches = 0
+    for f, attr in COUNTERS.values():
+        setattr(f, attr, 0)
+
+
+def counts():
+    return {k: getattr(f, attr) for k, (f, attr) in COUNTERS.items()}
 
 
 def read_counters(names, path):
     """Every kernel's launches since zero_counters; raises if one of
     ``names``, the kernels of ``path``, never launched."""
-    launches = {k: f.launches for k, f in COUNTERS.items()}
+    launches = counts()
     for k in names:
         if launches[k] <= 0:
             raise AssertionError("%s never launched on the %s path"
@@ -753,11 +829,14 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5):
     for _ in range(warmup):
         params, opt_state, loss = step(params, opt_state, arrays, gen)
     torch.cuda.synchronize()
+    before = counts()
     t0 = time.perf_counter()
     for _ in range(iters):
         params, opt_state, loss = step(params, opt_state, arrays, gen)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / iters
+    launches = {k: (v - before[k]) / iters for k, v in counts().items()
+                if v != before[k]}
     if not torch.isfinite(loss):
         raise AssertionError("train step loss %r" % float(loss))
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -778,6 +857,7 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5):
     rays = dataset.bs
     return {'rays': rays, 'ms_per_step': ms,
             'rays_per_sec': rays / (ms / 1e3), 'steps_timed': iters,
+            'launches_per_step': launches,
             'profiled_steps': profiled,
             'device_busy_ms_per_step': busy_us / 1e3 / profiled,
             'device_idle_share': 1 - busy_us / wall_us if busy_us else None,
@@ -837,7 +917,8 @@ def run_nerf_training(data_root):
     run = trainvali.main(['--config', 'nerf.ini', '--config_override',
                           nerf_override(data_root)])
     torch.cuda.synchronize()
-    launches = read_counters(('K3-fwd', 'K3-bwd'), 'NeRF training')
+    launches = read_counters(('K3-fwd', 'K3-fwd tc', 'K3-bwd'),
+                             'NeRF training')
     outdir = run['outdir']
     recs = [json.loads(line) for line in open(
         join(outdir, 'summary_train', 'scalars.jsonl'))]
@@ -879,7 +960,7 @@ def run_nerf_serving(ckpt):
     zero_counters()
     run = nerf_test.main(['--ckpt', ckpt])
     torch.cuda.synchronize()
-    launches = read_counters(('K3-fwd',), 'NeRF inference')
+    launches = read_counters(('K3-fwd', 'K3-fwd tc'), 'NeRF inference')
     if launches['K3-bwd']:
         raise AssertionError("K3-bwd launched %d times on the NeRF "
                              "inference path" % launches['K3-bwd'])
@@ -1039,12 +1120,23 @@ def check_nerf_kernels(model, params, seed=3, timing=True):
             if not row['dw_bit_identical']:
                 raise AssertionError("K3-bwd: dW differs between two "
                                      "launches on the same inputs")
-            if timing and n_s > NERF_COARSE:
+            if timing and n_s > NERF_COARSE and cd is not None:
+                def field(f, dtype):
+                    return lambda: torch.cat(f(nplan, pts, views, p, dtype),
+                                             dim=1)
+                row.update(tc_fwd_readings(
+                    field(fn.nerf_kernel, cd),
+                    field(fn.nerf_kernel_cuda_core, cd),
+                    field(fn.nerf_kernel_cuda_core, None),
+                    field(fn.nerf_reference, cd),
+                    nerf_bound(nplan, n, mode)['flop'], K3_FWD_KERNELS))
+            elif timing and n_s > NERF_COARSE:
                 with torch.no_grad():
                     row['ms'], row['plain_ms'] = time_pair(
                         lambda: fn.nerf_kernel(nplan, pts, views, p, cd),
                         lambda: fn.nerf_reference(nplan, pts, views, p, cd),
                         iters=10)
+            if timing and n_s > NERF_COARSE:
                 row['bwd_ms'], row['bwd_plain_ms'] = time_pair(
                     lambda: fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig,
                                                p, cd),
@@ -1055,7 +1147,7 @@ def check_nerf_kernels(model, params, seed=3, timing=True):
                 row['bwd_tflops'] = bnd['flop'] / row['bwd_ms'] / 1e9
                 row['bwd_bound_ms'] = bnd['bound_ms']
                 if cd is not None:
-                    row.update(bwd_phases(lambda: fn.nerf_kernel_bwd(
+                    row.update(kernel_device_ms(lambda: fn.nerf_kernel_bwd(
                         nplan, pts, views, drgb, dsig, p, cd), K3_BWD_KERNELS))
                     size = fn.bwd_sizes(nplan, n, cd, pts.device)
                     row.update(scratch_bytes=2 * size['scratch'],
@@ -1068,21 +1160,24 @@ def check_nerf_kernels(model, params, seed=3, timing=True):
 
 # The kernels of a bf16 K3-bwd and K1-bwd launch, by the names the
 # profiler gives them (the dW pass, dw_kernel, is the two's own copy of
-# mma_bf16.cuh's)
+# mma_bf16.cuh's), and of a K1-fwd and K3-fwd launch (the names match the
+# tensor-core and the CUDA-core kernel, so that an older tree reads too)
 K3_BWD_KERNELS = (('phase1_ms', 'nerf_bwd_tc_kernel'),
                   ('dw_pass_ms', 'dw_kernel'),
                   ('sums_ms', 'sum_slices_kernel'))
 K1_BWD_KERNELS = (('phase1_ms', 'chain_bwd_tc_kernel'),
                   ('dw_pass_ms', 'dw_kernel'),
                   ('sums_ms', 'sum_slices_kernel'))
+K1_FWD_KERNELS = (('fwd_device_ms', 'chain_fwd'),)
+K3_FWD_KERNELS = (('fwd_device_ms', 'nerf_fwd'),)
 
 
-def bwd_phases(run, kernels, iters=10):
-    """Device ms per call of ``run`` (a bf16 K3-bwd or K1-bwd launch) of
-    each of ``kernels``, from a torch.profiler window over ``iters``
-    calls: phase 1, the dW pass and the slice sums (0 for a kernel the
-    build lacks); the rest of its device time is the wrapper's weight
-    packing."""
+def kernel_device_ms(run, kernels, iters=10, rest='packing_ms'):
+    """Device ms per call of ``run`` (a kernel wrapper's launch) of each of
+    ``kernels``, from a torch.profiler window over ``iters`` calls: for a
+    bf16 backward phase 1, the dW pass and the slice sums (0 for a kernel
+    the build lacks); the rest of its device time (``rest``) is the
+    wrapper's weight packing."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1098,7 +1193,7 @@ def bwd_phases(run, kernels, iters=10):
                 e, 'self_device_time_total', 0.0)
     out = {key: sum(v for k, v in us.items() if name in k) / 1e3 / iters
            for key, name in kernels}
-    out['packing_ms'] = sum(us.values()) / 1e3 / iters - sum(out.values())
+    out[rest] = sum(us.values()) / 1e3 / iters - sum(out.values())
     return out
 
 
@@ -1171,10 +1266,10 @@ def k3_field_readings(seed, iters=10):
     against the float64 gradient, and of both kernels against autograd of
     the plain bf16 version (smoke's comparison); dW bits across two
     launches and their digest; the bf16 backward's ms (CUDA events), each
-    of its kernels' device ms (bwd_phases) and the ptxas report of the
-    K3-bwd kernels.
-    It calls nothing but the K3 wrappers, so it runs the same against an
-    older tree's package."""
+    of its kernels' device ms (kernel_device_ms); K3-fwd's output against
+    the plain bf16 version, its ms and device ms; the ptxas report of the
+    K3 kernels. It calls nothing but nerf_kernel and nerf_kernel_bwd, so it
+    runs the same against an older tree's package."""
     parser = configutil.read_config(configutil.resolve_config_path(
         'nerf.ini'))
     nplan = NerfModel(configutil.Config(parser), device='cuda').nerf_plan
@@ -1211,10 +1306,16 @@ def k3_field_readings(seed, iters=10):
                  fn.unflatten(nplan, l64)), l64,
         (drgb.double(), dsig.double()))]
     del leaves, l64
+    with torch.no_grad():
+        fwd = (lambda cd: torch.cat(fn.nerf_kernel(nplan, pts, views, p, cd),
+                                    dim=1),
+               torch.cat(fn.nerf_reference(nplan, pts, views, p, bf16), dim=1),
+               K3_FWD_KERNELS)
     return dict(seed=seed, rows=n, plain_bf16_vs_f64=worst_leaf(plain, exact),
                 **field_readings(kernel, {'plain_bf16': plain, 'f64': exact},
-                                 K3_BWD_KERNELS, ('nerf_bwd', 'dw_kernel'),
-                                 iters))
+                                 K3_BWD_KERNELS,
+                                 ('nerf_fwd', 'nerf_bwd', 'dw_kernel'), iters,
+                                 fwd))
 
 
 def k1_field_readings(seed, iters=10):
@@ -1223,9 +1324,10 @@ def k1_field_readings(seed, iters=10):
     (the shape model's init) and inputs drawn from ``seed``: dW/db of the
     bf16 kernel and of the f32 kernel against autograd of the plain bf16
     version; dW bits across two launches and their digest; the backward's
-    ms (CUDA events), each of its kernels' device ms (bwd_phases) and the
-    ptxas report of the K1-bwd kernels. It calls nothing but
-    chain_kernel_bwd, so it runs the same against an older tree's
+    ms (CUDA events), each of its kernels' device ms (kernel_device_ms);
+    K1-fwd's output against the plain bf16 version, its ms and device ms;
+    the ptxas report of the K1 kernels. It calls nothing but chain_kernel
+    and chain_kernel_bwd, so it runs the same against an older tree's
     package."""
     plan = LVIS_PLAN
     g = torch.Generator().manual_seed(seed)
@@ -1248,9 +1350,12 @@ def k1_field_readings(seed, iters=10):
     plain = torch.autograd.grad(fm.chain_reference(plan, x, pairs(leaves),
                                                    bf16), leaves, dy)
     del leaves
+    with torch.no_grad():
+        fwd = (lambda cd: fm.chain_kernel(plan, x, p, cd),
+               fm.chain_reference(plan, x, p, bf16), K1_FWD_KERNELS)
     return dict(seed=seed, rows=n, **field_readings(
         kernel, {'plain_bf16': plain}, K1_BWD_KERNELS,
-        ('chain_bwd', 'dw_kernel'), iters))
+        ('chain_fwd', 'chain_bwd', 'dw_kernel'), iters, fwd))
 
 
 def worst_leaf(a, b):
@@ -1258,16 +1363,25 @@ def worst_leaf(a, b):
     return max(rel_norm(x, y) for x, y in zip(a, b))
 
 
-def field_readings(kernel, refs, kernels, ptxas_names, iters):
+def field_readings(kernel, refs, kernels, ptxas_names, iters, fwd):
     """What --field_seed prints of a backward ``kernel(compute_dtype)``
     (its flat dW/db): the bf16 and the f32 kernel's worst dW/db leaf
     against each of ``refs`` (name: flat dW/db); the bf16 dW bits across
     two launches and their digest; the bf16 backward's ms (CUDA events),
-    each of ``kernels``' device ms (bwd_phases) and the ptxas report of
-    the kernels ``ptxas_names`` name."""
+    each of ``kernels``' device ms (kernel_device_ms) and the ptxas report
+    of the kernels ``ptxas_names`` name. ``fwd`` = (run(compute_dtype), the
+    plain bf16 version's output, the forward's kernels): the bf16 and the
+    f32 forward's output against the plain one (relative norm), the bf16
+    forward's ms (CUDA events) and device ms."""
     bf16 = torch.bfloat16
+    run_fwd, plain_fwd, fwd_kernels = fwd
+    with torch.no_grad():
+        out = {'fwd_bf16_vs_plain_bf16': rel_norm(run_fwd(bf16), plain_fwd),
+               'fwd_f32_vs_plain_bf16': rel_norm(run_fwd(None), plain_fwd),
+               'fwd_ms': time_ms(lambda: run_fwd(bf16), iters=iters)}
+        out.update(kernel_device_ms(lambda: run_fwd(bf16), fwd_kernels,
+                                    iters=iters, rest='fwd_packing_ms'))
     got, got_f32 = kernel(bf16), kernel(None)
-    out = {}
     for name, ref in refs.items():
         out['bf16_kernel_vs_' + name] = worst_leaf(got, ref)
         out['f32_kernel_vs_' + name] = worst_leaf(got_f32, ref)
@@ -1276,7 +1390,7 @@ def field_readings(kernel, refs, kernels, ptxas_names, iters):
     out['dw_sha256'] = hashlib.sha256(b''.join(
         t.cpu().numpy().tobytes() for t in got)).hexdigest()
     out['bwd_ms'] = time_ms(lambda: kernel(bf16), iters=iters)
-    out.update(bwd_phases(lambda: kernel(bf16), kernels, iters=iters))
+    out.update(kernel_device_ms(lambda: kernel(bf16), kernels, iters=iters))
     out['ptxas'] = ptxas_report(ptxas_names)
     return out
 
@@ -1323,10 +1437,19 @@ def check_no_views_chain(g):
             else NERF_DW_TOL_F32
         row['dw_rel_err'] = check_norm('K1-bwd no-views %s' % mode, [
             rel_norm(a, b) for a, b in zip(flatten(got), want)], tol)
-        with torch.no_grad():
-            row['ms'], row['plain_ms'] = time_pair(
+        if fm.fwd_on_tensor_cores(plan, cd, x.device):
+            row.update(tc_fwd_readings(
                 lambda: fm.chain_kernel(plan, x, p, cd),
-                lambda: fm.chain_reference(plan, x, p, cd), iters=10)
+                lambda: fm.chain_kernel_cuda_core(plan, x, p, cd),
+                lambda: fm.chain_kernel_cuda_core(plan, x, p, None),
+                lambda: fm.chain_reference(plan, x, p, cd),
+                chain_bound(plan, x.shape[0], 'bf16', 3, 4)['flop'],
+                K1_FWD_KERNELS))
+        else:
+            with torch.no_grad():
+                row['ms'], row['plain_ms'] = time_pair(
+                    lambda: fm.chain_kernel(plan, x, p, cd),
+                    lambda: fm.chain_reference(plan, x, p, cd), iters=10)
         row['bwd_ms'], row['bwd_plain_ms'] = time_pair(
             lambda: fm.chain_kernel_bwd(plan, x, dy, p, cd, needs_dx=False),
             lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
@@ -1478,16 +1601,19 @@ K1W_VS_K1_TOL_BF16 = 0.005
 
 def last_skip_vs_k1(x, dy, p, cd, y, got):
     """K1w against K1 on the same layers without the last skip: K1w-fwd's
-    head column ``y[:, :1]`` against K1-fwd's (bit for bit), and
-    K1w-bwd's dW/db ``got`` against K1-bwd's with dy's head column (dy's
-    embedding columns reach dx alone): bit for bit in f32, the worst
-    leaf's relative norm in bf16."""
+    head column ``y[:, :1]`` against K1-fwd's CUDA-core kernel (bit for
+    bit; in bf16 K1-fwd itself runs on the tensor cores, and its relative
+    norm is reported beside), and K1w-bwd's dW/db ``got`` against
+    K1-bwd's with dy's head column (dy's embedding columns reach dx
+    alone): bit for bit in f32, the worst leaf's relative norm in bf16."""
     with torch.no_grad():
-        head = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
+        head = fm.chain_kernel_cuda_core(NO_LAST_SKIP_PLAN, x, p, cd)
+        head_k1 = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
     k1 = flatten(fm.chain_kernel_bwd(NO_LAST_SKIP_PLAN, x,
                                      dy[:, :1].contiguous(), p, cd,
                                      needs_dx=False)[1])
-    out = {'head_same_as_k1': torch.equal(y[:, :1], head)}
+    out = {'head_same_as_k1': torch.equal(y[:, :1], head),
+           'head_rel_err_vs_k1': rel_norm(y[:, :1], head_k1)}
     if cd is None:
         out['dw_same_as_k1'] = all(torch.equal(a, b)
                                    for a, b in zip(flatten(got), k1))
@@ -1520,7 +1646,8 @@ def check_last_skip(params, lvis_x):
     autograd of it on LAST_SKIP_PLAN with the lvis chain's weights at
     LAST_SKIP_ROWS of the lvis rows, bf16 and f32, with K1's tolerances;
     dW bit-identical across two launches. Witness (last_skip_vs_k1): K1w's
-    head column is bit-identical to K1's on NO_LAST_SKIP_PLAN, and its
+    head column is bit-identical to K1's CUDA-core kernel's on
+    NO_LAST_SKIP_PLAN (in bf16 K1-fwd runs on the tensor cores), and its
     dW/db with dy's head column are K1's bit for bit in f32 and within
     K1W_VS_K1_TOL_BF16 in bf16 (K1-bwd on the tensor cores). The path runs
     the same shapes. Returns (launches on the path, rows)."""
@@ -1651,13 +1778,23 @@ def sass_hmma(names):
     return out
 
 
+TC_KERNELS = ('chain_fwd_tc_kernel', 'nerf_fwd_tc_kernel',
+              'chain_bwd_tc_kernel', 'nerf_bwd_tc_kernel', 'dw_kernel')
+
+
+def hmma_of(kernels, *names):
+    """The entries of sass_hmma's ``kernels`` whose function holds one of
+    ``names``."""
+    return [k for k in kernels if any(n in k['function'] for n in names)]
+
+
 def check_tc_sass():
-    """bf16 K1-bwd's and K3-bwd's kernels run their products on the tensor
-    cores: every copy of phase 1 and of the dW pass in the library holds
-    HMMA instructions."""
-    kernels = sass_hmma(('chain_bwd_tc_kernel', 'nerf_bwd_tc_kernel',
-                         'dw_kernel'))
-    for name in ('chain_bwd_tc_kernel', 'nerf_bwd_tc_kernel', 'dw_kernel'):
+    """The bf16 forwards' and backwards' kernels run their products on the
+    tensor cores: every copy of K1-fwd's and K3-fwd's tensor-core kernels,
+    of phase 1 and of the dW pass in the library holds HMMA
+    instructions."""
+    kernels = sass_hmma(TC_KERNELS)
+    for name in TC_KERNELS:
         found = [k for k in kernels if name in k['function']]
         if not found or not all(k['hmma'] for k in found):
             raise AssertionError("%s: no HMMA in the built kernels: %s"
@@ -1733,7 +1870,7 @@ def run_chain_probe():
     counters zeroed before and read after each: fused must launch K1,
     fused_rowmajor K1r and ref no chain kernel. Returns ({impl: record},
     {impl: launches})."""
-    expect = {'fused': ('K1-fwd', 'K1-bwd'),
+    expect = {'fused': ('K1-fwd', 'K1-fwd tc', 'K1-bwd'),
               'fused_rowmajor': ('K1r-fwd', 'K1r-bwd'), 'ref': ()}
     records, launches = {}, {}
     for impl, kernels in expect.items():
@@ -1909,6 +2046,27 @@ def nerf_bound(nplan, rows, dtype, bwd=False):
                  4 * rows * 10 + w_bytes + 4 * (dense + heads + n_b), dtype)
 
 
+def view_readings(ckpt, data_root, repeats):
+    """Seconds per view of the two serving entry points, test.main on the
+    joint checkpoint ``ckpt`` (3 views, the last with its 512 OLAT
+    relights) and nerf_test.main on a NeRF checkpoint that trainvali.main
+    trains here (nerf_override's run), each run ``repeats`` times in
+    turns: the spread of a tree's own runs, which host work (image writes)
+    dominates. It calls nothing but the entry points, so it runs the same
+    against an older tree's package."""
+    nerf_dir = trainvali.main(['--config', 'nerf.ini', '--config_override',
+                               nerf_override(data_root)])['outdir']
+    nerf_ckpt = join(nerf_dir, 'checkpoints', 'ckpt-4')
+    out = []
+    for r in range(repeats):
+        out.append({'repeat': r,
+                    'joint_view_seconds': test_cli.main(
+                        ['--ckpt', ckpt])['view_seconds'],
+                    'nerf_view_seconds': nerf_test.main(
+                        ['--ckpt', nerf_ckpt])['view_seconds']})
+    return out
+
+
 # The reading modes, per kernel: its bf16 backward on one seeded field
 # (--field_seed), and the readings behind its error bounds (--limit_seeds;
 # each takes the joint experiment's config and the seeds)
@@ -1932,6 +2090,10 @@ def main(argv=None):
         help="k1 or k3 and comma-separated seeds: print only the readings "
              "behind that kernel's error bounds over them (LIMIT_READINGS), "
              "one JSON line each, and stop")
+    parser.add_argument(
+        '--view_repeats', type=int, metavar='N',
+        help="print only the serving entry points' seconds per view, each "
+             "run N times (view_readings), one JSON line each, and stop")
     args = parser.parse_args(argv)
     for opt, table in (('field_seed', FIELD_READINGS),
                        ('limit_seeds', LIMIT_READINGS)):
@@ -1961,10 +2123,14 @@ def main(argv=None):
                        join(probe_dir, name + '.npy'))
     config, ckpt, joint_override = write_experiments(
         data_root, nerf_root, probe_dir)
-    if args.limit_seeds:
-        kernel, seeds = args.limit_seeds
-        for r in LIMIT_READINGS[kernel](
-                config, [int(x) for x in seeds.split(',')]):
+    if args.limit_seeds or args.view_repeats:
+        if args.limit_seeds:
+            kernel, seeds = args.limit_seeds
+            rows = LIMIT_READINGS[kernel](
+                config, [int(x) for x in seeds.split(',')])
+        else:
+            rows = view_readings(ckpt, data_root, args.view_repeats)
+        for r in rows:
             print(json.dumps(r))
         print(gpu)
         return
@@ -1980,7 +2146,8 @@ def main(argv=None):
     # The inference path, through the user's entry point
     zero_counters()
     run = test_cli.main(['--ckpt', ckpt])
-    launches_infer = read_counters(('K1-fwd', 'K2-fwd'), 'inference')
+    launches_infer = read_counters(('K1-fwd', 'K1-fwd tc', 'K2-fwd'),
+                                   'inference')
 
     batch_dirs = ioutil.sortglob(run['outroot'], 'batch?????????')
     if len(batch_dirs) != N_VIEWS:
@@ -2058,9 +2225,9 @@ def main(argv=None):
     src = 'nerfactor_tpu_torch/csrc/'
 
     def entry(name, source, replaces, row, bound_, library_ms=None,
-              **extra):
-        by_path = {p: c[name.split()[0]] for p, c in paths.items()
-                   if c[name.split()[0]]}
+              counter=None, **extra):
+        counter = counter or name.split()[0]
+        by_path = {p: c[counter] for p, c in paths.items() if c[counter]}
         return dict({'name': name, 'route': 'cuda', 'source': src + source,
                      'replaces': replaces,
                      'launches': sum(by_path.values()),
@@ -2071,20 +2238,34 @@ def main(argv=None):
                      'bound_at': dict(bound_, rows=row['rows'],
                                       dtype=row['dtype'])}, **extra)
 
-    lvis = [r for r in k1 if r['chain'] == 'lvis'][0]
     lvis_b = [r for r in k1b if r['chain'] == 'lvis'][0]
+    lvis_f = lvis_b['fwd']
     k1r_lvis = [r for r in k1r if r['chain'] == 'lvis'
                 and r['dtype'] == 'bf16'][0]
     k1w_bf16 = [r for r in k1w if r['dtype'] == 'bf16'][0]
     k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
     k3_bf16 = [r for r in k3_fine if r['dtype'] == 'bf16'][0]
     print(json.dumps({'kernels': [
-        entry('K1-fwd chain_fwd_kernel', 'fused_mlp.cu',
-              'nerfactor_tpu/ops/pallas_mlp.py:1424', lvis,
-              chain_bound(plans['lvis'], lvis['rows'], lvis['dtype'], 6, 1),
+        entry('K1-fwd chain_fwd_tc_kernel', 'fused_mlp.cu',
+              'nerfactor_tpu/ops/pallas_mlp.py:1424', lvis_f,
+              chain_bound(plans['lvis'], lvis_f['rows'], 'bf16', 6, 1),
+              counter='K1-fwd tc',
               max_abs_err=max([r['max_abs_err'] for r in k1]
                               + [r['fwd_max_abs_err'] for r in k1b]
                               + [r['fwd_max_abs_err'] for r in k1_no_views]),
+              tflops=lvis_f['tflops'], fwd_device_ms=lvis_f['fwd_device_ms'],
+              cuda_core_ms=lvis_f['cuda_core_ms'],
+              tc_vs_cuda_core_rel_err=lvis_f['tc_vs_cuda_core_rel_err'],
+              cuda_core_launches_by_path={
+                  p: c['K1-fwd'] - c['K1-fwd tc'] for p, c in paths.items()
+                  if c['K1-fwd'] - c['K1-fwd tc']},
+              launches_per_step={'tc': step['launches_per_step'].get(
+                  'K1-fwd tc', 0), 'all': step['launches_per_step'].get(
+                      'K1-fwd', 0)},
+              launches_per_view={k: launches_infer[c] / N_VIEWS for k, c in (
+                  ('tc', 'K1-fwd tc'), ('all', 'K1-fwd'))},
+              ptxas=ptxas_report(('chain_fwd',)),
+              sass_hmma=hmma_of(tc_sass, 'chain_fwd_tc_kernel'),
               shapes=k1, nerf_no_views=k1_no_views),
         entry('K1-bwd chain_bwd_tc_kernel + dw_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:1497', lvis_b,
@@ -2099,8 +2280,7 @@ def main(argv=None):
               sums_ms=lvis_b['sums_ms'], packing_ms=lvis_b['packing_ms'],
               scratch_bytes=lvis_b['scratch_bytes'], tflops=lvis_b['tflops'],
               ptxas=ptxas_report(('chain_bwd_tc', 'dw_kernel')),
-              sass_hmma=[k for k in tc_sass
-                         if 'nerf_bwd' not in k['function']],
+              sass_hmma=hmma_of(tc_sass, 'chain_bwd_tc_kernel', 'dw_kernel'),
               shapes=k1b),
         entry('K2-fwd rusink_chain_fwd_kernel', 'fused_rusink.cu',
               'nerfactor_tpu/ops/pallas_rusink.py:187', k2,
@@ -2114,13 +2294,24 @@ def main(argv=None):
                           z_dim + 6, 1, bwd=(True, False)),
               max_abs_err=k2b['max_abs_err'],
               max_rel_err={'bf16': k2b['bf16_rel_err']}, shapes=[k2b]),
-        entry('K3-fwd nerf_fwd_kernel', 'fused_nerf.cu',
+        entry('K3-fwd nerf_fwd_tc_kernel', 'fused_nerf.cu',
               'nerfactor_tpu/ops/pallas_nerf.py:153', k3_bf16,
-              nerf_bound(nplan, k3_bf16['rows'], 'bf16'),
+              nerf_bound(nplan, k3_bf16['rows'], 'bf16'), counter='K3-fwd tc',
               max_abs_err=max(r['max_abs_err'] for r in k3
                               if r['dtype'] == 'f32'),
               max_rel_err={'bf16': max(r['out_rel_err'] for r in k3
                                        if 'out_rel_err' in r)},
+              tflops=k3_bf16['tflops'], fwd_device_ms=k3_bf16['fwd_device_ms'],
+              cuda_core_ms=k3_bf16['cuda_core_ms'],
+              tc_vs_cuda_core_rel_err=k3_bf16['tc_vs_cuda_core_rel_err'],
+              f32_cuda_core_ms=[r['ms'] for r in k3_fine
+                                if r['dtype'] == 'f32'][0],
+              launches_per_step={'tc': nerf_step['launches_per_step'].get(
+                  'K3-fwd tc', 0)},
+              launches_per_view={'tc': launches_nerf_test['K3-fwd tc']
+                                 / N_VIEWS},
+              ptxas=ptxas_report(('nerf_fwd',)),
+              sass_hmma=hmma_of(tc_sass, 'nerf_fwd_tc_kernel'),
               shapes=k3),
         entry('K3-bwd nerf_bwd_kernel', 'fused_nerf.cu',
               'nerfactor_tpu/ops/pallas_nerf.py:203',
@@ -2133,8 +2324,8 @@ def main(argv=None):
               packing_ms=k3_bf16['packing_ms'],
               scratch_bytes=k3_bf16['scratch_bytes'],
               tflops=k3_bf16['bwd_tflops'], tc_block=tc_block,
-              sass_hmma=[k for k in tc_sass
-                         if 'chain_bwd' not in k['function']], shapes=k3),
+              sass_hmma=hmma_of(tc_sass, 'nerf_bwd_tc_kernel', 'dw_kernel'),
+              shapes=k3),
         entry('K1r-fwd chain_fwd_kernel (stash route)', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:851', k1r_lvis,
               chain_bound(plans['lvis'], k1r_lvis['rows'], k1r_lvis['dtype'],

@@ -1,10 +1,27 @@
 // Kernels K1-fwd and K1-bwd: the fused posenc -> skip-MLP -> head chain.
 //
-// K1-fwd (chain_fwd_kernel) replaces the TPU kernel
-// nerfactor_tpu/ops/pallas_mlp.py _pallas_forward_trig_t ->
-// _fwd_kernel_trig_t: per row, head(MLP(posenc(x))) with ReLU hidden
-// layers, the embedding concatenated after the layers in skip_after, and
-// a sigmoid/softplus/linear head.
+// K1-fwd replaces the TPU kernel nerfactor_tpu/ops/pallas_mlp.py
+// _pallas_forward_trig_t -> _fwd_kernel_trig_t: per row,
+// head(MLP(posenc(x))) with ReLU hidden layers, the embedding concatenated
+// after the layers in skip_after, and a sigmoid/softplus/linear head. It
+// runs as one of two designs, chosen by a rule on the plan
+// (ops/fused_mlp.py fwd_on_tensor_cores):
+//
+//   * bf16 on the default route, on the plans the tensor-core backward's
+//     phase 1 takes (chain_tc_plan) with a block that fits the card's
+//     shared memory (the joint step's lvis chain, NeRF's no-views chain):
+//     chain_fwd_tc_kernel, a block a 64-row tile, two blocks an SM. It is
+//     the forward half of phase 1 (chain_hidden_tc, one loop for both):
+//     every hidden layer a tc_gemm of the tile's rows in shared memory
+//     with the weights streamed through the cp.async ring, its epilogue
+//     writing bf16(act(v + b)) over its operand; the tiny head in f32 on
+//     the CUDA cores (head_sums). No scratch. What bounds it is what
+//     bounds phase 1: the weight ring's barrier every 32 K, the epilogues
+//     and the head on the CUDA cores, not the tensor cores' rate.
+//   * every other call (f32: the joint model's normal, albedo and brdf_z
+//     heads; the stash route; a skip after the head or into it; a head
+//     wider than 8; hidden layers too wide for the block):
+//     chain_fwd_kernel on the CUDA cores, described below.
 //
 // K1-bwd replaces _pallas_backward_trig_t -> _bwd_kernel_trig_t (with
 // _bwd_layers_trig_t): it recomputes each tile's forward, then returns
@@ -74,16 +91,16 @@
 //     _bwd_kernel): the output row is [head | embedding], and the backward
 //     seeds the embedding's cotangent from dy's trailing columns.
 //
-// K1-fwd is bound by arithmetic too: at full width (128 x 4, skip after
-// layer 2) the lvis chain does ~72k multiply-adds a row against 24 B in
-// and 4 B out. A block keeps a row tile's embedding and activations in
+// K1-fwd is bound by arithmetic: at full width (128 x 4, skip after layer
+// 2) the lvis chain does ~72k multiply-adds a row against 24 B in and 4 B
+// out. chain_fwd_kernel keeps a row tile's embedding and activations in
 // shared memory and streams each layer's weights (~290 KB in f32, more
 // than a block's 227 KB) through a 32 x 128 tile; products on the CUDA
 // cores in f32 from f32 or bf16 operands.
 //
 // Inputs: x (n, raw_dim) f32 row-major; weights packed in JAX layout
 // (w is (din, dout), applied as x @ w), biases f32; for the tensor-core
-// K1-bwd also each hidden layer's transpose (n x (round16(k1) +
+// kernels also each hidden layer's transpose (n x (round16(k1) +
 // round16(k2)), zero-padded segments). Output y (n, out_dim) f32.
 
 #include "chain_mlp.cuh"
@@ -317,26 +334,27 @@ __host__ __device__ inline long long chain_wt_offset(const ChainDesc& d, int i) 
   return off;
 }
 
-// Shared-memory layout of a phase-1 block: raw rows (f32) | the head's
-// cotangent rows (f32) | embedding (bf16) | one activation buffer (bf16) |
-// the ring of weight stages. The buffer holds, in turn, each hidden post
-// and each rounded d_pre: every product's epilogue writes over its own
-// operand (~94 KB at the lvis width, two blocks an SM). Hidden layers
-// wider than one tc_gemm pass (kTcCols) get a second buffer (h2; h2 == h
-// otherwise), and each product writes the other one.
+// Shared-memory layout of a tensor-core block: raw rows (f32) | the
+// head's cotangent rows (f32, the backward's phase 1 only) | embedding
+// (bf16) | one activation buffer (bf16) | the ring of weight stages. The
+// buffer holds, in turn, each hidden post and, in the backward, each
+// rounded d_pre: every product's epilogue writes over its own operand
+// (~94 KB at the lvis width, two blocks an SM). Hidden layers wider than
+// one tc_gemm pass (kTcCols) get a second buffer (h2; h2 == h otherwise),
+// and each product writes the other one.
 struct ChainTcLayout {
   size_t xs, dq, es, h, h2, ws, total;
   int lde, ldh;
 };
 
-__host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d) {
+__host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d, bool bwd) {
   constexpr int R = tc::kTcRows;
   ChainTcLayout s;
   s.lde = tc::tc_ld(d.embed_dim);
   s.ldh = tc::tc_ld(d.max_width);
   s.xs = 0;
   s.dq = align16(s.xs + sizeof(float) * R * d.raw_dim);
-  s.es = align16(s.dq + sizeof(float) * R * d.widths[d.n_layers - 1]);
+  s.es = align16(s.dq + (bwd ? sizeof(float) * R * d.widths[d.n_layers - 1] : 0));
   s.h = align16(s.es + sizeof(bf16) * R * s.lde);
   s.h2 = d.max_width > tc::kTcCols ? align16(s.h + sizeof(bf16) * R * s.ldh) : s.h;
   s.ws = align16(s.h2 + sizeof(bf16) * R * s.ldh);
@@ -344,10 +362,63 @@ __host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d) {
   return s;
 }
 
-inline int check_chain_tc(const ChainDesc& d) {
+// Whether the tensor-core forward (bwd false) or backward's phase 1 (bwd
+// true) runs the plan: chain_tc_plan's plans whose block fits the card's
+// shared memory.
+inline int check_chain_tc(const ChainDesc& d, bool bwd) {
   if (!chain_tc_plan(d)) return kErrBadPlan;
-  if (chain_tc_layout(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  if (chain_tc_layout(d, bwd).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
   return 0;
+}
+
+// The hidden layers' forward on the tensor cores for one 64-row tile whose
+// raw rows are in shared memory (layout L): the embedding, zero-padded to
+// 16 columns, then each hidden layer through tc_gemm, its epilogue writing
+// bf16(act(v + b)) over its operand. kStore (the backward's phase 1): the
+// embedding and the posts that feed a later hidden layer also go to the
+// tile's scratch `st` (kPairs rows of the caller's chain_cols, `cols`).
+// Returns the buffer that holds the last hidden post, which its product's
+// epilogue has just written (no barrier after it). The one forward loop of
+// chain_fwd_tc_kernel and chain_bwd_tc_kernel.
+template <bool kTwoBuffers, bool kStore>
+__device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
+                                 const ChainCols& cols, const bf16* __restrict__ wt,
+                                 const float* __restrict__ bias, unsigned char* smem,
+                                 uint32_t* st) {
+  const float* xs = reinterpret_cast<const float*>(smem + L.xs);
+  bf16* es = reinterpret_cast<bf16*>(smem + L.es);
+  // h holds the latest result; each product writes ho, then the two swap.
+  // With one buffer ho is h, fixed
+  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
+  bf16* ho = kTwoBuffers ? reinterpret_cast<bf16*>(smem + L.h2) : h;
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  const int nh = d.n_layers - 1, e16 = round16(d.embed_dim), ldh = L.ldh;
+  const int total = cols.total;
+  embed_tile(d, xs, es, L.lde);
+  __syncthreads();
+  if (kStore) store_pairs(es, L.lde, e16, st, total, 0);
+  tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
+  for (int i = 0; i < nh; ++i) {
+    const int act = d.acts[i], col = cols.post[i], k = a.k1 + a.k2;
+    const float* b = bias + d.b_off[i];
+    const bf16* wti = wt + chain_wt_offset(d, i);
+    if (kStore && i < nh - 1)
+      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
+      });
+    else
+      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<false>(c0, v, act, b, ho, ldh, st, total, 0);
+      });
+    if (kTwoBuffers) {
+      bf16* t = h;
+      h = ho;
+      ho = t;
+    }
+    const bool skip = d.skip_after[i] != 0;
+    a = tc::TcA{h, ldh, d.widths[i], skip ? es : nullptr, L.lde, skip ? e16 : 0};
+  }
+  return h;
 }
 
 // Phase 1 for one 64-row tile whose raw rows and head cotangent rows are
@@ -363,15 +434,15 @@ __device__ void chain_tile_bwd_tc(const ChainDesc& d, const bf16* __restrict__ w
                                   const bf16* __restrict__ wt, const float* __restrict__ bias,
                                   unsigned char* smem, uint32_t* st, float* gaux) {
   constexpr int R = tc::kTcRows;
-  const ChainTcLayout L = chain_tc_layout(d);
+  const ChainTcLayout L = chain_tc_layout(d, true);
   const ChainCols cols = chain_cols(d);
-  const float* xs = reinterpret_cast<const float*>(smem + L.xs);
   float* dq = reinterpret_cast<float*>(smem + L.dq);
-  bf16* es = reinterpret_cast<bf16*>(smem + L.es);
-  // h holds the latest result; each product writes ho, then the two swap.
-  // With one buffer ho is h, fixed
-  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
-  bf16* ho = kTwoBuffers ? reinterpret_cast<bf16*>(smem + L.h2) : h;
+  // Forward recompute. h holds the last post; each later product writes
+  // ho, then the two swap. With one buffer ho is h, fixed
+  bf16* h = chain_hidden_tc<kTwoBuffers, true>(d, L, cols, wt, bias, smem, st);
+  bf16* ho = h;
+  if (kTwoBuffers)
+    ho = reinterpret_cast<bf16*>(smem + (h == reinterpret_cast<bf16*>(smem + L.h) ? L.h2 : L.h));
   const auto flip = [&] {
     if (kTwoBuffers) {
       bf16* t = h;
@@ -380,34 +451,8 @@ __device__ void chain_tile_bwd_tc(const ChainDesc& d, const bf16* __restrict__ w
     }
   };
   bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-  const int nh = d.n_layers - 1, ne = d.embed_dim, e16 = round16(ne), ldh = L.ldh;
+  const int nh = d.n_layers - 1, ldh = L.ldh;
   const int total = cols.total;
-  // Forward recompute. The embedding's columns up to the next 16 are zero:
-  // the products read them
-  embed_rows<bf16, R>(d, xs, es, L.lde);
-  for (int idx = threadIdx.x; idx < R * 16; idx += kThreads) {
-    const int r = idx / 16, c = idx % 16;
-    if (ne + c < e16) es[r * L.lde + ne + c] = from_f<bf16>(0.f);
-  }
-  __syncthreads();
-  store_pairs(es, L.lde, e16, st, total, 0);
-  tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
-  for (int i = 0; i < nh; ++i) {
-    const int act = d.acts[i], col = cols.post[i], k = a.k1 + a.k2;
-    const float* b = bias + d.b_off[i];
-    const bf16* wti = wt + chain_wt_offset(d, i);
-    if (i < nh - 1)
-      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
-        fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
-      });
-    else
-      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
-        fwd_epilogue<false>(c0, v, act, b, ho, ldh, st, total, 0);
-      });
-    flip();
-    const bool skip = d.skip_after[i] != 0;
-    a = tc::TcA{h, ldh, d.widths[i], skip ? es : nullptr, L.lde, skip ? e16 : 0};
-  }
   __syncthreads();
   // The head (tiny, f32 on the CUDA cores, as chain_tile_bwd's). Each of
   // its sums is split over 2 or 4 neighbouring lanes and joined by
@@ -418,20 +463,10 @@ __device__ void chain_tile_bwd_tc(const ChainDesc& d, const bf16* __restrict__ w
   const bf16* wh = w + d.w_off[nh];  // (kl, no) row-major
   const float* bh = bias + d.b_off[nh];
   float* dbias = gaux + (total_weights(d) - d.w_off[nh]);
-  // Its forward from the last post (4 lanes a row and column, each a
-  // quarter of K), its d_pre in place of dy
-  for (int base = 0; base < 4 * R * no; base += kThreads) {
-    const int idx = base + threadIdx.x, item = idx >> 2, part = idx & 3;
-    const bool live = item < R * no;
-    const int r = live ? item / no : 0, c = live ? item % no : 0;
-    float s = 0.f;
-    if (live)
-      for (int k = part; k < kl; k += 4)
-        s = fmaf(to_f<bf16>(h[r * ldh + k]), to_f<bf16>(wh[k * no + c]), s);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (live && part == 0) dq[item] = activate_bwd(act_h, activate(act_h, s + bh[c]), dq[item]);
-  }
+  // Its forward from the last post, its d_pre in place of dy
+  head_sums(h, ldh, kl, wh, no, [&](int item, int, int c, float s) {
+    dq[item] = activate_bwd(act_h, activate(act_h, s + bh[c]), dq[item]);
+  });
   __syncthreads();
   // db from the unrounded d_pre (warp c sums column c), then the rounding
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -529,7 +564,7 @@ chain_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const float* __res
                     long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int R = tc::kTcRows;
-  const ChainTcLayout L = chain_tc_layout(d);
+  const ChainTcLayout L = chain_tc_layout(d, true);
   const long long tile_words = static_cast<long long>(kPairs) * chain_cols(d).total;
   const long long n_aux = chain_n_aux(d);
   float* gaux = part + blockIdx.x * n_aux;
@@ -564,16 +599,58 @@ inline auto chain_bwd_tc_for(const ChainDesc& d) {
 int chain_bwd_tc(const ChainDesc& d, const float* x, const float* dy, const bf16* w,
                  const bf16* wt, const float* bias, uint32_t* scratch, float* part, float* dwb,
                  int slices, int chunks, long long n, cudaStream_t stream) {
-  if (int err = check_chain_tc(d)) return err;
+  if (int err = check_chain_tc(d, true)) return err;
   if (slices < 1 || chunks < 1) return kErrBadArgs;
   const DwTable tab = chain_dw_table(d);
   float* part_aux = part;
   float* part_dense = part + static_cast<long long>(slices) * chain_n_aux(d);
-  if (int err = launch_with_smem(chain_bwd_tc_for(d), chain_tc_layout(d).total, slices, stream, d,
-                                 x, dy, w, wt, bias, scratch, part_aux, n))
+  if (int err = launch_with_smem(chain_bwd_tc_for(d), chain_tc_layout(d, true).total, slices,
+                                 stream, d, x, dy, w, wt, bias, scratch, part_aux, n))
     return err;
   if (int err = dw_pass<kChainDwTile>(tab, scratch, part_dense, dwb, chunks, n, stream)) return err;
   return sum_slices(part_aux, slices, chain_n_aux(d), dwb + tab.n_dense, stream);
+}
+
+// ------ K1-fwd in bf16 on the tensor cores ------
+
+// A block a 64-row tile: the hidden layers as phase 1 recomputes them
+// (chain_hidden_tc, without the scratch), then the tiny head in f32 on the
+// CUDA cores from the last post (head_sums, as phase 1's head forward),
+// its rows below n written to y.
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* __restrict__ w,
+                    const bf16* __restrict__ wt, const float* __restrict__ bias,
+                    float* __restrict__ y, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const ChainTcLayout L = chain_tc_layout(d, false);
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  for (int idx = threadIdx.x; idx < R * d.raw_dim; idx += kThreads) {
+    const long long r = row0 + idx / d.raw_dim;
+    xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
+  }
+  __syncthreads();
+  const bf16* h =
+      chain_hidden_tc<kTwoBuffers, false>(d, L, chain_cols(d), wt, bias, smem, nullptr);
+  __syncthreads();
+  const int nh = d.n_layers - 1, no = d.widths[nh], act = d.acts[nh];
+  const float* bh = bias + d.b_off[nh];
+  head_sums(h, L.ldh, d.widths[nh - 1], w + d.w_off[nh], no, [&](int item, int r, int c,
+                                                                   float s) {
+    if (row0 + r < n) y[row0 * no + item] = activate(act, s + bh[c]);
+  });
+}
+
+// bf16 K1-fwd on the tensor cores: one block a 64-row tile.
+int chain_fwd_tc(const ChainDesc& d, const float* x, const bf16* w, const bf16* wt,
+                 const float* bias, float* y, long long n, cudaStream_t stream) {
+  if (int err = check_chain_tc(d, false)) return err;
+  const auto kernel = d.max_width > tc::kTcCols ? chain_fwd_tc_kernel<true>
+                                                : chain_fwd_tc_kernel<false>;
+  return launch_with_smem(kernel, chain_tc_layout(d, false).total,
+                          (n + tc::kTcRows - 1) / tc::kTcRows, stream, d, x, w, wt, bias, y, n);
 }
 
 }  // namespace nfk
@@ -639,14 +716,27 @@ int nfk_chain_bwd(const nfk::ChainDesc* desc, int bf16, int phase, int needs_dx,
                                         bias, dx, dwb_part, dwb, slices, n, s);
 }
 
-// Whether nfk_chain_bwd_tc runs the plan (*runs = 1): chain_tc_plan's
-// plans whose phase-1 block fits the card's shared memory. The wrapper's
-// rule (ops/fused_mlp.py bwd_on_tensor_cores) asks it; every other plan
-// keeps chain_bwd_kernel, whose row tile steps down to fit.
-int nfk_chain_bwd_tc_runs(const nfk::ChainDesc* desc, int* runs) {
+// Whether nfk_chain_fwd_tc (bwd 0) or nfk_chain_bwd_tc (bwd != 0) runs the
+// plan (*runs = 1): chain_tc_plan's plans whose block fits the card's
+// shared memory. The wrapper's rules (ops/fused_mlp.py
+// fwd_on_tensor_cores, bwd_on_tensor_cores) ask it; every other plan
+// keeps chain_fwd_kernel or chain_bwd_kernel.
+int nfk_chain_tc_runs(const nfk::ChainDesc* desc, int bwd, int* runs) {
   if (int err = nfk::check_desc(*desc)) return err;
-  *runs = nfk::check_chain_tc(*desc) == 0;
+  *runs = nfk::check_chain_tc(*desc, bwd != 0) == 0;
   return 0;
+}
+
+// K1-fwd in bf16 on the tensor cores: y (n, out_dim) f32 from x. w holds
+// the bf16 weights (the head's are read), wt each hidden layer's
+// transpose, as nfk_chain_bwd_tc takes them.
+int nfk_chain_fwd_tc(const nfk::ChainDesc* desc, const float* x, const void* w, const void* wt,
+                     const float* bias, float* y, long long n, void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (n <= 0) return 0;
+  return nfk::chain_fwd_tc(*desc, x, static_cast<const __nv_bfloat16*>(w),
+                           static_cast<const __nv_bfloat16*>(wt), bias, y, n,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The buffers nfk_chain_bwd_tc needs for n rows, which the wrapper
@@ -656,7 +746,7 @@ int nfk_chain_bwd_tc_runs(const nfk::ChainDesc* desc, int* runs) {
 int nfk_chain_bwd_tc_sizes(const nfk::ChainDesc* desc, long long n, long long* scratch,
                            long long* wt, int* slices, int* chunks) {
   if (int err = nfk::check_desc(*desc)) return err;
-  if (int err = nfk::check_chain_tc(*desc)) return err;
+  if (int err = nfk::check_chain_tc(*desc, true)) return err;
   *scratch = *wt = 0;
   *slices = *chunks = 0;
   if (n <= 0) return 0;
@@ -664,7 +754,7 @@ int nfk_chain_bwd_tc_sizes(const nfk::ChainDesc* desc, long long n, long long* s
   *scratch = tiles * nfk::tc::kTcRows * nfk::chain_cols(*desc).total;
   *wt = nfk::chain_wt_offset(*desc, desc->n_layers - 1);
   *chunks = nfk::dw_chunks(n);
-  return nfk::dw_slices(nfk::chain_bwd_tc_for(*desc), nfk::chain_tc_layout(*desc).total, tiles,
+  return nfk::dw_slices(nfk::chain_bwd_tc_for(*desc), nfk::chain_tc_layout(*desc, true).total, tiles,
                         slices);
 }
 
@@ -689,7 +779,7 @@ int nfk_chain_bwd_tc(const nfk::ChainDesc* desc, const float* x, const float* dy
 // wrapper's transposed weights.
 int nfk_chain_dw_table(const nfk::ChainDesc* desc, nfk::DwTable* tab, int* tile) {
   if (int err = nfk::check_desc(*desc)) return err;
-  if (int err = nfk::check_chain_tc(*desc)) return err;
+  if (int err = nfk::check_chain_tc(*desc, true)) return err;
   *tab = nfk::chain_dw_table(*desc);
   *tile = nfk::kChainDwTile;
   return 0;

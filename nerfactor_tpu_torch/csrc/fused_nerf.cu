@@ -19,8 +19,20 @@
 // ~593k multiply-adds forward (~1.74M backward) against 24 B in and 16 B
 // out, far above the card's operations-per-byte ridge.
 //
-// K3-fwd, and K3-bwd in f32: K1's design (chain_mlp.cuh, whose device code
-// they reuse). A block owns a row tile; both embeddings and all
+// K3-fwd in bf16: nerf_fwd_tc_kernel, the forward half of bf16 K3-bwd's
+// phase 1 below (nerf_field_tc, one loop for both), without the scratch:
+// a block a 64-row tile, two blocks an SM, the trunk, the bottleneck and
+// rgb layer 0 as tensor-core products of the tile's rows in shared memory,
+// each epilogue writing bf16(act(v + b)) over its operand, and the two
+// tiny heads in f32 on the CUDA cores (head_sums, 4 lanes a row and
+// column). It rounds where the CUDA-core bf16 kernel does (posts, the
+// bottleneck and the rgb hidden layer at bf16; heads in f32 from them);
+// only the order of the sums moves. What bounds it is what bounds phase 1:
+// the weight ring's barrier every 32 K and the epilogues, not the tensor
+// cores' rate.
+//
+// K3-fwd in f32, and K3-bwd in f32: K1's design (chain_mlp.cuh, whose
+// device code they reuse). A block owns a row tile; both embeddings and all
 // activations of the tile stay in shared memory; each dense layer streams
 // its weights through a shared-memory tile, the skip consumer and rgb
 // layer 0 reading two K segments ([h | e], [bottleneck | e_view]).
@@ -71,7 +83,7 @@
 //
 // Inputs: pts, views (n, 3) f32 row-major. Dense weights (trunk layers,
 // bottleneck, rgb layer 0) packed in JAX layout (w is (din, dout), applied
-// as x @ w) at type T, and for the bf16 backward each one's transpose
+// as x @ w) at type T, and for the bf16 kernels each one's transpose
 // (dout x (round16(k1) + round16(k2)), zero-padded segments); the heads'
 // weights and all biases in one f32 "aux" buffer. dW/db come back packed
 // as [dense | aux], f32.
@@ -477,21 +489,22 @@ __host__ __device__ inline long long wt_offset(const NerfDesc& d, int i) {
   return off;
 }
 
-// Shared-memory layout of a phase-1 block: raw points and views (f32) |
-// output cotangents [d_rgb | d_sigma] (f32) | embeddings (bf16) | one
-// activation buffer (bf16) | the ring of weight stages. The buffer holds,
-// in turn, each trunk post, the bottleneck, the rgb hidden layer and each
-// rounded d_pre: every product's epilogue writes its result over its own
-// operand, which the product has finished reading. ~112 KB at nerf.ini
-// width, so that two blocks share an SM. A trunk wider than one tc_gemm
-// pass (kTcCols) reads each operand once a pass, so it gets a second
-// buffer (h2; h2 == h otherwise) and each product writes the other one.
+// Shared-memory layout of a tensor-core block: raw points and views (f32)
+// | output cotangents [d_rgb | d_sigma] (f32, the backward's phase 1 only)
+// | embeddings (bf16) | one activation buffer (bf16) | the ring of weight
+// stages. The buffer holds, in turn, each trunk post, the bottleneck, the
+// rgb hidden layer and, in the backward, each rounded d_pre: every
+// product's epilogue writes its result over its own operand, which the
+// product has finished reading. ~112 KB at nerf.ini width, so that two
+// blocks share an SM. A trunk wider than one tc_gemm pass (kTcCols) reads
+// each operand once a pass, so it gets a second buffer (h2; h2 == h
+// otherwise) and each product writes the other one.
 struct NerfTcLayout {
   size_t xp, xv, dout, es, ev, h, h2, ws, total;
   int lde, ldv, ldh, ldq;
 };
 
-__host__ __device__ inline NerfTcLayout nerf_tc_layout(const NerfDesc& d) {
+__host__ __device__ inline NerfTcLayout nerf_tc_layout(const NerfDesc& d, bool bwd) {
   constexpr int R = tc::kTcRows;
   NerfTcLayout s;
   s.lde = tc::tc_ld(d.trunk.embed_dim);
@@ -501,7 +514,7 @@ __host__ __device__ inline NerfTcLayout nerf_tc_layout(const NerfDesc& d) {
   s.xp = 0;
   s.xv = align16(s.xp + sizeof(float) * R * 3);
   s.dout = align16(s.xv + sizeof(float) * R * 3);
-  s.es = align16(s.dout + sizeof(float) * R * s.ldq);
+  s.es = align16(s.dout + (bwd ? sizeof(float) * R * s.ldq : 0));
   s.ev = align16(s.es + sizeof(bf16) * R * s.lde);
   s.h = align16(s.ev + sizeof(bf16) * R * s.ldv);
   s.h2 = trunk_width(d) > tc::kTcCols ? align16(s.h + sizeof(bf16) * R * s.ldh) : s.h;
@@ -510,31 +523,35 @@ __host__ __device__ inline NerfTcLayout nerf_tc_layout(const NerfDesc& d) {
   return s;
 }
 
-// The tensor-core backward takes widths that are multiples of 16 (the mma
-// K step) and a layout that fits the block's shared memory.
-inline int check_nerf_tc(const NerfDesc& d) {
+// The tensor-core forward (bwd false) and backward (bwd true) take widths
+// that are multiples of 16 (the mma K step) and a layout that fits the
+// block's shared memory.
+inline int check_nerf_tc(const NerfDesc& d, bool bwd) {
   if (trunk_width(d) % 16 || d.rgb_hidden % 16) return kErrBadPlan;
-  if (nerf_tc_layout(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  if (nerf_tc_layout(d, bwd).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
   return 0;
 }
 
-// Phase 1 for one 64-row tile whose points, views and output cotangents
-// are in shared memory: the forward recompute and the cotangents of every
-// layer, writing the tile's scratch `st` (kPairs rows of the scratch's
-// `total` words) and adding the heads' dW/db and every db into `gaux`
-// (the aux part of the block's slice). kTwoBuffers: the trunk is wider
-// than one column pass (nerf_tc_layout's h2).
-template <bool kTwoBuffers>
-__device__ void nerf_tile_bwd_tc(const NerfDesc& d, const bf16* __restrict__ w,
-                                 const bf16* __restrict__ wt, const float* __restrict__ aux,
-                                 unsigned char* smem, uint32_t* st, float* gaux) {
-  constexpr int R = tc::kTcRows;
-  const NerfTcLayout L = nerf_tc_layout(d);
-  const NerfCols cols = nerf_cols(d);
+// The field's forward on the tensor cores for one 64-row tile whose points
+// and views are in shared memory (layout L): both embeddings, zero-padded
+// to 16 columns; the trunk, each layer a tc_gemm over the transposed
+// weights, the skip consumer's A [h | e_xyz]; after the trunk a barrier
+// and between(h), which every thread calls with the trunk's output and
+// which must finish reading it before the bottleneck's epilogue writes
+// over it (the product's own barriers order that); the linear
+// bottleneck; rgb layer 0 over [bottleneck | e_view]. Every epilogue
+// writes bf16(act(v + b)) over its operand. kStore (the backward's phase
+// 1): the embeddings, the trunk posts and the bottleneck also go to the
+// tile's scratch `st` (kPairs rows of the caller's nerf_cols, `cols`).
+// Returns the buffer that holds the rgb hidden layer; ends at a barrier.
+// The one forward loop of nerf_fwd_tc_kernel and nerf_bwd_tc_kernel.
+template <bool kTwoBuffers, bool kStore, typename Between>
+__device__ bf16* nerf_field_tc(const NerfDesc& d, const NerfTcLayout& L, const NerfCols& cols,
+                               const bf16* __restrict__ wt, const float* __restrict__ aux,
+                               unsigned char* smem, uint32_t* st, Between between) {
   const ChainDesc& tr = d.trunk;
   const float* xp = reinterpret_cast<const float*>(smem + L.xp);
   const float* xv = reinterpret_cast<const float*>(smem + L.xv);
-  float* dout = reinterpret_cast<float*>(smem + L.dout);
   bf16* es = reinterpret_cast<bf16*>(smem + L.es);
   bf16* ev = reinterpret_cast<bf16*>(smem + L.ev);
   // h holds the latest result; each product writes ho, then the two swap.
@@ -549,52 +566,35 @@ __device__ void nerf_tile_bwd_tc(const NerfDesc& d, const bf16* __restrict__ w,
     }
   };
   bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-  const int width = trunk_width(d), hr = d.rgb_hidden, no = d.rgb_out, ldq = L.ldq;
-  const int ne = tr.embed_dim, nv = d.view.embed_dim, nl = tr.n_layers, ldh = L.ldh;
-  const int e16 = round16(ne), v16 = round16(nv), total = cols.total;
-  // Forward recompute. The embeddings' columns up to the next 16 are zero:
-  // the products read them
-  embed_rows<bf16, R>(tr, xp, es, L.lde);
-  embed_rows<bf16, R>(d.view, xv, ev, L.ldv);
-  for (int idx = threadIdx.x; idx < R * 16; idx += kThreads) {
-    const int r = idx / 16, c = idx % 16;
-    if (ne + c < e16) es[r * L.lde + ne + c] = from_f<bf16>(0.f);
-    if (nv + c < v16) ev[r * L.ldv + nv + c] = from_f<bf16>(0.f);
-  }
+  const int width = trunk_width(d), hr = d.rgb_hidden, nl = tr.n_layers, ldh = L.ldh;
+  const int e16 = round16(tr.embed_dim), v16 = round16(d.view.embed_dim), total = cols.total;
+  embed_tile(tr, xp, es, L.lde);
+  embed_tile(d.view, xv, ev, L.ldv);
   __syncthreads();
-  store_pairs(es, L.lde, e16, st, total, cols.es);
-  store_pairs(ev, L.ldv, v16, st, total, cols.ev);
+  if (kStore) {
+    store_pairs(es, L.lde, e16, st, total, cols.es);
+    store_pairs(ev, L.ldv, v16, st, total, cols.ev);
+  }
   tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
   for (int i = 0; i < nl; ++i) {
     const int act = tr.acts[i], col = cols.post0 + i * width;
     const float* b = aux + tr.b_off[i];
     tc::tc_gemm(a, wt + wt_offset(d, i), a.k1 + a.k2, width, ws,
                 [&](int c0, const float (&v)[tc::kTcM][4]) {
-                  fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
+                  fwd_epilogue<kStore>(c0, v, act, b, ho, ldh, st, total, col);
                 });
     flip();
     const bool skip = tr.skip_after[i] != 0;
     a = tc::TcA{h, ldh, width, skip ? es : nullptr, L.lde, skip ? e16 : 0};
   }
   __syncthreads();
-  // sigma head (tiny, f32, linear): its dW and db from the trunk's output
-  const float* dsig = dout + no;
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += dsig[r * ldq];
-    gaux[d.sigma_b] += s;
-  }
-  for (int k = threadIdx.x; k < width; k += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s = fmaf(to_f<bf16>(h[r * ldh + k]), dsig[r * ldq], s);
-    gaux[d.sigma_w + k] += s;
-  }
+  between(static_cast<const bf16*>(h));
   // The bottleneck, then rgb layer 0 over [bottleneck | e_view] (their
-  // epilogues follow their products' barriers, so the sigma head's reads)
+  // epilogues follow their products' barriers, so between's reads)
   const float* bb = aux + d.bott_b;
   tc::tc_gemm(tc::TcA{h, ldh, width, nullptr, 0, 0}, wt + wt_offset(d, nl), width, width, ws,
               [&](int c0, const float (&v)[tc::kTcM][4]) {
-                fwd_epilogue<true>(c0, v, kNone, bb, ho, ldh, st, total, cols.bott);
+                fwd_epilogue<kStore>(c0, v, kNone, bb, ho, ldh, st, total, cols.bott);
               });
   flip();
   const float* b0 = aux + d.rgb0_b;
@@ -605,6 +605,56 @@ __device__ void nerf_tile_bwd_tc(const NerfDesc& d, const bf16* __restrict__ w,
               });
   flip();
   __syncthreads();
+  return h;
+}
+
+// Phase 1 for one 64-row tile whose points, views and output cotangents
+// are in shared memory: the forward recompute and the cotangents of every
+// layer, writing the tile's scratch `st` (kPairs rows of the scratch's
+// `total` words) and adding the heads' dW/db and every db into `gaux`
+// (the aux part of the block's slice). kTwoBuffers: the trunk is wider
+// than one column pass (nerf_tc_layout's h2).
+template <bool kTwoBuffers>
+__device__ void nerf_tile_bwd_tc(const NerfDesc& d, const bf16* __restrict__ w,
+                                 const bf16* __restrict__ wt, const float* __restrict__ aux,
+                                 unsigned char* smem, uint32_t* st, float* gaux) {
+  constexpr int R = tc::kTcRows;
+  const NerfTcLayout L = nerf_tc_layout(d, true);
+  const NerfCols cols = nerf_cols(d);
+  const ChainDesc& tr = d.trunk;
+  float* dout = reinterpret_cast<float*>(smem + L.dout);
+  const int width = trunk_width(d), hr = d.rgb_hidden, no = d.rgb_out, ldq = L.ldq;
+  const int nl = tr.n_layers, ldh = L.ldh, total = cols.total;
+  // Forward recompute, with the sigma head's (tiny, f32, linear) dW and db
+  // from the trunk's output
+  const float* dsig = dout + no;
+  const auto sigma_grads = [&](const bf16* feat) {
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int r = 0; r < R; ++r) s += dsig[r * ldq];
+      gaux[d.sigma_b] += s;
+    }
+    for (int k = threadIdx.x; k < width; k += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < R; ++r) s = fmaf(to_f<bf16>(feat[r * ldh + k]), dsig[r * ldq], s);
+      gaux[d.sigma_w + k] += s;
+    }
+  };
+  bf16* h = nerf_field_tc<kTwoBuffers, true>(d, L, cols, wt, aux, smem, st, sigma_grads);
+  // h holds the rgb hidden layer; each later product writes ho, then the
+  // two swap. With one buffer ho is h, fixed
+  bf16* ho = h;
+  if (kTwoBuffers)
+    ho = reinterpret_cast<bf16*>(smem + (h == reinterpret_cast<bf16*>(smem + L.h) ? L.h2 : L.h));
+  const auto flip = [&] {
+    if (kTwoBuffers) {
+      bf16* t = h;
+      h = ho;
+      ho = t;
+    }
+  };
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  const int act0 = d.rgb_acts[0];
   // rgb head (tiny, f32): d_pre in place of d_rgb
   const float* w1 = aux + d.rgb1_w;
   if (d.rgb_acts[1] != kNone) {
@@ -701,7 +751,7 @@ nerf_bwd_tc_kernel(NerfDesc d, const float* __restrict__ pts, const float* __res
                    long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int R = tc::kTcRows;
-  const NerfTcLayout L = nerf_tc_layout(d);
+  const NerfTcLayout L = nerf_tc_layout(d, true);
   const long long tile_words = static_cast<long long>(kPairs) * nerf_cols(d).total;
   float* gaux = part + blockIdx.x * d.n_aux;
   for (long long j = threadIdx.x; j < d.n_aux; j += kThreads) gaux[j] = 0.f;
@@ -730,6 +780,38 @@ inline auto nerf_bwd_tc_for(const NerfDesc& d) {
   return trunk_width(d) > tc::kTcCols ? nerf_bwd_tc_kernel<true> : nerf_bwd_tc_kernel<false>;
 }
 
+// K3-fwd in bf16: a block a 64-row tile. The field as phase 1 recomputes
+// it (nerf_field_tc, without the scratch), the sigma head from the trunk's
+// output and the rgb head from the rgb hidden layer in f32 on the CUDA
+// cores (head_sums; the heads' weights f32), their rows below n written
+// to rgb and sigma.
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+nerf_fwd_tc_kernel(NerfDesc d, const float* __restrict__ pts, const float* __restrict__ views,
+                   const bf16* __restrict__ wt, const float* __restrict__ aux,
+                   float* __restrict__ rgb, float* __restrict__ sigma, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const NerfTcLayout L = nerf_tc_layout(d, false);
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  load_rows<R>(pts, 3, row0, n, reinterpret_cast<float*>(smem + L.xp));
+  load_rows<R>(views, 3, row0, n, reinterpret_cast<float*>(smem + L.xv));
+  __syncthreads();
+  const float sigma_b = aux[d.sigma_b];
+  const bf16* h = nerf_field_tc<kTwoBuffers, false>(
+      d, L, nerf_cols(d), wt, aux, smem, nullptr, [&](const bf16* feat) {
+        head_sums(feat, L.ldh, trunk_width(d), aux + d.sigma_w, 1,
+                  [&](int, int r, int, float s) {
+                    if (row0 + r < n) sigma[row0 + r] = s + sigma_b;
+                  });
+      });
+  const int no = d.rgb_out, act = d.rgb_acts[1];
+  const float* b1 = aux + d.rgb1_b;
+  head_sums(h, L.ldh, d.rgb_hidden, aux + d.rgb1_w, no, [&](int item, int r, int c, float s) {
+    if (row0 + r < n) rgb[row0 * no + item] = activate(act, s + b1[c]);
+  });
+}
+
 // The building block alone: c (m x n, f32) = a (m x k, bf16 row-major) @
 // bt^T, bt (n x round16(k), bf16, zero past k) through tc_gemm, a block a
 // 64-row tile of a.
@@ -756,6 +838,17 @@ tc_matmul_kernel(const bf16* __restrict__ a, const bf16* __restrict__ bt,
                     if (r < m && col < n) c[r * n + col] = v[i][e];
                   }
               });
+}
+
+// bf16 K3-fwd on the tensor cores: one block a 64-row tile.
+int nerf_fwd_tc(const NerfDesc& d, const float* pts, const float* views, const bf16* wt,
+                const float* aux, float* rgb, float* sigma, long long n, cudaStream_t stream) {
+  if (int err = check_nerf_tc(d, false)) return err;
+  const auto kernel = trunk_width(d) > tc::kTcCols ? nerf_fwd_tc_kernel<true>
+                                                   : nerf_fwd_tc_kernel<false>;
+  return launch_with_smem(kernel, nerf_tc_layout(d, false).total,
+                          (n + tc::kTcRows - 1) / tc::kTcRows, stream, d, pts, views, wt, aux,
+                          rgb, sigma, n);
 }
 
 template <typename T>
@@ -826,12 +919,13 @@ int nerf_bwd_tc(const NerfDesc& d, const float* pts, const float* views, const f
                 const float* dsigma, const bf16* w, const bf16* wt, const float* aux,
                 uint32_t* scratch, float* part, float* dwb, int slices, int chunks, long long n,
                 cudaStream_t stream) {
-  if (int err = check_nerf_tc(d)) return err;
+  if (int err = check_nerf_tc(d, true)) return err;
   if (slices < 1 || chunks < 1) return kErrBadArgs;
   float* part_aux = part;
   float* part_dense = part + static_cast<long long>(slices) * d.n_aux;
-  if (int err = launch_with_smem(nerf_bwd_tc_for(d), nerf_tc_layout(d).total, slices, stream, d,
-                                 pts, views, drgb, dsigma, w, wt, aux, scratch, part_aux, n))
+  if (int err = launch_with_smem(nerf_bwd_tc_for(d), nerf_tc_layout(d, true).total, slices,
+                                 stream, d, pts, views, drgb, dsigma, w, wt, aux, scratch,
+                                 part_aux, n))
     return err;
   if (int err = dw_pass<kNerfDwTile>(nerf_dw_table(d), scratch, part_dense, dwb, chunks, n,
                                      stream))
@@ -843,7 +937,9 @@ int nerf_bwd_tc(const NerfDesc& d, const float* pts, const float* views, const f
 
 extern "C" {
 
-// K3-fwd. bf16 != 0 selects bf16 operands (w must then hold bf16 values).
+// K3-fwd on the CUDA cores (nerf_fwd_kernel): f32, and the bf16 kernel the
+// tensor-core one is held against. bf16 != 0 selects bf16 operands (w must
+// then hold bf16 values).
 int nfk_nerf_fwd(const nfk::NerfDesc* desc, int bf16, const float* pts, const float* views,
                  const void* w, const float* aux, float* rgb, float* sigma, long long n,
                  void* stream) {
@@ -858,6 +954,18 @@ int nfk_nerf_fwd(const nfk::NerfDesc* desc, int bf16, const float* pts, const fl
                               n, s);
 }
 
+// K3-fwd in bf16 on the tensor cores (nerf_fwd_tc_kernel), over the
+// transposed dense weights wt that nfk_nerf_bwd takes (nfk_nerf_dw_table's
+// layers).
+int nfk_nerf_fwd_tc(const nfk::NerfDesc* desc, const float* pts, const float* views,
+                    const void* wt, const float* aux, float* rgb, float* sigma, long long n,
+                    void* stream) {
+  if (int err = nfk::check_nerf(*desc)) return err;
+  if (n <= 0) return 0;
+  return nfk::nerf_fwd_tc(*desc, pts, views, static_cast<const __nv_bfloat16*>(wt), aux, rgb,
+                          sigma, n, static_cast<cudaStream_t>(stream));
+}
+
 // The buffers nfk_nerf_bwd needs for n rows, which the wrapper allocates.
 // f32: `slices` x (n_dense + n_aux) floats of part. bf16: a scratch of
 // `scratch` bf16 values; the transposed dense weights, `wt` bf16 values;
@@ -869,12 +977,12 @@ int nfk_nerf_bwd_sizes(const nfk::NerfDesc* desc, int bf16, long long n, long lo
   *slices = *chunks = 0;
   if (n <= 0) return 0;
   if (!bf16) return nfk::nerf_bwd_f32_slices(*desc, n, slices);
-  if (int err = nfk::check_nerf_tc(*desc)) return err;
+  if (int err = nfk::check_nerf_tc(*desc, true)) return err;
   const long long tiles = (n + nfk::tc::kTcRows - 1) / nfk::tc::kTcRows;
   *scratch = tiles * nfk::tc::kTcRows * nfk::nerf_cols(*desc).total;
   *wt = nfk::wt_offset(*desc, nfk::n_dense_layers(*desc));
   *chunks = nfk::dw_chunks(n);
-  return nfk::dw_slices(nfk::nerf_bwd_tc_for(*desc), nfk::nerf_tc_layout(*desc).total, tiles,
+  return nfk::dw_slices(nfk::nerf_bwd_tc_for(*desc), nfk::nerf_tc_layout(*desc, true).total, tiles,
                         slices);
 }
 
@@ -903,7 +1011,7 @@ int nfk_nerf_bwd(const nfk::NerfDesc* desc, int bf16, const float* pts, const fl
 // wrapper's transposed weights.
 int nfk_nerf_dw_table(const nfk::NerfDesc* desc, nfk::DwTable* tab, int* tile) {
   if (int err = nfk::check_nerf(*desc)) return err;
-  if (int err = nfk::check_nerf_tc(*desc)) return err;
+  if (int err = nfk::check_nerf_tc(*desc, true)) return err;
   *tab = nfk::nerf_dw_table(*desc);
   *tile = nfk::kNerfDwTile;
   return 0;

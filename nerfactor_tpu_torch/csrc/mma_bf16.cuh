@@ -1,9 +1,10 @@
-// Tensor-core building blocks of the bf16 backwards (K1-bwd with dW only,
-// fused_mlp.cu; K3-bwd, fused_nerf.cu): bf16 products with f32
-// accumulation on mma.sync.aligned.m16n8k16, fed from shared memory with
-// plain 32-bit loads, and cp.async copies for a ring of operand tiles
-// (tc_gemm); the row-paired bf16 scratch that phase 1 writes, its
-// epilogues, and the dW pass over it (dw_kernel).
+// Tensor-core building blocks of the bf16 kernels (K1-fwd and K1-bwd with
+// dW only, fused_mlp.cu; K3-fwd and K3-bwd, fused_nerf.cu): bf16 products
+// with f32 accumulation on mma.sync.aligned.m16n8k16, fed from shared
+// memory with plain 32-bit loads, and cp.async copies for a ring of
+// operand tiles (tc_gemm); the padded embedding and the tiny f32 heads
+// around them; the row-paired bf16 scratch that a backward's phase 1
+// writes, its epilogues, and the dW pass over it (dw_kernel).
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), lane = 4 g + t:
@@ -281,6 +282,48 @@ __device__ void tc_gemm(const TcA& a, const bf16* __restrict__ bt, long long ldb
 
 }  // namespace tc
 
+using tc::bf16;
+using tc::round16;
+
+// ------ around the products: the embedding and the tiny heads ------
+
+// The embedding of a 64-row tile's raw rows `xs` into es (ld lde, bf16),
+// its columns up to the next 16 zero: the products read them. No barrier.
+__device__ inline void embed_tile(const ChainDesc& d, const float* xs, bf16* es, int lde) {
+  constexpr int R = tc::kTcRows;
+  embed_rows<bf16, R>(d, xs, es, lde);
+  const int ne = d.embed_dim, e16 = round16(ne);
+  for (int idx = threadIdx.x; idx < R * 16; idx += kThreads) {
+    const int r = idx / 16, c = idx % 16;
+    if (ne + c < e16) es[r * lde + ne + c] = from_f<bf16>(0.f);
+  }
+}
+
+// A tiny head's sums over a 64-row tile's last post h (ld ldh, k wide,
+// bf16), in f32 on the CUDA cores: for each row r and column c < n_out,
+// s = sum_j h[r][j] w[j][c] (w (k, n_out) row-major at type W), split over
+// 4 neighbouring lanes, each a quarter of K, joined by shuffles in a fixed
+// order; then f(item, r, c, s) on the first of the 4 lanes (item = r n_out
+// + c). Every thread calls it, and every loop runs the same trips on every
+// thread (the shuffles need whole warps).
+template <typename W, typename F>
+__device__ inline void head_sums(const bf16* h, int ldh, int k, const W* __restrict__ w,
+                                 int n_out, F f) {
+  constexpr int R = tc::kTcRows;
+  for (int base = 0; base < 4 * R * n_out; base += kThreads) {
+    const int idx = base + threadIdx.x, item = idx >> 2, part = idx & 3;
+    const bool live = item < R * n_out;
+    const int r = live ? item / n_out : 0, c = live ? item % n_out : 0;
+    float s = 0.f;
+    if (live)
+      for (int j = part; j < k; j += 4)
+        s = fmaf(to_f<bf16>(h[r * ldh + j]), to_f<W>(w[j * n_out + c]), s);
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (live && part == 0) f(item, r, c, s);
+  }
+}
+
 // ------ the row-paired scratch of the bf16 backwards (K1-bwd, K3-bwd) ------
 //
 // Phase 1 of a bf16 backward writes, per 64-row tile, the bf16 inputs and
@@ -291,9 +334,6 @@ __device__ void tc_gemm(const TcA& a, const bf16* __restrict__ bt, long long ldb
 // So phase 1 writes a row pair of neighbouring columns with neighbouring
 // threads, and the dW pass loads the pair of neighbouring K values an mma
 // fragment register holds with one 32-bit load.
-
-using tc::bf16;
-using tc::round16;
 
 constexpr int kPairs = tc::kTcRows / 2;  // row pairs of a tile
 

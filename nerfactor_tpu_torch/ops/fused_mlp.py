@@ -5,7 +5,8 @@ Every hot path of NeRFactor is a small MLP (width 128, depth 4) evaluated
 over rays x 512 lights. :func:`apply_chain` runs one such chain:
 
   * on a CUDA tensor it launches kernel K1-fwd (``csrc/fused_mlp.cu``),
-    which keeps the embedding and all hidden activations on the chip;
+    which keeps the embedding and all hidden activations on the chip (in
+    bf16 on the tensor cores where :func:`fwd_on_tensor_cores` says so);
     under autograd the backward is kernel K1-bwd, which recomputes the
     forward and returns the input and/or weight cotangents;
   * on a CPU tensor it runs :func:`chain_reference`, the plain PyTorch
@@ -44,6 +45,7 @@ embedding is concatenated onto the activation (the next layer sees
 """
 
 import ctypes
+import functools
 import math
 from collections import namedtuple
 
@@ -388,9 +390,10 @@ def _check_route(plan, kernel, for_last_skip):
 
 def _chain_fwd(plan, x, params, compute_dtype, stash_route=False,
                with_stash=False):
-    """Launches nfk_chain_fwd on ``x`` (N, raw_dim) CUDA f32. Returns the
-    (N, out_dim) f32 output, the (N, trig_dim) stash at the operand type
-    (or None) and whether a kernel ran (not for N == 0)."""
+    """Launches nfk_chain_fwd (the CUDA-core chain_fwd_kernel) on ``x`` (N,
+    raw_dim) CUDA f32. Returns the (N, out_dim) f32 output, the (N,
+    trig_dim) stash at the operand type (or None) and whether a kernel ran
+    (not for N == 0)."""
     (x,), desc, bf16, w_flat, b_flat = prepare(
         plan, [('x', x, raw_dim(plan))], params, compute_dtype)
     n = x.shape[0]
@@ -406,16 +409,63 @@ def _chain_fwd(plan, x, params, compute_dtype, stash_route=False,
     return y, stash, n > 0
 
 
+def _chain_fwd_tc(plan, x, params):
+    """Launches ``nfk_chain_fwd_tc`` (bf16 K1-fwd on the tensor cores) on
+    ``x`` (N, raw_dim) CUDA f32, over the weights padded to
+    :func:`mma_plan`'s widths where they differ. Returns the (N, out) f32
+    output, the transposed hidden weights it read and whether a kernel
+    ran."""
+    kplan = mma_plan(plan)
+    if kplan != plan:
+        params = pad_params(plan, params)
+    (x,), desc, _, w_flat, b_flat = prepare(
+        kplan, [('x', x, raw_dim(plan))], params, torch.bfloat16)
+    wt = transposed_weights(kplan, params, x.device)
+    n = x.shape[0]
+    y = torch.empty((n, out_dim(plan)), dtype=torch.float32, device=x.device)
+    if n:
+        run('nfk_chain_fwd_tc', x.device, ctypes.addressof(desc), x.data_ptr(),
+            w_flat.data_ptr(), wt.data_ptr(), b_flat.data_ptr(), y.data_ptr(),
+            n)
+    return y, wt, n > 0
+
+
+def _chain_kernel(plan, x, params, compute_dtype):
+    """K1-fwd: the tensor-core kernel where :func:`fwd_on_tensor_cores`
+    says so, else the CUDA-core one. Returns (y, the transposed hidden
+    weights the tensor-core kernel read, else None); counts the launch as
+    :func:`chain_kernel` says."""
+    _check_route(plan, 'K1-fwd', False)
+    wt = None
+    if fwd_on_tensor_cores(plan, compute_dtype, x.device):
+        y, wt, ran = _chain_fwd_tc(plan, x, params)
+        chain_kernel.tc_launches += ran
+    else:
+        y, _, ran = _chain_fwd(plan, x, params, compute_dtype)
+    chain_kernel.launches += ran
+    return y, wt
+
+
 def chain_kernel(plan, x, params, compute_dtype=None):
     """Launches K1-fwd on ``x`` (N, raw_dim) CUDA f32; returns (N, out) f32.
-    Counts its launches in ``chain_kernel.launches``."""
+    In bf16 on the plans :func:`fwd_on_tensor_cores` takes, that is
+    ``chain_fwd_tc_kernel`` on the tensor cores; every other call runs the
+    CUDA-core ``chain_fwd_kernel``. Counts its launches in
+    ``chain_kernel.launches``, those of the tensor-core kernel also in
+    ``chain_kernel.tc_launches``."""
+    return _chain_kernel(plan, x, params, compute_dtype)[0]
+
+
+chain_kernel.launches = chain_kernel.tc_launches = 0
+
+
+def chain_kernel_cuda_core(plan, x, params, compute_dtype=None):
+    """The CUDA-core K1-fwd (``chain_fwd_kernel``) on any plan without a
+    last skip, in either precision: what :func:`chain_kernel` runs off the
+    tensor cores, and in bf16 the kernel the tensor-core one is held
+    against. Counts no launch."""
     _check_route(plan, 'K1-fwd', False)
-    y, _, ran = _chain_fwd(plan, x, params, compute_dtype)
-    chain_kernel.launches += ran
-    return y
-
-
-chain_kernel.launches = 0
+    return _chain_fwd(plan, x, params, compute_dtype)[0]
 
 
 def chain_kernel_stash(plan, x, params, compute_dtype=None, with_stash=False):
@@ -504,12 +554,14 @@ def dw_table(entry, desc, device):
     return tab, tile.value
 
 
+@functools.lru_cache(maxsize=None)
 def chain_dw_table(plan, device):
     """The hidden layers of the tensor-core K1-bwd's scratch as the
     library lays them out (``nfk_chain_dw_table``): the embedding
     zero-padded to 16 columns, the posts that feed a later hidden layer,
     every hidden layer's rounded d_pre. Returns (:class:`DwTable`, the dW
-    pass's tile)."""
+    pass's tile). Kept per plan and device: the library's answer depends
+    on nothing else, and the kernels' wrappers ask it at every launch."""
     return dw_table('nfk_chain_dw_table', make_desc(plan), device)
 
 
@@ -517,15 +569,19 @@ def pack_transposed(ws, tab):
     """The dense layers' weights ``ws`` (each (k1 + k2, n)) transposed for
     phase 1's recompute, bf16: per layer of ``tab`` W^T, (n, round16(k1) +
     round16(k2)), each K segment zero-padded to a multiple of 16, one after
-    another."""
-    parts = []
-    for w, l in zip(ws, tab.dense()):
-        k1p = round16(l.k1)
-        t = w.new_zeros(l.n, k1p + round16(l.k2))
+    another. Each segment is copied (and rounded to bf16) straight into
+    the one buffer: the forward kernels' wrappers pack at every launch."""
+    widths = [round16(l.k1) + round16(l.k2) for l in tab.dense()]
+    out = ws[0].new_zeros(sum(l.n * k for l, k in zip(tab.dense(), widths)),
+                          dtype=torch.bfloat16)
+    off = 0
+    for w, l, k in zip(ws, tab.dense(), widths):
+        t = out[off:off + l.n * k].view(l.n, k)
         t[:, :l.k1] = w[:l.k1].t()
-        t[:, k1p:k1p + l.k2] = w[l.k1:].t()
-        parts.append(t.reshape(-1))
-    return torch.cat(parts).to(torch.bfloat16)
+        if l.k2:
+            t[:, round16(l.k1):round16(l.k1) + l.k2] = w[l.k1:].t()
+        off += l.n * k
+    return out
 
 
 def scratch_values(tab, n):
@@ -568,26 +624,44 @@ def dw_reference(tab, scratch, n, dtype=torch.float64):
     return torch.cat(out)
 
 
-# ------ bf16 K1-bwd with dW only, on the tensor cores ------
+# ------ bf16 K1-fwd and K1-bwd with dW only, on the tensor cores ------
+
+@functools.lru_cache(maxsize=None)
+def _tc_runs(plan, device, bwd):
+    """Whether the library's tensor-core forward (``bwd`` False) or
+    backward runs ``plan`` as :func:`mma_plan`'s (``nfk_chain_tc_runs``):
+    a head of at most 8 columns after at least one hidden layer, with no
+    skip after it or into it, and a block that fits the card's shared
+    memory. Kept per plan and device, as :func:`chain_dw_table`."""
+    desc, runs = make_desc(mma_plan(plan)), ctypes.c_int(0)
+    run('nfk_chain_tc_runs', device, ctypes.addressof(desc), int(bwd),
+        ctypes.byref(runs), stream=False)
+    return runs.value != 0
+
+
+def fwd_on_tensor_cores(plan, compute_dtype, device, stash_route=False):
+    """Whether a K1-fwd launch on ``device`` runs the tensor-core kernel
+    (``nfk_chain_fwd_tc``): bf16 operands, on the default route, and a
+    plan the library says it runs (:func:`_tc_runs`; a last skip, K1w, is
+    not one). Every other launch (f32, the stash route K1r, K1w, any other
+    plan) runs the CUDA-core ``chain_fwd_kernel``."""
+    if kernel_dtype(compute_dtype) != torch.bfloat16 or stash_route:
+        return False
+    return _tc_runs(plan, device, bwd=False)
+
 
 def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device,
                         stash_route=False):
     """Whether a K1-bwd launch on ``device`` runs the tensor-core design
     (phase 1 and the dW pass, ``nfk_chain_bwd_tc``): bf16 operands, dW
     without dx, on the default route, and a plan that the library says
-    phase 1 runs (``nfk_chain_bwd_tc_runs`` over :func:`mma_plan`'s
-    widths): a head of at most 8 columns after at least one hidden layer,
-    with no skip after it or into it, and a phase-1 block that fits the
-    card's shared memory. Every other launch (f32, dx, the stash route
-    K1r, a last skip K1w, any other plan) runs the CUDA-core
+    phase 1 runs (:func:`_tc_runs`). Every other launch (f32, dx, the
+    stash route K1r, a last skip K1w, any other plan) runs the CUDA-core
     ``chain_bwd_kernel``."""
     if kernel_dtype(compute_dtype) != torch.bfloat16 or needs_dx \
             or not needs_dw or stash_route:
         return False
-    desc, runs = make_desc(mma_plan(plan)), ctypes.c_int(0)
-    run('nfk_chain_bwd_tc_runs', device, ctypes.addressof(desc),
-        ctypes.byref(runs), stream=False)
-    return runs.value != 0
+    return _tc_runs(plan, device, bwd=True)
 
 
 def mma_plan(plan):
@@ -631,6 +705,14 @@ def unpad_grads(plan, grads):
                 plan.widths)]
 
 
+def transposed_weights(kplan, params, device):
+    """The hidden layers' weights of ``params`` transposed for the
+    tensor-core kernels of ``kplan`` (an :func:`mma_plan`), as
+    :func:`pack_transposed` lays them out over the library's table."""
+    tab, _ = chain_dw_table(kplan, device)
+    return pack_transposed([w for w, _ in params[:-1]], tab)
+
+
 def tc_bwd_sizes(plan, n, device):
     """What one tensor-core K1-bwd launch over ``n`` rows needs, as the
     library sizes it (``nfk_chain_bwd_tc_sizes``): bf16 values of the
@@ -646,10 +728,11 @@ def tc_bwd_sizes(plan, n, device):
             'chunks': chunks.value}
 
 
-def _chain_bwd_tc(plan, x, dy, params):
+def _chain_bwd_tc(plan, x, dy, params, wt=None):
     """Launches ``nfk_chain_bwd_tc`` (phase 1, the dW pass, their sums)
     over the weights padded to :func:`mma_plan`'s widths where they
-    differ. Returns [(dW, db)] of ``plan``, f32."""
+    differ, and their transposes ``wt`` (packed here when None). Returns
+    [(dW, db)] of ``plan``, f32."""
     kplan = mma_plan(plan)
     if kplan != plan:
         params = pad_params(plan, params)
@@ -659,7 +742,8 @@ def _chain_bwd_tc(plan, x, dy, params):
     device, n = x.device, x.shape[0]
     size = tc_bwd_sizes(kplan, n, device)
     tab, _ = chain_dw_table(kplan, device)
-    wt = pack_transposed([w for w, _ in params[:-1]], tab)
+    if wt is None:
+        wt = transposed_weights(kplan, params, device)
     if wt.numel() != size['wt']:
         raise RuntimeError("transposed weights: %d values, the kernel reads "
                            "%d" % (wt.numel(), size['wt']))
@@ -679,16 +763,16 @@ def _chain_bwd_tc(plan, x, dy, params):
 
 
 def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
-               stash_route=False, stash=None):
+               stash_route=False, stash=None, wt=None):
     """Launches K1-bwd for the output cotangent ``dy`` (N, out_dim): the
-    tensor-core design where :func:`bwd_on_tensor_cores` says so, else
-    nfk_chain_bwd. Returns (dx or None, [(dW, db)] or None, whether a
-    kernel ran)."""
+    tensor-core design (over ``wt``, see :func:`chain_kernel_bwd`) where
+    :func:`bwd_on_tensor_cores` says so, else nfk_chain_bwd. Returns (dx or
+    None, [(dW, db)] or None, whether a kernel ran)."""
     if not (needs_dx or needs_dw):
         raise ValueError("K1-bwd launched with nothing to compute")
     if bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
                            x.device, stash_route):
-        return None, _chain_bwd_tc(plan, x, dy, params), x.shape[0] > 0
+        return None, _chain_bwd_tc(plan, x, dy, params, wt), x.shape[0] > 0
     (x, dy), desc, bf16, w_flat, b_flat = prepare(
         plan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
         compute_dtype)
@@ -721,15 +805,17 @@ def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
 
 
 def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
-                     needs_dw=True):
+                     needs_dw=True, wt=None):
     """Launches K1-bwd: the cotangents of :func:`chain_kernel` for the
     output cotangent ``dy`` (N, out). Returns (dx (N, raw_dim) or None,
     [(dW, db)] or None), f32, as ``needs_dx`` / ``needs_dw`` ask. dW/db
-    are bit-identical for the same inputs on the same card. Counts its
-    launches in ``chain_kernel_bwd.launches``."""
+    are bit-identical for the same inputs on the same card. ``wt``: the
+    transposed hidden weights that K1-fwd's tensor-core kernel read for
+    these params, which the tensor-core backward then does not pack again.
+    Counts its launches in ``chain_kernel_bwd.launches``."""
     _check_route(plan, 'K1-bwd', False)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
-                                needs_dw)
+                                needs_dw, wt=wt)
     chain_kernel_bwd.launches += ran
     return dx, grads
 
@@ -789,13 +875,16 @@ def _pairs(flat):
 def _forward(plan, x, params, compute_dtype, stash_route, with_stash=False):
     """The route's forward kernel: K1r with ``stash_route``, K1w for a
     last-skip plan, else K1. Returns (y, the K1r stash with
-    ``with_stash``, else None)."""
+    ``with_stash``, else None, the transposed weights K1's tensor-core
+    kernel read, else None)."""
     if stash_route:
         return chain_kernel_stash(plan, x, params, compute_dtype,
-                                  with_stash=with_stash)
+                                  with_stash=with_stash) + (None,)
     if last_skip(plan):
-        return chain_kernel_last_skip(plan, x, params, compute_dtype), None
-    return chain_kernel(plan, x, params, compute_dtype), None
+        return chain_kernel_last_skip(plan, x, params, compute_dtype), None, \
+            None
+    y, wt = _chain_kernel(plan, x, params, compute_dtype)
+    return y, None, wt
 
 
 class ChainFunction(torch.autograd.Function):
@@ -804,13 +893,15 @@ class ChainFunction(torch.autograd.Function):
     forward saves the stash for its backward) or, for a last-skip plan,
     K1w. ``needs_dx`` / ``needs_dw`` select the cotangents the backward
     computes (K1r computes dW/db in any case); the others come back as
-    zeros, and with both False no backward kernel is launched."""
+    zeros, and with both False no backward kernel is launched. K1-fwd's
+    tensor-core kernel hands the transposed weights it packed to a
+    tensor-core K1-bwd, so a step packs them once."""
 
     @staticmethod
     def forward(ctx, plan, compute_dtype, needs_dx, needs_dw, stash_route, x,
                 *flat):
-        y, stash = _forward(plan, x, _pairs(flat), compute_dtype, stash_route,
-                            with_stash=True)
+        y, stash, ctx.wt = _forward(plan, x, _pairs(flat), compute_dtype,
+                                    stash_route, with_stash=True)
         ctx.save_for_backward(x, stash, *flat)
         ctx.plan, ctx.compute_dtype = plan, compute_dtype
         ctx.needs, ctx.stash_route = (needs_dx, needs_dw), stash_route
@@ -827,7 +918,7 @@ class ChainFunction(torch.autograd.Function):
                                                  needs_dx=needs_dx)
         elif needs_dx or needs_dw:
             bwd = chain_kernel_last_skip_bwd if last_skip(plan) \
-                else chain_kernel_bwd
+                else functools.partial(chain_kernel_bwd, wt=ctx.wt)
             dx, dparams = bwd(plan, x, dy, params, cd, needs_dx=needs_dx,
                               needs_dw=needs_dw)
         dflat = [g for pair in dparams for g in pair] if dparams \

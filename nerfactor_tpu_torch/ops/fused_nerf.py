@@ -11,10 +11,11 @@ posenc(view)] through a ReLU layer and a 3-wide head:
 
 :func:`apply_nerf` evaluates it:
 
-  * on CUDA tensors through kernel K3-fwd (``csrc/fused_nerf.cu``); under
-    autograd the backward is kernel K3-bwd, which recomputes the forward
-    and returns the weight cotangents only: points and view directions
-    are data (the JAX package's ``_nerf_fused_bwd``);
+  * on CUDA tensors through kernel K3-fwd (``csrc/fused_nerf.cu``; in bf16
+    on the tensor cores); under autograd the backward is kernel K3-bwd,
+    which recomputes the forward and returns the weight cotangents only:
+    points and view directions are data (the JAX package's
+    ``_nerf_fused_bwd``);
   * on CPU tensors (or with ``force_reference``, the JAX package's
     ``fused_mlp = False``) through :func:`nerf_reference`, the plain
     version, under ordinary autograd.
@@ -25,6 +26,7 @@ bottleneck's, then posenc(view)'s in [x, sin f0 x, cos f0 x, ...] order.
 """
 
 import ctypes
+import functools
 from collections import namedtuple
 
 import torch
@@ -190,10 +192,33 @@ def _prepare(nplan, params, compute_dtype, device):
     return desc, int(kdt == torch.bfloat16), dense, aux
 
 
-def nerf_kernel(nplan, pts, views, params, compute_dtype=None):
-    """Launches K3-fwd on ``pts``, ``views`` (N, 3) CUDA f32; returns
-    (rgb (N, 3), sigma (N, 1)) f32. Counts its launches in
-    ``nerf_kernel.launches``."""
+def _nerf_fwd(nplan, pts, views, params, compute_dtype):
+    """Launches K3-fwd on ``pts``, ``views`` (N, 3) CUDA f32: in bf16 the
+    tensor-core kernel (``nfk_nerf_fwd_tc``) over the weights padded to
+    :func:`mma_plan`'s widths where they differ and their transposes, in
+    f32 the CUDA-core one (``nfk_nerf_fwd``). Returns (rgb, sigma, the
+    transposes or None, whether a kernel ran)."""
+    if fm.kernel_dtype(compute_dtype) != torch.bfloat16:
+        rgb, sigma, ran = _nerf_fwd_cuda_core(nplan, pts, views, params,
+                                              compute_dtype)
+        return rgb, sigma, None, ran
+    kplan, params = _mma_params(nplan, params)
+    pts, views = fm.check_inputs([('pts', pts, 3), ('views', views, 3)])
+    desc, _, _, aux = _prepare(kplan, params, compute_dtype, pts.device)
+    wt = transposed_weights(kplan, params, pts.device)
+    n = pts.shape[0]
+    rgb = pts.new_empty((n, nplan.rgb_widths[-1]))
+    sigma = pts.new_empty((n, 1))
+    if n:
+        fm.run('nfk_nerf_fwd_tc', pts.device, ctypes.addressof(desc),
+               pts.data_ptr(), views.data_ptr(), wt.data_ptr(),
+               aux.data_ptr(), rgb.data_ptr(), sigma.data_ptr(), n)
+    return rgb, sigma, wt, n > 0
+
+
+def _nerf_fwd_cuda_core(nplan, pts, views, params, compute_dtype):
+    """Launches ``nfk_nerf_fwd`` (the CUDA-core nerf_fwd_kernel); returns
+    (rgb, sigma, whether a kernel ran)."""
     pts, views = fm.check_inputs([('pts', pts, 3), ('views', views, 3)])
     desc, bf16, dense, aux = _prepare(nplan, params, compute_dtype,
                                       pts.device)
@@ -204,15 +229,41 @@ def nerf_kernel(nplan, pts, views, params, compute_dtype=None):
         fm.run('nfk_nerf_fwd', pts.device, ctypes.addressof(desc), bf16,
                pts.data_ptr(), views.data_ptr(), dense.data_ptr(),
                aux.data_ptr(), rgb.data_ptr(), sigma.data_ptr(), n)
-        nerf_kernel.launches += 1
-    return rgb, sigma
+    return rgb, sigma, n > 0
 
 
-nerf_kernel.launches = 0
+def _counted_fwd(nplan, pts, views, params, compute_dtype):
+    """:func:`_nerf_fwd`, its launch counted as :func:`nerf_kernel` says;
+    returns (rgb, sigma, the transposed weights or None)."""
+    rgb, sigma, wt, ran = _nerf_fwd(nplan, pts, views, params, compute_dtype)
+    nerf_kernel.launches += ran
+    if wt is not None:
+        nerf_kernel.tc_launches += ran
+    return rgb, sigma, wt
+
+
+def nerf_kernel(nplan, pts, views, params, compute_dtype=None):
+    """Launches K3-fwd on ``pts``, ``views`` (N, 3) CUDA f32; returns
+    (rgb (N, 3), sigma (N, 1)) f32. In bf16 that is ``nerf_fwd_tc_kernel``
+    on the tensor cores, in f32 the CUDA-core ``nerf_fwd_kernel``. Counts
+    its launches in ``nerf_kernel.launches``, those of the tensor-core
+    kernel also in ``nerf_kernel.tc_launches``."""
+    return _counted_fwd(nplan, pts, views, params, compute_dtype)[:2]
+
+
+nerf_kernel.launches = nerf_kernel.tc_launches = 0
+
+
+def nerf_kernel_cuda_core(nplan, pts, views, params, compute_dtype=None):
+    """The CUDA-core K3-fwd (``nerf_fwd_kernel``) in either precision: what
+    :func:`nerf_kernel` runs in f32, and in bf16 the kernel the
+    tensor-core one is held against. Counts no launch."""
+    return _nerf_fwd_cuda_core(nplan, pts, views, params, compute_dtype)[:2]
 
 
 # ------ K3-bwd ------
 
+@functools.lru_cache(maxsize=None)
 def dw_table(nplan, device):
     """The dense layers (trunk layers, bottleneck, rgb layer 0) of the bf16
     backward's scratch as the library lays them out
@@ -222,11 +273,13 @@ def dw_table(nplan, device):
     return fm.dw_table('nfk_nerf_dw_table', make_desc(nplan), device)
 
 
-def dense_weights(params):
-    """The dense layers' weights of (trunk, sigma, bottleneck, rgb), in
-    :func:`dw_table`'s order."""
+def transposed_weights(kplan, params, device):
+    """The dense layers' weights of (trunk, sigma, bottleneck, rgb) params
+    transposed for the tensor-core kernels of ``kplan`` (an
+    :func:`mma_plan`), laid out over :func:`dw_table`'s layers."""
     trunk, _, bott_p, rgb_p = params
-    return [w for w, _ in trunk] + [bott_p[0][0], rgb_p[0][0]]
+    dense = [w for w, _ in trunk] + [bott_p[0][0], rgb_p[0][0]]
+    return fm.pack_transposed(dense, dw_table(kplan, device)[0])
 
 
 def check_tensor(name, t, dtype, numel):
@@ -273,6 +326,13 @@ def bwd_buffers(nplan, n, compute_dtype, device):
                                dtype=torch.float32, device=device),
             'slices': size['slices'], 'chunks': size['chunks'],
             'wt_numel': size['wt']}
+
+
+def _mma_params(nplan, params):
+    """(:func:`mma_plan`, ``params`` padded to it where it differs)."""
+    kplan = mma_plan(nplan)
+    return (nplan, params) if kplan == nplan \
+        else (kplan, pad_params(nplan, params))
 
 
 def mma_plan(nplan):
@@ -327,18 +387,19 @@ def unpad_grads(nplan, grads):
 
 
 def nerf_kernel_bwd(nplan, pts, views, drgb, dsigma, params,
-                    compute_dtype=None):
+                    compute_dtype=None, wt=None):
     """Launches K3-bwd: the weight cotangents of :func:`nerf_kernel` for
     the output cotangents ``drgb`` (N, 3) and ``dsigma`` (N, 1), as
     (trunk, sigma, bottleneck, rgb) lists of (dW, db), f32. In bf16 that is
     phase 1, the dW pass and their sums on the tensor cores, over the
-    weights padded to :func:`mma_plan`'s widths where they differ; in f32
-    the CUDA-core kernel. They are bit-identical for the same inputs on the
-    same card. Counts its launches in ``nerf_kernel_bwd.launches``."""
+    weights padded to :func:`mma_plan`'s widths where they differ and
+    their transposes ``wt`` (the ones K3-fwd's tensor-core kernel read for
+    these params, else packed here); in f32 the CUDA-core kernel. They are
+    bit-identical for the same inputs on the same card. Counts its
+    launches in ``nerf_kernel_bwd.launches``."""
     kplan = nplan
-    if fm.kernel_dtype(compute_dtype) == torch.bfloat16 \
-            and mma_plan(nplan) != nplan:
-        kplan, params = mma_plan(nplan), pad_params(nplan, params)
+    if fm.kernel_dtype(compute_dtype) == torch.bfloat16:
+        kplan, params = _mma_params(nplan, params)
     pts, views, drgb, dsigma = fm.check_inputs([
         ('pts', pts, 3), ('views', views, 3),
         ('drgb', drgb, kplan.rgb_widths[-1]), ('dsigma', dsigma, 1)])
@@ -346,13 +407,13 @@ def nerf_kernel_bwd(nplan, pts, views, drgb, dsigma, params,
                                       pts.device)
     n = pts.shape[0]
     bufs = bwd_buffers(kplan, n, compute_dtype, pts.device)
-    wt = None
-    if bf16:
-        wt = fm.pack_transposed(dense_weights(params),
-                                dw_table(kplan, pts.device)[0])
-        if wt.numel() != bufs['wt_numel']:
-            raise RuntimeError("transposed weights: %d values, the kernel "
-                               "reads %d" % (wt.numel(), bufs['wt_numel']))
+    if not bf16:
+        wt = None
+    elif wt is None:
+        wt = transposed_weights(kplan, params, pts.device)
+    if bf16 and wt.numel() != bufs['wt_numel']:
+        raise RuntimeError("transposed weights: %d values, the kernel reads "
+                           "%d" % (wt.numel(), bufs['wt_numel']))
     if n:
         fm.run('nfk_nerf_bwd', pts.device, ctypes.addressof(desc), bf16,
                pts.data_ptr(), views.data_ptr(), drgb.data_ptr(),
@@ -406,20 +467,25 @@ def unflatten(nplan, flat):
 class NerfFunction(torch.autograd.Function):
     """K3-fwd with K3-bwd as its backward (the JAX package's
     ``_nerf_fused`` custom VJP): weight cotangents from the kernel; the
-    points and view directions are data and get zeros."""
+    points and view directions are data and get zeros. In bf16 the
+    forward hands the transposed weights it packed to the backward, so a
+    step packs them once."""
 
     @staticmethod
     def forward(ctx, nplan, compute_dtype, pts, views, *flat):
         ctx.save_for_backward(pts, views, *flat)
         ctx.nplan, ctx.compute_dtype = nplan, compute_dtype
-        return nerf_kernel(nplan, pts, views, unflatten(nplan, flat),
-                           compute_dtype)
+        rgb, sigma, ctx.wt = _counted_fwd(nplan, pts, views,
+                                          unflatten(nplan, flat),
+                                          compute_dtype)
+        return rgb, sigma
 
     @staticmethod
     def backward(ctx, drgb, dsigma):
         pts, views, *flat = ctx.saved_tensors
         grads = nerf_kernel_bwd(ctx.nplan, pts, views, drgb, dsigma,
-                                unflatten(ctx.nplan, flat), ctx.compute_dtype)
+                                unflatten(ctx.nplan, flat), ctx.compute_dtype,
+                                wt=ctx.wt)
         return (None, None) + fm.grads_or_zeros(
             ctx, 2, [None, None] + flatten(grads), [pts, views] + list(flat))
 

@@ -112,7 +112,8 @@ ARGTYPES = {
     'nfk_chain_bwd_slices': [_PTR, _I32, _I32, _I64, _PTR],
     'nfk_chain_bwd': [_PTR, _I32, _I32, _I32, _I32, _PTR, _PTR, _PTR, _PTR,
                       _PTR, _PTR, _PTR, _PTR, _I32, _I64, _PTR],
-    'nfk_chain_bwd_tc_runs': [_PTR, _PTR],
+    'nfk_chain_tc_runs': [_PTR, _I32, _PTR],
+    'nfk_chain_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _PTR],
     'nfk_chain_bwd_tc_sizes': [_PTR, _I64, _PTR, _PTR, _PTR, _PTR],
     'nfk_chain_bwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                          _PTR, _I32, _I32, _I64, _PTR],
@@ -122,6 +123,8 @@ ARGTYPES = {
                              _PTR, _PTR, _PTR, _I64, _PTR],
     'nfk_nerf_fwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                      _PTR],
+    'nfk_nerf_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
+                        _PTR],
     'nfk_nerf_bwd_sizes': [_PTR, _I32, _I64, _PTR, _PTR, _PTR, _PTR],
     'nfk_nerf_bwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                      _PTR, _PTR, _PTR, _I32, _I32, _I64, _PTR],

@@ -117,8 +117,8 @@ def main(argv=None):
     if args.tgt_brdf:
         raise NotImplementedError(
             "--tgt_brdf needs the BRDF prior model (models/brdf.py), which "
-            "is not ported yet: see ROADMAP.md, 'PyTorch port: still to "
-            "port'")
+            "is not ported yet: see ROADMAP.md, Queue 1 item 2 (the BRDF "
+            "prior)")
     # The rendering equation and every f32 chain stay true f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

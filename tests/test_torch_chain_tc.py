@@ -1,16 +1,17 @@
-"""bf16 K1-bwd with dW only: the tensor-core design (phase 1 and the dW
-pass, ``nfk_chain_bwd_tc``), which the joint step's lvis chain runs.
+"""bf16 K1-fwd and K1-bwd with dW only on the tensor cores: the forward
+``nfk_chain_fwd_tc`` and the backward's design (phase 1 and the dW pass,
+``nfk_chain_bwd_tc``), which the joint step's lvis chain runs.
 
-On the CPU: the rule that sends a K1-bwd launch to it and the scratch's
-layout, both asked of the g++ emulation of the CUDA sources
-(``test_torch_emu``, where the kernel itself is held against the Pallas
-kernel), and the zero padding that takes hidden widths off the mma step
-(16) onto it. On a card (the ``cuda`` marker; they skip here): the kernel
-at the lvis chain's width (128 x 4, the embedding concatenated after
-layer 2, a 1-wide sigmoid head), past one column pass (272) and off the
-mma step (24), against the CUDA-core kernel and autograd of the plain
-version, bit-identical across launches; and the plans the rule keeps on
-the CUDA-core kernel.
+On the CPU: the rules that send a K1-fwd or K1-bwd launch to them and the
+scratch's layout, all asked of the g++ emulation of the CUDA sources
+(``test_torch_emu``, where the kernels themselves are held against the
+Pallas kernels), and the zero padding that takes hidden widths off the
+mma step (16) onto it. On a card (the ``cuda`` marker; they skip here):
+the kernels at the lvis chain's width (128 x 4, the embedding
+concatenated after layer 2, a 1-wide sigmoid head), past one column pass
+(272) and off the mma step (24), against the CUDA-core kernels and the
+plain version (autograd of it for the backward), bit-identical across
+launches; and the plans the rules keep on the CUDA-core kernels.
 
   python -m tests.test_torch_chain_tc [--seeds 40,41,42,43]
 
@@ -25,7 +26,8 @@ import pytest
 import torch
 
 from nerfactor_tpu_torch.ops import fused_mlp as fm
-from tests.test_torch_chain import PLANS, both, chain_inputs, rel_norm
+from tests.test_torch_chain import (
+    PLANS, TOL, both, chain_inputs, rel_norm)
 
 # The lvis chain at the shipped nerfactor.ini widths
 LVIS = ([(3, 10), (3, 4)], (128,) * 4 + (1,), ('relu',) * 4 + ('sigmoid',),
@@ -87,6 +89,32 @@ def test_bwd_on_tensor_cores_rule(emulated):
     for width, ok in ((512, True), (640, False)):
         wide = plan._replace(widths=(width,) * 4 + plan.widths[-1:])
         assert rule(wide, BF16, False, True) == ok
+
+
+def test_fwd_on_tensor_cores_rule(emulated):
+    """bf16 K1-fwd on the default route takes the tensor cores on the
+    plans the backward's phase 1 takes (width 24 once padded); f32, the
+    stash route, a skip after the head or into it, a head wider than 8, a
+    head-only chain and hidden layers too wide for the block (640; 512
+    fits) keep the CUDA-core kernel."""
+    plan = fm.make_plan(*LVIS)
+
+    def rule(pl, cd, **kw):
+        return fm.fwd_on_tensor_cores(pl, cd, torch.device('cpu'), **kw)
+    assert rule(plan, BF16)
+    assert rule(fm.make_plan(*TC_PLANS['w24']), BF16)
+    assert not rule(plan, None)
+    assert not rule(plan, torch.float32)
+    assert not rule(plan, BF16, stash_route=True)
+    assert not rule(plan._replace(skip_at=(4,)), BF16)
+    assert not rule(plan._replace(skip_at=(3,)), BF16)
+    for head, ok in ((8, True), (9, False)):
+        assert rule(plan._replace(widths=plan.widths[:-1] + (head,)),
+                    BF16) == ok
+    assert not rule(fm.make_plan([(3, 2)], (1,), ('sigmoid',), ()), BF16)
+    for width, ok in ((512, True), (640, False)):
+        assert rule(plan._replace(widths=(width,) * 4 + plan.widths[-1:]),
+                    BF16) == ok
 
 
 def test_padded_plan_keeps_the_chain_and_its_gradients():
@@ -173,6 +201,17 @@ def plain_dparams(plan, x, dy, p, td):
     return torch.autograd.grad(y, flat, dy)
 
 
+def recorded_calls(monkeypatch):
+    """The library entries the wrappers call from now on, in order."""
+    calls, run = [], fm.run
+
+    def record(entry, *args, **kw):
+        calls.append(entry)
+        return run(entry, *args, **kw)
+    monkeypatch.setattr(fm, 'run', record)
+    return calls
+
+
 # The two kernels round at the same places and sum in another order; on
 # the card a d_pre that mma.sync's sum puts next to a bf16 rounding
 # boundary rounds the other way. Readings (python -m
@@ -199,12 +238,7 @@ def test_tc_bwd_on_card(name, n, cuda, monkeypatch):
     of autograd of the plain bf16 version, bit-identical across
     launches."""
     plan, p, x, dy = card_case(TC_PLANS[name], n, 60, cuda)
-    calls, run = [], fm.run
-
-    def record(entry, *args, **kw):
-        calls.append(entry)
-        return run(entry, *args, **kw)
-    monkeypatch.setattr(fm, 'run', record)
+    calls = recorded_calls(monkeypatch)
     launches = fm.chain_kernel_bwd.launches
     got = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16, needs_dx=False)[1])
     torch.cuda.synchronize()
@@ -228,12 +262,7 @@ def test_off_tc_plans_keep_the_cuda_core_kernel_on_card(name, cuda,
     tensor cores launches the CUDA-core kernel, within TC_DW_TOL_BF16 of
     autograd of the plain bf16 version."""
     plan, p, x, dy = card_case(OFF_TC_PLANS[name], 4099, 60, cuda)
-    calls, run = [], fm.run
-
-    def record(entry, *args, **kw):
-        calls.append(entry)
-        return run(entry, *args, **kw)
-    monkeypatch.setattr(fm, 'run', record)
+    calls = recorded_calls(monkeypatch)
     got = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16, needs_dx=False)[1])
     torch.cuda.synchronize()
     assert 'nfk_chain_bwd' in calls and 'nfk_chain_bwd_tc' not in calls
@@ -241,18 +270,89 @@ def test_off_tc_plans_keep_the_cuda_core_kernel_on_card(name, cuda,
         assert g.shape == w.shape and rel_norm(g, w) <= TC_DW_TOL_BF16
 
 
+# The tensor-core K1-fwd against the CUDA-core one, relative norm of the
+# output: both round the posts at bf16 and the head in f32 from them, in
+# another order of sums, so on the card a post next to a bf16 rounding
+# boundary may round the other way. Readings (python -m
+# tests.test_torch_chain_tc, card_readings, seeds 40-43, TC_PLANS at 1, 50
+# and 4,099 rows; NVIDIA H100 80GB HBM3, 700.00 W): the tensor-core kernel
+# <= 2.7e-5 from the CUDA-core bf16 kernel, the f32 kernel (the control)
+# >= 2.5e-4 (PLANS' widths 16 and 32 too: <= 1.7e-4 against >= 2.5e-4).
+TC_FWD_VS_CUDA_CORE_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 4099, 70001])
+@pytest.mark.parametrize('name', sorted(TC_PLANS))
+def test_tc_fwd_on_card(name, n, cuda, monkeypatch):
+    """One K1-fwd launch through the tensor-core entry, counted once:
+    within TOL of the plain bf16 version, within TC_FWD_VS_CUDA_CORE_TOL
+    of the CUDA-core kernel, bit-identical across launches."""
+    plan, p, x, _ = card_case(TC_PLANS[name], n, 60, cuda)
+    calls = recorded_calls(monkeypatch)
+    launches = fm.chain_kernel.launches
+    got = fm.chain_kernel(plan, x, p, BF16)
+    torch.cuda.synchronize()
+    assert 'nfk_chain_fwd_tc' in calls and 'nfk_chain_fwd' not in calls
+    assert fm.chain_kernel.launches == launches + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(), fm.chain_reference(plan, x, p, BF16).cpu().numpy(),
+        **TOL['bf16'])
+    assert rel_norm(got, fm.chain_kernel_cuda_core(plan, x, p, BF16)) \
+        <= TC_FWD_VS_CUDA_CORE_TOL
+    assert torch.equal(got, fm.chain_kernel(plan, x, p, BF16))
+
+
+# The K1-fwd calls the rule keeps on the CUDA-core kernel: (plan, compute
+# dtype, launcher, plain version), as test_torch_emu.OFF_TC_FWD at card
+# widths
+OFF_TC_FWD = {
+    'f32': (LVIS, None, fm.chain_kernel, fm.chain_reference),
+    'stash': (LVIS, BF16, lambda *a: fm.chain_kernel_stash(*a)[0],
+              fm.chain_reference_stash),
+    'last_skip': ((LVIS[0], LVIS[1], LVIS[2], (2, 4)), BF16,
+                  fm.chain_kernel_last_skip, fm.chain_reference),
+    'skip_head': (OFF_TC_PLANS['skip_head'], BF16, fm.chain_kernel,
+                  fm.chain_reference),
+    'head9': (([(3, 4), (3, 2)], (128, 128, 9), ('relu', 'relu', None), ()),
+              BF16, fm.chain_kernel, fm.chain_reference),
+    'w704': (OFF_TC_PLANS['w704'], BF16, fm.chain_kernel, fm.chain_reference),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(OFF_TC_FWD))
+def test_off_tc_fwd_keeps_the_cuda_core_kernel_on_card(case, cuda,
+                                                       monkeypatch):
+    """f32, the stash route, K1w, a skip into the head, a head wider than
+    8 and hidden layers too wide for the block launch the CUDA-core
+    K1-fwd, within TOL of the route's plain version."""
+    args, cd, launch, plain = OFF_TC_FWD[case]
+    plan, p, x, _ = card_case(args, 4099, 61, cuda)
+    calls = recorded_calls(monkeypatch)
+    got = launch(plan, x, p, cd)
+    torch.cuda.synchronize()
+    assert 'nfk_chain_fwd' in calls and 'nfk_chain_fwd_tc' not in calls
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               plain(plan, x, p, cd).cpu().numpy(),
+                               **TOL['bf16' if cd else 'f32'])
+
+
 def card_readings(seeds, sizes=(1, 50, 4099)):
     """Per plan of the card tests (PLANS' widths 16 and 32, TC_PLANS) and
     size, over ``seeds``: the worst dW/db leaf of bf16 K1-bwd with dW only
     (the tensor cores) against autograd of the plain bf16 version and
     against the CUDA-core bf16 kernel, and the least reading of the f32
-    kernel against the plain bf16 version."""
+    kernel against the plain bf16 version; the worst output of bf16 K1-fwd
+    on the tensor cores against the CUDA-core bf16 kernel and the least
+    reading of the f32 kernel (the control) against it."""
     out = []
     device = torch.device('cuda')
     for name, args in sorted(dict(PLANS, **TC_PLANS).items()):
         for n in sizes:
             r = {'chain': name, 'n': n, 'tc_vs_plain': 0.0,
-                 'tc_vs_cuda_core': 0.0, 'f32_kernel_vs_plain': np.inf}
+                 'tc_vs_cuda_core': 0.0, 'f32_kernel_vs_plain': np.inf,
+                 'tc_fwd_vs_cuda_core': 0.0, 'f32_fwd_vs_cuda_core': np.inf}
             for seed in seeds:
                 plan, p, x, dy = card_case(args, n, seed, device)
                 want = plain_dparams(plan, x, dy, p, BF16)
@@ -268,6 +368,14 @@ def card_readings(seeds, sizes=(1, 50, 4099)):
                                            worst(got, core))
                 r['f32_kernel_vs_plain'] = min(r['f32_kernel_vs_plain'],
                                                worst(f32, want))
+                y_core = fm.chain_kernel_cuda_core(plan, x, p, BF16)
+                r['tc_fwd_vs_cuda_core'] = max(
+                    r['tc_fwd_vs_cuda_core'],
+                    rel_norm(fm.chain_kernel(plan, x, p, BF16), y_core))
+                r['f32_fwd_vs_cuda_core'] = min(
+                    r['f32_fwd_vs_cuda_core'],
+                    rel_norm(fm.chain_kernel_cuda_core(plan, x, p, None),
+                             y_core))
             out.append(r)
     return out
 

@@ -407,6 +407,92 @@ def test_emulated_chain_dw_pass_matches_float64(name, n, emulated):
     assert torch.equal(got, fm.dw_pass(tab, tile, scratch, n))
 
 
+# ------ bf16 K1-fwd and K3-fwd on the tensor cores ------
+
+# The tensor-core forwards round where the CUDA-core ones do (posts at
+# bf16, heads in f32 from them); only the order of the sums moves. Readings
+# (python -m tests.test_torch_emu, fwd_readings: CHAIN_PLANS at 1, 50 and
+# 130 rows and K3's w32, w256, w272 at 1-130 rows, 2 seeds), relative norm
+# of the output: the tensor-core kernel <= 1.7e-7 from the CUDA-core bf16
+# kernel (TC_VS_CUDA_CORE_TOL), where the f32 kernel, the control, reads
+# >= 1.9e-4 from it; <= 0.0030 from the Pallas kernel in interpret mode
+# and <= 0.0051 from the plain bf16 version, both held elementwise by TOL.
+
+
+def fwd_calls(launch):
+    """``launch()``'s output and the library entries it called."""
+    del CALLS[:]
+    out = launch()
+    return out, list(CALLS)
+
+
+def pallas_chain_fwd(name, n, seed):
+    """The JAX Pallas K1-fwd in interpret mode on chain_case's inputs."""
+    jplan, jp, _, _ = both(ALL_PLANS[name], seed=seed)
+    x = chain_inputs(jplan, n=n, seed=seed + 1)
+    pm.INTERPRET = True
+    try:
+        y = pm.apply_chain(jplan, jnp.asarray(x), jp,
+                           compute_dtype=jnp.bfloat16)
+    finally:
+        pm.INTERPRET = False
+    return torch.from_numpy(np.array(y))
+
+
+@pytest.mark.parametrize('name,n', [
+    ('lvis', 1), ('lvis', 50), ('lvis', 130), ('normal', 130),
+    ('brdf_z', 50), ('w24', 130), ('w272', 130)])
+def test_emulated_tc_fwd_matches_interpreted_pallas_kernel(name, n,
+                                                           emulated):
+    """bf16 K1-fwd runs the tensor-core kernel (a skip consumer's two K
+    segments; width 24 padded to 32; width 272 past one column pass, the
+    second buffer): within TOL of the Pallas kernel in interpret mode and
+    of the plain bf16 version, within TC_VS_CUDA_CORE_TOL of the CUDA-core
+    kernel, bit-identical across two launches."""
+    plan, p, x, _ = chain_case(name, n, seed=30)
+    y, calls = fwd_calls(lambda: fm.chain_kernel(plan, x, p, torch.bfloat16))
+    assert 'nfk_chain_fwd_tc' in calls and 'nfk_chain_fwd' not in calls
+    for want in (pallas_chain_fwd(name, n, 30),
+                 fm.chain_reference(plan, x, p, torch.bfloat16)):
+        np.testing.assert_allclose(y.numpy(), want.numpy(), **TOL['bf16'])
+    assert rel_norm(y, fm.chain_kernel_cuda_core(
+        plan, x, p, torch.bfloat16)) <= TC_VS_CUDA_CORE_TOL
+    assert torch.equal(y, fm.chain_kernel(plan, x, p, torch.bfloat16))
+
+
+# What the rule keeps on the CUDA-core K1-fwd, chain_fwd_kernel: (plan,
+# compute dtype, the launcher, its plain version). The lvis chain in f32
+# and on the stash route; a skip after the head (K1w); the embedding into
+# the head; a head wider than 8; hidden layers too wide for the block.
+OFF_TC_FWD = {
+    'f32': (TC_PLANS['lvis'], None, fm.chain_kernel, fm.chain_reference),
+    'stash': (TC_PLANS['lvis'], torch.bfloat16,
+              lambda *a: fm.chain_kernel_stash(*a)[0],
+              fm.chain_reference_stash),
+    'last_skip': (LAST_SKIP['lvis'], torch.bfloat16,
+                  fm.chain_kernel_last_skip, fm.chain_reference),
+    'skip_head': (OFF_TC_PLANS['skip_head'], torch.bfloat16,
+                  fm.chain_kernel, fm.chain_reference),
+    'head9': (([(3, 4), (3, 2)], (32, 32, 9), ('relu', 'relu', None), ()),
+              torch.bfloat16, fm.chain_kernel, fm.chain_reference),
+    'w704': (OFF_TC_PLANS['w704'], torch.bfloat16, fm.chain_kernel,
+             fm.chain_reference),
+}
+
+
+@pytest.mark.parametrize('case', sorted(OFF_TC_FWD))
+def test_emulated_fwd_off_the_tensor_cores(case, emulated):
+    """The K1-fwd calls that the rule keeps off the tensor cores launch the
+    CUDA-core kernel, within TOL of the route's plain version."""
+    args, cd, launch, plain = OFF_TC_FWD[case]
+    _, _, plan, p = both(args, seed=32)
+    x = torch.from_numpy(chain_inputs(plan, n=70, seed=33))
+    y, calls = fwd_calls(lambda: launch(plan, x, p, cd))
+    assert 'nfk_chain_fwd' in calls and 'nfk_chain_fwd_tc' not in calls
+    np.testing.assert_allclose(y.numpy(), plain(plan, x, p, cd).numpy(),
+                               **TOL['bf16' if cd else 'f32'])
+
+
 # ------ K1r (the stash route) and K1w (a skip after the last layer) ------
 
 def torch_case(plan_args, n, seed):
@@ -721,6 +807,54 @@ def test_emulated_bf16_nerf_bwd_pads_widths_off_the_mma_step(emulated):
         assert rel_norm(g, w) <= 1e-5
 
 
+# K3's plans and one off the mma step (widths 24 and 8, padded to 32 and
+# 16)
+NERF_FWD_PLANS = dict(NERF_PLANS, w24=NERF_PLAN_W24)
+
+
+def pallas_field_fwd(name, p, pts, views):
+    """The JAX Pallas K3-fwd (bf16) in interpret mode: [rgb | sigma]."""
+    jp = tuple([(jnp.asarray(w), jnp.asarray(b)) for w, b in g] for g in p)
+    plan = pn.make_nerf_plan(**NERF_FWD_PLANS[name])
+    pm.INTERPRET = True
+    try:
+        rgb, sigma = pn.apply_nerf(plan, jnp.asarray(pts.numpy()),
+                                   jnp.asarray(views.numpy()), jp,
+                                   compute_dtype=jnp.bfloat16)
+    finally:
+        pm.INTERPRET = False
+    return torch.from_numpy(np.concatenate([rgb, sigma], axis=1))
+
+
+@pytest.mark.parametrize('name,n', [('w32', 1), ('w32', 50), ('w32', 130),
+                                    ('w256', 70), ('w272', 70), ('w24', 50)])
+def test_emulated_tc_nerf_fwd_matches_interpreted_pallas_kernel(name, n,
+                                                                emulated):
+    """bf16 K3-fwd runs the tensor-core kernel (nerf.ini's widths at w256;
+    width 272 past one column pass, the second buffer; widths 24 and 8
+    padded to 32 and 16): [rgb | sigma] within TOL of the Pallas kernel in
+    interpret mode and of the plain bf16 version, within
+    TC_VS_CUDA_CORE_TOL of the CUDA-core kernel, bit-identical across two
+    launches. f32 keeps the CUDA-core kernel."""
+    nplan = fn.make_nerf_plan(**NERF_FWD_PLANS[name])
+    p = field_params(nplan, 24)
+    pts, views = (torch.from_numpy(a) for a in field_inputs(n, 25)[:2])
+    tp = torch_params(p)
+
+    def fwd(cd):
+        return torch.cat(fn.nerf_kernel(nplan, pts, views, tp, cd), dim=1)
+    y, calls = fwd_calls(lambda: fwd(torch.bfloat16))
+    assert 'nfk_nerf_fwd_tc' in calls and 'nfk_nerf_fwd' not in calls
+    for want in (pallas_field_fwd(name, p, pts, views), torch.cat(
+            fn.nerf_reference(nplan, pts, views, tp, torch.bfloat16), 1)):
+        np.testing.assert_allclose(y.numpy(), want.numpy(), **TOL['bf16'])
+    assert rel_norm(y, torch.cat(fn.nerf_kernel_cuda_core(
+        nplan, pts, views, tp, torch.bfloat16), 1)) <= TC_VS_CUDA_CORE_TOL
+    assert torch.equal(y, fwd(torch.bfloat16))
+    _, calls = fwd_calls(lambda: fwd(None))
+    assert calls == ['nfk_nerf_fwd']
+
+
 def test_emulated_chain_kernels_at_nerf_width(emulated):
     """K1 on NeRF's no-views chain (256 x 8, skip after layer 4, a 4-wide
     head) in f32, whose backward keeps its posts only at 16 rows."""
@@ -825,6 +959,54 @@ def tc_readings(seeds=(30, 130, 230), sizes=(50, 130)):
     return out
 
 
+def fwd_readings(seeds=(30, 130), sizes=(1, 50, 130),
+                 nerf_cases=(('w32', 1), ('w32', 50), ('w32', 130),
+                             ('w256', 70), ('w272', 70))):
+    """Per chain of CHAIN_PLANS and size, and per K3 case, over ``seeds``:
+    the worst relative norm of the bf16 tensor-core forward's output
+    against the CUDA-core bf16 kernel, the Pallas kernel in interpret mode
+    and the plain bf16 version, and the least reading of the f32 kernel
+    (the control) against the CUDA-core bf16 kernel."""
+    bf16, out = torch.bfloat16, []
+
+    def reading(r, got, refs, f32):
+        for key, ref in refs.items():
+            r['tc_vs_' + key] = max(r.get('tc_vs_' + key, 0.0),
+                                    rel_norm(got, ref))
+        r['f32_kernel_vs_cuda_core'] = min(
+            r.get('f32_kernel_vs_cuda_core', np.inf),
+            rel_norm(f32, refs['cuda_core']))
+    for name in sorted(CHAIN_PLANS):
+        for n in sizes:
+            r = {'chain': name, 'n': n}
+            for seed in seeds:
+                plan, p, x, _ = chain_case(name, n, seed)
+                reading(r, fm.chain_kernel(plan, x, p, bf16), {
+                    'cuda_core': fm.chain_kernel_cuda_core(plan, x, p, bf16),
+                    'pallas': pallas_chain_fwd(name, n, seed),
+                    'plain': fm.chain_reference(plan, x, p, bf16)},
+                    fm.chain_kernel_cuda_core(plan, x, p, None))
+            out.append(r)
+    for name, n in nerf_cases:
+        r = {'nerf': name, 'n': n}
+        for seed in seeds:
+            nplan = fn.make_nerf_plan(**NERF_FWD_PLANS[name])
+            p = field_params(nplan, seed)
+            pts, views = (torch.from_numpy(a)
+                          for a in field_inputs(n, seed + 1)[:2])
+            tp = torch_params(p)
+
+            def field(f, cd):
+                return torch.cat(f(nplan, pts, views, tp, cd), dim=1)
+            reading(r, field(fn.nerf_kernel, bf16), {
+                'cuda_core': field(fn.nerf_kernel_cuda_core, bf16),
+                'pallas': pallas_field_fwd(name, p, pts, views),
+                'plain': field(fn.nerf_reference, bf16)},
+                field(fn.nerf_kernel_cuda_core, None))
+        out.append(r)
+    return out
+
+
 def nerf_readings(seeds=(20, 21), cases=(('w32', 130), ('w256', 70),
                                          ('w272', 70))):
     """Per K3 case, over ``seeds``: the worst dW/db relative norm of the
@@ -876,7 +1058,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         with emulation(build(args.csrc, tmp)):
             rows = k3_bits() if args.k3_bits else \
-                readings() + tc_readings() + nerf_readings()
+                readings() + tc_readings() + nerf_readings() + \
+                fwd_readings()
             for r in rows:
                 print(json.dumps(r))
 

@@ -9,10 +9,12 @@ Widths 32 (depth 4), nerf.ini's 256 (depth 8, skip after layer 4) and 272
 rows. f32 outputs within 1e-5, dW/db per-leaf within 1e-4 of the norm
 (summation order); bf16 outputs within 1e-2 (the kernel also rounds the
 bottleneck and rgb layer 0's operands) and dW/db within NERF_DW_TOL.
-K3-bwd's dW is bit-identical across launches. The bf16 backward's parts
-alone: the tensor-core building block (mma.sync fragments, loaders,
-cp.async pipeline) and the dW pass, each against the float64 product of
-the same bf16 values.
+K3-bwd's dW is bit-identical across launches. bf16 K3-fwd on the tensor
+cores at those widths and off the mma step (24), against the plain
+version and the CUDA-core kernel. The bf16 backward's parts alone: the
+tensor-core building block (mma.sync fragments, loaders, cp.async
+pipeline) and the dW pass, each against the float64 product of the same
+bf16 values.
 """
 
 import numpy as np
@@ -22,8 +24,10 @@ import torch
 from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import fused_nerf as fn
 from tests.test_torch_chain import DTYPES, TOL, rel_norm
+from tests.test_torch_chain_tc import recorded_calls
 from tests.test_torch_emu import (
-    NERF_PLAN_W24, NERF_PLANS, TC_SHAPES, bf16_values, dw_scratch, nerf_case)
+    NERF_FWD_PLANS, NERF_PLAN_W24, NERF_PLANS, TC_SHAPES, bf16_values,
+    dw_scratch, nerf_case)
 from tests.test_torch_nerf import (
     field_inputs, field_params, plain_field, torch_params)
 
@@ -95,6 +99,44 @@ def test_bf16_bwd_pads_widths_off_the_mma_step_on_card(n, cuda):
     again = fn.flatten(fn.nerf_kernel_bwd(nplan, pts, views, drgb, dsig,
                                           params, torch.bfloat16))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The tensor-core K3-fwd against the CUDA-core bf16 one, relative norm of
+# [rgb | sigma]: the same rounding points, another order of sums, so on the
+# card a post next to a bf16 rounding boundary may round the other way.
+# Readings (chip_smoke.py's K3-fwd row, nerf.ini's trained field at
+# 196,608 rows, and K1 on the 256-wide no-views chain; NVIDIA H100 80GB
+# HBM3, 700.00 W): the tensor-core kernel 3.2e-4 from the CUDA-core bf16
+# kernel in both, the f32 kernel (the control) 3.3e-3 and 3.9e-3.
+NERF_TC_FWD_VS_CUDA_CORE_TOL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 70, 5000])
+@pytest.mark.parametrize('name', sorted(NERF_FWD_PLANS))
+def test_tc_nerf_fwd_on_card(name, n, cuda, monkeypatch):
+    """bf16 K3-fwd through the tensor-core entry, counted once: within
+    TOL of the plain bf16 version, within NERF_TC_FWD_VS_CUDA_CORE_TOL of
+    the CUDA-core kernel, bit-identical across launches."""
+    nplan = fn.make_nerf_plan(**NERF_FWD_PLANS[name])
+    params = torch_params(field_params(nplan, 54), cuda)
+    pts, views = (torch.from_numpy(a).to(cuda)
+                  for a in field_inputs(n, 55)[:2])
+    calls = recorded_calls(monkeypatch)
+    launches = fn.nerf_kernel.launches
+
+    def fwd(f):
+        return torch.cat(f(nplan, pts, views, params, torch.bfloat16), dim=1)
+    got = fwd(fn.nerf_kernel)
+    torch.cuda.synchronize()
+    assert 'nfk_nerf_fwd_tc' in calls and 'nfk_nerf_fwd' not in calls
+    assert fn.nerf_kernel.launches == launches + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               fwd(fn.nerf_reference).cpu().numpy(),
+                               **TOL['bf16'])
+    assert rel_norm(got, fwd(fn.nerf_kernel_cuda_core)) \
+        <= NERF_TC_FWD_VS_CUDA_CORE_TOL
+    assert torch.equal(got, fwd(fn.nerf_kernel))
 
 
 @pytest.mark.cuda

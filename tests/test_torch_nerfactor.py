@@ -288,6 +288,20 @@ def test_cli_edits(scene):
         ttest.main(['--ckpt', ckpt, '--tgt_albedo', 'chrome'])
 
 
+def test_tgt_brdf_names_the_roadmap_item():
+    """--tgt_brdf raises before any checkpoint is read, and its message
+    points at the ROADMAP item that ports the BRDF prior, which exists."""
+    with pytest.raises(NotImplementedError) as err:
+        ttest.main(['--ckpt', 'unused', '--device', 'cpu',
+                    '--tgt_brdf', 'pearl-paint'])
+    msg = str(err.value)
+    assert 'ROADMAP.md, Queue 1 item 2 (the BRDF prior)' in msg
+    with open(join(dirname(dirname(__file__)), 'ROADMAP.md')) as f:
+        roadmap = f.read()
+    queue1 = roadmap.split('### Queue 1')[1].split('\n### ')[0]
+    assert '\n2. **BRDF prior**' in queue1
+
+
 def test_color_correction_scales_match_jax(scene):
     ckpt, config, _, _ = make_joint(scene, 'cc', 'bf16_big_chains=False')
     batch_dir = join(dirname(dirname(ckpt)), 'vis_vali', 'epoch000000004',
