@@ -6,9 +6,9 @@ rendering.
 
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the CUDA kernels (nerfactor_tpu_torch/csrc) with nvcc for sm_90a,
-   checks that every tensor-core kernel of the library (the bf16 K1-fwd
-   and K3-fwd, the backwards' phase 1 and dW pass) holds HMMA
-   instructions, and holds their building block (mma.sync fragments,
+   checks that every tensor-core kernel of the library (the bf16 K1-fwd,
+   K2-fwd and K3-fwd, K2-bwd, the dW backwards' phase 1 and dW pass)
+   holds HMMA instructions, and holds their building block (mma.sync fragments,
    loaders, cp.async pipeline; csrc/mma_bf16.cuh) against the float64
    product of the same bf16 values, 64 x 96 x 80 and ragged sizes.
 3. Writes a synthetic scene -- the analytic sphere at imh 128 with
@@ -18,8 +18,9 @@ rendering.
    lights, bf16 big chains, fused kernels on).
 4. Holds kernels K1-fwd and K2-fwd against their plain PyTorch versions
    at the shapes one inference chunk gives them, and times both; the bf16
-   lvis chain's K1-fwd runs on the tensor cores, and is also held against
-   the CUDA-core kernel it replaces and timed beside it.
+   lvis chain's K1-fwd and the bf16 BRDF chain's K2-fwd run on the tensor
+   cores, and are also held against the CUDA-core kernels they replace and
+   timed beside them.
 5. Inference path: runs ``nerfactor_tpu_torch.test.main`` over the 3 test
    views (OLAT and probe relights on the last), with the kernels' launch
    counters set to 0 just before and read just after, and checks the
@@ -37,7 +38,10 @@ rendering.
    K1-bwd lvis with dW only (the tensor-core design) must read below the
    f32 kernel; its phase 1, dW pass and sums are timed apart (device ms
    from a profiler window), beside its scratch bytes, TFLOP/s and the
-   HMMA count of its kernels in the built library.
+   HMMA count of its kernels in the built library. bf16 K2-fwd and K2-bwd
+   (the tensor cores) at the step's 524,288 rows beside the CUDA-core
+   kernels they replace: errors, device ms, TFLOP/s; K2-bwd's cotangents
+   bit-identical across two launches.
 7. Training path: runs ``nerfactor_tpu_torch.trainvali.main`` on
    nerfactor.ini for 4 epochs (checkpoints every 2, vali at 4), with the
    four kernels' counters zeroed before and read after, checks its
@@ -100,6 +104,7 @@ raises, so the run exits non-zero. The only cut from production is imh
 
   python3 chip_smoke.py --limit_seeds k3 11,12,13,14
   python3 chip_smoke.py --limit_seeds k1 11,12,13,14
+  python3 chip_smoke.py --limit_seeds k2 11,12,13,14
 
 print only the readings behind a kernel's error bounds, over weights and
 inputs drawn from each seed: for K3, its error readings (bf16 and f32,
@@ -107,7 +112,10 @@ both row counts, the f32 kernel's beside the bf16 kernel's) over random
 nerf.ini weights; for K1, its bf16 readings (k1_limit_readings: the lvis
 chain's tensor-core backward and the f32 kernel against the plain bf16
 version at the joint step's 1,048,576 rows, and K1w against K1) over
-lvis weights.
+lvis weights; for K2, its bf16 readings (k2_limit_readings: K2-fwd's
+output and K2-bwd's cotangents against the plain bf16 version at the
+joint step's 524,288 rows, of the tensor-core kernels, the CUDA-core
+bf16 kernels and the f32 kernels) over BRDF weights.
 
   python3 chip_smoke.py --field_seed k3 0
   python3 chip_smoke.py --field_seed k1 0
@@ -399,9 +407,26 @@ def check_kernels(model, params):
           'dtype': 'bf16' if cd is not None else 'f32',
           'max_abs_err': compare('K2-fwd brdf', run_k(), run_p(), tol,
                                  mask=off_wrap),
-          'rows_at_phi_d_wrap': int((~off_wrap).sum()),
-          'tol': tol, 'ms': time_ms(run_k), 'plain_ms': time_ms(run_p)}
+          'rows_at_phi_d_wrap': int((~off_wrap).sum()), 'tol': tol}
+    if fr.rusink_on_tensor_cores(plan, cd, z.device):
+        k2.update(k2_fwd_readings(plan, p, z, ldir, vdir, off_wrap))
+    else:
+        k2.update(ms=time_ms(run_k), plain_ms=time_ms(run_p))
     return k1, k2
+
+
+def k2_fwd_readings(plan, p, z, ldir, vdir, keep):
+    """tc_fwd_readings of bf16 K2-fwd on the tensor cores against the
+    CUDA-core kernel it replaces, on the rows ``keep`` (N, 1) leaves off
+    phi_d's wrap for the plain version."""
+    cd = torch.bfloat16
+    return tc_fwd_readings(
+        lambda: fr.rusink_kernel(plan, z, ldir, vdir, p, cd),
+        lambda: fr.rusink_kernel_cuda_core(plan, z, ldir, vdir, p, cd),
+        lambda: fr.rusink_kernel_cuda_core(plan, z, ldir, vdir, p, None),
+        lambda: fr.reference(plan, z, ldir, vdir, p, cd),
+        chain_bound(plan, z.shape[0], 'bf16', z.shape[1] + 6, 1)['flop'],
+        K2_FWD_KERNELS, mask=keep.expand(-1, plan.widths[-1]))
 
 
 def check_forward(model_gpu, model_cpu, params, dataset):
@@ -441,20 +466,23 @@ def time_pair(run_k, run_p, iters=20):
 
 
 def tc_fwd_readings(run, run_core, run_f32, run_plain, flop, kernels,
-                    iters=10):
+                    iters=10, mask=None):
     """What the smoke reads of a bf16 forward on the tensor cores (``run``,
     its output one tensor) at a path's shape: its output against the
     CUDA-core bf16 kernel's (``run_core``), and the f32 kernel's
     (``run_f32``, the control) against both that and the plain bf16
-    version (``run_plain``); the output bit-identical across two launches;
+    version (``run_plain``; on the rows ``mask`` keeps, where given); the
+    output bit-identical across two launches;
     its ms and the plain version's (CUDA events, in turns), the CUDA-core
     kernel's ms (the kernel it replaces, timed in the same run), its
     device ms (kernel_device_ms) and TFLOP/s (``flop``)."""
     with torch.no_grad():
         got, core, f32, plain = run(), run_core(), run_f32(), run_plain()
+        keep = slice(None) if mask is None else mask
         out = {'tc_vs_cuda_core_rel_err': rel_norm(got, core),
                'f32_kernel_vs_cuda_core_rel_err': rel_norm(f32, core),
-               'f32_kernel_max_abs_err': (f32 - plain).abs().max().item(),
+               'f32_kernel_max_abs_err':
+                   (f32 - plain)[keep].abs().max().item(),
                'fwd_bit_identical': torch.equal(got, run())}
         if not out['fwd_bit_identical']:
             raise AssertionError("tensor-core forward: output differs "
@@ -641,29 +669,24 @@ def check_backward(model, params):
     plan, cd = model.plans['brdf'], model.chain_dtype('brdf')
     p = fm.params_from_tree(params['brdf_mlp'], params['brdf_out'])
     dy = (2 * torch.rand(z.shape[0], 1, generator=g) - 1).cuda()
-    rusink = geomops.dir2rusink(ldir, vdir)
-    # Rows left out everywhere: within 1e-3 of phi_d's wrap (0 == pi) the
-    # two sides disagree, and at |cos theta_d| or |cos theta_h| > 1 - 1e-4
-    # the safe-acos gradient is ~1e3 and ill-conditioned
-    off_wrap = (rusink[:, 0] > 1e-3) & (rusink[:, 0] < np.pi - 1e-3)
+    off_wrap, keep = k2_rows(ldir, vdir)
     with torch.no_grad():
         fwd_err = compare('K2-fwd brdf (train)',
                           fr.rusink_kernel(plan, z, ldir, vdir, p, cd),
                           fr.reference(plan, z, ldir, vdir, p, cd),
                           TOL_BF16 if cd is not None else TOL_F32,
                           mask=off_wrap[:, None])
-    keep = off_wrap & (torch.cos(rusink[:, 1]).abs() < 1 - 1e-4) \
-        & (torch.cos(rusink[:, 2]).abs() < 1 - 1e-4)
-    # Near a pole the VJP divides by sin(theta) (phi's cotangent by
-    # sin^2), which amplifies either version's rounding as much: rows
-    # within sin theta < 0.1 of either pole are left out too, and counted
-    keep = keep & (torch.sin(rusink[:, 1]) > 0.1) \
-        & (torch.sin(rusink[:, 2]) > 0.1)
     k2 = {'chain': 'brdf', 'rows': z.shape[0],
           'dtype': 'bf16' if cd is not None else 'f32',
           'fwd_max_abs_err': fwd_err,
           'fwd_rows_at_phi_d_wrap': int((~off_wrap).sum()),
           'rows_left_out': int((~keep).sum())}
+    tc = fr.rusink_on_tensor_cores(plan, cd, z.device)
+    if tc:
+        # The forward alone at the step's shapes (the tensor cores)
+        k2['fwd'] = dict(k2_fwd_readings(plan, p, z, ldir, vdir,
+                                         off_wrap[:, None]),
+                         rows=z.shape[0], dtype='bf16')
 
     def plain(dtype):
         ins = [t.clone().requires_grad_() for t in (z, ldir, vdir)]
@@ -695,11 +718,19 @@ def check_backward(model, params):
         for n, a, b in zip(('dz', 'dldir', 'dvdir'), got, want))
     k2['bf16_rel_err'] = check_norm('K2-bwd bf16', [
         rel_norm(a[keep], b[keep]) for a, b in zip(got, want)], NORM_TOL_BF16)
-    # What a kernel that computed the f32 gradient would read
-    k2['f32_kernel_rel_err'] = max(
-        rel_norm(a[keep], b[keep]) for a, b in zip(got32, want))
     k2['max_abs_err'] = k2['bf16_max_abs_err']
-    del got, got32, want
+    # What the CUDA-core bf16 kernel and a kernel that computed the f32
+    # gradient read
+    core = fr.rusink_kernel_bwd_cuda_core(plan, z, ldir, vdir, dy, p, cd) \
+        if tc else None
+    k2.update(k2_bwd_limit_readings(got, core, got32, want, keep))
+    if tc:
+        k2['bwd_bit_identical'] = all(torch.equal(a, b) for a, b in zip(
+            got, fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, cd)))
+        if not k2['bwd_bit_identical']:
+            raise AssertionError("K2-bwd: cotangents differ between two "
+                                 "launches on the same inputs")
+    del got, got32, want, core
     ins = [t.clone().requires_grad_() for t in (z, ldir, vdir)]
     y_p = fr.reference(plan, *ins, p, cd)
     k2['ms'], k2['plain_ms'] = time_pair(
@@ -707,6 +738,15 @@ def check_backward(model, params):
         lambda: torch.autograd.grad(y_p, ins, dy, retain_graph=True),
         iters=10)
     del y_p
+    if tc:
+        # The CUDA-core kernel it replaces, its device time and its rate
+        k2['cuda_core_ms'] = time_ms(lambda: fr.rusink_kernel_bwd_cuda_core(
+            plan, z, ldir, vdir, dy, p, cd), iters=10)
+        k2.update(kernel_device_ms(lambda: fr.rusink_kernel_bwd(
+            plan, z, ldir, vdir, dy, p, cd), K2_BWD_KERNELS))
+        k2['tflops'] = chain_bound(plan, z.shape[0], 'bf16', z.shape[1] + 6,
+                                   1, bwd=(True, False))['flop'] \
+            / k2['ms'] / 1e9
 
     def fwd_bwd(fn):
         args = [t.detach().requires_grad_() for t in (z, ldir, vdir)]
@@ -718,15 +758,104 @@ def check_backward(model, params):
     return k1, k2
 
 
-# Each kernel's counter: its wrapper and the wrapper's attribute. K1-fwd
-# and K3-fwd count every launch of their wrappers; "K1-fwd tc" and "K3-fwd
-# tc" those of the tensor-core kernels among them (bf16), the rest being
-# the CUDA-core kernels' (f32).
+def k2_rows(ldir, vdir):
+    """The BRDF chain's rows (N,) held against the plain version: off_wrap,
+    the rows not within 1e-3 of phi_d's wrap (0 == pi), where the two
+    sides disagree; keep, the rows of those the cotangents are held on,
+    also away from |cos theta_d| or |cos theta_h| > 1 - 1e-4, where the
+    safe-acos gradient is ~1e3 and ill-conditioned, and from sin theta <
+    0.1 at either pole, where the VJP divides by sin(theta) (phi's
+    cotangent by sin^2), which amplifies either version's rounding as
+    much."""
+    rusink = geomops.dir2rusink(ldir, vdir)
+    off_wrap = (rusink[:, 0] > 1e-3) & (rusink[:, 0] < np.pi - 1e-3)
+    keep = off_wrap & (torch.cos(rusink[:, 1]).abs() < 1 - 1e-4) \
+        & (torch.cos(rusink[:, 2]).abs() < 1 - 1e-4) \
+        & (torch.sin(rusink[:, 1]) > 0.1) & (torch.sin(rusink[:, 2]) > 0.1)
+    return off_wrap, keep
+
+
+def atol_needed(got, want, rtol, keep):
+    """The least atol at which every cotangent of ``got`` holds against
+    ``want`` (|got - want| <= atol + rtol |want|) on the rows ``keep``."""
+    return max(((a - b).abs() - rtol * b.abs())[keep].max().item()
+               for a, b in zip(got, want))
+
+
+def k2_bwd_limit_readings(got, core, got32, want, keep):
+    """What K2-bwd's bf16 limits rest on: the worst cotangent's relative
+    norm (NORM_TOL_BF16) and the atol its worst element needs at
+    TOL_BF16_GRAD's rtol, on the rows ``keep``, against the plain bf16
+    version ``want``: of the kernel ``got``, of the CUDA-core bf16 kernel
+    ``core`` (None when ``got`` is that kernel) and of the f32 kernel
+    ``got32`` (the control); and the kernel against the CUDA-core one."""
+    def worst(a, b):
+        return max(rel_norm(u[keep], v[keep]) for u, v in zip(a, b))
+    rtol = TOL_BF16_GRAD[1]
+    out = {'bf16_rel_err': worst(got, want),
+           'bf16_atol_needed': atol_needed(got, want, rtol, keep),
+           'f32_kernel_rel_err': worst(got32, want),
+           'f32_kernel_atol_needed': atol_needed(got32, want, rtol, keep)}
+    if core is not None:
+        out.update(cuda_core_rel_err=worst(core, want),
+                   cuda_core_atol_needed=atol_needed(core, want, rtol, keep),
+                   tc_vs_cuda_core_rel_err=worst(got, core))
+    return out
+
+
+def k2_limit_readings(model, seeds):
+    """What K2's bf16 bounds rest on, at the joint step's shapes (524,288
+    rows), over ``seeds`` (each seeding the BRDF chain's weights, drawn as
+    the BRDF model initialises them, and the inputs): K2-fwd's output
+    against the plain bf16 version on the rows off phi_d's wrap (the max
+    error and the atol its worst element needs at TOL_BF16's rtol) of the
+    kernel and of the f32 kernel (the control), and k2_bwd_limit_readings
+    of K2-bwd."""
+    plan, cd = model.plans['brdf'], model.chain_dtype('brdf')
+    out = []
+    for seed in seeds:
+        g = torch.Generator().manual_seed(seed)
+        p = [(w.cuda(), b.cuda()) for w, b in fm.params_from_tree(
+            model.specs['brdf_mlp'].init(g), model.specs['brdf_out'].init(g))]
+        _, _, (z, ldir, vdir) = step_inputs(model, g)
+        dy = (2 * torch.rand(z.shape[0], 1, generator=g) - 1).cuda()
+        off_wrap, keep = k2_rows(ldir, vdir)
+        r = {'seed': seed, 'rows': z.shape[0],
+             'rows_left_out': int((~keep).sum())}
+        with torch.no_grad():
+            plain = fr.reference(plan, z, ldir, vdir, p, cd)
+            for key, y in (('fwd', fr.rusink_kernel(plan, z, ldir, vdir, p,
+                                                     cd)),
+                           ('f32_kernel_fwd', fr.rusink_kernel(
+                               plan, z, ldir, vdir, p, None))):
+                r[key + '_max_abs_err'] = (y - plain)[off_wrap].abs().max() \
+                    .item()
+                r[key + '_atol_needed'] = atol_needed(
+                    [y], [plain], TOL_BF16[1], off_wrap)
+        ins = [t.clone().requires_grad_() for t in (z, ldir, vdir)]
+        want = torch.autograd.grad(fr.reference(plan, *ins, p, cd), ins, dy)
+        r.update(k2_bwd_limit_readings(
+            fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, cd),
+            fr.rusink_kernel_bwd_cuda_core(plan, z, ldir, vdir, dy, p, cd),
+            fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, None), want,
+            keep))
+        out.append(r)
+        del z, ldir, vdir, dy, want, ins
+        torch.cuda.empty_cache()
+    return out
+
+
+# Each kernel's counter: its wrapper and the wrapper's attribute. K1-fwd,
+# K2 and K3-fwd count every launch of their wrappers; "K1-fwd tc", "K2-fwd
+# tc", "K2-bwd tc" and "K3-fwd tc" those of the tensor-core kernels among
+# them (bf16), the rest being the CUDA-core kernels' (f32).
 COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
             'K1-bwd': (fm.chain_kernel_bwd, 'launches'),
             'K2-fwd': (fr.rusink_kernel, 'launches'),
+            'K2-fwd tc': (fr.rusink_kernel, 'tc_launches'),
             'K2-bwd': (fr.rusink_kernel_bwd, 'launches'),
+            'K2-bwd tc': (fr.rusink_kernel_bwd, 'tc_launches'),
             'K3-fwd': (fn.nerf_kernel, 'launches'),
             'K3-fwd tc': (fn.nerf_kernel, 'tc_launches'),
             'K3-bwd': (fn.nerf_kernel_bwd, 'launches'),
@@ -735,7 +864,8 @@ COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1w-fwd': (fm.chain_kernel_last_skip, 'launches'),
             'K1w-bwd': (fm.chain_kernel_last_skip_bwd, 'launches'),
             'P': (dp.dot_chain_kernel, 'launches')}
-JOINT_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K2-fwd', 'K2-bwd')
+JOINT_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K2-fwd', 'K2-fwd tc',
+                 'K2-bwd', 'K2-bwd tc')
 
 
 def zero_counters():
@@ -1169,6 +1299,8 @@ K1_BWD_KERNELS = (('phase1_ms', 'chain_bwd_tc_kernel'),
                   ('dw_pass_ms', 'dw_kernel'),
                   ('sums_ms', 'sum_slices_kernel'))
 K1_FWD_KERNELS = (('fwd_device_ms', 'chain_fwd'),)
+K2_FWD_KERNELS = (('fwd_device_ms', 'rusink_chain_fwd'),)
+K2_BWD_KERNELS = (('bwd_device_ms', 'rusink_chain_bwd'),)
 K3_FWD_KERNELS = (('fwd_device_ms', 'nerf_fwd'),)
 
 
@@ -1246,16 +1378,23 @@ PTXAS_ENTRY = re.compile(
     r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
 
 
+def named(function, names):
+    """Whether the mangled ``function`` is a kernel whose name starts with
+    one of ``names`` (in a mangled name an identifier follows its length:
+    'chain_fwd' names K1's 19chain_fwd_tc_kernel, not K2's
+    26rusink_chain_fwd_tc_kernel)."""
+    return any(re.search(r'\d' + name, function) for name in names)
+
+
 def ptxas_report(names):
-    """Registers and spill bytes of the built kernels whose mangled names
-    hold one of ``names``, from the build's ptxas report."""
+    """Registers and spill bytes of the built kernels whose names start
+    with one of ``names`` (named), from the build's ptxas report."""
     with open(join(dirname(kernel_lib.build()), 'build.log')) as f:
         log = f.read()
     return {m.group(1): {'registers': int(m.group(4)),
                          'spill_stores': int(m.group(2)),
                          'spill_loads': int(m.group(3))}
-            for m in PTXAS_ENTRY.finditer(log)
-            if any(name in m.group(1) for name in names)}
+            for m in PTXAS_ENTRY.finditer(log) if named(m.group(1), names)}
 
 
 def k3_field_readings(seed, iters=10):
@@ -1779,23 +1918,24 @@ def sass_hmma(names):
 
 
 TC_KERNELS = ('chain_fwd_tc_kernel', 'nerf_fwd_tc_kernel',
-              'chain_bwd_tc_kernel', 'nerf_bwd_tc_kernel', 'dw_kernel')
+              'rusink_chain_fwd_tc_kernel', 'chain_bwd_tc_kernel',
+              'nerf_bwd_tc_kernel', 'rusink_chain_bwd_tc_kernel', 'dw_kernel')
 
 
 def hmma_of(kernels, *names):
-    """The entries of sass_hmma's ``kernels`` whose function holds one of
-    ``names``."""
-    return [k for k in kernels if any(n in k['function'] for n in names)]
+    """The entries of sass_hmma's ``kernels`` whose function is one of
+    ``names`` (named)."""
+    return [k for k in kernels if named(k['function'], names)]
 
 
 def check_tc_sass():
     """The bf16 forwards' and backwards' kernels run their products on the
-    tensor cores: every copy of K1-fwd's and K3-fwd's tensor-core kernels,
-    of phase 1 and of the dW pass in the library holds HMMA
-    instructions."""
+    tensor cores: every copy of K1-fwd's, K2-fwd's and K3-fwd's
+    tensor-core kernels, of K2-bwd's, of phase 1 and of the dW pass in the
+    library holds HMMA instructions."""
     kernels = sass_hmma(TC_KERNELS)
     for name in TC_KERNELS:
-        found = [k for k in kernels if name in k['function']]
+        found = hmma_of(kernels, name)
         if not found or not all(k['hmma'] for k in found):
             raise AssertionError("%s: no HMMA in the built kernels: %s"
                                  % (name, kernels))
@@ -1855,8 +1995,8 @@ def run_stash_step(config):
         zero_counters()
         step = time_train_step(model, dataset)
         torch.cuda.synchronize()
-        launches = read_counters(('K1r-fwd', 'K1r-bwd'),
-                                 'stash-route training step')
+        launches = read_counters(('K1r-fwd', 'K1r-bwd', 'K2-fwd tc',
+                                  'K2-bwd tc'), 'stash-route training step')
     finally:
         fm.TRANSPOSED_BOUNDARY = True
     if launches['K1-fwd'] or launches['K1-bwd']:
@@ -2074,6 +2214,8 @@ FIELD_READINGS = {'k1': k1_field_readings, 'k3': k3_field_readings}
 LIMIT_READINGS = {
     'k1': lambda config, seeds: k1_limit_readings(
         Model(config, device='cuda'), seeds),
+    'k2': lambda config, seeds: k2_limit_readings(
+        Model(config, device='cuda'), seeds),
     'k3': lambda config, seeds: k3_limit_readings(seeds),
 }
 
@@ -2087,7 +2229,7 @@ def main(argv=None):
              "seed (FIELD_READINGS), and stop")
     parser.add_argument(
         '--limit_seeds', nargs=2, metavar=('KERNEL', 'SEEDS'),
-        help="k1 or k3 and comma-separated seeds: print only the readings "
+        help="k1, k2 or k3 and comma-separated seeds: print only the readings "
              "behind that kernel's error bounds over them (LIMIT_READINGS), "
              "one JSON line each, and stop")
     parser.add_argument(
@@ -2146,8 +2288,8 @@ def main(argv=None):
     # The inference path, through the user's entry point
     zero_counters()
     run = test_cli.main(['--ckpt', ckpt])
-    launches_infer = read_counters(('K1-fwd', 'K1-fwd tc', 'K2-fwd'),
-                                   'inference')
+    launches_infer = read_counters(('K1-fwd', 'K1-fwd tc', 'K2-fwd',
+                                    'K2-fwd tc'), 'inference')
 
     batch_dirs = ioutil.sortglob(run['outroot'], 'batch?????????')
     if len(batch_dirs) != N_VIEWS:
@@ -2282,18 +2424,43 @@ def main(argv=None):
               ptxas=ptxas_report(('chain_bwd_tc', 'dw_kernel')),
               sass_hmma=hmma_of(tc_sass, 'chain_bwd_tc_kernel', 'dw_kernel'),
               shapes=k1b),
-        entry('K2-fwd rusink_chain_fwd_kernel', 'fused_rusink.cu',
+        entry('K2-fwd rusink_chain_fwd_tc_kernel', 'fused_rusink.cu',
               'nerfactor_tpu/ops/pallas_rusink.py:187', k2,
               chain_bound(plans['brdf'], k2['rows'], k2['dtype'], z_dim + 6,
-                          1),
+                          1), counter='K2-fwd tc',
               max_abs_err=max(k2['max_abs_err'], k2b['fwd_max_abs_err']),
+              tflops=k2['tflops'], fwd_device_ms=k2['fwd_device_ms'],
+              cuda_core_ms=k2['cuda_core_ms'],
+              tc_vs_cuda_core_rel_err=k2['tc_vs_cuda_core_rel_err'],
+              cuda_core_launches_by_path={
+                  p: c['K2-fwd'] - c['K2-fwd tc'] for p, c in paths.items()
+                  if c['K2-fwd'] - c['K2-fwd tc']},
+              launches_per_step={'tc': step['launches_per_step'].get(
+                  'K2-fwd tc', 0), 'all': step['launches_per_step'].get(
+                      'K2-fwd', 0)},
+              launches_per_view={k: launches_infer[c] / N_VIEWS for k, c in (
+                  ('tc', 'K2-fwd tc'), ('all', 'K2-fwd'))},
+              ptxas=ptxas_report(('rusink_chain_fwd',)),
+              sass_hmma=hmma_of(tc_sass, 'rusink_chain_fwd_tc_kernel'),
+              train_shape=dict(k2b['fwd'], bound_ms=chain_bound(
+                  plans['brdf'], k2b['rows'], 'bf16', z_dim + 6,
+                  1)['bound_ms']),
               shapes=[k2]),
-        entry('K2-bwd rusink_chain_bwd_kernel', 'fused_rusink.cu',
+        entry('K2-bwd rusink_chain_bwd_tc_kernel', 'fused_rusink.cu',
               'nerfactor_tpu/ops/pallas_rusink.py:200', k2b,
               chain_bound(plans['brdf'], k2b['rows'], k2b['dtype'],
                           z_dim + 6, 1, bwd=(True, False)),
-              max_abs_err=k2b['max_abs_err'],
-              max_rel_err={'bf16': k2b['bf16_rel_err']}, shapes=[k2b]),
+              counter='K2-bwd tc', max_abs_err=k2b['max_abs_err'],
+              max_rel_err={'bf16': k2b['bf16_rel_err']},
+              tflops=k2b['tflops'], bwd_device_ms=k2b['bwd_device_ms'],
+              packing_ms=k2b['packing_ms'], cuda_core_ms=k2b['cuda_core_ms'],
+              tc_vs_cuda_core_rel_err=k2b['tc_vs_cuda_core_rel_err'],
+              launches_per_step={'tc': step['launches_per_step'].get(
+                  'K2-bwd tc', 0), 'all': step['launches_per_step'].get(
+                      'K2-bwd', 0)},
+              ptxas=ptxas_report(('rusink_chain_bwd',)),
+              sass_hmma=hmma_of(tc_sass, 'rusink_chain_bwd_tc_kernel'),
+              shapes=[k2b]),
         entry('K3-fwd nerf_fwd_tc_kernel', 'fused_nerf.cu',
               'nerfactor_tpu/ops/pallas_nerf.py:153', k3_bf16,
               nerf_bound(nplan, k3_bf16['rows'], 'bf16'), counter='K3-fwd tc',

@@ -20,10 +20,10 @@
 // mode) and accumulated in f32. Biases and heads stay f32; hidden
 // activations are stored back at type T.
 //
-// The CUDA-core backward (kernel K2-bwd, and K1-bwd but for bf16 with dW
-// only, which fused_mlp.cu runs on the tensor cores) recomputes a tile's
-// forward, keeping every hidden post-activation (nothing is saved by the
-// forward), then walks the layers in reverse: d_pre = act'(post) * d_h,
+// The CUDA-core backward (K1-bwd and K2-bwd but where they run on the
+// tensor cores: K1-bwd in bf16 with dW only, K2-bwd in bf16) recomputes a
+// tile's forward, keeping every hidden post-activation (nothing is saved
+// by the forward), then walks the layers in reverse: d_pre = act'(post) * d_h,
 // db and dW accumulate into the block's own slice of a scratch buffer,
 // and d_h = d_pre @ W^T streams W transposed through shared memory.
 #pragma once

@@ -1,0 +1,395 @@
+// The tensor-core chain: the plans and the shared-memory layouts of the
+// bf16 chain kernels on the tensor cores, their one forward loop over a
+// 64-row tile (chain_hidden_tc) and the two tile functions built on it that
+// more than one kernel runs: the forward (chain_fwd_tc_tile: K1-fwd in
+// fused_mlp.cu, K2-fwd in fused_rusink.cu) and the input-cotangent
+// backward of a frozen chain (chain_tile_dx_tc: K2-bwd). K1-bwd's phase 1
+// with dW (chain_tile_bwd_tc) stays in fused_mlp.cu.
+#pragma once
+
+#include "chain_mlp.cuh"
+#include "mma_bf16.cuh"
+
+namespace nfk {
+
+// ------ plans and layouts ------
+
+// The tensor-core backward's plans: a head of at most kMaxHeadOut columns
+// after at least one hidden layer, no skip after the head or into it (its
+// tiny forward and dW read the last post alone, as the TPU kernel's
+// _tiny_head, which takes no skip consumer), hidden widths on the mma K
+// step (16).
+inline bool chain_tc_plan(const ChainDesc& d) {
+  if (d.n_layers < 2 || last_skip(d) || d.skip_after[d.n_layers - 2] ||
+      d.widths[d.n_layers - 1] > kMaxHeadOut)
+    return false;
+  for (int i = 0; i < d.n_layers - 1; ++i)
+    if (d.widths[i] % 16) return false;
+  return true;
+}
+
+// Columns of a scratch row (mma_bf16.cuh's row-paired scratch): the
+// embedding zero-padded to 16 columns; the posts of the hidden layers
+// that feed a later hidden layer (all but the last); every hidden layer's
+// rounded d_pre. The lvis chain: 96 + 3 x 128 + 4 x 128 = 992 columns.
+struct ChainCols {
+  int post[kMaxLayers], dpre[kMaxLayers], total;
+};
+
+__host__ __device__ inline ChainCols chain_cols(const ChainDesc& d) {
+  const int nh = d.n_layers - 1;
+  ChainCols c;
+  int col = round16(d.embed_dim);
+  for (int i = 0; i < nh; ++i) {
+    c.post[i] = i < nh - 1 ? col : -1;
+    if (i < nh - 1) col += d.widths[i];
+  }
+  for (int i = 0; i < nh; ++i) {
+    c.dpre[i] = col;
+    col += d.widths[i];
+  }
+  c.total = col;
+  return c;
+}
+
+// Hidden layer i as the dW pass reads it: [embedding] for layer 0, [post
+// of layer i - 1 | embedding] for a skip consumer, else [post of i - 1].
+__host__ __device__ inline DenseLayer chain_dense_layer(const ChainDesc& d, int i) {
+  const ChainCols c = chain_cols(d);
+  DenseLayer l;
+  l.seg1 = i ? c.post[i - 1] : 0;
+  l.k1 = layer_in_dim(d, i) - (i > 0 && d.skip_after[i - 1] ? d.embed_dim : 0);
+  l.seg2 = 0;
+  l.k2 = i > 0 && d.skip_after[i - 1] ? d.embed_dim : 0;
+  l.dpre = c.dpre[i];
+  l.n = d.widths[i];
+  l.w_off = d.w_off[i];
+  return l;
+}
+
+// The dW pass's table: every hidden layer; its dW is the packed weights up
+// to the head's, [0, w_off[head]).
+inline DwTable chain_dw_table(const ChainDesc& d) {
+  DwTable t;
+  t.n_layers = d.n_layers - 1;
+  t.total = chain_cols(d).total;
+  t.n_dense = d.w_off[d.n_layers - 1];
+  for (int i = 0; i < t.n_layers; ++i) t.layers[i] = chain_dense_layer(d, i);
+  return t;
+}
+
+// Floats of phase 1's slice, the packed dW/db past the hidden dW: the
+// head's dW, then every bias.
+__host__ __device__ inline long long chain_n_aux(const ChainDesc& d) {
+  return total_weights(d) + total_biases(d) - d.w_off[d.n_layers - 1];
+}
+
+// Offset of hidden layer i's transpose in the transposed weights: each
+// W^T is (n, round16(k1) + round16(k2)), its segments zero-padded.
+__host__ __device__ inline long long chain_wt_offset(const ChainDesc& d, int i) {
+  long long off = 0;
+  for (int j = 0; j < i; ++j) {
+    const DenseLayer l = chain_dense_layer(d, j);
+    off += static_cast<long long>(l.n) * (round16(l.k1) + round16(l.k2));
+  }
+  return off;
+}
+
+// Shared-memory layout of a tensor-core block: raw rows (f32) | the
+// head's cotangent rows (f32, the backward's phase 1 only) | embedding
+// (bf16) | one activation buffer (bf16) | the ring of weight stages. The
+// buffer holds, in turn, each hidden post and, in the backward, each
+// rounded d_pre: every product's epilogue writes over its own operand
+// (~94 KB at the lvis width, two blocks an SM). Hidden layers wider than
+// one tc_gemm pass (kTcCols) get a second buffer (h2; h2 == h otherwise),
+// and each product writes the other one.
+struct ChainTcLayout {
+  size_t xs, dq, es, h, h2, ws, total;
+  int lde, ldh;
+};
+
+__host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d, bool bwd) {
+  constexpr int R = tc::kTcRows;
+  ChainTcLayout s;
+  s.lde = tc::tc_ld(d.embed_dim);
+  s.ldh = tc::tc_ld(d.max_width);
+  s.xs = 0;
+  s.dq = align16(s.xs + sizeof(float) * R * d.raw_dim);
+  s.es = align16(s.dq + (bwd ? sizeof(float) * R * d.widths[d.n_layers - 1] : 0));
+  s.h = align16(s.es + sizeof(bf16) * R * s.lde);
+  s.h2 = d.max_width > tc::kTcCols ? align16(s.h + sizeof(bf16) * R * s.ldh) : s.h;
+  s.ws = align16(s.h2 + sizeof(bf16) * R * s.ldh);
+  s.total = align16(s.ws + sizeof(bf16) * tc::kTcStages * tc::kTcStage);
+  return s;
+}
+
+// Whether the tensor-core forward (bwd false) or backward's phase 1 (bwd
+// true) runs the plan: chain_tc_plan's plans whose block fits the card's
+// shared memory.
+inline int check_chain_tc(const ChainDesc& d, bool bwd) {
+  if (!chain_tc_plan(d)) return kErrBadPlan;
+  if (chain_tc_layout(d, bwd).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  return 0;
+}
+
+// ------ the input cotangent of a frozen chain (no dW, no db) ------
+//
+// K1-bwd's phase 1 reads a post back from its scratch for act'. Without
+// dW there is no scratch: the recompute keeps, per post that feeds a later
+// hidden layer, only its sign (every hidden act is ReLU), one bit a value
+// in shared memory: 1 KB a 128-wide layer, where the post takes 16 KB. A
+// product's epilogue gives lane l of warp w the same 16 fragment positions
+// of a column tile whatever the product (tc_gemm: the tile at column c0
+// is warp (c0 / 8) % 8's), so the thread that writes a word of the mask in
+// the forward epilogue reads it back in the backward one: no barrier, no
+// exchange.
+
+// uint16s of the mask a hidden layer: one a lane of each n8 column tile.
+__host__ __device__ inline int dx_mask_stride(const ChainDesc& d) { return 4 * d.max_width; }
+
+// A ReLU forward product's epilogue that also keeps each post's sign:
+// out = bf16(max(v + b, 0)), as fwd_epilogue's, and bit 4 m + e of the
+// lane's word of the tile at c0 set where that post is above 0.
+__device__ inline void relu_mask_epilogue(int c0, const float (&v)[tc::kTcM][4],
+                                          const float* __restrict__ b, bf16* out, int ldo,
+                                          uint16_t* mask) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  unsigned bits = 0;
+#pragma unroll
+  for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+      const bf16 y = from_f<bf16>(fmaxf(v[m][e] + b[c], 0.f));
+      out[r * ldo + c] = y;
+      bits |= static_cast<unsigned>(to_f<bf16>(y) > 0.f) << (4 * m + e);
+    }
+  mask[(c0 >> 3) * 32 + lane] = static_cast<uint16_t>(bits);
+}
+
+// ------ the forward loop ------
+
+// The hidden layers' forward on the tensor cores for one 64-row tile whose
+// raw rows are in shared memory (layout L): the embedding, zero-padded to
+// 16 columns, then each hidden layer through tc_gemm, its epilogue writing
+// bf16(act(v + b)) over its operand. kStore (the backward's phase 1): the
+// embedding and the posts that feed a later hidden layer also go to the
+// tile's scratch `st` (kPairs rows of the caller's chain_cols, `cols`).
+// kMask (an input-cotangent backward, chain_tile_dx_tc; every hidden act
+// ReLU): the posts that feed a later hidden layer keep their signs in
+// `mask` (relu_mask_epilogue, dx_mask_stride words a layer). Returns the
+// buffer that holds the last hidden post, which its product's epilogue has
+// just written (no barrier after it). The one forward loop of the
+// tensor-core chain kernels (K1-fwd, K1-bwd's phase 1, K2-fwd, K2-bwd).
+template <bool kTwoBuffers, bool kStore, bool kMask = false>
+__device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
+                                 const ChainCols& cols, const bf16* __restrict__ wt,
+                                 const float* __restrict__ bias, unsigned char* smem,
+                                 uint32_t* st, uint16_t* mask = nullptr) {
+  const float* xs = reinterpret_cast<const float*>(smem + L.xs);
+  bf16* es = reinterpret_cast<bf16*>(smem + L.es);
+  // h holds the latest result; each product writes ho, then the two swap.
+  // With one buffer ho is h, fixed
+  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
+  bf16* ho = kTwoBuffers ? reinterpret_cast<bf16*>(smem + L.h2) : h;
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  const int nh = d.n_layers - 1, e16 = round16(d.embed_dim), ldh = L.ldh;
+  const int total = cols.total;
+  embed_tile(d, xs, es, L.lde);
+  __syncthreads();
+  if (kStore) store_pairs(es, L.lde, e16, st, total, 0);
+  tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
+  for (int i = 0; i < nh; ++i) {
+    const int act = d.acts[i], col = cols.post[i], k = a.k1 + a.k2;
+    const float* b = bias + d.b_off[i];
+    const bf16* wti = wt + chain_wt_offset(d, i);
+    if (kStore && i < nh - 1)
+      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
+      });
+    else if (kMask && i < nh - 1)
+      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        relu_mask_epilogue(c0, v, b, ho, ldh, mask + i * dx_mask_stride(d));
+      });
+    else
+      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<false>(c0, v, act, b, ho, ldh, st, total, 0);
+      });
+    if (kTwoBuffers) {
+      bf16* t = h;
+      h = ho;
+      ho = t;
+    }
+    const bool skip = d.skip_after[i] != 0;
+    a = tc::TcA{h, ldh, d.widths[i], skip ? es : nullptr, L.lde, skip ? e16 : 0};
+  }
+  return h;
+}
+
+// ------ the forward of a tile ------
+
+// The forward of one 64-row tile whose raw rows are in shared memory
+// (chain_tc_layout(d, false)): the hidden layers through chain_hidden_tc,
+// without the scratch, then the tiny head in f32 on the CUDA cores from the
+// last post (head_sums, as phase 1's head forward), its rows below n
+// written to y.
+template <bool kTwoBuffers>
+__device__ void chain_fwd_tc_tile(const ChainDesc& d, const bf16* __restrict__ w,
+                                  const bf16* __restrict__ wt, const float* __restrict__ bias,
+                                  unsigned char* smem, float* __restrict__ y, long long row0,
+                                  long long n) {
+  const ChainTcLayout L = chain_tc_layout(d, false);
+  const bf16* h =
+      chain_hidden_tc<kTwoBuffers, false>(d, L, chain_cols(d), wt, bias, smem, nullptr);
+  __syncthreads();
+  const int nh = d.n_layers - 1, no = d.widths[nh], act = d.acts[nh];
+  const float* bh = bias + d.b_off[nh];
+  head_sums(h, L.ldh, d.widths[nh - 1], w + d.w_off[nh], no, [&](int item, int r, int c,
+                                                                   float s) {
+    if (row0 + r < n) y[row0 * no + item] = activate(act, s + bh[c]);
+  });
+}
+
+// ------ the input cotangent of a frozen chain, continued ------
+
+// A d_pre @ W^T product's epilogue in the input-cotangent backward, over
+// the product's columns: below w (the previous hidden layer's units), its
+// d_pre, bf16(v) where the post's sign bit is set and 0 elsewhere (ReLU'),
+// into dpre (ld ldp); from w up to n (the embedding's rows of W), v added
+// in f32 into the embedding's cotangent de (ld ldde) at column c - w; from
+// n on (the last n8 tile of a width off the 8 step), nothing.
+__device__ inline void dx_epilogue(int c0, const float (&v)[tc::kTcM][4], int w, int n,
+                                   const uint16_t* mask, bf16* dpre, int ldp, float* de,
+                                   int ldde) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (c0 < w) {
+    const unsigned bits = mask[(c0 >> 3) * 32 + lane];
+#pragma unroll
+    for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+        dpre[r * ldp + c] = from_f<bf16>((bits >> (4 * m + e)) & 1u ? v[m][e] : 0.f);
+      }
+  } else {
+#pragma unroll
+    for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
+        if (c < n) de[r * ldde + c - w] += v[m][e];
+      }
+  }
+}
+
+// Shared-memory layout of the input-cotangent backward: the phase-1 layout
+// (chain_tc_layout(d, true): raw rows | head cotangent rows | embedding |
+// activation buffer(s) | weight ring), then the embedding's cotangent
+// (f32, ld ldde) | the posts' sign masks | the raw rows' cotangent (f32).
+// ~100 KB at the BRDF chain's width (128 x 4, embedding 18): two blocks an
+// SM.
+struct ChainDxLayout {
+  ChainTcLayout t;
+  size_t de, mask, dxs, total;
+  int ldde;
+};
+
+__host__ __device__ inline ChainDxLayout chain_dx_layout(const ChainDesc& d) {
+  constexpr int R = tc::kTcRows;
+  ChainDxLayout s;
+  s.t = chain_tc_layout(d, true);
+  s.ldde = tc::tc_ld(d.embed_dim);
+  s.de = s.t.total;
+  s.mask = align16(s.de + sizeof(float) * R * s.ldde);
+  s.dxs = align16(s.mask + sizeof(uint16_t) * (d.n_layers - 2) * dx_mask_stride(d));
+  s.total = align16(s.dxs + sizeof(float) * R * d.raw_dim);
+  return s;
+}
+
+// Whether chain_tile_dx_tc runs the plan: chain_tc_plan's plans whose
+// hidden layers are all ReLU (a mask keeps a post's sign alone), whose
+// block fits the card's shared memory, and, with one activation buffer,
+// whose products all take one column pass (a second pass reads the whole
+// operand again, which the first pass's epilogue wrote over).
+inline int check_chain_dx_tc(const ChainDesc& d) {
+  if (!chain_tc_plan(d)) return kErrBadPlan;
+  for (int i = 0; i < d.n_layers - 1; ++i)
+    if (d.acts[i] != kRelu) return kErrBadPlan;
+  if (d.max_width <= tc::kTcCols)
+    for (int i = 1; i < d.n_layers - 1; ++i)
+      if (layer_in_dim(d, i) > tc::kTcCols) return kErrBadPlan;
+  if (chain_dx_layout(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  return 0;
+}
+
+// The input cotangent of a frozen chain for one 64-row tile whose raw rows
+// and head cotangent rows are in shared memory (layout chain_dx_layout)
+// and whose embedding cotangent de is zero: the forward recompute on the
+// tensor cores, keeping the posts' signs; the tiny head's d_pre and the
+// last hidden layer's in f32 on the CUDA cores; then, for i = nh - 1 ...
+// 0, d_pre_i @ W_i^T on the tensor cores, the embedding's rows of W_i
+// included (layer 0's and a skip consumer's), through dx_epilogue. Leaves
+// the embedding's cotangent in de. Rounds where chain_tile_bwd does: posts
+// and d_pre at bf16, d_h and de in f32, de summed in its order (a skip
+// consumer's rows, then layer 0's). Ends at a barrier.
+template <bool kTwoBuffers>
+__device__ void chain_tile_dx_tc(const ChainDesc& d, const bf16* __restrict__ w,
+                                 const bf16* __restrict__ wt, const float* __restrict__ bias,
+                                 unsigned char* smem) {
+  constexpr int R = tc::kTcRows;
+  const ChainDxLayout L = chain_dx_layout(d);
+  float* dq = reinterpret_cast<float*>(smem + L.t.dq);
+  float* de = reinterpret_cast<float*>(smem + L.de);
+  uint16_t* mask = reinterpret_cast<uint16_t*>(smem + L.mask);
+  bf16* h = chain_hidden_tc<kTwoBuffers, false, true>(d, L.t, chain_cols(d), wt, bias, smem,
+                                                      nullptr, mask);
+  // h holds the latest d_pre; each product writes ho, then the two swap.
+  // With one buffer ho is h, fixed
+  bf16* ho = h;
+  if (kTwoBuffers)
+    ho = reinterpret_cast<bf16*>(smem + (h == reinterpret_cast<bf16*>(smem + L.t.h) ? L.t.h2
+                                                                                  : L.t.h));
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.t.ws);
+  const int nh = d.n_layers - 1, ldh = L.t.ldh;
+  __syncthreads();
+  // The head's forward from the last post, its d_pre in place of dy, then
+  // the rounding
+  const int no = d.widths[nh], kl = d.widths[nh - 1], act_h = d.acts[nh];
+  const bf16* wh = w + d.w_off[nh];  // (kl, no) row-major
+  const float* bh = bias + d.b_off[nh];
+  head_sums(h, ldh, kl, wh, no, [&](int item, int, int c, float s) {
+    dq[item] = activate_bwd(act_h, activate(act_h, s + bh[c]), dq[item]);
+  });
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < R * no; idx += kThreads)
+    dq[idx] = to_f<bf16>(from_f<bf16>(dq[idx]));
+  __syncthreads();
+  // The last hidden layer's d_pre = ReLU'(post) * (d_pre_head @ W_head^T)
+  // in place of its post, the sum in dgrad_pass's order
+  for (int idx = threadIdx.x; idx < R * kl; idx += kThreads) {
+    const int r = idx / kl, k = idx % kl;
+    float gr = 0.f;
+    for (int c = 0; c < no; ++c) gr = fmaf(dq[r * no + c], to_f<bf16>(wh[k * no + c]), gr);
+    h[r * ldh + k] = from_f<bf16>(to_f<bf16>(h[r * ldh + k]) > 0.f ? gr : 0.f);
+  }
+  // Down the chain: the product of layer i has the previous layer's units
+  // and, for layer 0 and a skip consumer, the embedding's rows as columns
+  for (int i = nh - 1; i >= 0; --i) {
+    const int prev = i ? d.widths[i - 1] : 0;
+    const int n = i == 0 || d.skip_after[i - 1] ? layer_in_dim(d, i) : prev;
+    const uint16_t* mi = i ? mask + (i - 1) * dx_mask_stride(d) : nullptr;
+    const tc::TcA a{h, ldh, d.widths[i], nullptr, 0, 0};
+    tc::tc_gemm(a, w + d.w_off[i], d.widths[i], n, ws,
+                [&](int c0, const float (&v)[tc::kTcM][4]) {
+                  dx_epilogue(c0, v, prev, n, mi, ho, ldh, de, L.ldde);
+                });
+    if (kTwoBuffers) {
+      bf16* t = h;
+      h = ho;
+      ho = t;
+    }
+  }
+  __syncthreads();
+}
+
+}  // namespace nfk

@@ -11,7 +11,8 @@
 //     phase 1 takes (chain_tc_plan) with a block that fits the card's
 //     shared memory (the joint step's lvis chain, NeRF's no-views chain):
 //     chain_fwd_tc_kernel, a block a 64-row tile, two blocks an SM. It is
-//     the forward half of phase 1 (chain_hidden_tc, one loop for both):
+//     the forward half of phase 1 (chain_hidden_tc in chain_tc.cuh, one
+//     loop for both, which K2's tensor-core kernels share):
 //     every hidden layer a tc_gemm of the tile's rows in shared memory
 //     with the weights streamed through the cp.async ring, its epilogue
 //     writing bf16(act(v + b)) over its operand; the tiny head in f32 on
@@ -104,6 +105,7 @@
 // round16(k2)), zero-padded segments). Output y (n, out_dim) f32.
 
 #include "chain_mlp.cuh"
+#include "chain_tc.cuh"
 #include "mma_bf16.cuh"
 
 namespace nfk {
@@ -252,174 +254,6 @@ int chain_bwd_slices_dispatch(const ChainDesc& d, int needs_dx, long long n, int
 // The chain's dW tile (dw_kernel): 64, so that the lvis chain's four
 // 128-wide layers make 20 tiles (160 blocks over 8 row chunks), not 5
 constexpr int kChainDwTile = 64;
-
-// The tensor-core backward's plans: a head of at most kMaxHeadOut columns
-// after at least one hidden layer, no skip after the head or into it (its
-// tiny forward and dW read the last post alone, as the TPU kernel's
-// _tiny_head, which takes no skip consumer), hidden widths on the mma K
-// step (16).
-inline bool chain_tc_plan(const ChainDesc& d) {
-  if (d.n_layers < 2 || last_skip(d) || d.skip_after[d.n_layers - 2] ||
-      d.widths[d.n_layers - 1] > kMaxHeadOut)
-    return false;
-  for (int i = 0; i < d.n_layers - 1; ++i)
-    if (d.widths[i] % 16) return false;
-  return true;
-}
-
-// Columns of a scratch row (mma_bf16.cuh's row-paired scratch): the
-// embedding zero-padded to 16 columns; the posts of the hidden layers
-// that feed a later hidden layer (all but the last); every hidden layer's
-// rounded d_pre. The lvis chain: 96 + 3 x 128 + 4 x 128 = 992 columns.
-struct ChainCols {
-  int post[kMaxLayers], dpre[kMaxLayers], total;
-};
-
-__host__ __device__ inline ChainCols chain_cols(const ChainDesc& d) {
-  const int nh = d.n_layers - 1;
-  ChainCols c;
-  int col = round16(d.embed_dim);
-  for (int i = 0; i < nh; ++i) {
-    c.post[i] = i < nh - 1 ? col : -1;
-    if (i < nh - 1) col += d.widths[i];
-  }
-  for (int i = 0; i < nh; ++i) {
-    c.dpre[i] = col;
-    col += d.widths[i];
-  }
-  c.total = col;
-  return c;
-}
-
-// Hidden layer i as the dW pass reads it: [embedding] for layer 0, [post
-// of layer i - 1 | embedding] for a skip consumer, else [post of i - 1].
-__host__ __device__ inline DenseLayer chain_dense_layer(const ChainDesc& d, int i) {
-  const ChainCols c = chain_cols(d);
-  DenseLayer l;
-  l.seg1 = i ? c.post[i - 1] : 0;
-  l.k1 = layer_in_dim(d, i) - (i > 0 && d.skip_after[i - 1] ? d.embed_dim : 0);
-  l.seg2 = 0;
-  l.k2 = i > 0 && d.skip_after[i - 1] ? d.embed_dim : 0;
-  l.dpre = c.dpre[i];
-  l.n = d.widths[i];
-  l.w_off = d.w_off[i];
-  return l;
-}
-
-// The dW pass's table: every hidden layer; its dW is the packed weights up
-// to the head's, [0, w_off[head]).
-inline DwTable chain_dw_table(const ChainDesc& d) {
-  DwTable t;
-  t.n_layers = d.n_layers - 1;
-  t.total = chain_cols(d).total;
-  t.n_dense = d.w_off[d.n_layers - 1];
-  for (int i = 0; i < t.n_layers; ++i) t.layers[i] = chain_dense_layer(d, i);
-  return t;
-}
-
-// Floats of phase 1's slice, the packed dW/db past the hidden dW: the
-// head's dW, then every bias.
-__host__ __device__ inline long long chain_n_aux(const ChainDesc& d) {
-  return total_weights(d) + total_biases(d) - d.w_off[d.n_layers - 1];
-}
-
-// Offset of hidden layer i's transpose in the transposed weights: each
-// W^T is (n, round16(k1) + round16(k2)), its segments zero-padded.
-__host__ __device__ inline long long chain_wt_offset(const ChainDesc& d, int i) {
-  long long off = 0;
-  for (int j = 0; j < i; ++j) {
-    const DenseLayer l = chain_dense_layer(d, j);
-    off += static_cast<long long>(l.n) * (round16(l.k1) + round16(l.k2));
-  }
-  return off;
-}
-
-// Shared-memory layout of a tensor-core block: raw rows (f32) | the
-// head's cotangent rows (f32, the backward's phase 1 only) | embedding
-// (bf16) | one activation buffer (bf16) | the ring of weight stages. The
-// buffer holds, in turn, each hidden post and, in the backward, each
-// rounded d_pre: every product's epilogue writes over its own operand
-// (~94 KB at the lvis width, two blocks an SM). Hidden layers wider than
-// one tc_gemm pass (kTcCols) get a second buffer (h2; h2 == h otherwise),
-// and each product writes the other one.
-struct ChainTcLayout {
-  size_t xs, dq, es, h, h2, ws, total;
-  int lde, ldh;
-};
-
-__host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d, bool bwd) {
-  constexpr int R = tc::kTcRows;
-  ChainTcLayout s;
-  s.lde = tc::tc_ld(d.embed_dim);
-  s.ldh = tc::tc_ld(d.max_width);
-  s.xs = 0;
-  s.dq = align16(s.xs + sizeof(float) * R * d.raw_dim);
-  s.es = align16(s.dq + (bwd ? sizeof(float) * R * d.widths[d.n_layers - 1] : 0));
-  s.h = align16(s.es + sizeof(bf16) * R * s.lde);
-  s.h2 = d.max_width > tc::kTcCols ? align16(s.h + sizeof(bf16) * R * s.ldh) : s.h;
-  s.ws = align16(s.h2 + sizeof(bf16) * R * s.ldh);
-  s.total = align16(s.ws + sizeof(bf16) * tc::kTcStages * tc::kTcStage);
-  return s;
-}
-
-// Whether the tensor-core forward (bwd false) or backward's phase 1 (bwd
-// true) runs the plan: chain_tc_plan's plans whose block fits the card's
-// shared memory.
-inline int check_chain_tc(const ChainDesc& d, bool bwd) {
-  if (!chain_tc_plan(d)) return kErrBadPlan;
-  if (chain_tc_layout(d, bwd).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
-  return 0;
-}
-
-// The hidden layers' forward on the tensor cores for one 64-row tile whose
-// raw rows are in shared memory (layout L): the embedding, zero-padded to
-// 16 columns, then each hidden layer through tc_gemm, its epilogue writing
-// bf16(act(v + b)) over its operand. kStore (the backward's phase 1): the
-// embedding and the posts that feed a later hidden layer also go to the
-// tile's scratch `st` (kPairs rows of the caller's chain_cols, `cols`).
-// Returns the buffer that holds the last hidden post, which its product's
-// epilogue has just written (no barrier after it). The one forward loop of
-// chain_fwd_tc_kernel and chain_bwd_tc_kernel.
-template <bool kTwoBuffers, bool kStore>
-__device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
-                                 const ChainCols& cols, const bf16* __restrict__ wt,
-                                 const float* __restrict__ bias, unsigned char* smem,
-                                 uint32_t* st) {
-  const float* xs = reinterpret_cast<const float*>(smem + L.xs);
-  bf16* es = reinterpret_cast<bf16*>(smem + L.es);
-  // h holds the latest result; each product writes ho, then the two swap.
-  // With one buffer ho is h, fixed
-  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
-  bf16* ho = kTwoBuffers ? reinterpret_cast<bf16*>(smem + L.h2) : h;
-  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-  const int nh = d.n_layers - 1, e16 = round16(d.embed_dim), ldh = L.ldh;
-  const int total = cols.total;
-  embed_tile(d, xs, es, L.lde);
-  __syncthreads();
-  if (kStore) store_pairs(es, L.lde, e16, st, total, 0);
-  tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
-  for (int i = 0; i < nh; ++i) {
-    const int act = d.acts[i], col = cols.post[i], k = a.k1 + a.k2;
-    const float* b = bias + d.b_off[i];
-    const bf16* wti = wt + chain_wt_offset(d, i);
-    if (kStore && i < nh - 1)
-      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
-        fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
-      });
-    else
-      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
-        fwd_epilogue<false>(c0, v, act, b, ho, ldh, st, total, 0);
-      });
-    if (kTwoBuffers) {
-      bf16* t = h;
-      h = ho;
-      ho = t;
-    }
-    const bool skip = d.skip_after[i] != 0;
-    a = tc::TcA{h, ldh, d.widths[i], skip ? es : nullptr, L.lde, skip ? e16 : 0};
-  }
-  return h;
-}
 
 // Phase 1 for one 64-row tile whose raw rows and head cotangent rows are
 // in shared memory: the forward recompute on the tensor cores, the tiny
@@ -613,10 +447,9 @@ int chain_bwd_tc(const ChainDesc& d, const float* x, const float* dy, const bf16
 
 // ------ K1-fwd in bf16 on the tensor cores ------
 
-// A block a 64-row tile: the hidden layers as phase 1 recomputes them
-// (chain_hidden_tc, without the scratch), then the tiny head in f32 on the
-// CUDA cores from the last post (head_sums, as phase 1's head forward),
-// its rows below n written to y.
+// A block a 64-row tile: its raw rows, then chain_fwd_tc_tile (the hidden
+// layers as phase 1 recomputes them, without the scratch; the tiny head in
+// f32 on the CUDA cores).
 template <bool kTwoBuffers>
 __global__ void __launch_bounds__(kThreads, 2)
 chain_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* __restrict__ w,
@@ -624,23 +457,14 @@ chain_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* __rest
                     float* __restrict__ y, long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int R = tc::kTcRows;
-  const ChainTcLayout L = chain_tc_layout(d, false);
   const long long row0 = static_cast<long long>(blockIdx.x) * R;
-  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* xs = reinterpret_cast<float*>(smem + chain_tc_layout(d, false).xs);
   for (int idx = threadIdx.x; idx < R * d.raw_dim; idx += kThreads) {
     const long long r = row0 + idx / d.raw_dim;
     xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
   }
   __syncthreads();
-  const bf16* h =
-      chain_hidden_tc<kTwoBuffers, false>(d, L, chain_cols(d), wt, bias, smem, nullptr);
-  __syncthreads();
-  const int nh = d.n_layers - 1, no = d.widths[nh], act = d.acts[nh];
-  const float* bh = bias + d.b_off[nh];
-  head_sums(h, L.ldh, d.widths[nh - 1], w + d.w_off[nh], no, [&](int item, int r, int c,
-                                                                   float s) {
-    if (row0 + r < n) y[row0 * no + item] = activate(act, s + bh[c]);
-  });
+  chain_fwd_tc_tile<kTwoBuffers>(d, w, wt, bias, smem, y, row0, n);
 }
 
 // bf16 K1-fwd on the tensor cores: one block a 64-row tile.

@@ -11,20 +11,42 @@
 // and the chain, runs the chain backward for the input cotangent only (the
 // prior's weights are frozen: no dW, so no cross-block reduction), and
 // turns the rusink cotangent into (d_ldir, d_vdir) with the hand-derived
-// safe-gradient VJP of _rusink_bwd, one thread per row. About twice the
-// forward's multiply-adds on top of the recompute; bound by arithmetic.
+// safe-gradient VJP of _rusink_bwd, one thread per row.
 //
-// Bound by arithmetic like K1 (~54k multiply-adds per row against 36 B in
-// and 4 B out), so it shares K1's tiling (chain_mlp.cuh): 64 rows per
-// block, activations resident in shared memory, weights streamed through a
-// shared-memory tile. The transform runs one thread per row in f32 with
-// the precise acosf/atan2f (the TPU kernel's atan polynomial existed only
-// because Mosaic lacks both).
+// Bound by arithmetic: ~54k multiply-adds a row forward (the backward
+// about twice that on top of the recompute) against 36 B in and 4 B out.
+// The transform runs one thread per row in f32 with the precise
+// acosf/atan2f (the TPU kernel's atan polynomial existed only because
+// Mosaic lacks both). Each kernel runs as one of two designs, chosen by
+// one rule on the plan (ops/fused_rusink.py rusink_on_tensor_cores):
+//
+//   * bf16 on the plans the library takes (nfk_rusink_chain_tc_runs:
+//     chain_tc_plan's, every hidden act ReLU, a block that fits; the
+//     shipped BRDF chain): the tensor-core kernels, a block a 64-row tile,
+//     two blocks an SM, the transform loading the tile's raw rows.
+//     rusink_chain_fwd_tc_kernel is K1-fwd's tensor-core kernel with this
+//     loader (chain_fwd_tc_tile, chain_tc.cuh). rusink_chain_bwd_tc_kernel
+//     runs chain_tile_dx_tc: the recompute on the tensor cores keeping each
+//     ReLU post's sign as a bit in shared memory (no scratch: with no dW
+//     the backward needs nothing else of the posts), the tiny head in f32
+//     on the CUDA cores, then d_pre @ W^T of every layer on the tensor
+//     cores with the embedding's rows of W (layer 0's and the skip
+//     consumer's) adding into an f32 embedding cotangent; the embedding's
+//     and the transform's VJPs on the CUDA cores. ~100 KB of shared memory
+//     a block. What bounds them is what bounds K1's tensor-core kernels:
+//     the weight ring's barrier every 32 K, the epilogues and the head on
+//     the CUDA cores.
+//   * every other call (f32; other plans): the CUDA-core kernels, which
+//     share K1's CUDA-core tiling (chain_mlp.cuh): 64 rows a block,
+//     activations resident in shared memory, weights streamed through a
+//     shared-memory tile, f32 FMA loops. In bf16 they are the comparison
+//     the tensor-core kernels are held against.
 //
 // Inputs: z (n, z_dim), ldir (n, 3), vdir (n, 3), all f32 row-major; the
 // chain's raw input is [z | rusink], so desc.raw_dim == z_dim + 3.
 
 #include "chain_mlp.cuh"
+#include "chain_tc.cuh"
 
 namespace nfk {
 
@@ -160,6 +182,30 @@ __device__ void load_rusink_rows(const float* __restrict__ z, const float* __res
   }
 }
 
+// The tile's rows below n of dz (n, z_dim), dl and dv (n, 3) from the raw
+// rows' cotangent dxs ([dz | d_rusink], raw_dim columns a row): d_rusink
+// through rusink_vjp, one thread a row.
+__device__ void store_rusink_grads(const ChainDesc& d, const float* __restrict__ ldir,
+                                   const float* __restrict__ vdir, const float* dxs, int rows,
+                                   long long row0, long long n, float* __restrict__ dz,
+                                   float* __restrict__ dl, float* __restrict__ dv) {
+  const int z_dim = d.raw_dim - 3;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const long long row = row0 + r;
+    if (row >= n) continue;
+    const float* g = dxs + r * d.raw_dim;
+    for (int c = 0; c < z_dim; ++c) dz[row * z_dim + c] = g[c];
+    const float l[3] = {ldir[row * 3], ldir[row * 3 + 1], ldir[row * 3 + 2]};
+    const float v[3] = {vdir[row * 3], vdir[row * 3 + 1], vdir[row * 3 + 2]};
+    float gl[3], gv[3];
+    rusink_vjp(l, v, g[z_dim], g[z_dim + 1], g[z_dim + 2], gl, gv);
+    for (int c = 0; c < 3; ++c) {
+      dl[row * 3 + c] = gl[c];
+      dv[row * 3 + c] = gv[c];
+    }
+  }
+}
+
 template <typename T, int ROWS>
 __global__ void __launch_bounds__(kThreads)
 rusink_chain_bwd_kernel(ChainDesc d, const float* __restrict__ z,
@@ -170,7 +216,7 @@ rusink_chain_bwd_kernel(ChainDesc d, const float* __restrict__ z,
   extern __shared__ __align__(16) unsigned char smem[];
   const BwdLayout L = bwd_layout<T, ROWS>(d, true);
   const long long row0 = static_cast<long long>(blockIdx.x) * ROWS;
-  const int z_dim = d.raw_dim - 3, n_out = d.widths[d.n_layers - 1];
+  const int n_out = d.widths[d.n_layers - 1];
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   float* da = reinterpret_cast<float*>(smem + L.da);
   float* de = reinterpret_cast<float*>(smem + L.de);
@@ -185,20 +231,7 @@ rusink_chain_bwd_kernel(ChainDesc d, const float* __restrict__ z,
   chain_tile_bwd<T, ROWS>(d, true, false, w, bias, smem, nullptr, nullptr);
   embed_bwd<ROWS>(d, xs, de, L.lde, dxs, ROWS);
   __syncthreads();
-  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
-    const long long row = row0 + r;
-    if (row >= n) continue;
-    const float* g = dxs + r * d.raw_dim;
-    for (int c = 0; c < z_dim; ++c) dz[row * z_dim + c] = g[c];
-    const float l[3] = {ldir[row * 3], ldir[row * 3 + 1], ldir[row * 3 + 2]};
-    const float v[3] = {vdir[row * 3], vdir[row * 3 + 1], vdir[row * 3 + 2]};
-    float gl[3], gv[3];
-    rusink_vjp(l, v, g[z_dim], g[z_dim + 1], g[z_dim + 2], gl, gv);
-    for (int c = 0; c < 3; ++c) {
-      dl[row * 3 + c] = gl[c];
-      dv[row * 3 + c] = gv[c];
-    }
-  }
+  store_rusink_grads(d, ldir, vdir, dxs, ROWS, row0, n, dz, dl, dv);
 }
 
 template <typename T>
@@ -238,6 +271,57 @@ rusink_chain_fwd_kernel(ChainDesc d, const float* __restrict__ z,
   chain_tile<T>(d, w, bias, smem, y, row0, n);
 }
 
+// ------ bf16 K2-fwd and K2-bwd on the tensor cores ------
+
+// A block a 64-row tile: the raw rows [z | dir2rusink(l, v)], then
+// chain_fwd_tc_tile, as K1-fwd's tensor-core kernel.
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+rusink_chain_fwd_tc_kernel(ChainDesc d, const float* __restrict__ z,
+                           const float* __restrict__ ldir, const float* __restrict__ vdir,
+                           const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                           const float* __restrict__ bias, float* __restrict__ y, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long row0 = static_cast<long long>(blockIdx.x) * tc::kTcRows;
+  float* xs = reinterpret_cast<float*>(smem + chain_tc_layout(d, false).xs);
+  load_rusink_rows(z, ldir, vdir, d.raw_dim, tc::kTcRows, row0, n, xs);
+  __syncthreads();
+  chain_fwd_tc_tile<kTwoBuffers>(d, w, wt, bias, smem, y, row0, n);
+}
+
+// A block a 64-row tile: the raw rows, the head's cotangent rows (zero past
+// n) and a zero embedding cotangent, then chain_tile_dx_tc, the
+// embedding's VJP and the transform's.
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+rusink_chain_bwd_tc_kernel(ChainDesc d, const float* __restrict__ z,
+                           const float* __restrict__ ldir, const float* __restrict__ vdir,
+                           const float* __restrict__ dy, const bf16* __restrict__ w,
+                           const bf16* __restrict__ wt, const float* __restrict__ bias,
+                           float* __restrict__ dz, float* __restrict__ dl,
+                           float* __restrict__ dv, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const ChainDxLayout L = chain_dx_layout(d);
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int no = d.widths[d.n_layers - 1];
+  float* xs = reinterpret_cast<float*>(smem + L.t.xs);
+  float* dq = reinterpret_cast<float*>(smem + L.t.dq);
+  float* de = reinterpret_cast<float*>(smem + L.de);
+  float* dxs = reinterpret_cast<float*>(smem + L.dxs);
+  load_rusink_rows(z, ldir, vdir, d.raw_dim, R, row0, n, xs);
+  for (int idx = threadIdx.x; idx < R * no; idx += kThreads) {
+    const long long r = row0 + idx / no;
+    dq[idx] = r < n ? dy[r * no + idx % no] : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < R * L.ldde; idx += kThreads) de[idx] = 0.f;
+  __syncthreads();
+  chain_tile_dx_tc<kTwoBuffers>(d, w, wt, bias, smem);
+  embed_bwd<R>(d, xs, de, L.ldde, dxs, R);
+  __syncthreads();
+  store_rusink_grads(d, ldir, vdir, dxs, R, row0, n, dz, dl, dv);
+}
+
 }  // namespace nfk
 
 extern "C" {
@@ -268,6 +352,55 @@ int nfk_rusink_chain_bwd(const nfk::ChainDesc* desc, int bf16, const float* z,
     return nfk::rusink_chain_bwd<__nv_bfloat16>(*desc, z, ldir, vdir, dy, w, bias, dz, dl, dv,
                                                 n, s);
   return nfk::rusink_chain_bwd<float>(*desc, z, ldir, vdir, dy, w, bias, dz, dl, dv, n, s);
+}
+
+// Whether nfk_rusink_chain_fwd_tc and nfk_rusink_chain_bwd_tc run the plan
+// (*runs = 1): chain_tc_plan's plans whose hidden layers are all ReLU and
+// whose backward block fits the card's shared memory (check_chain_dx_tc).
+// The wrapper's rule (ops/fused_rusink.py rusink_on_tensor_cores) asks it
+// for both kernels; every other plan keeps the CUDA-core kernels.
+int nfk_rusink_chain_tc_runs(const nfk::ChainDesc* desc, int* runs) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  *runs = desc->raw_dim >= 4 && nfk::check_chain_dx_tc(*desc) == 0;
+  return 0;
+}
+
+// K2-fwd in bf16 on the tensor cores: y (n, out_dim) f32. w holds the bf16
+// weights (the head's are read), wt each hidden layer's transpose, as
+// nfk_chain_fwd_tc takes them.
+int nfk_rusink_chain_fwd_tc(const nfk::ChainDesc* desc, const float* z, const float* ldir,
+                            const float* vdir, const void* w, const void* wt,
+                            const float* bias, float* y, long long n, void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (desc->raw_dim < 4) return nfk::kErrBadPlan;
+  if (int err = nfk::check_chain_tc(*desc, false)) return err;
+  if (n <= 0) return 0;
+  const auto kernel = desc->max_width > nfk::tc::kTcCols ? nfk::rusink_chain_fwd_tc_kernel<true>
+                                                         : nfk::rusink_chain_fwd_tc_kernel<false>;
+  return nfk::launch_with_smem(kernel, nfk::chain_tc_layout(*desc, false).total,
+                               (n + nfk::tc::kTcRows - 1) / nfk::tc::kTcRows,
+                               static_cast<cudaStream_t>(stream), *desc, z, ldir, vdir,
+                               static_cast<const nfk::bf16*>(w),
+                               static_cast<const nfk::bf16*>(wt), bias, y, n);
+}
+
+// K2-bwd in bf16 on the tensor cores: dz (n, z_dim), dl (n, 3), dv (n, 3),
+// f32, for dy (n, out_dim); w and wt as nfk_rusink_chain_fwd_tc takes them.
+int nfk_rusink_chain_bwd_tc(const nfk::ChainDesc* desc, const float* z, const float* ldir,
+                            const float* vdir, const float* dy, const void* w, const void* wt,
+                            const float* bias, float* dz, float* dl, float* dv, long long n,
+                            void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (desc->raw_dim < 4) return nfk::kErrBadPlan;
+  if (int err = nfk::check_chain_dx_tc(*desc)) return err;
+  if (n <= 0) return 0;
+  const auto kernel = desc->max_width > nfk::tc::kTcCols ? nfk::rusink_chain_bwd_tc_kernel<true>
+                                                         : nfk::rusink_chain_bwd_tc_kernel<false>;
+  return nfk::launch_with_smem(kernel, nfk::chain_dx_layout(*desc).total,
+                               (n + nfk::tc::kTcRows - 1) / nfk::tc::kTcRows,
+                               static_cast<cudaStream_t>(stream), *desc, z, ldir, vdir, dy,
+                               static_cast<const nfk::bf16*>(w),
+                               static_cast<const nfk::bf16*>(wt), bias, dz, dl, dv, n);
 }
 
 }  // extern "C"

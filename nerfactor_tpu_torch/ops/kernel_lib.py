@@ -121,6 +121,11 @@ ARGTYPES = {
     'nfk_dw_pass': [_PTR, _I32, _PTR, _PTR, _PTR, _I64, _PTR],
     'nfk_rusink_chain_bwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                              _PTR, _PTR, _PTR, _I64, _PTR],
+    'nfk_rusink_chain_tc_runs': [_PTR, _PTR],
+    'nfk_rusink_chain_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                _PTR, _I64, _PTR],
+    'nfk_rusink_chain_bwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                _PTR, _PTR, _PTR, _PTR, _I64, _PTR],
     'nfk_nerf_fwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                      _PTR],
     'nfk_nerf_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
