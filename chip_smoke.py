@@ -7,8 +7,9 @@ rendering.
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the CUDA kernels (nerfactor_tpu_torch/csrc) with nvcc for sm_90a,
    checks that every tensor-core kernel of the library (the bf16 K1-fwd,
-   K2-fwd and K3-fwd, K2-bwd, the dW backwards' phase 1 and dW pass)
-   holds HMMA instructions, and holds their building block (mma.sync fragments,
+   K1r-fwd, K2-fwd and K3-fwd, K2-bwd, the dW backwards' phase 1, K1r-bwd's
+   among them, and dW pass) holds HMMA instructions, and holds their
+   building block (mma.sync fragments,
    loaders, cp.async pipeline; csrc/mma_bf16.cuh) against the float64
    product of the same bf16 values, 64 x 96 x 80 and ragged sizes.
 3. Writes a synthetic scene -- the analytic sphere at imh 128 with
@@ -72,7 +73,10 @@ rendering.
    every chain of the joint step at its shapes (the normal, albedo and
    brdf_z heads at 2,048 rows in f32, lvis at 1,048,576 rows in bf16, dW
    only) and on 65,536 lvis rows in f32 with dx, dW bit-identical across
-   launches.
+   launches. The bf16 lvis calls run on the tensor cores; beside them the
+   CUDA-core kernels they replace: the forward's output and the stash
+   (bit for bit), the backward's dW/db, times, and device ms (the
+   forward; the backward's phase 1, dW pass and sums apart) and TFLOP/s.
 14. The last-skip chain (K1w): the lvis chain and its weights with the
    skip moved after the head, driven through apply_chain under autograd
    (bf16 at 1,048,576 rows, f32 at 65,536 with dx) with the counters
@@ -84,7 +88,8 @@ rendering.
 15. The joint train step on the stash route (fused_mlp.TRANSPOSED_BOUNDARY
    = False): its loss and gradients against the default route's on one
    batch, then its steady-state step time, counters zeroed before and read
-   after (step 8 times the default route in the same run).
+   after: one tensor-core K1r-fwd and K1r-bwd a step, no K1 (step 8 times
+   the default route in the same run).
 16. tools.chain_probe with --impl fused, fused_rowmajor and ref (both
    directions, bf16) through its entry point, each with the counters
    zeroed before and read after.
@@ -104,6 +109,7 @@ raises, so the run exits non-zero. The only cut from production is imh
 
   python3 chip_smoke.py --limit_seeds k3 11,12,13,14
   python3 chip_smoke.py --limit_seeds k1 11,12,13,14
+  python3 chip_smoke.py --limit_seeds k1r 11,12,13,14
   python3 chip_smoke.py --limit_seeds k2 11,12,13,14
 
 print only the readings behind a kernel's error bounds, over weights and
@@ -112,13 +118,17 @@ both row counts, the f32 kernel's beside the bf16 kernel's) over random
 nerf.ini weights; for K1, its bf16 readings (k1_limit_readings: the lvis
 chain's tensor-core backward and the f32 kernel against the plain bf16
 version at the joint step's 1,048,576 rows, and K1w against K1) over
-lvis weights; for K2, its bf16 readings (k2_limit_readings: K2-fwd's
-output and K2-bwd's cotangents against the plain bf16 version at the
-joint step's 524,288 rows, of the tensor-core kernels, the CUDA-core
-bf16 kernels and the f32 kernels) over BRDF weights.
+lvis weights; for K1r, the same on the stash route (k1r_limit_readings:
+K1r-bwd's tensor-core, CUDA-core bf16 and f32 kernels and K1r-fwd against
+the plain bf16 stash route at 1,048,576 rows); for K2, its bf16 readings
+(k2_limit_readings: K2-fwd's output and K2-bwd's cotangents against the
+plain bf16 version at the joint step's 524,288 rows, of the tensor-core
+kernels, the CUDA-core bf16 kernels and the f32 kernels) over BRDF
+weights.
 
   python3 chip_smoke.py --field_seed k3 0
   python3 chip_smoke.py --field_seed k1 0
+  python3 chip_smoke.py --field_seed k1r 0
 
 print only a bf16 backward's readings against the plain bf16 version (and
 float64, for K3), its dW digest, times, per-kernel device ms and ptxas
@@ -126,7 +136,8 @@ report, with the bf16 forward's output against the plain version, its ms
 and device ms, on one field drawn from the seed: nerf.ini's field under the
 tests' kind of weights (glorot-uniform, small random biases) at 196,608
 rows, or the lvis chain under the shape model's (glorot-uniform, zero
-biases) at 1,048,576 rows. Each calls only its kernel's wrappers, so a
+biases) at 1,048,576 rows, on K1's route or the stash route (K1r, the
+forward with its stash). Each calls only its kernel's wrappers, so a
 copy of this script in an older checkout reads that checkout's kernels
 the same way.
 
@@ -846,9 +857,10 @@ def k2_limit_readings(model, seeds):
 
 
 # Each kernel's counter: its wrapper and the wrapper's attribute. K1-fwd,
-# K2 and K3-fwd count every launch of their wrappers; "K1-fwd tc", "K2-fwd
-# tc", "K2-bwd tc" and "K3-fwd tc" those of the tensor-core kernels among
-# them (bf16), the rest being the CUDA-core kernels' (f32).
+# K1r, K2 and K3-fwd count every launch of their wrappers; "K1-fwd tc",
+# "K1r-fwd tc", "K1r-bwd tc", "K2-fwd tc", "K2-bwd tc" and "K3-fwd tc"
+# those of the tensor-core kernels among them (bf16; for K1r-bwd without
+# dx), the rest being the CUDA-core kernels'.
 COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
             'K1-bwd': (fm.chain_kernel_bwd, 'launches'),
@@ -860,7 +872,9 @@ COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K3-fwd tc': (fn.nerf_kernel, 'tc_launches'),
             'K3-bwd': (fn.nerf_kernel_bwd, 'launches'),
             'K1r-fwd': (fm.chain_kernel_stash, 'launches'),
+            'K1r-fwd tc': (fm.chain_kernel_stash, 'tc_launches'),
             'K1r-bwd': (fm.chain_kernel_stash_bwd, 'launches'),
+            'K1r-bwd tc': (fm.chain_kernel_stash_bwd, 'tc_launches'),
             'K1w-fwd': (fm.chain_kernel_last_skip, 'launches'),
             'K1w-bwd': (fm.chain_kernel_last_skip_bwd, 'launches'),
             'P': (dp.dot_chain_kernel, 'launches')}
@@ -1299,6 +1313,10 @@ K1_BWD_KERNELS = (('phase1_ms', 'chain_bwd_tc_kernel'),
                   ('dw_pass_ms', 'dw_kernel'),
                   ('sums_ms', 'sum_slices_kernel'))
 K1_FWD_KERNELS = (('fwd_device_ms', 'chain_fwd'),)
+K1R_BWD_KERNELS = (('phase1_ms', 'chain_stash_bwd_tc_kernel'),
+                   ('dw_pass_ms', 'dw_kernel'),
+                   ('sums_ms', 'sum_slices_kernel'))
+K1R_FWD_KERNELS = (('fwd_device_ms', 'chain_stash_fwd'),)
 K2_FWD_KERNELS = (('fwd_device_ms', 'rusink_chain_fwd'),)
 K2_BWD_KERNELS = (('bwd_device_ms', 'rusink_chain_bwd'),)
 K3_FWD_KERNELS = (('fwd_device_ms', 'nerf_fwd'),)
@@ -1468,18 +1486,8 @@ def k1_field_readings(seed, iters=10):
     the ptxas report of the K1 kernels. It calls nothing but chain_kernel
     and chain_kernel_bwd, so it runs the same against an older tree's
     package."""
-    plan = LVIS_PLAN
-    g = torch.Generator().manual_seed(seed)
-    p = []
-    for din, dout in zip(fm.layer_in_dims(plan), plan.widths):
-        lim = (6.0 / (din + dout)) ** 0.5
-        p.append((((2 * torch.rand(din, dout, generator=g) - 1) * lim).cuda(),
-                  torch.zeros(dout).cuda()))
-    n = LAST_SKIP_ROWS['bf16']
-    pts = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
-    ldir = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
-    x = torch.cat((SPHERE_R * pts, ldir), dim=1).cuda()
-    dy = (2 * torch.rand(n, 1, generator=g) - 1).cuda()
+    plan, p, x, dy = lvis_field(seed)
+    n = x.shape[0]
     bf16 = torch.bfloat16
 
     def kernel(cd):
@@ -1495,6 +1503,58 @@ def k1_field_readings(seed, iters=10):
     return dict(seed=seed, rows=n, **field_readings(
         kernel, {'plain_bf16': plain}, K1_BWD_KERNELS,
         ('chain_fwd', 'chain_bwd', 'dw_kernel'), iters, fwd))
+
+
+def lvis_field(seed):
+    """The lvis chain's weights as the shape model initialises them
+    (glorot-uniform, zero biases) and 1,048,576 rows of inputs (sphere
+    points and light directions) and head cotangents, from ``seed``."""
+    plan = LVIS_PLAN
+    g = torch.Generator().manual_seed(seed)
+    p = []
+    for din, dout in zip(fm.layer_in_dims(plan), plan.widths):
+        lim = (6.0 / (din + dout)) ** 0.5
+        p.append((((2 * torch.rand(din, dout, generator=g) - 1) * lim).cuda(),
+                  torch.zeros(dout).cuda()))
+    n = LAST_SKIP_ROWS['bf16']
+    pts = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    ldir = torch.nn.functional.normalize(torch.randn(n, 3, generator=g), dim=1)
+    x = torch.cat((SPHERE_R * pts, ldir), dim=1).cuda()
+    dy = (2 * torch.rand(n, 1, generator=g) - 1).cuda()
+    return plan, p, x, dy
+
+
+def k1r_field_readings(seed, iters=10):
+    """k1_field_readings on the stash route: bf16 K1r-bwd with dW only on
+    the lvis chain at 1,048,576 rows (lvis_field), over the stash K1r-fwd
+    writes in the same precision, against autograd of the plain bf16 stash
+    route; its dW bits and digest, ms and each kernel's device ms; K1r-fwd
+    with the stash against the plain bf16 stash route, its ms and device
+    ms; the ptxas report of the K1r tensor-core kernels. It calls nothing
+    but chain_kernel_stash and chain_kernel_stash_bwd, so it runs the same
+    against an older tree's package (whose K1r kernels are the CUDA-core
+    ones)."""
+    plan, p, x, dy = lvis_field(seed)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        stashes = {cd: fm.chain_kernel_stash(plan, x, p, cd,
+                                             with_stash=True)[1]
+                   for cd in (bf16, None)}
+
+    def kernel(cd):
+        return flatten(fm.chain_kernel_stash_bwd(plan, x, dy, stashes[cd], p,
+                                                 cd, needs_dx=False)[1])
+    leaves = [t.clone().requires_grad_() for t in flatten(p)]
+    plain = torch.autograd.grad(fm.chain_reference_stash(
+        plan, x, pairs(leaves), bf16), leaves, dy)
+    del leaves
+    with torch.no_grad():
+        fwd = (lambda cd: fm.chain_kernel_stash(plan, x, p, cd,
+                                                with_stash=True)[0],
+               fm.chain_reference_stash(plan, x, p, bf16), K1R_FWD_KERNELS)
+    return dict(seed=seed, rows=x.shape[0], **field_readings(
+        kernel, {'plain_bf16': plain}, K1R_BWD_KERNELS,
+        ('chain_stash_fwd', 'chain_stash_bwd', 'dw_kernel'), iters, fwd))
 
 
 def worst_leaf(a, b):
@@ -1618,8 +1678,11 @@ def check_stash_route(model, params):
     1,048,576 rows, bf16), dW only as the step asks; then 65,536 of the
     lvis rows in f32 with dx. The forward within TOL_F32 / TOL_BF16, dW/db
     by relative norm per leaf (DW_TOL_F32, NORM_TOL_BF16), f32 dx by
-    relative norm (DW_TOL_F32); dW bit-identical across two launches.
-    Returns the rows and the lvis inputs (for check_last_skip)."""
+    relative norm (DW_TOL_F32); dW bit-identical across two launches. The
+    bf16 lvis calls run on the tensor cores (stash_fwd_tc_readings,
+    stash_bwd_tc_readings): beside them the CUDA-core kernels they
+    replace, and bf16 K1r-bwd's dW/db must read below the f32 kernel's. Returns the rows and the lvis inputs (for
+    check_last_skip)."""
     g = torch.Generator().manual_seed(6)
     twins, lvis_x, _ = step_inputs(model, g)
     cases = [(name, twins, None, False) for name in
@@ -1653,6 +1716,9 @@ def check_stash_route(model, params):
             raise AssertionError("K1r-fwd %s: the output changes with the "
                                  "stash" % what)
         del want_y, want_stash
+        tc = fm.fwd_on_tensor_cores(plan, cd, x.device)
+        if tc:
+            row['fwd'] = stash_fwd_tc_readings(plan, x, p, cd, stash)
         leaves = [t.clone().requires_grad_() for t in flat]
         xg = x.clone().requires_grad_()
         y_p = fm.chain_reference_stash(plan, xg, pairs(leaves), cd)
@@ -1675,6 +1741,20 @@ def check_stash_route(model, params):
             row['f32_kernel_dw_rel_err'] = max(rel_norm(a, b) for a, b in zip(
                 flatten(got32), want[-len(flat):]))
             del stash32, got32
+            if row['dw_rel_err'] >= row['f32_kernel_dw_rel_err']:
+                raise AssertionError(
+                    "K1r-bwd %s: dW/db reads %.4g, not below the f32 "
+                    "kernel's %.4g" % (what, row['dw_rel_err'],
+                                       row['f32_kernel_dw_rel_err']))
+        tc_bwd = fm.bwd_on_tensor_cores(plan, cd, needs_dx, True, x.device)
+        if tc_bwd:
+            core = fm.chain_kernel_stash_bwd_cuda_core(
+                plan, x, dy, stash, p, cd, needs_dx=False)[1]
+            row['cuda_core_dw_rel_err'] = max(rel_norm(a, b) for a, b in zip(
+                flatten(core), want[-len(flat):]))
+            row['tc_vs_cuda_core_dw_rel_err'] = max(
+                rel_norm(a, b) for a, b in zip(flatten(got), flatten(core)))
+            del core
         if needs_dx:
             row['dx_rel_err'] = check_norm('K1r-bwd dx ' + what,
                                            [rel_norm(dx, want[0])], DW_TOL_F32)
@@ -1698,9 +1778,56 @@ def check_stash_route(model, params):
                                               needs_dx=needs_dx),
             lambda: torch.autograd.grad(y_p, wrt, dy, retain_graph=True),
             iters=10)
-        del y_p, stash
+        del y_p
+        if tc_bwd:
+            row.update(stash_bwd_tc_readings(plan, x, dy, p, cd, stash,
+                                             row['bwd_ms']))
+        del stash
         rows.append(row)
     return rows, lvis_x
+
+
+def stash_fwd_tc_readings(plan, x, p, cd, stash):
+    """What the smoke reads of bf16 K1r-fwd on the tensor cores with the
+    stash, at a path's shape (tc_fwd_readings: against the CUDA-core bf16
+    kernel it replaces and the f32 kernel, ms, device ms, TFLOP/s), and
+    whether its ``stash`` is the CUDA-core kernel's bit for bit; raises if
+    it is not."""
+    out = dict(tc_fwd_readings(
+        lambda: fm.chain_kernel_stash(plan, x, p, cd, with_stash=True)[0],
+        lambda: fm.chain_kernel_stash_cuda_core(plan, x, p, cd,
+                                                with_stash=True)[0],
+        lambda: fm.chain_kernel_stash_cuda_core(plan, x, p, None,
+                                                with_stash=True)[0],
+        lambda: fm.chain_reference_stash(plan, x, p, cd),
+        chain_bound(plan, x.shape[0], 'bf16', 6, 1)['flop'],
+        K1R_FWD_KERNELS), rows=x.shape[0], dtype='bf16')
+    with torch.no_grad():
+        core = fm.chain_kernel_stash_cuda_core(plan, x, p, cd,
+                                               with_stash=True)[1]
+    out['stash_same_as_cuda_core'] = torch.equal(stash, core)
+    if not out['stash_same_as_cuda_core']:
+        raise AssertionError("K1r-fwd on the tensor cores: the stash differs "
+                             "from the CUDA-core kernel's")
+    return out
+
+
+def stash_bwd_tc_readings(plan, x, dy, p, cd, stash, bwd_ms):
+    """bf16 K1r-bwd with dW only on the tensor cores at a path's shape: the
+    CUDA-core kernel it replaces (ms), its kernels' device ms (phase 1, the
+    dW pass, the sums; kernel_device_ms), its scratch and its TFLOP/s at
+    ``bwd_ms``."""
+    out = {'cuda_core_bwd_ms': time_ms(
+        lambda: fm.chain_kernel_stash_bwd_cuda_core(
+            plan, x, dy, stash, p, cd, needs_dx=False), iters=5)}
+    out.update(kernel_device_ms(lambda: fm.chain_kernel_stash_bwd(
+        plan, x, dy, stash, p, cd, needs_dx=False), K1R_BWD_KERNELS))
+    size = fm.tc_bwd_sizes(fm.mma_plan(plan), x.shape[0], x.device)
+    out.update(scratch_bytes=2 * size['scratch'], dw_chunks=size['chunks'],
+               phase1_blocks=size['slices'])
+    out['bwd_tflops'] = chain_bound(plan, x.shape[0], 'bf16', 6, 1,
+                                    bwd=(False, True))['flop'] / bwd_ms / 1e9
+    return out
 
 
 # The lvis chain with its skip moved after the head: the output is [lvis |
@@ -1897,6 +2024,57 @@ def k1_limit_readings(model, seeds):
     return out
 
 
+def k1r_limit_readings(model, seeds):
+    """What K1r's bf16 bounds rest on, at the joint step's shapes, over
+    ``seeds`` (each seeding the lvis chain's weights, drawn as the shape
+    model initialises them, and the inputs), on the stash route: bf16
+    K1r-bwd with dW only over K1r-fwd's bf16 stash (the tensor cores), the
+    CUDA-core bf16 K1r-bwd over the same stash and the f32 kernel over its
+    own against autograd of the plain bf16 stash route (worst dW/db leaf),
+    and the tensor-core against the CUDA-core kernel; K1r-fwd's output
+    against the plain bf16 stash route (max error, the atol it needs at
+    TOL_BF16's rtol) and whether its stash is the CUDA-core kernel's."""
+    plan, cd = model.plans['lvis'], model.chain_dtype('lvis')
+    out = []
+    for seed in seeds:
+        g = torch.Generator().manual_seed(seed)
+        p = [(w.cuda(), b.cuda()) for w, b in fm.params_from_tree(
+            model.specs['lvis_mlp'].init(g), model.specs['lvis_out'].init(g))]
+        _, x, _ = step_inputs(model, g)
+        dy = (2 * torch.rand(x.shape[0], 1, generator=g) - 1).cuda()
+        with torch.no_grad():
+            y, stash = fm.chain_kernel_stash(plan, x, p, cd, with_stash=True)
+            stash_core = fm.chain_kernel_stash_cuda_core(plan, x, p, cd,
+                                                         with_stash=True)[1]
+            stash32 = fm.chain_kernel_stash(plan, x, p, None,
+                                            with_stash=True)[1]
+            plain = fm.chain_reference_stash(plan, x, p, cd)
+            r = {'seed': seed, 'rows': x.shape[0],
+                 'fwd_max_abs_err': (y - plain).abs().max().item(),
+                 'fwd_atol_needed': atol_needed([y], [plain], TOL_BF16[1],
+                                                slice(None)),
+                 'stash_same_as_cuda_core': torch.equal(stash, stash_core)}
+            del y, plain, stash_core
+        leaves = [t.clone().requires_grad_() for t in flatten(p)]
+        want = torch.autograd.grad(fm.chain_reference_stash(
+            plan, x, pairs(leaves), cd), leaves, dy)
+        del leaves
+        got = flatten(fm.chain_kernel_stash_bwd(plan, x, dy, stash, p, cd,
+                                                needs_dx=False)[1])
+        core = flatten(fm.chain_kernel_stash_bwd_cuda_core(
+            plan, x, dy, stash, p, cd, needs_dx=False)[1])
+        got32 = flatten(fm.chain_kernel_stash_bwd(plan, x, dy, stash32, p,
+                                                  None, needs_dx=False)[1])
+        r.update(dw_rel_err=worst_leaf(got, want),
+                 cuda_core_dw_rel_err=worst_leaf(core, want),
+                 f32_kernel_dw_rel_err=worst_leaf(got32, want),
+                 tc_vs_cuda_core_dw_rel_err=worst_leaf(got, core))
+        out.append(r)
+        del x, dy, stash, stash32, want, got, core, got32
+        torch.cuda.empty_cache()
+    return out
+
+
 def sass_hmma(names):
     """Per kernel of the built library whose mangled name holds one of
     ``names``: its HMMA (tensor-core) instructions in ``cuobjdump
@@ -1917,8 +2095,9 @@ def sass_hmma(names):
     return out
 
 
-TC_KERNELS = ('chain_fwd_tc_kernel', 'nerf_fwd_tc_kernel',
-              'rusink_chain_fwd_tc_kernel', 'chain_bwd_tc_kernel',
+TC_KERNELS = ('chain_fwd_tc_kernel', 'chain_stash_fwd_tc_kernel',
+              'nerf_fwd_tc_kernel', 'rusink_chain_fwd_tc_kernel',
+              'chain_bwd_tc_kernel', 'chain_stash_bwd_tc_kernel',
               'nerf_bwd_tc_kernel', 'rusink_chain_bwd_tc_kernel', 'dw_kernel')
 
 
@@ -1930,9 +2109,9 @@ def hmma_of(kernels, *names):
 
 def check_tc_sass():
     """The bf16 forwards' and backwards' kernels run their products on the
-    tensor cores: every copy of K1-fwd's, K2-fwd's and K3-fwd's
-    tensor-core kernels, of K2-bwd's, of phase 1 and of the dW pass in the
-    library holds HMMA instructions."""
+    tensor cores: every copy of K1-fwd's, K1r-fwd's, K2-fwd's and K3-fwd's
+    tensor-core kernels, of K2-bwd's, of each phase 1 (K1r-bwd's too) and
+    of the dW pass in the library holds HMMA instructions."""
     kernels = sass_hmma(TC_KERNELS)
     for name in TC_KERNELS:
         found = hmma_of(kernels, name)
@@ -1995,12 +2174,17 @@ def run_stash_step(config):
         zero_counters()
         step = time_train_step(model, dataset)
         torch.cuda.synchronize()
-        launches = read_counters(('K1r-fwd', 'K1r-bwd', 'K2-fwd tc',
-                                  'K2-bwd tc'), 'stash-route training step')
+        launches = read_counters(('K1r-fwd', 'K1r-fwd tc', 'K1r-bwd',
+                                  'K1r-bwd tc', 'K2-fwd tc', 'K2-bwd tc'),
+                                 'stash-route training step')
     finally:
         fm.TRANSPOSED_BOUNDARY = True
     if launches['K1-fwd'] or launches['K1-bwd']:
         raise AssertionError("K1 launched on the stash route: %s" % launches)
+    per_step = step['launches_per_step']
+    if per_step.get('K1r-fwd tc') != 1 or per_step.get('K1r-bwd tc') != 1:
+        raise AssertionError("stash-route step: the lvis chain's K1r launches "
+                             "a step off the tensor cores: %s" % per_step)
     return dict(step, agreement=check), launches
 
 
@@ -2210,9 +2394,12 @@ def view_readings(ckpt, data_root, repeats):
 # The reading modes, per kernel: its bf16 backward on one seeded field
 # (--field_seed), and the readings behind its error bounds (--limit_seeds;
 # each takes the joint experiment's config and the seeds)
-FIELD_READINGS = {'k1': k1_field_readings, 'k3': k3_field_readings}
+FIELD_READINGS = {'k1': k1_field_readings, 'k1r': k1r_field_readings,
+                  'k3': k3_field_readings}
 LIMIT_READINGS = {
     'k1': lambda config, seeds: k1_limit_readings(
+        Model(config, device='cuda'), seeds),
+    'k1r': lambda config, seeds: k1r_limit_readings(
         Model(config, device='cuda'), seeds),
     'k2': lambda config, seeds: k2_limit_readings(
         Model(config, device='cuda'), seeds),
@@ -2224,14 +2411,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument(
         '--field_seed', nargs=2, metavar=('KERNEL', 'SEED'),
-        help="k1 or k3 and a seed: print only that bf16 backward's "
+        help="k1, k1r or k3 and a seed: print only that bf16 backward's "
              "readings, times and ptxas report on one field drawn from the "
              "seed (FIELD_READINGS), and stop")
     parser.add_argument(
         '--limit_seeds', nargs=2, metavar=('KERNEL', 'SEEDS'),
-        help="k1, k2 or k3 and comma-separated seeds: print only the readings "
-             "behind that kernel's error bounds over them (LIMIT_READINGS), "
-             "one JSON line each, and stop")
+        help="k1, k1r, k2 or k3 and comma-separated seeds: print only the "
+             "readings behind that kernel's error bounds over them "
+             "(LIMIT_READINGS), one JSON line each, and stop")
     parser.add_argument(
         '--view_repeats', type=int, metavar='N',
         help="print only the serving entry points' seconds per view, each "
@@ -2384,6 +2571,13 @@ def main(argv=None):
     lvis_f = lvis_b['fwd']
     k1r_lvis = [r for r in k1r if r['chain'] == 'lvis'
                 and r['dtype'] == 'bf16'][0]
+    k1r_f = k1r_lvis['fwd']
+
+    def cuda_core_by_path(kernel):
+        """A kernel's CUDA-core launches by path: all of its launches but
+        its tensor-core ones."""
+        return {p: c[kernel] - c[kernel + ' tc'] for p, c in paths.items()
+                if c[kernel] - c[kernel + ' tc']}
     k1w_bf16 = [r for r in k1w if r['dtype'] == 'bf16'][0]
     k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
     k3_bf16 = [r for r in k3_fine if r['dtype'] == 'bf16'][0]
@@ -2398,9 +2592,7 @@ def main(argv=None):
               tflops=lvis_f['tflops'], fwd_device_ms=lvis_f['fwd_device_ms'],
               cuda_core_ms=lvis_f['cuda_core_ms'],
               tc_vs_cuda_core_rel_err=lvis_f['tc_vs_cuda_core_rel_err'],
-              cuda_core_launches_by_path={
-                  p: c['K1-fwd'] - c['K1-fwd tc'] for p, c in paths.items()
-                  if c['K1-fwd'] - c['K1-fwd tc']},
+              cuda_core_launches_by_path=cuda_core_by_path('K1-fwd'),
               launches_per_step={'tc': step['launches_per_step'].get(
                   'K1-fwd tc', 0), 'all': step['launches_per_step'].get(
                       'K1-fwd', 0)},
@@ -2432,9 +2624,7 @@ def main(argv=None):
               tflops=k2['tflops'], fwd_device_ms=k2['fwd_device_ms'],
               cuda_core_ms=k2['cuda_core_ms'],
               tc_vs_cuda_core_rel_err=k2['tc_vs_cuda_core_rel_err'],
-              cuda_core_launches_by_path={
-                  p: c['K2-fwd'] - c['K2-fwd tc'] for p, c in paths.items()
-                  if c['K2-fwd'] - c['K2-fwd tc']},
+              cuda_core_launches_by_path=cuda_core_by_path('K2-fwd'),
               launches_per_step={'tc': step['launches_per_step'].get(
                   'K2-fwd tc', 0), 'all': step['launches_per_step'].get(
                       'K2-fwd', 0)},
@@ -2493,25 +2683,51 @@ def main(argv=None):
               tflops=k3_bf16['bwd_tflops'], tc_block=tc_block,
               sass_hmma=hmma_of(tc_sass, 'nerf_bwd_tc_kernel', 'dw_kernel'),
               shapes=k3),
-        entry('K1r-fwd chain_fwd_kernel (stash route)', 'fused_mlp.cu',
+        entry('K1r-fwd chain_stash_fwd_tc_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:851', k1r_lvis,
               chain_bound(plans['lvis'], k1r_lvis['rows'], k1r_lvis['dtype'],
                           6, 1, stash_bytes=2 * fm.trig_dim(plans['lvis'])),
+              counter='K1r-fwd tc',
               max_abs_err=max(r['max_abs_err'] for r in k1r),
               stash_max_abs_err=max(r['stash_max_abs_err'] for r in k1r),
+              stash_same_as_cuda_core=k1r_f['stash_same_as_cuda_core'],
+              tflops=k1r_f['tflops'], fwd_device_ms=k1r_f['fwd_device_ms'],
+              cuda_core_ms=k1r_f['cuda_core_ms'],
+              tc_vs_cuda_core_rel_err=k1r_f['tc_vs_cuda_core_rel_err'],
+              cuda_core_launches_by_path=cuda_core_by_path('K1r-fwd'),
+              launches_per_step={
+                  k: step_stash['launches_per_step'].get(c, 0) for k, c in (
+                      ('tc', 'K1r-fwd tc'), ('all', 'K1r-fwd'))},
+              ptxas=ptxas_report(('chain_stash_fwd',)),
+              sass_hmma=hmma_of(tc_sass, 'chain_stash_fwd_tc_kernel'),
               shapes=k1r),
-        entry('K1r-bwd chain_bwd_kernel (stash route)', 'fused_mlp.cu',
+        entry('K1r-bwd chain_stash_bwd_tc_kernel + dw_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:878',
               dict(k1r_lvis, ms=k1r_lvis['bwd_ms'],
                    plain_ms=k1r_lvis['bwd_plain_ms']),
               chain_bound(plans['lvis'], k1r_lvis['rows'], k1r_lvis['dtype'],
                           6, 1, bwd=(False, True),
                           stash_bytes=2 * fm.trig_dim(plans['lvis'])),
+              counter='K1r-bwd tc',
               max_abs_err=max(r['dx_max_abs_err'] for r in k1r
                               if 'dx_max_abs_err' in r),
               max_rel_err={'dW_db': max(r['dw_rel_err'] for r in k1r),
                            'dx_f32': max(r['dx_rel_err'] for r in k1r
                                          if 'dx_rel_err' in r)},
+              phase1_ms=k1r_lvis['phase1_ms'],
+              dw_pass_ms=k1r_lvis['dw_pass_ms'], sums_ms=k1r_lvis['sums_ms'],
+              packing_ms=k1r_lvis['packing_ms'],
+              scratch_bytes=k1r_lvis['scratch_bytes'],
+              tflops=k1r_lvis['bwd_tflops'],
+              cuda_core_ms=k1r_lvis['cuda_core_bwd_ms'],
+              tc_vs_cuda_core_rel_err=k1r_lvis['tc_vs_cuda_core_dw_rel_err'],
+              dw_bit_identical=k1r_lvis['dw_bit_identical'],
+              cuda_core_launches_by_path=cuda_core_by_path('K1r-bwd'),
+              launches_per_step={
+                  k: step_stash['launches_per_step'].get(c, 0) for k, c in (
+                      ('tc', 'K1r-bwd tc'), ('all', 'K1r-bwd'))},
+              ptxas=ptxas_report(('chain_stash_bwd_tc',)),
+              sass_hmma=hmma_of(tc_sass, 'chain_stash_bwd_tc_kernel'),
               shapes=k1r),
         entry('K1w-fwd chain_fwd_kernel (last skip)', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:416', k1w_bf16,

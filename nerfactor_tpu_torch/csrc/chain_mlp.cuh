@@ -203,28 +203,42 @@ __device__ void embed_rows(const ChainDesc& d, const float* xs, T* es, int lde,
   }
 }
 
+// f(r, s, c) for every row r < ROWS of a tile, stash column s and its
+// embedding column c. A thread keeps one stash column, finds its embedding
+// column once and walks the rows; the block's threads cover whole stash
+// rows a pass, so neighbouring threads touch neighbouring stash values.
+template <int ROWS, typename F>
+__device__ inline void for_stash_cells(const ChainDesc& d, F f) {
+  const int t = trig_dim(d);
+  for (int s0 = 0; s0 < t; s0 += kThreads) {
+    const int cols = min(kThreads, t - s0), per = kThreads / cols;
+    if (threadIdx.x >= per * cols) continue;
+    const int s = s0 + threadIdx.x % cols, c = stash_to_embed_col(d, s);
+#pragma unroll 4
+    for (int r = threadIdx.x / cols; r < ROWS; r += per) f(r, s, c);
+  }
+}
+
 // The stash rows of the tile (rows < n of the (n, trig_dim) stash, type
-// T) from the embedding's trig columns.
+// T) from the embedding's trig columns. No barrier.
 template <typename T, int ROWS = kRows>
 __device__ void write_stash(const ChainDesc& d, const T* es, int lde, T* __restrict__ stash,
                             long long row0, long long n) {
   const int t = trig_dim(d);
-  for (int idx = threadIdx.x; idx < ROWS * t; idx += kThreads) {
-    const int r = idx / t, s = idx % t;
-    if (row0 + r < n) stash[(row0 + r) * t + s] = es[r * lde + stash_to_embed_col(d, s)];
-  }
+  for_stash_cells<ROWS>(d, [&](int r, int s, int c) {
+    if (row0 + r < n) stash[(row0 + r) * t + s] = es[r * lde + c];
+  });
 }
 
 // The embedding's trig columns from the stash rows (padding rows get 0).
+// No barrier.
 template <typename T, int ROWS>
 __device__ void read_stash(const ChainDesc& d, const T* __restrict__ stash, long long row0,
                            long long n, T* es, int lde) {
   const int t = trig_dim(d);
-  for (int idx = threadIdx.x; idx < ROWS * t; idx += kThreads) {
-    const int r = idx / t, s = idx % t;
-    es[r * lde + stash_to_embed_col(d, s)] =
-        row0 + r < n ? stash[(row0 + r) * t + s] : from_f<T>(0.f);
-  }
+  for_stash_cells<ROWS>(d, [&](int r, int s, int c) {
+    es[r * lde + c] = row0 + r < n ? stash[(row0 + r) * t + s] : from_f<T>(0.f);
+  });
 }
 
 // One dense layer over the tile: out = act([in1 | in2] @ W + b). W is

@@ -1,10 +1,11 @@
 // The tensor-core chain: the plans and the shared-memory layouts of the
-// bf16 chain kernels on the tensor cores, their one forward loop over a
-// 64-row tile (chain_hidden_tc) and the two tile functions built on it that
-// more than one kernel runs: the forward (chain_fwd_tc_tile: K1-fwd in
-// fused_mlp.cu, K2-fwd in fused_rusink.cu) and the input-cotangent
-// backward of a frozen chain (chain_tile_dx_tc: K2-bwd). K1-bwd's phase 1
-// with dW (chain_tile_bwd_tc) stays in fused_mlp.cu.
+// bf16 chain kernels on the tensor cores, the loaders of a tile's
+// embedding, their one forward loop over a 64-row tile (chain_hidden_tc)
+// and the two tile functions built on it that more than one kernel runs:
+// the forward (chain_fwd_tc_tile: K1-fwd and K1r-fwd in fused_mlp.cu,
+// K2-fwd in fused_rusink.cu) and the input-cotangent backward of a frozen
+// chain (chain_tile_dx_tc: K2-bwd). Phase 1 with dW of K1-bwd and K1r-bwd
+// (chain_tile_bwd_tc) stays in fused_mlp.cu.
 #pragma once
 
 #include "chain_mlp.cuh"
@@ -167,25 +168,64 @@ __device__ inline void relu_mask_epilogue(int c0, const float (&v)[tc::kTcM][4],
   mask[(c0 >> 3) * 32 + lane] = static_cast<uint16_t>(bits);
 }
 
+// ------ the embedding's loaders ------
+//
+// The forward loop starts from the tile's embedding, which a loader fills
+// from the raw rows xs into es (ld lde, bf16, zero-padded to 16 columns;
+// no barrier). The loader is a template argument of the loop, so each
+// kernel's copy compiles its own and K1's and K2's stay as they were.
+
+// K1's and K2's: the trig columns by precise sincosf (embed_tile).
+struct EmbedSincos {
+  __device__ void operator()(const ChainDesc& d, const float* xs, bf16* es, int lde) const {
+    embed_tile(d, xs, es, lde);
+  }
+};
+
+// The stash route's forward (K1r-fwd): sin(2^j x + phase), the phase
+// added in f32 (embed_rows' kPhase, as chain_fwd_kernel's), so the trig
+// columns are the CUDA-core kernel's bit for bit.
+struct EmbedPhase {
+  __device__ void operator()(const ChainDesc& d, const float* xs, bf16* es, int lde) const {
+    embed_rows<bf16, tc::kTcRows>(d, xs, es, lde, kPhase);
+    zero_embed_pad(d, es, lde);
+  }
+};
+
+// The stash route's backward (K1r-bwd): the raw columns from xs, the trig
+// columns from the tile's rows of the (n, trig_dim) bf16 stash that
+// K1r-fwd wrote, the tile starting at row row0 (rows past n get 0), the
+// values chain_tile_bwd reads.
+struct EmbedStash {
+  const bf16* stash;
+  long long row0, n;
+  __device__ void operator()(const ChainDesc& d, const float* xs, bf16* es, int lde) const {
+    embed_rows<bf16, tc::kTcRows>(d, xs, es, lde, kNoTrig);
+    read_stash<bf16, tc::kTcRows>(d, stash, row0, n, es, lde);
+    zero_embed_pad(d, es, lde);
+  }
+};
+
 // ------ the forward loop ------
 
 // The hidden layers' forward on the tensor cores for one 64-row tile whose
-// raw rows are in shared memory (layout L): the embedding, zero-padded to
-// 16 columns, then each hidden layer through tc_gemm, its epilogue writing
-// bf16(act(v + b)) over its operand. kStore (the backward's phase 1): the
-// embedding and the posts that feed a later hidden layer also go to the
-// tile's scratch `st` (kPairs rows of the caller's chain_cols, `cols`).
-// kMask (an input-cotangent backward, chain_tile_dx_tc; every hidden act
-// ReLU): the posts that feed a later hidden layer keep their signs in
-// `mask` (relu_mask_epilogue, dx_mask_stride words a layer). Returns the
-// buffer that holds the last hidden post, which its product's epilogue has
-// just written (no barrier after it). The one forward loop of the
-// tensor-core chain kernels (K1-fwd, K1-bwd's phase 1, K2-fwd, K2-bwd).
-template <bool kTwoBuffers, bool kStore, bool kMask = false>
+// raw rows are in shared memory (layout L): the embedding (`embed`, one of
+// the loaders above), then each hidden layer through tc_gemm, its epilogue
+// writing bf16(act(v + b)) over its operand. kStore (the backward's phase
+// 1): the embedding and the posts that feed a later hidden layer also go
+// to the tile's scratch `st` (kPairs rows of the caller's chain_cols,
+// `cols`). kMask (an input-cotangent backward, chain_tile_dx_tc; every
+// hidden act ReLU): the posts that feed a later hidden layer keep their
+// signs in `mask` (relu_mask_epilogue, dx_mask_stride words a layer).
+// Returns the buffer that holds the last hidden post, which its product's
+// epilogue has just written (no barrier after it). The embedding stays in
+// es. The one forward loop of the tensor-core chain kernels (K1-fwd,
+// K1-bwd's phase 1, K1r-fwd, K1r-bwd's phase 1, K2-fwd, K2-bwd).
+template <bool kTwoBuffers, bool kStore, bool kMask = false, typename Embed = EmbedSincos>
 __device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
                                  const ChainCols& cols, const bf16* __restrict__ wt,
                                  const float* __restrict__ bias, unsigned char* smem,
-                                 uint32_t* st, uint16_t* mask = nullptr) {
+                                 uint32_t* st, uint16_t* mask = nullptr, Embed embed = {}) {
   const float* xs = reinterpret_cast<const float*>(smem + L.xs);
   bf16* es = reinterpret_cast<bf16*>(smem + L.es);
   // h holds the latest result; each product writes ho, then the two swap.
@@ -195,7 +235,7 @@ __device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
   bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
   const int nh = d.n_layers - 1, e16 = round16(d.embed_dim), ldh = L.ldh;
   const int total = cols.total;
-  embed_tile(d, xs, es, L.lde);
+  embed(d, xs, es, L.lde);
   __syncthreads();
   if (kStore) store_pairs(es, L.lde, e16, st, total, 0);
   tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
@@ -229,18 +269,18 @@ __device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
 // ------ the forward of a tile ------
 
 // The forward of one 64-row tile whose raw rows are in shared memory
-// (chain_tc_layout(d, false)): the hidden layers through chain_hidden_tc,
-// without the scratch, then the tiny head in f32 on the CUDA cores from the
-// last post (head_sums, as phase 1's head forward), its rows below n
-// written to y.
-template <bool kTwoBuffers>
+// (chain_tc_layout(d, false)): the hidden layers through chain_hidden_tc
+// from the loader's embedding, without the scratch, then the tiny head in
+// f32 on the CUDA cores from the last post (head_sums, as phase 1's head
+// forward), its rows below n written to y.
+template <bool kTwoBuffers, typename Embed = EmbedSincos>
 __device__ void chain_fwd_tc_tile(const ChainDesc& d, const bf16* __restrict__ w,
                                   const bf16* __restrict__ wt, const float* __restrict__ bias,
                                   unsigned char* smem, float* __restrict__ y, long long row0,
-                                  long long n) {
+                                  long long n, Embed embed = {}) {
   const ChainTcLayout L = chain_tc_layout(d, false);
-  const bf16* h =
-      chain_hidden_tc<kTwoBuffers, false>(d, L, chain_cols(d), wt, bias, smem, nullptr);
+  const bf16* h = chain_hidden_tc<kTwoBuffers, false, false, Embed>(
+      d, L, chain_cols(d), wt, bias, smem, nullptr, nullptr, embed);
   __syncthreads();
   const int nh = d.n_layers - 1, no = d.widths[nh], act = d.acts[nh];
   const float* bh = bias + d.b_off[nh];

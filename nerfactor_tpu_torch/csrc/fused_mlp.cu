@@ -7,10 +7,11 @@
 // runs as one of two designs, chosen by a rule on the plan
 // (ops/fused_mlp.py fwd_on_tensor_cores):
 //
-//   * bf16 on the default route, on the plans the tensor-core backward's
-//     phase 1 takes (chain_tc_plan) with a block that fits the card's
-//     shared memory (the joint step's lvis chain, NeRF's no-views chain):
-//     chain_fwd_tc_kernel, a block a 64-row tile, two blocks an SM. It is
+//   * bf16, on the plans the tensor-core backward's phase 1 takes
+//     (chain_tc_plan) with a block that fits the card's shared memory (the
+//     joint step's lvis chain, NeRF's no-views chain): chain_fwd_tc_kernel
+//     (chain_stash_fwd_tc_kernel on the stash route, K1r-fwd, below), a
+//     block a 64-row tile, two blocks an SM. It is
 //     the forward half of phase 1 (chain_hidden_tc in chain_tc.cuh, one
 //     loop for both, which K2's tensor-core kernels share):
 //     every hidden layer a tc_gemm of the tile's rows in shared memory
@@ -20,9 +21,9 @@
 //     bounds phase 1: the weight ring's barrier every 32 K, the epilogues
 //     and the head on the CUDA cores, not the tensor cores' rate.
 //   * every other call (f32: the joint model's normal, albedo and brdf_z
-//     heads; the stash route; a skip after the head or into it; a head
-//     wider than 8; hidden layers too wide for the block):
-//     chain_fwd_kernel on the CUDA cores, described below.
+//     heads; a skip after the head or into it; a head wider than 8; hidden
+//     layers too wide for the block): chain_fwd_kernel on the CUDA cores,
+//     described below.
 //
 // K1-bwd replaces _pallas_backward_trig_t -> _bwd_kernel_trig_t (with
 // _bwd_layers_trig_t): it recomputes each tile's forward, then returns
@@ -34,11 +35,13 @@
 // It runs as one of two designs, chosen by a rule on the plan and the
 // flags (ops/fused_mlp.py bwd_on_tensor_cores):
 //
-//   * bf16 with dW only on the default route, a head of at most 8 columns
-//     with no skip after it or into it, and a phase-1 block that fits the
-//     card's shared memory (the joint step's lvis chain): the tensor-core
-//     design, three launches that together replace _bwd_kernel_trig_t.
-//     1. chain_bwd_tc_kernel, persistent blocks (two an SM) over 64-row
+//   * bf16 with dW only, a head of at most 8 columns with no skip after it
+//     or into it, and a phase-1 block that fits the card's shared memory
+//     (the joint step's lvis chain): the tensor-core design, three
+//     launches that together replace _bwd_kernel_trig_t (and, on the stash
+//     route, _bwd_kernel_trig, below).
+//     1. chain_bwd_tc_kernel (chain_stash_bwd_tc_kernel on the stash
+//        route), persistent blocks (two an SM) over 64-row
 //        tiles: the forward recompute and d_pre @ W^T of every hidden
 //        layer but the first as mma.sync products of the tile's rows in
 //        shared memory (mma_bf16.cuh tc_gemm), the weights streamed
@@ -66,9 +69,9 @@
 //     it) and runs its epilogues and f32 head on the CUDA cores; the dW
 //     pass reads each scratch column once per dW tile of the other
 //     dimension (~5 GB at 1,048,576 rows), so it is bound by bytes.
-//   * every other call (f32, dx, the stash route, a skip after the head
-//     or into it, a wider head, hidden layers too wide for phase 1's
-//     block, from ~600 columns): chain_bwd_kernel on the CUDA cores. A block keeps a
+//   * every other call (f32, dx, a skip after the head or into it, a
+//     wider head, hidden layers too wide for phase 1's block, from ~600
+//     columns): chain_bwd_kernel on the CUDA cores. A block keeps a
 //     row tile's embedding, every hidden post and two f32 cotangent rows
 //     in shared memory, streams each layer's weights through a 32 x 128
 //     tile, and runs the recompute (layer_pass), d_pre @ W^T (dgrad_pass)
@@ -77,20 +80,27 @@
 //     chain's 72k weights x 132 slices are ~38 MB), and sum_slices adds
 //     the slices in slice order. Bound by arithmetic on the CUDA cores.
 //
-// The same two CUDA-core kernels in two more modes replace the TPU
-// package's other chain kernels:
+// The same kernels in two more modes replace the TPU package's other
+// chain kernels:
 //   * K1r-fwd / K1r-bwd, the stash route (pallas_mlp.py _pallas_forward_trig
 //     -> _fwd_kernel_trig, _pallas_backward_trig -> _bwd_kernel_trig): the
 //     embedding's trig columns are sin(2^j x + phase), phase 0 or pi/2 in
 //     f32; under autograd the forward writes them (at the operand type) to
 //     a (n, trig_dim) stash that the backward reads instead of recomputing
 //     sin/cos, and dx uses cos of the recomputed phase. The stash adds
-//     2 * trig_dim bytes a row each way (bf16) to a kernel bound by
-//     arithmetic.
-//   * K1w-fwd / K1w-bwd, plans with a skip after the last layer
-//     (pallas_mlp.py _pallas_forward -> _fwd_kernel, _pallas_backward ->
-//     _bwd_kernel): the output row is [head | embedding], and the backward
-//     seeds the embedding's cotangent from dy's trailing columns.
+//     2 * trig_dim bytes a row each way (bf16). The rules pick the designs
+//     as for K1: in bf16 (and for the backward, dW only) the tensor-core
+//     kernels, K1's tile with the embedding's loader swapped (chain_tc.cuh:
+//     EmbedPhase in chain_stash_fwd_tc_kernel, which also writes the
+//     stash from the embedding it read; EmbedStash in phase 1,
+//     chain_stash_bwd_tc_kernel, whose scratch then carries the stash's
+//     values to the dW pass); f32 and dx: the CUDA-core kernels' phase
+//     mode.
+//   * K1w-fwd / K1w-bwd, on the CUDA cores only: plans with a skip after
+//     the last layer (pallas_mlp.py _pallas_forward -> _fwd_kernel,
+//     _pallas_backward -> _bwd_kernel): the output row is [head |
+//     embedding], and the backward seeds the embedding's cotangent from
+//     dy's trailing columns.
 //
 // K1-fwd is bound by arithmetic: at full width (128 x 4, skip after layer
 // 2) the lvis chain does ~72k multiply-adds a row against 24 B in and 4 B
@@ -256,24 +266,27 @@ int chain_bwd_slices_dispatch(const ChainDesc& d, int needs_dx, long long n, int
 constexpr int kChainDwTile = 64;
 
 // Phase 1 for one 64-row tile whose raw rows and head cotangent rows are
-// in shared memory: the forward recompute on the tensor cores, the tiny
+// in shared memory: the forward recompute on the tensor cores from the
+// loader's embedding (`embed`: K1's sincos, or K1r's stash), the tiny
 // head's backward on the CUDA cores in f32, then d_pre @ W^T of every
 // hidden layer but the first on the tensor cores. Writes the tile's
-// scratch `st` (kPairs rows of `total` words) and adds the head's dW and
-// every db into `gaux` (chain_n_aux floats: [head dW | biases]). Rounds
-// where chain_tile_bwd does: posts and d_pre at bf16, d_h in f32, db from
-// the unrounded d_pre.
-template <bool kTwoBuffers>
+// scratch `st` (kPairs rows of `total` words; its embedding columns are
+// the loader's, so the dW pass reads what the recompute read) and adds
+// the head's dW and every db into `gaux` (chain_n_aux floats: [head dW |
+// biases]). Rounds where chain_tile_bwd does: posts and d_pre at bf16,
+// d_h in f32, db from the unrounded d_pre.
+template <bool kTwoBuffers, typename Embed>
 __device__ void chain_tile_bwd_tc(const ChainDesc& d, const bf16* __restrict__ w,
                                   const bf16* __restrict__ wt, const float* __restrict__ bias,
-                                  unsigned char* smem, uint32_t* st, float* gaux) {
+                                  unsigned char* smem, uint32_t* st, float* gaux, Embed embed) {
   constexpr int R = tc::kTcRows;
   const ChainTcLayout L = chain_tc_layout(d, true);
   const ChainCols cols = chain_cols(d);
   float* dq = reinterpret_cast<float*>(smem + L.dq);
   // Forward recompute. h holds the last post; each later product writes
   // ho, then the two swap. With one buffer ho is h, fixed
-  bf16* h = chain_hidden_tc<kTwoBuffers, true>(d, L, cols, wt, bias, smem, st);
+  bf16* h = chain_hidden_tc<kTwoBuffers, true, false, Embed>(d, L, cols, wt, bias, smem, st,
+                                                             nullptr, embed);
   bf16* ho = h;
   if (kTwoBuffers)
     ho = reinterpret_cast<bf16*>(smem + (h == reinterpret_cast<bf16*>(smem + L.h) ? L.h2 : L.h));
@@ -389,13 +402,14 @@ __device__ void chain_tile_bwd_tc(const ChainDesc& d, const bf16* __restrict__ w
 
 // Phase 1: block b walks 64-row tiles b, b + grid, ... and writes each
 // tile's scratch; its sums (chain_n_aux floats) go to its own slice of
-// `part`.
-template <bool kTwoBuffers>
-__global__ void __launch_bounds__(kThreads, 2)
-chain_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const float* __restrict__ dy,
-                    const bf16* __restrict__ w, const bf16* __restrict__ wt,
-                    const float* __restrict__ bias, uint32_t* scratch, float* __restrict__ part,
-                    long long n) {
+// `part`. kStash: the embedding's trig columns come from `stash` (K1r-bwd),
+// else from sincos of x (K1-bwd).
+template <bool kTwoBuffers, bool kStash>
+__device__ void chain_bwd_tc_blocks(const ChainDesc& d, const float* __restrict__ x,
+                                    const float* __restrict__ dy, const bf16* __restrict__ stash,
+                                    const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                                    const float* __restrict__ bias, uint32_t* scratch,
+                                    float* __restrict__ part, long long n) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int R = tc::kTcRows;
   const ChainTcLayout L = chain_tc_layout(d, true);
@@ -419,42 +433,81 @@ chain_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const float* __res
       dq[idx] = r < n ? dy[r * no + idx % no] : 0.f;
     }
     __syncthreads();
-    chain_tile_bwd_tc<kTwoBuffers>(d, w, wt, bias, smem, scratch + tile * tile_words, gaux);
+    uint32_t* st = scratch + tile * tile_words;
+    if constexpr (kStash)
+      chain_tile_bwd_tc<kTwoBuffers>(d, w, wt, bias, smem, st, gaux,
+                                     EmbedStash{stash, row0, n});
+    else
+      chain_tile_bwd_tc<kTwoBuffers>(d, w, wt, bias, smem, st, gaux, EmbedSincos{});
   }
 }
 
-// Phase 1's instantiation for d's widest hidden layer
+// K1-bwd's phase 1
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const float* __restrict__ dy,
+                    const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                    const float* __restrict__ bias, uint32_t* scratch, float* __restrict__ part,
+                    long long n) {
+  chain_bwd_tc_blocks<kTwoBuffers, false>(d, x, dy, nullptr, w, wt, bias, scratch, part, n);
+}
+
+// K1r-bwd's phase 1: K1-bwd's with the embedding's trig columns read from
+// the (n, trig_dim) bf16 stash
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_stash_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x,
+                          const float* __restrict__ dy, const bf16* __restrict__ stash,
+                          const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                          const float* __restrict__ bias, uint32_t* scratch,
+                          float* __restrict__ part, long long n) {
+  chain_bwd_tc_blocks<kTwoBuffers, true>(d, x, dy, stash, w, wt, bias, scratch, part, n);
+}
+
+// K1-bwd's phase 1 for d's widest hidden layer. K1r-bwd's has the same
+// launch bounds and shared memory, so the same blocks an SM: its launch
+// takes the slices this one's occupancy gives (nfk_chain_bwd_tc_sizes).
 inline auto chain_bwd_tc_for(const ChainDesc& d) {
   return d.max_width > tc::kTcCols ? chain_bwd_tc_kernel<true> : chain_bwd_tc_kernel<false>;
 }
 
-// bf16 K1-bwd with dW only: phase 1, the dW pass and its chunk sum, then
-// the sum of phase 1's slices.
-int chain_bwd_tc(const ChainDesc& d, const float* x, const float* dy, const bf16* w,
-                 const bf16* wt, const float* bias, uint32_t* scratch, float* part, float* dwb,
-                 int slices, int chunks, long long n, cudaStream_t stream) {
+// bf16 K1-bwd or, with stash_route, K1r-bwd over `stash`, with dW only:
+// phase 1, the dW pass and its chunk sum, then the sum of phase 1's
+// slices.
+int chain_bwd_tc(const ChainDesc& d, const float* x, const float* dy, bool stash_route,
+                 const bf16* stash, const bf16* w, const bf16* wt, const float* bias,
+                 uint32_t* scratch, float* part, float* dwb, int slices, int chunks, long long n,
+                 cudaStream_t stream) {
   if (int err = check_chain_tc(d, true)) return err;
   if (slices < 1 || chunks < 1) return kErrBadArgs;
   const DwTable tab = chain_dw_table(d);
   float* part_aux = part;
   float* part_dense = part + static_cast<long long>(slices) * chain_n_aux(d);
-  if (int err = launch_with_smem(chain_bwd_tc_for(d), chain_tc_layout(d, true).total, slices,
-                                 stream, d, x, dy, w, wt, bias, scratch, part_aux, n))
-    return err;
+  const size_t smem = chain_tc_layout(d, true).total;
+  const bool two = d.max_width > tc::kTcCols;
+  const int err =
+      stash_route
+          ? launch_with_smem(two ? chain_stash_bwd_tc_kernel<true>
+                                 : chain_stash_bwd_tc_kernel<false>,
+                             smem, slices, stream, d, x, dy, stash, w, wt, bias, scratch,
+                             part_aux, n)
+          : launch_with_smem(chain_bwd_tc_for(d), smem, slices, stream, d, x, dy, w, wt, bias,
+                             scratch, part_aux, n);
+  if (err) return err;
   if (int err = dw_pass<kChainDwTile>(tab, scratch, part_dense, dwb, chunks, n, stream)) return err;
   return sum_slices(part_aux, slices, chain_n_aux(d), dwb + tab.n_dense, stream);
 }
 
 // ------ K1-fwd in bf16 on the tensor cores ------
 
-// A block a 64-row tile: its raw rows, then chain_fwd_tc_tile (the hidden
-// layers as phase 1 recomputes them, without the scratch; the tiny head in
-// f32 on the CUDA cores).
-template <bool kTwoBuffers>
-__global__ void __launch_bounds__(kThreads, 2)
-chain_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* __restrict__ w,
-                    const bf16* __restrict__ wt, const float* __restrict__ bias,
-                    float* __restrict__ y, long long n) {
+// Block blockIdx.x's 64-row tile: its raw rows, then chain_fwd_tc_tile
+// (the hidden layers as phase 1 recomputes them, from the loader's
+// embedding, without the scratch; the tiny head in f32 on the CUDA cores).
+template <bool kTwoBuffers, typename Embed>
+__device__ void chain_fwd_tc_block(const ChainDesc& d, const float* __restrict__ x,
+                                   const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                                   const float* __restrict__ bias, float* __restrict__ y,
+                                   long long n, Embed embed) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int R = tc::kTcRows;
   const long long row0 = static_cast<long long>(blockIdx.x) * R;
@@ -464,17 +517,49 @@ chain_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* __rest
     xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
   }
   __syncthreads();
-  chain_fwd_tc_tile<kTwoBuffers>(d, w, wt, bias, smem, y, row0, n);
+  chain_fwd_tc_tile<kTwoBuffers>(d, w, wt, bias, smem, y, row0, n, embed);
 }
 
-// bf16 K1-fwd on the tensor cores: one block a 64-row tile.
+// K1-fwd: a block a 64-row tile
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* __restrict__ w,
+                    const bf16* __restrict__ wt, const float* __restrict__ bias,
+                    float* __restrict__ y, long long n) {
+  chain_fwd_tc_block<kTwoBuffers>(d, x, w, wt, bias, y, n, EmbedSincos{});
+}
+
+// K1r-fwd: K1-fwd's tile on the stash route's embedding; a non-null stash
+// then receives the tile's trig columns (rows below n, bf16), from the
+// embedding the products read, which the tile leaves in shared memory.
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_stash_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* __restrict__ w,
+                          const bf16* __restrict__ wt, const float* __restrict__ bias,
+                          float* __restrict__ y, bf16* __restrict__ stash, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_fwd_tc_block<kTwoBuffers>(d, x, w, wt, bias, y, n, EmbedPhase{});
+  const ChainTcLayout L = chain_tc_layout(d, false);
+  if (stash != nullptr)
+    write_stash<bf16, tc::kTcRows>(d, reinterpret_cast<const bf16*>(smem + L.es), L.lde, stash,
+                                   static_cast<long long>(blockIdx.x) * tc::kTcRows, n);
+}
+
+// bf16 K1-fwd (stash_route false) or K1r-fwd on the tensor cores: one
+// block a 64-row tile.
 int chain_fwd_tc(const ChainDesc& d, const float* x, const bf16* w, const bf16* wt,
-                 const float* bias, float* y, long long n, cudaStream_t stream) {
+                 const float* bias, float* y, bool stash_route, bf16* stash, long long n,
+                 cudaStream_t stream) {
   if (int err = check_chain_tc(d, false)) return err;
-  const auto kernel = d.max_width > tc::kTcCols ? chain_fwd_tc_kernel<true>
-                                                : chain_fwd_tc_kernel<false>;
-  return launch_with_smem(kernel, chain_tc_layout(d, false).total,
-                          (n + tc::kTcRows - 1) / tc::kTcRows, stream, d, x, w, wt, bias, y, n);
+  const size_t smem = chain_tc_layout(d, false).total;
+  const long long blocks = (n + tc::kTcRows - 1) / tc::kTcRows;
+  const bool two = d.max_width > tc::kTcCols;
+  if (stash_route)
+    return launch_with_smem(two ? chain_stash_fwd_tc_kernel<true>
+                                : chain_stash_fwd_tc_kernel<false>,
+                            smem, blocks, stream, d, x, w, wt, bias, y, stash, n);
+  return launch_with_smem(two ? chain_fwd_tc_kernel<true> : chain_fwd_tc_kernel<false>, smem,
+                          blocks, stream, d, x, w, wt, bias, y, n);
 }
 
 }  // namespace nfk
@@ -540,11 +625,12 @@ int nfk_chain_bwd(const nfk::ChainDesc* desc, int bf16, int phase, int needs_dx,
                                         bias, dx, dwb_part, dwb, slices, n, s);
 }
 
-// Whether nfk_chain_fwd_tc (bwd 0) or nfk_chain_bwd_tc (bwd != 0) runs the
-// plan (*runs = 1): chain_tc_plan's plans whose block fits the card's
-// shared memory. The wrapper's rules (ops/fused_mlp.py
-// fwd_on_tensor_cores, bwd_on_tensor_cores) ask it; every other plan
-// keeps chain_fwd_kernel or chain_bwd_kernel.
+// Whether nfk_chain_fwd_tc and nfk_chain_stash_fwd_tc (bwd 0) or
+// nfk_chain_bwd_tc and nfk_chain_stash_bwd_tc (bwd != 0) run the plan
+// (*runs = 1): chain_tc_plan's plans whose block fits the card's shared
+// memory. The wrapper's rules (ops/fused_mlp.py fwd_on_tensor_cores,
+// bwd_on_tensor_cores) ask it; every other plan keeps chain_fwd_kernel or
+// chain_bwd_kernel.
 int nfk_chain_tc_runs(const nfk::ChainDesc* desc, int bwd, int* runs) {
   if (int err = nfk::check_desc(*desc)) return err;
   *runs = nfk::check_chain_tc(*desc, bwd != 0) == 0;
@@ -559,7 +645,21 @@ int nfk_chain_fwd_tc(const nfk::ChainDesc* desc, const float* x, const void* w, 
   if (int err = nfk::check_desc(*desc)) return err;
   if (n <= 0) return 0;
   return nfk::chain_fwd_tc(*desc, x, static_cast<const __nv_bfloat16*>(w),
-                           static_cast<const __nv_bfloat16*>(wt), bias, y, n,
+                           static_cast<const __nv_bfloat16*>(wt), bias, y, false, nullptr, n,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K1r-fwd in bf16 on the tensor cores: nfk_chain_fwd_tc on the stash
+// route's embedding; a non-null stash (n, trig_dim) bf16 receives its trig
+// columns, the values nfk_chain_fwd's stash route writes.
+int nfk_chain_stash_fwd_tc(const nfk::ChainDesc* desc, const float* x, const void* w,
+                           const void* wt, const float* bias, float* y, void* stash, long long n,
+                           void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (n <= 0) return 0;
+  return nfk::chain_fwd_tc(*desc, x, static_cast<const __nv_bfloat16*>(w),
+                           static_cast<const __nv_bfloat16*>(wt), bias, y, true,
+                           static_cast<__nv_bfloat16*>(stash), n,
                            static_cast<cudaStream_t>(stream));
 }
 
@@ -592,7 +692,25 @@ int nfk_chain_bwd_tc(const nfk::ChainDesc* desc, const float* x, const float* dy
                      int slices, int chunks, long long n, void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
   if (n <= 0) return 0;
-  return nfk::chain_bwd_tc(*desc, x, dy, static_cast<const __nv_bfloat16*>(w),
+  return nfk::chain_bwd_tc(*desc, x, dy, false, nullptr, static_cast<const __nv_bfloat16*>(w),
+                           static_cast<const __nv_bfloat16*>(wt), bias,
+                           static_cast<uint32_t*>(scratch), part, dwb, slices, chunks, n,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K1r-bwd in bf16 with dW only, on the tensor cores: nfk_chain_bwd_tc with
+// the embedding's trig columns read from `stash` (n, trig_dim) bf16, which
+// a plan with trig columns must give; the same buffers
+// (nfk_chain_bwd_tc_sizes).
+int nfk_chain_stash_bwd_tc(const nfk::ChainDesc* desc, const float* x, const float* dy,
+                           const void* stash, const void* w, const void* wt, const float* bias,
+                           void* scratch, float* part, float* dwb, int slices, int chunks,
+                           long long n, void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (stash == nullptr && nfk::trig_dim(*desc) > 0) return nfk::kErrBadPlan;
+  if (n <= 0) return 0;
+  return nfk::chain_bwd_tc(*desc, x, dy, true, static_cast<const __nv_bfloat16*>(stash),
+                           static_cast<const __nv_bfloat16*>(w),
                            static_cast<const __nv_bfloat16*>(wt), bias,
                            static_cast<uint32_t*>(scratch), part, dwb, slices, chunks, n,
                            static_cast<cudaStream_t>(stream));

@@ -287,16 +287,21 @@ using tc::round16;
 
 // ------ around the products: the embedding and the tiny heads ------
 
-// The embedding of a 64-row tile's raw rows `xs` into es (ld lde, bf16),
-// its columns up to the next 16 zero: the products read them. No barrier.
-__device__ inline void embed_tile(const ChainDesc& d, const float* xs, bf16* es, int lde) {
-  constexpr int R = tc::kTcRows;
-  embed_rows<bf16, R>(d, xs, es, lde);
+// Zeroes a 64-row tile's embedding columns (es, ld lde, bf16) from its
+// width up to the next 16: the products read them. No barrier.
+__device__ inline void zero_embed_pad(const ChainDesc& d, bf16* es, int lde) {
   const int ne = d.embed_dim, e16 = round16(ne);
-  for (int idx = threadIdx.x; idx < R * 16; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < tc::kTcRows * 16; idx += kThreads) {
     const int r = idx / 16, c = idx % 16;
     if (ne + c < e16) es[r * lde + ne + c] = from_f<bf16>(0.f);
   }
+}
+
+// The embedding of a 64-row tile's raw rows `xs` into es (ld lde, bf16),
+// its columns up to the next 16 zero. No barrier.
+__device__ inline void embed_tile(const ChainDesc& d, const float* xs, bf16* es, int lde) {
+  embed_rows<bf16, tc::kTcRows>(d, xs, es, lde);
+  zero_embed_pad(d, es, lde);
 }
 
 // A tiny head's sums over a 64-row tile's last post h (ld ldh, k wide,

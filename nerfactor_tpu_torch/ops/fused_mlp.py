@@ -26,7 +26,9 @@ card both routes read row-major (N, raw) rows and write row-major output:
     K1r-fwd writes those trig columns, at the kernel's operand type, to a
     (N, trig_dim) stash in the column order of :func:`trig_perm`, and
     K1r-bwd reads them instead of recomputing sin/cos. K1r-bwd always
-    computes dW/db, as the TPU route does. Its plain version is
+    computes dW/db, as the TPU route does. The same rules as K1's send
+    K1r to the tensor cores (K1's tile with the stash route's embedding)
+    or keep it on the CUDA cores. Its plain version is
     :func:`chain_reference_stash`; at 2^9 x the pi/2 add rounds, so it
     parts from :func:`chain_reference` by up to ~3e-5 in f32.
 
@@ -388,46 +390,42 @@ def _check_route(plan, kernel, for_last_skip):
                                  'without', plan))
 
 
-def _chain_fwd(plan, x, params, compute_dtype, stash_route=False,
+def _chain_fwd(plan, x, params, compute_dtype, tc, stash_route=False,
                with_stash=False):
-    """Launches nfk_chain_fwd (the CUDA-core chain_fwd_kernel) on ``x`` (N,
-    raw_dim) CUDA f32. Returns the (N, out_dim) f32 output, the (N,
-    trig_dim) stash at the operand type (or None) and whether a kernel ran
-    (not for N == 0)."""
+    """Launches K1-fwd, or K1r-fwd with ``stash_route``, on ``x`` (N,
+    raw_dim) CUDA f32: with ``tc`` (bf16) the tensor-core kernel
+    (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``) over the weights
+    padded to :func:`mma_plan`'s widths where they differ, else the
+    CUDA-core ``nfk_chain_fwd``. Returns the (N, out_dim) f32 output, the
+    (N, trig_dim) stash at the operand type (``with_stash`` on the stash
+    route, else None), the transposed hidden weights the tensor-core
+    kernel read (else None) and whether a kernel ran (not for N == 0)."""
+    kplan = mma_plan(plan) if tc else plan
+    if kplan != plan:
+        params = pad_params(plan, params)
     (x,), desc, bf16, w_flat, b_flat = prepare(
-        plan, [('x', x, raw_dim(plan))], params, compute_dtype)
+        kplan, [('x', x, raw_dim(plan))], params, compute_dtype)
     n = x.shape[0]
     y = torch.empty((n, out_dim(plan)), dtype=torch.float32, device=x.device)
     stash = None
-    if with_stash and trig_dim(plan):
+    if stash_route and with_stash and trig_dim(plan):
         stash = torch.empty((n, trig_dim(plan)),
                             dtype=kernel_dtype(compute_dtype), device=x.device)
-    if n:
+    wt = transposed_weights(kplan, params, x.device) if tc else None
+    if n and tc:
+        args = (x.data_ptr(), w_flat.data_ptr(), wt.data_ptr(),
+                b_flat.data_ptr(), y.data_ptr())
+        if stash_route:
+            run('nfk_chain_stash_fwd_tc', x.device, ctypes.addressof(desc),
+                *args, _ptr(stash), n)
+        else:
+            run('nfk_chain_fwd_tc', x.device, ctypes.addressof(desc), *args,
+                n)
+    elif n:
         run('nfk_chain_fwd', x.device, ctypes.addressof(desc), bf16,
             int(stash_route), x.data_ptr(), w_flat.data_ptr(),
             b_flat.data_ptr(), y.data_ptr(), _ptr(stash), n)
-    return y, stash, n > 0
-
-
-def _chain_fwd_tc(plan, x, params):
-    """Launches ``nfk_chain_fwd_tc`` (bf16 K1-fwd on the tensor cores) on
-    ``x`` (N, raw_dim) CUDA f32, over the weights padded to
-    :func:`mma_plan`'s widths where they differ. Returns the (N, out) f32
-    output, the transposed hidden weights it read and whether a kernel
-    ran."""
-    kplan = mma_plan(plan)
-    if kplan != plan:
-        params = pad_params(plan, params)
-    (x,), desc, _, w_flat, b_flat = prepare(
-        kplan, [('x', x, raw_dim(plan))], params, torch.bfloat16)
-    wt = transposed_weights(kplan, params, x.device)
-    n = x.shape[0]
-    y = torch.empty((n, out_dim(plan)), dtype=torch.float32, device=x.device)
-    if n:
-        run('nfk_chain_fwd_tc', x.device, ctypes.addressof(desc), x.data_ptr(),
-            w_flat.data_ptr(), wt.data_ptr(), b_flat.data_ptr(), y.data_ptr(),
-            n)
-    return y, wt, n > 0
+    return y, stash, wt, n > 0
 
 
 def _chain_kernel(plan, x, params, compute_dtype):
@@ -436,13 +434,10 @@ def _chain_kernel(plan, x, params, compute_dtype):
     weights the tensor-core kernel read, else None); counts the launch as
     :func:`chain_kernel` says."""
     _check_route(plan, 'K1-fwd', False)
-    wt = None
-    if fwd_on_tensor_cores(plan, compute_dtype, x.device):
-        y, wt, ran = _chain_fwd_tc(plan, x, params)
-        chain_kernel.tc_launches += ran
-    else:
-        y, _, ran = _chain_fwd(plan, x, params, compute_dtype)
+    tc = fwd_on_tensor_cores(plan, compute_dtype, x.device)
+    y, _, wt, ran = _chain_fwd(plan, x, params, compute_dtype, tc)
     chain_kernel.launches += ran
+    chain_kernel.tc_launches += int(ran and tc)
     return y, wt
 
 
@@ -465,22 +460,47 @@ def chain_kernel_cuda_core(plan, x, params, compute_dtype=None):
     tensor cores, and in bf16 the kernel the tensor-core one is held
     against. Counts no launch."""
     _check_route(plan, 'K1-fwd', False)
-    return _chain_fwd(plan, x, params, compute_dtype)[0]
+    return _chain_fwd(plan, x, params, compute_dtype, False)[0]
+
+
+def _chain_kernel_stash(plan, x, params, compute_dtype, with_stash):
+    """K1r-fwd as :func:`chain_kernel_stash` launches it; returns (y, the
+    stash or None, the transposed hidden weights the tensor-core kernel
+    read, else None)."""
+    _check_route(plan, 'K1r-fwd', False)
+    tc = fwd_on_tensor_cores(plan, compute_dtype, x.device)
+    y, stash, wt, ran = _chain_fwd(plan, x, params, compute_dtype, tc,
+                                   stash_route=True, with_stash=with_stash)
+    chain_kernel_stash.launches += ran
+    chain_kernel_stash.tc_launches += int(ran and tc)
+    return y, stash, wt
 
 
 def chain_kernel_stash(plan, x, params, compute_dtype=None, with_stash=False):
     """Launches K1r-fwd, the stash route's forward, on ``x`` (N, raw_dim)
     CUDA f32. Returns ((N, out) f32, the (N, trig_dim) stash at the
-    kernel's operand type with ``with_stash``, else None). Counts its
-    launches in ``chain_kernel_stash.launches``."""
+    kernel's operand type with ``with_stash``, else None). In bf16 on the
+    plans :func:`fwd_on_tensor_cores` takes, that is
+    ``chain_stash_fwd_tc_kernel`` on the tensor cores; every other call
+    runs the CUDA-core ``chain_fwd_kernel``. The two write the same stash,
+    bit for bit. Counts its launches in ``chain_kernel_stash.launches``,
+    those of the tensor-core kernel also in
+    ``chain_kernel_stash.tc_launches``."""
+    return _chain_kernel_stash(plan, x, params, compute_dtype, with_stash)[:2]
+
+
+chain_kernel_stash.launches = chain_kernel_stash.tc_launches = 0
+
+
+def chain_kernel_stash_cuda_core(plan, x, params, compute_dtype=None,
+                                 with_stash=False):
+    """The CUDA-core K1r-fwd (``chain_fwd_kernel``'s stash route) in either
+    precision: what :func:`chain_kernel_stash` runs off the tensor cores,
+    and in bf16 the kernel the tensor-core one is held against. Returns
+    (y, stash or None); counts no launch."""
     _check_route(plan, 'K1r-fwd', False)
-    y, stash, ran = _chain_fwd(plan, x, params, compute_dtype,
-                               stash_route=True, with_stash=with_stash)
-    chain_kernel_stash.launches += ran
-    return y, stash
-
-
-chain_kernel_stash.launches = 0
+    return _chain_fwd(plan, x, params, compute_dtype, False, stash_route=True,
+                      with_stash=with_stash)[:2]
 
 
 def chain_kernel_last_skip(plan, x, params, compute_dtype=None):
@@ -489,7 +509,7 @@ def chain_kernel_last_skip(plan, x, params, compute_dtype=None):
     ``[head | embedding]``. Counts its launches in
     ``chain_kernel_last_skip.launches``."""
     _check_route(plan, 'K1w-fwd', True)
-    y, _, ran = _chain_fwd(plan, x, params, compute_dtype)
+    y, _, _, ran = _chain_fwd(plan, x, params, compute_dtype, False)
     chain_kernel_last_skip.launches += ran
     return y
 
@@ -639,27 +659,26 @@ def _tc_runs(plan, device, bwd):
     return runs.value != 0
 
 
-def fwd_on_tensor_cores(plan, compute_dtype, device, stash_route=False):
-    """Whether a K1-fwd launch on ``device`` runs the tensor-core kernel
-    (``nfk_chain_fwd_tc``): bf16 operands, on the default route, and a
-    plan the library says it runs (:func:`_tc_runs`; a last skip, K1w, is
-    not one). Every other launch (f32, the stash route K1r, K1w, any other
+def fwd_on_tensor_cores(plan, compute_dtype, device):
+    """Whether a K1-fwd or K1r-fwd launch on ``device`` runs the
+    tensor-core kernel (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``):
+    bf16 operands and a plan the library says it runs (:func:`_tc_runs`; a
+    last skip, K1w, is not one). Every other launch (f32, K1w, any other
     plan) runs the CUDA-core ``chain_fwd_kernel``."""
-    if kernel_dtype(compute_dtype) != torch.bfloat16 or stash_route:
+    if kernel_dtype(compute_dtype) != torch.bfloat16:
         return False
     return _tc_runs(plan, device, bwd=False)
 
 
-def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device,
-                        stash_route=False):
-    """Whether a K1-bwd launch on ``device`` runs the tensor-core design
-    (phase 1 and the dW pass, ``nfk_chain_bwd_tc``): bf16 operands, dW
-    without dx, on the default route, and a plan that the library says
-    phase 1 runs (:func:`_tc_runs`). Every other launch (f32, dx, the
-    stash route K1r, a last skip K1w, any other plan) runs the CUDA-core
+def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device):
+    """Whether a K1-bwd or K1r-bwd launch on ``device`` runs the
+    tensor-core design (phase 1 and the dW pass, ``nfk_chain_bwd_tc``,
+    ``nfk_chain_stash_bwd_tc``): bf16 operands, dW without dx, and a plan
+    that the library says phase 1 runs (:func:`_tc_runs`). Every other
+    launch (f32, dx, a last skip K1w, any other plan) runs the CUDA-core
     ``chain_bwd_kernel``."""
     if kernel_dtype(compute_dtype) != torch.bfloat16 or needs_dx \
-            or not needs_dw or stash_route:
+            or not needs_dw:
         return False
     return _tc_runs(plan, device, bwd=True)
 
@@ -728,9 +747,11 @@ def tc_bwd_sizes(plan, n, device):
             'chunks': chunks.value}
 
 
-def _chain_bwd_tc(plan, x, dy, params, wt=None):
-    """Launches ``nfk_chain_bwd_tc`` (phase 1, the dW pass, their sums)
-    over the weights padded to :func:`mma_plan`'s widths where they
+def _chain_bwd_tc(plan, x, dy, params, wt=None, stash_route=False,
+                  stash=None):
+    """Launches ``nfk_chain_bwd_tc`` or, with ``stash_route``,
+    ``nfk_chain_stash_bwd_tc`` over ``stash`` (phase 1, the dW pass, their
+    sums) over the weights padded to :func:`mma_plan`'s widths where they
     differ, and their transposes ``wt`` (packed here when None). Returns
     [(dW, db)] of ``plan``, f32."""
     kplan = mma_plan(plan)
@@ -754,37 +775,40 @@ def _chain_bwd_tc(plan, x, dy, params, wt=None):
                        device=device)
     scratch = torch.empty(size['scratch'], dtype=torch.bfloat16, device=device)
     if n:
-        run('nfk_chain_bwd_tc', device, ctypes.addressof(desc), x.data_ptr(),
-            dy.data_ptr(), w_flat.data_ptr(), wt.data_ptr(), b_flat.data_ptr(),
-            scratch.data_ptr(), part.data_ptr(), dwb.data_ptr(),
-            size['slices'], size['chunks'], n)
+        entry, stash_arg = ('nfk_chain_stash_bwd_tc', (_ptr(stash),)) \
+            if stash_route else ('nfk_chain_bwd_tc', ())
+        run(entry, device, ctypes.addressof(desc), x.data_ptr(),
+            dy.data_ptr(), *stash_arg, w_flat.data_ptr(), wt.data_ptr(),
+            b_flat.data_ptr(), scratch.data_ptr(), part.data_ptr(),
+            dwb.data_ptr(), size['slices'], size['chunks'], n)
     grads = unpack_grads(kplan, dwb)
     return grads if kplan == plan else unpad_grads(plan, grads)
 
 
-def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
+def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw, tc,
                stash_route=False, stash=None, wt=None):
-    """Launches K1-bwd for the output cotangent ``dy`` (N, out_dim): the
-    tensor-core design (over ``wt``, see :func:`chain_kernel_bwd`) where
-    :func:`bwd_on_tensor_cores` says so, else nfk_chain_bwd. Returns (dx or
-    None, [(dW, db)] or None, whether a kernel ran)."""
+    """Launches K1-bwd, or K1r-bwd over ``stash`` with ``stash_route``, for
+    the output cotangent ``dy`` (N, out_dim): with ``tc`` the tensor-core
+    design (over ``wt``, see :func:`chain_kernel_bwd`), else
+    nfk_chain_bwd. Returns (dx or None, [(dW, db)] or None, whether a
+    kernel ran)."""
     if not (needs_dx or needs_dw):
         raise ValueError("K1-bwd launched with nothing to compute")
-    if bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
-                           x.device, stash_route):
-        return None, _chain_bwd_tc(plan, x, dy, params, wt), x.shape[0] > 0
+    if stash_route and trig_dim(plan):
+        want = (x.shape[0], trig_dim(plan))
+        if stash is None or stash.device != x.device \
+                or stash.dtype != kernel_dtype(compute_dtype) \
+                or tuple(stash.shape) != want:
+            raise ValueError("The stash must be a %s %s %s tensor" % (
+                x.device, kernel_dtype(compute_dtype), want))
+        stash = stash.contiguous()
+    if tc:
+        return None, _chain_bwd_tc(plan, x, dy, params, wt, stash_route,
+                                   stash), x.shape[0] > 0
     (x, dy), desc, bf16, w_flat, b_flat = prepare(
         plan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
         compute_dtype)
     device, n = x.device, x.shape[0]
-    if stash_route and trig_dim(plan):
-        want = (n, trig_dim(plan))
-        if stash is None or stash.device != device \
-                or stash.dtype != kernel_dtype(compute_dtype) \
-                or tuple(stash.shape) != want:
-            raise ValueError("The stash must be a %s %s %s tensor" % (
-                device, kernel_dtype(compute_dtype), want))
-        stash = stash.contiguous()
     dx = torch.empty_like(x) if needs_dx else None
     dwb = part = None
     slices = ctypes.c_int(0)
@@ -814,8 +838,10 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
     these params, which the tensor-core backward then does not pack again.
     Counts its launches in ``chain_kernel_bwd.launches``."""
     _check_route(plan, 'K1-bwd', False)
+    tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
+                             x.device)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
-                                needs_dw, wt=wt)
+                                needs_dw, tc, wt=wt)
     chain_kernel_bwd.launches += ran
     return dx, grads
 
@@ -824,21 +850,41 @@ chain_kernel_bwd.launches = 0
 
 
 def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,
-                           needs_dx=True):
+                           needs_dx=True, wt=None):
     """Launches K1r-bwd: the cotangents of :func:`chain_kernel_stash` for
     ``dy`` (N, out), reading the trig columns from ``stash`` (K1r-fwd's,
     None for a plan without trig columns). Returns (dx or None, [(dW,
     db)]): dW/db always, as the TPU route computes them whatever the
-    caller declared. Counts its launches in
-    ``chain_kernel_stash_bwd.launches``."""
+    caller declared. In bf16 without dx on the plans
+    :func:`bwd_on_tensor_cores` takes, that is the tensor-core design
+    (``chain_stash_bwd_tc_kernel`` and the dW pass, over ``wt`` as
+    :func:`chain_kernel_bwd`'s); every other call runs the CUDA-core
+    ``chain_bwd_kernel``. Counts its launches in
+    ``chain_kernel_stash_bwd.launches``, those of the tensor-core design
+    also in ``chain_kernel_stash_bwd.tc_launches``."""
     _check_route(plan, 'K1r-bwd', False)
+    tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, True, x.device)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
-                                True, stash_route=True, stash=stash)
+                                True, tc, stash_route=True, stash=stash,
+                                wt=wt)
     chain_kernel_stash_bwd.launches += ran
+    chain_kernel_stash_bwd.tc_launches += int(ran and tc)
     return dx, grads
 
 
-chain_kernel_stash_bwd.launches = 0
+chain_kernel_stash_bwd.launches = chain_kernel_stash_bwd.tc_launches = 0
+
+
+def chain_kernel_stash_bwd_cuda_core(plan, x, dy, stash, params,
+                                     compute_dtype=None, needs_dx=True):
+    """The CUDA-core K1r-bwd (``chain_bwd_kernel``'s stash route) in
+    either precision, with or without dx: what
+    :func:`chain_kernel_stash_bwd` runs off the tensor cores, and in bf16
+    the kernel the tensor-core design is held against. Counts no
+    launch."""
+    _check_route(plan, 'K1r-bwd', False)
+    return _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, True,
+                      False, stash_route=True, stash=stash)[:2]
 
 
 def chain_kernel_last_skip_bwd(plan, x, dy, params, compute_dtype=None,
@@ -849,7 +895,7 @@ def chain_kernel_last_skip_bwd(plan, x, dy, params, compute_dtype=None,
     launches in ``chain_kernel_last_skip_bwd.launches``."""
     _check_route(plan, 'K1w-bwd', True)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
-                                needs_dw)
+                                needs_dw, False)
     chain_kernel_last_skip_bwd.launches += ran
     return dx, grads
 
@@ -875,11 +921,11 @@ def _pairs(flat):
 def _forward(plan, x, params, compute_dtype, stash_route, with_stash=False):
     """The route's forward kernel: K1r with ``stash_route``, K1w for a
     last-skip plan, else K1. Returns (y, the K1r stash with
-    ``with_stash``, else None, the transposed weights K1's tensor-core
-    kernel read, else None)."""
+    ``with_stash``, else None, the transposed weights K1's or K1r's
+    tensor-core kernel read, else None)."""
     if stash_route:
-        return chain_kernel_stash(plan, x, params, compute_dtype,
-                                  with_stash=with_stash) + (None,)
+        return _chain_kernel_stash(plan, x, params, compute_dtype,
+                                   with_stash)
     if last_skip(plan):
         return chain_kernel_last_skip(plan, x, params, compute_dtype), None, \
             None
@@ -893,9 +939,9 @@ class ChainFunction(torch.autograd.Function):
     forward saves the stash for its backward) or, for a last-skip plan,
     K1w. ``needs_dx`` / ``needs_dw`` select the cotangents the backward
     computes (K1r computes dW/db in any case); the others come back as
-    zeros, and with both False no backward kernel is launched. K1-fwd's
-    tensor-core kernel hands the transposed weights it packed to a
-    tensor-core K1-bwd, so a step packs them once."""
+    zeros, and with both False no backward kernel is launched. The
+    tensor-core K1-fwd and K1r-fwd hand the transposed weights they packed
+    to the tensor-core K1-bwd and K1r-bwd, so a step packs them once."""
 
     @staticmethod
     def forward(ctx, plan, compute_dtype, needs_dx, needs_dw, stash_route, x,
@@ -915,7 +961,7 @@ class ChainFunction(torch.autograd.Function):
         dx, dparams = None, None
         if ctx.stash_route and (needs_dx or needs_dw):
             dx, dparams = chain_kernel_stash_bwd(plan, x, dy, stash, params, cd,
-                                                 needs_dx=needs_dx)
+                                                 needs_dx=needs_dx, wt=ctx.wt)
         elif needs_dx or needs_dw:
             bwd = chain_kernel_last_skip_bwd if last_skip(plan) \
                 else functools.partial(chain_kernel_bwd, wt=ctx.wt)

@@ -1,17 +1,21 @@
 """bf16 K1-fwd and K1-bwd with dW only on the tensor cores: the forward
 ``nfk_chain_fwd_tc`` and the backward's design (phase 1 and the dW pass,
-``nfk_chain_bwd_tc``), which the joint step's lvis chain runs.
+``nfk_chain_bwd_tc``), which the joint step's lvis chain runs; and the
+stash route's K1r-fwd and K1r-bwd on them (``nfk_chain_stash_fwd_tc``,
+``nfk_chain_stash_bwd_tc``).
 
-On the CPU: the rules that send a K1-fwd or K1-bwd launch to them and the
+On the CPU: the rules that send a K1 or K1r launch to them and the
 scratch's layout, all asked of the g++ emulation of the CUDA sources
-(``test_torch_emu``, where the kernels themselves are held against the
-Pallas kernels), and the zero padding that takes hidden widths off the
-mma step (16) onto it. On a card (the ``cuda`` marker; they skip here):
-the kernels at the lvis chain's width (128 x 4, the embedding
-concatenated after layer 2, a 1-wide sigmoid head), past one column pass
-(272) and off the mma step (24), against the CUDA-core kernels and the
-plain version (autograd of it for the backward), bit-identical across
-launches; and the plans the rules keep on the CUDA-core kernels.
+(``test_torch_emu`` and ``test_torch_emu_stash``, where the kernels
+themselves are held against the Pallas kernels), and the zero padding
+that takes hidden widths off the mma step (16) onto it. On a card (the
+``cuda`` marker; they skip here): the kernels at the lvis chain's width
+(128 x 4, the embedding concatenated after layer 2, a 1-wide sigmoid
+head), past one column pass (272) and off the mma step (24), against the
+CUDA-core kernels and the plain version (autograd of it for the
+backward), bit-identical across launches (K1r's stash bit-identical to
+the CUDA-core kernel's); and the plans the rules keep on the CUDA-core
+kernels.
 
   python -m tests.test_torch_chain_tc [--seeds 40,41,42,43]
 
@@ -61,15 +65,16 @@ def emulated(tmp_path_factory):
 
 
 def test_bwd_on_tensor_cores_rule(emulated):
-    """bf16 with dW only on the default route takes the tensor cores;
-    f32, dx, no dW, the stash route, a skip after the head or into it, a
-    head wider than 8, a head-only chain and hidden layers too wide for
-    phase 1's block (640; 512 fits) keep the CUDA-core kernel."""
+    """bf16 with dW only takes the tensor cores, on either route
+    (test_stash_route_takes_the_rules); f32, dx, no dW, a skip after the
+    head or into it, a head wider than 8, a head-only chain and hidden
+    layers too wide for phase 1's block (640; 512 fits) keep the CUDA-core
+    kernel."""
     plan = fm.make_plan(*LVIS)
 
-    def rule(pl, cd, needs_dx, needs_dw, **kw):
+    def rule(pl, cd, needs_dx, needs_dw):
         return fm.bwd_on_tensor_cores(pl, cd, needs_dx, needs_dw,
-                                      torch.device('cpu'), **kw)
+                                      torch.device('cpu'))
     assert rule(plan, BF16, False, True)
     assert rule(fm.make_plan(*TC_PLANS['w24']), BF16, False, True)
     assert not rule(plan, None, False, True)
@@ -77,7 +82,6 @@ def test_bwd_on_tensor_cores_rule(emulated):
     assert not rule(plan, BF16, True, True)
     assert not rule(plan, BF16, True, False)
     assert not rule(plan, BF16, False, False)
-    assert not rule(plan, BF16, False, True, stash_route=True)
     assert not rule(plan._replace(skip_at=(4,)), BF16, False, True)
     assert not rule(plan._replace(skip_at=(3,)), BF16, False, True)
     assert not rule(plan._replace(skip_at=(1, 3)), BF16, False, True)
@@ -92,20 +96,19 @@ def test_bwd_on_tensor_cores_rule(emulated):
 
 
 def test_fwd_on_tensor_cores_rule(emulated):
-    """bf16 K1-fwd on the default route takes the tensor cores on the
-    plans the backward's phase 1 takes (width 24 once padded); f32, the
-    stash route, a skip after the head or into it, a head wider than 8, a
-    head-only chain and hidden layers too wide for the block (640; 512
-    fits) keep the CUDA-core kernel."""
+    """bf16 K1-fwd takes the tensor cores, on either route
+    (test_stash_route_takes_the_rules), on the plans the backward's phase 1
+    takes (width 24 once padded); f32, a skip after the head or into it, a
+    head wider than 8, a head-only chain and hidden layers too wide for the
+    block (640; 512 fits) keep the CUDA-core kernel."""
     plan = fm.make_plan(*LVIS)
 
-    def rule(pl, cd, **kw):
-        return fm.fwd_on_tensor_cores(pl, cd, torch.device('cpu'), **kw)
+    def rule(pl, cd):
+        return fm.fwd_on_tensor_cores(pl, cd, torch.device('cpu'))
     assert rule(plan, BF16)
     assert rule(fm.make_plan(*TC_PLANS['w24']), BF16)
     assert not rule(plan, None)
     assert not rule(plan, torch.float32)
-    assert not rule(plan, BF16, stash_route=True)
     assert not rule(plan._replace(skip_at=(4,)), BF16)
     assert not rule(plan._replace(skip_at=(3,)), BF16)
     for head, ok in ((8, True), (9, False)):
@@ -115,6 +118,40 @@ def test_fwd_on_tensor_cores_rule(emulated):
     for width, ok in ((512, True), (640, False)):
         assert rule(plan._replace(widths=(width,) * 4 + plan.widths[-1:]),
                     BF16) == ok
+
+
+def entries(launch):
+    """The library entries ``launch()`` calls (the emulation records
+    them)."""
+    from tests.test_torch_emu import CALLS
+    del CALLS[:]
+    launch()
+    return list(CALLS)
+
+
+def test_stash_route_takes_the_rules(emulated):
+    """The stash route's launches ask K1's rules: bf16 K1r-fwd and bf16
+    K1r-bwd without dx run the tensor-core entries; f32 K1r-fwd, and
+    K1r-bwd with dx or in f32, the CUDA-core ones (the lvis chain, one
+    row)."""
+    _, _, plan, p = both(LVIS, seed=5)
+    x = torch.from_numpy(chain_inputs(plan, n=1, seed=6))
+    dy = torch.ones(1, 1)
+    for cd, tc in ((BF16, True), (None, False)):
+        stash = [None]
+
+        def fwd():
+            stash[0] = fm.chain_kernel_stash(plan, x, p, cd,
+                                             with_stash=True)[1]
+        calls = entries(fwd)
+        assert ('nfk_chain_stash_fwd_tc' in calls) == tc \
+            and ('nfk_chain_fwd' in calls) != tc
+        for needs_dx in (False, True):
+            calls = entries(lambda: fm.chain_kernel_stash_bwd(
+                plan, x, dy, stash[0], p, cd, needs_dx=needs_dx))
+            on_tc = tc and not needs_dx
+            assert ('nfk_chain_stash_bwd_tc' in calls) == on_tc \
+                and ('nfk_chain_bwd' in calls) != on_tc
 
 
 def test_padded_plan_keeps_the_chain_and_its_gradients():
@@ -195,10 +232,15 @@ def leaves(dparams):
     return [t for pair in dparams for t in pair]
 
 
-def plain_dparams(plan, x, dy, p, td):
+def plain_dparams(plan, x, dy, p, td, ref=fm.chain_reference):
     flat = [t.clone().requires_grad_() for t in leaves(p)]
-    y = fm.chain_reference(plan, x, list(zip(flat[0::2], flat[1::2])), td)
+    y = ref(plan, x, list(zip(flat[0::2], flat[1::2])), td)
     return torch.autograd.grad(y, flat, dy)
+
+
+def worst(a, b):
+    """The worst relative norm over the leaves of ``a`` against ``b``."""
+    return max(rel_norm(u, v) for u, v in zip(a, b))
 
 
 def recorded_calls(monkeypatch):
@@ -218,14 +260,16 @@ def recorded_calls(monkeypatch):
 # tests.test_torch_chain_tc, seeds 40-43, the plans of both card tests at
 # 1, 50 and 4,099 rows; NVIDIA H100 80GB HBM3, 700.00 W): the tensor-core
 # kernel <= 0.0051 from the CUDA-core one (worst dW/db leaf; 1.2e-7 where
-# no d_pre flips).
+# no d_pre flips); on the stash route, K1r-bwd the same, <= 0.0051.
 TC_VS_CUDA_CORE_TOL = 0.01
 # Against autograd of the plain bf16 version, which rounds every cotangent
 # at each cast: at these sizes the bf16 kernels read up to 0.145 (w24, 50
-# rows; w272, 1 row: 0.113), the f32 kernel as close (0.0046-0.10), as for
-# K3's card tests (NERF_DW_TOL): the bound catches a wrong layer or layout
-# (~1), the rounding policy is held by test_torch_emu (against the TPU
-# kernel) and chip_smoke.py (at the joint step's 1,048,576 rows).
+# rows; w272, 1 row: 0.113; K1r-bwd against the plain stash route the
+# same), the f32 kernel as close (0.0046-0.10), as for K3's card tests
+# (NERF_DW_TOL): the bound catches a wrong layer or layout (~1), the
+# rounding policy is held by test_torch_emu and test_torch_emu_stash
+# (against the TPU kernels) and chip_smoke.py (at the joint step's
+# 1,048,576 rows).
 TC_DW_TOL_BF16 = 0.25
 
 
@@ -277,7 +321,8 @@ def test_off_tc_plans_keep_the_cuda_core_kernel_on_card(name, cuda,
 # tests.test_torch_chain_tc, card_readings, seeds 40-43, TC_PLANS at 1, 50
 # and 4,099 rows; NVIDIA H100 80GB HBM3, 700.00 W): the tensor-core kernel
 # <= 2.7e-5 from the CUDA-core bf16 kernel, the f32 kernel (the control)
-# >= 2.5e-4 (PLANS' widths 16 and 32 too: <= 1.7e-4 against >= 2.5e-4).
+# >= 2.5e-4 (PLANS' widths 16 and 32 too: <= 1.7e-4 against >= 2.5e-4);
+# K1r-fwd on the stash route the same, its stash equal bit for bit.
 TC_FWD_VS_CUDA_CORE_TOL = 1e-4
 
 
@@ -308,7 +353,7 @@ def test_tc_fwd_on_card(name, n, cuda, monkeypatch):
 # widths
 OFF_TC_FWD = {
     'f32': (LVIS, None, fm.chain_kernel, fm.chain_reference),
-    'stash': (LVIS, BF16, lambda *a: fm.chain_kernel_stash(*a)[0],
+    'stash': (LVIS, None, lambda *a: fm.chain_kernel_stash(*a)[0],
               fm.chain_reference_stash),
     'last_skip': ((LVIS[0], LVIS[1], LVIS[2], (2, 4)), BF16,
                   fm.chain_kernel_last_skip, fm.chain_reference),
@@ -324,9 +369,9 @@ OFF_TC_FWD = {
 @pytest.mark.parametrize('case', sorted(OFF_TC_FWD))
 def test_off_tc_fwd_keeps_the_cuda_core_kernel_on_card(case, cuda,
                                                        monkeypatch):
-    """f32, the stash route, K1w, a skip into the head, a head wider than
-    8 and hidden layers too wide for the block launch the CUDA-core
-    K1-fwd, within TOL of the route's plain version."""
+    """f32 on either route, K1w, a skip into the head, a head wider than 8
+    and hidden layers too wide for the block launch the CUDA-core K1-fwd,
+    within TOL of the route's plain version."""
     args, cd, launch, plain = OFF_TC_FWD[case]
     plan, p, x, _ = card_case(args, 4099, 61, cuda)
     calls = recorded_calls(monkeypatch)
@@ -338,6 +383,70 @@ def test_off_tc_fwd_keeps_the_cuda_core_kernel_on_card(case, cuda,
                                **TOL['bf16' if cd else 'f32'])
 
 
+def stash_launches():
+    return (fm.chain_kernel_stash.launches, fm.chain_kernel_stash.tc_launches,
+            fm.chain_kernel_stash_bwd.launches,
+            fm.chain_kernel_stash_bwd.tc_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 4099, 70001])
+@pytest.mark.parametrize('name', sorted(TC_PLANS))
+def test_tc_stash_fwd_on_card(name, n, cuda, monkeypatch):
+    """One K1r-fwd launch through the tensor-core entry, counted once
+    (and once as a tensor-core launch): within TOL of the plain bf16 stash
+    route, within TC_FWD_VS_CUDA_CORE_TOL of the CUDA-core kernel, its
+    stash the CUDA-core kernel's bit for bit, both bit-identical across
+    launches."""
+    plan, p, x, _ = card_case(TC_PLANS[name], n, 62, cuda)
+    calls = recorded_calls(monkeypatch)
+    before = stash_launches()
+    y, stash = fm.chain_kernel_stash(plan, x, p, BF16, with_stash=True)
+    torch.cuda.synchronize()
+    assert 'nfk_chain_stash_fwd_tc' in calls and 'nfk_chain_fwd' not in calls
+    assert stash_launches() == (before[0] + 1, before[1] + 1) + before[2:]
+    np.testing.assert_allclose(
+        y.cpu().numpy(),
+        fm.chain_reference_stash(plan, x, p, BF16).cpu().numpy(),
+        **TOL['bf16'])
+    y_core, stash_core = fm.chain_kernel_stash_cuda_core(plan, x, p, BF16,
+                                                         with_stash=True)
+    assert rel_norm(y, y_core) <= TC_FWD_VS_CUDA_CORE_TOL
+    assert stash.dtype == BF16 and torch.equal(stash, stash_core)
+    y2, stash2 = fm.chain_kernel_stash(plan, x, p, BF16, with_stash=True)
+    assert torch.equal(y, y2) and torch.equal(stash, stash2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 4099, 70001])
+@pytest.mark.parametrize('name', sorted(TC_PLANS))
+def test_tc_stash_bwd_on_card(name, n, cuda, monkeypatch):
+    """One K1r-bwd launch with dW only through the tensor-core entry,
+    counted once (and once as a tensor-core launch): dW/db within
+    TC_VS_CUDA_CORE_TOL of the CUDA-core K1r-bwd's over the same stash,
+    within TC_DW_TOL_BF16 of autograd of the plain bf16 stash route,
+    bit-identical across launches."""
+    plan, p, x, dy = card_case(TC_PLANS[name], n, 63, cuda)
+    _, stash = fm.chain_kernel_stash_cuda_core(plan, x, p, BF16,
+                                               with_stash=True)
+    calls = recorded_calls(monkeypatch)
+    before = stash_launches()
+    got = leaves(fm.chain_kernel_stash_bwd(plan, x, dy, stash, p, BF16,
+                                           needs_dx=False)[1])
+    torch.cuda.synchronize()
+    assert 'nfk_chain_stash_bwd_tc' in calls and 'nfk_chain_bwd' not in calls
+    assert stash_launches() == before[:2] + (before[2] + 1, before[3] + 1)
+    core = leaves(fm.chain_kernel_stash_bwd_cuda_core(
+        plan, x, dy, stash, p, BF16, needs_dx=False)[1])
+    assert worst(got, core) <= TC_VS_CUDA_CORE_TOL
+    for g, w in zip(got, plain_dparams(plan, x, dy, p, BF16,
+                                       fm.chain_reference_stash)):
+        assert g.shape == w.shape and rel_norm(g, w) <= TC_DW_TOL_BF16
+    again = leaves(fm.chain_kernel_stash_bwd(plan, x, dy, stash, p, BF16,
+                                             needs_dx=False)[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def card_readings(seeds, sizes=(1, 50, 4099)):
     """Per plan of the card tests (PLANS' widths 16 and 32, TC_PLANS) and
     size, over ``seeds``: the worst dW/db leaf of bf16 K1-bwd with dW only
@@ -345,14 +454,21 @@ def card_readings(seeds, sizes=(1, 50, 4099)):
     against the CUDA-core bf16 kernel, and the least reading of the f32
     kernel against the plain bf16 version; the worst output of bf16 K1-fwd
     on the tensor cores against the CUDA-core bf16 kernel and the least
-    reading of the f32 kernel (the control) against it."""
+    reading of the f32 kernel (the control) against it; on the stash route,
+    the worst dW/db leaf of bf16 K1r-bwd with dW only on the tensor cores
+    against autograd of the plain bf16 stash route and against the
+    CUDA-core bf16 K1r-bwd, the worst output of bf16 K1r-fwd on the tensor
+    cores against the CUDA-core one, and whether their stashes are
+    equal."""
     out = []
     device = torch.device('cuda')
     for name, args in sorted(dict(PLANS, **TC_PLANS).items()):
         for n in sizes:
             r = {'chain': name, 'n': n, 'tc_vs_plain': 0.0,
                  'tc_vs_cuda_core': 0.0, 'f32_kernel_vs_plain': np.inf,
-                 'tc_fwd_vs_cuda_core': 0.0, 'f32_fwd_vs_cuda_core': np.inf}
+                 'tc_fwd_vs_cuda_core': 0.0, 'f32_fwd_vs_cuda_core': np.inf,
+                 'stash_tc_vs_plain': 0.0, 'stash_tc_vs_cuda_core': 0.0,
+                 'stash_tc_fwd_vs_cuda_core': 0.0, 'stash_equal': True}
             for seed in seeds:
                 plan, p, x, dy = card_case(args, n, seed, device)
                 want = plain_dparams(plan, x, dy, p, BF16)
@@ -360,9 +476,6 @@ def card_readings(seeds, sizes=(1, 50, 4099)):
                                                  needs_dx=False)[1])
                 core = leaves(fm.chain_kernel_bwd(plan, x, dy, p, BF16)[1])
                 f32 = leaves(fm.chain_kernel_bwd(plan, x, dy, p, None)[1])
-
-                def worst(a, b):
-                    return max(rel_norm(u, v) for u, v in zip(a, b))
                 r['tc_vs_plain'] = max(r['tc_vs_plain'], worst(got, want))
                 r['tc_vs_cuda_core'] = max(r['tc_vs_cuda_core'],
                                            worst(got, core))
@@ -376,6 +489,21 @@ def card_readings(seeds, sizes=(1, 50, 4099)):
                     r['f32_fwd_vs_cuda_core'],
                     rel_norm(fm.chain_kernel_cuda_core(plan, x, p, None),
                              y_core))
+                y, stash = fm.chain_kernel_stash(plan, x, p, BF16,
+                                                 with_stash=True)
+                y_core, stash_core = fm.chain_kernel_stash_cuda_core(
+                    plan, x, p, BF16, with_stash=True)
+                got = leaves(fm.chain_kernel_stash_bwd(
+                    plan, x, dy, stash, p, BF16, needs_dx=False)[1])
+                core = leaves(fm.chain_kernel_stash_bwd_cuda_core(
+                    plan, x, dy, stash, p, BF16, needs_dx=False)[1])
+                for key, val in (
+                        ('stash_tc_vs_plain', worst(got, plain_dparams(
+                            plan, x, dy, p, BF16, fm.chain_reference_stash))),
+                        ('stash_tc_vs_cuda_core', worst(got, core)),
+                        ('stash_tc_fwd_vs_cuda_core', rel_norm(y, y_core))):
+                    r[key] = max(r[key], val)
+                r['stash_equal'] &= torch.equal(stash, stash_core)
             out.append(r)
     return out
 
