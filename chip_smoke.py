@@ -7,8 +7,9 @@ rendering.
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the CUDA kernels (nerfactor_tpu_torch/csrc) with nvcc for sm_90a,
    checks that every tensor-core kernel of the library (the bf16 K1-fwd,
-   K1r-fwd, K2-fwd and K3-fwd, K2-bwd, the dW backwards' phase 1, K1r-bwd's
-   among them, and dW pass) holds HMMA instructions, and holds their
+   K1r-fwd, K1w-fwd, K2-fwd and K3-fwd, K2-bwd, the dW backwards' phase 1,
+   K1r-bwd's and K1w-bwd's among them, the dW pass and K1w-bwd's dx pass)
+   holds HMMA instructions, and holds their
    building block (mma.sync fragments,
    loaders, cp.async pipeline; csrc/mma_bf16.cuh) against the float64
    product of the same bf16 values, 64 x 96 x 80 and ragged sizes.
@@ -82,9 +83,13 @@ rendering.
    (bf16 at 1,048,576 rows, f32 at 65,536 with dx) with the counters
    zeroed before and read after; K1w-fwd and K1w-bwd against the plain
    version at the same shapes, dW bit-identical across launches; the head
-   column bit-identical to K1's on the same layers without the last skip,
-   and dW/db too in f32 (in bf16, where K1-bwd runs on the tensor cores,
-   within K1W_VS_K1_TOL_BF16 by relative norm).
+   column and dW/db bit-identical to K1's on the same layers without the
+   last skip (dW/db also held within K1W_VS_K1_TOL_BF16 by relative norm
+   in bf16), the embedding columns to the CUDA-core K1w-fwd's. The bf16
+   calls run on the tensor cores (K1w-fwd; K1w-bwd's phase 1, dW pass and
+   dx pass); beside them the CUDA-core kernels they replace: dx, times,
+   and device ms (the forward; the backward's kernels apart), TFLOP/s,
+   and the backward with dW only and with dx only.
 15. The joint train step on the stash route (fused_mlp.TRANSPOSED_BOUNDARY
    = False): its loss and gradients against the default route's on one
    batch, then its steady-state step time, counters zeroed before and read
@@ -110,6 +115,7 @@ raises, so the run exits non-zero. The only cut from production is imh
   python3 chip_smoke.py --limit_seeds k3 11,12,13,14
   python3 chip_smoke.py --limit_seeds k1 11,12,13,14
   python3 chip_smoke.py --limit_seeds k1r 11,12,13,14
+  python3 chip_smoke.py --limit_seeds k1w 11,12,13,14
   python3 chip_smoke.py --limit_seeds k2 11,12,13,14
 
 print only the readings behind a kernel's error bounds, over weights and
@@ -120,7 +126,11 @@ chain's tensor-core backward and the f32 kernel against the plain bf16
 version at the joint step's 1,048,576 rows, and K1w against K1) over
 lvis weights; for K1r, the same on the stash route (k1r_limit_readings:
 K1r-bwd's tensor-core, CUDA-core bf16 and f32 kernels and K1r-fwd against
-the plain bf16 stash route at 1,048,576 rows); for K2, its bf16 readings
+the plain bf16 stash route at 1,048,576 rows); for K1w, the same on the
+lvis chain with its skip after the head (k1w_limit_readings: K1w-fwd and
+K1w-bwd with dx and dW, tensor-core, CUDA-core bf16 and f32 kernels,
+against the plain bf16 version at 1,048,576 rows, and against K1); for
+K2, its bf16 readings
 (k2_limit_readings: K2-fwd's output and K2-bwd's cotangents against the
 plain bf16 version at the joint step's 524,288 rows, of the tensor-core
 kernels, the CUDA-core bf16 kernels and the f32 kernels) over BRDF
@@ -857,10 +867,11 @@ def k2_limit_readings(model, seeds):
 
 
 # Each kernel's counter: its wrapper and the wrapper's attribute. K1-fwd,
-# K1r, K2 and K3-fwd count every launch of their wrappers; "K1-fwd tc",
-# "K1r-fwd tc", "K1r-bwd tc", "K2-fwd tc", "K2-bwd tc" and "K3-fwd tc"
-# those of the tensor-core kernels among them (bf16; for K1r-bwd without
-# dx), the rest being the CUDA-core kernels'.
+# K1r, K1w, K2 and K3-fwd count every launch of their wrappers; "K1-fwd
+# tc", "K1r-fwd tc", "K1r-bwd tc", "K1w-fwd tc", "K1w-bwd tc", "K2-fwd
+# tc", "K2-bwd tc" and "K3-fwd tc" those of the tensor-core kernels among
+# them (bf16; for K1r-bwd without dx), the rest being the CUDA-core
+# kernels'.
 COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
             'K1-bwd': (fm.chain_kernel_bwd, 'launches'),
@@ -876,7 +887,9 @@ COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1r-bwd': (fm.chain_kernel_stash_bwd, 'launches'),
             'K1r-bwd tc': (fm.chain_kernel_stash_bwd, 'tc_launches'),
             'K1w-fwd': (fm.chain_kernel_last_skip, 'launches'),
+            'K1w-fwd tc': (fm.chain_kernel_last_skip, 'tc_launches'),
             'K1w-bwd': (fm.chain_kernel_last_skip_bwd, 'launches'),
+            'K1w-bwd tc': (fm.chain_kernel_last_skip_bwd, 'tc_launches'),
             'P': (dp.dot_chain_kernel, 'launches')}
 JOINT_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K2-fwd', 'K2-fwd tc',
                  'K2-bwd', 'K2-bwd tc')
@@ -1317,6 +1330,11 @@ K1R_BWD_KERNELS = (('phase1_ms', 'chain_stash_bwd_tc_kernel'),
                    ('dw_pass_ms', 'dw_kernel'),
                    ('sums_ms', 'sum_slices_kernel'))
 K1R_FWD_KERNELS = (('fwd_device_ms', 'chain_stash_fwd'),)
+K1W_BWD_KERNELS = (('phase1_ms', 'chain_last_skip_bwd_tc_kernel'),
+                   ('dw_pass_ms', 'dw_kernel'),
+                   ('dx_pass_ms', 'chain_dx_pass_kernel'),
+                   ('sums_ms', 'sum_slices_kernel'))
+K1W_FWD_KERNELS = (('fwd_device_ms', 'chain_last_skip_fwd'),)
 K2_FWD_KERNELS = (('fwd_device_ms', 'rusink_chain_fwd'),)
 K2_BWD_KERNELS = (('bwd_device_ms', 'rusink_chain_bwd'),)
 K3_FWD_KERNELS = (('fwd_device_ms', 'nerf_fwd'),)
@@ -1853,39 +1871,90 @@ def last_skip_params(p_lvis):
             zip(p_lvis, fm.layer_in_dims(LAST_SKIP_PLAN))]
 
 
-# bf16 K1-bwd with dW only runs on the tensor cores (phase 1 and the dW
-# pass), K1w-bwd on the CUDA cores: both round where the TPU kernel does,
-# but sum in another order, and a d_pre that lands next to a bf16 rounding
-# boundary rounds the other way. So in bf16 K1w's dW/db are held to K1's
-# on NO_LAST_SKIP_PLAN by relative norm (worst leaf), in f32 bit for bit.
-# Readings at LAST_SKIP_ROWS (chip_smoke.py --limit_seeds k1 11,12,13,14;
-# NVIDIA H100 80GB HBM3, 700.00 W): 0.0015-0.0026, and 0.0019 on the lvis
-# chain's trained weights in the smoke (the f32 kernel, in the same
-# readings, sits 0.087-0.098 from the plain bf16 version).
+# In bf16 K1w and K1 run the same tensor-core code on the layers they
+# share (K1w-fwd is K1-fwd's tile, K1w-bwd's dW comes from K1-bwd's phase 1
+# and dW pass), so K1w's dW/db are K1's bit for bit (dw_same_as_k1). The
+# gate below held them while K1w-bwd ran on the CUDA cores, where a d_pre
+# next to a bf16 rounding boundary rounds the other way; it stays, by
+# relative norm (worst leaf). Readings at LAST_SKIP_ROWS with K1w-bwd on
+# the CUDA cores (chip_smoke.py --limit_seeds k1 11,12,13,14; NVIDIA H100
+# 80GB HBM3, 700.00 W): 0.0015-0.0026, and 0.0019 on the lvis chain's
+# trained weights in the smoke (the f32 kernel, in the same readings, sits
+# 0.087-0.098 from the plain bf16 version).
 K1W_VS_K1_TOL_BF16 = 0.005
 
 
 def last_skip_vs_k1(x, dy, p, cd, y, got):
     """K1w against K1 on the same layers without the last skip: K1w-fwd's
-    head column ``y[:, :1]`` against K1-fwd's CUDA-core kernel (bit for
-    bit; in bf16 K1-fwd itself runs on the tensor cores, and its relative
-    norm is reported beside), and K1w-bwd's dW/db ``got`` against
+    head column ``y[:, :1]`` against K1-fwd's (in bf16 both on the tensor
+    cores, in f32 on the CUDA cores; bit for bit, the CUDA-core kernel's
+    relative norm reported beside), and K1w-bwd's dW/db ``got`` against
     K1-bwd's with dy's head column (dy's embedding columns reach dx
-    alone): bit for bit in f32, the worst leaf's relative norm in bf16."""
+    alone): whether they are the same bits, and the worst leaf's relative
+    norm."""
     with torch.no_grad():
-        head = fm.chain_kernel_cuda_core(NO_LAST_SKIP_PLAN, x, p, cd)
-        head_k1 = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
+        head = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
+        head_core = fm.chain_kernel_cuda_core(NO_LAST_SKIP_PLAN, x, p, cd)
     k1 = flatten(fm.chain_kernel_bwd(NO_LAST_SKIP_PLAN, x,
                                      dy[:, :1].contiguous(), p, cd,
                                      needs_dx=False)[1])
-    out = {'head_same_as_k1': torch.equal(y[:, :1], head),
-           'head_rel_err_vs_k1': rel_norm(y[:, :1], head_k1)}
-    if cd is None:
-        out['dw_same_as_k1'] = all(torch.equal(a, b)
-                                   for a, b in zip(flatten(got), k1))
-    else:
-        out['dw_rel_err_vs_k1'] = max(rel_norm(a, b)
-                                      for a, b in zip(flatten(got), k1))
+    return {'head_same_as_k1': torch.equal(y[:, :1], head),
+            'head_rel_err_vs_cuda_core': rel_norm(y[:, :1], head_core),
+            'dw_same_as_k1': all(torch.equal(a, b)
+                                 for a, b in zip(flatten(got), k1)),
+            'dw_rel_err_vs_k1': max(rel_norm(a, b)
+                                    for a, b in zip(flatten(got), k1))}
+
+
+def last_skip_tc_readings(x, dy, p, cd, bwd_ms):
+    """bf16 K1w on the tensor cores at the last-skip path's shape: K1w-fwd
+    against the CUDA-core bf16 kernel it replaces and the f32 kernel
+    (tc_fwd_readings: ms, device ms, TFLOP/s), and whether its embedding
+    columns are the CUDA-core kernel's bit for bit (raises if not); K1w-bwd
+    with dx and dW: its dx against the CUDA-core bf16 kernel's (relative
+    norm; the f32 kernel's beside), the CUDA-core kernel's ms, its kernels'
+    device ms (phase 1, the dW pass, the dx pass, the sums;
+    kernel_device_ms), its scratch, its TFLOP/s at ``bwd_ms``, and its ms
+    with dW only and with dx only."""
+    plan = LAST_SKIP_PLAN
+    rows = x.shape[0]
+    out = {'fwd': dict(tc_fwd_readings(
+        lambda: fm.chain_kernel_last_skip(plan, x, p, cd),
+        lambda: fm.chain_kernel_last_skip_cuda_core(plan, x, p, cd),
+        lambda: fm.chain_kernel_last_skip_cuda_core(plan, x, p, None),
+        lambda: fm.chain_reference(plan, x, p, cd),
+        chain_bound(plan, rows, 'bf16', 6, fm.out_dim(plan))['flop'],
+        K1W_FWD_KERNELS), rows=rows, dtype='bf16')}
+    with torch.no_grad():
+        y = fm.chain_kernel_last_skip(plan, x, p, cd)
+        core = fm.chain_kernel_last_skip_cuda_core(plan, x, p, cd)
+    out['fwd']['embed_same_as_cuda_core'] = torch.equal(y[:, 1:], core[:, 1:])
+    if not out['fwd']['embed_same_as_cuda_core']:
+        raise AssertionError("K1w-fwd on the tensor cores: the embedding "
+                             "columns differ from the CUDA-core kernel's")
+    del y, core
+    dx = fm.chain_kernel_last_skip_bwd(plan, x, dy, p, cd)[0]
+    dx_core = fm.chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, p, cd,
+                                                      needs_dw=False)[0]
+    dx32 = fm.chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, p, None,
+                                                   needs_dw=False)[0]
+    out.update(tc_vs_cuda_core_dx_rel_err=rel_norm(dx, dx_core),
+               f32_kernel_vs_cuda_core_dx_rel_err=rel_norm(dx32, dx_core))
+    del dx, dx_core, dx32
+    out['cuda_core_bwd_ms'] = time_ms(
+        lambda: fm.chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, p, cd),
+        iters=3)
+    out.update(kernel_device_ms(lambda: fm.chain_kernel_last_skip_bwd(
+        plan, x, dy, p, cd), K1W_BWD_KERNELS))
+    size = fm.tc_bwd_sizes(fm.mma_plan(plan), rows, x.device)
+    out.update(scratch_bytes=2 * size['scratch'], dw_chunks=size['chunks'],
+               phase1_blocks=size['slices'])
+    out['bwd_tflops'] = chain_bound(plan, rows, 'bf16', 6, fm.out_dim(plan),
+                                    bwd=(True, True))['flop'] / bwd_ms / 1e9
+    for key, flags in (('bwd_dw_only_ms', (False, True)),
+                       ('bwd_dx_only_ms', (True, False))):
+        out[key] = time_ms(lambda: fm.chain_kernel_last_skip_bwd(
+            plan, x, dy, p, cd, *flags), iters=10)
     return out
 
 
@@ -1912,11 +1981,13 @@ def check_last_skip(params, lvis_x):
     autograd of it on LAST_SKIP_PLAN with the lvis chain's weights at
     LAST_SKIP_ROWS of the lvis rows, bf16 and f32, with K1's tolerances;
     dW bit-identical across two launches. Witness (last_skip_vs_k1): K1w's
-    head column is bit-identical to K1's CUDA-core kernel's on
-    NO_LAST_SKIP_PLAN (in bf16 K1-fwd runs on the tensor cores), and its
-    dW/db with dy's head column are K1's bit for bit in f32 and within
-    K1W_VS_K1_TOL_BF16 in bf16 (K1-bwd on the tensor cores). The path runs
-    the same shapes. Returns (launches on the path, rows)."""
+    head column is bit-identical to K1-fwd's on NO_LAST_SKIP_PLAN, and its
+    dW/db with dy's head column are K1-bwd's bit for bit (in bf16 both
+    run on the tensor cores; there also within K1W_VS_K1_TOL_BF16). The
+    bf16 case adds last_skip_tc_readings (the CUDA-core kernels the
+    tensor-core ones replace; raises unless K1w-fwd's embedding columns are
+    the CUDA-core kernel's). The path runs the same shapes. Returns
+    (launches on the path, rows)."""
     g = torch.Generator().manual_seed(7)
     plan = LAST_SKIP_PLAN
     p = last_skip_params(fm.params_from_tree(params['lvis_mlp'],
@@ -1966,8 +2037,8 @@ def check_last_skip(params, lvis_x):
             raise AssertionError("K1w-bwd: dW differs between two launches "
                                  "on the same inputs")
         row.update(last_skip_vs_k1(x, dy, p, cd, y, got))
-        dw_ok = row['dw_same_as_k1'] if cd is None else \
-            row['dw_rel_err_vs_k1'] <= K1W_VS_K1_TOL_BF16
+        dw_ok = row['dw_same_as_k1'] and (
+            cd is None or row['dw_rel_err_vs_k1'] <= K1W_VS_K1_TOL_BF16)
         if not (row['head_same_as_k1'] and dw_ok):
             raise AssertionError("K1w %s: head or dW differs from K1's on the "
                                  "plan without the last skip: %s" % (mode, row))
@@ -1981,6 +2052,8 @@ def check_last_skip(params, lvis_x):
             lambda: torch.autograd.grad(y_p, [xg] + leaves, dy,
                                         retain_graph=True), iters=10)
         del y_p, want
+        if fm.bwd_on_tensor_cores(plan, cd, True, True, x.device):
+            row.update(last_skip_tc_readings(x, dy, p, cd, row['bwd_ms']))
         rows.append(row)
     return launches, rows
 
@@ -2075,6 +2148,63 @@ def k1r_limit_readings(model, seeds):
     return out
 
 
+def k1w_limit_readings(model, seeds):
+    """What K1w's bf16 bounds rest on, at the last-skip path's shape
+    (LAST_SKIP_ROWS['bf16'] of the joint step's lvis rows), over ``seeds``
+    (each seeding the lvis chain's weights, drawn as the shape model
+    initialises them and cut to LAST_SKIP_PLAN, and the inputs): K1w-fwd
+    on the tensor cores against the plain bf16 version (max error, the
+    atol it needs at TOL_BF16's rtol) and whether its embedding columns
+    are the CUDA-core kernel's; K1w-bwd with dx and dW, of the tensor-core,
+    the CUDA-core bf16 and the f32 kernels, against autograd of the plain
+    bf16 version (dx and the worst dW/db leaf, relative norm), and the
+    tensor-core against the CUDA-core kernel; K1w against K1
+    (last_skip_vs_k1)."""
+    plan, cd = LAST_SKIP_PLAN, model.chain_dtype('lvis')
+    out = []
+    for seed in seeds:
+        g = torch.Generator().manual_seed(seed)
+        p = last_skip_params([(w.cuda(), b.cuda()) for w, b in
+                              fm.params_from_tree(
+                                  model.specs['lvis_mlp'].init(g),
+                                  model.specs['lvis_out'].init(g))])
+        x = step_inputs(model, g)[1][:LAST_SKIP_ROWS['bf16']].contiguous()
+        dy = (2 * torch.rand(x.shape[0], fm.out_dim(plan), generator=g)
+              - 1).cuda()
+        with torch.no_grad():
+            y = fm.chain_kernel_last_skip(plan, x, p, cd)
+            core = fm.chain_kernel_last_skip_cuda_core(plan, x, p, cd)
+            plain = fm.chain_reference(plan, x, p, cd)
+            r = {'seed': seed, 'rows': x.shape[0],
+                 'fwd_max_abs_err': (y - plain).abs().max().item(),
+                 'fwd_atol_needed': atol_needed([y], [plain], TOL_BF16[1],
+                                                slice(None)),
+                 'embed_same_as_cuda_core': torch.equal(y[:, 1:],
+                                                        core[:, 1:])}
+            del plain, core
+        leaves = [t.clone().requires_grad_() for t in flatten(p)]
+        xg = x.clone().requires_grad_()
+        want = torch.autograd.grad(fm.chain_reference(
+            plan, xg, pairs(leaves), cd), [xg] + leaves, dy)
+        del leaves, xg
+        got = fm.chain_kernel_last_skip_bwd(plan, x, dy, p, cd)
+        core = fm.chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, p, cd)
+        got32 = fm.chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, p,
+                                                        None)
+        for key, (dx, dw) in (('', got), ('cuda_core_', core),
+                              ('f32_kernel_', got32)):
+            r[key + 'dx_rel_err'] = rel_norm(dx, want[0])
+            r[key + 'dw_rel_err'] = worst_leaf(flatten(dw), want[1:])
+        r.update(tc_vs_cuda_core_dx_rel_err=rel_norm(got[0], core[0]),
+                 tc_vs_cuda_core_dw_rel_err=worst_leaf(flatten(got[1]),
+                                                       flatten(core[1])))
+        r.update(last_skip_vs_k1(x, dy, p, cd, y, got[1]))
+        out.append(r)
+        del x, dy, y, want, got, core, got32
+        torch.cuda.empty_cache()
+    return out
+
+
 def sass_hmma(names):
     """Per kernel of the built library whose mangled name holds one of
     ``names``: its HMMA (tensor-core) instructions in ``cuobjdump
@@ -2096,9 +2226,11 @@ def sass_hmma(names):
 
 
 TC_KERNELS = ('chain_fwd_tc_kernel', 'chain_stash_fwd_tc_kernel',
-              'nerf_fwd_tc_kernel', 'rusink_chain_fwd_tc_kernel',
-              'chain_bwd_tc_kernel', 'chain_stash_bwd_tc_kernel',
-              'nerf_bwd_tc_kernel', 'rusink_chain_bwd_tc_kernel', 'dw_kernel')
+              'chain_last_skip_fwd_tc_kernel', 'nerf_fwd_tc_kernel',
+              'rusink_chain_fwd_tc_kernel', 'chain_bwd_tc_kernel',
+              'chain_stash_bwd_tc_kernel', 'chain_last_skip_bwd_tc_kernel',
+              'nerf_bwd_tc_kernel', 'rusink_chain_bwd_tc_kernel', 'dw_kernel',
+              'chain_dx_pass_kernel')
 
 
 def hmma_of(kernels, *names):
@@ -2109,9 +2241,10 @@ def hmma_of(kernels, *names):
 
 def check_tc_sass():
     """The bf16 forwards' and backwards' kernels run their products on the
-    tensor cores: every copy of K1-fwd's, K1r-fwd's, K2-fwd's and K3-fwd's
-    tensor-core kernels, of K2-bwd's, of each phase 1 (K1r-bwd's too) and
-    of the dW pass in the library holds HMMA instructions."""
+    tensor cores: every copy of K1-fwd's, K1r-fwd's, K1w-fwd's, K2-fwd's
+    and K3-fwd's tensor-core kernels, of K2-bwd's, of each phase 1 (K1r-bwd's
+    and K1w-bwd's too), of the dW pass and of K1w-bwd's dx pass in the
+    library holds HMMA instructions."""
     kernels = sass_hmma(TC_KERNELS)
     for name in TC_KERNELS:
         found = hmma_of(kernels, name)
@@ -2401,6 +2534,8 @@ LIMIT_READINGS = {
         Model(config, device='cuda'), seeds),
     'k1r': lambda config, seeds: k1r_limit_readings(
         Model(config, device='cuda'), seeds),
+    'k1w': lambda config, seeds: k1w_limit_readings(
+        Model(config, device='cuda'), seeds),
     'k2': lambda config, seeds: k2_limit_readings(
         Model(config, device='cuda'), seeds),
     'k3': lambda config, seeds: k3_limit_readings(seeds),
@@ -2416,8 +2551,8 @@ def main(argv=None):
              "seed (FIELD_READINGS), and stop")
     parser.add_argument(
         '--limit_seeds', nargs=2, metavar=('KERNEL', 'SEEDS'),
-        help="k1, k1r, k2 or k3 and comma-separated seeds: print only the "
-             "readings behind that kernel's error bounds over them "
+        help="k1, k1r, k1w, k2 or k3 and comma-separated seeds: print only "
+             "the readings behind that kernel's error bounds over them "
              "(LIMIT_READINGS), one JSON line each, and stop")
     parser.add_argument(
         '--view_repeats', type=int, metavar='N',
@@ -2579,6 +2714,7 @@ def main(argv=None):
         return {p: c[kernel] - c[kernel + ' tc'] for p, c in paths.items()
                 if c[kernel] - c[kernel + ' tc']}
     k1w_bf16 = [r for r in k1w if r['dtype'] == 'bf16'][0]
+    k1w_f = k1w_bf16['fwd']
     k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
     k3_bf16 = [r for r in k3_fine if r['dtype'] == 'bf16'][0]
     print(json.dumps({'kernels': [
@@ -2729,20 +2865,54 @@ def main(argv=None):
               ptxas=ptxas_report(('chain_stash_bwd_tc',)),
               sass_hmma=hmma_of(tc_sass, 'chain_stash_bwd_tc_kernel'),
               shapes=k1r),
-        entry('K1w-fwd chain_fwd_kernel (last skip)', 'fused_mlp.cu',
+        entry('K1w-fwd chain_last_skip_fwd_tc_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:416', k1w_bf16,
               chain_bound(LAST_SKIP_PLAN, k1w_bf16['rows'], 'bf16', 6,
-                          fm.out_dim(LAST_SKIP_PLAN)),
-              max_abs_err=max(r['max_abs_err'] for r in k1w), shapes=k1w),
-        entry('K1w-bwd chain_bwd_kernel (last skip)', 'fused_mlp.cu',
+                          fm.out_dim(LAST_SKIP_PLAN)), counter='K1w-fwd tc',
+              max_abs_err=max(r['max_abs_err'] for r in k1w),
+              head_same_as_k1=k1w_bf16['head_same_as_k1'],
+              embed_same_as_cuda_core=k1w_f['embed_same_as_cuda_core'],
+              tflops=k1w_f['tflops'], fwd_device_ms=k1w_f['fwd_device_ms'],
+              cuda_core_ms=k1w_f['cuda_core_ms'],
+              tc_vs_cuda_core_rel_err=k1w_f['tc_vs_cuda_core_rel_err'],
+              cuda_core_launches_by_path=cuda_core_by_path('K1w-fwd'),
+              launches_on_path={k: launches_last_skip[c] for k, c in (
+                  ('tc', 'K1w-fwd tc'), ('all', 'K1w-fwd'))},
+              ptxas=ptxas_report(('chain_last_skip_fwd',)),
+              sass_hmma=hmma_of(tc_sass, 'chain_last_skip_fwd_tc_kernel'),
+              shapes=k1w),
+        entry('K1w-bwd chain_last_skip_bwd_tc_kernel + dw_kernel + '
+              'chain_dx_pass_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:452',
               dict(k1w_bf16, ms=k1w_bf16['bwd_ms'],
                    plain_ms=k1w_bf16['bwd_plain_ms']),
               chain_bound(LAST_SKIP_PLAN, k1w_bf16['rows'], 'bf16', 6,
                           fm.out_dim(LAST_SKIP_PLAN), bwd=(True, True)),
+              counter='K1w-bwd tc',
               max_abs_err=max(r['dx_max_abs_err'] for r in k1w),
               max_rel_err={'dW_db': max(r['dw_rel_err'] for r in k1w),
                            'dx': max(r['dx_rel_err'] for r in k1w)},
+              phase1_ms=k1w_bf16['phase1_ms'],
+              dw_pass_ms=k1w_bf16['dw_pass_ms'],
+              dx_pass_ms=k1w_bf16['dx_pass_ms'], sums_ms=k1w_bf16['sums_ms'],
+              packing_ms=k1w_bf16['packing_ms'],
+              dw_only_ms=k1w_bf16['bwd_dw_only_ms'],
+              dx_only_ms=k1w_bf16['bwd_dx_only_ms'],
+              scratch_bytes=k1w_bf16['scratch_bytes'],
+              tflops=k1w_bf16['bwd_tflops'],
+              cuda_core_ms=k1w_bf16['cuda_core_bwd_ms'],
+              tc_vs_cuda_core_dx_rel_err=k1w_bf16[
+                  'tc_vs_cuda_core_dx_rel_err'],
+              f32_kernel_vs_cuda_core_dx_rel_err=k1w_bf16[
+                  'f32_kernel_vs_cuda_core_dx_rel_err'],
+              dw_same_as_k1=k1w_bf16['dw_same_as_k1'],
+              dw_bit_identical=k1w_bf16['dw_bit_identical'],
+              cuda_core_launches_by_path=cuda_core_by_path('K1w-bwd'),
+              launches_on_path={k: launches_last_skip[c] for k, c in (
+                  ('tc', 'K1w-bwd tc'), ('all', 'K1w-bwd'))},
+              ptxas=ptxas_report(('chain_last_skip_bwd', 'chain_dx_pass')),
+              sass_hmma=hmma_of(tc_sass, 'chain_last_skip_bwd_tc_kernel',
+                                'chain_dx_pass_kernel'),
               shapes=k1w),
         entry('P dot_chain_kernel', 'dot_probe.cu',
               'tools/mosaic_dot_probe.py:74',

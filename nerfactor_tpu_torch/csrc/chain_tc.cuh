@@ -2,10 +2,11 @@
 // bf16 chain kernels on the tensor cores, the loaders of a tile's
 // embedding, their one forward loop over a 64-row tile (chain_hidden_tc)
 // and the two tile functions built on it that more than one kernel runs:
-// the forward (chain_fwd_tc_tile: K1-fwd and K1r-fwd in fused_mlp.cu,
-// K2-fwd in fused_rusink.cu) and the input-cotangent backward of a frozen
-// chain (chain_tile_dx_tc: K2-bwd). Phase 1 with dW of K1-bwd and K1r-bwd
-// (chain_tile_bwd_tc) stays in fused_mlp.cu.
+// the forward (chain_fwd_tc_tile: K1-fwd, K1r-fwd and K1w-fwd in
+// fused_mlp.cu, K2-fwd in fused_rusink.cu) and the input-cotangent
+// backward of a frozen chain (chain_tile_dx_tc: K2-bwd). Phase 1 with dW of
+// K1-bwd, K1r-bwd and K1w-bwd (chain_tile_bwd_tc) and K1w-bwd's dx pass
+// stay in fused_mlp.cu.
 #pragma once
 
 #include "chain_mlp.cuh"
@@ -16,12 +17,13 @@ namespace nfk {
 // ------ plans and layouts ------
 
 // The tensor-core backward's plans: a head of at most kMaxHeadOut columns
-// after at least one hidden layer, no skip after the head or into it (its
-// tiny forward and dW read the last post alone, as the TPU kernel's
-// _tiny_head, which takes no skip consumer), hidden widths on the mma K
-// step (16).
+// after at least one hidden layer, no skip into the head (its tiny forward
+// and dW read the last post alone, as the TPU kernel's _tiny_head, which
+// takes no skip consumer), hidden widths on the mma K step (16). A skip
+// after the head (K1w: the row is [head | embedding]) leaves the head's
+// input the last post alone, so it is one of them.
 inline bool chain_tc_plan(const ChainDesc& d) {
-  if (d.n_layers < 2 || last_skip(d) || d.skip_after[d.n_layers - 2] ||
+  if (d.n_layers < 2 || d.skip_after[d.n_layers - 2] ||
       d.widths[d.n_layers - 1] > kMaxHeadOut)
     return false;
   for (int i = 0; i < d.n_layers - 1; ++i)
@@ -124,12 +126,36 @@ __host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d, boo
   return s;
 }
 
+// Shared-memory layout of K1w-bwd's dx pass (chain_dx_pass_kernel,
+// fused_mlp.cu): raw rows (f32) | the embedding's cotangent (f32, ld ldde)
+// | one hidden layer's d_pre (bf16, ld lda) | the ring of weight stages.
+// ~107 KB at the lvis width: two blocks an SM.
+struct DxPassLayout {
+  size_t xs, de, a, ws, total;
+  int ldde, lda;
+};
+
+__host__ __device__ inline DxPassLayout dx_pass_layout(const ChainDesc& d) {
+  constexpr int R = tc::kTcRows;
+  DxPassLayout s;
+  s.ldde = tc::tc_ld(d.embed_dim);
+  s.lda = tc::tc_ld(d.max_width);
+  s.xs = 0;
+  s.de = align16(s.xs + sizeof(float) * R * d.raw_dim);
+  s.a = align16(s.de + sizeof(float) * R * s.ldde);
+  s.ws = align16(s.a + sizeof(bf16) * R * s.lda);
+  s.total = align16(s.ws + sizeof(bf16) * tc::kTcStages * tc::kTcStage);
+  return s;
+}
+
 // Whether the tensor-core forward (bwd false) or backward's phase 1 (bwd
 // true) runs the plan: chain_tc_plan's plans whose block fits the card's
-// shared memory.
+// shared memory; for a last-skip backward, the dx pass's block too.
 inline int check_chain_tc(const ChainDesc& d, bool bwd) {
   if (!chain_tc_plan(d)) return kErrBadPlan;
-  if (chain_tc_layout(d, bwd).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  const size_t smem = static_cast<size_t>(max_smem_optin());
+  if (chain_tc_layout(d, bwd).total > smem) return kErrSmem;
+  if (bwd && last_skip(d) && dx_pass_layout(d).total > smem) return kErrSmem;
   return 0;
 }
 
@@ -272,8 +298,10 @@ __device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
 // (chain_tc_layout(d, false)): the hidden layers through chain_hidden_tc
 // from the loader's embedding, without the scratch, then the tiny head in
 // f32 on the CUDA cores from the last post (head_sums, as phase 1's head
-// forward), its rows below n written to y.
-template <bool kTwoBuffers, typename Embed = EmbedSincos>
+// forward), its rows below n written to y. kLastSkip: y's rows are
+// out_dim(d) wide ([head | embedding], K1w-fwd), the head their first
+// columns; else the head alone.
+template <bool kTwoBuffers, typename Embed = EmbedSincos, bool kLastSkip = false>
 __device__ void chain_fwd_tc_tile(const ChainDesc& d, const bf16* __restrict__ w,
                                   const bf16* __restrict__ wt, const float* __restrict__ bias,
                                   unsigned char* smem, float* __restrict__ y, long long row0,
@@ -286,7 +314,42 @@ __device__ void chain_fwd_tc_tile(const ChainDesc& d, const bf16* __restrict__ w
   const float* bh = bias + d.b_off[nh];
   head_sums(h, L.ldh, d.widths[nh - 1], w + d.w_off[nh], no, [&](int item, int r, int c,
                                                                    float s) {
-    if (row0 + r < n) y[row0 * no + item] = activate(act, s + bh[c]);
+    if (row0 + r < n) {
+      if constexpr (kLastSkip)
+        y[(row0 + r) * out_dim(d) + c] = activate(act, s + bh[c]);
+      else
+        y[row0 * no + item] = activate(act, s + bh[c]);
+    }
+  });
+}
+
+// ------ K1w: the embedding's columns of a last-skip row ------
+
+// f(r, c) for every row r < rows and column c < cols of a tile. A thread
+// keeps one column and walks the rows (no division a value); the block's
+// threads cover whole rows a pass, so neighbouring threads touch
+// neighbouring columns.
+template <typename F>
+__device__ inline void for_tile_cols(int rows, int cols, F f) {
+  for (int c0 = 0; c0 < cols; c0 += kThreads) {
+    const int nc = min(kThreads, cols - c0), per = kThreads / nc;
+    if (threadIdx.x >= per * nc) continue;
+    const int c = c0 + threadIdx.x % nc;
+#pragma unroll 4
+    for (int r = threadIdx.x / nc; r < rows; r += per) f(r, c);
+  }
+}
+
+// K1w-fwd's trailing columns: the tile's embedding (es, ld lde, bf16, the
+// values the products read) as f32 into columns [no, no + embed_dim) of
+// y's rows below n (ld out_dim(d)), in the reference order, the values
+// chain_tile writes. No barrier.
+__device__ inline void write_embed_cols(const ChainDesc& d, const bf16* es, int lde,
+                                        float* __restrict__ y, long long row0, long long n) {
+  const int ldy = out_dim(d), no = d.widths[d.n_layers - 1];
+  const int rows = static_cast<int>(min(static_cast<long long>(tc::kTcRows), n - row0));
+  for_tile_cols(rows, d.embed_dim, [&](int r, int c) {
+    y[(row0 + r) * ldy + no + c] = to_f<bf16>(es[r * lde + c]);
   });
 }
 

@@ -96,11 +96,21 @@
 //     chain_stash_bwd_tc_kernel, whose scratch then carries the stash's
 //     values to the dW pass); f32 and dx: the CUDA-core kernels' phase
 //     mode.
-//   * K1w-fwd / K1w-bwd, on the CUDA cores only: plans with a skip after
-//     the last layer (pallas_mlp.py _pallas_forward -> _fwd_kernel,
-//     _pallas_backward -> _bwd_kernel): the output row is [head |
-//     embedding], and the backward seeds the embedding's cotangent from
-//     dy's trailing columns.
+//   * K1w-fwd / K1w-bwd: plans with a skip after the last layer
+//     (pallas_mlp.py _pallas_forward -> _fwd_kernel, _pallas_backward ->
+//     _bwd_kernel): the output row is [head | embedding], and the
+//     backward seeds the embedding's cotangent from dy's trailing
+//     columns. In bf16 (the rules as for K1, with dx or dW or both) the
+//     tensor-core kernels: chain_last_skip_fwd_tc_kernel, K1-fwd's tile
+//     with the tile's embedding then written to the row's trailing
+//     columns; K1-bwd's phase 1 (chain_last_skip_bwd_tc_kernel, dy's head
+//     column read at the row's stride) and dW pass, and for dx a third
+//     kernel, the dx pass (chain_dx_pass_kernel), over phase 1's scratch:
+//     a tile's d_e is dy's trailing columns plus, from the highest skip
+//     consumer down to layer 0, each one's rounded d_pre (read back from
+//     the scratch) times the embedding's rows of its W on the tensor
+//     cores, in f32; then the trig chain rule (embed_bwd). f32: the
+//     CUDA-core kernels' last-skip mode.
 //
 // K1-fwd is bound by arithmetic: at full width (128 x 4, skip after layer
 // 2) the lvis chain does ~72k multiply-adds a row against 24 B in and 4 B
@@ -403,8 +413,9 @@ __device__ void chain_tile_bwd_tc(const ChainDesc& d, const bf16* __restrict__ w
 // Phase 1: block b walks 64-row tiles b, b + grid, ... and writes each
 // tile's scratch; its sums (chain_n_aux floats) go to its own slice of
 // `part`. kStash: the embedding's trig columns come from `stash` (K1r-bwd),
-// else from sincos of x (K1-bwd).
-template <bool kTwoBuffers, bool kStash>
+// else from sincos of x (K1-bwd). kLastSkip: dy's rows are out_dim(d)
+// wide, [head | embedding] (K1w-bwd), of which phase 1 reads the head's.
+template <bool kTwoBuffers, bool kStash, bool kLastSkip = false>
 __device__ void chain_bwd_tc_blocks(const ChainDesc& d, const float* __restrict__ x,
                                     const float* __restrict__ dy, const bf16* __restrict__ stash,
                                     const bf16* __restrict__ w, const bf16* __restrict__ wt,
@@ -419,7 +430,7 @@ __device__ void chain_bwd_tc_blocks(const ChainDesc& d, const float* __restrict_
   for (long long j = threadIdx.x; j < n_aux; j += kThreads) gaux[j] = 0.f;
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   float* dq = reinterpret_cast<float*>(smem + L.dq);
-  const int no = d.widths[d.n_layers - 1];
+  const int no = d.widths[d.n_layers - 1], ldy = kLastSkip ? out_dim(d) : no;
   const long long n_tiles = (n + R - 1) / R;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * R;
@@ -430,7 +441,7 @@ __device__ void chain_bwd_tc_blocks(const ChainDesc& d, const float* __restrict_
     // Padding rows get a zero cotangent, so they add nothing to dW/db
     for (int idx = threadIdx.x; idx < R * no; idx += kThreads) {
       const long long r = row0 + idx / no;
-      dq[idx] = r < n ? dy[r * no + idx % no] : 0.f;
+      dq[idx] = r < n ? dy[r * ldy + idx % no] : 0.f;
     }
     __syncthreads();
     uint32_t* st = scratch + tile * tile_words;
@@ -464,46 +475,125 @@ chain_stash_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x,
   chain_bwd_tc_blocks<kTwoBuffers, true>(d, x, dy, stash, w, wt, bias, scratch, part, n);
 }
 
-// K1-bwd's phase 1 for d's widest hidden layer. K1r-bwd's has the same
-// launch bounds and shared memory, so the same blocks an SM: its launch
-// takes the slices this one's occupancy gives (nfk_chain_bwd_tc_sizes).
+// K1w-bwd's phase 1: K1-bwd's, dy's head column read from rows of
+// out_dim(d) ([head | embedding])
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_last_skip_bwd_tc_kernel(ChainDesc d, const float* __restrict__ x,
+                              const float* __restrict__ dy, const bf16* __restrict__ w,
+                              const bf16* __restrict__ wt, const float* __restrict__ bias,
+                              uint32_t* scratch, float* __restrict__ part, long long n) {
+  chain_bwd_tc_blocks<kTwoBuffers, false, true>(d, x, dy, nullptr, w, wt, bias, scratch, part,
+                                                n);
+}
+
+// K1-bwd's phase 1 for d's widest hidden layer. K1r-bwd's and K1w-bwd's
+// have the same launch bounds and shared memory, so the same blocks an SM:
+// their launches take the slices this one's occupancy gives
+// (nfk_chain_bwd_tc_sizes).
 inline auto chain_bwd_tc_for(const ChainDesc& d) {
   return d.max_width > tc::kTcCols ? chain_bwd_tc_kernel<true> : chain_bwd_tc_kernel<false>;
 }
 
-// bf16 K1-bwd or, with stash_route, K1r-bwd over `stash`, with dW only:
-// phase 1, the dW pass and its chunk sum, then the sum of phase 1's
-// slices.
+// K1w-bwd's dx pass: block b's 64-row tile of the scratch that phase 1
+// wrote. The embedding's cotangent de starts as dy's trailing columns;
+// then, for each hidden layer that reads the embedding (the skip consumers
+// from the highest down, then layer 0), its rounded d_pre, read back from
+// the tile's scratch, times the embedding's rows of its W (a tc_gemm, N =
+// embed_dim) is added into de in f32 (dx_epilogue's embedding branch):
+// chain_tile_bwd's sums of de in its order, posts and d_pre at bf16, d_h
+// and de in f32. Then dx of the tile's rows below n from de through the
+// trig chain rule (embed_bwd).
+__global__ void __launch_bounds__(kThreads, 2)
+chain_dx_pass_kernel(ChainDesc d, const float* __restrict__ x, const float* __restrict__ dy,
+                     const bf16* __restrict__ w, const uint32_t* __restrict__ scratch,
+                     float* __restrict__ dx, long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const DxPassLayout L = dx_pass_layout(d);
+  const ChainCols cols = chain_cols(d);
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* de = reinterpret_cast<float*>(smem + L.de);
+  bf16* a = reinterpret_cast<bf16*>(smem + L.a);
+  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int ne = d.embed_dim, no = d.widths[d.n_layers - 1], ldy = out_dim(d);
+  for (int idx = threadIdx.x; idx < R * d.raw_dim; idx += kThreads) {
+    const long long r = row0 + idx / d.raw_dim;
+    xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
+  }
+  // The seed: the embedding's own cotangent, dy's trailing columns
+  for_tile_cols(R, ne, [&](int r, int c) {
+    de[r * L.ldde + c] = row0 + r < n ? dy[(row0 + r) * ldy + no + c] : 0.f;
+  });
+  const uint32_t* st = scratch + blockIdx.x * static_cast<long long>(kPairs) * cols.total;
+  for (int i = d.n_layers - 2; i >= 0; --i) {
+    if (i > 0 && !d.skip_after[i - 1]) continue;
+    const int k = d.widths[i], prev = i ? d.widths[i - 1] : 0, dcol = cols.dpre[i];
+    // Layer i's d_pre, row-major: scratch word (j, c) holds rows 2j and
+    // 2j + 1. The previous product's last barrier has passed every read of
+    // a, and tc_gemm's first barrier completes these stores
+    for_tile_cols(kPairs, k, [&](int j, int c) {
+      const uint32_t v = st[j * cols.total + dcol + c];
+      a[2 * j * L.lda + c] = __ushort_as_bfloat16(static_cast<unsigned short>(v & 0xffffu));
+      a[(2 * j + 1) * L.lda + c] = __ushort_as_bfloat16(static_cast<unsigned short>(v >> 16));
+    });
+    tc::tc_gemm(tc::TcA{a, L.lda, k, nullptr, 0, 0},
+                w + d.w_off[i] + static_cast<long long>(prev) * k, k, ne, ws,
+                [&](int c0, const float (&v)[tc::kTcM][4]) {
+                  dx_epilogue(c0, v, 0, ne, nullptr, nullptr, 0, de, L.ldde);
+                });
+  }
+  __syncthreads();
+  embed_bwd<R>(d, xs, de, L.ldde, dx + row0 * d.raw_dim, n - row0);
+}
+
+// bf16 K1-bwd, K1r-bwd over `stash` (stash_route) or K1w-bwd (a last-skip
+// plan): phase 1, then with dwb the dW pass and its chunk sum and the sum
+// of phase 1's slices, then with dx (K1w-bwd only) the dx pass.
 int chain_bwd_tc(const ChainDesc& d, const float* x, const float* dy, bool stash_route,
                  const bf16* stash, const bf16* w, const bf16* wt, const float* bias,
-                 uint32_t* scratch, float* part, float* dwb, int slices, int chunks, long long n,
-                 cudaStream_t stream) {
+                 uint32_t* scratch, float* part, float* dwb, float* dx, int slices, int chunks,
+                 long long n, cudaStream_t stream) {
   if (int err = check_chain_tc(d, true)) return err;
-  if (slices < 1 || chunks < 1) return kErrBadArgs;
+  if (slices < 1 || chunks < 1 || (dwb == nullptr && dx == nullptr)) return kErrBadArgs;
   const DwTable tab = chain_dw_table(d);
   float* part_aux = part;
   float* part_dense = part + static_cast<long long>(slices) * chain_n_aux(d);
   const size_t smem = chain_tc_layout(d, true).total;
   const bool two = d.max_width > tc::kTcCols;
-  const int err =
-      stash_route
-          ? launch_with_smem(two ? chain_stash_bwd_tc_kernel<true>
-                                 : chain_stash_bwd_tc_kernel<false>,
-                             smem, slices, stream, d, x, dy, stash, w, wt, bias, scratch,
-                             part_aux, n)
-          : launch_with_smem(chain_bwd_tc_for(d), smem, slices, stream, d, x, dy, w, wt, bias,
-                             scratch, part_aux, n);
+  int err;
+  if (stash_route)
+    err = launch_with_smem(two ? chain_stash_bwd_tc_kernel<true> : chain_stash_bwd_tc_kernel<false>,
+                           smem, slices, stream, d, x, dy, stash, w, wt, bias, scratch, part_aux,
+                           n);
+  else if (last_skip(d))
+    err = launch_with_smem(
+        two ? chain_last_skip_bwd_tc_kernel<true> : chain_last_skip_bwd_tc_kernel<false>, smem,
+        slices, stream, d, x, dy, w, wt, bias, scratch, part_aux, n);
+  else
+    err = launch_with_smem(chain_bwd_tc_for(d), smem, slices, stream, d, x, dy, w, wt, bias,
+                           scratch, part_aux, n);
   if (err) return err;
-  if (int err = dw_pass<kChainDwTile>(tab, scratch, part_dense, dwb, chunks, n, stream)) return err;
-  return sum_slices(part_aux, slices, chain_n_aux(d), dwb + tab.n_dense, stream);
+  if (dwb != nullptr) {
+    if (int err = dw_pass<kChainDwTile>(tab, scratch, part_dense, dwb, chunks, n, stream))
+      return err;
+    if (int err = sum_slices(part_aux, slices, chain_n_aux(d), dwb + tab.n_dense, stream))
+      return err;
+  }
+  if (dx == nullptr) return 0;
+  return launch_with_smem(chain_dx_pass_kernel, dx_pass_layout(d).total,
+                          (n + tc::kTcRows - 1) / tc::kTcRows, stream, d, x, dy, w, scratch, dx,
+                          n);
 }
 
 // ------ K1-fwd in bf16 on the tensor cores ------
 
 // Block blockIdx.x's 64-row tile: its raw rows, then chain_fwd_tc_tile
 // (the hidden layers as phase 1 recomputes them, from the loader's
-// embedding, without the scratch; the tiny head in f32 on the CUDA cores).
-template <bool kTwoBuffers, typename Embed>
+// embedding, without the scratch; the tiny head in f32 on the CUDA cores;
+// kLastSkip: y's rows are [head | embedding]).
+template <bool kTwoBuffers, typename Embed, bool kLastSkip = false>
 __device__ void chain_fwd_tc_block(const ChainDesc& d, const float* __restrict__ x,
                                    const bf16* __restrict__ w, const bf16* __restrict__ wt,
                                    const float* __restrict__ bias, float* __restrict__ y,
@@ -517,7 +607,7 @@ __device__ void chain_fwd_tc_block(const ChainDesc& d, const float* __restrict__
     xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
   }
   __syncthreads();
-  chain_fwd_tc_tile<kTwoBuffers>(d, w, wt, bias, smem, y, row0, n, embed);
+  chain_fwd_tc_tile<kTwoBuffers, Embed, kLastSkip>(d, w, wt, bias, smem, y, row0, n, embed);
 }
 
 // K1-fwd: a block a 64-row tile
@@ -545,8 +635,24 @@ chain_stash_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x, const bf16* 
                                    static_cast<long long>(blockIdx.x) * tc::kTcRows, n);
 }
 
-// bf16 K1-fwd (stash_route false) or K1r-fwd on the tensor cores: one
-// block a 64-row tile.
+// K1w-fwd: K1-fwd's tile with y's rows [head | embedding]; the tile's
+// embedding, which the tile leaves in shared memory, then goes to the
+// trailing columns (write_embed_cols).
+template <bool kTwoBuffers>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_last_skip_fwd_tc_kernel(ChainDesc d, const float* __restrict__ x,
+                              const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                              const float* __restrict__ bias, float* __restrict__ y,
+                              long long n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_fwd_tc_block<kTwoBuffers, EmbedSincos, true>(d, x, w, wt, bias, y, n, EmbedSincos{});
+  const ChainTcLayout L = chain_tc_layout(d, false);
+  write_embed_cols(d, reinterpret_cast<const bf16*>(smem + L.es), L.lde, y,
+                   static_cast<long long>(blockIdx.x) * tc::kTcRows, n);
+}
+
+// bf16 K1-fwd (stash_route false), K1r-fwd or, for a last-skip plan,
+// K1w-fwd on the tensor cores: one block a 64-row tile.
 int chain_fwd_tc(const ChainDesc& d, const float* x, const bf16* w, const bf16* wt,
                  const float* bias, float* y, bool stash_route, bf16* stash, long long n,
                  cudaStream_t stream) {
@@ -554,6 +660,10 @@ int chain_fwd_tc(const ChainDesc& d, const float* x, const bf16* w, const bf16* 
   const size_t smem = chain_tc_layout(d, false).total;
   const long long blocks = (n + tc::kTcRows - 1) / tc::kTcRows;
   const bool two = d.max_width > tc::kTcCols;
+  if (last_skip(d))
+    return launch_with_smem(two ? chain_last_skip_fwd_tc_kernel<true>
+                                : chain_last_skip_fwd_tc_kernel<false>,
+                            smem, blocks, stream, d, x, w, wt, bias, y, n);
   if (stash_route)
     return launch_with_smem(two ? chain_stash_fwd_tc_kernel<true>
                                 : chain_stash_fwd_tc_kernel<false>,
@@ -625,12 +735,13 @@ int nfk_chain_bwd(const nfk::ChainDesc* desc, int bf16, int phase, int needs_dx,
                                         bias, dx, dwb_part, dwb, slices, n, s);
 }
 
-// Whether nfk_chain_fwd_tc and nfk_chain_stash_fwd_tc (bwd 0) or
-// nfk_chain_bwd_tc and nfk_chain_stash_bwd_tc (bwd != 0) run the plan
-// (*runs = 1): chain_tc_plan's plans whose block fits the card's shared
-// memory. The wrapper's rules (ops/fused_mlp.py fwd_on_tensor_cores,
-// bwd_on_tensor_cores) ask it; every other plan keeps chain_fwd_kernel or
-// chain_bwd_kernel.
+// Whether nfk_chain_fwd_tc and nfk_chain_stash_fwd_tc, or for a last-skip
+// plan nfk_chain_last_skip_fwd_tc (bwd 0), or nfk_chain_bwd_tc and
+// nfk_chain_stash_bwd_tc, or nfk_chain_last_skip_bwd_tc (bwd != 0) run the
+// plan (*runs = 1): chain_tc_plan's plans whose blocks fit the card's
+// shared memory. The wrapper's rules (ops/fused_mlp.py
+// fwd_on_tensor_cores, bwd_on_tensor_cores) ask it; every other plan
+// keeps chain_fwd_kernel or chain_bwd_kernel.
 int nfk_chain_tc_runs(const nfk::ChainDesc* desc, int bwd, int* runs) {
   if (int err = nfk::check_desc(*desc)) return err;
   *runs = nfk::check_chain_tc(*desc, bwd != 0) == 0;
@@ -643,6 +754,7 @@ int nfk_chain_tc_runs(const nfk::ChainDesc* desc, int bwd, int* runs) {
 int nfk_chain_fwd_tc(const nfk::ChainDesc* desc, const float* x, const void* w, const void* wt,
                      const float* bias, float* y, long long n, void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
+  if (nfk::last_skip(*desc)) return nfk::kErrBadPlan;
   if (n <= 0) return 0;
   return nfk::chain_fwd_tc(*desc, x, static_cast<const __nv_bfloat16*>(w),
                            static_cast<const __nv_bfloat16*>(wt), bias, y, false, nullptr, n,
@@ -656,6 +768,7 @@ int nfk_chain_stash_fwd_tc(const nfk::ChainDesc* desc, const float* x, const voi
                            const void* wt, const float* bias, float* y, void* stash, long long n,
                            void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
+  if (nfk::last_skip(*desc)) return nfk::kErrBadPlan;
   if (n <= 0) return 0;
   return nfk::chain_fwd_tc(*desc, x, static_cast<const __nv_bfloat16*>(w),
                            static_cast<const __nv_bfloat16*>(wt), bias, y, true,
@@ -663,7 +776,23 @@ int nfk_chain_stash_fwd_tc(const nfk::ChainDesc* desc, const float* x, const voi
                            static_cast<cudaStream_t>(stream));
 }
 
-// The buffers nfk_chain_bwd_tc needs for n rows, which the wrapper
+// K1w-fwd in bf16 on the tensor cores, for a plan with a skip after its
+// last layer: y (n, out_dim) f32, [head | embedding], the embedding's
+// columns the bf16 values the products read (nfk_chain_fwd's, bit for
+// bit); w and wt as nfk_chain_fwd_tc takes them.
+int nfk_chain_last_skip_fwd_tc(const nfk::ChainDesc* desc, const float* x, const void* w,
+                               const void* wt, const float* bias, float* y, long long n,
+                               void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (!nfk::last_skip(*desc)) return nfk::kErrBadPlan;
+  if (n <= 0) return 0;
+  return nfk::chain_fwd_tc(*desc, x, static_cast<const __nv_bfloat16*>(w),
+                           static_cast<const __nv_bfloat16*>(wt), bias, y, false, nullptr, n,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The buffers nfk_chain_bwd_tc (and nfk_chain_stash_bwd_tc,
+// nfk_chain_last_skip_bwd_tc) needs for n rows, which the wrapper
 // allocates: a scratch of `scratch` bf16 values; the transposed hidden
 // weights, `wt` bf16 values; part of slices x n_aux + chunks x n_dense
 // floats (n_aux: the head's dW and every bias; n_dense: the hidden dW).
@@ -691,11 +820,12 @@ int nfk_chain_bwd_tc(const nfk::ChainDesc* desc, const float* x, const float* dy
                      const void* wt, const float* bias, void* scratch, float* part, float* dwb,
                      int slices, int chunks, long long n, void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
+  if (nfk::last_skip(*desc)) return nfk::kErrBadPlan;
   if (n <= 0) return 0;
   return nfk::chain_bwd_tc(*desc, x, dy, false, nullptr, static_cast<const __nv_bfloat16*>(w),
                            static_cast<const __nv_bfloat16*>(wt), bias,
-                           static_cast<uint32_t*>(scratch), part, dwb, slices, chunks, n,
-                           static_cast<cudaStream_t>(stream));
+                           static_cast<uint32_t*>(scratch), part, dwb, nullptr, slices, chunks,
+                           n, static_cast<cudaStream_t>(stream));
 }
 
 // K1r-bwd in bf16 with dW only, on the tensor cores: nfk_chain_bwd_tc with
@@ -707,12 +837,32 @@ int nfk_chain_stash_bwd_tc(const nfk::ChainDesc* desc, const float* x, const flo
                            void* scratch, float* part, float* dwb, int slices, int chunks,
                            long long n, void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
-  if (stash == nullptr && nfk::trig_dim(*desc) > 0) return nfk::kErrBadPlan;
+  if ((stash == nullptr && nfk::trig_dim(*desc) > 0) || nfk::last_skip(*desc))
+    return nfk::kErrBadPlan;
   if (n <= 0) return 0;
   return nfk::chain_bwd_tc(*desc, x, dy, true, static_cast<const __nv_bfloat16*>(stash),
                            static_cast<const __nv_bfloat16*>(w),
                            static_cast<const __nv_bfloat16*>(wt), bias,
-                           static_cast<uint32_t*>(scratch), part, dwb, slices, chunks, n,
+                           static_cast<uint32_t*>(scratch), part, dwb, nullptr, slices, chunks,
+                           n, static_cast<cudaStream_t>(stream));
+}
+
+// K1w-bwd in bf16 on the tensor cores, for a plan with a skip after its
+// last layer and dy (n, out_dim), [head | embedding]: phase 1 over the
+// buffers of nfk_chain_bwd_tc_sizes, then with a non-null dwb the dW pass
+// (dW/db of every layer, as nfk_chain_bwd_tc's), with a non-null dx (n,
+// raw_dim) the dx pass; one of the two must be given. w and wt as
+// nfk_chain_bwd_tc takes them.
+int nfk_chain_last_skip_bwd_tc(const nfk::ChainDesc* desc, const float* x, const float* dy,
+                               const void* w, const void* wt, const float* bias, void* scratch,
+                               float* part, float* dwb, float* dx, int slices, int chunks,
+                               long long n, void* stream) {
+  if (int err = nfk::check_desc(*desc)) return err;
+  if (!nfk::last_skip(*desc)) return nfk::kErrBadPlan;
+  if (n <= 0) return 0;
+  return nfk::chain_bwd_tc(*desc, x, dy, false, nullptr, static_cast<const __nv_bfloat16*>(w),
+                           static_cast<const __nv_bfloat16*>(wt), bias,
+                           static_cast<uint32_t*>(scratch), part, dwb, dx, slices, chunks, n,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -355,13 +355,15 @@ int nfk_rusink_chain_bwd(const nfk::ChainDesc* desc, int bf16, const float* z,
 }
 
 // Whether nfk_rusink_chain_fwd_tc and nfk_rusink_chain_bwd_tc run the plan
-// (*runs = 1): chain_tc_plan's plans whose hidden layers are all ReLU and
-// whose backward block fits the card's shared memory (check_chain_dx_tc).
+// (*runs = 1): chain_tc_plan's plans without a skip after the head (K2's
+// kernels take none, as its CUDA-core ones) whose hidden layers are all
+// ReLU and whose backward block fits the card's shared memory
+// (check_chain_dx_tc).
 // The wrapper's rule (ops/fused_rusink.py rusink_on_tensor_cores) asks it
 // for both kernels; every other plan keeps the CUDA-core kernels.
 int nfk_rusink_chain_tc_runs(const nfk::ChainDesc* desc, int* runs) {
   if (int err = nfk::check_desc(*desc)) return err;
-  *runs = desc->raw_dim >= 4 && nfk::check_chain_dx_tc(*desc) == 0;
+  *runs = desc->raw_dim >= 4 && !nfk::last_skip(*desc) && nfk::check_chain_dx_tc(*desc) == 0;
   return 0;
 }
 
@@ -372,7 +374,7 @@ int nfk_rusink_chain_fwd_tc(const nfk::ChainDesc* desc, const float* z, const fl
                             const float* vdir, const void* w, const void* wt,
                             const float* bias, float* y, long long n, void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
-  if (desc->raw_dim < 4) return nfk::kErrBadPlan;
+  if (desc->raw_dim < 4 || nfk::last_skip(*desc)) return nfk::kErrBadPlan;
   if (int err = nfk::check_chain_tc(*desc, false)) return err;
   if (n <= 0) return 0;
   const auto kernel = desc->max_width > nfk::tc::kTcCols ? nfk::rusink_chain_fwd_tc_kernel<true>
@@ -391,7 +393,7 @@ int nfk_rusink_chain_bwd_tc(const nfk::ChainDesc* desc, const float* z, const fl
                             const float* bias, float* dz, float* dl, float* dv, long long n,
                             void* stream) {
   if (int err = nfk::check_desc(*desc)) return err;
-  if (desc->raw_dim < 4) return nfk::kErrBadPlan;
+  if (desc->raw_dim < 4 || nfk::last_skip(*desc)) return nfk::kErrBadPlan;
   if (int err = nfk::check_chain_dx_tc(*desc)) return err;
   if (n <= 0) return 0;
   const auto kernel = desc->max_width > nfk::tc::kTcCols ? nfk::rusink_chain_bwd_tc_kernel<true>

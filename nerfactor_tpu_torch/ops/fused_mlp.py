@@ -34,8 +34,11 @@ card both routes read row-major (N, raw) rows and write row-major output:
 
 A plan with a skip after its last layer (output ``[head | embedding]``)
 takes K1w-fwd / K1w-bwd on either route, as the JAX package sends such
-plans to its ``_pallas_forward`` / ``_pallas_backward``. Unlike that TPU
-route, which reads the global ``networks.MATMUL_DTYPE`` and so ignores a
+plans to its ``_pallas_forward`` / ``_pallas_backward``. The same rules
+as K1's send K1w to the tensor cores (K1's tile, the embedding then
+written out; K1-bwd's phase 1 and dW pass and, for dx, a dx pass over
+phase 1's scratch) or keep it on the CUDA cores. Unlike that TPU route,
+which reads the global ``networks.MATMUL_DTYPE`` and so ignores a
 per-call bf16 ``compute_dtype``, K1w takes ``compute_dtype`` as every
 other route does (the semantics of :func:`chain_reference`).
 
@@ -392,11 +395,12 @@ def _check_route(plan, kernel, for_last_skip):
 
 def _chain_fwd(plan, x, params, compute_dtype, tc, stash_route=False,
                with_stash=False):
-    """Launches K1-fwd, or K1r-fwd with ``stash_route``, on ``x`` (N,
-    raw_dim) CUDA f32: with ``tc`` (bf16) the tensor-core kernel
-    (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``) over the weights
-    padded to :func:`mma_plan`'s widths where they differ, else the
-    CUDA-core ``nfk_chain_fwd``. Returns the (N, out_dim) f32 output, the
+    """Launches K1-fwd, K1r-fwd with ``stash_route`` or, for a last-skip
+    plan, K1w-fwd on ``x`` (N, raw_dim) CUDA f32: with ``tc`` (bf16) the
+    tensor-core kernel (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``,
+    ``nfk_chain_last_skip_fwd_tc``) over the weights padded to
+    :func:`mma_plan`'s widths where they differ, else the CUDA-core
+    ``nfk_chain_fwd``. Returns the (N, out_dim) f32 output, the
     (N, trig_dim) stash at the operand type (``with_stash`` on the stash
     route, else None), the transposed hidden weights the tensor-core
     kernel read (else None) and whether a kernel ran (not for N == 0)."""
@@ -419,8 +423,9 @@ def _chain_fwd(plan, x, params, compute_dtype, tc, stash_route=False,
             run('nfk_chain_stash_fwd_tc', x.device, ctypes.addressof(desc),
                 *args, _ptr(stash), n)
         else:
-            run('nfk_chain_fwd_tc', x.device, ctypes.addressof(desc), *args,
-                n)
+            entry = 'nfk_chain_last_skip_fwd_tc' if last_skip(plan) \
+                else 'nfk_chain_fwd_tc'
+            run(entry, x.device, ctypes.addressof(desc), *args, n)
     elif n:
         run('nfk_chain_fwd', x.device, ctypes.addressof(desc), bf16,
             int(stash_route), x.data_ptr(), w_flat.data_ptr(),
@@ -503,18 +508,40 @@ def chain_kernel_stash_cuda_core(plan, x, params, compute_dtype=None,
                       with_stash=with_stash)[:2]
 
 
+def _chain_kernel_last_skip(plan, x, params, compute_dtype):
+    """K1w-fwd as :func:`chain_kernel_last_skip` launches it; returns (y,
+    the transposed hidden weights the tensor-core kernel read, else
+    None)."""
+    _check_route(plan, 'K1w-fwd', True)
+    tc = fwd_on_tensor_cores(plan, compute_dtype, x.device)
+    y, _, wt, ran = _chain_fwd(plan, x, params, compute_dtype, tc)
+    chain_kernel_last_skip.launches += ran
+    chain_kernel_last_skip.tc_launches += int(ran and tc)
+    return y, wt
+
+
 def chain_kernel_last_skip(plan, x, params, compute_dtype=None):
     """Launches K1w-fwd on ``x`` (N, raw_dim) CUDA f32 for a plan with a
     skip after its last layer; returns (N, widths[-1] + embed_dim) f32,
-    ``[head | embedding]``. Counts its launches in
-    ``chain_kernel_last_skip.launches``."""
+    ``[head | embedding]``, the embedding's columns at the operand type's
+    values. In bf16 on the plans :func:`fwd_on_tensor_cores` takes, that
+    is ``chain_last_skip_fwd_tc_kernel`` on the tensor cores; every other
+    call runs the CUDA-core ``chain_fwd_kernel``. Counts its launches in
+    ``chain_kernel_last_skip.launches``, those of the tensor-core kernel
+    also in ``chain_kernel_last_skip.tc_launches``."""
+    return _chain_kernel_last_skip(plan, x, params, compute_dtype)[0]
+
+
+chain_kernel_last_skip.launches = chain_kernel_last_skip.tc_launches = 0
+
+
+def chain_kernel_last_skip_cuda_core(plan, x, params, compute_dtype=None):
+    """The CUDA-core K1w-fwd (``chain_fwd_kernel``'s last-skip mode) in
+    either precision: what :func:`chain_kernel_last_skip` runs off the
+    tensor cores, and in bf16 the kernel the tensor-core one is held
+    against. Counts no launch."""
     _check_route(plan, 'K1w-fwd', True)
-    y, _, _, ran = _chain_fwd(plan, x, params, compute_dtype, False)
-    chain_kernel_last_skip.launches += ran
-    return y
-
-
-chain_kernel_last_skip.launches = 0
+    return _chain_fwd(plan, x, params, compute_dtype, False)[0]
 
 
 def unpack_grads(plan, dwb):
@@ -651,8 +678,8 @@ def _tc_runs(plan, device, bwd):
     """Whether the library's tensor-core forward (``bwd`` False) or
     backward runs ``plan`` as :func:`mma_plan`'s (``nfk_chain_tc_runs``):
     a head of at most 8 columns after at least one hidden layer, with no
-    skip after it or into it, and a block that fits the card's shared
-    memory. Kept per plan and device, as :func:`chain_dw_table`."""
+    skip into it, and blocks that fit the card's shared memory. Kept per
+    plan and device, as :func:`chain_dw_table`."""
     desc, runs = make_desc(mma_plan(plan)), ctypes.c_int(0)
     run('nfk_chain_tc_runs', device, ctypes.addressof(desc), int(bwd),
         ctypes.byref(runs), stream=False)
@@ -660,10 +687,10 @@ def _tc_runs(plan, device, bwd):
 
 
 def fwd_on_tensor_cores(plan, compute_dtype, device):
-    """Whether a K1-fwd or K1r-fwd launch on ``device`` runs the
-    tensor-core kernel (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``):
-    bf16 operands and a plan the library says it runs (:func:`_tc_runs`; a
-    last skip, K1w, is not one). Every other launch (f32, K1w, any other
+    """Whether a K1-fwd, K1r-fwd or K1w-fwd launch on ``device`` runs the
+    tensor-core kernel (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``,
+    ``nfk_chain_last_skip_fwd_tc``): bf16 operands and a plan the library
+    says it runs (:func:`_tc_runs`). Every other launch (f32, any other
     plan) runs the CUDA-core ``chain_fwd_kernel``."""
     if kernel_dtype(compute_dtype) != torch.bfloat16:
         return False
@@ -671,14 +698,16 @@ def fwd_on_tensor_cores(plan, compute_dtype, device):
 
 
 def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device):
-    """Whether a K1-bwd or K1r-bwd launch on ``device`` runs the
+    """Whether a K1-bwd, K1r-bwd or K1w-bwd launch on ``device`` runs the
     tensor-core design (phase 1 and the dW pass, ``nfk_chain_bwd_tc``,
-    ``nfk_chain_stash_bwd_tc``): bf16 operands, dW without dx, and a plan
-    that the library says phase 1 runs (:func:`_tc_runs`). Every other
-    launch (f32, dx, a last skip K1w, any other plan) runs the CUDA-core
+    ``nfk_chain_stash_bwd_tc``; for a last-skip plan phase 1, the dW pass
+    and the dx pass, ``nfk_chain_last_skip_bwd_tc``): bf16 operands, a
+    plan that the library says phase 1 runs (:func:`_tc_runs`), and dW
+    without dx or, for a last-skip plan, dx or dW or both. Every other
+    launch (f32, dx on K1 or K1r, any other plan) runs the CUDA-core
     ``chain_bwd_kernel``."""
-    if kernel_dtype(compute_dtype) != torch.bfloat16 or needs_dx \
-            or not needs_dw:
+    if kernel_dtype(compute_dtype) != torch.bfloat16 \
+            or not (needs_dx or needs_dw) or (needs_dx and not last_skip(plan)):
         return False
     return _tc_runs(plan, device, bwd=True)
 
@@ -748,12 +777,14 @@ def tc_bwd_sizes(plan, n, device):
 
 
 def _chain_bwd_tc(plan, x, dy, params, wt=None, stash_route=False,
-                  stash=None):
-    """Launches ``nfk_chain_bwd_tc`` or, with ``stash_route``,
+                  stash=None, needs_dx=False, needs_dw=True):
+    """Launches ``nfk_chain_bwd_tc``, with ``stash_route``
     ``nfk_chain_stash_bwd_tc`` over ``stash`` (phase 1, the dW pass, their
-    sums) over the weights padded to :func:`mma_plan`'s widths where they
-    differ, and their transposes ``wt`` (packed here when None). Returns
-    [(dW, db)] of ``plan``, f32."""
+    sums) or, for a last-skip plan, ``nfk_chain_last_skip_bwd_tc`` (phase
+    1, then the dW pass with ``needs_dw`` and the dx pass with
+    ``needs_dx``) over the weights padded to :func:`mma_plan`'s widths
+    where they differ, and their transposes ``wt`` (packed here when
+    None). Returns (dx or None, [(dW, db)] of ``plan`` or None), f32."""
     kplan = mma_plan(plan)
     if kplan != plan:
         params = pad_params(plan, params)
@@ -769,29 +800,39 @@ def _chain_bwd_tc(plan, x, dy, params, wt=None, stash_route=False,
         raise RuntimeError("transposed weights: %d values, the kernel reads "
                            "%d" % (wt.numel(), size['wt']))
     dwb = torch.zeros(w_flat.numel() + b_flat.numel(), dtype=torch.float32,
-                      device=device)
-    part = torch.empty(size['slices'] * (dwb.numel() - tab.n_dense)
+                      device=device) if needs_dw else None
+    dx = torch.empty_like(x) if needs_dx else None
+    part = torch.empty(size['slices'] * (w_flat.numel() + b_flat.numel()
+                                         - tab.n_dense)
                        + size['chunks'] * tab.n_dense, dtype=torch.float32,
                        device=device)
     scratch = torch.empty(size['scratch'], dtype=torch.bfloat16, device=device)
     if n:
-        entry, stash_arg = ('nfk_chain_stash_bwd_tc', (_ptr(stash),)) \
-            if stash_route else ('nfk_chain_bwd_tc', ())
-        run(entry, device, ctypes.addressof(desc), x.data_ptr(),
-            dy.data_ptr(), *stash_arg, w_flat.data_ptr(), wt.data_ptr(),
-            b_flat.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-            dwb.data_ptr(), size['slices'], size['chunks'], n)
+        args = (w_flat.data_ptr(), wt.data_ptr(), b_flat.data_ptr(),
+                scratch.data_ptr(), part.data_ptr(), _ptr(dwb))
+        if last_skip(plan):
+            run('nfk_chain_last_skip_bwd_tc', device, ctypes.addressof(desc),
+                x.data_ptr(), dy.data_ptr(), *args, _ptr(dx), size['slices'],
+                size['chunks'], n)
+        else:
+            entry, stash_arg = ('nfk_chain_stash_bwd_tc', (_ptr(stash),)) \
+                if stash_route else ('nfk_chain_bwd_tc', ())
+            run(entry, device, ctypes.addressof(desc), x.data_ptr(),
+                dy.data_ptr(), *stash_arg, *args, size['slices'],
+                size['chunks'], n)
+    if not needs_dw:
+        return dx, None
     grads = unpack_grads(kplan, dwb)
-    return grads if kplan == plan else unpad_grads(plan, grads)
+    return dx, grads if kplan == plan else unpad_grads(plan, grads)
 
 
 def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw, tc,
                stash_route=False, stash=None, wt=None):
-    """Launches K1-bwd, or K1r-bwd over ``stash`` with ``stash_route``, for
-    the output cotangent ``dy`` (N, out_dim): with ``tc`` the tensor-core
-    design (over ``wt``, see :func:`chain_kernel_bwd`), else
-    nfk_chain_bwd. Returns (dx or None, [(dW, db)] or None, whether a
-    kernel ran)."""
+    """Launches K1-bwd, K1r-bwd over ``stash`` with ``stash_route`` or,
+    for a last-skip plan, K1w-bwd, for the output cotangent ``dy`` (N,
+    out_dim): with ``tc`` the tensor-core design (over ``wt``, see
+    :func:`chain_kernel_bwd`), else nfk_chain_bwd. Returns (dx or None,
+    [(dW, db)] or None, whether a kernel ran)."""
     if not (needs_dx or needs_dw):
         raise ValueError("K1-bwd launched with nothing to compute")
     if stash_route and trig_dim(plan):
@@ -803,8 +844,8 @@ def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw, tc,
                 x.device, kernel_dtype(compute_dtype), want))
         stash = stash.contiguous()
     if tc:
-        return None, _chain_bwd_tc(plan, x, dy, params, wt, stash_route,
-                                   stash), x.shape[0] > 0
+        return (*_chain_bwd_tc(plan, x, dy, params, wt, stash_route, stash,
+                               needs_dx, needs_dw), x.shape[0] > 0)
     (x, dy), desc, bf16, w_flat, b_flat = prepare(
         plan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
         compute_dtype)
@@ -888,19 +929,42 @@ def chain_kernel_stash_bwd_cuda_core(plan, x, dy, stash, params,
 
 
 def chain_kernel_last_skip_bwd(plan, x, dy, params, compute_dtype=None,
-                               needs_dx=True, needs_dw=True):
+                               needs_dx=True, needs_dw=True, wt=None):
     """Launches K1w-bwd: the cotangents of :func:`chain_kernel_last_skip`
     for ``dy`` (N, widths[-1] + embed_dim), as ``needs_dx`` / ``needs_dw``
-    ask; dy's trailing columns reach dx through the embedding. Counts its
-    launches in ``chain_kernel_last_skip_bwd.launches``."""
+    ask; dy's trailing columns reach dx through the embedding. In bf16 on
+    the plans :func:`bwd_on_tensor_cores` takes, that is the tensor-core
+    design (``chain_last_skip_bwd_tc_kernel``, then the dW pass with
+    ``needs_dw`` and the dx pass ``chain_dx_pass_kernel`` with
+    ``needs_dx``, over ``wt`` as :func:`chain_kernel_bwd`'s); every other
+    call runs the CUDA-core ``chain_bwd_kernel``. dW/db are bit-identical
+    for the same inputs on the same card. Counts its launches in
+    ``chain_kernel_last_skip_bwd.launches``, those of the tensor-core
+    design also in ``chain_kernel_last_skip_bwd.tc_launches``."""
     _check_route(plan, 'K1w-bwd', True)
+    tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
+                             x.device)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
-                                needs_dw, False)
+                                needs_dw, tc, wt=wt)
     chain_kernel_last_skip_bwd.launches += ran
+    chain_kernel_last_skip_bwd.tc_launches += int(ran and tc)
     return dx, grads
 
 
 chain_kernel_last_skip_bwd.launches = 0
+chain_kernel_last_skip_bwd.tc_launches = 0
+
+
+def chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, params,
+                                         compute_dtype=None, needs_dx=True,
+                                         needs_dw=True):
+    """The CUDA-core K1w-bwd (``chain_bwd_kernel``'s last-skip mode) in
+    either precision: what :func:`chain_kernel_last_skip_bwd` runs off the
+    tensor cores, and in bf16 the kernel the tensor-core design is held
+    against. Counts no launch."""
+    _check_route(plan, 'K1w-bwd', True)
+    return _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
+                      False)[:2]
 
 
 def grads_or_zeros(ctx, first, grads, inputs):
@@ -921,15 +985,13 @@ def _pairs(flat):
 def _forward(plan, x, params, compute_dtype, stash_route, with_stash=False):
     """The route's forward kernel: K1r with ``stash_route``, K1w for a
     last-skip plan, else K1. Returns (y, the K1r stash with
-    ``with_stash``, else None, the transposed weights K1's or K1r's
-    tensor-core kernel read, else None)."""
+    ``with_stash``, else None, the transposed weights the tensor-core
+    kernel read, else None)."""
     if stash_route:
         return _chain_kernel_stash(plan, x, params, compute_dtype,
                                    with_stash)
-    if last_skip(plan):
-        return chain_kernel_last_skip(plan, x, params, compute_dtype), None, \
-            None
-    y, wt = _chain_kernel(plan, x, params, compute_dtype)
+    y, wt = (_chain_kernel_last_skip if last_skip(plan) else _chain_kernel)(
+        plan, x, params, compute_dtype)
     return y, None, wt
 
 
@@ -940,8 +1002,8 @@ class ChainFunction(torch.autograd.Function):
     K1w. ``needs_dx`` / ``needs_dw`` select the cotangents the backward
     computes (K1r computes dW/db in any case); the others come back as
     zeros, and with both False no backward kernel is launched. The
-    tensor-core K1-fwd and K1r-fwd hand the transposed weights they packed
-    to the tensor-core K1-bwd and K1r-bwd, so a step packs them once."""
+    tensor-core forwards hand the transposed weights they packed to the
+    tensor-core backwards, so a step packs them once."""
 
     @staticmethod
     def forward(ctx, plan, compute_dtype, needs_dx, needs_dw, stash_route, x,
@@ -964,9 +1026,9 @@ class ChainFunction(torch.autograd.Function):
                                                  needs_dx=needs_dx, wt=ctx.wt)
         elif needs_dx or needs_dw:
             bwd = chain_kernel_last_skip_bwd if last_skip(plan) \
-                else functools.partial(chain_kernel_bwd, wt=ctx.wt)
+                else chain_kernel_bwd
             dx, dparams = bwd(plan, x, dy, params, cd, needs_dx=needs_dx,
-                              needs_dw=needs_dw)
+                              needs_dw=needs_dw, wt=ctx.wt)
         dflat = [g for pair in dparams for g in pair] if dparams \
             else [None] * len(flat)
         return (None,) * 5 + grads_or_zeros(ctx, 5, [dx] + dflat,

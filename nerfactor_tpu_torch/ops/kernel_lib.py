@@ -116,11 +116,15 @@ ARGTYPES = {
     'nfk_chain_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _PTR],
     'nfk_chain_stash_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                                _PTR],
+    'nfk_chain_last_skip_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
+                                   _PTR],
     'nfk_chain_bwd_tc_sizes': [_PTR, _I64, _PTR, _PTR, _PTR, _PTR],
     'nfk_chain_bwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                          _PTR, _I32, _I32, _I64, _PTR],
     'nfk_chain_stash_bwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                                _PTR, _PTR, _I32, _I32, _I64, _PTR],
+    'nfk_chain_last_skip_bwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                   _PTR, _PTR, _PTR, _I32, _I32, _I64, _PTR],
     'nfk_chain_dw_table': [_PTR, _PTR, _PTR],
     'nfk_dw_pass': [_PTR, _I32, _PTR, _PTR, _PTR, _I64, _PTR],
     'nfk_rusink_chain_bwd': [_PTR, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,

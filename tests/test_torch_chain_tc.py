@@ -66,10 +66,11 @@ def emulated(tmp_path_factory):
 
 def test_bwd_on_tensor_cores_rule(emulated):
     """bf16 with dW only takes the tensor cores, on either route
-    (test_stash_route_takes_the_rules); f32, dx, no dW, a skip after the
-    head or into it, a head wider than 8, a head-only chain and hidden
-    layers too wide for phase 1's block (640; 512 fits) keep the CUDA-core
-    kernel."""
+    (test_stash_route_takes_the_rules), and so does a skip after the head
+    (K1w) with dx or dW or both; f32, dx without a skip after the head, no
+    dW and no dx, a skip into the head, a head wider than 8, a head-only
+    chain and hidden layers too wide for phase 1's block (640; 512 fits)
+    keep the CUDA-core kernel."""
     plan = fm.make_plan(*LVIS)
 
     def rule(pl, cd, needs_dx, needs_dw):
@@ -82,9 +83,15 @@ def test_bwd_on_tensor_cores_rule(emulated):
     assert not rule(plan, BF16, True, True)
     assert not rule(plan, BF16, True, False)
     assert not rule(plan, BF16, False, False)
-    assert not rule(plan._replace(skip_at=(4,)), BF16, False, True)
+    for skip_at in ((4,), (2, 4)):
+        last = plan._replace(skip_at=skip_at)
+        for needs_dx, needs_dw in ((False, True), (True, True), (True, False)):
+            assert rule(last, BF16, needs_dx, needs_dw)
+            assert not rule(last, None, needs_dx, needs_dw)
+        assert not rule(last, BF16, False, False)
     assert not rule(plan._replace(skip_at=(3,)), BF16, False, True)
     assert not rule(plan._replace(skip_at=(1, 3)), BF16, False, True)
+    assert not rule(plan._replace(skip_at=(3, 4)), BF16, True, True)
     for head, ok in ((8, True), (9, False)):
         wide = plan._replace(widths=plan.widths[:-1] + (head,))
         assert rule(wide, BF16, False, True) == ok
@@ -97,10 +104,11 @@ def test_bwd_on_tensor_cores_rule(emulated):
 
 def test_fwd_on_tensor_cores_rule(emulated):
     """bf16 K1-fwd takes the tensor cores, on either route
-    (test_stash_route_takes_the_rules), on the plans the backward's phase 1
-    takes (width 24 once padded); f32, a skip after the head or into it, a
-    head wider than 8, a head-only chain and hidden layers too wide for the
-    block (640; 512 fits) keep the CUDA-core kernel."""
+    (test_stash_route_takes_the_rules) and with a skip after the head
+    (K1w), on the plans the backward's phase 1 takes (width 24 once
+    padded); f32, a skip into the head, a head wider than 8, a head-only
+    chain and hidden layers too wide for the block (640; 512 fits) keep the
+    CUDA-core kernel."""
     plan = fm.make_plan(*LVIS)
 
     def rule(pl, cd):
@@ -109,8 +117,11 @@ def test_fwd_on_tensor_cores_rule(emulated):
     assert rule(fm.make_plan(*TC_PLANS['w24']), BF16)
     assert not rule(plan, None)
     assert not rule(plan, torch.float32)
-    assert not rule(plan._replace(skip_at=(4,)), BF16)
+    for skip_at in ((4,), (2, 4)):
+        assert rule(plan._replace(skip_at=skip_at), BF16)
+        assert not rule(plan._replace(skip_at=skip_at), None)
     assert not rule(plan._replace(skip_at=(3,)), BF16)
+    assert not rule(plan._replace(skip_at=(3, 4)), BF16)
     for head, ok in ((8, True), (9, False)):
         assert rule(plan._replace(widths=plan.widths[:-1] + (head,)),
                     BF16) == ok
@@ -355,7 +366,7 @@ OFF_TC_FWD = {
     'f32': (LVIS, None, fm.chain_kernel, fm.chain_reference),
     'stash': (LVIS, None, lambda *a: fm.chain_kernel_stash(*a)[0],
               fm.chain_reference_stash),
-    'last_skip': ((LVIS[0], LVIS[1], LVIS[2], (2, 4)), BF16,
+    'last_skip': ((LVIS[0], LVIS[1], LVIS[2], (2, 4)), None,
                   fm.chain_kernel_last_skip, fm.chain_reference),
     'skip_head': (OFF_TC_PLANS['skip_head'], BF16, fm.chain_kernel,
                   fm.chain_reference),
@@ -369,9 +380,9 @@ OFF_TC_FWD = {
 @pytest.mark.parametrize('case', sorted(OFF_TC_FWD))
 def test_off_tc_fwd_keeps_the_cuda_core_kernel_on_card(case, cuda,
                                                        monkeypatch):
-    """f32 on either route, K1w, a skip into the head, a head wider than 8
-    and hidden layers too wide for the block launch the CUDA-core K1-fwd,
-    within TOL of the route's plain version."""
+    """f32 on either route and K1w, a skip into the head, a head wider
+    than 8 and hidden layers too wide for the block launch the CUDA-core
+    K1-fwd, within TOL of the route's plain version."""
     args, cd, launch, plain = OFF_TC_FWD[case]
     plan, p, x, _ = card_case(args, 4099, 61, cuda)
     calls = recorded_calls(monkeypatch)
@@ -447,6 +458,110 @@ def test_tc_stash_bwd_on_card(name, n, cuda, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def with_last_skip(args):
+    """A plan's arguments with a skip after its head added (K1w)."""
+    parts, widths, acts, skip_at = args
+    return parts, widths, acts, tuple(skip_at) + (len(widths) - 1,)
+
+
+# TC_PLANS with a skip after the head too: each keeps its skip consumer
+K1W_PLANS = {name: with_last_skip(args) for name, args in TC_PLANS.items()}
+
+
+def last_skip_case(name, n, seed, device):
+    """card_case on K1W_PLANS[name] with dy (n, out_dim), and the plan
+    without the last skip (what K1 runs on the same layers)."""
+    plan, p, x, _ = card_case(K1W_PLANS[name], n, seed, device)
+    dy = torch.from_numpy(np.random.RandomState(seed + 3).uniform(
+        -1, 1, (n, fm.out_dim(plan))).astype(np.float32)).to(device)
+    return plan, p, x, dy, plan._replace(skip_at=plan.skip_at[:-1])
+
+
+def last_skip_launches():
+    return (fm.chain_kernel_last_skip.launches,
+            fm.chain_kernel_last_skip.tc_launches,
+            fm.chain_kernel_last_skip_bwd.launches,
+            fm.chain_kernel_last_skip_bwd.tc_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 4099, 70001])
+@pytest.mark.parametrize('name', sorted(K1W_PLANS))
+def test_tc_last_skip_fwd_on_card(name, n, cuda, monkeypatch):
+    """One K1w-fwd launch through the tensor-core entry, counted once
+    (and once as a tensor-core launch): within TOL of the plain bf16
+    version; its head column the tensor-core K1-fwd's on the plan without
+    the last skip and its embedding columns the CUDA-core K1w-fwd's, bit
+    for bit; within TC_FWD_VS_CUDA_CORE_TOL of the CUDA-core kernel;
+    bit-identical across launches."""
+    plan, p, x, _, k1_plan = last_skip_case(name, n, 64, cuda)
+    calls = recorded_calls(monkeypatch)
+    before = last_skip_launches()
+    y = fm.chain_kernel_last_skip(plan, x, p, BF16)
+    torch.cuda.synchronize()
+    assert 'nfk_chain_last_skip_fwd_tc' in calls \
+        and 'nfk_chain_fwd' not in calls
+    assert last_skip_launches() == (before[0] + 1, before[1] + 1) + before[2:]
+    np.testing.assert_allclose(
+        y.cpu().numpy(), fm.chain_reference(plan, x, p, BF16).cpu().numpy(),
+        **TOL['bf16'])
+    no = plan.widths[-1]
+    y_core = fm.chain_kernel_last_skip_cuda_core(plan, x, p, BF16)
+    assert torch.equal(y[:, :no], fm.chain_kernel(k1_plan, x, p, BF16))
+    assert torch.equal(y[:, no:], y_core[:, no:])
+    assert rel_norm(y, y_core) <= TC_FWD_VS_CUDA_CORE_TOL
+    assert torch.equal(y, fm.chain_kernel_last_skip(plan, x, p, BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 4099, 70001])
+@pytest.mark.parametrize('name', sorted(K1W_PLANS))
+def test_tc_last_skip_bwd_on_card(name, n, cuda, monkeypatch):
+    """K1w-bwd through the tensor-core entry with dx and dW, dW only and
+    dx only, each counted once (and once as a tensor-core launch): dW/db
+    the tensor-core K1-bwd's with dy's head column bit for bit, within
+    TC_DW_TOL_BF16 of autograd of the plain bf16 version; dx within
+    TC_VS_CUDA_CORE_TOL of the CUDA-core K1w-bwd's and TC_DW_TOL_BF16 of
+    the plain version's; each mode's dx and dW/db the others' and
+    bit-identical across launches."""
+    plan, p, x, dy, k1_plan = last_skip_case(name, n, 65, cuda)
+    flat = [t.clone().requires_grad_() for t in leaves(p)]
+    xg = x.clone().requires_grad_()
+    want = torch.autograd.grad(fm.chain_reference(
+        plan, xg, list(zip(flat[0::2], flat[1::2])), BF16), [xg] + flat, dy)
+    k1 = leaves(fm.chain_kernel_bwd(k1_plan, x, dy[:, :plan.widths[-1]]
+                                    .contiguous(), p, BF16,
+                                    needs_dx=False)[1])
+    dx_core = fm.chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, p, BF16,
+                                                      needs_dw=False)[0]
+    calls = recorded_calls(monkeypatch)
+    got = {}
+    for flags in ((True, True), (False, True), (True, False)):
+        before = last_skip_launches()
+        del calls[:]
+        got[flags] = fm.chain_kernel_last_skip_bwd(plan, x, dy, p, BF16,
+                                                   *flags)
+        torch.cuda.synchronize()
+        assert 'nfk_chain_last_skip_bwd_tc' in calls \
+            and 'nfk_chain_bwd' not in calls
+        assert last_skip_launches() == before[:2] + (before[2] + 1,
+                                                     before[3] + 1)
+    dx, dparams = got[(True, True)]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(dparams), k1))
+    for g, w in zip(leaves(dparams), want[1:]):
+        assert g.shape == w.shape and rel_norm(g, w) <= TC_DW_TOL_BF16
+    assert rel_norm(dx, dx_core) <= TC_VS_CUDA_CORE_TOL
+    assert rel_norm(dx, want[0]) <= TC_DW_TOL_BF16
+    assert got[(False, True)][0] is None and got[(True, False)][1] is None
+    assert torch.equal(got[(True, False)][0], dx)
+    assert all(torch.equal(a, b) for a, b in zip(
+        leaves(got[(False, True)][1]), leaves(dparams)))
+    dx2, again = fm.chain_kernel_last_skip_bwd(plan, x, dy, p, BF16)
+    assert torch.equal(dx2, dx)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(again),
+                                                 leaves(dparams)))
+
+
 def card_readings(seeds, sizes=(1, 50, 4099)):
     """Per plan of the card tests (PLANS' widths 16 and 32, TC_PLANS) and
     size, over ``seeds``: the worst dW/db leaf of bf16 K1-bwd with dW only
@@ -459,7 +574,11 @@ def card_readings(seeds, sizes=(1, 50, 4099)):
     against autograd of the plain bf16 stash route and against the
     CUDA-core bf16 K1r-bwd, the worst output of bf16 K1r-fwd on the tensor
     cores against the CUDA-core one, and whether their stashes are
-    equal."""
+    equal; with a skip after the head too (K1W_PLANS' and PLANS' plans),
+    bf16 K1w-bwd's dx on the tensor cores and the f32 kernel's (the
+    control) against the CUDA-core bf16 K1w-bwd's, and whether K1w's head
+    and dW/db are the tensor-core K1's and its embedding columns the
+    CUDA-core K1w's, bit for bit."""
     out = []
     device = torch.device('cuda')
     for name, args in sorted(dict(PLANS, **TC_PLANS).items()):
@@ -468,7 +587,10 @@ def card_readings(seeds, sizes=(1, 50, 4099)):
                  'tc_vs_cuda_core': 0.0, 'f32_kernel_vs_plain': np.inf,
                  'tc_fwd_vs_cuda_core': 0.0, 'f32_fwd_vs_cuda_core': np.inf,
                  'stash_tc_vs_plain': 0.0, 'stash_tc_vs_cuda_core': 0.0,
-                 'stash_tc_fwd_vs_cuda_core': 0.0, 'stash_equal': True}
+                 'stash_tc_fwd_vs_cuda_core': 0.0, 'stash_equal': True,
+                 'last_skip_dx_vs_cuda_core': 0.0,
+                 'last_skip_f32_dx_vs_cuda_core': np.inf,
+                 'last_skip_same_as_k1_and_cuda_core': True}
             for seed in seeds:
                 plan, p, x, dy = card_case(args, n, seed, device)
                 want = plain_dparams(plan, x, dy, p, BF16)
@@ -504,6 +626,28 @@ def card_readings(seeds, sizes=(1, 50, 4099)):
                         ('stash_tc_fwd_vs_cuda_core', rel_norm(y, y_core))):
                     r[key] = max(r[key], val)
                 r['stash_equal'] &= torch.equal(stash, stash_core)
+                lplan = fm.make_plan(*with_last_skip(args))
+                ldy = torch.from_numpy(np.random.RandomState(seed + 3).uniform(
+                    -1, 1, (n, fm.out_dim(lplan))).astype(np.float32)).to(device)
+                no = plan.widths[-1]
+                y = fm.chain_kernel_last_skip(lplan, x, p, BF16)
+                dx, dw = fm.chain_kernel_last_skip_bwd(lplan, x, ldy, p, BF16)
+                core = fm.chain_kernel_last_skip_bwd_cuda_core(
+                    lplan, x, ldy, p, BF16, needs_dw=False)[0]
+                dx32 = fm.chain_kernel_last_skip_bwd_cuda_core(
+                    lplan, x, ldy, p, None, needs_dw=False)[0]
+                k1 = leaves(fm.chain_kernel_bwd(
+                    plan, x, ldy[:, :no].contiguous(), p, BF16,
+                    needs_dx=False)[1])
+                r['last_skip_dx_vs_cuda_core'] = max(
+                    r['last_skip_dx_vs_cuda_core'], rel_norm(dx, core))
+                r['last_skip_f32_dx_vs_cuda_core'] = min(
+                    r['last_skip_f32_dx_vs_cuda_core'], rel_norm(dx32, core))
+                r['last_skip_same_as_k1_and_cuda_core'] &= torch.equal(
+                    y[:, :no], fm.chain_kernel(plan, x, p, BF16)) \
+                    and torch.equal(y[:, no:], fm.chain_kernel_last_skip_cuda_core(
+                        lplan, x, p, BF16)[:, no:]) \
+                    and all(torch.equal(a, b) for a, b in zip(leaves(dw), k1))
             out.append(r)
     return out
 

@@ -462,16 +462,17 @@ def test_emulated_tc_fwd_matches_interpreted_pallas_kernel(name, n,
 
 # What the rule keeps on the CUDA-core K1-fwd, chain_fwd_kernel: (plan,
 # compute dtype, the launcher, its plain version). The lvis chain in f32
-# on both routes (in bf16 the stash route takes the tensor cores,
-# test_torch_emu_stash); a skip after the head (K1w); the embedding into
-# the head; a head wider than 8; hidden layers too wide for the block.
+# on both routes and with a skip after the head (K1w; in bf16 the stash
+# route and K1w take the tensor cores, test_torch_emu_stash and
+# test_torch_emu_last_skip); the embedding into the head; a head wider
+# than 8; hidden layers too wide for the block.
 OFF_TC_FWD = {
     'f32': (TC_PLANS['lvis'], None, fm.chain_kernel, fm.chain_reference),
     'stash': (TC_PLANS['lvis'], None,
               lambda *a: fm.chain_kernel_stash(*a)[0],
               fm.chain_reference_stash),
-    'last_skip': (LAST_SKIP['lvis'], torch.bfloat16,
-                  fm.chain_kernel_last_skip, fm.chain_reference),
+    'last_skip': (LAST_SKIP['lvis'], None, fm.chain_kernel_last_skip,
+                  fm.chain_reference),
     'skip_head': (OFF_TC_PLANS['skip_head'], torch.bfloat16,
                   fm.chain_kernel, fm.chain_reference),
     'head9': (([(3, 4), (3, 2)], (32, 32, 9), ('relu', 'relu', None), ()),
