@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port of NeRFactor on one GPU: the joint
-model's inference and training, and the NeRF stage's training and test
-rendering.
+model's inference and training, the shape stage's and the BRDF prior's
+training (and the prior's explorer), the joint model from their
+checkpoints, and the NeRF stage's training and test rendering.
 
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
@@ -106,11 +107,33 @@ rendering.
    after, and beside it the plain version's and one torch.matmul per
    pass's slope (P's library yardstick, which the port never calls).
 
+18. Shape stage: runs ``trainvali.main`` on shape.ini at full width
+   (128 x 4, 1024 rays, 512 lights, bf16 lvis chain, fused kernels) for 4
+   epochs on the scene's surface buffers, counters zeroed before and read
+   after (K1-fwd and K1-bwd on the tensor cores for lvis, on the CUDA
+   cores for the f32 normal chain); checks its losses, that every leaf of
+   ckpt-2 and ckpt-4 moved, and its vali images, flipbooks and HTML. Holds
+   one shape step's loss and every gradient leaf on the card against the
+   port's plain version on the CPU (same batch and jitter), then times the
+   step with a profiler window (device ms by kernel).
+19. BRDF prior: writes synthetic MERL-format tables (3 materials; a test
+   table of the characteristic slice and a 64 x 64 sphere render's rows),
+   runs ``trainvali.main`` on brdf.ini at full width (128 x 4, z_dim 3,
+   1024 rows and their reciprocity twins; plain PyTorch, no kernel) for 4
+   epochs, checks losses, moved leaves and vali charts, and times the
+   step; then ``explore_brdf_space.main`` on its ckpt-4: every identity's
+   charts, slice and render, the HTML and the interpolation video.
+20. Joint model from the port's stages: ``trainvali.main`` on
+   nerfactor.ini for 2 epochs restoring the two checkpoints above (the
+   restored leaves bit for bit the written ones), then ``test.main`` with
+   ``--tgt_brdf`` (the edit's code is the BRDF checkpoint's row).
+
 Prints a JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failed check
-raises, so the run exits non-zero. The only cut from production is imh
-128 (not 512); the probes run at their own defaults, uncut.
+raises, so the run exits non-zero. The only cuts from production are imh
+128 (not 512) and the BRDF test table's render (64 x 64, not 128); the
+probes run at their own defaults, uncut.
 
   python3 chip_smoke.py --limit_seeds k3 11,12,13,14
   python3 chip_smoke.py --limit_seeds k1 11,12,13,14
@@ -172,14 +195,20 @@ from os.path import abspath, dirname, join
 import numpy as np
 import torch
 
-from nerfactor_tpu_torch import nerf_test
+from nerfactor_tpu_torch import explore_brdf_space, nerf_test
 from nerfactor_tpu_torch import test as test_cli
 from nerfactor_tpu_torch import trainvali
+from nerfactor_tpu_torch.brdf import merl
+from nerfactor_tpu_torch.brdf.renderer import SphereRenderer
+from nerfactor_tpu_torch.datasets.brdf_merl import (
+    N_BETWEEN, Dataset as BrdfDataset)
 from nerfactor_tpu_torch.datasets.nerf import Dataset as NerfDataset
 from nerfactor_tpu_torch.datasets.nerf_shape import Dataset
 from nerfactor_tpu_torch.models import networks
+from nerfactor_tpu_torch.models.brdf import Model as BrdfModel
 from nerfactor_tpu_torch.models.nerf import Model as NerfModel
-from nerfactor_tpu_torch.models.nerfactor import Model
+from nerfactor_tpu_torch.models.nerfactor import (
+    BRDF_PARAM_KEYS, SHAPE_PARAM_KEYS, Model)
 from nerfactor_tpu_torch.models.shape import Model as ShapeModel
 from nerfactor_tpu_torch.ops import dot_probe as dp
 from nerfactor_tpu_torch.ops import encoding, geom as geomops
@@ -866,15 +895,16 @@ def k2_limit_readings(model, seeds):
     return out
 
 
-# Each kernel's counter: its wrapper and the wrapper's attribute. K1-fwd,
-# K1r, K1w, K2 and K3-fwd count every launch of their wrappers; "K1-fwd
-# tc", "K1r-fwd tc", "K1r-bwd tc", "K1w-fwd tc", "K1w-bwd tc", "K2-fwd
-# tc", "K2-bwd tc" and "K3-fwd tc" those of the tensor-core kernels among
-# them (bf16; for K1r-bwd without dx), the rest being the CUDA-core
-# kernels'.
+# Each kernel's counter: its wrapper and the wrapper's attribute. K1, K1r,
+# K1w, K2 and K3-fwd count every launch of their wrappers; "K1-fwd tc",
+# "K1-bwd tc", "K1r-fwd tc", "K1r-bwd tc", "K1w-fwd tc", "K1w-bwd tc",
+# "K2-fwd tc", "K2-bwd tc" and "K3-fwd tc" those of the tensor-core
+# kernels among them (bf16; for K1-bwd and K1r-bwd without dx), the rest
+# being the CUDA-core kernels'.
 COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
             'K1-bwd': (fm.chain_kernel_bwd, 'launches'),
+            'K1-bwd tc': (fm.chain_kernel_bwd, 'tc_launches'),
             'K2-fwd': (fr.rusink_kernel, 'launches'),
             'K2-fwd tc': (fr.rusink_kernel, 'tc_launches'),
             'K2-bwd': (fr.rusink_kernel_bwd, 'launches'),
@@ -915,6 +945,18 @@ def read_counters(names, path):
     return launches
 
 
+def train_scalars(outdir):
+    """The train loss at each checkpoint; raises unless it is logged at
+    epochs 2 and 4 and finite."""
+    recs = [json.loads(line) for line in open(
+        join(outdir, 'summary_train', 'scalars.jsonl'))]
+    losses = [r['loss_train'] for r in recs]
+    if [r['step'] for r in recs] != [2, 4] \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError("train scalars: %s" % recs)
+    return losses
+
+
 def run_training(joint_override):
     """The training path through trainvali.main on nerfactor.ini; checks
     what it writes. Returns (launches, outdir, losses)."""
@@ -928,12 +970,7 @@ def run_training(joint_override):
     torch.cuda.synchronize()
     launches = read_counters(JOINT_KERNELS, 'training')
     outdir = run['outdir']
-    recs = [json.loads(line) for line in open(
-        join(outdir, 'summary_train', 'scalars.jsonl'))]
-    losses = [r['loss_train'] for r in recs]
-    if [r['step'] for r in recs] != [2, 4] \
-            or not np.all(np.isfinite(losses)):
-        raise AssertionError("train scalars: %s" % recs)
+    losses = train_scalars(outdir)
     config = configutil.Config(configutil.read_config(outdir + '.ini'))
     init = Model(config, device='cpu').init_params(
         torch.Generator().manual_seed(0))
@@ -967,11 +1004,13 @@ def run_training(joint_override):
                               'vali_psnr': meta['psnr']}
 
 
-def time_train_step(model, dataset, warmup=3, iters=20, profiled=5):
+def time_train_step(model, dataset, warmup=3, iters=20, profiled=5,
+                    kernels=()):
     """Steady-state ms per make_train_step step of ``model`` (on the card)
     on a batch of ``dataset``'s train views (the config's rays per step);
     then a torch.profiler window for the device's idle share and time by
-    kernel."""
+    kernel (the 12 longest, and each of ``kernels``: (label, a regular
+    expression its profiler names match))."""
     config = model.config
     params = model.init_params(torch.Generator().manual_seed(0))
     optimizer = build_optimizer(config)
@@ -1012,6 +1051,8 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5):
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     rays = dataset.bs
+    of = {label: sum(v for k, v in by_kernel.items() if re.search(pat, k))
+          / 1e3 / profiled for label, pat in kernels}
     return {'rays': rays, 'ms_per_step': ms,
             'rays_per_sec': rays / (ms / 1e3), 'steps_timed': iters,
             'launches_per_step': launches,
@@ -1019,7 +1060,296 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5):
             'device_busy_ms_per_step': busy_us / 1e3 / profiled,
             'device_idle_share': 1 - busy_us / wall_us if busy_us else None,
             'device_ms_per_step_by_kernel': {
-                k[:80]: v / 1e3 / profiled for k, v in top}}
+                k[:80]: v / 1e3 / profiled for k, v in top},
+            **({'device_ms_per_step_of': of} if kernels else {})}
+
+
+# ------ the stages whose checkpoints the joint model restores ------
+
+# The shape step's kernels: the bf16 lvis chain on the tensor cores (K1-fwd
+# tc; K1-bwd tc, dW only), the f32 normal chain on the CUDA cores (the rest
+# of K1-fwd and K1-bwd)
+SHAPE_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K1-bwd tc')
+# Device ms a step by kernel, matched by name in the profiler's keys: the
+# CUDA-core kernels there are the f32 normal chain's
+SHAPE_STEP_KERNELS = (
+    ('K1-fwd chain_fwd_tc_kernel', r'(?<![a-z_])chain_fwd_tc_kernel'),
+    ('K1-bwd chain_bwd_tc_kernel', r'(?<![a-z_])chain_bwd_tc_kernel'),
+    ('K1-bwd dw_kernel', r'(?<![a-z_])dw_kernel'),
+    ('K1 sum_slices_kernel', r'(?<![a-z_])sum_slices_kernel'),
+    ('K1-fwd chain_fwd_kernel (f32 normal)', r'(?<![a-z_])chain_fwd_kernel'),
+    ('K1-bwd chain_bwd_kernel (f32 normal)', r'(?<![a-z_])chain_bwd_kernel'))
+# The BRDF prior's synthetic MERL tables: materials, rows a table, and the
+# test table's sphere render (ims 64, the one cut: the MERL converter's
+# default is 128) under the 16 x 32 'point' light
+MERL_MATERIALS = ('alum-bronze', 'pearl-paint', 'red-plastic')
+MERL_ROWS, MERL_IMS, MERL_ENVMAP_H = 65536, 64, 16
+
+
+def changed_leaves(init, ckpt):
+    """{key: whether every leaf under it differs} of a checkpoint's params
+    against ``init``."""
+    trained = ckptutil.restore_trained_params(ckpt, init)
+    return {k: all(not torch.equal(a, b) for a, b in zip(
+        ckptutil.tree_leaves(init[k]), ckptutil.tree_leaves(trained[k])))
+        for k in init}
+
+
+def run_shape_training(data_root, nerf_root):
+    """The shape stage through trainvali.main on shape.ini at full width
+    (128 x 4, 1024 rays, 512 lights, bf16 lvis chain, fused kernels) on
+    the smoke's scene, imh 128; checks its losses, that every shape leaf
+    of ckpt-2 and ckpt-4 moved, and the vali images, flipbooks and HTML.
+    Returns (launches, outdir, record)."""
+    override = ','.join([
+        'data_root=' + data_root, 'data_nerf_root=' + nerf_root,
+        'outroot=' + join(WORK, 'out', 'shape_train'), 'imh=%d' % IMH,
+        'light_h=%d' % LIGHT_H, 'epochs=4', 'ckpt_period=2',
+        'vali_period=4', 'vali_batches=1'])
+    zero_counters()
+    outdir = trainvali.main(['--config', 'shape.ini',
+                             '--config_override', override])['outdir']
+    torch.cuda.synchronize()
+    launches = read_counters(SHAPE_KERNELS, 'shape training')
+    for k in ('K1-fwd', 'K1-bwd'):
+        if launches[k] <= launches[k + ' tc']:
+            raise AssertionError("the f32 normal chain's %s never launched "
+                                 "on the CUDA cores: %s" % (k, launches))
+    losses = train_scalars(outdir)
+    config = configutil.Config(configutil.read_config(outdir + '.ini'))
+    init = ShapeModel(config, device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    for n in (2, 4):
+        moved = changed_leaves(init, join(outdir, 'checkpoints',
+                                          'ckpt-%d' % n))
+        if not all(moved.values()):
+            raise AssertionError("shape ckpt-%d: leaves that did not move "
+                                 "under %s" % (n, moved))
+    vali_dir = join(outdir, 'vis_vali', 'epoch000000004')
+    for f in ('pred_normal', 'pred_lvis'):
+        img = ioutil.load_img(join(vali_dir, 'batch000000000', f + '.png'))
+        if img.shape[:2] != (IMH, IMH):
+            raise AssertionError("shape vali %s.png: %s" % (f, img.shape))
+    for f in ('batch000000000/pred-vs-gt_normal.apng',
+              'batch000000000/pred-vs-gt_lvis.apng', 'all.html'):
+        if not os.path.exists(join(vali_dir, f)):
+            raise AssertionError("shape vali: no %s" % f)
+    loss_vali = json.loads(open(join(outdir, 'summary_vali',
+                                     'scalars.jsonl')).readline())['loss_vali']
+    if not np.isfinite(loss_vali):
+        raise AssertionError("shape vali loss %r" % loss_vali)
+    return launches, outdir, {'loss_train': losses, 'loss_vali': loss_vali}
+
+
+def shape_step_loss_grads(config, device, params, arrays, noise):
+    """One shape step's loss and every gradient leaf on ``device``:
+    [(key, gradient)] in flatten order."""
+    model = ShapeModel(config, device=device)
+    live = ckptutil.tree_map(
+        lambda t: t.detach().to(device).requires_grad_(), params)
+    pred, gt, kwargs, _ = model.apply(
+        live, upcast_batch({k: v.to(device) for k, v in arrays.items()}),
+        mode='train', jitter_noise=noise.to(device))
+    loss = torch.mean(model.compute_loss(live, pred, gt, **kwargs))
+    keys = [k for k in sorted(live) for _ in ckptutil.tree_leaves(live[k])]
+    grads = torch.autograd.grad(loss, ckptutil.tree_leaves(live))
+    return loss.item(), [(k, g.cpu()) for k, g in zip(keys, grads)]
+
+
+def check_shape_step(config):
+    """One shape step's loss and every gradient leaf on the card (K1's
+    kernels) against the port's plain version on the CPU, from one batch
+    and one jitter draw: the lvis chain's bf16 cotangents within
+    NORM_TOL_BF16 by relative norm, the f32 normal chain's within
+    DW_TOL_F32, the loss within TOL_BF16."""
+    params = ShapeModel(config, device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    batch = next(iter(Dataset(config, 'train').build_pipeline(prefetch=0)))
+    arrays = {k: torch.as_tensor(np.asarray(batch[k]))
+              for k in Dataset.array_keys}
+    noise = config.getfloat('xyz_jitter_std') * torch.randn(
+        (N_RAYS, 3), generator=torch.Generator().manual_seed(1))
+    loss_k, grads_k = shape_step_loss_grads(config, 'cuda', params, arrays,
+                                            noise)
+    loss_p, grads_p = shape_step_loss_grads(config, 'cpu', params, arrays,
+                                            noise)
+    errs = {'lvis': [], 'normal': []}
+    for (k, got), (_, want) in zip(grads_k, grads_p):
+        errs[k.split('_')[0]].append(rel_norm(got, want))
+    return {
+        'rows_lvis': 2 * N_RAYS * N_LIGHTS, 'rows_normal': 2 * N_RAYS,
+        'loss_card': loss_k, 'loss_plain_cpu': loss_p,
+        'loss_abs_err': compare('shape step loss', torch.tensor([loss_k]),
+                                torch.tensor([loss_p]), TOL_BF16),
+        'lvis_grad_rel_err': check_norm('shape step lvis gradients',
+                                        errs['lvis'], NORM_TOL_BF16),
+        'normal_grad_rel_err': check_norm('shape step normal gradients',
+                                          errs['normal'], DW_TOL_F32),
+        'grad_leaves': len(grads_k),
+        'tol': {'lvis': NORM_TOL_BF16, 'normal': DW_TOL_F32,
+                'loss': TOL_BF16}}
+
+
+def write_merl_tables(root):
+    """Synthetic MERL-format tables (the format of
+    data_gen_tpu/merl_make_dataset.py): train_/vali_<material>.npz of
+    MERL_ROWS random Rusinkiewicz rows each, a material's reflectance a
+    smooth function of theta_h, and the shared test.npz in the reference's
+    layout, the characteristic slice's rows then the sphere render's."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(0)
+    common = {'envmap_h': MERL_ENVMAP_H, 'ims': MERL_IMS, 'spp': 1}
+    for i, name in enumerate(MERL_MATERIALS):
+        rusink = (rng.rand(MERL_ROWS, 3) * [np.pi, np.pi / 2, np.pi / 2]
+                  ).astype(np.float32)
+        refl = (0.05 + (i + 1) * np.exp(-8 * rusink[:, 1:2] ** 2)).astype(
+            np.float32)
+        n_vali = MERL_ROWS // 100
+        for mode, rows in (('train', slice(n_vali, None)),
+                           ('vali', slice(0, n_vali))):
+            np.savez(join(root, '%s_%s.npz' % (mode, name)), i=i, name=name,
+                     rusink=rusink[rows], refl=refl[rows], **common)
+    ren = SphereRenderer('point', None, envmap_h=MERL_ENVMAP_H,
+                         envmap_inten=40, ims=MERL_IMS)
+    render = merl.dir2rusink(ren.ldir, ren.vdir)[ren.lvis.astype(bool)]
+    np.savez(join(root, 'test.npz'), rusink=np.vstack((
+        merl.characteristic_slice_rusink().reshape(-1, 3),
+        render)).astype(np.float32), **common)
+    return root
+
+
+def run_brdf_training(tables):
+    """The BRDF prior through trainvali.main on brdf.ini at full width
+    (128 x 4, z_dim 3, n_freqs 2, 1024 rows and their reciprocity twins a
+    step); checks its losses, that every leaf of ckpt-2 and ckpt-4 moved,
+    and the vali charts. Its MLP is plain PyTorch, as the JAX package's
+    runs on XLA: no kernel launches. Returns (launches, outdir,
+    record)."""
+    override = ','.join([
+        'data_root=' + tables, 'outroot=' + join(WORK, 'out', 'merl_train'),
+        'epochs=4', 'ckpt_period=2', 'vali_period=4', 'vali_batches=1'])
+    zero_counters()
+    outdir = trainvali.main(['--config', 'brdf.ini',
+                             '--config_override', override])['outdir']
+    torch.cuda.synchronize()
+    launches = counts()
+    if any(launches.values()):
+        raise AssertionError("kernels launched on the BRDF path: %s"
+                             % launches)
+    losses = train_scalars(outdir)
+    config = configutil.Config(configutil.read_config(outdir + '.ini'))
+    init = BrdfModel(config, device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    for n in (2, 4):
+        moved = changed_leaves(init, join(outdir, 'checkpoints',
+                                          'ckpt-%d' % n))
+        if not all(moved.values()):
+            raise AssertionError("BRDF ckpt-%d: leaves that did not move "
+                                 "under %s" % (n, moved))
+    vali_dir = join(outdir, 'vis_vali', 'epoch000000004')
+    for f in ('all.html', 'batch000000000/z.png',
+              'batch000000000/log10_brdf.png'):
+        if not os.path.exists(join(vali_dir, f)):
+            raise AssertionError("BRDF vali: no %s" % f)
+    return launches, outdir, {'loss_train': losses}
+
+
+def run_brdf_explore(ckpt):
+    """explore_brdf_space.main on a BRDF checkpoint: every test identity
+    (the seen materials, then N_BETWEEN steps between each consecutive
+    pair of a seeded choice) gets its charts, metadata, slice and sphere render; the
+    HTML and the interpolation video (an APNG without an mp4 backend).
+    Returns (launches, record)."""
+    zero_counters()
+    t0 = time.perf_counter()
+    run = explore_brdf_space.main(['--ckpt', ckpt])
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    dirs = ioutil.sortglob(run['outroot'], 'batch?????????')
+    n_iden = len(MERL_MATERIALS) + N_BETWEEN * (len(MERL_MATERIALS) - 1)
+    if len(dirs) != n_iden:
+        raise AssertionError("explore: %d identities, expected %d"
+                             % (len(dirs), n_iden))
+    for d in dirs:
+        for f in ('z.png', 'log10_brdf.png', 'metadata.json', 'cslice.png',
+                  'render.png'):
+            if not os.path.exists(join(d, f)):
+                raise AssertionError("explore: no %s in %s" % (f, d))
+    render = ioutil.load_img(join(dirs[-1], 'render.png'))
+    if render.shape[:2] != (MERL_IMS, MERL_IMS) \
+            or not np.isfinite(render).all():
+        raise AssertionError("explore render: %s" % (render.shape,))
+    video = [p for p in (run['outroot'] + '.apng', run['outroot'] + '.mp4')
+             if os.path.exists(p)]
+    if not os.path.exists(run['outroot'] + '.html') or not video:
+        raise AssertionError("explore: no HTML or video: %s" % video)
+    ids = [ioutil.read_json(join(d, 'metadata.json'))['id'] for d in dirs]
+    return launches, {'identities': n_iden, 'seconds': seconds,
+                      'video': os.path.basename(video[0]),
+                      'seen': ids[:len(MERL_MATERIALS)],
+                      'first_interpolated': ids[len(MERL_MATERIALS)]}
+
+
+def run_joint_from_port_stages(data_root, nerf_root, probe_dir, shape_dir,
+                               brdf_dir, material):
+    """trainvali.main on nerfactor.ini for 2 epochs restoring the shape and
+    BRDF checkpoints the two phases above wrote (shape_mode finetune),
+    then test.main with --tgt_brdf ``material`` on the joint ckpt-2.
+    Checks that the joint model restored the port-written leaves bit for
+    bit, the render's size, and that the edit's code is the BRDF
+    checkpoint's row for the material. Returns (launches, record)."""
+    shape_ckpt = join(shape_dir, 'checkpoints', 'ckpt-4')
+    brdf_ckpt = join(brdf_dir, 'checkpoints', 'ckpt-4')
+    override = ','.join([
+        'data_root=' + data_root, 'data_nerf_root=' + nerf_root,
+        'brdf_model_ckpt=' + brdf_ckpt, 'shape_model_ckpt=' + shape_ckpt,
+        'test_envmap_dir=' + probe_dir, 'imh=%d' % IMH,
+        'light_h=%d' % LIGHT_H, 'outroot=' + join(WORK, 'out', 'joint_port'),
+        'epochs=2', 'ckpt_period=2', 'vali_period=2', 'vali_batches=1'])
+    zero_counters()
+    outdir = trainvali.main(['--config', 'nerfactor.ini',
+                             '--config_override', override])['outdir']
+    torch.cuda.synchronize()
+    launches = read_counters(JOINT_KERNELS, 'joint training from the '
+                             "port's stage checkpoints")
+    config = configutil.Config(configutil.read_config(outdir + '.ini'))
+    if config.get('shape_mode') != 'finetune':
+        raise AssertionError("shape_mode %s" % config.get('shape_mode'))
+    joint = Model(config, device='cpu')
+    restored = joint.init_params(torch.Generator())
+    written = {}
+    for name, ckpt, cls, keys in (
+            ('shape', shape_ckpt, ShapeModel, SHAPE_PARAM_KEYS),
+            ('brdf', brdf_ckpt, BrdfModel, BRDF_PARAM_KEYS)):
+        sub = configutil.Config(configutil.read_config(
+            configutil.get_config_ini(ckpt)))
+        written[name] = ckptutil.restore_trained_params(ckpt, cls(
+            sub, device='cpu').init_params(torch.Generator()))
+        for k in keys:
+            if not all(torch.equal(a, b) for a, b in zip(
+                    ckptutil.tree_leaves(restored[k]),
+                    ckptutil.tree_leaves(written[name][k]))):
+                raise AssertionError("joint model: '%s' is not the leaves "
+                                     "of %s" % (k, ckpt))
+    losses = [json.loads(line)['loss_train'] for line in open(
+        join(outdir, 'summary_train', 'scalars.jsonl'))]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("joint from the port's stages: losses %s"
+                             % losses)
+    ind = BrdfModel(joint.config_brdf, device='cpu').brdf_names.index(
+        material)
+    rendered = test_cli.main(['--ckpt', join(outdir, 'checkpoints', 'ckpt-2'),
+                              '--tgt_brdf', material, '--debug'])
+    want_z = written['brdf']['latent_code'][ind].numpy()
+    if not np.array_equal(rendered['brdf_z_override'], want_z):
+        raise AssertionError("--tgt_brdf code %s, the BRDF checkpoint's row "
+                             "%s" % (rendered['brdf_z_override'], want_z))
+    img = ioutil.load_img(join(rendered['outroot'], 'batch000000000',
+                               'pred_rgb.png'))
+    if img.shape[:2] != (IMH, IMH) or not np.isfinite(img).all():
+        raise AssertionError("--tgt_brdf render: %s" % (img.shape,))
+    return launches, {'loss_train': losses, 'tgt_brdf': material,
+                      'brdf_z': want_z.tolist()}
 
 
 # ------ the NeRF slice ------
@@ -2542,6 +2872,35 @@ LIMIT_READINGS = {
 }
 
 
+def shape_k1(step, plans, fwd):
+    """K1-fwd's (``fwd``) or K1-bwd's reading in the shape step: launches
+    a step on and off the tensor cores, and the device ms a step of the
+    bf16 lvis chain's kernels and the f32 normal chain's (CUDA-core)
+    kernel, each beside its bound (2N rows of the normal chain, 2N x L
+    of lvis; the backwards with dW only)."""
+    name = 'K1-fwd' if fwd else 'K1-bwd'
+    per_step = step['launches_per_step']
+    of = step['device_ms_per_step_of']
+    bwd = None if fwd else (False, True)
+    rows = 2 * N_RAYS
+    if fwd:
+        lvis_ms = of['K1-fwd chain_fwd_tc_kernel']
+        normal_ms = of['K1-fwd chain_fwd_kernel (f32 normal)']
+    else:
+        lvis_ms = of['K1-bwd chain_bwd_tc_kernel'] + of['K1-bwd dw_kernel']
+        normal_ms = of['K1-bwd chain_bwd_kernel (f32 normal)']
+    return {
+        'launches_per_step': {'tc': per_step.get(name + ' tc', 0),
+                              'all': per_step.get(name, 0)},
+        'lvis_device_ms': lvis_ms,
+        'lvis_bound_ms': chain_bound(plans['lvis'], rows * N_LIGHTS, 'bf16',
+                                     6, 1, bwd=bwd)['bound_ms'],
+        'normal_f32_device_ms': normal_ms,
+        'normal_f32_bound': chain_bound(plans['normal'], rows, 'f32', 3, 3,
+                                        bwd=bwd),
+        'sum_slices_device_ms': of['K1 sum_slices_kernel']}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument(
@@ -2653,6 +3012,35 @@ def main(argv=None):
     step_stash, launches_stash_step = run_stash_step(train_config)
     torch.cuda.empty_cache()
 
+    # The stages whose checkpoints the joint model restores, through the
+    # user's entry points: the shape stage, the BRDF prior and its
+    # explorer, then the joint model from both
+    t0 = time.perf_counter()
+    launches_shape, shape_dir, shape_train = run_shape_training(data_root,
+                                                                nerf_root)
+    shape_train['seconds'] = time.perf_counter() - t0
+    shape_config = configutil.Config(configutil.read_config(
+        shape_dir + '.ini'))
+    shape_agreement = check_shape_step(shape_config)
+    torch.cuda.empty_cache()
+    shape_step = time_train_step(ShapeModel(shape_config, device='cuda'),
+                                 Dataset(shape_config, 'train'),
+                                 kernels=SHAPE_STEP_KERNELS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_brdf, brdf_dir, brdf_train = run_brdf_training(
+        write_merl_tables(join(WORK, 'data', 'merl_npz')))
+    brdf_train['seconds'] = time.perf_counter() - t0
+    brdf_config = configutil.Config(configutil.read_config(brdf_dir + '.ini'))
+    brdf_step = time_train_step(BrdfModel(brdf_config, device='cuda'),
+                                BrdfDataset(brdf_config, 'train'))
+    launches_explore, explore = run_brdf_explore(
+        join(brdf_dir, 'checkpoints', 'ckpt-4'))
+    launches_joint_port, joint_port = run_joint_from_port_stages(
+        data_root, nerf_root, probe_dir, shape_dir, brdf_dir,
+        MERL_MATERIALS[1])
+    torch.cuda.empty_cache()
+
     # The NeRF slice: training and serving through the user's entry points
     t0 = time.perf_counter()
     launches_nerf_train, nerf_dir, nerf_train = run_nerf_training(data_root)
@@ -2684,6 +3072,9 @@ def main(argv=None):
              'nerf_inference': launches_nerf_test,
              'last_skip_chain': launches_last_skip,
              'joint_training_stash_route': launches_stash_step,
+             'shape_training': launches_shape,
+             'brdf_training': launches_brdf, 'brdf_explore': launches_explore,
+             'joint_from_port_stages': launches_joint_port,
              **{'chain_probe_' + k: v for k, v in launches_probe.items()},
              'dot_probe': launches_dot}
     src = 'nerfactor_tpu_torch/csrc/'
@@ -2734,13 +3125,14 @@ def main(argv=None):
                       'K1-fwd', 0)},
               launches_per_view={k: launches_infer[c] / N_VIEWS for k, c in (
                   ('tc', 'K1-fwd tc'), ('all', 'K1-fwd'))},
+              shape_step=shape_k1(shape_step, plans, fwd=True),
               ptxas=ptxas_report(('chain_fwd',)),
               sass_hmma=hmma_of(tc_sass, 'chain_fwd_tc_kernel'),
               shapes=k1, nerf_no_views=k1_no_views),
         entry('K1-bwd chain_bwd_tc_kernel + dw_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:1497', lvis_b,
               chain_bound(plans['lvis'], lvis_b['rows'], lvis_b['dtype'], 6,
-                          1, bwd=(False, True)),
+                          1, bwd=(False, True)), counter='K1-bwd tc',
               max_abs_err=max(r['dx_max_abs_err'] for r in k1b
                               if 'dx_max_abs_err' in r),
               max_rel_err={'dW_db': max(r['dw_rel_err']
@@ -2749,6 +3141,8 @@ def main(argv=None):
               phase1_ms=lvis_b['phase1_ms'], dw_pass_ms=lvis_b['dw_pass_ms'],
               sums_ms=lvis_b['sums_ms'], packing_ms=lvis_b['packing_ms'],
               scratch_bytes=lvis_b['scratch_bytes'], tflops=lvis_b['tflops'],
+              cuda_core_launches_by_path=cuda_core_by_path('K1-bwd'),
+              shape_step=shape_k1(shape_step, plans, fwd=False),
               ptxas=ptxas_report(('chain_bwd_tc', 'dw_kernel')),
               sass_hmma=hmma_of(tc_sass, 'chain_bwd_tc_kernel', 'dw_kernel'),
               shapes=k1b),
@@ -2930,6 +3324,11 @@ def main(argv=None):
         'forward_max_abs_err': fwd_err, 'imh': IMH, 'n_lights': N_LIGHTS,
         'training': dict(train_out, seconds=train_s), 'train_step': step,
         'train_step_stash_route': step_stash, 'chain_probe': probe_records,
+        'shape': {'training': shape_train, 'train_step': shape_step,
+                  'step_agreement': shape_agreement},
+        'brdf': {'training': brdf_train, 'train_step': brdf_step,
+                 'explore': explore},
+        'joint_from_port_stages': joint_port,
         'nerf': {'training': dict(nerf_train, seconds=nerf_train_s),
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},

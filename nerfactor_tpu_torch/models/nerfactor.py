@@ -451,16 +451,7 @@ class Model(ShapeModel):
         brdf_z_override = self._as_tensor(brdf_z_override)
         xyz = batch['xyz']
         if mode == 'train':
-            if self.xyz_jitter_std > 0 and jitter_noise is None:
-                if generator is None:
-                    raise ValueError(
-                        "Train mode with xyz_jitter_std > 0 draws the "
-                        "smoothness jitter: pass a generator or jitter_noise")
-                jitter_noise = self.xyz_jitter_std * torch.randn(
-                    xyz.shape, generator=generator, dtype=xyz.dtype,
-                    device=xyz.device)
-            if self.xyz_jitter_std <= 0:
-                jitter_noise = None
+            jitter_noise = self._jitter(xyz, generator, jitter_noise)
             out = self._forward_rays(
                 params, xyz, batch['rayo'], batch['normal'], batch['lvis'],
                 albedo_scales=albedo_scales, albedo_override=albedo_override,

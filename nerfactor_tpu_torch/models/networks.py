@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from nerfactor_tpu_torch.ops import geom
 from nerfactor_tpu_torch.ops.math import safe_l2_normalize
 
 ACTS = {
@@ -103,3 +104,19 @@ def latent_code_z(z_table, normalize=False):
     if normalize:
         return safe_l2_normalize(z_table, dim=1)
     return z_table
+
+
+def latent_code_lookup(z_table, ind, normalize=False):
+    return latent_code_z(z_table, normalize)[ind]
+
+
+def latent_code_interp(z_table, w1, i1, w2, i2, normalize=False):
+    """lerp (or slerp on the unit sphere) between two identities."""
+    z = latent_code_z(z_table, normalize)
+    z1, z2 = z[i1][None, :], z[i2][None, :]
+    if normalize:
+        if abs(w1 + w2 - 1.0) >= 1e-6:
+            raise ValueError(
+                "When latent codes are normalized, weights must sum to 1")
+        return geom.slerp(z1, z2, w2)
+    return w1 * z1 + w2 * z2

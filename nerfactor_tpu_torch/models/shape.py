@@ -1,22 +1,31 @@
-"""Shape model: surface MLPs for normal(xyz) and light visibility(xyz,
-ldir) (counterpart of nerfactor_tpu/models/shape.py, the parts the joint
-model uses).
+"""Shape model: surface MLPs distilling NeRF geometry -- normal(xyz) and
+light visibility(xyz, ldir) -- trained against the distilled buffers with
+jitter-based smoothness priors (counterpart of
+nerfactor_tpu/models/shape.py; the stage ``shape.ini`` trains).
 
 The joint NeRFactor model builds on this class for its shape heads and
 restores their weights from a shape checkpoint. Both heads run as fused
 chains (ops/fused_mlp.py): on the GPU the lvis chain, at rays x lights
-scale, is the largest kernel launch of inference and training.
+scale, is the largest kernel launch of inference and training. Training
+evaluates the (rays x lights) lvis rows in one dense chain call; vali and
+test walk ray chunks of ``eval_ray_chunk``.
 """
+
+from os.path import join
 
 import numpy as np
 import torch
 
 from nerfactor_tpu_torch.models.base import BaseModel
 from nerfactor_tpu_torch.models import networks
+from nerfactor_tpu_torch.models.losses import mse_lastdim, mae_lastdim
 from nerfactor_tpu_torch.ops import encoding
 from nerfactor_tpu_torch.ops import fused_mlp
+from nerfactor_tpu_torch.ops import img as imgops
 from nerfactor_tpu_torch.ops.light import gen_light_xyz
 from nerfactor_tpu_torch.ops.math import safe_l2_normalize
+from nerfactor_tpu_torch.utils import (
+    ckpt as ckptutil, io as ioutil, vis as visutil)
 
 
 class Model(BaseModel):
@@ -129,7 +138,8 @@ class Model(BaseModel):
             needs_dw=needs_dw)
 
     def init_params(self, generator):
-        return {name: spec.init(generator)
+        return {name: ckptutil.tree_map(lambda t: t.to(self.device),
+                                        spec.init(generator))
                 for name, spec in self.specs.items()}
 
     def calc_ldir(self, pts):
@@ -161,3 +171,185 @@ class Model(BaseModel):
                            needs_dx=False,
                            needs_dw=self.shape_heads_need_dw)
         return lvis.reshape(n, l)
+
+    def _forward_chunked(self, fn, pts, chunk):
+        """``fn`` over chunks of ``chunk`` rows of ``pts``; the last chunk
+        is padded with copies of the last row, as the JAX package's
+        ``lax.map`` over static chunks, so every chunk holds the rows it
+        holds there."""
+        n = pts.shape[0]
+        if n <= chunk:
+            return fn(pts)
+        n_chunks = -(-n // chunk)
+        pad = n_chunks * chunk - n
+        if pad:
+            pts = torch.cat([pts, pts[-1:].expand(pad, pts.shape[1])], dim=0)
+        outs = [fn(pts[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
+        return {k: torch.cat([o[k] for o in outs], dim=0)[:n]
+                for k in outs[0]}
+
+    def _jitter(self, xyz, generator, jitter_noise):
+        """The smoothness jitter: ``jitter_noise`` (already scaled) or
+        ``xyz_jitter_std * N(0, 1)`` drawn from ``generator``; None when
+        ``xyz_jitter_std`` is 0. (The JAX model silently drops the probes
+        when its key is None; here a missing source raises.)"""
+        if self.xyz_jitter_std <= 0:
+            return None
+        if jitter_noise is not None:
+            return jitter_noise
+        if generator is None:
+            raise ValueError(
+                "Train mode with xyz_jitter_std > 0 draws the smoothness "
+                "jitter: pass a generator or jitter_noise")
+        return self.xyz_jitter_std * torch.randn(
+            xyz.shape, generator=generator, dtype=xyz.dtype,
+            device=xyz.device)
+
+    def apply(self, params, batch, mode='train', generator=None,
+              jitter_noise=None):
+        """Normals and light visibility at the batch's surface points.
+        Train mode runs the batch in one block; the smoothness probes at
+        ``xyz + noise`` (see :meth:`_jitter`) ride the same chain calls
+        as the main rows: each head whose smoothness weight is nonzero
+        runs once on 2N stacked rows, and a head whose weight is zero
+        runs on N. Vali and test modes walk ray chunks."""
+        self._validate_mode(mode)
+        alpha = batch['alpha']
+        xyz, normal, lvis = batch['xyz'], batch['normal'], batch['lvis']
+        normal_jitter, lvis_jitter = None, None
+        if mode == 'train':
+            noise = self._jitter(xyz, generator, jitter_noise)
+            jit_normal = noise is not None and self.normal_smooth_weight > 0
+            jit_lvis = noise is not None and self.lvis_smooth_weight > 0
+            n = xyz.shape[0]
+            if noise is not None:
+                xyz_all = torch.cat([xyz, xyz + noise], dim=0)
+            normal_all = self.pred_normal_at(
+                params, xyz_all if jit_normal else xyz)
+            lvis_in = xyz_all if jit_lvis else xyz
+            lvis_all = self.pred_lvis_at(params, lvis_in,
+                                         self.calc_ldir(lvis_in))
+            out = {'normal': normal_all[:n], 'lvis': lvis_all[:n]}
+            if jit_normal:
+                normal_jitter = safe_l2_normalize(normal_all[n:], dim=1)
+            if jit_lvis:
+                lvis_jitter = lvis_all[n:]
+        else:
+            def forward(pts):
+                return {'normal': self.pred_normal_at(params, pts),
+                        'lvis': self.pred_lvis_at(params, pts,
+                                                  self.calc_ldir(pts))}
+
+            out = self._forward_chunked(forward, xyz, self.eval_ray_chunk)
+        pred = {'normal': safe_l2_normalize(out['normal'], dim=1),
+                'lvis': out['lvis']}
+        gt = {'normal': normal, 'lvis': lvis, 'alpha': alpha}
+        loss_kwargs = {'normal_jitter': normal_jitter,
+                       'lvis_jitter': lvis_jitter}
+        to_vis = {'gt_alpha': alpha}
+        for k, v in pred.items():
+            to_vis['pred_' + k] = v
+        for k in ('normal', 'lvis'):
+            to_vis['gt_' + k] = gt[k]
+        return pred, gt, loss_kwargs, to_vis
+
+    def compute_loss(self, params, pred, gt, normal_jitter=None,
+                     lvis_jitter=None, **kwargs):
+        """Per-example loss; signals composited onto the background
+        first (reference shape.py:239-277)."""
+        smooth_loss = mae_lastdim if self.smooth_use_l1 else mse_lastdim
+        alpha = gt['alpha']
+        bgv = 1.0 if self.white_bg else 0.0
+
+        def blend(x):
+            return x * alpha + bgv * (1 - alpha)
+
+        normal_pred, lvis_pred = blend(pred['normal']), blend(pred['lvis'])
+        loss = self.normal_loss_weight * mse_lastdim(blend(gt['normal']),
+                                                     normal_pred)
+        loss = loss + self.lvis_loss_weight * mse_lastdim(blend(gt['lvis']),
+                                                          lvis_pred)
+        if normal_jitter is not None:
+            loss = loss + self.normal_smooth_weight * smooth_loss(
+                normal_pred, blend(normal_jitter))
+        if lvis_jitter is not None:
+            loss = loss + self.lvis_smooth_weight * smooth_loss(
+                lvis_pred, blend(lvis_jitter))
+        return loss
+
+    # ------ host-side vis ------
+
+    def vis_batch(self, data_dict, outdir, mode='train'):
+        """One view's normal and visibility maps (pred and gt); in vali
+        mode also the pred-vs-gt flipbooks. Writes metadata.json."""
+        self._validate_mode(mode)
+        if mode == 'train':
+            return
+        data_dict = dict(data_dict)
+        hw = tuple(int(x) for x in data_dict.pop('hw'))
+        id_ = data_dict.pop('id')
+        imgs = {}
+        for k, v in data_dict.items():
+            v = np.asarray(v)
+            if k.endswith('normal'):
+                imgs[k] = v.reshape(hw + (3,))
+            elif k.endswith(('occu', 'alpha')):
+                imgs[k] = v.reshape(hw)
+            elif k.endswith('lvis'):
+                imgs[k] = v.reshape(hw + (v.shape[-1],))
+            else:
+                raise NotImplementedError(k)
+        img_dict = {}
+        alpha = imgs['gt_alpha']
+        for k, v in imgs.items():
+            if k.endswith('normal'):
+                v = (v + 1) / 2
+            elif k.endswith('lvis'):
+                v = np.mean(v, axis=2)
+            else:
+                img_dict[k] = ioutil.write_img(v, join(outdir, k + '.png'))
+                continue
+            bg = np.ones_like(v) if self.white_bg else np.zeros_like(v)
+            img_dict[k] = ioutil.write_img(imgops.alpha_blend(v, alpha, bg),
+                                           join(outdir, k + '.png'))
+        if mode == 'vali':
+            font_color = (0, 0, 0) if self.white_bg else (1.0, 1.0, 1.0)
+            for k in ('normal', 'lvis'):
+                visutil.make_anim(
+                    (visutil.put_text(img_dict['gt_' + k], "Initial",
+                                      color=font_color),
+                     visutil.put_text(img_dict['pred_' + k], "Prediction",
+                                      color=font_color)),
+                    join(outdir, 'pred-vs-gt_%s.apng' % k))
+        ioutil.write_json({'id': id_}, join(outdir, 'metadata.json'))
+
+    def compile_batch_vis(self, batch_vis_dirs, outpref, mode='train'):
+        """Vali: one HTML page of the epoch's flipbooks; returns its
+        path. Test-time videos come from the joint model."""
+        self._validate_mode(mode)
+        if mode == 'train':
+            return None
+        if mode != 'vali':
+            raise ValueError(
+                "The shape model compiles only validation batches (use the "
+                "NeRFactor model for test-time videos)")
+        rows = []
+        for batch_dir in batch_vis_dirs:
+            metadata = ioutil.read_json(join(batch_dir, 'metadata.json'))
+            rows.append([str(metadata),
+                         join(batch_dir, 'pred-vs-gt_normal.apng'),
+                         join(batch_dir, 'pred-vs-gt_lvis.apng')])
+        if not rows:
+            raise ValueError("No validation views to compile")
+        html = visutil.HTML(
+            bgcolor='white' if self.white_bg else 'black',
+            text_color='black' if self.white_bg else 'white')
+        html.add_header("Refining and Caching Geometry Initialization")
+        table = html.add_table()
+        for r in rows:
+            table.add_row(r, ['text', 'image', 'image'],
+                          captions=["Metadata", "Normal",
+                                    "Light Visibility"])
+        out_html = outpref + '.html'
+        html.save(out_html)
+        return self.config.get('viewer_prefix', fallback='') + out_html

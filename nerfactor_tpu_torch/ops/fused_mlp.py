@@ -877,17 +877,19 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
     are bit-identical for the same inputs on the same card. ``wt``: the
     transposed hidden weights that K1-fwd's tensor-core kernel read for
     these params, which the tensor-core backward then does not pack again.
-    Counts its launches in ``chain_kernel_bwd.launches``."""
+    Counts its launches in ``chain_kernel_bwd.launches``, those of the
+    tensor-core design also in ``chain_kernel_bwd.tc_launches``."""
     _check_route(plan, 'K1-bwd', False)
     tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
                              x.device)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
                                 needs_dw, tc, wt=wt)
     chain_kernel_bwd.launches += ran
+    chain_kernel_bwd.tc_launches += int(ran and tc)
     return dx, grads
 
 
-chain_kernel_bwd.launches = 0
+chain_kernel_bwd.launches = chain_kernel_bwd.tc_launches = 0
 
 
 def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,

@@ -1,5 +1,5 @@
-"""Local shading frames and Rusinkiewicz coordinates (counterpart of
-nerfactor_tpu/ops/geom.py; reference nerfactor/util/geom.py:119-192)."""
+"""Local shading frames, Rusinkiewicz coordinates and slerp (counterpart
+of nerfactor_tpu/ops/geom.py; reference nerfactor/util/geom.py:100-192)."""
 
 import math
 
@@ -57,3 +57,20 @@ def dir2rusink(a, b):
     phi_d = torch.remainder(mathops.safe_atan2(diff[:, 1], diff[:, 0]),
                             math.pi)
     return torch.stack((phi_d, theta_h, theta_d), dim=1)
+
+
+def slerp(p0, p1, t):
+    """Spherical linear interpolation between two unit latent codes, 2D
+    with one singleton dimension each (reference util/geom.py:100-116)."""
+    if not p0.dim() == p1.dim() == 2:
+        raise ValueError("Vectors must be 2D")
+    if p0.shape[0] == 1:
+        cos_omega = p0 @ p1.T
+    elif p0.shape[1] == 1:
+        cos_omega = p0.T @ p1
+    else:
+        raise ValueError("Vectors should have one singleton dimension")
+    omega = mathops.safe_acos(cos_omega)
+    z0 = p0 * torch.sin((1 - t) * omega) / torch.sin(omega)
+    z1 = p1 * torch.sin(t * omega) / torch.sin(omega)
+    return z0 + z1

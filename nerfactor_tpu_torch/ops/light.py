@@ -64,10 +64,16 @@ def vis_light(light_probe, h=None, gamma=4.0):
 
 
 def load_light(path, envmap_inten=1.0, envmap_h=None):
-    """Loads a light probe (.npy, .hdr or .exr, the kinds the test
-    test CLI globs for), optionally resized and scaled (reference
+    """Loads a light probe (.npy, .hdr or .exr, the kinds the test CLI
+    globs for; or 'point', the sphere renderer's small square light, of
+    height ``envmap_h`` or 16), optionally resized and scaled (reference
     brdf/renderer.py:222-249)."""
-    if path.endswith('.npy'):
+    if path == 'point':
+        h = 16 if envmap_h is None else envmap_h
+        envmap = np.zeros((h, 2 * h, 3), dtype=np.float32)
+        i, j, d = -h // 4, -int(2 * h * 7 / 8), 2
+        envmap[(i - d):(i + d), (j - d):(j + d), :] = 1
+    elif path.endswith('.npy'):
         envmap = np.load(path).astype(np.float32)
     elif path.endswith('.hdr'):
         envmap = hdrutil.read_hdr(path)

@@ -1,9 +1,9 @@
 """NeRFactor inference on PyTorch: relighting and view synthesis, plus
-albedo color correction and albedo edits (counterpart of
+albedo color correction and albedo and BRDF edits (counterpart of
 nerfactor_tpu/test.py, same CLI):
 
   python -m nerfactor_tpu_torch.test --ckpt=/path/to/ckpt-10 \
-      [--color_correct_albedo] [--tgt_albedo=gold] \
+      [--color_correct_albedo] [--tgt_albedo=gold] [--tgt_brdf=pearl-paint] \
       [--sv_axis_i=0 --sv_axis_min=-1.5 --sv_axis_max=1.5] [--debug] \
       [--device=cuda]
 
@@ -11,8 +11,10 @@ The config is found from the checkpoint path by convention
 (<outroot>/<xname>/checkpoints/ckpt-N -> <outroot>/<xname>.ini). Each
 test view gets the per-view images of nerfactor_tpu/test.py under
 <outroot>/<xname>/vis_test/ckpt-N[_edit]/batch?????????/; the last view
-also gets the OLAT relights. ``--device`` picks the torch device (the
-CUDA kernels run on ``cuda``; ``cpu`` runs their plain versions).
+also gets the OLAT relights. ``--tgt_brdf`` names a material of the BRDF
+prior's training tables: its latent code replaces the predicted one at
+every point. ``--device`` picks the torch device (the CUDA kernels run on
+``cuda``; ``cpu`` runs their plain versions).
 """
 
 import argparse
@@ -25,6 +27,7 @@ import torch
 from nerfactor_tpu_torch.utils import config as configutil
 from nerfactor_tpu_torch.utils.logging import Logger
 from nerfactor_tpu_torch import datasets, models
+from nerfactor_tpu_torch.models.brdf import Model as BRDFModel
 from nerfactor_tpu_torch.ops import img as imgops
 from nerfactor_tpu_torch.utils import ckpt as ckptutil, io as ioutil
 
@@ -105,8 +108,10 @@ def get_albedo_override(args, xyz):
 
 
 def main(argv=None):
-    """Runs inference; returns {'outroot', 'view_seconds'}, the seconds
-    of each view's forward (device work included) and its image writes."""
+    """Runs inference; returns {'outroot', 'view_seconds',
+    'brdf_z_override'}: the seconds of each view's forward (device work
+    included) and its image writes, and the latent code a --tgt_brdf edit
+    put on every point (None without one)."""
     args = parse_args(argv)
     if args.debug:
         logger.warn("Debug mode: on")
@@ -114,11 +119,6 @@ def main(argv=None):
         raise SystemExit(
             "Unknown --tgt_albedo '%s'; choose one of %s"
             % (args.tgt_albedo, ', '.join(ALBEDO_EDITS)))
-    if args.tgt_brdf:
-        raise NotImplementedError(
-            "--tgt_brdf needs the BRDF prior model (models/brdf.py), which "
-            "is not ported yet: see ROADMAP.md, Queue 1 item 2 (the BRDF "
-            "prior)")
     # The rendering equation and every f32 chain stay true f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -130,6 +130,8 @@ def main(argv=None):
                    basename(args.ckpt))
     if args.tgt_albedo:
         outroot += '_%s' % args.tgt_albedo
+    if args.tgt_brdf:
+        outroot += '_%s' % args.tgt_brdf
 
     # Dataset: test trajectory (placeholder RGB)
     Dataset = datasets.get_dataset_class(config.get('dataset'))
@@ -149,6 +151,13 @@ def main(argv=None):
         albedo_scales = compute_rgb_scales(args.ckpt)
         logger.info("Albedo scales: %s", albedo_scales)
 
+    # BRDF edit: the named MERL material's latent code
+    brdf_z_override = None
+    if args.tgt_brdf:
+        ind = BRDFModel(model.config_brdf, device='cpu').brdf_names.index(
+            args.tgt_brdf)
+        brdf_z_override = params['latent_code'][ind, :].cpu().numpy()
+
     logger.info("Running inference on %d views on %s", n_views, device)
     view_seconds = []
     for batch_i, batch in enumerate(datapipe):
@@ -166,7 +175,8 @@ def main(argv=None):
             _, _, _, to_vis = model.apply(
                 params, arrays, mode='test', relight_olat=relight_olat,
                 relight_probes=True, albedo_scales=albedo_scales,
-                albedo_override=albedo_override)
+                albedo_override=albedo_override,
+                brdf_z_override=brdf_z_override)
         to_vis_np = {k: v.cpu().numpy() for k, v in to_vis.items()}
         to_vis_np.update(meta)
         outdir = join(outroot, 'batch{i:09d}'.format(i=batch_i))
@@ -178,7 +188,8 @@ def main(argv=None):
             break
     logger.info("Per-view images written under %s (the video/HTML compile "
                 "is not ported yet, see ROADMAP.md)", outroot)
-    return {'outroot': outroot, 'view_seconds': view_seconds}
+    return {'outroot': outroot, 'view_seconds': view_seconds,
+            'brdf_z_override': brdf_z_override}
 
 
 if __name__ == '__main__':

@@ -1,6 +1,7 @@
 """Training and validation on PyTorch (counterpart of
 nerfactor_tpu/trainvali.py, same CLI and configs); the ported models are
-NeRF (nerf.ini) and the joint NeRFactor model (nerfactor.ini):
+NeRF (nerf.ini), the shape stage (shape.ini), the BRDF prior (brdf.ini)
+and the joint NeRFactor model (nerfactor.ini):
 
   python -m nerfactor_tpu_torch.trainvali --config=nerf.ini \
       --config_override='data_root=...,outroot=...' [--debug] \

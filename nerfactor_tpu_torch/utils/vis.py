@@ -1,11 +1,18 @@
-"""Host-side visualization: labeled frames, APNG flipbooks and HTML
-galleries (counterpart of put_text, make_anim and HTML in
-nerfactor_tpu/utils/vis.py). PIL only, imported where it is used."""
+"""Host-side visualization: labeled frames, APNG flipbooks, videos, bar
+charts and HTML galleries (counterpart of put_text, make_anim, make_video,
+bar_chart and HTML in nerfactor_tpu/utils/vis.py). PIL only, imported
+where it is used; a video is an mp4 where imageio and its ffmpeg backend
+are installed, else an animated PNG."""
 
 import os
 from os.path import dirname
 
 import numpy as np
+
+from nerfactor_tpu_torch.utils import io as ioutil
+from nerfactor_tpu_torch.utils.logging import Logger
+
+logger = Logger(loggee="utils/vis")
 
 
 def _to_uint8(img):
@@ -52,6 +59,54 @@ def make_anim(imgs, outpath, duration_ms=1000):
     frames[0].save(
         outpath, save_all=True, append_images=frames[1:],
         duration=duration_ms, loop=0, default_image=False)
+    return outpath
+
+
+def make_video(frames, outpath, fps=12):
+    """mp4 (through imageio's ffmpeg backend) with an animated-PNG
+    fallback; returns the path written, or None without frames."""
+    os.makedirs(dirname(outpath), exist_ok=True)
+    frames = [_to_rgb(f) for f in frames]
+    if not frames:
+        logger.warn("No frames to make a video from: %s", outpath)
+        return None
+    # Even dimensions, as most codecs require
+    h, w = frames[0].shape[:2]
+    h2, w2 = h - h % 2, w - w % 2
+    frames = [f[:h2, :w2] for f in frames]
+    try:
+        import imageio.v2 as imageio
+        writer = imageio.get_writer(outpath, fps=fps)
+        for f in frames:
+            writer.append_data(f)
+        writer.close()
+        return outpath
+    except Exception as e:  # no imageio or no ffmpeg backend
+        alt = outpath.rsplit('.', 1)[0] + '.apng'
+        logger.warn("Video backend unavailable (%s); writing %s", e, alt)
+        return make_anim(frames, alt, duration_ms=int(1000 / fps))
+
+
+def bar_chart(values, outpath):
+    """A bar chart of ``values`` (one series per row) as a 256-px-high
+    image, the JAX package's drawing pixel for pixel."""
+    values = np.atleast_2d(np.asarray(values, dtype=np.float64))
+    n_rows, n_groups = values.shape
+    h, w = 256, max(256, 4 * max(n_rows, n_groups))
+    img = np.ones((h, w, 3), dtype=np.uint8) * 255
+    vmin, vmax = np.nanmin(values), np.nanmax(values)
+    vrange = (vmax - vmin) if vmax > vmin else 1.0
+    flat = values.T.reshape(-1)  # group-major: the row cycles fastest
+    bar_w = max(1, w // max(len(flat), 1))
+    colors = [(31, 119, 180), (255, 127, 14), (44, 160, 44)]
+    for i, v in enumerate(flat):
+        if not np.isfinite(v):
+            continue
+        bh = int((v - vmin) / vrange * (h - 20))
+        x0 = i * bar_w
+        img[h - 10 - bh:h - 10, x0:x0 + max(1, bar_w - 1)] = \
+            colors[i % n_rows % len(colors)]  # color = series (row)
+    ioutil.write_img(img, outpath)
     return outpath
 
 

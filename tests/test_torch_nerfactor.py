@@ -14,6 +14,7 @@ MLPs) with BRDF, shape and joint checkpoints written by the JAX package:
 """
 
 import os
+import shutil
 import subprocess
 import sys
 from os.path import dirname, join
@@ -281,25 +282,42 @@ def test_cli_edits(scene):
                 '--debug'])
     outroot = join(dirname(dirname(ckpt)), 'vis_test', 'ckpt-4_gold')
     assert os.path.exists(join(outroot, 'batch000000000', 'pred_rgb.png'))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ttest.main(['--ckpt', ckpt, '--device', 'cpu',
-                    '--tgt_brdf', 'pearl-paint'])
     with pytest.raises(SystemExit):
         ttest.main(['--ckpt', ckpt, '--tgt_albedo', 'chrome'])
 
 
-def test_tgt_brdf_names_the_roadmap_item():
-    """--tgt_brdf raises before any checkpoint is read, and its message
-    points at the ROADMAP item that ports the BRDF prior, which exists."""
-    with pytest.raises(NotImplementedError) as err:
-        ttest.main(['--ckpt', 'unused', '--device', 'cpu',
-                    '--tgt_brdf', 'pearl-paint'])
-    msg = str(err.value)
-    assert 'ROADMAP.md, Queue 1 item 2 (the BRDF prior)' in msg
-    with open(join(dirname(dirname(__file__)), 'ROADMAP.md')) as f:
-        roadmap = f.read()
-    queue1 = roadmap.split('### Queue 1')[1].split('\n### ')[0]
-    assert '\n2. **BRDF prior**' in queue1
+def test_tgt_brdf_matches_jax(scene):
+    """--tgt_brdf: both CLIs (--debug: the last view, OLAT relights on)
+    with the latent code of a material the BRDF tables name, each in its
+    own copy of one experiment. The port's per-view files are the JAX
+    CLI's, the images within 1/255, and its code is the checkpoint's row
+    for that material."""
+    ckpt, _, _, jparams = make_joint(scene, 'tgt_brdf',
+                                     'bf16_big_chains=False')
+    run = dirname(dirname(ckpt))
+    shutil.copytree(run, run + '_port')
+    shutil.copy(run + '.ini', run + '_port.ini')
+    jtest.main(['--ckpt', ckpt, '--tgt_brdf', 'pearl-paint', '--debug'])
+    got = ttest.main(['--ckpt', join(run + '_port', 'checkpoints', 'ckpt-4'),
+                      '--device', 'cpu', '--tgt_brdf', 'pearl-paint',
+                      '--debug'])
+    assert got['outroot'] == join(run + '_port', 'vis_test',
+                                  'ckpt-4_pearl-paint')
+    np.testing.assert_array_equal(got['brdf_z_override'],
+                                  np.asarray(jparams['latent_code'][1]))
+    jax_root = join(run, 'vis_test', 'ckpt-4_pearl-paint', 'batch000000000')
+    port_root = join(got['outroot'], 'batch000000000')
+    files = _files(jax_root)
+    assert _files(port_root) == files and 'pred_brdf.png' in files
+    for f in files:
+        if f.endswith('.png'):
+            a = imageio.imread(join(port_root, f)).astype(int)
+            b = imageio.imread(join(jax_root, f)).astype(int)
+            assert a.shape == b.shape and np.abs(a - b).max() <= 1, f
+    # The edit shows: every point takes the one code
+    brdf = imageio.imread(join(port_root, 'pred_brdf.png'))
+    alpha = imageio.imread(join(port_root, 'gt_alpha.png')) > 204
+    assert len(np.unique(brdf[alpha].reshape(-1, 3), axis=0)) == 1
 
 
 def test_color_correction_scales_match_jax(scene):
