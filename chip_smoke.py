@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port of NeRFactor on one GPU: the joint
 model's inference and training, the shape stage's and the BRDF prior's
 training (and the prior's explorer), the joint model from their
-checkpoints, and the NeRF stage's training and test rendering.
+checkpoints, the NeRF stage's training and test rendering, and geometry
+distillation from that NeRF with the shape stage on its buffers.
 
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
@@ -127,13 +128,36 @@ checkpoints, and the NeRF stage's training and test rendering.
    nerfactor.ini for 2 epochs restoring the two checkpoints above (the
    restored leaves bit for bit the written ones), then ``test.main`` with
    ``--tgt_brdf`` (the edit's code is the BRDF checkpoint's row).
+21. Geometry distillation: runs ``geometry_from_nerf.main`` on the NeRF
+   run's ckpt-4 at nerf.ini's full width (8 x 256, 128 + 192 samples, 512
+   lights) over every view of the scene (3 train, 1 val, 3 test) at imh
+   64, counters zeroed before and read after (K1-fwd on the tensor cores
+   in the bf16 visibility march, on the CUDA cores in the f32 depth/normal
+   pass, K1-bwd on the CUDA cores with dx alone: no dW); checks the files,
+   foreground, unit normals and lvis in [0, 1]; holds the card's two
+   passes against the port's CPU run on 256 rays and 16 surface points,
+   and reads the controls that must break those limits (the depth/normal
+   pass in bf16, the march without the reference's 64 extra samples).
+22. The shape stage (``trainvali.main`` on shape.ini, as 18) trained from
+   the buffers 21 wrote, at imh 64.
+23. The sigma chain at distillation's shapes: bf16 K1-fwd on the tensor
+   cores at one visibility block's 8,355,840 rows, f32 K1-fwd and K1-bwd
+   with dx alone at one depth/normal block's 1,048,320 rows, against the
+   plain versions, with ms, device ms (the mean over the launches a
+   profiler window recorded; none recorded fails) and bounds.
+24. ``tools.march_probe`` through its entry point at its defaults (nerf.ini,
+   4096 points x 512 lights, 16384 rays), counters zeroed before and read
+   after: ``lvis_march_torch`` and ``depth_normal_torch`` with the device's
+   idle share, one JSON line each.
 
 Prints a JSON line of per-kernel results (with each kernel's bound: the
-least time the card could take for the same work), the nvidia-smi line,
+least time the card could take for the same work; also written to
+build/smoke/result.json), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the run exits non-zero. The only cuts from production are imh
-128 (not 512) and the BRDF test table's render (64 x 64, not 128); the
-probes run at their own defaults, uncut.
+128 (not 512; distillation and the shape stage on its buffers imh 64) and
+the BRDF test table's render (64 x 64, not 128); the probes run at their
+own defaults, uncut.
 
   python3 chip_smoke.py --limit_seeds k3 11,12,13,14
   python3 chip_smoke.py --limit_seeds k1 11,12,13,14
@@ -195,7 +219,8 @@ from os.path import abspath, dirname, join
 import numpy as np
 import torch
 
-from nerfactor_tpu_torch import explore_brdf_space, nerf_test
+from nerfactor_tpu_torch import explore_brdf_space, geometry_from_nerf
+from nerfactor_tpu_torch import nerf_test
 from nerfactor_tpu_torch import test as test_cli
 from nerfactor_tpu_torch import trainvali
 from nerfactor_tpu_torch.brdf import merl
@@ -211,7 +236,7 @@ from nerfactor_tpu_torch.models.nerfactor import (
     BRDF_PARAM_KEYS, SHAPE_PARAM_KEYS, Model)
 from nerfactor_tpu_torch.models.shape import Model as ShapeModel
 from nerfactor_tpu_torch.ops import dot_probe as dp
-from nerfactor_tpu_torch.ops import encoding, geom as geomops
+from nerfactor_tpu_torch.ops import encoding, geom as geomops, sampling
 from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import fused_nerf as fn
 from nerfactor_tpu_torch.ops import fused_rusink as fr
@@ -219,9 +244,9 @@ from nerfactor_tpu_torch.ops import kernel_lib
 from nerfactor_tpu_torch.ops.light import gen_light_xyz
 from nerfactor_tpu_torch.parallel.train import (
     build_optimizer, make_train_step, upcast_batch)
-from nerfactor_tpu_torch.tools import chain_probe, dot_probe
+from nerfactor_tpu_torch.tools import chain_probe, dot_probe, march_probe
 from nerfactor_tpu_torch.utils import (
-    ckpt as ckptutil, config as configutil, io as ioutil)
+    card, ckpt as ckptutil, config as configutil, io as ioutil)
 
 ROOT = dirname(abspath(__file__))
 WORK = join(ROOT, 'build', 'smoke')
@@ -258,14 +283,6 @@ NORM_TOL_BF16 = 0.025
 TOL_BF16_GRAD = (1e-1, 1e-1)
 
 
-def gpu_name_and_power():
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 # ------ synthetic scene: analytic sphere seen from a camera ring ------
 
 SPHERE_R, CAM_DIST, ANGLE_X = 0.8, 4.0, 0.6911112070083618
@@ -282,10 +299,11 @@ def look_at_c2w(cam_loc):
     return c2w
 
 
-def write_scene(data_root, nerf_root):
-    """Views on camera rings around the sphere: per view metadata.json and
-    the geometry buffers, and for train/val views an rgba.png shaded by a
-    Lambertian albedo under one directional light plus ambient."""
+def write_scene(data_root, nerf_root, imh=IMH):
+    """Views on camera rings around the sphere at ``imh``: per view
+    metadata.json and (under ``nerf_root``, unless None) the geometry
+    buffers, and for train/val views an rgba.png shaded by a Lambertian
+    albedo under one directional light plus ambient."""
     lxyz = gen_light_xyz(LIGHT_H, 2 * LIGHT_H)[0].reshape(-1, 3)
     sun = np.array([0.5, 0.5, 1.0]) / np.linalg.norm([0.5, 0.5, 1.0])
     views = [('test', i, N_VIEWS, 70.0) for i in range(N_VIEWS)] \
@@ -298,11 +316,11 @@ def write_scene(data_root, nerf_root):
         vid = '%s_%03d' % (mode, i)
         ioutil.write_json({
             'cam_transform_mat': ','.join(str(x) for x in c2w.ravel()),
-            'cam_angle_x': ANGLE_X, 'imh': IMH, 'imw': IMH},
+            'cam_angle_x': ANGLE_X, 'imh': imh, 'imw': imh},
             join(data_root, vid, 'metadata.json'))
-        xs, ys = np.meshgrid(np.arange(IMH), np.arange(IMH))
-        fl = 0.5 * IMH / np.tan(0.5 * ANGLE_X)
-        d = np.stack(((xs - 0.5 * IMH) / fl, -(ys - 0.5 * IMH) / fl,
+        xs, ys = np.meshgrid(np.arange(imh), np.arange(imh))
+        fl = 0.5 * imh / np.tan(0.5 * ANGLE_X)
+        d = np.stack(((xs - 0.5 * imh) / fl, -(ys - 0.5 * imh) / fl,
                       -np.ones_like(xs, float)), axis=-1) @ c2w[:3, :3].T
         d /= np.linalg.norm(d, axis=-1, keepdims=True)
         o = c2w[:3, 3]
@@ -312,15 +330,19 @@ def write_scene(data_root, nerf_root):
         hit = (disc > 0) & (t > 0)
         xyz = np.where(hit[..., None], o + d * t[..., None], 0.0)
         normal = np.where(hit[..., None], xyz / SPHERE_R, (0.0, 1.0, 0.0))
-        # A convex sphere sees exactly its front-lit lights
-        surf2l = lxyz[None, None] - xyz[:, :, None]
-        lvis = (np.einsum('hwlc,hwc->hwl', surf2l, normal) > 0) & hit[..., None]
-        ioutil.save_np(xyz.astype(np.float32), join(nerf_root, vid, 'xyz.npy'))
-        ioutil.save_np(normal.astype(np.float32),
-                       join(nerf_root, vid, 'normal.npy'))
-        ioutil.save_np(lvis.astype(np.float32), join(nerf_root, vid, 'lvis.npy'))
-        ioutil.write_img(hit.astype(np.float32),
-                         join(nerf_root, vid, 'alpha.png'))
+        if nerf_root:
+            # A convex sphere sees exactly its front-lit lights
+            surf2l = lxyz[None, None] - xyz[:, :, None]
+            lvis = (np.einsum('hwlc,hwc->hwl', surf2l, normal) > 0) \
+                & hit[..., None]
+            ioutil.save_np(xyz.astype(np.float32),
+                           join(nerf_root, vid, 'xyz.npy'))
+            ioutil.save_np(normal.astype(np.float32),
+                           join(nerf_root, vid, 'normal.npy'))
+            ioutil.save_np(lvis.astype(np.float32),
+                           join(nerf_root, vid, 'lvis.npy'))
+            ioutil.write_img(hit.astype(np.float32),
+                             join(nerf_root, vid, 'alpha.png'))
         if mode != 'test':
             shade = 0.25 + 0.75 * np.clip(normal @ sun, 0.0, 1.0)
             rgb = np.asarray([0.6, 0.3, 0.2]) * shade[..., None] * hit[..., None]
@@ -900,11 +922,13 @@ def k2_limit_readings(model, seeds):
 # "K1-bwd tc", "K1r-fwd tc", "K1r-bwd tc", "K1w-fwd tc", "K1w-bwd tc",
 # "K2-fwd tc", "K2-bwd tc" and "K3-fwd tc" those of the tensor-core
 # kernels among them (bf16; for K1-bwd and K1r-bwd without dx), the rest
-# being the CUDA-core kernels'.
+# being the CUDA-core kernels'; "K1-bwd dW" the K1-bwd launches that
+# computed dW/db.
 COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
             'K1-bwd': (fm.chain_kernel_bwd, 'launches'),
             'K1-bwd tc': (fm.chain_kernel_bwd, 'tc_launches'),
+            'K1-bwd dW': (fm.chain_kernel_bwd, 'dw_launches'),
             'K2-fwd': (fr.rusink_kernel, 'launches'),
             'K2-fwd tc': (fr.rusink_kernel, 'tc_launches'),
             'K2-bwd': (fr.rusink_kernel_bwd, 'launches'),
@@ -1095,15 +1119,16 @@ def changed_leaves(init, ckpt):
         for k in init}
 
 
-def run_shape_training(data_root, nerf_root):
+def run_shape_training(data_root, nerf_root, imh=IMH, outname='shape_train'):
     """The shape stage through trainvali.main on shape.ini at full width
     (128 x 4, 1024 rays, 512 lights, bf16 lvis chain, fused kernels) on
-    the smoke's scene, imh 128; checks its losses, that every shape leaf
-    of ckpt-2 and ckpt-4 moved, and the vali images, flipbooks and HTML.
-    Returns (launches, outdir, record)."""
+    the smoke's scene at ``imh`` and the buffers under ``nerf_root``;
+    checks its losses, that every shape leaf of ckpt-2 and ckpt-4 moved,
+    and the vali images, flipbooks and HTML. Returns (launches, outdir,
+    record)."""
     override = ','.join([
         'data_root=' + data_root, 'data_nerf_root=' + nerf_root,
-        'outroot=' + join(WORK, 'out', 'shape_train'), 'imh=%d' % IMH,
+        'outroot=' + join(WORK, 'out', outname), 'imh=%d' % imh,
         'light_h=%d' % LIGHT_H, 'epochs=4', 'ckpt_period=2',
         'vali_period=4', 'vali_batches=1'])
     zero_counters()
@@ -1128,7 +1153,7 @@ def run_shape_training(data_root, nerf_root):
     vali_dir = join(outdir, 'vis_vali', 'epoch000000004')
     for f in ('pred_normal', 'pred_lvis'):
         img = ioutil.load_img(join(vali_dir, 'batch000000000', f + '.png'))
-        if img.shape[:2] != (IMH, IMH):
+        if img.shape[:2] != (imh, imh):
             raise AssertionError("shape vali %s.png: %s" % (f, img.shape))
     for f in ('batch000000000/pred-vs-gt_normal.apng',
               'batch000000000/pred-vs-gt_lvis.apng', 'all.html'):
@@ -1670,12 +1695,10 @@ K2_BWD_KERNELS = (('bwd_device_ms', 'rusink_chain_bwd'),)
 K3_FWD_KERNELS = (('fwd_device_ms', 'nerf_fwd'),)
 
 
-def kernel_device_ms(run, kernels, iters=10, rest='packing_ms'):
-    """Device ms per call of ``run`` (a kernel wrapper's launch) of each of
-    ``kernels``, from a torch.profiler window over ``iters`` calls: for a
-    bf16 backward phase 1, the dW pass and the slice sums (0 for a kernel
-    the build lacks); the rest of its device time (``rest``) is the
-    wrapper's weight packing."""
+def profiled_device_us(run, iters):
+    """A torch.profiler window over ``iters`` calls of ``run`` (after one
+    outside it): ({kernel name: device us}, {kernel name: launches the
+    window recorded})."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1684,11 +1707,22 @@ def kernel_device_ms(run, kernels, iters=10, rest='packing_ms'):
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
-    us = {}
+    us, seen = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us[e.key] = us.get(e.key, 0.0) + getattr(
                 e, 'self_device_time_total', 0.0)
+            seen[e.key] = seen.get(e.key, 0) + e.count
+    return us, seen
+
+
+def kernel_device_ms(run, kernels, iters=10, rest='packing_ms'):
+    """Device ms per call of ``run`` (a kernel wrapper's launch) of each of
+    ``kernels``, from a torch.profiler window over ``iters`` calls: for a
+    bf16 backward phase 1, the dW pass and the slice sums (0 for a kernel
+    the build lacks); the rest of its device time (``rest``) is the
+    wrapper's weight packing."""
+    us, _ = profiled_device_us(run, iters)
     out = {key: sum(v for k, v in us.items() if name in k) / 1e3 / iters
            for key, name in kernels}
     out[rest] = sum(us.values()) / 1e3 / iters - sum(out.values())
@@ -2747,6 +2781,353 @@ def check_dot_probe():
                       'library_ms_per_pass': library}
 
 
+# ------ geometry distillation (the NeRF -> buffers stage) ------
+
+# Distillation runs every view of the scene at imh 64 (a cut from the
+# scene's 128: every pixel of a barely trained NeRF is a hit, and each hit
+# marches 512 lights x 320 samples); light_h 16 and the CLI's defaults
+# otherwise (mlp_chunk 1,048,576: 3,276-ray depth/normal blocks, 51-point
+# visibility blocks). Its data root is the scene's cameras with photos at
+# imh 64: the shape stage that trains on the buffers reads the photos at
+# the buffers' size (its dataset resizes them only with the buffers, as
+# the JAX package's and the reference's)
+DISTILL_IMH = 64
+DISTILL_DATA = join(WORK, 'data_distill')
+DISTILL_VIEWS = ['test_%03d' % i for i in range(N_VIEWS)] \
+    + ['train_%03d' % i for i in range(N_TRAIN)] \
+    + ['val_%03d' % i for i in range(N_VALI)]
+DISTILL_FILES = ('alpha.png', 'xyz.npy', 'xyz.png', 'normal.npy',
+                 'normal.png', 'lvis.npy', 'lvis.png')
+# The card's distillation against the port's CPU run on the same rays and
+# surface points, each limit 7-10x the largest of its readings on three
+# sets of rays of a test view (PERF.md §6): occupancy, depth and normal
+# from the f32 depth/normal pass (the importance samples move with the
+# coarse pass's rounding, and the normal is the field's gradient, one more
+# factor of the octave); visibility from the bf16 march on the tensor
+# cores against the plain bf16 version (under one pair in a hundred parts
+# by more than the p99, those by far more: the mean exceeds the p99). The
+# controls must each break a limit of their pass: the depth/normal pass
+# with its sigma chain in bf16, and the march without the 64 samples the
+# reference adds to each of NeRF's counts. The f32 march against the CPU's bf16 march is read too,
+# with no limit: end to end it parts from the sound march by under 2x (the
+# sigma chain's own check holds the kernel's rounding).
+DISTILL_TOL = {'occu_max_abs': 5e-4, 'depth_rel_norm': 5e-4,
+               'normal_rel_norm': 1e-2, 'lvis_mean_abs': 5e-3,
+               'lvis_p99_abs': 3e-3}
+DISTILL_DN_KEYS = ('occu_max_abs', 'depth_rel_norm', 'normal_rel_norm')
+DISTILL_LVIS_KEYS = ('lvis_mean_abs', 'lvis_p99_abs')
+DISTILL_CPU_RAYS, DISTILL_CPU_POINTS = 256, 16
+# f32 K1-bwd dx of the sigma chain over all rows of a depth/normal block,
+# relative norm (check_sigma_chain)
+SIGMA_DX_TOL_F32 = 1e-2
+# Wrapper calls in each profiler window of check_sigma_chain
+SIGMA_WINDOW_CALLS = 5
+
+
+def distill_args(nerf_dir, out_root, *extra):
+    return ['--trained_nerf', nerf_dir, '--out_root', out_root,
+            '--data_root', DISTILL_DATA, '--imh', str(DISTILL_IMH),
+            '--light_h', str(LIGHT_H)] + list(extra)
+
+
+def distiller_on(nerf_dir, device, *extra):
+    """geometry_from_nerf's distiller on ``device`` as its CLI builds it
+    from run_distillation's flags and ``extra``: (distiller, config)."""
+    args = geometry_from_nerf.parse_args(
+        distill_args(nerf_dir, 'unused', '--device', device, *extra))
+    return geometry_from_nerf.load_distiller(args)[:2]
+
+
+def distill_view_rays(nerf_dir):
+    """The first test view's rays at DISTILL_IMH, unit directions."""
+    _, config = distiller_on(nerf_dir, 'cpu')
+    batch = next(iter(NerfDataset(config, 'test')
+                      .build_pipeline(no_shuffle=True, prefetch=0)))
+    rayd = np.asarray(batch['rayd'], np.float32)
+    return (np.asarray(batch['rayo'], np.float32),
+            rayd / np.linalg.norm(rayd, axis=1, keepdims=True))
+
+
+def run_distillation(nerf_dir):
+    """The distillation path through geometry_from_nerf.main on the NeRF
+    run's latest checkpoint (its ckpt-4) at nerf.ini's full width, every
+    view of DISTILL_DATA (the scene at DISTILL_IMH), with the counters
+    zeroed before and read after:
+    K1-fwd on the tensor cores (the bf16 march) and on the CUDA cores (the
+    f32 depth/normal forwards), K1-bwd on the CUDA cores with dx alone (no
+    dW). Checks the buffers. Returns (launches, out_root, record)."""
+    out_root = join(WORK, 'out', 'surf')
+    write_scene(DISTILL_DATA, None, imh=DISTILL_IMH)
+    zero_counters()
+    t0 = time.perf_counter()
+    run = geometry_from_nerf.main(distill_args(nerf_dir, out_root))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(('K1-fwd', 'K1-fwd tc', 'K1-bwd'),
+                             'distillation')
+    if launches['K1-fwd'] <= launches['K1-fwd tc']:
+        raise AssertionError("distillation: the f32 K1-fwd never launched "
+                             "on the CUDA cores: %s" % launches)
+    if launches['K1-bwd tc'] or launches['K1-bwd dW']:
+        raise AssertionError("distillation: K1-bwd ran the tensor-core "
+                             "design or a dW pass: %s" % launches)
+    if sorted(r['id'] for r in run['views']) != sorted(DISTILL_VIEWS):
+        raise AssertionError("distillation views: %s" % run['views'])
+    hw = (DISTILL_IMH, DISTILL_IMH)
+    fg = {}
+    for view in DISTILL_VIEWS:
+        d = join(out_root, view)
+        files = set(os.listdir(d))
+        if not set(DISTILL_FILES) <= files or not files & {'lvis.mp4',
+                                                           'lvis.apng'}:
+            raise AssertionError("distillation %s: files %s" % (view, files))
+        alpha = ioutil.load_img(join(d, 'alpha.png'))
+        xyz, normal, lvis = (np.load(join(d, k + '.npy'))
+                             for k in ('xyz', 'normal', 'lvis'))
+        norms = np.linalg.norm(normal, axis=2)
+        if alpha.shape != hw or xyz.shape != hw + (3,) \
+                or normal.shape != hw + (3,) or lvis.shape != hw + (N_LIGHTS,):
+            raise AssertionError("distillation %s: shapes %s %s %s %s" % (
+                view, alpha.shape, xyz.shape, normal.shape, lvis.shape))
+        if not (alpha > 0).any() or not np.isfinite(xyz).all() \
+                or np.abs(norms - 1).max() > 1e-3 \
+                or not 0 <= lvis.min() <= lvis.max() <= 1:
+            raise AssertionError(
+                "distillation %s: foreground %d, |normal| in [%.4g, %.4g], "
+                "lvis in [%.4g, %.4g]" % (view, (alpha > 0).sum(),
+                                           norms.min(), norms.max(),
+                                           lvis.min(), lvis.max()))
+        fg[view] = {'alpha_gt_0': int((alpha > 0).sum()),
+                    'alpha_gt_0.5': int((alpha > 0.5).sum()),
+                    'lvis_mean': float(lvis.mean())}
+    return launches, out_root, {
+        'imh': DISTILL_IMH, 'n_lights': N_LIGHTS, 'seconds': wall,
+        'views': run['views'], 'foreground': fg}
+
+
+def sigma_in_bf16(dist):
+    """The depth/normal control: ``dist`` with its sigma chain in bf16,
+    the precision the f32 pass must not run at."""
+    f32 = dist._sigma_with_bounds
+    dist._sigma_with_bounds = lambda pts, use_fine, compute_dtype=None: f32(
+        pts, use_fine, torch.bfloat16)
+    return dist
+
+
+def without_extra_samples(dist):
+    """The march control: ``dist`` without the 64 samples the reference
+    adds to each of NeRF's sample counts."""
+    dist.n_coarse -= 64
+    dist.n_fine -= 64
+    return dist
+
+
+def distill_diffs(got, want):
+    """The readings of DISTILL_TOL between two (occupancy, depth, normal,
+    lvis) tuples."""
+    (o_g, d_g, n_g, l_g), (o_w, d_w, n_w, l_w) = got, want
+    lvis_diff = np.abs(l_g - l_w)
+    return {'occu_max_abs': float(np.abs(o_g - o_w).max()),
+            'depth_rel_norm': rel_norm(torch.from_numpy(d_g),
+                                       torch.from_numpy(d_w)),
+            'normal_rel_norm': rel_norm(torch.from_numpy(n_g),
+                                        torch.from_numpy(n_w)),
+            'lvis_mean_abs': float(lvis_diff.mean()),
+            'lvis_p99_abs': float(np.quantile(lvis_diff, 0.99))}
+
+
+def distill_readings(nerf_dir, rays):
+    """The card's two passes against the port's CPU run (the plain
+    versions) on the same inputs: ``rays`` (occupancy, depth, normal), and
+    DISTILL_CPU_POINTS of them spread along the set, at their surface
+    points and normals distilled on the card, against all 512 lights.
+    Returns (the readings of DISTILL_TOL; those of the controls, each
+    against the same CPU run: the card's depth/normal pass with its sigma
+    chain in bf16, and its march without the reference's 64 extra samples
+    a level; the f32 march's lvis readings; the CPU run's occupancy
+    range)."""
+    pick = slice(None, None, rays[0].shape[0] // DISTILL_CPU_POINTS)
+    dist, _ = distiller_on(nerf_dir, 'cuda')
+    occu, depth, normal = dist.compute_depth_and_normal(*rays)
+    surf = rays[0][pick] + rays[1][pick] * depth[pick, None]
+    nrm = normal[pick] / np.maximum(
+        np.linalg.norm(normal[pick], axis=1, keepdims=True), 1e-12)
+    card_out = (occu, depth, normal,
+                dist.compute_light_visibility(surf, nrm))
+    ctl_dn = sigma_in_bf16(dist).compute_depth_and_normal(*rays)
+    del dist
+    dist, _ = distiller_on(nerf_dir, 'cuda')
+    ctl_lvis = without_extra_samples(dist).compute_light_visibility(surf, nrm)
+    del dist
+    dist, _ = distiller_on(nerf_dir, 'cuda', '--no-bf16_march')
+    f32_lvis = dist.compute_light_visibility(surf, nrm)
+    del dist
+    dist, _ = distiller_on(nerf_dir, 'cpu')
+    cpu_out = dist.compute_depth_and_normal(*rays) \
+        + (dist.compute_light_visibility(surf, nrm),)
+    f32_march = distill_diffs(card_out[:3] + (f32_lvis,), cpu_out)
+    return (distill_diffs(card_out, cpu_out),
+            distill_diffs(ctl_dn + (ctl_lvis,), cpu_out),
+            {k: f32_march[k] for k in DISTILL_LVIS_KEYS},
+            [float(cpu_out[0].min()), float(cpu_out[0].max())])
+
+
+def check_distillation(nerf_dir, view_rays):
+    """distill_readings on DISTILL_CPU_RAYS rays of ``view_rays`` (a test
+    view's) across the middle of the image: the card within DISTILL_TOL,
+    and each control beyond a limit of its pass. Returns the readings
+    beside DISTILL_TOL."""
+    start = DISTILL_IMH * DISTILL_IMH // 2
+    rays = [a[start:start + DISTILL_CPU_RAYS] for a in view_rays]
+    got, control, f32_march, occu_range = distill_readings(nerf_dir, rays)
+    bad = {k: v for k, v in got.items() if not v <= DISTILL_TOL[k]}
+    if bad:
+        raise AssertionError("distillation on the card vs the CPU: %s "
+                             "beyond %s (all: %s; controls: %s)" % (
+                                 bad, DISTILL_TOL, got, control))
+    for name, keys in (('bf16 depth/normal', DISTILL_DN_KEYS),
+                       ('fewer samples march', DISTILL_LVIS_KEYS)):
+        if all(control[k] <= DISTILL_TOL[k] for k in keys):
+            raise AssertionError(
+                "distillation: the %s control is within %s: %s" % (
+                    name, {k: DISTILL_TOL[k] for k in keys}, control))
+    return dict(got, tol=DISTILL_TOL, control=control,
+                f32_march=f32_march, rays=DISTILL_CPU_RAYS,
+                points=DISTILL_CPU_POINTS, lights=N_LIGHTS,
+                occu_range=occu_range)
+
+
+def plain_in_chunks(plan, x, p, cd, rows=1 << 20):
+    """chain_reference over ``rows``-row slices of ``x``, concatenated:
+    the plain version at a visibility block's 8M rows, whose f32 products
+    of 256-wide activations would take ~8.5 GB a layer at once."""
+    return torch.cat([fm.chain_reference(plan, x[i:i + rows], p, cd)
+                      for i in range(0, x.shape[0], rows)])
+
+
+def sigma_chain_inputs(dist, view_rays):
+    """The sigma chain's inputs at distillation's two block shapes: one
+    visibility block's fine level (lvis_block_pts surface points on the
+    sphere x 512 lights x 320 depths in [0.1, lvis_far]) and one
+    depth/normal block's (ray_block rays of a view x 320 depths in
+    [near, far]), at evenly spaced depths."""
+    n_total = dist.n_coarse + dist.n_fine
+    g = torch.Generator().manual_seed(6)
+    surf = torch.randn(dist.lvis_block_pts, 3, generator=g)
+    surf = (SPHERE_R * surf / surf.norm(dim=1, keepdim=True)).cuda()
+    d = dist.lxyz[None] - surf[:, None]
+    d = (d / d.norm(dim=-1, keepdim=True)).reshape(-1, 3)
+    o = surf[:, None].expand(-1, dist.n_lights, 3).reshape(-1, 3)
+    z = sampling.gen_z(0.1, dist.args.lvis_far, n_total, o.shape[0],
+                       device='cuda')
+    march = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
+    rayo, rayd = (torch.as_tensor(a[:dist.ray_block]).cuda()
+                  for a in view_rays)
+    z = sampling.gen_z(dist.near, dist.far, n_total, rayo.shape[0],
+                       device='cuda')
+    depth_normal = (rayo[:, None] + rayd[:, None] * z[..., None]).reshape(-1, 3)
+    return march, depth_normal
+
+
+def check_sigma_chain(nerf_dir, view_rays):
+    """K1 on NeRF's sigma chain (nerf.ini: 256 x 8, skip after layer 4, a
+    1-wide head; the checkpoint's fine level) at distillation's shapes:
+    bf16 K1-fwd on the tensor cores at one visibility block's 8,355,840
+    rows against the plain bf16 version; f32 K1-fwd and K1-bwd with dx
+    alone (CUDA cores) at one depth/normal block's 1,048,320 rows against
+    the plain f32 version and autograd of it for the path's cotangent (the
+    ReLU's mask, d sum(relu(sigma)) / d sigma). Each with its ms and the
+    plain version's (CUDA events, in turns), device ms, bound and TFLOP/s.
+    Returns (the forward readings, the backward's)."""
+    dist, _ = distiller_on(nerf_dir, 'cuda')
+    plan = dist.model.sigma_plan
+    p = fm.params_from_tree(dist.params['fine_enc'],
+                            dist.params['fine_sigma_out'])
+    x_march, x_dn = sigma_chain_inputs(dist, view_rays)
+    del dist
+    bf16 = torch.bfloat16
+    if not fm.fwd_on_tensor_cores(plan, bf16, x_march.device):
+        raise AssertionError("the sigma plan is off the tensor cores: %s"
+                             % (plan,))
+
+    def reading(rows, dtype, ms, plain_ms, run, kernel, bound_):
+        """The readings of wrapper calls ``run``: the device ms of a
+        ``kernel`` launch is the profiler's mean over the launches its
+        window of SIGMA_WINDOW_CALLS calls recorded (late in the smoke it
+        records some of them only); none recorded fails."""
+        us, seen = profiled_device_us(run, SIGMA_WINDOW_CALLS)
+        n = sum(c for k, c in seen.items() if kernel in k)
+        if not n:
+            raise AssertionError(
+                "sigma chain: the profiler window recorded no launch of %s "
+                "in %d calls (it saw %s)" % (kernel, SIGMA_WINDOW_CALLS,
+                                             seen))
+        return {'rows': rows, 'dtype': dtype, 'ms': ms, 'plain_ms': plain_ms,
+                'device_ms': sum(v for k, v in us.items() if kernel in k)
+                / n / 1e3,
+                'launches_recorded': n, 'window_calls': SIGMA_WINDOW_CALLS,
+                'bound_ms': bound_['bound_ms'], 'bound_by': bound_['bound_by'],
+                'tflops': bound_['flop'] / ms / 1e9}
+    fwd = {}
+    with torch.no_grad():
+        err = compare('K1-fwd sigma march bf16',
+                      fm.chain_kernel(plan, x_march, p, bf16),
+                      plain_in_chunks(plan, x_march, p, bf16), TOL_BF16)
+        ms, plain_ms = time_pair(
+            lambda: fm.chain_kernel(plan, x_march, p, bf16),
+            lambda: plain_in_chunks(plan, x_march, p, bf16), iters=2)
+        fwd['march_bf16'] = dict(reading(
+            x_march.shape[0], 'bf16', ms, plain_ms,
+            lambda: fm.chain_kernel(plan, x_march, p, bf16),
+            'chain_fwd_tc_kernel',
+            chain_bound(plan, x_march.shape[0], 'bf16', 3, 1)),
+            max_abs_err=err, route='tensor cores')
+        del x_march
+        y_plain = fm.chain_reference(plan, x_dn, p)
+        err = compare('K1-fwd sigma depth/normal f32',
+                      fm.chain_kernel(plan, x_dn, p), y_plain, TOL_F32)
+        ms, plain_ms = time_pair(lambda: fm.chain_kernel(plan, x_dn, p),
+                                 lambda: fm.chain_reference(plan, x_dn, p),
+                                 iters=3)
+        fwd['depth_normal_f32'] = dict(reading(
+            x_dn.shape[0], 'f32', ms, plain_ms,
+            lambda: fm.chain_kernel(plan, x_dn, p), 'chain_fwd_kernel',
+            chain_bound(plan, x_dn.shape[0], 'f32', 3, 1)),
+            max_abs_err=err, route='CUDA cores')
+    dy = (y_plain > 0).float()
+    del y_plain
+    xg = x_dn.clone().requires_grad_()
+    y = fm.chain_reference(plan, xg, p)
+    want, = torch.autograd.grad(y, xg, dy, retain_graph=True)
+    dw_before = fm.chain_kernel_bwd.dw_launches
+    dx, dparams = fm.chain_kernel_bwd(plan, x_dn, dy, p, needs_dx=True,
+                                      needs_dw=False)
+    if dparams is not None or fm.chain_kernel_bwd.dw_launches != dw_before:
+        raise AssertionError("K1-bwd dx only computed dW")
+    # Rows away from every ReLU kink (as check_backward's K2 rows): a row
+    # whose gate sits within f32 rounding of 0 is gated either way
+    _, low = chain_f64(plan, x_dn.double(), p)
+    keep = low > KINK_F32
+    err = compare('K1-bwd sigma dx f32', dx, want, TOL_F32,
+                  mask=keep[:, None].expand_as(dx))
+    # Over all rows, the gate flips move the rows at a kink by one unit's
+    # share of their dx: ~1e-3 of the norm expected, bounded an order above
+    dx_rel_err = check_norm('K1-bwd sigma dx f32 (all rows)',
+                            [rel_norm(dx, want)], SIGMA_DX_TOL_F32)
+    ms, plain_ms = time_pair(
+        lambda: fm.chain_kernel_bwd(plan, x_dn, dy, p, needs_dw=False),
+        lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), iters=2)
+    bwd = dict(reading(
+        x_dn.shape[0], 'f32', ms, plain_ms,
+        lambda: fm.chain_kernel_bwd(plan, x_dn, dy, p, needs_dw=False),
+        'chain_bwd_kernel',
+        chain_bound(plan, x_dn.shape[0], 'f32', 3, 1, bwd=(True, False))),
+        max_abs_err=err, dx_rel_err=dx_rel_err, dx_tol=SIGMA_DX_TOL_F32,
+        rows_at_relu_kink=int((~keep).sum()), route='CUDA cores',
+        mode='dx only')
+    return fwd, {'dx_only_f32': bwd}
+
+
 # ------ the least time the card could take ------
 
 # Published H100 SXM peaks at 700 W (dense): bf16 operands on the tensor
@@ -2927,7 +3308,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gpu = gpu_name_and_power()
+    gpu = card.name_and_power()
     t0 = time.perf_counter()
     kernel_lib.load()
     build_s = time.perf_counter() - t0
@@ -3060,6 +3441,26 @@ def main(argv=None):
     del nerf_model
     torch.cuda.empty_cache()
 
+    # Geometry distillation from the NeRF run's checkpoint through the
+    # user's entry point, the shape stage on its buffers, the sigma chain
+    # at distillation's shapes and the march probe
+    launches_distill, surf_root, distill = run_distillation(nerf_dir)
+    view_rays = distill_view_rays(nerf_dir)
+    distill['card_vs_cpu'] = check_distillation(nerf_dir, view_rays)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_shape_distilled, _, shape_distilled = run_shape_training(
+        DISTILL_DATA, surf_root, imh=DISTILL_IMH, outname='shape_distilled')
+    shape_distilled['seconds'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    sigma_fwd, sigma_bwd = check_sigma_chain(nerf_dir, view_rays)
+    torch.cuda.empty_cache()
+    zero_counters()
+    march = march_probe.main([])
+    launches_march = read_counters(('K1-fwd', 'K1-fwd tc', 'K1-bwd'),
+                                   'march probe')
+    torch.cuda.empty_cache()
+
     # The probes, through their command-line entry points
     probe_records, launches_probe = run_chain_probe()
     torch.cuda.empty_cache()
@@ -3075,6 +3476,9 @@ def main(argv=None):
              'shape_training': launches_shape,
              'brdf_training': launches_brdf, 'brdf_explore': launches_explore,
              'joint_from_port_stages': launches_joint_port,
+             'distillation': launches_distill,
+             'shape_from_distilled_buffers': launches_shape_distilled,
+             'march_probe': launches_march,
              **{'chain_probe_' + k: v for k, v in launches_probe.items()},
              'dot_probe': launches_dot}
     src = 'nerfactor_tpu_torch/csrc/'
@@ -3108,7 +3512,7 @@ def main(argv=None):
     k1w_f = k1w_bf16['fwd']
     k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
     k3_bf16 = [r for r in k3_fine if r['dtype'] == 'bf16'][0]
-    print(json.dumps({'kernels': [
+    result = json.dumps({'kernels': [
         entry('K1-fwd chain_fwd_tc_kernel', 'fused_mlp.cu',
               'nerfactor_tpu/ops/pallas_mlp.py:1424', lvis_f,
               chain_bound(plans['lvis'], lvis_f['rows'], 'bf16', 6, 1),
@@ -3126,6 +3530,7 @@ def main(argv=None):
               launches_per_view={k: launches_infer[c] / N_VIEWS for k, c in (
                   ('tc', 'K1-fwd tc'), ('all', 'K1-fwd'))},
               shape_step=shape_k1(shape_step, plans, fwd=True),
+              distillation=sigma_fwd,
               ptxas=ptxas_report(('chain_fwd',)),
               sass_hmma=hmma_of(tc_sass, 'chain_fwd_tc_kernel'),
               shapes=k1, nerf_no_views=k1_no_views),
@@ -3143,6 +3548,7 @@ def main(argv=None):
               scratch_bytes=lvis_b['scratch_bytes'], tflops=lvis_b['tflops'],
               cuda_core_launches_by_path=cuda_core_by_path('K1-bwd'),
               shape_step=shape_k1(shape_step, plans, fwd=False),
+              distillation=sigma_bwd,
               ptxas=ptxas_report(('chain_bwd_tc', 'dw_kernel')),
               sass_hmma=hmma_of(tc_sass, 'chain_bwd_tc_kernel', 'dw_kernel'),
               shapes=k1b),
@@ -3329,10 +3735,17 @@ def main(argv=None):
         'brdf': {'training': brdf_train, 'train_step': brdf_step,
                  'explore': explore},
         'joint_from_port_stages': joint_port,
+        'distillation': dict(distill, march_probe=march,
+                             shape_from_distilled_buffers=shape_distilled),
         'nerf': {'training': dict(nerf_train, seconds=nerf_train_s),
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},
-        'smoke_s': time.perf_counter() - t_start}))
+        'smoke_s': time.perf_counter() - t_start})
+    # The whole line also goes to a file: the end of a long output may be
+    # all a caller keeps
+    with open(join(WORK, 'result.json'), 'w') as f:
+        f.write(result + '\n')
+    print(result)
     print(gpu)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

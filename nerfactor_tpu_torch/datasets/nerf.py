@@ -5,7 +5,10 @@ PNG reader and resize.
 Views live in ``{train,val,test}_???`` dirs; rays come from a 4x4
 cam_transform_mat and a pinhole cam_angle_x (reference
 datasets/nerf.py:172-215). A train batch is ``n_rays_per_step`` uniformly
-random pixels of one view; a vali/test batch is all rays of a view.
+random pixels of one view; a vali/test batch is all rays of a view, and
+so is a train batch with ``always_all_rays`` (geometry distillation).
+``spp`` (a square) casts sqrt(spp) x sqrt(spp) rays per pixel, in every
+mode.
 """
 
 from os.path import basename, dirname, join, exists
@@ -23,11 +26,23 @@ logger = Logger(loggee="datasets/nerf")
 class Dataset(BaseDataset):
     array_keys = ('rayo', 'rayd', 'rgb')
 
+    def __init__(self, config, mode, debug=False, always_all_rays=False,
+                 spp=1, seed=0):
+        sps = int(round(np.sqrt(spp)))
+        if sps * sps != spp:
+            raise ValueError("Samples per pixel must be a square number so "
+                             "that samples per side are integers, got %r"
+                             % spp)
+        self.sps = sps
+        self.always_all_rays = always_all_rays
+        super().__init__(config, mode, debug=debug, seed=seed)
+
     def _get_batch_size(self):
         if self.mode == 'train':
             return self.config.getint('n_rays_per_step')
         # All rays of one view
-        return int(np.prod(self._get_cached(self.files[0])['hw']))
+        hw = self._get_cached(self.files[0])['hw']
+        return int(np.prod(hw)) * self.sps ** 2
 
     def _mode_dirs(self):
         mode_str = 'val' if self.mode == 'vali' else self.mode
@@ -73,7 +88,7 @@ class Dataset(BaseDataset):
     def _load_one(self, metadata_path):
         id_, imh, imw, rayo, rayd = self._camera(metadata_path)
         if self.mode == 'test':
-            rgb = np.zeros((imh, imw, 3), np.float32)
+            rgb = np.zeros((imh * self.sps, imw * self.sps, 3), np.float32)
         else:
             rgba = self._load_rgba(metadata_path)
             if imh != rgba.shape[0]:
@@ -88,7 +103,7 @@ class Dataset(BaseDataset):
 
     def _postprocess(self, data, rng):
         out = {'id': data['id'], 'hw': data['hw']}
-        if self.mode in ('vali', 'test'):
+        if self.mode in ('vali', 'test') or self.always_all_rays:
             for k in self.array_keys:
                 out[k] = data[k].reshape(-1, 3)
             return out
@@ -99,14 +114,15 @@ class Dataset(BaseDataset):
         return out
 
     def _gen_rays(self, to_world, angle_x, imh, imw):
-        """Pinhole rays in world space (reference datasets/nerf.py:172-215,
-        incl. the optional NDC path)."""
+        """Pinhole rays in world space, ``sps`` x ``sps`` a pixel (reference
+        datasets/nerf.py:172-215, incl. the optional NDC path)."""
         near = self.config.getfloat('near')
         ndc = self.config.getboolean('ndc')
         cam_loc = to_world[:3, 3]
-        rayo = np.tile(cam_loc[None, None, :], (imh, imw, 1))
-        xs, ys = np.meshgrid(np.linspace(0, imw, imw, endpoint=False),
-                             np.linspace(0, imh, imh, endpoint=False))
+        sps = self.sps
+        rayo = np.tile(cam_loc[None, None, :], (imh * sps, imw * sps, 1))
+        xs, ys = np.meshgrid(np.linspace(0, imw, imw * sps, endpoint=False),
+                             np.linspace(0, imh, imh * sps, endpoint=False))
         fl = 0.5 * imw / np.tan(0.5 * angle_x)
         rayd = np.stack(
             ((xs - 0.5 * imw) / fl, -(ys - 0.5 * imh) / fl,

@@ -6,7 +6,9 @@ after layer 4, a 1-wide sigma head (ReLU applied at accumulation), a
 256-wide linear bottleneck, and a [128, 3] rgb head over bottleneck (+)
 posenc(view, 4). With ``fused_mlp`` the field runs as one fused evaluation
 (ops/fused_nerf.py: kernels K3-fwd and K3-bwd on CUDA tensors), or, without
-views, as one fused chain (ops/fused_mlp.py, kernel K1).
+views, as one fused chain (ops/fused_mlp.py, kernel K1). Geometry
+distillation reads sigma alone (:meth:`Model.eval_sigma`): the trunk and
+the sigma head as one fused chain, kernel K1.
 
 Training evaluates all rays x samples of a step in one pass; evaluation
 walks chunks of ``eval_ray_chunk`` rays, the last one padded as the JAX
@@ -15,8 +17,7 @@ samples) come from a ``torch.Generator`` or are passed in.
 
 Not ported: the JAX package's ``_train_ray_limit`` /
 ``_render_rays_train_chunked``, a guard against a TPU compiler crash at
-8192-ray train dispatches of the unfused f32 program; and ``eval_sigma``,
-which geometry distillation (a later slice) reads.
+8192-ray train dispatches of the unfused f32 program.
 """
 
 from os.path import join
@@ -91,6 +92,8 @@ class Model(BaseModel):
         else:
             self.rgbs_plan = fused_mlp.plan_from_specs(
                 [(3, nf_xyz)], self.specs['enc'], self.specs['rgbs_out'])
+        self.sigma_plan = fused_mlp.plan_from_specs(
+            [(3, nf_xyz)], self.specs['enc'], self.specs[self._sigma_head])
         # Eval-time ray chunk: mlp_chunk counts flattened samples
         mlp_chunk = config.getint('mlp_chunk', fallback=1048576)
         n_total = self.n_samples_coarse + max(self.n_samples_fine, 0)
@@ -118,6 +121,11 @@ class Model(BaseModel):
     @staticmethod
     def _pairs(layers):
         return [(l['w'], l['b']) for l in layers]
+
+    @property
+    def _sigma_head(self):
+        """The head whose last column is sigma."""
+        return 'sigma_out' if self.use_views else 'rgbs_out'
 
     def eval_nerf_at(self, params, pts, views, use_fine=False):
         """(n_rays, n_samples, 3) x2 -> (n_rays, n_samples, 4) raw rgb and
@@ -158,6 +166,32 @@ class Model(BaseModel):
             rgbs = self.specs['rgbs_out'].apply(
                 params[pref + 'rgbs_out'], feat, compute_dtype=dt)
         return rgbs.reshape(shape + (4,))
+
+    def eval_sigma(self, params, pts, use_fine=False, compute_dtype=None):
+        """Pre-ReLU sigma at points ``pts`` (N, 3) -> (N, 1), for geometry
+        distillation. The points are row-major: the JAX package's
+        ``input_t`` (its TPU kernel's transposed (3, N) boundary) has no
+        counterpart here.
+
+        ``compute_dtype`` is passed only by the visibility march, which
+        evaluates without gradients; the depth/normal pass differentiates
+        through this w.r.t. ``pts`` in f32. The weights are frozen, so the
+        fused chain's backward computes dx alone (``needs_dw=False``)."""
+        pref = 'fine_' if use_fine else 'coarse_'
+        head = self._sigma_head
+        if self.fused_mlp:
+            p = fused_mlp.params_from_tree(params[pref + 'enc'],
+                                           params[pref + head])
+            out = fused_mlp.apply_chain(self.sigma_plan, pts, p,
+                                        compute_dtype=compute_dtype,
+                                        needs_dw=False)
+            return out[:, -1:]
+        feat = self.specs['enc'].apply(params[pref + 'enc'],
+                                       self._embed_xyz(pts),
+                                       compute_dtype=compute_dtype)
+        out = self.specs[head].apply(params[pref + head], feat,
+                                     compute_dtype=compute_dtype)
+        return out[:, -1:]  # rgbs_out packs sigma last
 
     def render_rays(self, params, rayo, rayd, mode='train', generator=None,
                     t_rand_coarse=None, sigma_noise=None, u_fine=None):

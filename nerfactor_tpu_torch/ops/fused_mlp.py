@@ -878,7 +878,9 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
     transposed hidden weights that K1-fwd's tensor-core kernel read for
     these params, which the tensor-core backward then does not pack again.
     Counts its launches in ``chain_kernel_bwd.launches``, those of the
-    tensor-core design also in ``chain_kernel_bwd.tc_launches``."""
+    tensor-core design also in ``chain_kernel_bwd.tc_launches``, and those
+    that compute dW/db (the tensor-core design's dW pass, or the CUDA-core
+    kernel's dW slices) in ``chain_kernel_bwd.dw_launches``."""
     _check_route(plan, 'K1-bwd', False)
     tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
                              x.device)
@@ -886,10 +888,12 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
                                 needs_dw, tc, wt=wt)
     chain_kernel_bwd.launches += ran
     chain_kernel_bwd.tc_launches += int(ran and tc)
+    chain_kernel_bwd.dw_launches += int(ran and needs_dw)
     return dx, grads
 
 
 chain_kernel_bwd.launches = chain_kernel_bwd.tc_launches = 0
+chain_kernel_bwd.dw_launches = 0
 
 
 def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,
