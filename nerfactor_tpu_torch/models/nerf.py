@@ -20,7 +20,7 @@ Not ported: the JAX package's ``_train_ray_limit`` /
 8192-ray train dispatches of the unfused f32 program.
 """
 
-from os.path import join
+from os.path import exists, join
 
 import numpy as np
 import torch
@@ -32,7 +32,10 @@ from nerfactor_tpu_torch.ops import img as imgops
 from nerfactor_tpu_torch.ops import fused_mlp, fused_nerf
 from nerfactor_tpu_torch.utils import ckpt as ckptutil, io as ioutil
 from nerfactor_tpu_torch.utils import vis as visutil
+from nerfactor_tpu_torch.utils.logging import Logger
 from nerfactor_tpu_torch.utils.metrics import psnr as psnr_fn
+
+logger = Logger(loggee="models/nerf")
 
 
 class Model(BaseModel):
@@ -350,18 +353,27 @@ class Model(BaseModel):
         ioutil.write_json({'id': id_, 'psnr': psnr},
                           join(outdir, 'metadata.json'))
 
-    def compile_batch_vis(self, batch_vis_dirs, outpref, mode='train'):
-        """Vali: one HTML page over the epoch's views; returns its path.
-        The test-mode video is not ported yet (ROADMAP.md, Queue 1)."""
+    def compile_batch_vis(self, batch_vis_dirs, outpref, mode='train',
+                          fps=12):
+        """Vali: one HTML page over the epoch's views; test: a video of
+        the views' fine renders. Returns the path written (a video falls
+        back to .apng without a codec), or None."""
         self._validate_mode(mode)
         if mode == 'train':
             return None
-        if mode == 'test':
-            raise NotImplementedError(
-                "The test-mode video compile is not ported yet (ROADMAP.md, "
-                "Queue 1)")
+        if mode == 'vali':
+            outpath = self._compile_into_webpage(batch_vis_dirs,
+                                                 outpref + '.html')
+        else:
+            outpath = self._compile_into_video(batch_vis_dirs,
+                                               outpref + '.mp4', fps=fps)
+        if outpath is None:
+            return None
+        return self.config.get('viewer_prefix', fallback='') + outpath
+
+    def _compile_into_webpage(self, batch_dirs, out_html):
         rows = []
-        for batch_dir in batch_vis_dirs:
+        for batch_dir in batch_dirs:
             metadata = ioutil.read_json(join(batch_dir, 'metadata.json'))
             rows.append([
                 str(metadata),
@@ -380,6 +392,26 @@ class Model(BaseModel):
         table = html.add_table()
         for r in rows:
             table.add_row(r, ['text'] + ['image'] * 5, captions=caps)
-        out_html = outpref + '.html'
-        html.save(out_html)
-        return self.config.get('viewer_prefix', fallback='') + out_html
+        return html.save(out_html)
+
+    def _compile_into_video(self, batch_dirs, out_mp4, fps=12):
+        """The views' fine rgb in the order of their ids, each beside its
+        nearest real capture (``<data_root>/test_phys_nn``) where there is
+        exactly one; returns the path written, or None without frames."""
+        data_root = self.config.get('data_root')
+        frames = {}
+        for batch_dir in batch_dirs:
+            json_path = join(batch_dir, 'metadata.json')
+            pred_path = join(batch_dir, 'fine_rgb.png')
+            if not exists(json_path) or not exists(pred_path):
+                logger.warn("Skipping %s: missing files", batch_dir)
+                continue
+            id_ = ioutil.read_json(json_path)['id']
+            frame = ioutil.load_img(pred_path)
+            nn_paths = ioutil.sortglob(join(data_root, 'test_phys_nn'),
+                                       id_ + '_nn_*.png')
+            if len(nn_paths) == 1:
+                frame = imgops.hconcat((frame, ioutil.load_img(nn_paths[0])))
+            frames[id_] = frame
+        return visutil.make_video([frames[k] for k in sorted(frames)],
+                                  out_mp4, fps=fps)

@@ -677,18 +677,27 @@ class Model(ShapeModel):
         ioutil.write_json({'id': id_, 'psnr': psnr, 'ssim': ssim},
                           join(outdir, 'metadata.json'))
 
-    def compile_batch_vis(self, batch_vis_dirs, outpref, mode='train'):
-        """Vali: one HTML page over the epoch's views; returns its path.
-        The test-mode video is not ported yet (ROADMAP.md, Queue 1)."""
+    def compile_batch_vis(self, batch_vis_dirs, outpref, mode='train',
+                          fps=12):
+        """Vali: one HTML page over the epoch's views; test: the video of
+        :meth:`_compile_into_video`. Returns the path written (a video
+        falls back to .apng without a codec), or None."""
         self._validate_mode(mode)
         if mode == 'train':
             return None
-        if mode == 'test':
-            raise NotImplementedError(
-                "The test-mode video compile is not ported yet (ROADMAP.md, "
-                "Queue 1)")
+        if mode == 'vali':
+            outpath = self._compile_into_webpage(batch_vis_dirs,
+                                                 outpref + '.html')
+        else:
+            outpath = self._compile_into_video(batch_vis_dirs,
+                                               outpref + '.mp4', fps=fps)
+        if outpath is None:
+            return None
+        return self.config.get('viewer_prefix', fallback='') + outpath
+
+    def _compile_into_webpage(self, batch_dirs, out_html):
         rows = []
-        for batch_dir in batch_vis_dirs:
+        for batch_dir in batch_dirs:
             metadata = ioutil.read_json(join(batch_dir, 'metadata.json'))
             row = [str(metadata),
                    join(batch_dir, 'pred-vs-gt_rgb.apng'),
@@ -719,6 +728,57 @@ class Model(ShapeModel):
         for row, caps in rows:
             table.add_row(row, ['text'] + ['image'] * (len(row) - 1),
                           captions=caps)
-        out_html = outpref + '.html'
-        html.save(out_html)
-        return self.config.get('viewer_prefix', fallback='') + out_html
+        return html.save(out_html)
+
+    def _compile_into_video(self, batch_dirs, out_mp4, fps=12):
+        """View synthesis under the estimated light (its thumbnail inset),
+        the last view's OLAT relights, then the views there and back under
+        each probe in turn; returns the path written, or None without
+        frames."""
+        if self.config.get('dataset') == 'mvs_shape':
+            data_root = self.config.get('mvs_root')
+        else:
+            data_root = self.config.get('data_root')
+        batch_dirs = sorted(batch_dirs)
+        if self.debug:
+            batch_dirs = batch_dirs[:10]
+        # The estimated light's thumbnail, which vis_batch saves once
+        light_uint = None
+        light_png = join(dirname(batch_dirs[0]), 'pred_light.png')
+        if exists(light_png):
+            light_uint = (ioutil.load_img(light_png) * 255).astype(np.uint8)
+        frames = []
+
+        def add(batch_dir, rows, light):
+            frame = visutil.make_frame(batch_dir, rows, data_root=data_root,
+                                       rgb_embed_light=light)
+            if frame is not None:
+                frames.append(frame)
+
+        for batch_dir in batch_dirs:
+            add(batch_dir, (('normal', 'lvis', 'nn'),
+                            ('brdf', 'albedo', 'rgb')), light_uint)
+        # Relighting: the OLATs of the final view
+        relight_dir = batch_dirs[-1]
+        for lvis_path in ioutil.sortglob(relight_dir, 'pred_lvis_olat*.png'):
+            olat_id = basename(lvis_path)[len('pred_lvis_olat_'):-len('.png')]
+            add(relight_dir, (('normal', 'lvis_olat_%s' % olat_id, 'nn'),
+                              ('brdf', 'albedo', 'rgb_olat_%s' % olat_id)),
+                self.novel_olat_uint.get(olat_id))
+        # Relighting and view synthesis at once: the views there and back,
+        # twice, the probes taking equal shares in turn
+        if self.probe_names:
+            roundtrip = list(reversed(batch_dirs)) + batch_dirs
+            roundtrip += roundtrip
+            n_per_probe = len(roundtrip) / len(self.probe_names)
+            probe_i = 0
+            for view_i, batch_dir in enumerate(roundtrip):
+                name = self.probe_names[probe_i]
+                add(batch_dir, (('normal', 'lvis', 'nn'),
+                                ('brdf', 'albedo', 'rgb_probes_%s' % name)),
+                    self.novel_probes_uint[name])
+                if view_i + 1 > n_per_probe * (probe_i + 1):
+                    probe_i += 1
+        if frames:
+            return visutil.make_video(frames, out_mp4, fps=fps)
+        return None

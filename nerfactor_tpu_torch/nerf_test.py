@@ -9,8 +9,8 @@ The config is found from the checkpoint path by convention
 view gets its coarse and fine rgb, depth, disparity and occupancy images
 and a metadata.json under <outroot>/<xname>/vis_test/ckpt-N/batch?????????/.
 ``--device`` picks the torch device (the CUDA kernels run on ``cuda``;
-``cpu`` runs their plain versions). The video compile is not ported yet
-(ROADMAP.md).
+``cpu`` runs their plain versions). The fine renders are compiled into
+<outroot>/<xname>/vis_test/ckpt-N.mp4 (.apng without a video codec).
 """
 
 import argparse
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from nerfactor_tpu_torch import datasets, models
-from nerfactor_tpu_torch.utils import ckpt as ckptutil
+from nerfactor_tpu_torch.utils import ckpt as ckptutil, io as ioutil
 from nerfactor_tpu_torch.utils import config as configutil
 from nerfactor_tpu_torch.utils.logging import Logger
 
@@ -38,9 +38,10 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Renders the test views; returns {'outroot', 'view_seconds'}, the
-    seconds of each view's render (device work included) and image
-    writes."""
+    """Renders the test views and compiles them into a video; returns
+    {'outroot', 'view_seconds', 'video'}: the seconds of each view's
+    render (device work included) and image writes, and the path of the
+    video written (an .apng without a video codec)."""
     args = parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -79,9 +80,11 @@ def main(argv=None):
         logger.info("View %d: %.3f s", batch_i, view_seconds[-1])
         if args.debug:
             break
-    logger.info("Per-view images written under %s (the video compile is "
-                "not ported yet, see ROADMAP.md)", outroot)
-    return {'outroot': outroot, 'view_seconds': view_seconds}
+    batch_vis_dirs = ioutil.sortglob(outroot, 'batch?????????')
+    video = model.compile_batch_vis(batch_vis_dirs, outroot, mode='test')
+    logger.info("Compilation available for viewing at\n\t%s", video)
+    return {'outroot': outroot, 'view_seconds': view_seconds,
+            'video': video}
 
 
 if __name__ == '__main__':

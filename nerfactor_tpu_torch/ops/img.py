@@ -41,6 +41,24 @@ def linear2srgb(tensor_0to1, clip=True):
                        nonlin)
 
 
+def srgb2linear(tensor_0to1):
+    """sRGB -> linear transfer curve, the inverse of :func:`linear2srgb`;
+    inputs are clipped to [0, 1]."""
+    xp = np if isinstance(tensor_0to1, np.ndarray) else torch
+    tensor_0to1 = xp.clip(tensor_0to1, 0.0, 1.0)
+    lin = tensor_0to1 / 12.92
+    nonlin = ((tensor_0to1 + 0.055) / 1.055) ** 2.4
+    return xp.where(tensor_0to1 <= 0.04045, lin, nonlin)
+
+
+def rgb2lum(rgb):
+    """Rec. 709 luminance of the last axis."""
+    if isinstance(rgb, np.ndarray):
+        return rgb @ np.asarray((0.2126, 0.7152, 0.0722), dtype=rgb.dtype)
+    return rgb @ torch.tensor((0.2126, 0.7152, 0.0722), dtype=rgb.dtype,
+                              device=rgb.device)
+
+
 def resize(img, new_h=None, new_w=None):
     """Bilinear antialiased resize of an (H, W) or (H, W, C) NumPy array
     on the host; float arrays keep their dtype, others come back f32."""
@@ -66,3 +84,42 @@ def resize(img, new_h=None, new_w=None):
 def normalize_uint(arr):
     """uint image -> float in [0, 1]."""
     return arr.astype(np.float32) / np.iinfo(arr.dtype).max
+
+
+def to_uint(tensor_0to1, dtype=np.uint8):
+    """[0, 1] floats -> clipped, truncated unsigned integers."""
+    arr = np.clip(np.asarray(tensor_0to1), 0.0, 1.0)
+    return (arr * np.iinfo(dtype).max).astype(dtype)
+
+
+def _concat(img_list, axis, out_size=None):
+    """Stacks images along ``axis`` (1 across, 0 down); a gray image
+    becomes RGB, and each one is resized to the previous one's extent
+    across the stacking axis; the result is resized to ``out_size``
+    along it."""
+    across = 1 - axis
+    total = []
+    for im in img_list:
+        im = np.asarray(im)
+        if im.ndim == 2:
+            im = np.dstack([im] * 3)
+        if total and im.shape[across] != total[-1].shape[across]:
+            size = total[-1].shape[across]
+            im = resize(im, new_h=size) if axis == 1 else \
+                resize(im, new_w=size)
+        total.append(im)
+    out = np.concatenate(total, axis=axis)
+    if out_size is not None:
+        out = resize(out, new_w=out_size) if axis == 1 else \
+            resize(out, new_h=out_size)
+    return out
+
+
+def hconcat(img_list, out_w=None):
+    """Images side by side, each at the first one's height."""
+    return _concat(img_list, 1, out_w)
+
+
+def vconcat(img_list, out_h=None):
+    """Images top to bottom, each at the first one's width."""
+    return _concat(img_list, 0, out_h)

@@ -11,10 +11,13 @@ The config is found from the checkpoint path by convention
 (<outroot>/<xname>/checkpoints/ckpt-N -> <outroot>/<xname>.ini). Each
 test view gets the per-view images of nerfactor_tpu/test.py under
 <outroot>/<xname>/vis_test/ckpt-N[_edit]/batch?????????/; the last view
-also gets the OLAT relights. ``--tgt_brdf`` names a material of the BRDF
-prior's training tables: its latent code replaces the predicted one at
-every point. ``--device`` picks the torch device (the CUDA kernels run on
-``cuda``; ``cpu`` runs their plain versions).
+also gets the OLAT relights, and the views are compiled into
+<outroot>/<xname>/vis_test/ckpt-N[_edit].mp4 (.apng without a video
+codec): view synthesis, the OLATs, then the probes. ``--tgt_brdf``
+names a material of the BRDF prior's training tables: its latent code
+replaces the predicted one at every point. ``--device`` picks the torch
+device (the CUDA kernels run on ``cuda``; ``cpu`` runs their plain
+versions).
 """
 
 import argparse
@@ -108,10 +111,12 @@ def get_albedo_override(args, xyz):
 
 
 def main(argv=None):
-    """Runs inference; returns {'outroot', 'view_seconds',
-    'brdf_z_override'}: the seconds of each view's forward (device work
-    included) and its image writes, and the latent code a --tgt_brdf edit
-    put on every point (None without one)."""
+    """Runs inference and compiles the views into a video; returns
+    {'outroot', 'view_seconds', 'brdf_z_override', 'video'}: the seconds
+    of each view's forward (device work included) and its image writes,
+    the latent code a --tgt_brdf edit put on every point (None without
+    one), and the path of the video written (an .apng without a video
+    codec)."""
     args = parse_args(argv)
     if args.debug:
         logger.warn("Debug mode: on")
@@ -186,10 +191,11 @@ def main(argv=None):
         logger.info("View %d: %.3f s", batch_i, view_seconds[-1])
         if args.debug:
             break
-    logger.info("Per-view images written under %s (the video/HTML compile "
-                "is not ported yet, see ROADMAP.md)", outroot)
+    batch_vis_dirs = ioutil.sortglob(outroot, 'batch?????????')
+    video = model.compile_batch_vis(batch_vis_dirs, outroot, mode='test')
+    logger.info("Compilation available for viewing at\n\t%s", video)
     return {'outroot': outroot, 'view_seconds': view_seconds,
-            'brdf_z_override': brdf_z_override}
+            'brdf_z_override': brdf_z_override, 'video': video}
 
 
 if __name__ == '__main__':

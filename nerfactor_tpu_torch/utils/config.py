@@ -45,9 +45,9 @@ def get_xname(config):
     return config.get('DEFAULT', 'xname').format(**config2dict(config))
 
 
-# The shipped configs, which both packages read
-CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), 'nerfactor_tpu', 'config')
+# The shipped configs: the port's own copy of the JAX package's INIs
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'config')
 
 
 def resolve_config_path(name_or_path):

@@ -1,10 +1,10 @@
 """Host-side IO: json, npy/npz, globs, output dirs, PNG images
 (counterpart of nerfactor_tpu/utils/io.py).
 
-Images are 8- or 16-bit PNGs, read and written here with ``zlib`` and
-``struct`` alone, so the port needs no image codec package (the GPU
-machine has no ``imageio``). Reading handles all five PNG filter types;
-writing uses filter 0 ("None") on every row.
+Images are 8- or 16-bit PNGs (and animated PNGs), read and written here
+with ``zlib`` and ``struct`` alone, so the port needs no image codec
+package (the GPU machine has no ``imageio``). Reading handles all five
+PNG filter types; writing uses filter 0 ("None") on every row.
 """
 
 import glob
@@ -149,8 +149,9 @@ def _chunk(ctype, body):
     return struct.pack('>I', len(body)) + ctype + body + struct.pack('>I', crc)
 
 
-def write_png(arr, path):
-    """Encodes a uint8/uint16 (H, W) or (H, W, 1-4) array as a PNG."""
+def _png_rows(arr):
+    """(IHDR body, zlib-compressed scanlines with filter 0) of a
+    uint8/uint16 (H, W) or (H, W, 1-4) array."""
     arr = np.asarray(arr)
     if arr.dtype not in (np.uint8, np.uint16):
         raise ValueError("PNG pixels must be uint8 or uint16, got %s"
@@ -165,10 +166,39 @@ def write_png(arr, path):
     raw = np.concatenate(
         [np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1)
     header = struct.pack('>IIBBBBB', w, h, depth, _COLOR_TYPES[ch], 0, 0, 0)
+    return header, zlib.compress(raw.tobytes(), 6)
+
+
+def write_png(arr, path):
+    """Encodes a uint8/uint16 (H, W) or (H, W, 1-4) array as a PNG."""
+    header, data = _png_rows(arr)
     with open(path, 'wb') as f:
-        f.write(_SIGNATURE + _chunk(b'IHDR', header)
-                + _chunk(b'IDAT', zlib.compress(raw.tobytes(), 6))
+        f.write(_SIGNATURE + _chunk(b'IHDR', header) + _chunk(b'IDAT', data)
                 + _chunk(b'IEND', b''))
+
+
+def write_apng(frames, path, duration_ms=1000):
+    """Encodes same-shaped uint8/uint16 frames as an animated PNG that
+    loops forever, each frame shown ``duration_ms``."""
+    headers, datas = zip(*(_png_rows(f) for f in frames))
+    if len(set(headers)) != 1:
+        raise ValueError("APNG frames must share shape and dtype")
+    w, h = struct.unpack('>II', headers[0][:8])
+    chunks = [_chunk(b'IHDR', headers[0]),
+              _chunk(b'acTL', struct.pack('>II', len(frames), 0))]
+    seq = 0
+    for i, data in enumerate(datas):
+        # Full-frame region, no disposal, source blend
+        chunks.append(_chunk(b'fcTL', struct.pack(
+            '>IIIIIHHBB', seq, w, h, 0, 0, duration_ms, 1000, 0, 0)))
+        seq += 1
+        if i == 0:
+            chunks.append(_chunk(b'IDAT', data))
+        else:
+            chunks.append(_chunk(b'fdAT', struct.pack('>I', seq) + data))
+            seq += 1
+    with open(path, 'wb') as f:
+        f.write(_SIGNATURE + b''.join(chunks) + _chunk(b'IEND', b''))
 
 
 def load_img(path, force_rgba=False):

@@ -1,11 +1,12 @@
-"""Host-side visualization: labeled frames, APNG flipbooks, videos, bar
-charts and HTML galleries (counterpart of put_text, make_anim, make_video,
-bar_chart and HTML in nerfactor_tpu/utils/vis.py). PIL only, imported
-where it is used; a video is an mp4 where imageio and its ffmpeg backend
-are installed, else an animated PNG."""
+"""Host-side visualization: labeled frames, APNG flipbooks, video frames
+and videos, bar charts and HTML galleries (counterpart of put_text,
+make_anim, make_video, make_frame, bar_chart and HTML in
+nerfactor_tpu/utils/vis.py). PIL only, imported where it is used; a
+video is an mp4 where imageio and its ffmpeg backend are installed, else
+an animated PNG."""
 
 import os
-from os.path import dirname
+from os.path import dirname, exists, join
 
 import numpy as np
 
@@ -52,10 +53,16 @@ def put_text(img, text, loc_ratio=0.05, size_ratio=0.05, color=(0, 0, 0)):
 
 
 def make_anim(imgs, outpath, duration_ms=1000):
-    """Animated PNG flipbook of the given frames."""
-    from PIL import Image
+    """Animated PNG flipbook of the given frames: PIL's encoding (the JAX
+    package's bytes) where PIL is installed, else the port's own."""
     os.makedirs(dirname(outpath), exist_ok=True)
-    frames = [Image.fromarray(_to_rgb(x)) for x in imgs]
+    frames = [_to_rgb(x) for x in imgs]
+    try:
+        from PIL import Image
+    except ImportError:
+        ioutil.write_apng(frames, outpath, duration_ms=duration_ms)
+        return outpath
+    frames = [Image.fromarray(x) for x in frames]
     frames[0].save(
         outpath, save_all=True, append_images=frames[1:],
         duration=duration_ms, loop=0, default_image=False)
@@ -85,6 +92,50 @@ def make_video(frames, outpath, fps=12):
         alt = outpath.rsplit('.', 1)[0] + '.apng'
         logger.warn("Video backend unavailable (%s); writing %s", e, alt)
         return make_anim(frames, alt, duration_ms=int(1000 / fps))
+
+
+def make_frame(batch_dir, layout, data_root=None, rgb_embed_light=None):
+    """One video frame collaged from a view's ``pred_<name>.png`` files:
+    ``layout`` is a tuple of rows of buffer names ('normal', 'lvis',
+    'brdf', 'albedo', 'rgb', 'rgb_olat_X', ...). 'nn' is the nearest real
+    capture under ``<data_root>/test_phys_nn``, else a white tile; an
+    'rgb*' buffer gets ``rgb_embed_light`` inset at its top right. None
+    when a buffer is missing."""
+    from nerfactor_tpu_torch.ops import img as imgops
+    rows = []
+    for row_names in layout:
+        row_imgs = []
+        for name in row_names:
+            if name == 'nn':
+                cands = ioutil.sortglob(join(data_root, 'test_phys_nn'),
+                                        '*_nn_*.png') if data_root else []
+                if cands:
+                    row_imgs.append(_to_rgb(ioutil.load_img(cands[0])))
+                elif row_imgs:
+                    row_imgs.append(np.ones_like(row_imgs[0]) * 255)
+                continue
+            path = join(batch_dir, 'pred_%s.png' % name)
+            if not exists(path):
+                return None
+            img = _to_rgb(ioutil.load_img(path))
+            if name.startswith('rgb') and rgb_embed_light is not None:
+                img = _embed_light(img, rgb_embed_light)
+            row_imgs.append(img)
+        if not row_imgs:
+            return None
+        rows.append(imgops.hconcat(row_imgs))
+    return imgops.vconcat(rows)
+
+
+def _embed_light(img, light_uint):
+    """Insets a light thumbnail at the top right of a render."""
+    from nerfactor_tpu_torch.ops import img as imgops
+    img = img.copy()
+    lh = max(1, int(0.2 * img.shape[0]))
+    lw = max(1, int(lh / light_uint.shape[0] * light_uint.shape[1]))
+    img[:lh, -lw:] = _to_rgb(imgops.resize(
+        light_uint.astype(np.float32) / 255.0, new_h=lh, new_w=lw))
+    return img
 
 
 def bar_chart(values, outpath):
