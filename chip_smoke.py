@@ -2,9 +2,10 @@
 model's inference and training, the shape stage's and the BRDF prior's
 training (and the prior's explorer), the joint model from their
 checkpoints, the NeRF stage's training and test rendering, geometry
-distillation from that NeRF with the shape stage on its buffers, and the
+distillation from that NeRF with the shape stage on its buffers, the
 whole pipeline end to end (tools/quality_e2e.py) with the serving entry
-points' video compile.
+points' video compile, and the shipped variants: the GGX microfacet
+ablation and the MVS path from a DTU-style scan.
 
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
@@ -160,15 +161,35 @@ points' video compile.
    video's frame count checked; the joint model's mean vali PSNR against
    E2E_PSNR_FLOOR, and the control that must stay under it: the shape and
    joint stages again on the same buffers, each moved to the next view.
+26. The GGX microfacet ablation: ``trainvali.main`` on
+   nerfactor_microfacet.ini at full width (128 x 4, 1024 rays x 512
+   lights, bf16 lvis chain, fused kernels) for 4 epochs from the seeded
+   shape checkpoint, counters zeroed before and read after (K1 on the
+   tensor cores for lvis, on the CUDA cores for the albedo, roughness and
+   normal heads; K2 never); its losses, checkpoints without BRDF-prior
+   leaves, every leaf of ckpt-4 moved from ckpt-2, the roughness image;
+   ``test.main`` on ckpt-4 with OLAT and probe relights and the video; one
+   step's loss and every gradient leaf on the card against the CPU plain
+   port; ``microfacet_spec`` at 1024 x 512 pairs against float64 and the
+   CPU; the step's time with its idle share.
+27. The MVS path: ``tools/synth_dtu.py`` writes a DTU-style scan (an
+   icosphere of 5,120 faces, 8 views at 128 px), ``dtu_surf_from_mvs.main``
+   casts it on the card (--h 128 --light_h 16, 3 test views: seconds a
+   view, ray-triangle tests a second), the tracer on the card against the
+   CPU on 2,048 of its rays, ``trainvali.main`` on shape_mvs.ini for 4
+   epochs and on nerfactor_mvs.ini for 2 from that checkpoint (counters
+   zeroed before and read after: K1; K1 and K2), each step timed, then
+   ``test.main`` on the MVS test views with its video.
 
 Prints a JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work; also written to
 build/smoke/result.json), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the run exits non-zero. The only cuts from production are imh
-128 (not 512; distillation and the shape stage on its buffers imh 64) and
-the BRDF test table's render (64 x 64, not 128); the probes run at their
-own defaults, uncut.
+128 (not 512; distillation and the shape stage on its buffers imh 64),
+the BRDF test table's render (64 x 64, not 128) and the MVS scan's test
+trajectory (3 views, not 120); the probes run at their own defaults,
+uncut.
 
   python3 chip_smoke.py --limit_seeds k3 11,12,13,14
   python3 chip_smoke.py --limit_seeds k1 11,12,13,14
@@ -231,6 +252,8 @@ import numpy as np
 import torch
 
 from nerfactor_tpu_torch import explore_brdf_space, geometry_from_nerf
+from nerfactor_tpu_torch.data_gen import (
+    dtu_surf_from_mvs, meshio, raytrace)
 from nerfactor_tpu_torch import nerf_test
 from nerfactor_tpu_torch import test as test_cli
 from nerfactor_tpu_torch import trainvali
@@ -239,10 +262,13 @@ from nerfactor_tpu_torch.brdf.renderer import SphereRenderer
 from nerfactor_tpu_torch.datasets.brdf_merl import (
     N_BETWEEN, Dataset as BrdfDataset)
 from nerfactor_tpu_torch.datasets.nerf import Dataset as NerfDataset
+from nerfactor_tpu_torch.datasets.mvs_shape import Dataset as MvsDataset
 from nerfactor_tpu_torch.datasets.nerf_shape import Dataset
 from nerfactor_tpu_torch.models import networks
 from nerfactor_tpu_torch.models.brdf import Model as BrdfModel
 from nerfactor_tpu_torch.models.nerf import Model as NerfModel
+from nerfactor_tpu_torch.models.nerfactor_microfacet import (
+    Model as MicrofacetModel)
 from nerfactor_tpu_torch.models.nerfactor import (
     BRDF_PARAM_KEYS, SHAPE_PARAM_KEYS, Model)
 from nerfactor_tpu_torch.models.shape import Model as ShapeModel
@@ -252,10 +278,11 @@ from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import fused_nerf as fn
 from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.ops import kernel_lib
+from nerfactor_tpu_torch.ops.microfacet import microfacet_spec
 from nerfactor_tpu_torch.parallel.train import (
     build_optimizer, make_train_step, upcast_batch)
 from nerfactor_tpu_torch.tools import (
-    chain_probe, dot_probe, march_probe, quality_e2e, synth_scene)
+    chain_probe, dot_probe, march_probe, quality_e2e, synth_dtu, synth_scene)
 from nerfactor_tpu_torch.utils import (
     card, ckpt as ckptutil, config as configutil, io as ioutil)
 
@@ -1124,10 +1151,12 @@ def run_shape_training(data_root, nerf_root, imh=IMH, outname='shape_train'):
     return launches, outdir, {'loss_train': losses, 'loss_vali': loss_vali}
 
 
-def shape_step_loss_grads(config, device, params, arrays, noise):
-    """One shape step's loss and every gradient leaf on ``device``:
-    [(key, gradient)] in flatten order."""
-    model = ShapeModel(config, device=device)
+def shape_step_loss_grads(config, device, params, arrays, noise,
+                          cls=ShapeModel):
+    """One step's loss and every gradient leaf of model class ``cls`` (the
+    shape model unless named) on ``device``: [(key, gradient)] in flatten
+    order."""
+    model = cls(config, device=device)
     live = ckptutil.tree_map(
         lambda t: t.detach().to(device).requires_grad_(), params)
     pred, gt, kwargs, _ = model.apply(
@@ -3224,6 +3253,323 @@ def check_pipeline():
     return launches, record
 
 
+# ------ the shipped variants: the GGX microfacet ablation, the MVS path ------
+
+# The microfacet step's kernels: K1 for the albedo, roughness and normal
+# heads (f32, CUDA cores) and the bf16 lvis chain (tensor cores); no BRDF
+# prior, so no K2
+MICROFACET_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K1-bwd tc')
+NO_K2 = ('K2-fwd', 'K2-fwd tc', 'K2-bwd', 'K2-bwd tc')
+# microfacet_spec in f32 against float64 at the step's 1024 x 512 pairs,
+# by relative norm: at grazing views the lobe divides by v.n and l.n, and
+# its peaks carry their rounding (CPU reading at seed 0: 4.05e-4). The
+# card against the CPU in f32 parts as far (the card's rsqrt and pow
+# round otherwise; first card reading 3.08e-4), so the same limit.
+MICROFACET_F64_TOL = 2e-3
+MICROFACET_CARD_CPU_TOL = MICROFACET_F64_TOL
+# The MVS phase's scan: tools/synth_dtu.py's icosphere at subdivision 4
+# (5,120 faces), 8 views at imh 128 (6 train, 2 val) and 3 test views of
+# the 120 the trajectory has by default (the one cut); 512 lights
+MVS_IMH, MVS_VIEWS, MVS_SUBDIV, MVS_TEST_VIEWS = 128, 8, 4, 3
+# Rays of one view (camera and occlusion rays) traced on the card and on
+# the CPU: hit mask and triangle index equal, t within RAYTRACE_T_TOL (the
+# same elementwise operations in the same order: bit for bit expected)
+RAYTRACE_SAMPLE = 2048
+RAYTRACE_T_TOL = (1e-6, 1e-5)
+
+
+def no_k2(launches, path):
+    """Raises if K2 launched on ``path``."""
+    k2 = {k: launches[k] for k in NO_K2 if launches[k]}
+    if k2:
+        raise AssertionError("K2 launched on the %s path: %s" % (path, k2))
+
+
+def check_relights(run, n_views, what):
+    """A test.py run's views: OLAT relights on the last view only, probe
+    relights on each; the compiled video's frames (views, the last view's
+    OLATs, the two probes' round trip)."""
+    batch_dirs = ioutil.sortglob(run['outroot'], 'batch?????????')
+    if len(batch_dirs) != n_views:
+        raise AssertionError("%s: %d view dirs" % (what, len(batch_dirs)))
+    n_olat = [len(ioutil.sortglob(d, 'pred_rgb_olat_*.png'))
+              for d in batch_dirs]
+    if n_olat != [0] * (n_views - 1) + [LIGHT_H * LIGHT_H]:
+        raise AssertionError("%s: OLAT files by view %s" % (what, n_olat))
+    for d in batch_dirs:
+        for name in ('courtyard', 'sunset'):
+            if not os.path.exists(join(d, 'pred_rgb_probes_%s.png' % name)):
+                raise AssertionError("%s: no %s relight in %s"
+                                     % (what, name, d))
+    n_lvis_olat = len(ioutil.sortglob(batch_dirs[-1], 'pred_lvis_olat*.png'))
+    return check_video(run, n_views + n_lvis_olat + 2 * 2 * n_views, what)
+
+
+def run_microfacet(joint_override):
+    """trainvali.main on nerfactor_microfacet.ini for 4 epochs from the
+    smoke's seeded shape checkpoint, counters zeroed before and read
+    after (K1 on the tensor cores and the CUDA cores, no K2); checks the
+    losses, that the checkpoints hold no BRDF-prior leaf and every leaf of
+    ckpt-4 moved from ckpt-2, the roughness image; then test.main on
+    ckpt-4 (OLAT and probe relights, the video), counters zeroed before
+    and read after. Returns (launches by path, outdir, record)."""
+    override = joint_override + ',' + ','.join([
+        'outroot=' + join(WORK, 'out', 'microfacet'), 'epochs=4',
+        'ckpt_period=2', 'vali_period=4', 'vali_batches=1'])
+    zero_counters()
+    t0 = time.perf_counter()
+    outdir = trainvali.main(['--config', 'nerfactor_microfacet.ini',
+                             '--config_override', override])['outdir']
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {'microfacet_training': read_counters(
+        MICROFACET_KERNELS, 'microfacet training')}
+    no_k2(launches['microfacet_training'], 'microfacet training')
+    losses = train_scalars(outdir)
+    config = configutil.Config(configutil.read_config(outdir + '.ini'))
+    ckpts = join(outdir, 'checkpoints')
+    at2 = ckptutil.restore_trained_params(
+        join(ckpts, 'ckpt-2'), MicrofacetModel(config, device='cpu')
+        .init_params(torch.Generator()))
+    if set(at2) & set(BRDF_PARAM_KEYS):
+        raise AssertionError("microfacet checkpoint with BRDF-prior leaves: "
+                             "%s" % sorted(at2))
+    moved = changed_leaves(at2, join(ckpts, 'ckpt-4'))
+    if not all(moved.values()):
+        raise AssertionError("microfacet ckpt-4: leaves that did not move "
+                             "from ckpt-2: %s" % moved)
+    vali_dir = join(outdir, 'vis_vali', 'epoch000000004', 'batch000000000')
+    rough = ioutil.load_img(join(vali_dir, 'pred_brdf.png'))
+    if rough.shape != (IMH, IMH, 3) or not np.array_equal(rough[..., 0],
+                                                          rough[..., 2]):
+        raise AssertionError("microfacet pred_brdf.png: %s" % (rough.shape,))
+    zero_counters()
+    run = test_cli.main(['--ckpt', join(ckpts, 'ckpt-4')])
+    launches['microfacet_inference'] = read_counters(
+        ('K1-fwd', 'K1-fwd tc'), 'microfacet test.py')
+    no_k2(launches['microfacet_inference'], 'microfacet test.py')
+    return launches, outdir, {
+        'loss_train': losses, 'seconds': seconds, 'leaves': len(
+            ckptutil.tree_leaves(at2)),
+        'test': check_relights(run, N_VIEWS, 'microfacet test.py')}
+
+
+def check_microfacet_step(config):
+    """One microfacet step's loss and every gradient leaf on the card
+    against the port's plain version on the CPU, from one batch and one
+    jitter draw: every leaf within NORM_TOL_BF16 by relative norm (the
+    bf16 lvis chain feeds the render, so each leaf's gradient carries
+    it), the loss within TOL_BF16."""
+    params = MicrofacetModel(config, device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    batch = next(iter(Dataset(config, 'train').build_pipeline(prefetch=0)))
+    arrays = {k: torch.as_tensor(np.asarray(batch[k]))
+              for k in Dataset.array_keys}
+    noise = config.getfloat('xyz_jitter_std') * torch.randn(
+        (N_RAYS, 3), generator=torch.Generator().manual_seed(1))
+    zero_counters()
+    loss_k, grads_k = shape_step_loss_grads(
+        config, 'cuda', params, arrays, noise, cls=MicrofacetModel)
+    no_k2(counts(), 'microfacet step')
+    loss_p, grads_p = shape_step_loss_grads(
+        config, 'cpu', params, arrays, noise, cls=MicrofacetModel)
+    errs = {}
+    for (k, got), (_, want) in zip(grads_k, grads_p):
+        errs[k] = max(errs.get(k, 0.0), rel_norm(got, want))
+    return {
+        'rows_lvis': 2 * N_RAYS * N_LIGHTS, 'loss_card': loss_k,
+        'loss_plain_cpu': loss_p,
+        'loss_abs_err': compare('microfacet step loss',
+                                torch.tensor([loss_k]),
+                                torch.tensor([loss_p]), TOL_BF16),
+        'grad_rel_err': check_norm('microfacet step gradients',
+                                   list(errs.values()), NORM_TOL_BF16),
+        'grad_rel_err_by_key': errs, 'grad_leaves': len(grads_k),
+        'tol': {'grads': NORM_TOL_BF16, 'loss': TOL_BF16}}
+
+
+def check_microfacet_lobe(seed=0):
+    """microfacet_spec at the step's shapes (N_RAYS x N_LIGHTS pairs,
+    seeded directions and roughness in [0.05, 1]) on the card in f32
+    against float64 and against the CPU, with its ms."""
+    g = torch.Generator().manual_seed(seed)
+    args = (torch.randn(N_RAYS, N_LIGHTS, 3, generator=g),
+            torch.randn(N_RAYS, 3, generator=g),
+            torch.randn(N_RAYS, 3, generator=g),
+            0.05 + 0.95 * torch.rand(N_RAYS, 1, generator=g))
+
+    def spec(device, dtype=torch.float32):
+        a = [t.to(device=device, dtype=dtype) for t in args]
+        return microfacet_spec(*a[:3], rough=a[3], f0=0.04)
+
+    got = spec('cuda')
+    f64 = spec('cuda', torch.float64)
+    cpu = spec('cpu')
+    if not torch.isfinite(got).all():
+        raise AssertionError("microfacet_spec: non-finite values")
+    a = [t.cuda() for t in args]
+    return {'rows': N_RAYS * N_LIGHTS,
+            'f64_rel_err': check_norm('microfacet_spec vs float64', [
+                rel_norm(got.double().cpu(), f64.cpu())], MICROFACET_F64_TOL),
+            'card_vs_cpu_rel_err': check_norm('microfacet_spec card vs CPU', [
+                rel_norm(got.cpu(), cpu)], MICROFACET_CARD_CPU_TOL),
+            'ms': time_ms(lambda: microfacet_spec(*a[:3], rough=a[3],
+                                                  f0=0.04)),
+            'tol': {'f64': MICROFACET_F64_TOL,
+                    'card_vs_cpu': MICROFACET_CARD_CPU_TOL}}
+
+
+def run_dtu(scan, surf_root):
+    """dtu_surf_from_mvs.main on the card over the scan (--h MVS_IMH,
+    --light_h LIGHT_H, MVS_TEST_VIEWS test views); checks each view's
+    files. Returns the record: seconds a view, rays and ray-triangle tests
+    a second of the tracer."""
+    t0 = time.perf_counter()
+    run = dtu_surf_from_mvs.main([
+        '--cam_dir', scan['cam_dir'], '--img_dir', scan['img_dir'],
+        '--surf_dir', scan['surf_dir'], '--outdir', surf_root,
+        '--h', str(MVS_IMH), '--light_h', str(LIGHT_H),
+        '--n_test', str(MVS_TEST_VIEWS)])
+    seconds = time.perf_counter() - t0
+    views = run['views']
+    if len(views) != MVS_VIEWS + MVS_TEST_VIEWS:
+        raise AssertionError("dtu_surf_from_mvs: views %s" % sorted(views))
+    for name in views:
+        d = join(surf_root, name)
+        for f in ('metadata.json', 'alpha.png', 'xyz.npy', 'normal.npy',
+                  'lvis.npy', 'rgba.png' if name[:4] != 'test' else 'nn.png'):
+            if not os.path.exists(join(d, f)):
+                raise AssertionError("dtu_surf_from_mvs %s: no %s" % (name,
+                                                                      f))
+        alpha = ioutil.load_img(join(d, 'alpha.png'))
+        lvis = np.load(join(d, 'lvis.npy'), mmap_mode='r')
+        if alpha.shape != (MVS_IMH, MVS_IMH) or not 0 < alpha.mean() < 1 \
+                or lvis.shape != (MVS_IMH, MVS_IMH, N_LIGHTS):
+            raise AssertionError("dtu_surf_from_mvs %s: alpha %s, lvis %s"
+                                 % (name, alpha.shape, lvis.shape))
+    rays = sum(v['rays'] for v in views.values())
+    trace_s = sum(v['trace_seconds'] for v in views.values())
+    return {'seconds': seconds, 'n_faces': run['n_faces'],
+            'views': len(views),
+            's_per_view': sum(v['seconds'] for v in views.values())
+            / len(views),
+            'trace_s_per_view': trace_s / len(views),
+            'rays_per_view': rays / len(views),
+            'rays_per_s': rays / trace_s,
+            'ray_triangle_tests_per_s': rays * run['n_faces'] / trace_s}
+
+
+def check_raytrace(scan, surf_root, seed=0):
+    """RAYTRACE_SAMPLE rays of view train_000 (half camera rays at its
+    foreground's surface points, half occlusion rays from them to the
+    lights, as dtu_surf_from_mvs casts them) traced on the card and on the
+    CPU."""
+    vertices, faces = meshio.read_ply(join(
+        scan['surf_dir'], 'stl042_l3_surf_11_trim_8.ply'))
+    view = join(surf_root, 'train_000')
+    fg = ioutil.load_img(join(view, 'alpha.png')).reshape(-1) > 0.5
+    xyz = np.load(join(view, 'xyz.npy')).reshape(-1, 3)[fg].astype(
+        np.float64)
+    cam = np.array(ioutil.read_json(join(view, 'metadata.json'))['cam_loc'])
+    lxyz = np.load(join(surf_root, 'lights.npz'))['lxyzs'].reshape(-1, 3)
+    rng = np.random.RandomState(seed)
+    half = RAYTRACE_SAMPLE // 2
+    pts = xyz[rng.randint(0, len(xyz), RAYTRACE_SAMPLE)]
+    dirs = np.concatenate([pts[:half] - cam,
+                           lxyz[rng.randint(0, len(lxyz), half)]
+                           - pts[half:]])
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    origs = np.concatenate([np.tile(cam, (half, 1)), pts[half:]
+                            + 0.1 * dirs[half:]])
+    got = raytrace.intersect(origs, dirs, vertices, faces, device='cuda')
+    want = raytrace.intersect(origs, dirs, vertices, faces, ray_chunk=512,
+                              device='cpu')
+    hit_k, t_k, idx_k = (x.cpu() for x in got)
+    hit_p, t_p, idx_p = want
+    if not torch.equal(hit_k, hit_p) or not torch.equal(idx_k, idx_p):
+        raise AssertionError("raytrace card vs CPU: %d hit and %d index "
+                             "mismatches" % (int((hit_k != hit_p).sum()),
+                                             int((idx_k != idx_p).sum())))
+    return {'rays': RAYTRACE_SAMPLE, 'hits': int(hit_p.sum()),
+            't_max_abs_err': compare('raytrace t', t_k[hit_p], t_p[hit_p],
+                                     RAYTRACE_T_TOL),
+            't_bit_identical': bool(torch.equal(t_k, t_p)),
+            'tol': RAYTRACE_T_TOL}
+
+
+def run_mvs(probe_dir):
+    """The MVS path through the user's entry points: tools/synth_dtu.py
+    writes a scan, dtu_surf_from_mvs.main casts it on the card (timed; the
+    tracer then held against the CPU on a sample), trainvali.main on
+    shape_mvs.ini for 4 epochs on those buffers and on nerfactor_mvs.ini
+    for 2 from that checkpoint and the smoke's seeded BRDF checkpoint,
+    counters zeroed before and read after each (K1; K1 and K2), then
+    test.main on the MVS test views with its video (the mvs_root frame
+    layout). Returns (launches by path, record)."""
+    scan = synth_dtu.make_scan(join(WORK, 'dtu_scan'), imh=MVS_IMH,
+                               n_views=MVS_VIEWS, subdiv=MVS_SUBDIV)
+    surf_root = join(WORK, 'surf_mvs')
+    record = {'dtu_surf_from_mvs': run_dtu(scan, surf_root)}
+    record['raytrace_card_vs_cpu'] = check_raytrace(scan, surf_root)
+    torch.cuda.empty_cache()
+    common = ['mvs_root=' + surf_root, 'imh=%d' % MVS_IMH,
+              'light_h=%d' % LIGHT_H]
+    zero_counters()
+    t0 = time.perf_counter()
+    shape_dir = trainvali.main(['--config', 'shape_mvs.ini',
+                                '--config_override', ','.join(common + [
+                                    'outroot=' + join(WORK, 'out',
+                                                      'shape_mvs'),
+                                    'epochs=4', 'ckpt_period=2',
+                                    'vali_period=4', 'vali_batches=1'])])[
+        'outdir']
+    torch.cuda.synchronize()
+    launches = {'mvs_shape_training': read_counters(SHAPE_KERNELS,
+                                                    'MVS shape training')}
+    record['shape'] = {'seconds': time.perf_counter() - t0,
+                       'loss_train': train_scalars(shape_dir)}
+    shape_config = configutil.Config(configutil.read_config(
+        shape_dir + '.ini'))
+    record['shape']['train_step'] = time_train_step(
+        ShapeModel(shape_config, device='cuda'),
+        MvsDataset(shape_config, 'train'), kernels=SHAPE_STEP_KERNELS)
+    torch.cuda.empty_cache()
+    zero_counters()
+    t0 = time.perf_counter()
+    joint_dir = trainvali.main(['--config', 'nerfactor_mvs.ini',
+                                '--config_override', ','.join(common + [
+                                    'brdf_model_ckpt=' + join(
+                                        WORK, 'out', 'merl', 'run',
+                                        'checkpoints', 'ckpt-50'),
+                                    'shape_model_ckpt=' + join(
+                                        shape_dir, 'checkpoints', 'ckpt-4'),
+                                    'test_envmap_dir=' + probe_dir,
+                                    'outroot=' + join(WORK, 'out',
+                                                      'joint_mvs'),
+                                    'epochs=2', 'ckpt_period=2',
+                                    'vali_period=2', 'vali_batches=1'])])[
+        'outdir']
+    torch.cuda.synchronize()
+    launches['mvs_joint_training'] = read_counters(JOINT_KERNELS,
+                                                   'MVS joint training')
+    losses = [json.loads(line)['loss_train'] for line in open(
+        join(joint_dir, 'summary_train', 'scalars.jsonl'))]
+    if not losses or not np.all(np.isfinite(losses)):
+        raise AssertionError("MVS joint losses %s" % losses)
+    record['joint'] = {'seconds': time.perf_counter() - t0,
+                       'loss_train': losses}
+    config = configutil.Config(configutil.read_config(joint_dir + '.ini'))
+    record['joint']['train_step'] = time_train_step(
+        Model(config, device='cuda'), MvsDataset(config, 'train'))
+    torch.cuda.empty_cache()
+    zero_counters()
+    run = test_cli.main(['--ckpt', join(joint_dir, 'checkpoints', 'ckpt-2')])
+    launches['mvs_inference'] = read_counters(
+        ('K1-fwd', 'K1-fwd tc', 'K2-fwd', 'K2-fwd tc'), 'MVS test.py')
+    record['test'] = check_relights(run, MVS_TEST_VIEWS, 'MVS test.py')
+    return launches, record
+
+
 # ------ the least time the card could take ------
 
 # Published H100 SXM peaks at 700 W (dense): bf16 operands on the tensor
@@ -3569,6 +3915,24 @@ def main(argv=None):
     launches_e2e, e2e = check_pipeline()
     torch.cuda.empty_cache()
 
+    # The shipped variants through the user's entry points: the GGX
+    # microfacet ablation, then the MVS path from a DTU-style scan
+    launches_micro, micro_dir, micro = run_microfacet(joint_override)
+    micro_config = configutil.Config(configutil.read_config(
+        micro_dir + '.ini'))
+    micro['step_agreement'] = check_microfacet_step(micro_config)
+    micro['lobe'] = check_microfacet_lobe()
+    torch.cuda.empty_cache()
+    micro['train_step'] = time_train_step(
+        MicrofacetModel(micro_config, device='cuda'),
+        Dataset(micro_config, 'train'))
+    if set(micro['train_step']['launches_per_step']) & set(NO_K2):
+        raise AssertionError("K2 launched in the microfacet step: %s"
+                             % micro['train_step']['launches_per_step'])
+    torch.cuda.empty_cache()
+    launches_mvs, mvs = run_mvs(probe_dir)
+    torch.cuda.empty_cache()
+
     paths = {'joint_inference': launches_infer,
              'joint_training': launches_train,
              'nerf_training': launches_nerf_train,
@@ -3582,7 +3946,14 @@ def main(argv=None):
              'shape_from_distilled_buffers': launches_shape_distilled,
              'march_probe': launches_march,
              **{'chain_probe_' + k: v for k, v in launches_probe.items()},
-             'dot_probe': launches_dot, **launches_e2e}
+             'dot_probe': launches_dot, **launches_e2e,
+             **launches_micro, **launches_mvs}
+    variant_paths = list(launches_micro) + list(launches_mvs)
+
+    def on_variants(kernel):
+        """A kernel's launches on each path of the variants, 0 included."""
+        return {p: {'all': paths[p][kernel], 'tc': paths[p][kernel + ' tc']}
+                for p in variant_paths}
     src = 'nerfactor_tpu_torch/csrc/'
 
     def entry(name, source, replaces, row, bound_, library_ms=None,
@@ -3633,6 +4004,7 @@ def main(argv=None):
                   ('tc', 'K1-fwd tc'), ('all', 'K1-fwd'))},
               shape_step=shape_k1(shape_step, plans, fwd=True),
               distillation=sigma_fwd,
+              launches_on_variant_paths=on_variants('K1-fwd'),
               ptxas=ptxas_report(('chain_fwd',)),
               sass_hmma=hmma_of(tc_sass, 'chain_fwd_tc_kernel'),
               shapes=k1, nerf_no_views=k1_no_views),
@@ -3651,6 +4023,7 @@ def main(argv=None):
               cuda_core_launches_by_path=cuda_core_by_path('K1-bwd'),
               shape_step=shape_k1(shape_step, plans, fwd=False),
               distillation=sigma_bwd,
+              launches_on_variant_paths=on_variants('K1-bwd'),
               ptxas=ptxas_report(('chain_bwd_tc', 'dw_kernel')),
               sass_hmma=hmma_of(tc_sass, 'chain_bwd_tc_kernel', 'dw_kernel'),
               shapes=k1b),
@@ -3668,6 +4041,7 @@ def main(argv=None):
                       'K2-fwd', 0)},
               launches_per_view={k: launches_infer[c] / N_VIEWS for k, c in (
                   ('tc', 'K2-fwd tc'), ('all', 'K2-fwd'))},
+              launches_on_variant_paths=on_variants('K2-fwd'),
               ptxas=ptxas_report(('rusink_chain_fwd',)),
               sass_hmma=hmma_of(tc_sass, 'rusink_chain_fwd_tc_kernel'),
               train_shape=dict(k2b['fwd'], bound_ms=chain_bound(
@@ -3686,6 +4060,7 @@ def main(argv=None):
               launches_per_step={'tc': step['launches_per_step'].get(
                   'K2-bwd tc', 0), 'all': step['launches_per_step'].get(
                       'K2-bwd', 0)},
+              launches_on_variant_paths=on_variants('K2-bwd'),
               ptxas=ptxas_report(('rusink_chain_bwd',)),
               sass_hmma=hmma_of(tc_sass, 'rusink_chain_bwd_tc_kernel'),
               shapes=[k2b]),
@@ -3842,7 +4217,7 @@ def main(argv=None):
         'nerf': {'training': dict(nerf_train, seconds=nerf_train_s),
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},
-        'pipeline_e2e': e2e,
+        'pipeline_e2e': e2e, 'microfacet': micro, 'mvs': mvs,
         'smoke_s': time.perf_counter() - t_start})
     # The whole line also goes to a file: the end of a long output may be
     # all a caller keeps

@@ -4,7 +4,10 @@ of nerfactor_tpu/models/nerfactor.py).
 Per surface point the model predicts albedo and a BRDF latent code (and,
 unless ``shape_mode = nerf``, normals and light visibility), evaluates
 the frozen learned BRDF prior in local shading frames, and integrates the
-rendering equation against the learned 16 x 32 environment light.
+rendering equation against the learned 16 x 32 environment light. A
+subclass with ``uses_learned_brdf = False`` (models/nerfactor_microfacet.py)
+overrides ``_init_brdf_config``, ``_make_brdf_z_out_spec`` and
+``eval_spec_at`` and builds, restores and visualises no prior.
 Relighting is algebra, as in the JAX package: the per-light contribution
 is channel-rank structured (brdf = albedo/pi + achromatic spec), so the
 render and every OLAT/probe relight are (N, L) matmuls and column slices
@@ -161,8 +164,7 @@ class Model(ShapeModel):
         if self.pred_brdf:
             self.specs['brdf_z_mlp'] = networks.MLPSpec(
                 xyz_dims, [w] * d, acts='relu', skip_at=[s])
-            self.specs['brdf_z_out'] = networks.MLPSpec(
-                self.specs['brdf_z_mlp'].out_dim, [self.z_dim], acts=None)
+            self.specs['brdf_z_out'] = self._make_brdf_z_out_spec()
         # Shape heads exist unless geometry comes straight from NeRF buffers
         if self.shape_mode != 'nerf':
             shape_cfg = self.config_shape if self.shape_mode in (
@@ -179,16 +181,25 @@ class Model(ShapeModel):
                 skip_at=[ss])
             self.specs['lvis_out'] = networks.MLPSpec(
                 self.specs['lvis_mlp'].out_dim, [1], acts='sigmoid')
-        # Frozen BRDF prior nets (shapes from the BRDF experiment's config)
-        rusink_dims = encoding.embed_dims(3, self.n_freqs_rusink) \
-            if self.pos_enc_rusink else 3
-        bw = self.config_brdf.getint('mlp_width')
-        bd = self.config_brdf.getint('mlp_depth')
-        bs = self.config_brdf.getint('mlp_skip_at')
-        self.specs['brdf_mlp'] = networks.MLPSpec(
-            self.z_dim + rusink_dims, [bw] * bd, acts='relu', skip_at=[bs])
-        self.specs['brdf_out'] = networks.MLPSpec(
-            self.specs['brdf_mlp'].out_dim, [1], acts='softplus')
+        if self.uses_learned_brdf:
+            # Frozen BRDF prior nets (shapes from the BRDF experiment's
+            # config)
+            rusink_dims = encoding.embed_dims(3, self.n_freqs_rusink) \
+                if self.pos_enc_rusink else 3
+            bw = self.config_brdf.getint('mlp_width')
+            bd = self.config_brdf.getint('mlp_depth')
+            bs = self.config_brdf.getint('mlp_skip_at')
+            self.specs['brdf_mlp'] = networks.MLPSpec(
+                self.z_dim + rusink_dims, [bw] * bd, acts='relu',
+                skip_at=[bs])
+            self.specs['brdf_out'] = networks.MLPSpec(
+                self.specs['brdf_mlp'].out_dim, [1], acts='softplus')
+
+    def _make_brdf_z_out_spec(self):
+        """The head of the per-point BRDF property: the prior's latent
+        code, linear."""
+        return networks.MLPSpec(
+            self.specs['brdf_z_mlp'].out_dim, [self.z_dim], acts=None)
 
     def _init_plans(self):
         super()._init_plans()
@@ -199,19 +210,22 @@ class Model(ShapeModel):
             self.plans['brdf_z'] = fused_mlp.plan_from_specs(
                 xyz_part, self.specs['brdf_z_mlp'],
                 self.specs['brdf_z_out'])
-        nf_rusink = self.n_freqs_rusink if self.pos_enc_rusink else 0
-        self.plans['brdf'] = fused_mlp.plan_from_specs(
-            [(self.z_dim, 0), (3, nf_rusink)],
-            self.specs['brdf_mlp'], self.specs['brdf_out'])
+        if self.uses_learned_brdf:
+            nf_rusink = self.n_freqs_rusink if self.pos_enc_rusink else 0
+            self.plans['brdf'] = fused_mlp.plan_from_specs(
+                [(self.z_dim, 0), (3, nf_rusink)],
+                self.specs['brdf_mlp'], self.specs['brdf_out'])
 
     def init_params(self, generator):
-        """Fresh heads and light, plus the restored frozen BRDF prior and
-        (for shape_mode frozen/finetune) the restored shape MLPs."""
+        """Fresh heads and light, plus the restored frozen BRDF prior
+        (with the learned prior) and (for shape_mode frozen/finetune) the
+        restored shape MLPs."""
         params = {name: spec.init(generator)
                   for name, spec in self.specs.items()}
         params['light'] = self.light_init_max * torch.rand(
             self.light_res + (3,), generator=generator)
-        params.update(self._restore_brdf_prior())
+        if self.uses_learned_brdf:
+            params.update(self._restore_brdf_prior())
         if self.shape_mode in ('frozen', 'finetune'):
             shape_params = self._restore_shape()
             for k in SHAPE_PARAM_KEYS:
@@ -241,8 +255,11 @@ class Model(ShapeModel):
 
     def needs_dw_false_keys(self):
         """The BRDF prior chain always runs needs_dw=False (it is always
-        frozen); the shape chains do so only under shape_mode=frozen."""
-        keys = {'brdf_mlp', 'brdf_out'}
+        frozen); the shape chains do so only under shape_mode=frozen. Only
+        keys of the model's parameters are named."""
+        keys = set()
+        if self.uses_learned_brdf:
+            keys.update(('brdf_mlp', 'brdf_out'))
         if not self.shape_heads_need_dw:
             keys.update(SHAPE_PARAM_KEYS)
         return frozenset(keys)
@@ -485,10 +502,10 @@ class Model(ShapeModel):
                 if k in out}
         gt = {'rgb': batch['rgb'], 'normal': batch['normal'],
               'lvis': batch['lvis'], 'alpha': batch['alpha']}
-        to_vis = {'pred_light': self.light_from(params),
-                  'seen_z': networks.latent_code_z(
-                      params['latent_code'],
-                      normalize=self.normalize_brdf_z)}
+        to_vis = {'pred_light': self.light_from(params)}
+        if self.uses_learned_brdf:
+            to_vis['seen_z'] = networks.latent_code_z(
+                params['latent_code'], normalize=self.normalize_brdf_z)
         for k, v in pred.items():
             to_vis['pred_' + k] = v
         for k, v in gt.items():
@@ -567,7 +584,8 @@ class Model(ShapeModel):
         self._validate_mode(mode)
         data_dict = dict(data_dict)
         pred_light = np.asarray(data_dict.pop('pred_light'))
-        seen_z = np.asarray(data_dict.pop('seen_z'))
+        seen_z = np.asarray(data_dict.pop('seen_z')) \
+            if 'seen_z' in data_dict else None
         # Same for all views of an epoch; written once
         light_vis_path = join(dirname(outdir), 'pred_light.png')
         if not exists(light_vis_path):

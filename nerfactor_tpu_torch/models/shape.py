@@ -77,12 +77,15 @@ class Model(BaseModel):
         self._init_plans()
 
     def _gen_lights(self):
-        if self.config.get('mvs_root', fallback=None) is not None:
-            raise NotImplementedError(
-                "MVS light locations (mvs_root) are not ported yet "
-                "(ROADMAP.md, Queue 1, variants)")
-        light_h = self.config.getint('light_h')
-        return gen_light_xyz(light_h, 2 * light_h)
+        """The light sphere of ``light_h``, or with ``mvs_root`` the
+        scene-shifted one that data_gen/dtu_surf_from_mvs.py saved to
+        ``<mvs_root>/lights.npz`` (it cannot be made again here)."""
+        mvs_root = self.config.get('mvs_root', fallback=None)
+        if mvs_root is None:
+            light_h = self.config.getint('light_h')
+            return gen_light_xyz(light_h, 2 * light_h)
+        data = ioutil.load_np(join(mvs_root, 'lights.npz'))
+        return data['lxyzs'], data['lareas']
 
     def _xyz_dims(self):
         return encoding.embed_dims(3, self.n_freqs_xyz) if self.pos_enc \

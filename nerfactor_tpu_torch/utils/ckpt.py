@@ -59,16 +59,34 @@ def tree_unflatten(template, leaves):
     return out
 
 
+def _is_perceptual(tree):
+    """The LPIPS network's parameters (models/perceptual.py)."""
+    return isinstance(tree, dict) and set(tree) == {'convs', 'lins'}
+
+
+def _conv_layout(tree, axes):
+    """The perceptual tree with each conv weight transposed by ``axes``."""
+    return dict(tree, convs=[(np.transpose(w, axes), b)
+                             for w, b in tree['convs']])
+
+
 def params_from_jax(tree, device='cpu'):
     """The JAX package's param pytree (NumPy or JAX arrays as leaves) ->
-    the port's parameters: the same tree with float32 torch tensors."""
+    the port's parameters: the same tree with float32 torch tensors. The
+    perceptual network's conv weights go from the JAX package's HWIO
+    layout to PyTorch's OIHW."""
+    if _is_perceptual(tree):
+        tree = _conv_layout(tree_map(np.asarray, tree), (3, 2, 0, 1))
     return tree_map(lambda x: torch.as_tensor(
         np.array(x, np.float32), device=device), tree)
 
 
 def params_to_jax(tree):
-    """Inverse of :func:`params_from_jax`: the same tree, NumPy leaves."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+    """Inverse of :func:`params_from_jax`: the same tree, NumPy leaves
+    (conv weights back to HWIO)."""
+    tree = tree_map(lambda x: x.detach().cpu().numpy(), tree)
+    return _conv_layout(tree, (2, 3, 1, 0)) if _is_perceptual(tree) \
+        else tree
 
 
 def _to_numpy(x):

@@ -1,6 +1,6 @@
-"""Image quality metrics, host side (counterpart of the PSNR and SSIM of
-nerfactor_tpu/utils/metrics.py; reference xiuminglib/metric.py:103,152).
-Models compute them on uint8 images."""
+"""Image quality metrics, host side (counterpart of
+nerfactor_tpu/utils/metrics.py; reference xiuminglib/metric.py:103, 152,
+195). Models compute them on uint8 images."""
 
 import numpy as np
 
@@ -45,3 +45,30 @@ def ssim(im1, im2, drange='uint8'):
     num = (2 * mu1 * mu2 + c1) * (2 * s12 + c2)
     den = (mu1 ** 2 + mu2 ** 2 + c1) * (s11 + s22 + c2)
     return float(np.mean(num / den))
+
+
+def lpips(im1, im2, drange='uint8', params=None):
+    """LPIPS (lower is better) of H x W x 3 (or H x W) images, as the
+    reference metric (xiuminglib/metric.py:244-278): scaled to [0, 1] by
+    the dynamic range, gray stacked to RGB, one batch through the net-lin
+    AlexNet on the parameters' device. Raises unless weights are
+    available: ``params`` or $NERFACTOR_LPIPS_WEIGHTS
+    (models/perceptual.py)."""
+    import torch
+    from nerfactor_tpu_torch.models import perceptual
+    if params is None:
+        params = perceptual.get_params_or_none()
+    if params is None:
+        raise NotImplementedError(
+            "LPIPS needs pretrained weights; set $NERFACTOR_LPIPS_WEIGHTS "
+            "(see models/perceptual.py)")
+    maxv = _dynamic_range(drange)
+    device = params['lins'][0].device
+    ims = []
+    for im in (im1, im2):
+        im = np.asarray(im, dtype=np.float32) / maxv
+        if im.ndim == 2:
+            im = np.dstack([im] * 3)
+        ims.append(torch.as_tensor(im[None], device=device))
+    with torch.no_grad():
+        return float(perceptual.lpips(params, ims[0], ims[1])[0])
