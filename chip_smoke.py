@@ -4,8 +4,10 @@ training (and the prior's explorer), the joint model from their
 checkpoints, the NeRF stage's training and test rendering, geometry
 distillation from that NeRF with the shape stage on its buffers, the
 whole pipeline end to end (tools/quality_e2e.py) with the serving entry
-points' video compile, and the shipped variants: the GGX microfacet
-ablation and the MVS path from a DTU-style scan.
+points' video compile, the shipped variants: the GGX microfacet
+ablation and the MVS path from a DTU-style scan, and the dataset
+converters on inputs at real data's sizes with NeRF and the BRDF prior
+on what they write.
 
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
@@ -171,7 +173,9 @@ ablation and the MVS path from a DTU-style scan.
    ``test.main`` on ckpt-4 with OLAT and probe relights and the video; one
    step's loss and every gradient leaf on the card against the CPU plain
    port; ``microfacet_spec`` at 1024 x 512 pairs against float64 and the
-   CPU; the step's time with its idle share.
+   CPU; the step's time with its idle share. The control of the lobe's
+   two limits and the step's: the lobe in bf16 (``lobe_in_bf16``), which
+   must break each.
 27. The MVS path: ``tools/synth_dtu.py`` writes a DTU-style scan (an
    icosphere of 5,120 faces, 8 views at 128 px), ``dtu_surf_from_mvs.main``
    casts it on the card (--h 128 --light_h 16, 3 test views: seconds a
@@ -179,7 +183,23 @@ ablation and the MVS path from a DTU-style scan.
    CPU on 2,048 of its rays, ``trainvali.main`` on shape_mvs.ini for 4
    epochs and on nerfactor_mvs.ini for 2 from that checkpoint (counters
    zeroed before and read after: K1; K1 and K2), each step timed, then
-   ``test.main`` on the MVS test views with its video.
+   ``test.main`` on the MVS test views with its video. The tracer's
+   control: the same rays against the mesh's vertices rounded to bf16,
+   which must break its limits.
+28. The dataset converters (``data_gen``), each through its entry point
+   and timed: (a) a synthetic LLFF capture (tools/synth_llff.py, 20 JPEG
+   views at LLFF's images_4 size, 1008 x 756) by
+   ``nerf_real_make_dataset`` at its default --h 512; (b) a raw DTU scan
+   (tools/synth_dtu.py, 49 views at DTU's 1600 x 1200) by
+   ``dtu_make_dataset_from_raw`` and, from cameras.npz of the same
+   projections, ``dtu_make_dataset``, both at their default --h 256; (c)
+   three MERL binaries at the format's full size by ``merl_make_dataset``
+   at its defaults (--ims 128). Then ``trainvali.main`` on nerf.ini at
+   full width for one epoch on (a) at imh 512 and on (b) at 256, counters
+   zeroed before and read after (K3-fwd and K3-bwd must launch), every
+   leaf moved; ``debug/dataloader.py`` on (a)'s run; brdf.ini for 2
+   epochs on (c). Prints its own JSON line (walls, view counts and sizes,
+   launches, the nvidia-smi line).
 
 Prints a JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work; also written to
@@ -187,8 +207,9 @@ build/smoke/result.json), the nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the run exits non-zero. The only cuts from production are imh
 128 (not 512; distillation and the shape stage on its buffers imh 64),
-the BRDF test table's render (64 x 64, not 128) and the MVS scan's test
-trajectory (3 views, not 120); the probes run at their own defaults,
+the BRDF test table's render (64 x 64, not 128), the MVS scan's test
+trajectory (3 views, not 120) and the NeRF runs on the converted scenes
+(one epoch); the probes and the converters run at their own defaults,
 uncut.
 
   python3 chip_smoke.py --limit_seeds k3 11,12,13,14
@@ -253,7 +274,9 @@ import torch
 
 from nerfactor_tpu_torch import explore_brdf_space, geometry_from_nerf
 from nerfactor_tpu_torch.data_gen import (
-    dtu_surf_from_mvs, meshio, raytrace)
+    dtu_make_dataset, dtu_make_dataset_from_raw, dtu_surf_from_mvs,
+    merl_make_dataset, meshio, nerf_real_make_dataset, raytrace)
+from nerfactor_tpu_torch.debug import dataloader as debug_dataloader
 from nerfactor_tpu_torch import nerf_test
 from nerfactor_tpu_torch import test as test_cli
 from nerfactor_tpu_torch import trainvali
@@ -267,6 +290,8 @@ from nerfactor_tpu_torch.datasets.nerf_shape import Dataset
 from nerfactor_tpu_torch.models import networks
 from nerfactor_tpu_torch.models.brdf import Model as BrdfModel
 from nerfactor_tpu_torch.models.nerf import Model as NerfModel
+from nerfactor_tpu_torch.models import (
+    nerfactor_microfacet as microfacet_model)
 from nerfactor_tpu_torch.models.nerfactor_microfacet import (
     Model as MicrofacetModel)
 from nerfactor_tpu_torch.models.nerfactor import (
@@ -282,7 +307,8 @@ from nerfactor_tpu_torch.ops.microfacet import microfacet_spec
 from nerfactor_tpu_torch.parallel.train import (
     build_optimizer, make_train_step, upcast_batch)
 from nerfactor_tpu_torch.tools import (
-    chain_probe, dot_probe, march_probe, quality_e2e, synth_dtu, synth_scene)
+    chain_probe, dot_probe, march_probe, quality_e2e, synth_dtu, synth_llff,
+    synth_scene)
 from nerfactor_tpu_torch.utils import (
     card, ckpt as ckptutil, config as configutil, io as ioutil)
 
@@ -3267,6 +3293,11 @@ NO_K2 = ('K2-fwd', 'K2-fwd tc', 'K2-bwd', 'K2-bwd tc')
 # round otherwise; first card reading 3.08e-4), so the same limit.
 MICROFACET_F64_TOL = 2e-3
 MICROFACET_CARD_CPU_TOL = MICROFACET_F64_TOL
+# The control that must break these limits: the lobe in bf16 (inputs and
+# arithmetic), the precision the f32 lobe must not fall to. CPU readings
+# at seeds 0-1 against float64: 1.33, 285 (summing the dots in f32
+# instead reads 4.7e-4, 2.1e-4: inside the limit, so no control). In the
+# microfacet step it must break NORM_TOL_BF16 on some leaf.
 # The MVS phase's scan: tools/synth_dtu.py's icosphere at subdivision 4
 # (5,120 faces), 8 views at imh 128 (6 train, 2 val) and 3 test views of
 # the 120 the trajectory has by default (the one cut); 512 lights
@@ -3276,6 +3307,18 @@ MVS_IMH, MVS_VIEWS, MVS_SUBDIV, MVS_TEST_VIEWS = 128, 8, 4, 3
 # same elementwise operations in the same order: bit for bit expected)
 RAYTRACE_SAMPLE = 2048
 RAYTRACE_T_TOL = (1e-6, 1e-5)
+# The tracer's control: the same rays against the mesh with its vertices
+# rounded to bf16 (a mesh kept at half precision), which must break the
+# hit, index or t limit
+
+
+def lobe_in_bf16(pts2l, pts2c, normal, rough=None, **kwargs):
+    """microfacet_spec on bf16 inputs in bf16 arithmetic, back to f32:
+    the control of the lobe's limits."""
+    return microfacet_spec(
+        pts2l.bfloat16(), pts2c.bfloat16(), normal.bfloat16(),
+        rough=None if rough is None else rough.bfloat16(),
+        **kwargs).float()
 
 
 def no_k2(launches, path):
@@ -3373,10 +3416,23 @@ def check_microfacet_step(config):
     no_k2(counts(), 'microfacet step')
     loss_p, grads_p = shape_step_loss_grads(
         config, 'cpu', params, arrays, noise, cls=MicrofacetModel)
-    errs = {}
-    for (k, got), (_, want) in zip(grads_k, grads_p):
+    # The control: the same step on the card with the lobe in bf16
+    spec_f32 = microfacet_model.microfacet_spec
+    microfacet_model.microfacet_spec = lobe_in_bf16
+    try:
+        _, grads_c = shape_step_loss_grads(
+            config, 'cuda', params, arrays, noise, cls=MicrofacetModel)
+    finally:
+        microfacet_model.microfacet_spec = spec_f32
+    errs, control = {}, {}
+    for (k, got), (_, want), (_, ctl) in zip(grads_k, grads_p, grads_c):
         errs[k] = max(errs.get(k, 0.0), rel_norm(got, want))
-    return {
+        control[k] = max(control.get(k, 0.0), rel_norm(ctl, want))
+    if all(v <= NORM_TOL_BF16 for v in control.values()):
+        raise AssertionError("microfacet step: the bf16-lobe control is "
+                             "within %g on every leaf: %s"
+                             % (NORM_TOL_BF16, control))
+    return {'control_bf16_lobe_grad_rel_err_by_key': control,
         'rows_lvis': 2 * N_RAYS * N_LIGHTS, 'loss_card': loss_k,
         'loss_plain_cpu': loss_p,
         'loss_abs_err': compare('microfacet step loss',
@@ -3408,7 +3464,14 @@ def check_microfacet_lobe(seed=0):
     if not torch.isfinite(got).all():
         raise AssertionError("microfacet_spec: non-finite values")
     a = [t.cuda() for t in args]
-    return {'rows': N_RAYS * N_LIGHTS,
+    ctl = lobe_in_bf16(*a[:3], rough=a[3], f0=0.04)
+    control = {'f64_rel_err': rel_norm(ctl.double().cpu(), f64.cpu()),
+               'card_vs_cpu_rel_err': rel_norm(ctl.cpu(), cpu)}
+    if control['f64_rel_err'] <= MICROFACET_F64_TOL \
+            or control['card_vs_cpu_rel_err'] <= MICROFACET_CARD_CPU_TOL:
+        raise AssertionError("microfacet_spec: the bf16-lobe control is "
+                             "within a limit: %s" % control)
+    return {'rows': N_RAYS * N_LIGHTS, 'control_bf16_lobe': control,
             'f64_rel_err': check_norm('microfacet_spec vs float64', [
                 rel_norm(got.double().cpu(), f64.cpu())], MICROFACET_F64_TOL),
             'card_vs_cpu_rel_err': check_norm('microfacet_spec card vs CPU', [
@@ -3490,7 +3553,25 @@ def check_raytrace(scan, surf_root, seed=0):
         raise AssertionError("raytrace card vs CPU: %d hit and %d index "
                              "mismatches" % (int((hit_k != hit_p).sum()),
                                              int((idx_k != idx_p).sum())))
+    # The control: the mesh's vertices rounded to bf16
+    verts_bf16 = torch.as_tensor(vertices, dtype=torch.float32).bfloat16(
+        ).float().numpy()
+    hit_c, t_c, idx_c = (x.cpu() for x in raytrace.intersect(
+        origs, dirs, verts_bf16, faces, device='cuda'))
+    both = hit_c & hit_p
+    t_err = (t_c[both] - t_p[both]).abs()
+    control = {'hit_mismatches': int((hit_c != hit_p).sum()),
+               'index_mismatches': int((idx_c != idx_p).sum()),
+               't_beyond_tol': int((t_err > RAYTRACE_T_TOL[0]
+                                    + RAYTRACE_T_TOL[1]
+                                    * t_p[both].abs()).sum()),
+               't_max_abs_err': t_err.max().item()}
+    if not (control['hit_mismatches'] or control['index_mismatches']
+            or control['t_beyond_tol']):
+        raise AssertionError("raytrace: the bf16-mesh control is within "
+                             "the limits: %s" % control)
     return {'rays': RAYTRACE_SAMPLE, 'hits': int(hit_p.sum()),
+            'control_bf16_mesh': control,
             't_max_abs_err': compare('raytrace t', t_k[hit_p], t_p[hit_p],
                                      RAYTRACE_T_TOL),
             't_bit_identical': bool(torch.equal(t_k, t_p)),
@@ -3568,6 +3649,179 @@ def run_mvs(probe_dir):
         ('K1-fwd', 'K1-fwd tc', 'K2-fwd', 'K2-fwd tc'), 'MVS test.py')
     record['test'] = check_relights(run, MVS_TEST_VIEWS, 'MVS test.py')
     return launches, record
+
+
+# ------ data_gen: the port's converters on inputs at real data's sizes ------
+
+# (a) a synthetic LLFF capture (tools/synth_llff.py): JPEG views at
+# LLFF's images_4 size, converted at nerf_real_make_dataset's default
+# --h 512; (b) a raw DTU scan (tools/synth_dtu.py): views at DTU's 1600 x
+# 1200, converted at the DTU converters' default --h 256, raw and
+# processed layouts; (c) MERL binaries at the format's full size (90 x 90
+# x 180 x 3 doubles, 35 MB), converted at merl_make_dataset's defaults
+# (--ims 128, 16 x 32 lights)
+LLFF_VIEWS, LLFF_IMH, LLFF_IMW = 20, 756, 1008
+DTU_VIEWS, DTU_IMH, DTU_IMW = 49, 1200, 1600
+DATA_GEN_MERL = ('gen-gold', 'gen-plastic', 'gen-rubber')
+# NeRF on the converted scenes: nerf.ini at full width and the scene's
+# own height, bounds around a spherified capture (its cameras on the unit
+# sphere), one epoch (a step a train view) with a checkpoint at its end
+SPHERIFIED_BOUNDS = ('near=0.05', 'far=2.0')
+NERF_KERNELS = ('K3-fwd', 'K3-fwd tc', 'K3-bwd')
+
+
+def write_merl_binary(path, kd, ks, sharpness):
+    """A MERL .binary of a diffuse + specular material, smooth in theta_h
+    (``kd``, ``ks`` per channel), in the format's layout and scales."""
+    theta_h = merl.merl_rusink_grid()[:, 1:2]
+    rgb = np.asarray(kd) + np.asarray(ks) * np.exp(-sharpness * theta_h ** 2)
+    merl.write_merl_brdf(path, rgb.reshape(merl.BRDF_SHAPE + (3,)))
+
+
+def converted(record, inputs):
+    """A converter's record with its seconds per input view."""
+    return dict(record, s_per_view=record['seconds'] / inputs)
+
+
+def run_nerf_on(name, data_root, imh, n_train):
+    """nerf.ini through trainvali.main on a converted scene, counters
+    zeroed before and read after (K3); checks the loss and that every
+    leaf of ckpt-1 moved from the seeded init. Returns (launches,
+    outdir, record)."""
+    zero_counters()
+    t0 = time.perf_counter()
+    outdir = trainvali.main(['--config', 'nerf.ini', '--config_override',
+                             ','.join(('data_root=' + data_root,
+                                       'imh=%d' % imh, 'outroot=' + join(
+                                           WORK, 'out', 'data_gen_' + name),
+                                       'epochs=1', 'ckpt_period=1',
+                                       'vali_period=0')
+                                      + SPHERIFIED_BOUNDS)])['outdir']
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters(NERF_KERNELS, 'NeRF on ' + name)
+    recs = [json.loads(line) for line in open(
+        join(outdir, 'summary_train', 'scalars.jsonl'))]
+    if [r['step'] for r in recs] != [1] \
+            or not np.isfinite(recs[0]['loss_train']):
+        raise AssertionError("NeRF on %s: train scalars %s" % (name, recs))
+    init = NerfModel(nerf_config(outdir), device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    moved = changed_leaves(init, join(outdir, 'checkpoints', 'ckpt-1'))
+    if not all(moved.values()):
+        raise AssertionError("NeRF on %s: leaves that did not move: %s"
+                             % (name, moved))
+    return launches, outdir, {
+        'seconds': seconds, 'steps': n_train,
+        'loss_train': recs[0]['loss_train'],
+        'launches_per_step': {k: launches[k] / n_train
+                              for k in NERF_KERNELS},
+        'tensorboard_events': bool(ioutil.sortglob(
+            join(outdir, 'summary_train'), 'events.out.tfevents.*'))}
+
+
+def check_converted_views(root, n_inputs, imh, imw):
+    """A converted scene's layout: the view counts (the converters' 2
+    vali views of ``n_inputs``, the rest train, 120 test) and image size,
+    an all-one alpha, metadata beside the views."""
+    n_vali = len(range(0, n_inputs - 1, max(1, n_inputs // 2)))
+    views = {'train': n_inputs - n_vali, 'val': n_vali, 'test': 120}
+    got = {m: len(ioutil.sortglob(root, m + '_???')) for m in views}
+    if got != views:
+        raise AssertionError("%s: views %s, not %s" % (root, got, views))
+    rgba = ioutil.load_img(join(root, 'train_000', 'rgba.png'))
+    meta = ioutil.read_json(join(root, 'test_119', 'metadata.json'))
+    if rgba.shape != (imh, imw, 4) or rgba[..., 3].min() < 1 \
+            or (meta['imh'], meta['imw']) != (imh, imw):
+        raise AssertionError("%s: rgba %s, metadata %s" % (root, rgba.shape,
+                                                           meta))
+
+
+def run_data_gen():
+    """The converters through their entry points on (a), (b) and (c),
+    each timed, then on the card: nerf.ini a few steps on (a) and on (b)
+    (counters zeroed before and read after: K3-fwd and K3-bwd), the debug
+    loader on (a)'s run, brdf.ini two epochs on (c). Returns (launches by
+    path, record)."""
+    root = join(WORK, 'data_gen')
+    t0 = time.perf_counter()
+    llff = synth_llff.make_capture(join(root, 'llff'), n_views=LLFF_VIEWS,
+                                   imh=LLFF_IMH, imw=LLFF_IMW)
+    scan = synth_dtu.make_scan(join(root, 'dtu'), imh=DTU_IMH, imw=DTU_IMW,
+                               n_views=DTU_VIEWS, subdiv=2)
+    processed = synth_dtu.make_processed(scan, join(root, 'dtu_processed'))
+    merl_dir = join(root, 'merl_binaries')
+    os.makedirs(merl_dir)
+    for i, name in enumerate(DATA_GEN_MERL):
+        write_merl_binary(join(merl_dir, name + '.binary'),
+                          kd=(0.05 + 0.1 * i, 0.04, 0.03 + 0.05 * i),
+                          ks=(2.0 / (i + 1),) * 3, sharpness=40.0 / (i + 1))
+    inputs_s = time.perf_counter() - t0
+
+    out = join(root, 'converted')
+    conv = {'llff': converted(nerf_real_make_dataset.main([
+        '--scene_dir', llff['scene_dir'], '--outroot', join(out, 'llff')]),
+        LLFF_VIEWS)}
+    conv['dtu_raw'] = converted(dtu_make_dataset_from_raw.main([
+        '--cam_dir', scan['cam_dir'], '--img_root', dirname(scan['img_dir']),
+        '--scenes', 'scan42', '--outroot', join(out, 'dtu_raw')])['scan42'],
+        DTU_VIEWS)
+    conv['dtu'] = converted(dtu_make_dataset.main([
+        '--scene_dir', processed, '--outroot', join(out, 'dtu')]), DTU_VIEWS)
+    conv['merl'] = merl_make_dataset.main([
+        '--indir', merl_dir, '--outdir', join(out, 'merl')])
+    llff_imw = int(round(LLFF_IMW / LLFF_IMH * 512))
+    dtu_imw = int(round(DTU_IMW / DTU_IMH * 256))
+    check_converted_views(conv['llff']['outroot'], LLFF_VIEWS, 512,
+                          llff_imw)
+    for k in ('dtu_raw', 'dtu'):
+        check_converted_views(conv[k]['outroot'], DTU_VIEWS, 256, dtu_imw)
+    if conv['merl']['materials'] != sorted(DATA_GEN_MERL):
+        raise AssertionError("MERL conversion: %s" % conv['merl'])
+
+    launches, nerf = {}, {}
+    for name, imh in (('llff', 512), ('dtu_raw', 256)):
+        launches['data_gen_nerf_' + name], outdir, nerf[name] = run_nerf_on(
+            name, conv[name]['outroot'], imh, conv[name]['views']['train'])
+        torch.cuda.empty_cache()
+        if name == 'llff':
+            batch = debug_dataloader.main(['--config_ini', outdir + '.ini',
+                                           '--mode', 'train'])
+            if batch['rayo'].shape != (N_RAYS, 3) \
+                    or batch['id'][:6] != 'train_':
+                raise AssertionError("debug loader on (a): %s %s" % (
+                    batch['rayo'].shape, batch['id']))
+    zero_counters()
+    t0 = time.perf_counter()
+    brdf_dir = trainvali.main(['--config', 'brdf.ini', '--config_override',
+                               ','.join([
+                                   'data_root=' + conv['merl']['outdir'],
+                                   'outroot=' + join(WORK, 'out',
+                                                     'data_gen_merl'),
+                                   'epochs=2', 'ckpt_period=1',
+                                   'vali_period=2', 'vali_batches=1'])])[
+        'outdir']
+    torch.cuda.synchronize()
+    launches['data_gen_brdf'] = counts()
+    brdf_losses = [json.loads(line)['loss_train'] for line in open(
+        join(brdf_dir, 'summary_train', 'scalars.jsonl'))]
+    init = BrdfModel(configutil.Config(configutil.read_config(
+        brdf_dir + '.ini')), device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    moved = changed_leaves(init, join(brdf_dir, 'checkpoints', 'ckpt-2'))
+    if len(brdf_losses) != 2 or not np.all(np.isfinite(brdf_losses)) \
+            or not all(moved.values()):
+        raise AssertionError("brdf.ini on (c): losses %s, moved %s"
+                             % (brdf_losses, moved))
+    brdf = {'seconds': time.perf_counter() - t0, 'loss_train': brdf_losses}
+    shutil.rmtree(root)
+    return launches, {
+        'inputs': {'llff': [LLFF_VIEWS, LLFF_IMH, LLFF_IMW, 'jpg'],
+                   'dtu': [DTU_VIEWS, DTU_IMH, DTU_IMW, 'png'],
+                   'merl': [len(DATA_GEN_MERL)] + list(merl.BRDF_SHAPE)},
+        'inputs_seconds': inputs_s, 'converters': conv, 'nerf': nerf,
+        'brdf': brdf, 'launches': {p: {k: c[k] for k in NERF_KERNELS}
+                                   for p, c in launches.items()}}
 
 
 # ------ the least time the card could take ------
@@ -3933,6 +4187,15 @@ def main(argv=None):
     launches_mvs, mvs = run_mvs(probe_dir)
     torch.cuda.empty_cache()
 
+    # The dataset converters on inputs at real data's sizes, then NeRF
+    # and the BRDF prior on what they wrote, through the user's entry
+    # points
+    t0 = time.perf_counter()
+    launches_data_gen, data_gen = run_data_gen()
+    data_gen['seconds'] = time.perf_counter() - t0
+    print(json.dumps(dict(data_gen, gpu=gpu)))
+    torch.cuda.empty_cache()
+
     paths = {'joint_inference': launches_infer,
              'joint_training': launches_train,
              'nerf_training': launches_nerf_train,
@@ -3947,7 +4210,7 @@ def main(argv=None):
              'march_probe': launches_march,
              **{'chain_probe_' + k: v for k, v in launches_probe.items()},
              'dot_probe': launches_dot, **launches_e2e,
-             **launches_micro, **launches_mvs}
+             **launches_micro, **launches_mvs, **launches_data_gen}
     variant_paths = list(launches_micro) + list(launches_mvs)
 
     def on_variants(kernel):
@@ -4218,6 +4481,7 @@ def main(argv=None):
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},
         'pipeline_e2e': e2e, 'microfacet': micro, 'mvs': mvs,
+        'data_gen': data_gen,
         'smoke_s': time.perf_counter() - t_start})
     # The whole line also goes to a file: the end of a long output may be
     # all a caller keeps

@@ -1,17 +1,48 @@
-"""MERL BRDF coordinates (NumPy; counterpart of the parts of
-brdf_tpu/merl.py the BRDF prior's test table and visualization use).
+"""MERL BRDF database on NumPy: the binary reader, one material's table
+and nearest-neighbour lookup, and the coordinate transforms (counterpart
+of brdf_tpu/merl.py).
 
 The MERL 100 database (Matusik et al. 2003) stores each material as a
 (phi_d, theta_h, theta_d) = (180, 90, 90) cube per channel, with a
 quadratic mapping along theta_h (reference brdf/merl/merl.py and
 third_party/nielsen2015on/coordinateFunctions.py, e.g. the 0.105
-half-pixel offset in the theta_h unmapping).
+half-pixel offset in the theta_h unmapping). Public format: three int32
+dims, then float64 values, channel-major, with per-channel scales (1.0,
+1.15, 1.66) / 1500.
 """
+
+from os.path import basename
 
 import numpy as np
 
 # BRDF cube layout used throughout: (phi_d, theta_h, theta_d)
 BRDF_SHAPE = (180, 90, 90)
+_CHANNEL_SCALES = np.array([1.0, 1.15, 1.66]) / 1500.0
+
+
+def read_merl_brdf(path):
+    """Reads a .binary MERL file into a (180, 90, 90, 3) float64 cube laid
+    out as (phi_d, theta_h, theta_d, rgb). Invalid entries are
+    negative."""
+    with open(path, 'rb') as h:
+        dims = np.fromfile(h, dtype=np.int32, count=3)
+        n = int(np.prod(dims))
+        if n != int(np.prod(BRDF_SHAPE)):
+            raise ValueError("Unexpected MERL dims %s in %s" % (dims, path))
+        vals = np.fromfile(h, dtype=np.float64, count=3 * n)
+    # Native layout: channel-major, (theta_h, theta_d, phi_d)
+    cube = vals.reshape(3, 90, 90, 180) * _CHANNEL_SCALES[:, None, None, None]
+    return np.transpose(cube, (3, 1, 2, 0))
+
+
+def write_merl_brdf(path, cube):
+    """Writes a (180, 90, 90, 3) (phi_d, theta_h, theta_d, rgb) cube as a
+    .binary MERL file, the inverse of :func:`read_merl_brdf`."""
+    native = np.transpose(np.asarray(cube, np.float64), (3, 1, 2, 0)) \
+        / _CHANNEL_SCALES[:, None, None, None]
+    with open(path, 'wb') as h:
+        np.array([90, 90, 180], np.int32).tofile(h)
+        native.ravel().tofile(h)
 
 
 def merl_to_rusink(merl_coords):
@@ -23,6 +54,44 @@ def merl_to_rusink(merl_coords):
     c[:, 1] = np.square((c[:, 1] + 0.105) / shp[1]) * (np.pi / 2)
     c[:, 2] = c[:, 2] / (shp[2] - 1) * (np.pi / 2)
     return c
+
+
+def merl_rusink_grid():
+    """(180 * 90 * 90, 3) Rusinkiewicz angles of every cube entry, in the
+    cube's C order."""
+    ind = np.indices(BRDF_SHAPE).reshape(3, -1).T
+    return merl_to_rusink(ind)
+
+
+class MERL:
+    """One MERL material read from ``path``: its (rusink | rgb) table of
+    valid entries and a nearest-neighbour lookup in it."""
+
+    def __init__(self, path):
+        self.name = basename(path)[:-len('.binary')]
+        self.cube_rgb = read_merl_brdf(path)
+        rusink_rgb = np.hstack((merl_rusink_grid(),
+                                self.cube_rgb.reshape(-1, 3)))
+        # (n_valid, 6): rows with an invalid (negative) channel dropped
+        self.tbl = rusink_rgb[(rusink_rgb[:, 3:] > 0).all(axis=1)]
+        self._kdtree = None
+
+    def get_characterstic_slice(self):
+        """The phi_d = 90 deg slice of reflectance, rotated so theta_d is
+        vertical: (90, 90, 3)."""
+        cslice = self.cube_rgb[self.cube_rgb.shape[0] // 2]
+        return np.rot90(cslice, axes=(0, 1))
+
+    def query(self, qrusink):
+        """Nearest-neighbour reflectance (rows of rgb) of each row of
+        Rusinkiewicz angles, through a k-d tree over the table (scipy's
+        cKDTree, queried on every core: the same neighbours as one
+        worker)."""
+        from scipy.spatial import cKDTree
+        if self._kdtree is None:
+            self._kdtree = cKDTree(self.tbl[:, :3])
+        _, ind = self._kdtree.query(qrusink, workers=-1)
+        return self.tbl[ind, 3:]
 
 
 def dirs_to_rusink(a, b):

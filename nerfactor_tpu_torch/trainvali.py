@@ -12,7 +12,10 @@ ckpt_period epochs ({'opt_state', 'params'} in JAX flatten order, so
 either package resumes the other's), summary_{train,vali}/scalars.jsonl,
 and every vali_period epochs vis_vali/epoch?????????/ with per-view images,
 flipbooks, PSNR/SSIM and an HTML page. A run resumes from its latest
-checkpoint. TensorBoard event files are not written (ROADMAP.md).
+checkpoint. With the config's ``tensorboard`` on (the default) and
+``torch.utils.tensorboard`` importable, TensorBoard event files go beside
+each scalars.jsonl (``tensorboard --logdir <outroot>/<xname>``), with the
+JAX package's tags and steps.
 """
 
 import argparse
@@ -65,11 +68,26 @@ def load_config(config_flag, override=''):
 
 
 class SummaryWriter:
-    """Append-only JSONL scalar log."""
+    """Append-only JSONL scalar log, the canonical record, plus, when
+    ``tensorboard`` is on and ``torch.utils.tensorboard`` imports,
+    TensorBoard event files in the same directory with the JAX package's
+    tags, steps and summary kinds: a scalar per key (the ``scalars``
+    plugin's f32 tensor) and a string tensor of the ``text`` plugin. Where
+    it does not import, a warning, and JSONL only (as the JAX package
+    without TensorFlow)."""
 
-    def __init__(self, path):
+    def __init__(self, path, tensorboard=True):
         self.path = path
         os.makedirs(dirname(path), exist_ok=True)
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter as TbWriter
+            except ImportError as exc:  # no tensorboard package
+                logger.warn("TensorBoard writer unavailable (%s); writing "
+                            "JSONL scalars only", exc)
+            else:
+                self._tb = TbWriter(dirname(path))
 
     def _write(self, rec):
         with open(self.path, 'a') as h:
@@ -80,9 +98,34 @@ class SummaryWriter:
         rec.update({k: None if v is None else float(v)
                     for k, v in kv.items()})
         self._write(rec)
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k != 'step' and v is not None:
+                    self._tb.add_scalar(k, v, int(step), new_style=True)
 
     def text(self, step, tag, value):
         self._write({'step': int(step), tag: value})
+        if self._tb is not None:
+            # As tf.summary.text: the tag as given (add_text would append
+            # '/text_summary'), a scalar string tensor
+            from tensorboard.compat.proto.summary_pb2 import (
+                DATA_CLASS_TENSOR, Summary, SummaryMetadata)
+            from tensorboard.compat.proto.tensor_pb2 import TensorProto
+            from tensorboard.compat.proto.tensor_shape_pb2 import (
+                TensorShapeProto)
+            meta = SummaryMetadata(
+                plugin_data=SummaryMetadata.PluginData(plugin_name='text'),
+                data_class=DATA_CLASS_TENSOR)
+            tensor = TensorProto(dtype='DT_STRING',
+                                 string_val=[str(value).encode()],
+                                 tensor_shape=TensorShapeProto())
+            self._tb._get_file_writer().add_summary(
+                Summary(value=[Summary.Value(tag=tag, tensor=tensor,
+                                             metadata=meta)]), int(step))
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
 
 
 def split_batch(dataset, batch):
@@ -238,9 +281,13 @@ def main(argv=None):
     # Smoothness-jitter noise, drawn on the device
     noise_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
+    # TensorBoard event files beside the JSONL (the JAX package's
+    # ``tensorboard`` key, on by default)
+    write_tb = config.getboolean('tensorboard', fallback=True)
     writer_train = SummaryWriter(join(outdir, 'summary_train',
-                                      'scalars.jsonl'))
-    writer_vali = SummaryWriter(join(outdir, 'summary_vali', 'scalars.jsonl'))
+                                      'scalars.jsonl'), tensorboard=write_tb)
+    writer_vali = SummaryWriter(join(outdir, 'summary_vali', 'scalars.jsonl'),
+                                tensorboard=write_tb)
     vali_vis_epoch_dir = join(outdir, 'vis_vali', 'epoch{e:09d}')
     vali_epoch_deque = deque([], max_to_keep)
 
@@ -343,6 +390,8 @@ def main(argv=None):
 
     if profiler is not None and profile_left > 0:
         stop_profiler()
+    writer_train.close()
+    writer_vali.close()
     logger.info("Training done (%d epochs)", epochs)
     return {'outdir': outdir}
 

@@ -1,10 +1,12 @@
-"""Host-side IO: json, npy/npz, globs, output dirs, PNG images
+"""Host-side IO: json, npy/npz, globs, output dirs, PNG and JPEG images
 (counterpart of nerfactor_tpu/utils/io.py).
 
 Images are 8- or 16-bit PNGs (and animated PNGs), read and written here
 with ``zlib`` and ``struct`` alone, so the port needs no image codec
 package (the GPU machine has no ``imageio``). Reading handles all five
-PNG filter types; writing uses filter 0 ("None") on every row.
+PNG filter types; writing uses filter 0 ("None") on every row. JPEGs
+(real captures) are read through PIL, the decoder ``imageio`` uses, so
+their pixels are the JAX package's; PIL is imported only for a JPEG.
 """
 
 import glob
@@ -42,6 +44,13 @@ def save_np(arr, path):
     os.makedirs(dirname(path), exist_ok=True)
     with open(path, 'wb') as h:
         np.save(h, arr)
+
+
+def save_npz(data, path):
+    """A dict of arrays as an uncompressed .npz (``np.savez``)."""
+    os.makedirs(dirname(path), exist_ok=True)
+    with open(path, 'wb') as h:
+        np.savez(h, **data)
 
 
 def prepare_outdir(outdir, overwrite=False):
@@ -201,9 +210,23 @@ def write_apng(frames, path, duration_ms=1000):
         f.write(_SIGNATURE + b''.join(chunks) + _chunk(b'IEND', b''))
 
 
+_JPEG_EXTS = ('.jpg', '.jpeg')
+
+
+def read_jpeg(path):
+    """Decodes a JPEG through PIL into a uint8 array: (H, W) for gray, else
+    (H, W, 3)."""
+    from PIL import Image
+    with Image.open(path) as img:
+        return np.asarray(img)
+
+
 def load_img(path, force_rgba=False):
-    """Loads a PNG into a float32 array in [0, 1]."""
-    arr = read_png(path)
+    """Loads a PNG or a JPEG into a float32 array in [0, 1]."""
+    if path.lower().endswith(_JPEG_EXTS):
+        arr = read_jpeg(path)
+    else:
+        arr = read_png(path)
     arr = arr.astype(np.float32) / np.iinfo(arr.dtype).max
     if force_rgba and (arr.ndim == 2 or arr.shape[2] == 3):
         if arr.ndim == 2:

@@ -1,0 +1,8 @@
+#!/usr/bin/env bash
+# Thin wrapper mirroring the reference's nerf_test_run.sh for the PyTorch port
+# (nerfactor_tpu_torch.nerf_test): resolves the repo root onto PYTHONPATH
+# and forwards all flags.
+set -e
+REPO_DIR="$(cd "$(dirname "${BASH_SOURCE[0]}")/.." && pwd)"
+export PYTHONPATH="$REPO_DIR:$PYTHONPATH"
+exec python -m nerfactor_tpu_torch.nerf_test "$@"
