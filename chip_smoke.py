@@ -5,9 +5,10 @@ checkpoints, the NeRF stage's training and test rendering, geometry
 distillation from that NeRF with the shape stage on its buffers, the
 whole pipeline end to end (tools/quality_e2e.py) with the serving entry
 points' video compile, the shipped variants: the GGX microfacet
-ablation and the MVS path from a DTU-style scan, and the dataset
+ablation and the MVS path from a DTU-style scan, the dataset
 converters on inputs at real data's sizes with NeRF and the BRDF prior
-on what they write.
+on what they write, and data-parallel training (``--multihost``) with
+the step and relight tools.
 
   python3 chip_smoke.py      (from the repository root; needs one CUDA card)
 
@@ -200,6 +201,22 @@ on what they write.
    leaf moved; ``debug/dataloader.py`` on (a)'s run; brdf.ini for 2
    epochs on (c). Prints its own JSON line (walls, view counts and sizes,
    launches, the nvidia-smi line).
+29. Multi-device training (``multidevice``): (a) ``trainvali.main`` with
+   ``--multihost`` and one process (NCCL, a TCP coordinator on
+   localhost) on nerfactor.ini as in 7, counters zeroed before and read
+   after: the tensor-core K1 and K2 launches equal 7's, its ckpt-4 holds
+   7's within MD_CLI_TOL, vali written. In one NCCL group of one process,
+   the joint step at 1024 rows with the gradient all-reduce against the
+   plain step, and the all-reduce alone (CUDA events), with the bytes it
+   reduces. (b) Two ranks on the one card (gloo: NCCL takes one rank a
+   card), each on 1024 rows of a 2048-row batch of the scene's rays, three
+   joint steps from the seeded checkpoint, against one process on the
+   2048 rows with the same draws: every trainable leaf's update within
+   MD_RANKS_TOL, and the control (ranks that skip the reduction) outside.
+   The two ranks share one card, so their time is no scaling figure. Then
+   ``tools.step_time``, ``tools.profile_joint`` (counters zeroed before
+   and read after each) and ``tools.bench_relight`` at their defaults,
+   each printing its JSON line. Prints the phase's JSON line.
 
 Prints a JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work; also written to
@@ -264,6 +281,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -304,10 +322,12 @@ from nerfactor_tpu_torch.ops import fused_nerf as fn
 from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.ops import kernel_lib
 from nerfactor_tpu_torch.ops.microfacet import microfacet_spec
+from nerfactor_tpu_torch.parallel import mesh
 from nerfactor_tpu_torch.parallel.train import (
     build_optimizer, make_train_step, upcast_batch)
 from nerfactor_tpu_torch.tools import (
-    chain_probe, dot_probe, march_probe, quality_e2e, synth_dtu, synth_llff,
+    bench_model, bench_relight, chain_probe, dot_probe, march_probe,
+    profile_joint, quality_e2e, step_time, synth_dtu, synth_llff,
     synth_scene)
 from nerfactor_tpu_torch.utils import (
     card, ckpt as ckptutil, config as configutil, io as ioutil)
@@ -3823,6 +3843,211 @@ def run_data_gen():
         'brdf': brdf, 'launches': {p: {k: c[k] for k in NERF_KERNELS}
                                    for p, c in launches.items()}}
 
+# ------ multi-device training (parallel/mesh.py) ------
+
+# (b): MD_WORLD gloo ranks on the one card, each on MD_ROWS rows of one
+# global batch, MD_STEPS joint steps from the seeded joint checkpoint,
+# against one process on the whole batch with the same draws
+MD_WORLD, MD_ROWS, MD_STEPS, MD_SEED = 2, N_RAYS, 3, 1
+# Every trainable leaf's update (its move from the checkpoint) by relative
+# norm against the one-process run's: the ranks differ from it only in
+# the order of f32 sums (each rank's dW over its rows, then the
+# all-reduce). Readings (NVIDIA H100 80GB HBM3, 700.00 W): 4.2e-4; the
+# control, ranks that skip the reduction, 0.96 (PERF.md §6).
+MD_RANKS_TOL = 0.01
+# (a): the 1-process --multihost run's ckpt-4 against the run without
+# --multihost (run_training), every leaf by relative norm; read 0 (the
+# same draws; a one-rank all-reduce copies)
+MD_CLI_TOL = 1e-6
+MD_TIMEOUT_S = 600
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def md_model(ini, ckpt, device='cuda'):
+    """The smoke's joint model at nerfactor.ini's full width and its
+    seeded checkpoint's parameters, on ``device``."""
+    config = configutil.Config(configutil.read_config(ini))
+    model = Model(config, device=device)
+    return model, ckptutil.restore_trained_params(
+        ckpt, model.init_params(torch.Generator()), device=device)
+
+
+def md_batch(config, n):
+    """``n`` rows of the smoke scene's train rays (whole train batches,
+    in the pipeline's order), NumPy."""
+    dataset = Dataset(config, 'train')
+    parts = []
+    for batch in dataset.build_pipeline(prefetch=0):
+        parts.append({k: np.asarray(batch[k]) for k in dataset.array_keys})
+        if sum(len(p['xyz']) for p in parts) >= n:
+            break
+    return {k: np.concatenate([p[k] for p in parts])[:n] for k in parts[0]}
+
+
+def md_updates(model, params, batch, group=None, device='cuda'):
+    """MD_STEPS joint steps of ``params`` on ``batch`` (draws from a
+    generator seeded MD_SEED): (losses, each leaf's update, the host's
+    s of each step, the first a process's first)."""
+    init = [t.clone() for t in ckptutil.tree_leaves(params)]
+    run = bench_model.stepper(model, params, batch, device, group=group,
+                              seed=MD_SEED)
+    sync = torch.cuda.synchronize if device != 'cpu' else (lambda: None)
+    losses, secs = [], []
+    for _ in range(MD_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(run()))
+        sync()
+        secs.append(time.perf_counter() - t0)
+    return losses, [(t - i).cpu() for t, i in zip(
+        ckptutil.tree_leaves(params), init)], secs
+
+
+def md_rank(rank, world, store, ini, ckpt, batch, out, device):
+    """One rank of (b): the steps on its part of ``batch`` with the
+    reduction, then (the control) without; rank 0 saves both."""
+    mesh.initialize('file://' + store, world, rank, device=device,
+                    backend='gloo', timeout_s=MD_TIMEOUT_S)
+    try:
+        if device != 'cpu':
+            kernel_lib.load()  # built by the parent
+        part = mesh.shard_batch(batch, rank, world)
+        got = {}
+        for name, group in (('reduced', mesh.group()), ('no_reduce', None)):
+            model, params = md_model(ini, ckpt, device)
+            got[name] = md_updates(model, params, part, group, device)
+        if rank == 0:
+            torch.save(got, out)
+    finally:
+        mesh.shutdown()
+
+
+def worst_update(got, want, mask):
+    """The worst relative norm over the trainable leaves' updates."""
+    return max(rel_norm(g, w) for g, w, m in zip(got, want, mask) if m)
+
+
+def run_multidevice(joint_override, train_dir, launches_train, ini, ckpt,
+                    device='cuda'):
+    """(a) trainvali --multihost with one process through NCCL, as
+    run_training, counters zeroed before and read after; its ckpt-4
+    against run_training's. Then, in one NCCL group of one process, the
+    joint step at N_RAYS rows with the reduction against the plain step,
+    and the reduction alone. (b) MD_WORLD gloo ranks on the card against
+    one process. Returns (launches, record)."""
+    outroot = join(WORK, 'out', 'train_multihost')
+    override = joint_override + ',' + ','.join([
+        'outroot=' + outroot, 'epochs=4', 'ckpt_period=2', 'vali_period=4',
+        'vali_batches=1'])
+    zero_counters()
+    t0 = time.perf_counter()
+    outdir = trainvali.main([
+        '--config', 'nerfactor.ini', '--config_override', override,
+        '--device', device, '--multihost', '--coordinator',
+        'localhost:%d' % free_port(), '--num_processes', '1',
+        '--process_id', '0'])['outdir']
+    if device != 'cpu':
+        torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters(JOINT_KERNELS, 'multidevice training')
+    tc = ('K1-fwd tc', 'K1-bwd tc', 'K2-fwd tc', 'K2-bwd tc')
+    if any(launches[k] != launches_train[k] for k in tc):
+        raise AssertionError("--multihost launches %s, the run without %s"
+                             % (launches, launches_train))
+    losses = train_scalars(outdir)
+    template = Model(configutil.Config(configutil.read_config(
+        outdir + '.ini')), device='cpu').init_params(torch.Generator())
+    cli_err = worst_leaf(*(ckptutil.tree_leaves(
+        ckptutil.restore_trained_params(
+            join(d, 'checkpoints', 'ckpt-4'), template))
+        for d in (outdir, train_dir)))
+    if not cli_err <= MD_CLI_TOL:
+        raise AssertionError("--multihost ckpt-4 vs the run without: %r"
+                             % cli_err)
+    vali = join(outdir, 'vis_vali', 'epoch000000004', 'batch000000000',
+                'pred_rgb.png')
+    if not os.path.exists(vali):
+        raise AssertionError("--multihost vali: no %s" % vali)
+
+    # The step at world 1 with and without the reduction, and the
+    # reduction alone, by CUDA events
+    config = configutil.Config(configutil.read_config(ini))
+    batch = md_batch(config, MD_WORLD * MD_ROWS)
+    one = {}
+    if device != 'cpu':
+        mesh.initialize('localhost:%d' % free_port(), 1, 0, device=device,
+                        timeout_s=MD_TIMEOUT_S)
+        try:
+            runs = {}
+            for name, group in (('plain', None), ('reduced', mesh.group())):
+                model, params = md_model(ini, ckpt)
+                runs[name] = bench_model.stepper(
+                    model, params, mesh.shard_batch(batch, 0, MD_WORLD),
+                    device, group=group)
+            mask = ckptutil.tree_leaves(model.trainable_mask(params))
+            bufs = [torch.zeros_like(t) for t, m in zip(
+                ckptutil.tree_leaves(params), mask) if m]
+            bufs.append(torch.zeros([], device=device))
+            one = dict(zip(('plain_ms', 'reduced_ms'), time_pair(
+                runs['plain'], runs['reduced'])))
+            one.update(all_mean_ms=time_ms(lambda: mesh.all_mean(bufs)),
+                       reduced_bytes=4 * sum(b.numel() for b in bufs),
+                       reduced_leaves=len(bufs) - 1)
+        finally:
+            mesh.shutdown()
+
+    # (b) two ranks on the one card, against one process
+    store, out = join(WORK, 'md_rendezvous'), join(WORK, 'md_rank0.pt')
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(md_rank, args=(
+        MD_WORLD, store, ini, ckpt, batch, out, device), nprocs=MD_WORLD,
+        join=True)
+    ranks_s = time.perf_counter() - t0
+    got = torch.load(out, weights_only=False)
+    model, params = md_model(ini, ckpt, device)
+    mask = ckptutil.tree_leaves(model.trainable_mask(params))
+    want = md_updates(model, params, batch, device=device)
+    ranks = {'loss_rel_err': abs(got['reduced'][0][-1] - want[0][-1])
+             / abs(want[0][-1]),
+             'update_rel_err': worst_update(got['reduced'][1], want[1], mask),
+             'control_no_reduce_update_rel_err': worst_update(
+                 got['no_reduce'][1], want[1], mask),
+             's_per_step_two_ranks_one_card': got['reduced'][2],
+             's_per_step_one_process': want[2],
+             'losses': got['reduced'][0],
+             'losses_one_process': want[0], 'wall_s': ranks_s}
+    if not ranks['update_rel_err'] <= MD_RANKS_TOL \
+            or not ranks['control_no_reduce_update_rel_err'] > MD_RANKS_TOL:
+        raise AssertionError("two ranks vs one process: %s" % ranks)
+    return {'multidevice_training': launches}, {
+        'cli': {'seconds': cli_s, 'loss_train': losses,
+                'ckpt4_vs_single_process_rel_err': cli_err,
+                'launches_tc': {k: launches[k] for k in tc}},
+        'world1_nccl': one, 'two_ranks_gloo': ranks,
+        'rows_per_rank': MD_ROWS, 'steps': MD_STEPS}
+
+
+def run_tools():
+    """tools.step_time, tools.profile_joint and tools.bench_relight through
+    their entry points at their defaults, counters zeroed before and read
+    after the two step tools. Returns (launches by path, records)."""
+    records, launches = {}, {}
+    for name, tool in (('step_time', step_time), ('profile_joint',
+                                                  profile_joint)):
+        zero_counters()
+        records[name] = tool.main([])
+        launches['tool_' + name] = read_counters(
+            ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K1-bwd tc', 'K2-fwd',
+             'K2-bwd'), name)
+        torch.cuda.empty_cache()
+    records['bench_relight'] = bench_relight.main([])
+    return launches, records
+
 
 # ------ the least time the card could take ------
 
@@ -4196,6 +4421,19 @@ def main(argv=None):
     print(json.dumps(dict(data_gen, gpu=gpu)))
     torch.cuda.empty_cache()
 
+    # Multi-device training: --multihost through the user's entry point
+    # (NCCL, one process), the reduction's cost, two gloo ranks on the
+    # card against one process; then the step and relight tools
+    t0 = time.perf_counter()
+    launches_md, multidevice = run_multidevice(
+        joint_override, outdir, launches_train, ckpt.rsplit(
+            '/checkpoints/', 1)[0] + '.ini', ckpt)
+    torch.cuda.empty_cache()
+    launches_tools, multidevice['tools'] = run_tools()
+    multidevice['seconds'] = time.perf_counter() - t0
+    print(json.dumps(dict(multidevice, phase='multidevice', gpu=gpu)))
+    torch.cuda.empty_cache()
+
     paths = {'joint_inference': launches_infer,
              'joint_training': launches_train,
              'nerf_training': launches_nerf_train,
@@ -4210,7 +4448,8 @@ def main(argv=None):
              'march_probe': launches_march,
              **{'chain_probe_' + k: v for k, v in launches_probe.items()},
              'dot_probe': launches_dot, **launches_e2e,
-             **launches_micro, **launches_mvs, **launches_data_gen}
+             **launches_micro, **launches_mvs, **launches_data_gen,
+             **launches_md, **launches_tools}
     variant_paths = list(launches_micro) + list(launches_mvs)
 
     def on_variants(kernel):
@@ -4481,7 +4720,7 @@ def main(argv=None):
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},
         'pipeline_e2e': e2e, 'microfacet': micro, 'mvs': mvs,
-        'data_gen': data_gen,
+        'data_gen': data_gen, 'multidevice': multidevice,
         'smoke_s': time.perf_counter() - t_start})
     # The whole line also goes to a file: the end of a long output may be
     # all a caller keeps

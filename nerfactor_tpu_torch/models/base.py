@@ -40,6 +40,14 @@ class BaseModel:
         """Returns (pred, gt, loss_kwargs, to_vis)."""
         raise NotImplementedError
 
+    def train_draws(self, generator, batch, world=1):
+        """The random draws of a train-mode ``apply`` on ``world`` x the
+        rows of ``batch``, drawn from ``generator`` in the order ``apply``
+        draws them, as keyword arguments of ``apply``; each has the rays
+        as its leading axis. A data-parallel step (parallel/train.py)
+        keeps its rank's rows. None here."""
+        return {}
+
     def needs_dw_false_keys(self):
         """Top-level param keys whose fused chains run with
         ``needs_dw=False`` in the training forward. Each must be a frozen

@@ -253,6 +253,27 @@ class Model(BaseModel):
                     for k in outs[0][level]}
         return unchunk(0), unchunk(1)
 
+    def train_draws(self, generator, batch, world=1):
+        """:meth:`render_rays`' draws (``t_rand_coarse``, ``sigma_noise``,
+        ``u_fine``) for world x the batch's rays."""
+        rayo = batch['rayo']
+        n, device = world * rayo.shape[0], rayo.device
+        coarse, fine = (n, self.n_samples_coarse), (n, self.n_samples_fine)
+        draws = {}
+        if (self.perturb or self.noise_std > 0) and generator is None:
+            raise ValueError("Train mode with perturb or noise_std > 0 "
+                             "draws: pass a generator")
+        if self.perturb:
+            draws['t_rand_coarse'] = torch.rand(coarse, generator=generator,
+                                                device=device)
+        if self.noise_std > 0:
+            draws['sigma_noise'] = torch.randn(coarse, generator=generator,
+                                               device=device)
+        if self.perturb and self.n_samples_fine > 0:
+            draws['u_fine'] = torch.rand(fine, generator=generator,
+                                         device=device)
+        return draws
+
     def apply(self, params, batch, mode='train', generator=None,
               jitter_noise=None, t_rand_coarse=None, sigma_noise=None,
               u_fine=None):

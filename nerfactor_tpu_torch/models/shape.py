@@ -208,6 +208,12 @@ class Model(BaseModel):
             xyz.shape, generator=generator, dtype=xyz.dtype,
             device=xyz.device)
 
+    def train_draws(self, generator, batch, world=1):
+        xyz = batch['xyz']
+        noise = self._jitter(xyz.new_empty((world * xyz.shape[0], 3)),
+                             generator, None)
+        return {} if noise is None else {'jitter_noise': noise}
+
     def apply(self, params, batch, mode='train', generator=None,
               jitter_noise=None):
         """Normals and light visibility at the batch's surface points.

@@ -1,5 +1,7 @@
 """Train and eval steps and the optimizer (counterpart of
-nerfactor_tpu/parallel/train.py, on one device).
+nerfactor_tpu/parallel/train.py): on one device, or data parallel over
+the ranks of a process group (parallel/mesh.py), each on its part of the
+global batch.
 
 The optimizer is the JAX package's TF-exact Adam(amsgrad) with the same
 state layout: ``(count, m, v, vhat)`` inside a 1-tuple, the leaves
@@ -12,7 +14,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from nerfactor_tpu_torch.parallel import mesh
 from nerfactor_tpu_torch.utils.ckpt import tree_leaves, tree_map
 
 
@@ -156,7 +160,7 @@ def _check_needs_dw_invariant(model, trainable_mask):
                 "train on zero weight gradients." % (k, type(model).__name__))
 
 
-def make_train_step(model, optimizer, trainable_mask=None):
+def make_train_step(model, optimizer, trainable_mask=None, group=None):
     """Returns ``train_step(params, opt_state, arrays, generator=None,
     jitter_noise=None) -> (params, opt_state, loss)``: the loss and its
     gradients, zero gradients for the leaves ``trainable_mask`` freezes,
@@ -168,7 +172,18 @@ def make_train_step(model, optimizer, trainable_mask=None):
     torch.no_grad() (the JAX package donates both buffers to the jitted
     step); the returned trees are the ones passed in. Gradients are
     taken only for trainable leaves: the frozen ones would be zeroed
-    anyway, so their backward work is skipped."""
+    anyway, so their backward work is skipped.
+
+    With a process ``group`` (parallel/mesh.py), ``arrays`` is this
+    rank's part of the global batch, the ranks in order. Each rank draws
+    the global batch's random draws (``model.train_draws``) from its
+    ``generator``, seeded alike on every rank, and keeps its own rows, as
+    each device holds its rows of the draws of the JAX package's key; a
+    ``jitter_noise`` given is this rank's rows already. The trainable
+    gradients and the loss are averaged over the ranks in one all-reduce
+    before the optimizer, whose per-leaf clipping (Keras ``clipnorm``)
+    then sees the global gradient; the loss returned is the global
+    batch's mean. Without a group, nothing of this runs."""
     _check_needs_dw_invariant(model, trainable_mask)
 
     def train_step(params, opt_state, arrays, generator=None,
@@ -180,13 +195,22 @@ def make_train_step(model, optimizer, trainable_mask=None):
         live = tree_map(lambda t: t.detach(), params)
         live_leaves = tree_leaves(live)
         wrt = [t.requires_grad_() for t, m in zip(live_leaves, mask) if m]
+        draws = {'jitter_noise': jitter_noise}
+        if group is not None and jitter_noise is None:
+            world, rank = dist.get_world_size(group), dist.get_rank(group)
+            draws.update(mesh.shard_batch(
+                model.train_draws(generator, arrays, world), rank, world))
         with torch.enable_grad():
             pred, gt, loss_kwargs, _ = model.apply(
-                live, arrays, mode='train', generator=generator,
-                jitter_noise=jitter_noise)
+                live, arrays, mode='train', generator=generator, **draws)
             loss = torch.mean(model.compute_loss(live, pred, gt,
                                                  **loss_kwargs))
-            got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+            got = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+        if group is not None:
+            got = [torch.zeros_like(t) if g is None else g
+                   for t, g in zip(wrt, got)]
+            *got, loss = mesh.all_mean(got + [loss.detach()], group)
+        got = iter(got)
         grads = []
         for t, m in zip(leaves, mask):
             g = next(got) if m else None

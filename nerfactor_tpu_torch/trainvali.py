@@ -7,6 +7,17 @@ and the joint NeRFactor model (nerfactor.ini):
       --config_override='data_root=...,outroot=...' [--debug] \
       [--device=cuda] [--profile_steps=N]
 
+With --multihost it trains data parallel over rays (parallel/mesh.py),
+one process a device, each feeding its local batch (global batch =
+processes x n_rays_per_step): launched by torchrun,
+
+  torchrun --nproc_per_node=N -m nerfactor_tpu_torch.trainvali \
+      --multihost --config=...
+
+or by hand with --coordinator=host:port --num_processes=N
+--process_id=i in each process. Rank 0 alone writes the run directory
+and validates while the others wait.
+
 Writes, under <outroot>/<xname>/: checkpoints/ckpt-N.npz every
 ckpt_period epochs ({'opt_state', 'params'} in JAX flatten order, so
 either package resumes the other's), summary_{train,vali}/scalars.jsonl,
@@ -32,6 +43,7 @@ import numpy as np
 import torch
 
 from nerfactor_tpu_torch import datasets, models
+from nerfactor_tpu_torch.parallel import mesh as meshlib
 from nerfactor_tpu_torch.parallel.train import (
     build_optimizer, make_train_step, make_eval_step)
 from nerfactor_tpu_torch.utils import config as configutil, io as ioutil
@@ -53,10 +65,23 @@ def parse_args(argv=None):
                    help="trace the first N train steps with torch.profiler "
                         "into <outdir>/profile")
     p.add_argument('--multihost', action='store_true',
-                   help="data-parallel training across hosts (not ported)")
-    p.add_argument('--coordinator', default=None)
-    p.add_argument('--num_processes', type=int, default=None)
-    p.add_argument('--process_id', type=int, default=None)
+                   help="join a torch.distributed process group and train "
+                        "data parallel over rays, one process a device: each "
+                        "feeds its local batch (global batch = processes x "
+                        "n_rays_per_step); rank 0 alone writes checkpoints, "
+                        "summaries and vis. Reads torchrun's environment, or "
+                        "the explicit --coordinator/--num_processes/"
+                        "--process_id")
+    p.add_argument('--coordinator', default=None,
+                   help="with --multihost: rank 0's host:port, or an init "
+                        "URL such as file:///shared/path")
+    p.add_argument('--num_processes', type=int, default=None,
+                   help="with --multihost: total process count")
+    p.add_argument('--process_id', type=int, default=None,
+                   help="with --multihost: this process's rank")
+    p.add_argument('--timeout', type=float, default=meshlib.INIT_TIMEOUT_S,
+                   help="with --multihost: seconds a rank waits to join the "
+                        "group, and for each collective")
     return p.parse_args(argv)
 
 
@@ -223,33 +248,58 @@ def maintain_epoch_queue(epochs, new_epoch_dir):
 def main(argv=None):
     """Trains; returns {'outdir'}."""
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP.md, Queue 1, "
-            "multi-device)")
     if args.debug:
         logger.warn("Debug mode: on")
     # The N-row heads and the render stay true f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(args.device)
+    if not args.multihost:
+        return train(args, torch.device(args.device))
+    device = meshlib.initialize(args.coordinator, args.num_processes,
+                                args.process_id, device=args.device,
+                                timeout_s=args.timeout)
+    logger.info("Multi-process: rank %d of %d on %s", meshlib.rank(),
+                meshlib.world(), device)
+    try:
+        return train(args, device, group=meshlib.group())
+    finally:
+        meshlib.shutdown()
+
+
+def train(args, device, group=None):
+    """The training loop on ``device``; with a process ``group``, this
+    rank's part of it."""
+    rank, world = (0, 1) if group is None else \
+        (meshlib.rank(), meshlib.world())
+    is_lead = group is None or meshlib.is_lead()
+
+    def barrier():
+        if group is not None:
+            meshlib.barrier()
 
     parser = load_config(args.config, args.config_override)
     config = configutil.Config(parser)
     outdir = join(config.get('outroot'), configutil.get_xname(parser))
-    ioutil.prepare_outdir(outdir, overwrite=config.getboolean('overwrite'))
-    logger.info("For results, see:\n\t%s", outdir)
-    configutil.write_config(parser, outdir.rstrip('/') + '.ini')
+    if is_lead:
+        ioutil.prepare_outdir(outdir,
+                              overwrite=config.getboolean('overwrite'))
+        logger.info("For results, see:\n\t%s", outdir)
+        configutil.write_config(parser, outdir.rstrip('/') + '.ini')
+    barrier()
 
+    # Each rank's own seed samples its own rays (0 for one process)
     Dataset = datasets.get_dataset_class(config.get('dataset'))
-    dataset_train = Dataset(config, 'train', debug=args.debug, seed=0)
+    dataset_train = Dataset(config, 'train', debug=args.debug,
+                            seed=rank)
     datapipe_train = dataset_train.build_pipeline()
-    try:
-        dataset_vali = Dataset(config, 'vali', debug=args.debug)
-        datapipe_vali = dataset_vali.build_pipeline(
-            no_shuffle=True, take=config.getint('vali_batches'))
-    except FileNotFoundError:
-        dataset_vali, datapipe_vali = None, None
+    dataset_vali, datapipe_vali = None, None
+    if is_lead:  # validation runs on rank 0 alone
+        try:
+            dataset_vali = Dataset(config, 'vali', debug=args.debug)
+            datapipe_vali = dataset_vali.build_pipeline(
+                no_shuffle=True, take=config.getint('vali_batches'))
+        except FileNotFoundError:
+            pass
 
     Model = models.get_model_class(config.get('model'))
     model = Model(config, debug=args.debug, device=device)
@@ -265,29 +315,40 @@ def main(argv=None):
     max_to_keep = keep_recent_epochs if keep_recent_epochs > 0 else None
     ckptmanager = CheckpointManager(ckptdir, max_to_keep=max_to_keep)
     step_restored = ckptmanager.latest_step()
+    if group is not None:  # every rank resumes from rank 0's latest ckpt-N
+        step_restored = int(meshlib.replicate(torch.tensor(step_restored)))
     if step_restored > 0:
         state = ckptmanager.restore({'params': params,
-                                     'opt_state': opt_state})
+                                     'opt_state': opt_state},
+                                    step=step_restored)
         params, opt_state = state['params'], state['opt_state']
         logger.info("Resumed from epoch %d", step_restored)
     else:
         logger.info("Started from scratch")
+    if group is not None:  # rank 0's parameters and optimizer state
+        meshlib.replicate((params, opt_state))
 
     trainable_mask = model.trainable_mask(params) \
         if hasattr(model, 'trainable_mask') else None
     train_step = make_train_step(model, optimizer,
-                                 trainable_mask=trainable_mask)
+                                 trainable_mask=trainable_mask,
+                                 group=group)
     vali_step = make_eval_step(model, mode='vali')
-    # Smoothness-jitter noise, drawn on the device
+    # The train draws (jitter, NeRF's samples and noise), on the device;
+    # seeded alike on every rank, each keeping its rows of the global draw
     noise_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     # TensorBoard event files beside the JSONL (the JAX package's
-    # ``tensorboard`` key, on by default)
-    write_tb = config.getboolean('tensorboard', fallback=True)
-    writer_train = SummaryWriter(join(outdir, 'summary_train',
-                                      'scalars.jsonl'), tensorboard=write_tb)
-    writer_vali = SummaryWriter(join(outdir, 'summary_vali', 'scalars.jsonl'),
-                                tensorboard=write_tb)
+    # ``tensorboard`` key, on by default); rank 0 alone writes
+    writer_train, writer_vali = None, None
+    if is_lead:
+        write_tb = config.getboolean('tensorboard', fallback=True)
+        writer_train = SummaryWriter(join(outdir, 'summary_train',
+                                          'scalars.jsonl'),
+                                     tensorboard=write_tb)
+        writer_vali = SummaryWriter(join(outdir, 'summary_vali',
+                                         'scalars.jsonl'),
+                                    tensorboard=write_tb)
     vali_vis_epoch_dir = join(outdir, 'vis_vali', 'epoch{e:09d}')
     vali_epoch_deque = deque([], max_to_keep)
 
@@ -295,10 +356,11 @@ def main(argv=None):
     ckpt_period = config.getint('ckpt_period')
     vali_period = config.getint('vali_period')
     # scan_steps groups host batches; every batch is still one step
-    group = 1 if args.debug else config.getint('scan_steps', fallback=1)
+    scan_group = 1 if args.debug else config.getint('scan_steps',
+                                                     fallback=1)
 
     profiler = None
-    profile_left = args.profile_steps
+    profile_left = args.profile_steps if is_lead else 0
     if profile_left > 0:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == 'cuda':
@@ -321,13 +383,14 @@ def main(argv=None):
     batches = None
     if not args.debug and epochs > step_restored:
         batches = host_batches(dataset_train, datapipe_train,
-                               n_epochs=epochs - step_restored, group=group,
+                               n_epochs=epochs - step_restored,
+                               group=scan_group,
                                pin=device.type == 'cuda')
     for _ in range(step_restored, epochs):
         # Losses stay on the device; one readback per epoch
         batch_loss, n_batches = [], 0
         epoch_iter = batches if batches is not None else host_batches(
-            dataset_train, datapipe_train, group=group)
+            dataset_train, datapipe_train, group=scan_group)
         for items, epoch_done in epoch_iter:
             for _, arrays in items:
                 params, opt_state, loss = train_step(
@@ -357,19 +420,23 @@ def main(argv=None):
         period_batches += n_batches
 
         if step % ckpt_period == 0:
-            losses = torch.stack(batch_loss).cpu().numpy()
-            elapsed = time() - period_t0
-            saved = ckptmanager.save(step, {'params': params,
-                                            'opt_state': opt_state})
-            logger.info("Checkpointed epoch %d:\n\t%s", step, saved)
-            writer_train.scalars(
-                step, loss_train=np.mean(losses),
-                batch_time_train=elapsed / max(period_batches, 1),
-                rays_per_sec=dataset_train.bs * period_batches / elapsed)
+            if is_lead:
+                # The losses are the global batch's means already
+                losses = torch.stack(batch_loss).cpu().numpy()
+                elapsed = time() - period_t0
+                saved = ckptmanager.save(step, {'params': params,
+                                                'opt_state': opt_state})
+                logger.info("Checkpointed epoch %d:\n\t%s", step, saved)
+                writer_train.scalars(
+                    step, loss_train=np.mean(losses),
+                    batch_time_train=elapsed / max(period_batches, 1),
+                    rays_per_sec=world * dataset_train.bs
+                    * period_batches / elapsed)
+            barrier()
             period_t0, period_batches = time(), 0
 
-        if datapipe_vali is not None and vali_period > 0 \
-                and step % vali_period == 0:
+        vali_now = vali_period > 0 and step % vali_period == 0
+        if datapipe_vali is not None and vali_now:
             vali_loss, vis_dirs = [], []
             epoch_dir = vali_vis_epoch_dir.format(e=step)
             for batch_i, batch in enumerate(datapipe_vali):
@@ -387,11 +454,14 @@ def main(argv=None):
             if view_at is not None:
                 writer_vali.text(step, 'vis_vali', view_at)
             maintain_epoch_queue(vali_epoch_deque, epoch_dir)
+        if vali_now:
+            barrier()
 
     if profiler is not None and profile_left > 0:
         stop_profiler()
-    writer_train.close()
-    writer_vali.close()
+    if is_lead:
+        writer_train.close()
+        writer_vali.close()
     logger.info("Training done (%d epochs)", epochs)
     return {'outdir': outdir}
 

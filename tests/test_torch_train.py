@@ -15,7 +15,8 @@ written by the JAX package:
     clipping;
   * both packages' trainvali CLIs resume from one JAX-written ckpt-1 and
     reach the same ckpt-3, which restores in the JAX package; the port's
-    CLI writes a profiler trace and refuses --multihost.
+    CLI writes a profiler trace and refuses --multihost without a process
+    group to join.
 """
 
 import json
@@ -293,7 +294,7 @@ def test_cli_resumes_jax_checkpoint_like_jax(scene):
         # epoch 1 from the JAX run the port resumed
         assert [json.loads(line)['step'] for line in f] == [1, 2, 3]
     assert exists(join(tdir, 'profile', 'trace.json'))
-    with pytest.raises(NotImplementedError, match='multihost'):
+    with pytest.raises(ValueError, match='torchrun'):
         ttrainvali.main(['--config', 'nerfactor.ini', '--multihost'])
 
 
