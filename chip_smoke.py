@@ -30,7 +30,9 @@ the step and relight tools.
    at the shapes one inference chunk gives them, and times both; the bf16
    lvis chain's K1-fwd and the bf16 BRDF chain's K2-fwd run on the tensor
    cores, and are also held against the CUDA-core kernels they replace and
-   timed beside them.
+   timed beside them; the f32 heads, on the CUDA cores at this size, beside
+   the split-TF32 kernel, and f32 K1-fwd both ways on the normal head at
+   128-524,288 rows (``f32_fwd_by_rows``).
 5. Inference path: runs ``nerfactor_tpu_torch.test.main`` over the 3 test
    views (OLAT and probe relights on the last), with the kernels' launch
    counters set to 0 just before and read just after, and checks the
@@ -117,8 +119,9 @@ the step and relight tools.
 18. Shape stage: runs ``trainvali.main`` on shape.ini at full width
    (128 x 4, 1024 rays, 512 lights, bf16 lvis chain, fused kernels) for 4
    epochs on the scene's surface buffers, counters zeroed before and read
-   after (K1-fwd and K1-bwd on the tensor cores for lvis, on the CUDA
-   cores for the f32 normal chain); checks its losses, that every leaf of
+   after (K1-fwd and K1-bwd on the tensor cores for lvis; the f32 normal
+   chain's training K1-fwd and K1-bwd with dW on the CUDA cores); checks
+   its losses, that every leaf of
    ckpt-2 and ckpt-4 moved, and its vali images, flipbooks and HTML. Holds
    one shape step's loss and every gradient leaf on the card against the
    port's plain version on the CPU (same batch and jitter), then times the
@@ -138,8 +141,9 @@ the step and relight tools.
    run's ckpt-4 at nerf.ini's full width (8 x 256, 128 + 192 samples, 512
    lights) over every view of the scene (3 train, 1 val, 3 test) at imh
    64, counters zeroed before and read after (K1-fwd on the tensor cores
-   in the bf16 visibility march, on the CUDA cores in the f32 depth/normal
-   pass, K1-bwd on the CUDA cores with dx alone: no dW); checks the files,
+   in the bf16 visibility march and in split TF32 in the f32 depth/normal
+   pass, two a block; K1-bwd with dx alone in split TF32, one a block; no
+   CUDA-core K1 and no dW); checks the files,
    foreground, unit normals and lvis in [0, 1]; holds the card's two
    passes against the port's CPU run on 256 rays and 16 surface points,
    and reads the controls that must break those limits (the depth/normal
@@ -148,9 +152,14 @@ the step and relight tools.
    the buffers 21 wrote, at imh 64.
 23. The sigma chain at distillation's shapes: bf16 K1-fwd on the tensor
    cores at one visibility block's 8,355,840 rows, f32 K1-fwd and K1-bwd
-   with dx alone at one depth/normal block's 1,048,320 rows, against the
-   plain versions, with ms, device ms (the mean over the launches a
-   profiler window recorded; none recorded fails) and bounds.
+   with dx alone (split TF32 on the tensor cores) at one depth/normal
+   block's 1,048,320 fine and 419,328 coarse rows, against the plain
+   versions (TF32 off), with ms, device ms (the mean over the launches a
+   profiler window recorded; none recorded fails), bounds (f32 and split
+   TF32), the CUDA-core kernels they replace (ms, same run) and the plain
+   TF32 control's readings beside each limit, which must break one; f32
+   K1-fwd both ways at 128-524,288 rows (``f32_fwd_by_rows``, as for the
+   f32 normal head in phase 4).
 24. ``tools.march_probe`` through its entry point at its defaults (nerf.ini,
    4096 points x 512 lights, 16384 rays), counters zeroed before and read
    after: ``lvis_march_torch`` and ``depth_normal_torch`` with the device's
@@ -168,8 +177,10 @@ the step and relight tools.
    nerfactor_microfacet.ini at full width (128 x 4, 1024 rays x 512
    lights, bf16 lvis chain, fused kernels) for 4 epochs from the seeded
    shape checkpoint, counters zeroed before and read after (K1 on the
-   tensor cores for lvis, on the CUDA cores for the albedo, roughness and
-   normal heads; K2 never); its losses, checkpoints without BRDF-prior
+   tensor cores for lvis; for the albedo, roughness and normal heads on
+   the CUDA cores: in training, whose backward with dW recomputes the
+   forward there, and at the test chunk's 128 rows, below
+   F32_TC_MIN_ROWS; K2 never); its losses, checkpoints without BRDF-prior
    leaves, every leaf of ckpt-4 moved from ckpt-2, the roughness image;
    ``test.main`` on ckpt-4 with OLAT and probe relights and the video; one
    step's loss and every gradient leaf on the card against the CPU plain
@@ -256,6 +267,7 @@ weights.
   python3 chip_smoke.py --field_seed k3 0
   python3 chip_smoke.py --field_seed k1 0
   python3 chip_smoke.py --field_seed k1r 0
+  python3 chip_smoke.py --field_seed k2 0
 
 print only a bf16 backward's readings against the plain bf16 version (and
 float64, for K3), its dW digest, times, per-kernel device ms and ptxas
@@ -264,9 +276,11 @@ and device ms, on one field drawn from the seed: nerf.ini's field under the
 tests' kind of weights (glorot-uniform, small random biases) at 196,608
 rows, or the lvis chain under the shape model's (glorot-uniform, zero
 biases) at 1,048,576 rows, on K1's route or the stash route (K1r, the
-forward with its stash). Each calls only its kernel's wrappers, so a
-copy of this script in an older checkout reads that checkout's kernels
-the same way.
+forward with its stash); for K2, the sha256 of bf16 K2-bwd's cotangents
+and K2-fwd's output on the shipped BRDF chain at 524,288 rows
+(k2_field_readings). Each calls only its kernel's wrappers, so a copy of
+this script in an older checkout reads that checkout's kernels the same
+way.
 
   python3 chip_smoke.py --view_repeats 4
 
@@ -492,14 +506,22 @@ def check_kernels(model, params):
                'max_abs_err': compare('K1-fwd ' + name, run_k(), run_p(),
                                       tol),
                'tol': tol}
-        if fm.fwd_on_tensor_cores(plan, cd, x.device):
+        if cd is not None and fm.fwd_on_tensor_cores(plan, cd, x.device):
             row.update(tc_fwd_readings(
                 run_k, lambda: fm.chain_kernel_cuda_core(plan, x, p, cd),
                 lambda: fm.chain_kernel_cuda_core(plan, x, p, None), run_p,
                 chain_bound(plan, x.shape[0], 'bf16', 6, 1)['flop'],
                 K1_FWD_KERNELS))
         else:
-            row.update(ms=time_ms(run_k), plain_ms=time_ms(run_p))
+            row.update(ms=time_ms(run_k), plain_ms=time_ms(run_p),
+                       split_tf32=fm.fwd_on_tensor_cores(
+                           plan, cd, x.device, rows=x.shape[0]))
+            if cd is None and fm.fwd_on_tensor_cores(plan, cd, x.device):
+                # The split-TF32 kernel here, and both kernels by rows
+                row['split_tf32_ms'] = time_ms(
+                    lambda: fm.chain_kernel_f32_tc(plan, x, p))
+                if name == 'normal':
+                    row['by_rows'] = f32_fwd_by_rows(plan, p)
         k1.append(row)
     plan, cd = model.plans['brdf'], model.chain_dtype('brdf')
     p = fm.params_from_tree(params['brdf_mlp'], params['brdf_out'])
@@ -691,7 +713,7 @@ def check_backward(model, params):
                               fm.chain_reference(plan, x, p, cd),
                               TOL_BF16 if bf16 else TOL_F32)
         fwd = None
-        if fm.fwd_on_tensor_cores(plan, cd, x.device):
+        if bf16 and fm.fwd_on_tensor_cores(plan, cd, x.device):
             # The forward alone at the step's shapes (the tensor cores)
             fwd = tc_fwd_readings(
                 lambda: fm.chain_kernel(plan, x, p, cd),
@@ -951,14 +973,17 @@ def k2_limit_readings(model, seeds):
 # Each kernel's counter: its wrapper and the wrapper's attribute. K1, K1r,
 # K1w, K2 and K3-fwd count every launch of their wrappers; "K1-fwd tc",
 # "K1-bwd tc", "K1r-fwd tc", "K1r-bwd tc", "K1w-fwd tc", "K1w-bwd tc",
-# "K2-fwd tc", "K2-bwd tc" and "K3-fwd tc" those of the tensor-core
-# kernels among them (bf16; for K1-bwd and K1r-bwd without dx), the rest
-# being the CUDA-core kernels'; "K1-bwd dW" the K1-bwd launches that
-# computed dW/db.
+# "K2-fwd tc", "K2-bwd tc" and "K3-fwd tc" those of the bf16 tensor-core
+# kernels among them (for K1-bwd and K1r-bwd without dx); "K1-fwd f32 tc"
+# and "K1-bwd dx tc" those of K1's f32 tensor-core kernels (split TF32:
+# the forward, and the backward with dx alone); the rest being the
+# CUDA-core kernels'; "K1-bwd dW" the K1-bwd launches that computed dW/db.
 COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
+            'K1-fwd f32 tc': (fm.chain_kernel, 'f32_tc_launches'),
             'K1-bwd': (fm.chain_kernel_bwd, 'launches'),
             'K1-bwd tc': (fm.chain_kernel_bwd, 'tc_launches'),
+            'K1-bwd dx tc': (fm.chain_kernel_bwd, 'dx_tc_launches'),
             'K1-bwd dW': (fm.chain_kernel_bwd, 'dw_launches'),
             'K2-fwd': (fr.rusink_kernel, 'launches'),
             'K2-fwd tc': (fr.rusink_kernel, 'tc_launches'),
@@ -1167,10 +1192,14 @@ def run_shape_training(data_root, nerf_root, imh=IMH, outname='shape_train'):
                              '--config_override', override])['outdir']
     torch.cuda.synchronize()
     launches = read_counters(SHAPE_KERNELS, 'shape training')
-    for k in ('K1-fwd', 'K1-bwd'):
-        if launches[k] <= launches[k + ' tc']:
-            raise AssertionError("the f32 normal chain's %s never launched "
-                                 "on the CUDA cores: %s" % (k, launches))
+    cuda_core = {k: launches[k] - launches[k + ' tc'] for k in ('K1-fwd',
+                                                              'K1-bwd')}
+    cuda_core['K1-fwd'] -= launches['K1-fwd f32 tc']
+    for k, c in cuda_core.items():
+        if c <= 0:
+            raise AssertionError("the f32 normal chain's training %s never "
+                                 "launched on the CUDA cores: %s"
+                                 % (k, launches))
     losses = train_scalars(outdir)
     config = configutil.Config(configutil.read_config(outdir + '.ini'))
     init = ShapeModel(config, device='cpu').init_params(
@@ -1972,6 +2001,53 @@ def k1r_field_readings(seed, iters=10):
         ('chain_stash_fwd', 'chain_stash_bwd', 'dw_kernel'), iters, fwd))
 
 
+# The shipped BRDF prior's chain (brdf.ini: 128 x 4, skip after layer 2;
+# nerfactor.ini: z_dim 3, rusink at 2 octaves), K2's plan
+K2_FIELD_PLAN = fm.make_plan([(3, 0), (3, 2)], (128,) * 4 + (1,),
+                             ('relu',) * 4 + ('softplus',), (2,))
+K2_FIELD_ROWS = 524288  # the joint step's K2 rows
+
+
+def k2_field_readings(seed, iters=10):
+    """bf16 K2-bwd on the BRDF chain (K2_FIELD_PLAN) at the joint step's
+    524,288 rows, under glorot-uniform weights with biases of 0.05 randn
+    and inputs (latent codes, light and view directions) and head
+    cotangents drawn from ``seed``: the sha256 of its cotangents (dz, dl,
+    dv) and of K2-fwd's output, both bit-identical across two launches,
+    and the backward's ms. It calls nothing but rusink_kernel and
+    rusink_kernel_bwd, so it runs the same against an older tree's
+    package: two trees' digests say whether their bf16 K2 computes the
+    same bits."""
+    plan, g = K2_FIELD_PLAN, torch.Generator().manual_seed(seed)
+    p = []
+    for din, dout in zip(fm.layer_in_dims(plan), plan.widths):
+        lim = (6.0 / (din + dout)) ** 0.5
+        p.append((((2 * torch.rand(din, dout, generator=g) - 1) * lim).cuda(),
+                  (0.05 * torch.randn(dout, generator=g)).cuda()))
+    n = K2_FIELD_ROWS
+    z = (0.5 * torch.randn(n, 3, generator=g)).cuda()
+    ldir, vdir = (torch.nn.functional.normalize(
+        torch.randn(n, 3, generator=g), dim=1).cuda() for _ in range(2))
+    dy = (2 * torch.rand(n, 1, generator=g) - 1).cuda()
+    bf16 = torch.bfloat16
+
+    def digest(tensors):
+        return hashlib.sha256(b''.join(
+            t.cpu().numpy().tobytes() for t in tensors)).hexdigest()
+    with torch.no_grad():
+        y = fr.rusink_kernel(plan, z, ldir, vdir, p, bf16)
+        y_again = fr.rusink_kernel(plan, z, ldir, vdir, p, bf16)
+    got = fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, bf16)
+    again = fr.rusink_kernel_bwd(plan, z, ldir, vdir, dy, p, bf16)
+    return {'seed': seed, 'rows': n, 'fwd_sha256': digest([y]),
+            'fwd_bit_identical': torch.equal(y, y_again),
+            'cotangents_sha256': digest(got),
+            'cotangents_bit_identical': all(
+                torch.equal(a, b) for a, b in zip(got, again)),
+            'bwd_ms': time_ms(lambda: fr.rusink_kernel_bwd(
+                plan, z, ldir, vdir, dy, p, bf16), iters=iters)}
+
+
 def worst_leaf(a, b):
     """The worst relative norm over the leaves of ``a`` against ``b``."""
     return max(rel_norm(x, y) for x, y in zip(a, b))
@@ -2051,7 +2127,7 @@ def check_no_views_chain(g):
             else NERF_DW_TOL_F32
         row['dw_rel_err'] = check_norm('K1-bwd no-views %s' % mode, [
             rel_norm(a, b) for a, b in zip(flatten(got), want)], tol)
-        if fm.fwd_on_tensor_cores(plan, cd, x.device):
+        if cd is not None and fm.fwd_on_tensor_cores(plan, cd, x.device):
             row.update(tc_fwd_readings(
                 lambda: fm.chain_kernel(plan, x, p, cd),
                 lambda: fm.chain_kernel_cuda_core(plan, x, p, cd),
@@ -2131,7 +2207,7 @@ def check_stash_route(model, params):
             raise AssertionError("K1r-fwd %s: the output changes with the "
                                  "stash" % what)
         del want_y, want_stash
-        tc = fm.fwd_on_tensor_cores(plan, cd, x.device)
+        tc = fm.fwd_on_tensor_cores(plan, cd, x.device, stash_route=True)
         if tc:
             row['fwd'] = stash_fwd_tc_readings(plan, x, p, cd, stash)
         leaves = [t.clone().requires_grad_() for t in flat]
@@ -2161,7 +2237,8 @@ def check_stash_route(model, params):
                     "K1r-bwd %s: dW/db reads %.4g, not below the f32 "
                     "kernel's %.4g" % (what, row['dw_rel_err'],
                                        row['f32_kernel_dw_rel_err']))
-        tc_bwd = fm.bwd_on_tensor_cores(plan, cd, needs_dx, True, x.device)
+        tc_bwd = fm.bwd_on_tensor_cores(plan, cd, needs_dx, True, x.device,
+                                        stash_route=True)
         if tc_bwd:
             core = fm.chain_kernel_stash_bwd_cuda_core(
                 plan, x, dy, stash, p, cd, needs_dx=False)[1]
@@ -2284,14 +2361,16 @@ K1W_VS_K1_TOL_BF16 = 0.005
 def last_skip_vs_k1(x, dy, p, cd, y, got):
     """K1w against K1 on the same layers without the last skip: K1w-fwd's
     head column ``y[:, :1]`` against K1-fwd's (in bf16 both on the tensor
-    cores, in f32 on the CUDA cores; bit for bit, the CUDA-core kernel's
-    relative norm reported beside), and K1w-bwd's dW/db ``got`` against
-    K1-bwd's with dy's head column (dy's embedding columns reach dx
-    alone): whether they are the same bits, and the worst leaf's relative
-    norm."""
+    cores; in f32 K1w's CUDA-core kernel against K1's, which K1-fwd may
+    run in split TF32 on the tensor cores; bit for bit, the CUDA-core
+    kernel's relative norm reported beside), and K1w-bwd's dW/db ``got``
+    against K1-bwd's with dy's head column (dy's embedding columns reach
+    dx alone): whether they are the same bits, and the worst leaf's
+    relative norm."""
     with torch.no_grad():
-        head = fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
         head_core = fm.chain_kernel_cuda_core(NO_LAST_SKIP_PLAN, x, p, cd)
+        head = head_core if cd is None \
+            else fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
     k1 = flatten(fm.chain_kernel_bwd(NO_LAST_SKIP_PLAN, x,
                                      dy[:, :1].contiguous(), p, cd,
                                      needs_dx=False)[1])
@@ -2627,7 +2706,8 @@ TC_KERNELS = ('chain_fwd_tc_kernel', 'chain_stash_fwd_tc_kernel',
               'rusink_chain_fwd_tc_kernel', 'chain_bwd_tc_kernel',
               'chain_stash_bwd_tc_kernel', 'chain_last_skip_bwd_tc_kernel',
               'nerf_bwd_tc_kernel', 'rusink_chain_bwd_tc_kernel', 'dw_kernel',
-              'chain_dx_pass_kernel')
+              'chain_dx_pass_kernel', 'chain_fwd_f32_tc_kernel',
+              'chain_dx_f32_tc_kernel')
 
 
 def hmma_of(kernels, *names):
@@ -2637,11 +2717,12 @@ def hmma_of(kernels, *names):
 
 
 def check_tc_sass():
-    """The bf16 forwards' and backwards' kernels run their products on the
-    tensor cores: every copy of K1-fwd's, K1r-fwd's, K1w-fwd's, K2-fwd's
-    and K3-fwd's tensor-core kernels, of K2-bwd's, of each phase 1 (K1r-bwd's
-    and K1w-bwd's too), of the dW pass and of K1w-bwd's dx pass in the
-    library holds HMMA instructions."""
+    """The tensor-core kernels run their products on the tensor cores:
+    every copy of K1-fwd's, K1r-fwd's, K1w-fwd's, K2-fwd's and K3-fwd's
+    bf16 tensor-core kernels, of K2-bwd's, of each phase 1 (K1r-bwd's and
+    K1w-bwd's too), of the dW pass, of K1w-bwd's dx pass and of K1's f32
+    forward and dx-only backward (TF32 HMMA) in the library holds HMMA
+    instructions."""
     kernels = sass_hmma(TC_KERNELS)
     for name in TC_KERNELS:
         found = hmma_of(kernels, name)
@@ -2885,10 +2966,11 @@ def run_distillation(nerf_dir):
     """The distillation path through geometry_from_nerf.main on the NeRF
     run's latest checkpoint (its ckpt-4) at nerf.ini's full width, every
     view of DISTILL_DATA (the scene at DISTILL_IMH), with the counters
-    zeroed before and read after:
-    K1-fwd on the tensor cores (the bf16 march) and on the CUDA cores (the
-    f32 depth/normal forwards), K1-bwd on the CUDA cores with dx alone (no
-    dW). Checks the buffers. Returns (launches, out_root, record)."""
+    zeroed before and read after: K1-fwd on the tensor cores in bf16 (the
+    march) and in split TF32 (the depth/normal pass's two forwards a
+    block), K1-bwd with dx alone in split TF32 (one a block), and no
+    CUDA-core K1, bf16 tensor-core K1-bwd or dW pass. Checks the buffers.
+    Returns (launches, out_root, record)."""
     out_root = join(WORK, 'out', 'surf')
     write_scene(DISTILL_DATA, None, imh=DISTILL_IMH)
     zero_counters()
@@ -2896,14 +2978,19 @@ def run_distillation(nerf_dir):
     run = geometry_from_nerf.main(distill_args(nerf_dir, out_root))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counters(('K1-fwd', 'K1-fwd tc', 'K1-bwd'),
-                             'distillation')
-    if launches['K1-fwd'] <= launches['K1-fwd tc']:
-        raise AssertionError("distillation: the f32 K1-fwd never launched "
-                             "on the CUDA cores: %s" % launches)
-    if launches['K1-bwd tc'] or launches['K1-bwd dW']:
-        raise AssertionError("distillation: K1-bwd ran the tensor-core "
-                             "design or a dW pass: %s" % launches)
+    launches = read_counters(('K1-fwd', 'K1-fwd tc', 'K1-fwd f32 tc',
+                              'K1-bwd', 'K1-bwd dx tc'), 'distillation')
+    blocks = launches['K1-bwd dx tc']
+    if launches['K1-fwd f32 tc'] != 2 * blocks \
+            or launches['K1-fwd'] != launches['K1-fwd tc'] + 2 * blocks:
+        raise AssertionError("distillation: not two f32 tensor-core K1-fwd "
+                             "a depth/normal block, or a CUDA-core K1-fwd: "
+                             "%s" % launches)
+    if launches['K1-bwd'] != blocks or launches['K1-bwd tc'] \
+            or launches['K1-bwd dW']:
+        raise AssertionError("distillation: a K1-bwd off the f32 dx-only "
+                             "tensor-core kernel (chain_bwd_kernel, the "
+                             "bf16 design or a dW pass): %s" % launches)
     if sorted(r['id'] for r in run['views']) != sorted(DISTILL_VIEWS):
         raise AssertionError("distillation views: %s" % run['views'])
     hw = (DISTILL_IMH, DISTILL_IMH)
@@ -3039,11 +3126,12 @@ def plain_in_chunks(plan, x, p, cd, rows=1 << 20):
 
 
 def sigma_chain_inputs(dist, view_rays):
-    """The sigma chain's inputs at distillation's two block shapes: one
+    """The sigma chain's inputs at distillation's three block shapes: one
     visibility block's fine level (lvis_block_pts surface points on the
-    sphere x 512 lights x 320 depths in [0.1, lvis_far]) and one
-    depth/normal block's (ray_block rays of a view x 320 depths in
-    [near, far]), at evenly spaced depths."""
+    sphere x 512 lights x 320 depths in [0.1, lvis_far]), and one
+    depth/normal block's fine level (ray_block rays of a view x 320 depths
+    in [near, far]) and coarse level (x 128 depths), at evenly spaced
+    depths."""
     n_total = dist.n_coarse + dist.n_fine
     g = torch.Generator().manual_seed(6)
     surf = torch.randn(dist.lvis_block_pts, 3, generator=g)
@@ -3056,38 +3144,100 @@ def sigma_chain_inputs(dist, view_rays):
     march = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
     rayo, rayd = (torch.as_tensor(a[:dist.ray_block]).cuda()
                   for a in view_rays)
-    z = sampling.gen_z(dist.near, dist.far, n_total, rayo.shape[0],
-                       device='cuda')
-    depth_normal = (rayo[:, None] + rayd[:, None] * z[..., None]).reshape(-1, 3)
-    return march, depth_normal
+    dn = []
+    for n_z in (n_total, dist.n_coarse):
+        z = sampling.gen_z(dist.near, dist.far, n_z, rayo.shape[0],
+                           device='cuda')
+        dn.append((rayo[:, None] + rayd[:, None] * z[..., None])
+                  .reshape(-1, 3))
+    return march, dn[0], dn[1]
+
+
+def tf32x3_bound(bound_):
+    """bound() of a split-TF32 kernel doing the f32 work of ``bound_`` (a
+    bound() at 'f32'): three TF32 products for each f32 one at the tensor
+    cores' TF32 rate (its 'flop' counts the three), or the same bytes at
+    the memory rate."""
+    return bound(3 * bound_['flop'], bound_['bytes'], 'tf32')
+
+
+# Rows at which f32 K1-fwd runs both ways (f32_fwd_by_rows): from the test
+# chunk's heads (128) and a training step's (2,048) to the order of a
+# depth/normal block
+F32_SWEEP_ROWS = (128, 2048, 32768, 65536, 131072, 524288)
+
+
+def f32_fwd_by_rows(plan, p, seed=0, iters=10):
+    """f32 K1-fwd on ``plan`` at F32_SWEEP_ROWS rows of seeded inputs:
+    the split-TF32 kernel's ms against the CUDA-core kernel's (CUDA
+    events, each wrapper's packing included, in turns), each kernel's
+    device ms a launch (a profiler window), and whether the rule takes the
+    tensor cores at that size: where fused_mlp.F32_TC_MIN_ROWS comes
+    from."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for n in F32_SWEEP_ROWS:
+        x = torch.rand(n, fm.raw_dim(plan), generator=g).cuda()
+        runs = {'split_tf32': lambda: fm.chain_kernel_f32_tc(plan, x, p),
+                'cuda_core': lambda: fm.chain_kernel_cuda_core(plan, x, p)}
+        row = dict(zip(('split_tf32_ms', 'cuda_core_ms'), time_pair(
+            runs['split_tf32'], runs['cuda_core'], iters=iters)))
+        for key, run in runs.items():
+            us, seen = profiled_device_us(run, 5)
+            k = [k for k in us if 'chain_fwd' in k]
+            row[key + '_device_ms'] = sum(us[i] for i in k) / max(
+                sum(seen[i] for i in k), 1) / 1e3
+        out.append(dict(row, rows=n, rule_takes_split_tf32=(
+            fm.fwd_on_tensor_cores(plan, None, x.device, rows=n))))
+    return out
+
+
+def beyond(got, want, tol, mask=None):
+    """compare()'s reading without its verdict: (values of ``got`` beyond
+    ``tol`` of ``want`` on ``mask``, the max abs error there)."""
+    err = (got - want).abs()
+    lim = tol[0] + tol[1] * want.abs()
+    if mask is not None:
+        err, lim = err[mask], lim[mask]
+    return int((err > lim).sum()), err.max().item()
 
 
 def check_sigma_chain(nerf_dir, view_rays):
     """K1 on NeRF's sigma chain (nerf.ini: 256 x 8, skip after layer 4, a
     1-wide head; the checkpoint's fine level) at distillation's shapes:
     bf16 K1-fwd on the tensor cores at one visibility block's 8,355,840
-    rows against the plain bf16 version; f32 K1-fwd and K1-bwd with dx
-    alone (CUDA cores) at one depth/normal block's 1,048,320 rows against
-    the plain f32 version and autograd of it for the path's cotangent (the
-    ReLU's mask, d sum(relu(sigma)) / d sigma). Each with its ms and the
-    plain version's (CUDA events, in turns), device ms, bound and TFLOP/s.
-    Returns (the forward readings, the backward's)."""
+    rows against the plain bf16 version; f32 K1-fwd (split TF32 on the
+    tensor cores, chain_fwd_f32_tc_kernel) at one depth/normal block's
+    1,048,320 fine and 419,328 coarse rows, and f32 K1-bwd with dx alone
+    (chain_dx_f32_tc_kernel) at both, against the plain f32 version (TF32
+    off) and autograd of it for the path's cotangent (the ReLU's mask, d
+    sum(relu(sigma)) / d sigma). Each with its ms and the plain version's
+    (CUDA events, in turns), device ms, bound and TFLOP/s; the f32 ones
+    also with the CUDA-core kernel they replace (ms and error, same run)
+    and the plain-TF32 control (terms 1), whose reading must break a limit
+    the kernel holds; their bound is the split-TF32 one (tf32x3_bound), the
+    f32 bound on the CUDA cores beside it. Returns (the forward readings,
+    the backward's)."""
     dist, _ = distiller_on(nerf_dir, 'cuda')
     plan = dist.model.sigma_plan
     p = fm.params_from_tree(dist.params['fine_enc'],
                             dist.params['fine_sigma_out'])
-    x_march, x_dn = sigma_chain_inputs(dist, view_rays)
+    x_march, x_dn, x_coarse = sigma_chain_inputs(dist, view_rays)
     del dist
     bf16 = torch.bfloat16
-    if not fm.fwd_on_tensor_cores(plan, bf16, x_march.device):
+    if not fm.fwd_on_tensor_cores(plan, bf16, x_march.device) \
+            or not fm.fwd_on_tensor_cores(plan, None, x_march.device) \
+            or not fm.bwd_on_tensor_cores(plan, None, True, False,
+                                          x_march.device):
         raise AssertionError("the sigma plan is off the tensor cores: %s"
                              % (plan,))
 
-    def reading(rows, dtype, ms, plain_ms, run, kernel, bound_):
+    def reading(rows, dtype, ms, plain_ms, run, kernel, bound_, flop=None):
         """The readings of wrapper calls ``run``: the device ms of a
         ``kernel`` launch is the profiler's mean over the launches its
         window of SIGMA_WINDOW_CALLS calls recorded (late in the smoke it
-        records some of them only); none recorded fails."""
+        records some of them only); none recorded fails. TFLOP/s count
+        ``flop``, the function's (bound_'s by default)."""
         us, seen = profiled_device_us(run, SIGMA_WINDOW_CALLS)
         n = sum(c for k, c in seen.items() if kernel in k)
         if not n:
@@ -3100,7 +3250,8 @@ def check_sigma_chain(nerf_dir, view_rays):
                 / n / 1e3,
                 'launches_recorded': n, 'window_calls': SIGMA_WINDOW_CALLS,
                 'bound_ms': bound_['bound_ms'], 'bound_by': bound_['bound_by'],
-                'tflops': bound_['flop'] / ms / 1e9}
+                'bound_at': bound_,
+                'tflops': (flop or bound_['flop']) / ms / 1e9}
     fwd = {}
     with torch.no_grad():
         err = compare('K1-fwd sigma march bf16',
@@ -3116,49 +3267,101 @@ def check_sigma_chain(nerf_dir, view_rays):
             chain_bound(plan, x_march.shape[0], 'bf16', 3, 1)),
             max_abs_err=err, route='tensor cores')
         del x_march
-        y_plain = fm.chain_reference(plan, x_dn, p)
-        err = compare('K1-fwd sigma depth/normal f32',
-                      fm.chain_kernel(plan, x_dn, p), y_plain, TOL_F32)
-        ms, plain_ms = time_pair(lambda: fm.chain_kernel(plan, x_dn, p),
-                                 lambda: fm.chain_reference(plan, x_dn, p),
-                                 iters=3)
-        fwd['depth_normal_f32'] = dict(reading(
-            x_dn.shape[0], 'f32', ms, plain_ms,
-            lambda: fm.chain_kernel(plan, x_dn, p), 'chain_fwd_kernel',
-            chain_bound(plan, x_dn.shape[0], 'f32', 3, 1)),
-            max_abs_err=err, route='CUDA cores')
-    dy = (y_plain > 0).float()
-    del y_plain
-    xg = x_dn.clone().requires_grad_()
-    y = fm.chain_reference(plan, xg, p)
-    want, = torch.autograd.grad(y, xg, dy, retain_graph=True)
-    dw_before = fm.chain_kernel_bwd.dw_launches
-    dx, dparams = fm.chain_kernel_bwd(plan, x_dn, dy, p, needs_dx=True,
-                                      needs_dw=False)
-    if dparams is not None or fm.chain_kernel_bwd.dw_launches != dw_before:
-        raise AssertionError("K1-bwd dx only computed dW")
-    # Rows away from every ReLU kink (as check_backward's K2 rows): a row
-    # whose gate sits within f32 rounding of 0 is gated either way
-    _, low = chain_f64(plan, x_dn.double(), p)
-    keep = low > KINK_F32
-    err = compare('K1-bwd sigma dx f32', dx, want, TOL_F32,
-                  mask=keep[:, None].expand_as(dx))
-    # Over all rows, the gate flips move the rows at a kink by one unit's
-    # share of their dx: ~1e-3 of the norm expected, bounded an order above
-    dx_rel_err = check_norm('K1-bwd sigma dx f32 (all rows)',
-                            [rel_norm(dx, want)], SIGMA_DX_TOL_F32)
-    ms, plain_ms = time_pair(
-        lambda: fm.chain_kernel_bwd(plan, x_dn, dy, p, needs_dw=False),
-        lambda: torch.autograd.grad(y, xg, dy, retain_graph=True), iters=2)
-    bwd = dict(reading(
-        x_dn.shape[0], 'f32', ms, plain_ms,
-        lambda: fm.chain_kernel_bwd(plan, x_dn, dy, p, needs_dw=False),
-        'chain_bwd_kernel',
-        chain_bound(plan, x_dn.shape[0], 'f32', 3, 1, bwd=(True, False))),
-        max_abs_err=err, dx_rel_err=dx_rel_err, dx_tol=SIGMA_DX_TOL_F32,
-        rows_at_relu_kink=int((~keep).sum()), route='CUDA cores',
-        mode='dx only')
-    return fwd, {'dx_only_f32': bwd}
+        for key, x in (('depth_normal_f32', x_dn),
+                       ('depth_normal_coarse_f32', x_coarse)):
+            y_plain = fm.chain_reference(plan, x, p)
+            f32_tc = fm.chain_kernel.f32_tc_launches
+            err = compare('K1-fwd sigma f32 %d rows' % x.shape[0],
+                          fm.chain_kernel(plan, x, p), y_plain, TOL_F32)
+            if fm.chain_kernel.f32_tc_launches != f32_tc + 1:
+                raise AssertionError("f32 K1-fwd off the tensor cores")
+            ctl_bad, ctl_err = beyond(
+                fm.chain_kernel_f32_tc(plan, x, p, terms=1), y_plain, TOL_F32)
+            if not ctl_bad:
+                raise AssertionError(
+                    "sigma f32 K1-fwd: the plain-TF32 control is within %s "
+                    "(max err %.3g)" % (TOL_F32, ctl_err))
+            core_err = (fm.chain_kernel_cuda_core(plan, x, p) - y_plain) \
+                .abs().max().item()
+            del y_plain
+            ms, plain_ms = time_pair(lambda: fm.chain_kernel(plan, x, p),
+                                     lambda: fm.chain_reference(plan, x, p),
+                                     iters=3)
+            b = chain_bound(plan, x.shape[0], 'f32', 3, 1)
+            fwd[key] = dict(reading(
+                x.shape[0], 'f32', ms, plain_ms,
+                lambda: fm.chain_kernel(plan, x, p), 'chain_fwd_f32_tc_kernel',
+                tf32x3_bound(b), b['flop']), max_abs_err=err, tol=TOL_F32,
+                tf32x1_control={'values_beyond_tol': ctl_bad,
+                                'max_abs_err': ctl_err},
+                f32_cuda_core_bound_ms=b['bound_ms'],
+                cuda_core_ms=time_ms(
+                    lambda: fm.chain_kernel_cuda_core(plan, x, p), iters=2),
+                cuda_core_max_abs_err=core_err,
+                route='tensor cores (split TF32)')
+        fwd['depth_normal_f32']['by_rows'] = f32_fwd_by_rows(plan, p)
+    bwd = {}
+    for key, x in (('dx_only_f32', x_dn), ('dx_only_coarse_f32', x_coarse)):
+        with torch.no_grad():
+            dy = (fm.chain_reference(plan, x, p) > 0).float()
+        xg = x.clone().requires_grad_()
+        y = fm.chain_reference(plan, xg, p)
+        want, = torch.autograd.grad(y, xg, dy, retain_graph=True)
+        dw_before = fm.chain_kernel_bwd.dw_launches
+        dx_tc = fm.chain_kernel_bwd.dx_tc_launches
+        dx, dparams = fm.chain_kernel_bwd(plan, x, dy, p, needs_dx=True,
+                                          needs_dw=False)
+        if dparams is not None \
+                or fm.chain_kernel_bwd.dw_launches != dw_before:
+            raise AssertionError("K1-bwd dx only computed dW")
+        if fm.chain_kernel_bwd.dx_tc_launches != dx_tc + 1:
+            raise AssertionError("f32 K1-bwd dx only off the tensor cores")
+        # Rows away from every ReLU kink (as check_backward's K2 rows): a
+        # row whose gate sits within f32 rounding of 0 is gated either way
+        _, low = chain_f64(plan, x.double(), p)
+        keep = (low > KINK_F32)[:, None].expand_as(dx)
+        err = compare('K1-bwd sigma dx f32 %d rows' % x.shape[0], dx, want,
+                      TOL_F32, mask=keep)
+        # Over all rows, the gate flips move the rows at a kink by one
+        # unit's share of their dx: ~1e-3 of the norm expected, bounded an
+        # order above
+        dx_rel_err = check_norm('K1-bwd sigma dx f32 (all rows)',
+                                [rel_norm(dx, want)], SIGMA_DX_TOL_F32)
+        ctl = fm.chain_kernel_bwd_dx_f32_tc(plan, x, dy, p, terms=1)
+        ctl_bad, ctl_err = beyond(ctl, want, TOL_F32, mask=keep)
+        ctl_rel = rel_norm(ctl, want)
+        if not ctl_bad and ctl_rel <= SIGMA_DX_TOL_F32:
+            raise AssertionError(
+                "sigma f32 K1-bwd: the plain-TF32 control is within %s "
+                "off the kinks and %g by relative norm (%.3g, %.3g)" % (
+                    TOL_F32, SIGMA_DX_TOL_F32, ctl_err, ctl_rel))
+        core, _ = fm.chain_kernel_bwd_cuda_core(plan, x, dy, p, None, True,
+                                                False)
+        core_rel = rel_norm(core, want)
+        del ctl, core, dx
+        ms, plain_ms = time_pair(
+            lambda: fm.chain_kernel_bwd(plan, x, dy, p, needs_dw=False),
+            lambda: torch.autograd.grad(y, xg, dy, retain_graph=True),
+            iters=2)
+        b = chain_bound(plan, x.shape[0], 'f32', 3, 1, bwd=(True, False))
+        bwd[key] = dict(reading(
+            x.shape[0], 'f32', ms, plain_ms,
+            lambda: fm.chain_kernel_bwd(plan, x, dy, p, needs_dw=False),
+            'chain_dx_f32_tc_kernel', tf32x3_bound(b), b['flop']),
+            max_abs_err=err, tol=TOL_F32, dx_rel_err=dx_rel_err,
+            dx_tol=SIGMA_DX_TOL_F32,
+            rows_at_relu_kink=int((low <= KINK_F32).sum()),
+            tf32x1_control={'values_beyond_tol_off_kinks': ctl_bad,
+                            'max_abs_err_off_kinks': ctl_err,
+                            'dx_rel_err': ctl_rel},
+            f32_cuda_core_bound_ms=b['bound_ms'],
+            cuda_core_ms=time_ms(lambda: fm.chain_kernel_bwd_cuda_core(
+                plan, x, dy, p, None, True, False), iters=1),
+            cuda_core_dx_rel_err=core_rel,
+            route='tensor cores (split TF32)', mode='dx only')
+        del xg, y, want, dy
+        torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 # ------ the end-to-end pipeline (tools/quality_e2e.py) ------
@@ -4051,9 +4254,10 @@ def run_tools():
 
 # ------ the least time the card could take ------
 
-# Published H100 SXM peaks at 700 W (dense): bf16 operands on the tensor
-# cores; f32 off them (TF32 is off); HBM3 bytes per second.
-PEAK_FLOPS = {'bf16': 989e12, 'f32': 67e12}
+# Published H100 SXM peaks at 700 W (dense): bf16 and TF32 operands on the
+# tensor cores (TF32 for the split-TF32 kernels alone, tf32x3_bound); f32
+# off them (TF32 is off elsewhere); HBM3 bytes per second.
+PEAK_FLOPS = {'bf16': 989e12, 'tf32': 495e12, 'f32': 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -4160,7 +4364,7 @@ def view_readings(ckpt, data_root, repeats):
 # (--field_seed), and the readings behind its error bounds (--limit_seeds;
 # each takes the joint experiment's config and the seeds)
 FIELD_READINGS = {'k1': k1_field_readings, 'k1r': k1r_field_readings,
-                  'k3': k3_field_readings}
+                  'k2': k2_field_readings, 'k3': k3_field_readings}
 LIMIT_READINGS = {
     'k1': lambda config, seeds: k1_limit_readings(
         Model(config, device='cuda'), seeds),
@@ -4207,9 +4411,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument(
         '--field_seed', nargs=2, metavar=('KERNEL', 'SEED'),
-        help="k1, k1r or k3 and a seed: print only that bf16 backward's "
-             "readings, times and ptxas report on one field drawn from the "
-             "seed (FIELD_READINGS), and stop")
+        help="k1, k1r, k2 or k3 and a seed: print only that bf16 "
+             "backward's readings (for k2 its cotangents' digest), times "
+             "and ptxas report on one field drawn from the seed "
+             "(FIELD_READINGS), and stop")
     parser.add_argument(
         '--limit_seeds', nargs=2, metavar=('KERNEL', 'SEEDS'),
         help="k1, k1r, k1w, k2 or k3 and comma-separated seeds: print only "
@@ -4261,6 +4466,7 @@ def main(argv=None):
         return
     tc_block = check_tc_block()
     tc_sass = check_tc_sass()
+    k2_field = k2_field_readings(0, iters=3)
 
     model = Model(config, device='cuda')
     params = ckptutil.restore_trained_params(
@@ -4480,9 +4686,30 @@ def main(argv=None):
 
     def cuda_core_by_path(kernel):
         """A kernel's CUDA-core launches by path: all of its launches but
-        its tensor-core ones."""
-        return {p: c[kernel] - c[kernel + ' tc'] for p, c in paths.items()
-                if c[kernel] - c[kernel + ' tc']}
+        its tensor-core ones (K1's f32 ones too)."""
+        def tc(c):
+            return c[kernel + ' tc'] + c.get(
+                {'K1-fwd': 'K1-fwd f32 tc', 'K1-bwd': 'K1-bwd dx tc'}.get(
+                    kernel, ''), 0)
+        return {p: c[kernel] - tc(c) for p, c in paths.items()
+                if c[kernel] - tc(c)}
+    def f32_entry(name, replaces, readings, keys, counter, kernel, **extra):
+        """The kernels line's entry of one of K1's f32 tensor-core
+        kernels: its readings at distillation's shapes (check_sigma_chain;
+        the first of ``keys`` the depth/normal block's fine rows), its
+        launches on every path, ptxas report and HMMA count. Its bound is
+        the split-TF32 one (bound_at's flop counts the three TF32
+        products), the f32 bound on the CUDA cores beside it."""
+        row = readings[keys[0]]
+        return entry(name, 'chain_f32_tc.cu', replaces, row, row['bound_at'],
+                     counter=counter,
+                     max_abs_err=max(readings[k]['max_abs_err'] for k in keys),
+                     device_ms=row['device_ms'], tflops=row['tflops'],
+                     f32_cuda_core_bound_ms=row['f32_cuda_core_bound_ms'],
+                     cuda_core_ms=row['cuda_core_ms'],
+                     distillation={k: readings[k] for k in keys},
+                     ptxas=ptxas_report((kernel,)),
+                     sass_hmma=hmma_of(tc_sass, kernel + '_kernel'), **extra)
     k1w_bf16 = [r for r in k1w if r['dtype'] == 'bf16'][0]
     k1w_f = k1w_bf16['fwd']
     k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
@@ -4505,7 +4732,7 @@ def main(argv=None):
               launches_per_view={k: launches_infer[c] / N_VIEWS for k, c in (
                   ('tc', 'K1-fwd tc'), ('all', 'K1-fwd'))},
               shape_step=shape_k1(shape_step, plans, fwd=True),
-              distillation=sigma_fwd,
+              distillation={'march_bf16': sigma_fwd['march_bf16']},
               launches_on_variant_paths=on_variants('K1-fwd'),
               ptxas=ptxas_report(('chain_fwd',)),
               sass_hmma=hmma_of(tc_sass, 'chain_fwd_tc_kernel'),
@@ -4524,11 +4751,20 @@ def main(argv=None):
               scratch_bytes=lvis_b['scratch_bytes'], tflops=lvis_b['tflops'],
               cuda_core_launches_by_path=cuda_core_by_path('K1-bwd'),
               shape_step=shape_k1(shape_step, plans, fwd=False),
-              distillation=sigma_bwd,
               launches_on_variant_paths=on_variants('K1-bwd'),
               ptxas=ptxas_report(('chain_bwd_tc', 'dw_kernel')),
               sass_hmma=hmma_of(tc_sass, 'chain_bwd_tc_kernel', 'dw_kernel'),
               shapes=k1b),
+        f32_entry('K1-fwd f32 chain_fwd_f32_tc_kernel',
+                  'nerfactor_tpu/ops/pallas_mlp.py:1424', sigma_fwd,
+                  ('depth_normal_f32', 'depth_normal_coarse_f32'),
+                  'K1-fwd f32 tc', 'chain_fwd_f32_tc',
+                  min_rows_alone=fm.F32_TC_MIN_ROWS,
+                  heads=[r for r in k1 if r['dtype'] == 'f32']),
+        f32_entry('K1-bwd dx chain_dx_f32_tc_kernel',
+                  'nerfactor_tpu/ops/pallas_mlp.py:1497', sigma_bwd,
+                  ('dx_only_f32', 'dx_only_coarse_f32'), 'K1-bwd dx tc',
+                  'chain_dx_f32_tc'),
         entry('K2-fwd rusink_chain_fwd_tc_kernel', 'fused_rusink.cu',
               'nerfactor_tpu/ops/pallas_rusink.py:187', k2,
               chain_bound(plans['brdf'], k2['rows'], k2['dtype'], z_dim + 6,
@@ -4565,7 +4801,7 @@ def main(argv=None):
               launches_on_variant_paths=on_variants('K2-bwd'),
               ptxas=ptxas_report(('rusink_chain_bwd',)),
               sass_hmma=hmma_of(tc_sass, 'rusink_chain_bwd_tc_kernel'),
-              shapes=[k2b]),
+              field_seed_0=k2_field, shapes=[k2b]),
         entry('K3-fwd nerf_fwd_tc_kernel', 'fused_nerf.cu',
               'nerfactor_tpu/ops/pallas_nerf.py:153', k3_bf16,
               nerf_bound(nplan, k3_bf16['rows'], 'bf16'), counter='K3-fwd tc',

@@ -1,12 +1,26 @@
 // The tensor-core chain: the plans and the shared-memory layouts of the
-// bf16 chain kernels on the tensor cores, the loaders of a tile's
-// embedding, their one forward loop over a 64-row tile (chain_hidden_tc)
-// and the two tile functions built on it that more than one kernel runs:
-// the forward (chain_fwd_tc_tile: K1-fwd, K1r-fwd and K1w-fwd in
-// fused_mlp.cu, K2-fwd in fused_rusink.cu) and the input-cotangent
-// backward of a frozen chain (chain_tile_dx_tc: K2-bwd). Phase 1 with dW of
-// K1-bwd, K1r-bwd and K1w-bwd (chain_tile_bwd_tc) and K1w-bwd's dx pass
-// stay in fused_mlp.cu.
+// chain kernels on the tensor cores, the loaders of a tile's embedding,
+// their one forward loop over a 64-row tile (chain_hidden_tc) and the two
+// tile functions built on it that more than one kernel runs: the forward
+// (chain_fwd_tc_tile: K1-fwd, K1r-fwd and K1w-fwd in fused_mlp.cu, K2-fwd
+// in fused_rusink.cu) and the input-cotangent backward of a frozen chain
+// (chain_tile_dx_tc: K2-bwd in fused_rusink.cu, K1-bwd with dx only in
+// fused_mlp.cu). Phase 1 with dW of K1-bwd, K1r-bwd and K1w-bwd
+// (chain_tile_bwd_tc) and K1w-bwd's dx pass stay in fused_mlp.cu.
+//
+// The loop, the two tiles and their layouts take tc_gemm's product policy
+// (mma_bf16.cuh) as a template argument P. MmaBf16, the default, is every
+// bf16 kernel's: embedding, posts and d_pre in bf16, as they were before
+// the policy existed. MmaTf32x3 (K1's f32 forward and dx-only backward,
+// the TPU kernels _fwd_kernel_trig_t and _bwd_kernel_trig_t in f32) keeps
+// every operand f32 in shared memory and streams f32 weights through the
+// same ring, a stage the same bytes (16 K rows where bf16 holds 32): the
+// sigma chain's dx block (8 x 256, embedding 63) takes ~175 KB, its
+// forward ~143 KB, one block an SM. Nothing is rounded below f32 but the
+// products' TF32 split; what bounds them is the three products on the
+// tensor cores, the split and the accumulator's adds on the CUDA cores,
+// the ring's barrier every 16 K, and one block (8 warps) an SM to hide
+// them.
 #pragma once
 
 #include "chain_mlp.cuh"
@@ -99,30 +113,34 @@ __host__ __device__ inline long long chain_wt_offset(const ChainDesc& d, int i) 
 }
 
 // Shared-memory layout of a tensor-core block: raw rows (f32) | the
-// head's cotangent rows (f32, the backward's phase 1 only) | embedding
-// (bf16) | one activation buffer (bf16) | the ring of weight stages. The
-// buffer holds, in turn, each hidden post and, in the backward, each
-// rounded d_pre: every product's epilogue writes over its own operand
-// (~94 KB at the lvis width, two blocks an SM). Hidden layers wider than
-// one tc_gemm pass (kTcCols) get a second buffer (h2; h2 == h otherwise),
-// and each product writes the other one.
+// head's cotangent rows (f32, the backward's phase 1 only) | embedding |
+// one activation buffer | the ring of weight stages, the last three at the
+// policy's type. The buffer holds, in turn, each hidden post and, in the
+// backward, each d_pre: every product's epilogue writes over its own
+// operand (bf16: ~94 KB at the lvis width, two blocks an SM). Hidden
+// layers wider than one tc_gemm pass (kTcCols) get a second buffer (h2;
+// h2 == h otherwise), and each product writes the other one.
 struct ChainTcLayout {
   size_t xs, dq, es, h, h2, ws, total;
   int lde, ldh;
 };
 
+// The layout at policy P's operand type T (the embedding, the activation
+// buffers and the ring; the raw rows and the head's cotangent stay f32).
+template <typename P = tc::MmaBf16>
 __host__ __device__ inline ChainTcLayout chain_tc_layout(const ChainDesc& d, bool bwd) {
+  using T = typename P::T;
   constexpr int R = tc::kTcRows;
   ChainTcLayout s;
-  s.lde = tc::tc_ld(d.embed_dim);
-  s.ldh = tc::tc_ld(d.max_width);
+  s.lde = tc::tc_ld<T>(d.embed_dim);
+  s.ldh = tc::tc_ld<T>(d.max_width);
   s.xs = 0;
   s.dq = align16(s.xs + sizeof(float) * R * d.raw_dim);
   s.es = align16(s.dq + (bwd ? sizeof(float) * R * d.widths[d.n_layers - 1] : 0));
-  s.h = align16(s.es + sizeof(bf16) * R * s.lde);
-  s.h2 = d.max_width > tc::kTcCols ? align16(s.h + sizeof(bf16) * R * s.ldh) : s.h;
-  s.ws = align16(s.h2 + sizeof(bf16) * R * s.ldh);
-  s.total = align16(s.ws + sizeof(bf16) * tc::kTcStages * tc::kTcStage);
+  s.h = align16(s.es + sizeof(T) * R * s.lde);
+  s.h2 = d.max_width > tc::kTcCols ? align16(s.h + sizeof(T) * R * s.ldh) : s.h;
+  s.ws = align16(s.h2 + sizeof(T) * R * s.ldh);
+  s.total = align16(s.ws + tc::Ring<P>::kBytes);
   return s;
 }
 
@@ -149,12 +167,14 @@ __host__ __device__ inline DxPassLayout dx_pass_layout(const ChainDesc& d) {
 }
 
 // Whether the tensor-core forward (bwd false) or backward's phase 1 (bwd
-// true) runs the plan: chain_tc_plan's plans whose block fits the card's
-// shared memory; for a last-skip backward, the dx pass's block too.
+// true) runs the plan at policy P: chain_tc_plan's plans whose block fits
+// the card's shared memory; for a last-skip backward, the dx pass's block
+// too.
+template <typename P = tc::MmaBf16>
 inline int check_chain_tc(const ChainDesc& d, bool bwd) {
   if (!chain_tc_plan(d)) return kErrBadPlan;
   const size_t smem = static_cast<size_t>(max_smem_optin());
-  if (chain_tc_layout(d, bwd).total > smem) return kErrSmem;
+  if (chain_tc_layout<P>(d, bwd).total > smem) return kErrSmem;
   if (bwd && last_skip(d) && dx_pass_layout(d).total > smem) return kErrSmem;
   return 0;
 }
@@ -175,10 +195,11 @@ inline int check_chain_tc(const ChainDesc& d, bool bwd) {
 __host__ __device__ inline int dx_mask_stride(const ChainDesc& d) { return 4 * d.max_width; }
 
 // A ReLU forward product's epilogue that also keeps each post's sign:
-// out = bf16(max(v + b, 0)), as fwd_epilogue's, and bit 4 m + e of the
-// lane's word of the tile at c0 set where that post is above 0.
+// out = T(max(v + b, 0)), as fwd_epilogue's, and bit 4 m + e of the lane's
+// word of the tile at c0 set where that post is above 0.
+template <typename T = bf16>
 __device__ inline void relu_mask_epilogue(int c0, const float (&v)[tc::kTcM][4],
-                                          const float* __restrict__ b, bf16* out, int ldo,
+                                          const float* __restrict__ b, T* out, int ldo,
                                           uint16_t* mask) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   unsigned bits = 0;
@@ -187,9 +208,9 @@ __device__ inline void relu_mask_epilogue(int c0, const float (&v)[tc::kTcM][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
-      const bf16 y = from_f<bf16>(fmaxf(v[m][e] + b[c], 0.f));
+      const T y = from_f<T>(fmaxf(v[m][e] + b[c], 0.f));
       out[r * ldo + c] = y;
-      bits |= static_cast<unsigned>(to_f<bf16>(y) > 0.f) << (4 * m + e);
+      bits |= static_cast<unsigned>(to_f<T>(y) > 0.f) << (4 * m + e);
     }
   mask[(c0 >> 3) * 32 + lane] = static_cast<uint16_t>(bits);
 }
@@ -197,13 +218,16 @@ __device__ inline void relu_mask_epilogue(int c0, const float (&v)[tc::kTcM][4],
 // ------ the embedding's loaders ------
 //
 // The forward loop starts from the tile's embedding, which a loader fills
-// from the raw rows xs into es (ld lde, bf16, zero-padded to 16 columns;
-// no barrier). The loader is a template argument of the loop, so each
-// kernel's copy compiles its own and K1's and K2's stay as they were.
+// from the raw rows xs into es (ld lde, the policy's type, zero-padded to
+// 16 columns; no barrier). The loader is a template argument of the loop,
+// so each kernel's copy compiles its own and K1's and K2's stay as they
+// were.
 
-// K1's and K2's: the trig columns by precise sincosf (embed_tile).
+// K1's and K2's: the trig columns by precise sincosf (embed_tile), in bf16
+// or, for K1's f32 kernels, f32.
 struct EmbedSincos {
-  __device__ void operator()(const ChainDesc& d, const float* xs, bf16* es, int lde) const {
+  template <typename T>
+  __device__ void operator()(const ChainDesc& d, const float* xs, T* es, int lde) const {
     embed_tile(d, xs, es, lde);
   }
 };
@@ -235,59 +259,65 @@ struct EmbedStash {
 // ------ the forward loop ------
 
 // The hidden layers' forward on the tensor cores for one 64-row tile whose
-// raw rows are in shared memory (layout L): the embedding (`embed`, one of
-// the loaders above), then each hidden layer through tc_gemm, its epilogue
-// writing bf16(act(v + b)) over its operand. kStore (the backward's phase
-// 1): the embedding and the posts that feed a later hidden layer also go
-// to the tile's scratch `st` (kPairs rows of the caller's chain_cols,
-// `cols`). kMask (an input-cotangent backward, chain_tile_dx_tc; every
-// hidden act ReLU): the posts that feed a later hidden layer keep their
-// signs in `mask` (relu_mask_epilogue, dx_mask_stride words a layer).
-// Returns the buffer that holds the last hidden post, which its product's
-// epilogue has just written (no barrier after it). The embedding stays in
-// es. The one forward loop of the tensor-core chain kernels (K1-fwd,
-// K1-bwd's phase 1, K1r-fwd, K1r-bwd's phase 1, K2-fwd, K2-bwd).
-template <bool kTwoBuffers, bool kStore, bool kMask = false, typename Embed = EmbedSincos>
-__device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
-                                 const ChainCols& cols, const bf16* __restrict__ wt,
-                                 const float* __restrict__ bias, unsigned char* smem,
-                                 uint32_t* st, uint16_t* mask = nullptr, Embed embed = {}) {
+// raw rows are in shared memory (layout L, at policy P): the embedding
+// (`embed`, one of the loaders above), then each hidden layer through
+// tc_gemm<P>, its epilogue writing T(act(v + b)) over its operand. kStore
+// (the bf16 backward's phase 1): the embedding and the posts that feed a
+// later hidden layer also go to the tile's scratch `st` (kPairs rows of the
+// caller's chain_cols, `cols`). kMask (an input-cotangent backward,
+// chain_tile_dx_tc; every hidden act ReLU): the posts that feed a later
+// hidden layer keep their signs in `mask` (relu_mask_epilogue,
+// dx_mask_stride words a layer). Returns the buffer that holds the last
+// hidden post, which its product's epilogue has just written (no barrier
+// after it). The embedding stays in es. The one forward loop of the
+// tensor-core chain kernels (K1-fwd, K1-bwd's phase 1 and dx-only tile,
+// K1r-fwd, K1r-bwd's phase 1, K2-fwd, K2-bwd).
+template <bool kTwoBuffers, bool kStore, bool kMask = false, typename Embed = EmbedSincos,
+          typename P = tc::MmaBf16>
+__device__ typename P::T* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
+                                          const ChainCols& cols,
+                                          const typename P::T* __restrict__ wt,
+                                          const float* __restrict__ bias, unsigned char* smem,
+                                          uint32_t* st, uint16_t* mask = nullptr,
+                                          Embed embed = {}) {
+  using T = typename P::T;
+  static_assert(!kStore || sizeof(T) == 2, "the scratch holds bf16");
   const float* xs = reinterpret_cast<const float*>(smem + L.xs);
-  bf16* es = reinterpret_cast<bf16*>(smem + L.es);
+  T* es = reinterpret_cast<T*>(smem + L.es);
   // h holds the latest result; each product writes ho, then the two swap.
   // With one buffer ho is h, fixed
-  bf16* h = reinterpret_cast<bf16*>(smem + L.h);
-  bf16* ho = kTwoBuffers ? reinterpret_cast<bf16*>(smem + L.h2) : h;
-  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
+  T* h = reinterpret_cast<T*>(smem + L.h);
+  T* ho = kTwoBuffers ? reinterpret_cast<T*>(smem + L.h2) : h;
+  T* ws = reinterpret_cast<T*>(smem + L.ws);
   const int nh = d.n_layers - 1, e16 = round16(d.embed_dim), ldh = L.ldh;
   const int total = cols.total;
   embed(d, xs, es, L.lde);
   __syncthreads();
-  if (kStore) store_pairs(es, L.lde, e16, st, total, 0);
-  tc::TcA a{es, L.lde, e16, nullptr, 0, 0};
+  if constexpr (kStore) store_pairs(es, L.lde, e16, st, total, 0);
+  tc::TcAOf<T> a{es, L.lde, e16, nullptr, 0, 0};
   for (int i = 0; i < nh; ++i) {
     const int act = d.acts[i], col = cols.post[i], k = a.k1 + a.k2;
     const float* b = bias + d.b_off[i];
-    const bf16* wti = wt + chain_wt_offset(d, i);
+    const T* wti = wt + chain_wt_offset(d, i);
     if (kStore && i < nh - 1)
-      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
-        fwd_epilogue<true>(c0, v, act, b, ho, ldh, st, total, col);
+      tc::tc_gemm<P>(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<kStore, T>(c0, v, act, b, ho, ldh, st, total, col);
       });
     else if (kMask && i < nh - 1)
-      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+      tc::tc_gemm<P>(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
         relu_mask_epilogue(c0, v, b, ho, ldh, mask + i * dx_mask_stride(d));
       });
     else
-      tc::tc_gemm(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
-        fwd_epilogue<false>(c0, v, act, b, ho, ldh, st, total, 0);
+      tc::tc_gemm<P>(a, wti, k, d.widths[i], ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        fwd_epilogue<false, T>(c0, v, act, b, ho, ldh, st, total, 0);
       });
     if (kTwoBuffers) {
-      bf16* t = h;
+      T* t = h;
       h = ho;
       ho = t;
     }
     const bool skip = d.skip_after[i] != 0;
-    a = tc::TcA{h, ldh, d.widths[i], skip ? es : nullptr, L.lde, skip ? e16 : 0};
+    a = tc::TcAOf<T>{h, ldh, d.widths[i], skip ? es : nullptr, L.lde, skip ? e16 : 0};
   }
   return h;
 }
@@ -295,19 +325,21 @@ __device__ bf16* chain_hidden_tc(const ChainDesc& d, const ChainTcLayout& L,
 // ------ the forward of a tile ------
 
 // The forward of one 64-row tile whose raw rows are in shared memory
-// (chain_tc_layout(d, false)): the hidden layers through chain_hidden_tc
-// from the loader's embedding, without the scratch, then the tiny head in
-// f32 on the CUDA cores from the last post (head_sums, as phase 1's head
-// forward), its rows below n written to y. kLastSkip: y's rows are
-// out_dim(d) wide ([head | embedding], K1w-fwd), the head their first
-// columns; else the head alone.
-template <bool kTwoBuffers, typename Embed = EmbedSincos, bool kLastSkip = false>
-__device__ void chain_fwd_tc_tile(const ChainDesc& d, const bf16* __restrict__ w,
-                                  const bf16* __restrict__ wt, const float* __restrict__ bias,
-                                  unsigned char* smem, float* __restrict__ y, long long row0,
-                                  long long n, Embed embed = {}) {
-  const ChainTcLayout L = chain_tc_layout(d, false);
-  const bf16* h = chain_hidden_tc<kTwoBuffers, false, false, Embed>(
+// (chain_tc_layout<P>(d, false)): the hidden layers through
+// chain_hidden_tc from the loader's embedding, without the scratch, then
+// the tiny head in f32 on the CUDA cores from the last post (head_sums, as
+// phase 1's head forward), its rows below n written to y. kLastSkip: y's
+// rows are out_dim(d) wide ([head | embedding], K1w-fwd), the head their
+// first columns; else the head alone. w and wt at the policy's type.
+template <bool kTwoBuffers, typename Embed = EmbedSincos, bool kLastSkip = false,
+          typename P = tc::MmaBf16>
+__device__ void chain_fwd_tc_tile(const ChainDesc& d, const typename P::T* __restrict__ w,
+                                  const typename P::T* __restrict__ wt,
+                                  const float* __restrict__ bias, unsigned char* smem,
+                                  float* __restrict__ y, long long row0, long long n,
+                                  Embed embed = {}) {
+  const ChainTcLayout L = chain_tc_layout<P>(d, false);
+  const typename P::T* h = chain_hidden_tc<kTwoBuffers, false, false, Embed, P>(
       d, L, chain_cols(d), wt, bias, smem, nullptr, nullptr, embed);
   __syncthreads();
   const int nh = d.n_layers - 1, no = d.widths[nh], act = d.acts[nh];
@@ -322,6 +354,30 @@ __device__ void chain_fwd_tc_tile(const ChainDesc& d, const bf16* __restrict__ w
     }
   });
 }
+
+// The forward of block blockIdx.x's 64-row tile: its raw rows from x (n,
+// raw_dim), then chain_fwd_tc_tile
+// (the hidden layers as phase 1 recomputes them, from the loader's
+// embedding, without the scratch; the tiny head in f32 on the CUDA cores;
+// kLastSkip: y's rows are [head | embedding]), products at policy P.
+template <bool kTwoBuffers, typename Embed, bool kLastSkip = false, typename P = tc::MmaBf16>
+__device__ void chain_fwd_tc_block(const ChainDesc& d, const float* __restrict__ x,
+                                   const typename P::T* __restrict__ w,
+                                   const typename P::T* __restrict__ wt,
+                                   const float* __restrict__ bias, float* __restrict__ y,
+                                   long long n, Embed embed) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int R = tc::kTcRows;
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  float* xs = reinterpret_cast<float*>(smem + chain_tc_layout<P>(d, false).xs);
+  for (int idx = threadIdx.x; idx < R * d.raw_dim; idx += kThreads) {
+    const long long r = row0 + idx / d.raw_dim;
+    xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
+  }
+  __syncthreads();
+  chain_fwd_tc_tile<kTwoBuffers, Embed, kLastSkip, P>(d, w, wt, bias, smem, y, row0, n, embed);
+}
+
 
 // ------ K1w: the embedding's columns of a last-skip row ------
 
@@ -357,12 +413,13 @@ __device__ inline void write_embed_cols(const ChainDesc& d, const bf16* es, int 
 
 // A d_pre @ W^T product's epilogue in the input-cotangent backward, over
 // the product's columns: below w (the previous hidden layer's units), its
-// d_pre, bf16(v) where the post's sign bit is set and 0 elsewhere (ReLU'),
+// d_pre, T(v) where the post's sign bit is set and 0 elsewhere (ReLU'),
 // into dpre (ld ldp); from w up to n (the embedding's rows of W), v added
 // in f32 into the embedding's cotangent de (ld ldde) at column c - w; from
 // n on (the last n8 tile of a width off the 8 step), nothing.
+template <typename T = bf16>
 __device__ inline void dx_epilogue(int c0, const float (&v)[tc::kTcM][4], int w, int n,
-                                   const uint16_t* mask, bf16* dpre, int ldp, float* de,
+                                   const uint16_t* mask, T* dpre, int ldp, float* de,
                                    int ldde) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if (c0 < w) {
@@ -372,7 +429,7 @@ __device__ inline void dx_epilogue(int c0, const float (&v)[tc::kTcM][4], int w,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
-        dpre[r * ldp + c] = from_f<bf16>((bits >> (4 * m + e)) & 1u ? v[m][e] : 0.f);
+        dpre[r * ldp + c] = from_f<T>((bits >> (4 * m + e)) & 1u ? v[m][e] : 0.f);
       }
   } else {
 #pragma unroll
@@ -385,22 +442,24 @@ __device__ inline void dx_epilogue(int c0, const float (&v)[tc::kTcM][4], int w,
   }
 }
 
-// Shared-memory layout of the input-cotangent backward: the phase-1 layout
-// (chain_tc_layout(d, true): raw rows | head cotangent rows | embedding |
-// activation buffer(s) | weight ring), then the embedding's cotangent
-// (f32, ld ldde) | the posts' sign masks | the raw rows' cotangent (f32).
-// ~100 KB at the BRDF chain's width (128 x 4, embedding 18): two blocks an
-// SM.
+// Shared-memory layout of the input-cotangent backward at policy P: the
+// phase-1 layout (chain_tc_layout<P>(d, true): raw rows | head cotangent
+// rows | embedding | activation buffer(s) | weight ring), then the
+// embedding's cotangent (f32, ld ldde) | the posts' sign masks | the raw
+// rows' cotangent (f32). bf16: ~100 KB at the BRDF chain's width (128 x 4,
+// embedding 18), two blocks an SM. f32: ~175 KB at the sigma chain's (256
+// x 8, embedding 63), one.
 struct ChainDxLayout {
   ChainTcLayout t;
   size_t de, mask, dxs, total;
   int ldde;
 };
 
+template <typename P = tc::MmaBf16>
 __host__ __device__ inline ChainDxLayout chain_dx_layout(const ChainDesc& d) {
   constexpr int R = tc::kTcRows;
   ChainDxLayout s;
-  s.t = chain_tc_layout(d, true);
+  s.t = chain_tc_layout<P>(d, true);
   s.ldde = tc::tc_ld(d.embed_dim);
   s.de = s.t.total;
   s.mask = align16(s.de + sizeof(float) * R * s.ldde);
@@ -409,71 +468,88 @@ __host__ __device__ inline ChainDxLayout chain_dx_layout(const ChainDesc& d) {
   return s;
 }
 
-// Whether chain_tile_dx_tc runs the plan: chain_tc_plan's plans whose
-// hidden layers are all ReLU (a mask keeps a post's sign alone), whose
-// block fits the card's shared memory, and, with one activation buffer,
-// whose products all take one column pass (a second pass reads the whole
-// operand again, which the first pass's epilogue wrote over).
+// Whether a product of chain_tile_dx_tc at policy P whose columns pass
+// one tc_gemm pass runs as two (kSplitDx): the f32 policy's, so that the
+// sigma chain's skip consumer (256 + 63 columns) keeps one activation
+// buffer; the bf16 instantiations keep their one product and refuse such
+// plans.
+template <typename P>
+constexpr bool kSplitDx = sizeof(typename P::T) == sizeof(float);
+
+// Whether chain_tile_dx_tc runs the plan at policy P: chain_tc_plan's
+// plans whose hidden layers are all ReLU (a mask keeps a post's sign
+// alone), whose block fits the card's shared memory, and, in bf16 with
+// one activation buffer, whose products all take one column pass (a
+// second pass reads the whole operand again, which the first pass's
+// epilogue wrote over).
+template <typename P = tc::MmaBf16>
 inline int check_chain_dx_tc(const ChainDesc& d) {
   if (!chain_tc_plan(d)) return kErrBadPlan;
   for (int i = 0; i < d.n_layers - 1; ++i)
     if (d.acts[i] != kRelu) return kErrBadPlan;
-  if (d.max_width <= tc::kTcCols)
+  if (!kSplitDx<P> && d.max_width <= tc::kTcCols)
     for (int i = 1; i < d.n_layers - 1; ++i)
       if (layer_in_dim(d, i) > tc::kTcCols) return kErrBadPlan;
-  if (chain_dx_layout(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
+  if (chain_dx_layout<P>(d).total > static_cast<size_t>(max_smem_optin())) return kErrSmem;
   return 0;
 }
 
 // The input cotangent of a frozen chain for one 64-row tile whose raw rows
-// and head cotangent rows are in shared memory (layout chain_dx_layout)
+// and head cotangent rows are in shared memory (layout chain_dx_layout<P>)
 // and whose embedding cotangent de is zero: the forward recompute on the
 // tensor cores, keeping the posts' signs; the tiny head's d_pre and the
 // last hidden layer's in f32 on the CUDA cores; then, for i = nh - 1 ...
 // 0, d_pre_i @ W_i^T on the tensor cores, the embedding's rows of W_i
 // included (layer 0's and a skip consumer's), through dx_epilogue. Leaves
-// the embedding's cotangent in de. Rounds where chain_tile_bwd does: posts
-// and d_pre at bf16, d_h and de in f32, de summed in its order (a skip
-// consumer's rows, then layer 0's). Ends at a barrier.
-template <bool kTwoBuffers>
-__device__ void chain_tile_dx_tc(const ChainDesc& d, const bf16* __restrict__ w,
-                                 const bf16* __restrict__ wt, const float* __restrict__ bias,
-                                 unsigned char* smem) {
+// the embedding's cotangent in de. Rounds where chain_tile_bwd does at the
+// policy's type: in bf16 posts and d_pre at bf16, d_h and de in f32; in
+// f32 nothing; de summed in its order (a skip consumer's rows, then layer
+// 0's). At the f32 policy with one activation buffer, a product whose
+// columns pass one tc_gemm pass (a skip consumer past 256 inputs: the
+// sigma chain's 256 + 63) runs as two (kSplitDx): the embedding's rows
+// into de first, then the previous layer's over its operand. Ends at a
+// barrier.
+template <bool kTwoBuffers, typename P = tc::MmaBf16>
+__device__ void chain_tile_dx_tc(const ChainDesc& d, const typename P::T* __restrict__ w,
+                                 const typename P::T* __restrict__ wt,
+                                 const float* __restrict__ bias, unsigned char* smem) {
+  using T = typename P::T;
   constexpr int R = tc::kTcRows;
-  const ChainDxLayout L = chain_dx_layout(d);
+  const ChainDxLayout L = chain_dx_layout<P>(d);
   float* dq = reinterpret_cast<float*>(smem + L.t.dq);
   float* de = reinterpret_cast<float*>(smem + L.de);
   uint16_t* mask = reinterpret_cast<uint16_t*>(smem + L.mask);
-  bf16* h = chain_hidden_tc<kTwoBuffers, false, true>(d, L.t, chain_cols(d), wt, bias, smem,
-                                                      nullptr, mask);
+  T* h = chain_hidden_tc<kTwoBuffers, false, true, EmbedSincos, P>(d, L.t, chain_cols(d), wt,
+                                                                    bias, smem, nullptr, mask);
   // h holds the latest d_pre; each product writes ho, then the two swap.
   // With one buffer ho is h, fixed
-  bf16* ho = h;
+  T* ho = h;
   if (kTwoBuffers)
-    ho = reinterpret_cast<bf16*>(smem + (h == reinterpret_cast<bf16*>(smem + L.t.h) ? L.t.h2
-                                                                                  : L.t.h));
-  bf16* ws = reinterpret_cast<bf16*>(smem + L.t.ws);
+    ho = reinterpret_cast<T*>(smem + (h == reinterpret_cast<T*>(smem + L.t.h) ? L.t.h2 : L.t.h));
+  T* ws = reinterpret_cast<T*>(smem + L.t.ws);
   const int nh = d.n_layers - 1, ldh = L.t.ldh;
   __syncthreads();
   // The head's forward from the last post, its d_pre in place of dy, then
   // the rounding
   const int no = d.widths[nh], kl = d.widths[nh - 1], act_h = d.acts[nh];
-  const bf16* wh = w + d.w_off[nh];  // (kl, no) row-major
+  const T* wh = w + d.w_off[nh];  // (kl, no) row-major
   const float* bh = bias + d.b_off[nh];
   head_sums(h, ldh, kl, wh, no, [&](int item, int, int c, float s) {
     dq[item] = activate_bwd(act_h, activate(act_h, s + bh[c]), dq[item]);
   });
   __syncthreads();
-  for (int idx = threadIdx.x; idx < R * no; idx += kThreads)
-    dq[idx] = to_f<bf16>(from_f<bf16>(dq[idx]));
-  __syncthreads();
+  if constexpr (sizeof(T) < sizeof(float)) {
+    for (int idx = threadIdx.x; idx < R * no; idx += kThreads)
+      dq[idx] = to_f<T>(from_f<T>(dq[idx]));
+    __syncthreads();
+  }
   // The last hidden layer's d_pre = ReLU'(post) * (d_pre_head @ W_head^T)
   // in place of its post, the sum in dgrad_pass's order
   for (int idx = threadIdx.x; idx < R * kl; idx += kThreads) {
     const int r = idx / kl, k = idx % kl;
     float gr = 0.f;
-    for (int c = 0; c < no; ++c) gr = fmaf(dq[r * no + c], to_f<bf16>(wh[k * no + c]), gr);
-    h[r * ldh + k] = from_f<bf16>(to_f<bf16>(h[r * ldh + k]) > 0.f ? gr : 0.f);
+    for (int c = 0; c < no; ++c) gr = fmaf(dq[r * no + c], to_f<T>(wh[k * no + c]), gr);
+    h[r * ldh + k] = from_f<T>(to_f<T>(h[r * ldh + k]) > 0.f ? gr : 0.f);
   }
   // Down the chain: the product of layer i has the previous layer's units
   // and, for layer 0 and a skip consumer, the embedding's rows as columns
@@ -481,13 +557,23 @@ __device__ void chain_tile_dx_tc(const ChainDesc& d, const bf16* __restrict__ w,
     const int prev = i ? d.widths[i - 1] : 0;
     const int n = i == 0 || d.skip_after[i - 1] ? layer_in_dim(d, i) : prev;
     const uint16_t* mi = i ? mask + (i - 1) * dx_mask_stride(d) : nullptr;
-    const tc::TcA a{h, ldh, d.widths[i], nullptr, 0, 0};
-    tc::tc_gemm(a, w + d.w_off[i], d.widths[i], n, ws,
-                [&](int c0, const float (&v)[tc::kTcM][4]) {
-                  dx_epilogue(c0, v, prev, n, mi, ho, ldh, de, L.ldde);
-                });
+    const tc::TcAOf<T> a{h, ldh, d.widths[i], nullptr, 0, 0};
+    const T* wi = w + d.w_off[i];
+    if (kSplitDx<P> && !kTwoBuffers && n > tc::kTcCols && prev > 0) {
+      tc::tc_gemm<P>(a, wi + static_cast<long long>(prev) * d.widths[i], d.widths[i], n - prev,
+                     ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+                       dx_epilogue(c0, v, 0, n - prev, nullptr, ho, ldh, de, L.ldde);
+                     });
+      tc::tc_gemm<P>(a, wi, d.widths[i], prev, ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        dx_epilogue(c0, v, prev, prev, mi, ho, ldh, de, L.ldde);
+      });
+    } else {
+      tc::tc_gemm<P>(a, wi, d.widths[i], n, ws, [&](int c0, const float (&v)[tc::kTcM][4]) {
+        dx_epilogue(c0, v, prev, n, mi, ho, ldh, de, L.ldde);
+      });
+    }
     if (kTwoBuffers) {
-      bf16* t = h;
+      T* t = h;
       h = ho;
       ho = t;
     }

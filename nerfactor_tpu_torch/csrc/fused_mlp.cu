@@ -4,7 +4,7 @@
 // _pallas_forward_trig_t -> _fwd_kernel_trig_t: per row,
 // head(MLP(posenc(x))) with ReLU hidden layers, the embedding concatenated
 // after the layers in skip_after, and a sigmoid/softplus/linear head. It
-// runs as one of two designs, chosen by a rule on the plan
+// runs as one of three designs, chosen by a rule on the plan
 // (ops/fused_mlp.py fwd_on_tensor_cores):
 //
 //   * bf16, on the plans the tensor-core backward's phase 1 takes
@@ -20,10 +20,35 @@
 //     the CUDA cores (head_sums). No scratch. What bounds it is what
 //     bounds phase 1: the weight ring's barrier every 32 K, the epilogues
 //     and the head on the CUDA cores, not the tensor cores' rate.
-//   * every other call (f32: the joint model's normal, albedo and brdf_z
-//     heads; a skip after the head or into it; a head wider than 8; hidden
-//     layers too wide for the block): chain_fwd_kernel on the CUDA cores,
-//     described below.
+//   * f32 on K1's route, on the same plans with an f32 block that fits,
+//     where no CUDA-core backward recomputes the forward (distillation's
+//     sigma chain, 8 x 256, whose backward is the dx-only kernel below,
+//     and its coarse pass: a forward autograd differentiates with dW
+//     stays on the CUDA cores, so both gate each ReLU alike; a forward
+//     alone from F32_TC_MIN_ROWS rows, below which packing the f32
+//     weights outlasts the kernel's saving):
+//     chain_fwd_f32_tc_kernel (chain_f32_tc.cu, built beside this
+//     source), the same
+//     tile at the split-TF32 policy (chain_tc.cuh, MmaTf32x3): f32
+//     embedding and posts in shared memory, f32 weights through the same
+//     ring at 16 K a stage, each product lo hi + hi lo + hi hi of the
+//     operands' TF32 halves on mma.sync.m16n8k8 (the dropped lo lo term is
+//     ~2^-22 of it, so the result keeps f32's accuracy, where one TF32
+//     product keeps ~1e-3), each m16n8k8 step's sum added into the f32
+//     accumulator on the CUDA cores, rounded to nearest (the tensor cores'
+//     own accumulation is not, and grew the error tenfold over K = 256,
+//     enough to gate ReLU units the other way). ~143 KB of shared memory
+//     at the sigma chain's width: one block an SM. Bound by the three
+//     products a product on the tensor cores and, on the CUDA cores, the
+//     split (the A fragments are split by each of the 8 warps) and the
+//     accumulator's adds, with the ring's barrier every 16 K and one
+//     block's 8 warps to hide them; the launch bounds leave it the
+//     registers.
+//   * every other call (f32 K1r and K1w; f32 with a CUDA-core backward
+//     to follow, or alone below F32_TC_MIN_ROWS rows; a skip after the
+//     head or into it; a head wider than 8; hidden layers too wide for
+//     the block):
+//     chain_fwd_kernel on the CUDA cores, described below.
 //
 // K1-bwd replaces _pallas_backward_trig_t -> _bwd_kernel_trig_t (with
 // _bwd_layers_trig_t): it recomputes each tile's forward, then returns
@@ -32,7 +57,7 @@
 // and db is the column sum of the unrounded d_pre; a head of at most 8
 // columns is a tiny f32 product (the TPU kernel's _tiny_head). No float
 // atomicAdd: the same input gives bit-identical dW/db on the same card.
-// It runs as one of two designs, chosen by a rule on the plan and the
+// It runs as one of three designs, chosen by a rule on the plan and the
 // flags (ops/fused_mlp.py bwd_on_tensor_cores):
 //
 //   * bf16 with dW only, a head of at most 8 columns with no skip after it
@@ -69,9 +94,25 @@
 //     it) and runs its epilogues and f32 head on the CUDA cores; the dW
 //     pass reads each scratch column once per dW tile of the other
 //     dimension (~5 GB at 1,048,576 rows), so it is bound by bytes.
-//   * every other call (f32, dx, a skip after the head or into it, a
-//     wider head, hidden layers too wide for phase 1's block, from ~600
-//     columns): chain_bwd_kernel on the CUDA cores. A block keeps a
+//   * f32 with dx only (frozen weights: distillation's depth/normal pass,
+//     the sigma chain's point gradient) on K1's route, every hidden act
+//     ReLU, a block that fits: chain_dx_f32_tc_kernel (chain_f32_tc.cu),
+//     one launch, a block
+//     a 64-row tile, no scratch, no dW: chain_tile_dx_tc (chain_tc.cuh) at
+//     the split-TF32 policy, K2-bwd's frozen-chain tile: the recompute
+//     keeps each ReLU post's sign as a bit, not the post (the CUDA-core
+//     kernel kept every f32 post, which fits at the sigma chain's width
+//     only at 16 rows, each 16-row tile streaming all the weights twice);
+//     the head and the last hidden layer's d_pre in f32 on the CUDA cores;
+//     d_pre @ W^T of every layer on the tensor cores, the embedding's rows
+//     of W adding into an f32 embedding cotangent (the skip consumer's 319
+//     columns as two products, so one activation buffer holds); the trig
+//     chain rule (embed_bwd). ~175 KB of shared memory: one block an SM.
+//     Bound as the f32 forward.
+//   * every other call (f32 with dW, f32 K1r and K1w, bf16 dx on K1 and
+//     K1r, a non-ReLU hidden layer in f32 with dx only, a skip after the
+//     head or into it, a wider head, hidden layers too wide for phase 1's
+//     block, from ~600 columns): chain_bwd_kernel on the CUDA cores. A block keeps a
 //     row tile's embedding, every hidden post and two f32 cotangent rows
 //     in shared memory, streams each layer's weights through a 32 x 128
 //     tile, and runs the recompute (layer_pass), d_pre @ W^T (dgrad_pass)
@@ -541,7 +582,7 @@ chain_dx_pass_kernel(ChainDesc d, const float* __restrict__ x, const float* __re
     tc::tc_gemm(tc::TcA{a, L.lda, k, nullptr, 0, 0},
                 w + d.w_off[i] + static_cast<long long>(prev) * k, k, ne, ws,
                 [&](int c0, const float (&v)[tc::kTcM][4]) {
-                  dx_epilogue(c0, v, 0, ne, nullptr, nullptr, 0, de, L.ldde);
+                  dx_epilogue<bf16>(c0, v, 0, ne, nullptr, nullptr, 0, de, L.ldde);
                 });
   }
   __syncthreads();
@@ -588,27 +629,6 @@ int chain_bwd_tc(const ChainDesc& d, const float* x, const float* dy, bool stash
 }
 
 // ------ K1-fwd in bf16 on the tensor cores ------
-
-// Block blockIdx.x's 64-row tile: its raw rows, then chain_fwd_tc_tile
-// (the hidden layers as phase 1 recomputes them, from the loader's
-// embedding, without the scratch; the tiny head in f32 on the CUDA cores;
-// kLastSkip: y's rows are [head | embedding]).
-template <bool kTwoBuffers, typename Embed, bool kLastSkip = false>
-__device__ void chain_fwd_tc_block(const ChainDesc& d, const float* __restrict__ x,
-                                   const bf16* __restrict__ w, const bf16* __restrict__ wt,
-                                   const float* __restrict__ bias, float* __restrict__ y,
-                                   long long n, Embed embed) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int R = tc::kTcRows;
-  const long long row0 = static_cast<long long>(blockIdx.x) * R;
-  float* xs = reinterpret_cast<float*>(smem + chain_tc_layout(d, false).xs);
-  for (int idx = threadIdx.x; idx < R * d.raw_dim; idx += kThreads) {
-    const long long r = row0 + idx / d.raw_dim;
-    xs[idx] = r < n ? x[r * d.raw_dim + idx % d.raw_dim] : 0.f;
-  }
-  __syncthreads();
-  chain_fwd_tc_tile<kTwoBuffers, Embed, kLastSkip>(d, w, wt, bias, smem, y, row0, n, embed);
-}
 
 // K1-fwd: a block a 64-row tile
 template <bool kTwoBuffers>

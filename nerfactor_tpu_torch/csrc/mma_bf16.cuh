@@ -1,10 +1,19 @@
-// Tensor-core building blocks of the bf16 kernels (K1-fwd and K1-bwd with
-// dW only, fused_mlp.cu; K3-fwd and K3-bwd, fused_nerf.cu): bf16 products
-// with f32 accumulation on mma.sync.aligned.m16n8k16, fed from shared
-// memory with plain 32-bit loads, and cp.async copies for a ring of
-// operand tiles (tc_gemm); the padded embedding and the tiny f32 heads
-// around them; the row-paired bf16 scratch that a backward's phase 1
-// writes, its epilogues, and the dW pass over it (dw_kernel).
+// Tensor-core building blocks of the chain and field kernels (K1, K1r,
+// K1w, fused_mlp.cu; K2, fused_rusink.cu; K3, fused_nerf.cu): products with
+// f32 accumulation on mma.sync, fed from shared memory with plain 32-bit
+// loads, and cp.async copies for a ring of operand tiles (tc_gemm); the
+// padded embedding and the tiny f32 heads around them; the row-paired
+// bf16 scratch that a backward's phase 1 writes, its epilogues, and the dW
+// pass over it (dw_kernel).
+//
+// tc_gemm takes its product as a policy (below): MmaBf16, bf16 operands on
+// m16n8k16, which every bf16 kernel runs; MmaTf32<3>, f32 operands split
+// on load into TF32 hi = rna(a) and lo = rna(a - hi), each product formed
+// as lo hi + hi lo + hi hi on m16n8k8 (split TF32, "3xTF32": the dropped
+// lo lo term is ~2^-22 of the product), each m16n8k8 step's sum added
+// into the f32 accumulator on the CUDA cores, which K1's f32 forward and
+// dx-only backward run; MmaTf32<1>, hi hi alone (plain TF32, about three
+// decimal digits), the control those two are held against.
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), lane = 4 g + t:
@@ -14,12 +23,18 @@
 //   C, D (16 x 8, f32):     d0, d1 = D[g][2t, 2t+1], d2, d3 = D[g+8][2t, 2t+1]
 // The lower-addressed bf16 of a pair is the low half of its register. B is
 // read from its transpose Bt (n x k, row-major), so both operands load
-// pairs of neighbouring k with one 32-bit load.
+// pairs of neighbouring k with one 32-bit load. m16n8k8 with TF32 operands
+// ("mma.m16n8k8" for .tf32), one 32-bit value a register:
+//   A (16 x 8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8 x 8):  b0 = B[t][g], b1 = B[t+4][g]
+//   C, D as m16n8k16's, so every epilogue reads the same positions.
 //
 // Under the CPU emulation (csrc/emu, NFK_EMU) each instruction has a
 // scalar counterpart with the same lane mapping: the emulated mma writes
 // the warp's fragments to per-warp scratch, meets the warp at __syncwarp,
-// and forms each lane's D entries from them; cp.async is a plain copy.
+// and forms each lane's D entries from them; cvt.rna.tf32.f32 rounds the
+// f32 bits to nearest, ties away from zero, dropping the 13 low ones;
+// cp.async is a plain copy.
 #pragma once
 
 #include <cstdint>
@@ -34,10 +49,13 @@ using bf16 = __nv_bfloat16;
 
 __host__ __device__ inline int round16(int k) { return (k + 15) & ~15; }
 
-// Leading dimension (elements) of a bf16 operand of k columns in shared
-// memory: k padded to 16, plus 8, so that the 8 rows of a fragment load
-// start on 8 distinct 4-bank groups.
-__host__ __device__ inline int tc_ld(int k) { return round16(k) + 8; }
+// Leading dimension (elements) of an operand of k columns of type T in
+// shared memory: k padded to 16, plus 16 bytes, so that the 8 rows of a
+// fragment load start on 8 distinct 4-bank groups (bf16: + 8; f32: + 4).
+template <typename T = bf16>
+__host__ __device__ inline int tc_ld(int k) {
+  return round16(k) + 16 / static_cast<int>(sizeof(T));
+}
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 #ifdef NFK_EMU
@@ -109,6 +127,55 @@ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
   __syncwarp();
 }
 
+inline float bits_f32(uint32_t v) {
+  float f;
+  std::memcpy(&f, &v, 4);
+  return f;
+}
+
+// cvt.rna.tf32.f32: to nearest, ties away from zero (the magnitude's bit 12
+// carries), the 13 low bits dropped; NaN stays NaN, Inf stays Inf
+inline uint32_t tf32_rna(float v) {
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u & 0x007fffffu ? 0x7fffffffu : u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+
+// The TF32 products of one m16n8k8 step: d += a_lo b_hi, d += a_hi b_lo
+// (kTerms 3), then d += a_hi b_hi, each mma a sum over the 8 K in order,
+// as three mma.sync.m16n8k8 in a row; the warp's fragments exchanged once.
+// The tensor core reads a register's 19 high bits (the split's values have
+// none below).
+template <int kTerms>
+inline void mma1688_tf32(float (&d)[4], const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                         const uint32_t (&b_hi)[2], const uint32_t (&b_lo)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  MmaScratch& s = g_mma_scratch[threadIdx.x >> 5];
+  // a: hi in columns 0-7, lo in 8-15; b: hi in rows 0-7, lo in 8-15
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + 8 * (e & 1), c = t + 4 * (e >> 1);
+    s.a[r][c] = bits_f32(a_hi[e] & 0xffffe000u);
+    s.a[r][c + 8] = kTerms == 3 ? bits_f32(a_lo[e] & 0xffffe000u) : 0.f;
+  }
+  for (int e = 0; e < 2; ++e) {
+    s.b[t + 4 * e][g] = bits_f32(b_hi[e] & 0xffffe000u);
+    s.b[t + 4 * e + 8][g] = kTerms == 3 ? bits_f32(b_lo[e] & 0xffffe000u) : 0.f;
+  }
+  __syncwarp();
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + 8 * (e >> 1), c = 2 * t + (e & 1);
+    float acc = d[e];
+    if (kTerms == 3) {
+      for (int k = 0; k < 8; ++k) acc = fmaf(s.a[r][k + 8], s.b[k][c], acc);
+      for (int k = 0; k < 8; ++k) acc = fmaf(s.a[r][k], s.b[k + 8][c], acc);
+    }
+    for (int k = 0; k < 8; ++k) acc = fmaf(s.a[r][k], s.b[k][c], acc);
+    d[e] = acc;
+  }
+  __syncwarp();
+}
+
 inline void cp_async16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
@@ -124,6 +191,38 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bits_f32(uint32_t v) { return __uint_as_float(v); }
+
+// cvt.rna.tf32.f32: to nearest, ties away from zero, the 13 low bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a b on the tensor cores with TF32 operands, one m16n8k8
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The TF32 products of one m16n8k8 step: d += a_lo b_hi, d += a_hi b_lo
+// (kTerms 3), then d += a_hi b_hi
+template <int kTerms>
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                             const uint32_t (&a_lo)[4],
+                                             const uint32_t (&b_hi)[2],
+                                             const uint32_t (&b_lo)[2]) {
+  if (kTerms == 3) {
+    mma1688(d, a_lo, b_hi[0], b_hi[1]);
+    mma1688(d, a_hi, b_lo[0], b_lo[1]);
+  }
+  mma1688(d, a_hi, b_hi[0], b_hi[1]);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -160,31 +259,120 @@ __device__ __forceinline__ void zero16(void* dst) {
 constexpr int kTcRows = 64;                // rows of a tile
 constexpr int kTcM = kTcRows / 16;         // its m16 row groups
 constexpr int kTcCols = 256;               // output columns a pass: 32 n8 tiles, 4 a warp
-constexpr int kTcK = 32;                   // K rows of Bt a stage holds
+constexpr int kTcK = 32;                   // K rows of Bt a bf16 stage holds
 constexpr int kTcLdB = kTcK + 8;           // padded stage row (conflict-free B loads)
-constexpr int kTcStage = kTcCols * kTcLdB; // elements of one stage
+constexpr int kTcStage = kTcCols * kTcLdB; // elements of one bf16 stage
 constexpr int kTcStages = 3;               // the ring: loads run two stages ahead
+
+// ------ the product policies ------
+//
+// A policy gives tc_gemm its operand type T, the K of one mma (kStep), the
+// K rows of Bt a ring stage holds (kK: a stage holds kTcStage bf16's bytes
+// in every policy, so the ring's size does not depend on it), the A and B
+// fragments, their loaders from shared memory and the product.
+
+// bf16 operands, m16n8k16 (every bf16 kernel)
+struct MmaBf16 {
+  using T = bf16;
+  static constexpr int kStep = 16, kK = kTcK;
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t b0, b1;
+  };
+  __device__ static void load_a(const T* a, int ld, int r0, int k0, A& f) {
+    tc::load_a(a, ld, r0, k0, f.r);
+  }
+  __device__ static void load_b(const T* bt, int ld, int n0, int k0, B& f) {
+    tc::load_b(bt, ld, n0, k0, f.b0, f.b1);
+  }
+  __device__ static void mma(float (&d)[4], const A& a, const B& b) {
+    mma16816(d, a.r, b.b0, b.b1);
+  }
+};
+
+// f32 operands split into TF32 hi and lo on load, m16n8k8: kTerms 3 forms
+// lo hi + hi lo + hi hi (K1's f32 kernels), kTerms 1 hi hi alone (the
+// control)
+template <int kTerms>
+struct MmaTf32 {
+  static_assert(kTerms == 1 || kTerms == 3, "1 or 3 products");
+  using T = float;
+  static constexpr int kStep = 8, kK = kTcK / 2;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+  __device__ static void split(float v, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(v);
+    lo = kTerms == 3 ? tf32_rna(v - bits_f32(hi)) : 0u;
+  }
+  __device__ static void load_a(const T* a, int ld, int r0, int k0, A& f) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const T* p = a + (r0 + g) * ld + k0 + t;
+    split(p[0], f.hi[0], f.lo[0]);
+    split(p[8 * ld], f.hi[1], f.lo[1]);
+    split(p[4], f.hi[2], f.lo[2]);
+    split(p[8 * ld + 4], f.hi[3], f.lo[3]);
+  }
+  __device__ static void load_b(const T* bt, int ld, int n0, int k0, B& f) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const T* p = bt + (n0 + g) * ld + k0 + t;
+    split(p[0], f.hi[0], f.lo[0]);
+    split(p[4], f.hi[1], f.lo[1]);
+  }
+  // The step's products go to a fresh accumulator, added into d on the
+  // CUDA cores (rounded to nearest): the tensor cores do not round an
+  // mma's sum to nearest, and with d as their accumulator the error grew
+  // with the running sum (on an H100, K = 256: 2.2e-6 of the largest
+  // value against float64, the fresh accumulator 2.5e-7, f32 cuBLAS 6.2e-7)
+  __device__ static void mma(float (&d)[4], const A& a, const B& b) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma1688_tf32<kTerms>(t, a.hi, a.lo, b.hi, b.lo);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += t[e];
+  }
+};
+using MmaTf32x3 = MmaTf32<3>;
+using MmaTf32x1 = MmaTf32<1>;
+
+// The ring's geometry for policy P: a stage row of P::kK K values plus 16
+// bytes of pad (conflict-free B loads), kTcCols rows a stage
+template <typename P>
+struct Ring {
+  using T = typename P::T;
+  static constexpr int kLdB = P::kK + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kStage = kTcCols * kLdB;  // elements of one stage
+  static constexpr size_t kBytes = sizeof(T) * kTcStages * kStage;
+};
 
 // The A operand: rows of the tile in shared memory, K split in two
 // segments (e.g. [h | embedding]); k1 and k2 are multiples of 16 and the
 // segments are zero past their real widths.
-struct TcA {
-  const bf16* p1;
+template <typename T>
+struct TcAOf {
+  const T* p1;
   int ld1, k1;
-  const bf16* p2;
+  const T* p2;
   int ld2, k2;
 };
+using TcA = TcAOf<bf16>;
 
-// Starts copying Bt rows [n0, n0 + nc), K columns [k0, k0 + kTcK) into a
+// Starts copying Bt rows [n0, n0 + nc), K columns [k0, k0 + P::kK) into a
 // stage; columns at or past k_total are zeros. Bt rows are 16-byte aligned
-// (ldb a multiple of 8) and k_total a multiple of 8.
-__device__ __forceinline__ void load_stage(bf16* stage, const bf16* __restrict__ bt,
-                                           long long ldb, int n0, int nc, int k0,
-                                           int k_total) {
-  constexpr int kPieces = kTcK / 8;
+// and k_total a multiple of 16 bytes' elements.
+template <typename P = MmaBf16>
+__device__ __forceinline__ void load_stage(typename P::T* stage,
+                                           const typename P::T* __restrict__ bt, long long ldb,
+                                           int n0, int nc, int k0, int k_total) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(typename P::T));
+  constexpr int kPieces = P::kK / kVec, kLdB = Ring<P>::kLdB;
   for (int idx = threadIdx.x; idx < nc * kPieces; idx += kThreads) {
-    const int r = idx / kPieces, k = k0 + 8 * (idx % kPieces);
-    bf16* dst = stage + r * kTcLdB + 8 * (idx % kPieces);
+    const int r = idx / kPieces, k = k0 + kVec * (idx % kPieces);
+    typename P::T* dst = stage + r * kLdB + kVec * (idx % kPieces);
     if (k < k_total)
       cp_async16(dst, bt + (n0 + r) * ldb + k);
     else
@@ -193,28 +381,30 @@ __device__ __forceinline__ void load_stage(bf16* stage, const bf16* __restrict__
   cp_async_commit();
 }
 
-// out = A @ Bt^T for the tile's kTcRows rows and columns [0, n): A in
-// shared memory (see TcA), Bt (n x (a.k1 + a.k2)) row-major in device
-// memory with leading dimension ldb, streamed through a ring of kTcStages
-// stages at `ws` (kTcStages * kTcStage elements). Warp w owns the n8 tiles
-// w, w + 8, w + 16, w + 24 of each 256-column pass and all kTcM row groups:
-// for each of its tiles, all lanes of the warp call epi(c0, v) together,
-// v[m][e] the result at row 16 m + g + 8 (e >> 1), column c0 + 2 t + (e &
-// 1) (columns past n included where n is not a multiple of 8). Every
-// thread of the block calls tc_gemm. It starts by writing `ws` (whose
-// previous readers must have passed a barrier: the loop's last barrier
-// does so for a previous call); A, and whatever cp.async groups the caller
-// committed before the call, are complete at the first barrier inside.
-// It ends after the epilogue, without a barrier. Where n <= kTcCols (one
-// pass) an epilogue may write over A, which every warp has finished
-// reading by then; past that, every pass reads all of A again, so the
-// epilogue must write elsewhere.
-template <typename Epi>
-__device__ void tc_gemm(const TcA& a, const bf16* __restrict__ bt, long long ldb, int n, bf16* ws,
-                        Epi epi) {
+// out = A @ Bt^T for the tile's kTcRows rows and columns [0, n), products
+// as policy P forms them: A in shared memory (see TcAOf), Bt (n x (a.k1 +
+// a.k2)) row-major in device memory with leading dimension ldb, streamed
+// through a ring of kTcStages stages at `ws` (Ring<P>::kBytes). Warp w
+// owns the n8 tiles w, w + 8, w + 16, w + 24 of each 256-column pass and
+// all kTcM row groups: for each of its tiles, all lanes of the warp call
+// epi(c0, v) together, v[m][e] the result at row 16 m + g + 8 (e >> 1),
+// column c0 + 2 t + (e & 1) (columns past n included where n is not a
+// multiple of 8). Every thread of the block calls tc_gemm. It starts by
+// writing `ws` (whose previous readers must have passed a barrier: the
+// loop's last barrier does so for a previous call); A, and whatever
+// cp.async groups the caller committed before the call, are complete at
+// the first barrier inside. It ends after the epilogue, without a barrier.
+// Where n <= kTcCols (one pass) an epilogue may write over A, which every
+// warp has finished reading by then; past that, every pass reads all of A
+// again, so the epilogue must write elsewhere.
+template <typename P = MmaBf16, typename Epi>
+__device__ void tc_gemm(const TcAOf<typename P::T>& a, const typename P::T* __restrict__ bt,
+                        long long ldb, int n, typename P::T* ws, Epi epi) {
+  using T = typename P::T;
+  constexpr int kK = P::kK, kLdB = Ring<P>::kLdB, kStage = Ring<P>::kStage;
   const int warp = threadIdx.x >> 5;
   const int k_total = a.k1 + a.k2;
-  const int n_stages = (k_total + kTcK - 1) / kTcK;
+  const int n_stages = (k_total + kK - 1) / kK;
   for (int n0 = 0; n0 < n; n0 += kTcCols) {
     const int nc = min(kTcCols, n - n0);
     float acc[kTcM][4][4];
@@ -229,7 +419,7 @@ __device__ void tc_gemm(const TcA& a, const bf16* __restrict__ bt, long long ldb
 #pragma unroll
     for (int s = 0; s < kTcStages - 1; ++s) {
       if (s < n_stages)
-        load_stage(ws + s * kTcStage, bt, ldb, n0, nc, s * kTcK, k_total);
+        load_stage<P>(ws + s * kStage, bt, ldb, n0, nc, s * kK, k_total);
       else
         cp_async_commit();
     }
@@ -240,28 +430,28 @@ __device__ void tc_gemm(const TcA& a, const bf16* __restrict__ bt, long long ldb
       __syncthreads();
       const int next = s + kTcStages - 1;
       if (next < n_stages)
-        load_stage(ws + (next % kTcStages) * kTcStage, bt, ldb, n0, nc, next * kTcK, k_total);
+        load_stage<P>(ws + (next % kTcStages) * kStage, bt, ldb, n0, nc, next * kK, k_total);
       else
         cp_async_commit();
-      const bf16* stage = ws + (s % kTcStages) * kTcStage;
+      const T* stage = ws + (s % kTcStages) * kStage;
 #pragma unroll
-      for (int kk = 0; kk < kTcK / 16; ++kk) {
-        const int k = s * kTcK + 16 * kk;
+      for (int kk = 0; kk < kK / P::kStep; ++kk) {
+        const int k = s * kK + P::kStep * kk;
         if (k >= k_total || 8 * warp >= nc) break;
         const bool first = k < a.k1;
-        const bf16* ap = first ? a.p1 : a.p2;
+        const T* ap = first ? a.p1 : a.p2;
         const int lda = first ? a.ld1 : a.ld2, ka = first ? k : k - a.k1;
-        uint32_t af[kTcM][4];
+        typename P::A af[kTcM];
 #pragma unroll
-        for (int m = 0; m < kTcM; ++m) load_a(ap, lda, 16 * m, ka, af[m]);
+        for (int m = 0; m < kTcM; ++m) P::load_a(ap, lda, 16 * m, ka, af[m]);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int nt = warp + 8 * q;
           if (8 * nt >= nc) break;
-          uint32_t b0, b1;
-          load_b(stage, kTcLdB, 8 * nt, 16 * kk, b0, b1);
+          typename P::B bf;
+          P::load_b(stage, kLdB, 8 * nt, P::kStep * kk, bf);
 #pragma unroll
-          for (int m = 0; m < kTcM; ++m) mma16816(acc[m][q], af[m], b0, b1);
+          for (int m = 0; m < kTcM; ++m) P::mma(acc[m][q], af[m], bf);
         }
       }
     }
@@ -287,32 +477,34 @@ using tc::round16;
 
 // ------ around the products: the embedding and the tiny heads ------
 
-// Zeroes a 64-row tile's embedding columns (es, ld lde, bf16) from its
+// Zeroes a 64-row tile's embedding columns (es, ld lde, type T) from its
 // width up to the next 16: the products read them. No barrier.
-__device__ inline void zero_embed_pad(const ChainDesc& d, bf16* es, int lde) {
+template <typename T>
+__device__ inline void zero_embed_pad(const ChainDesc& d, T* es, int lde) {
   const int ne = d.embed_dim, e16 = round16(ne);
   for (int idx = threadIdx.x; idx < tc::kTcRows * 16; idx += kThreads) {
     const int r = idx / 16, c = idx % 16;
-    if (ne + c < e16) es[r * lde + ne + c] = from_f<bf16>(0.f);
+    if (ne + c < e16) es[r * lde + ne + c] = from_f<T>(0.f);
   }
 }
 
-// The embedding of a 64-row tile's raw rows `xs` into es (ld lde, bf16),
+// The embedding of a 64-row tile's raw rows `xs` into es (ld lde, type T),
 // its columns up to the next 16 zero. No barrier.
-__device__ inline void embed_tile(const ChainDesc& d, const float* xs, bf16* es, int lde) {
-  embed_rows<bf16, tc::kTcRows>(d, xs, es, lde);
+template <typename T>
+__device__ inline void embed_tile(const ChainDesc& d, const float* xs, T* es, int lde) {
+  embed_rows<T, tc::kTcRows>(d, xs, es, lde);
   zero_embed_pad(d, es, lde);
 }
 
 // A tiny head's sums over a 64-row tile's last post h (ld ldh, k wide,
-// bf16), in f32 on the CUDA cores: for each row r and column c < n_out,
+// type H), in f32 on the CUDA cores: for each row r and column c < n_out,
 // s = sum_j h[r][j] w[j][c] (w (k, n_out) row-major at type W), split over
 // 4 neighbouring lanes, each a quarter of K, joined by shuffles in a fixed
 // order; then f(item, r, c, s) on the first of the 4 lanes (item = r n_out
 // + c). Every thread calls it, and every loop runs the same trips on every
 // thread (the shuffles need whole warps).
-template <typename W, typename F>
-__device__ inline void head_sums(const bf16* h, int ldh, int k, const W* __restrict__ w,
+template <typename H, typename W, typename F>
+__device__ inline void head_sums(const H* h, int ldh, int k, const W* __restrict__ w,
                                  int n_out, F f) {
   constexpr int R = tc::kTcRows;
   for (int base = 0; base < 4 * R * n_out; base += kThreads) {
@@ -322,7 +514,7 @@ __device__ inline void head_sums(const bf16* h, int ldh, int k, const W* __restr
     float s = 0.f;
     if (live)
       for (int j = part; j < k; j += 4)
-        s = fmaf(to_f<bf16>(h[r * ldh + j]), to_f<W>(w[j * n_out + c]), s);
+        s = fmaf(to_f<H>(h[r * ldh + j]), to_f<W>(w[j * n_out + c]), s);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     if (live && part == 0) f(item, r, c, s);
@@ -400,24 +592,24 @@ __device__ __forceinline__ float scratch_at(const uint32_t* st, int total, int r
       __ushort_as_bfloat16(static_cast<unsigned short>(r & 1 ? v >> 16 : v & 0xffffu)));
 }
 
-// A forward product's epilogue: out = bf16(act(v + b)) into the tile's
-// buffer (ld ldo) and, for col >= 0, its scratch columns from col. ReLU,
+// A forward product's epilogue: out = T(act(v + b)) into the tile's buffer
+// (ld ldo) and, with kStore (bf16), its scratch columns from col. ReLU,
 // every hidden layer's act in the shipped chains and fields, takes its own
 // loop: `activate`'s switch on each of the 16 values costs phase 1 more
 // than its products (the same values either way).
-template <bool kStore>
+template <bool kStore, typename T = bf16>
 __device__ inline void fwd_epilogue(int c0, const float (&v)[tc::kTcM][4], int act,
-                                    const float* __restrict__ b, bf16* out, int ldo, uint32_t* st,
+                                    const float* __restrict__ b, T* out, int ldo, uint32_t* st,
                                     int total, int col) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  bf16 y[tc::kTcM][4];
+  T y[tc::kTcM][4];
   if (act == kRelu) {
 #pragma unroll
     for (int m = 0; m < tc::kTcM; ++m)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
-        y[m][e] = from_f<bf16>(fmaxf(v[m][e] + b[c], 0.f));
+        y[m][e] = from_f<T>(fmaxf(v[m][e] + b[c], 0.f));
         out[r * ldo + c] = y[m][e];
       }
   } else {
@@ -426,11 +618,11 @@ __device__ inline void fwd_epilogue(int c0, const float (&v)[tc::kTcM][4], int a
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = 16 * m + g + 8 * (e >> 1), c = c0 + 2 * t + (e & 1);
-        y[m][e] = from_f<bf16>(activate(act, v[m][e] + b[c]));
+        y[m][e] = from_f<T>(activate(act, v[m][e] + b[c]));
         out[r * ldo + c] = y[m][e];
       }
   }
-  if (kStore) store_frag_pairs(y, st, total, col + c0);
+  if constexpr (kStore) store_frag_pairs(y, st, total, col + c0);
 }
 
 // A d_pre @ W^T product's epilogue, which makes the next layer's d_pre:

@@ -5,10 +5,13 @@ Every hot path of NeRFactor is a small MLP (width 128, depth 4) evaluated
 over rays x 512 lights. :func:`apply_chain` runs one such chain:
 
   * on a CUDA tensor it launches kernel K1-fwd (``csrc/fused_mlp.cu``),
-    which keeps the embedding and all hidden activations on the chip (in
-    bf16 on the tensor cores where :func:`fwd_on_tensor_cores` says so);
-    under autograd the backward is kernel K1-bwd, which recomputes the
-    forward and returns the input and/or weight cotangents;
+    which keeps the embedding and all hidden activations on the chip (on
+    the tensor cores where :func:`fwd_on_tensor_cores` says so: bf16, or
+    f32 as split TF32 on K1's route where no CUDA-core backward
+    recomputes it); under autograd the backward is
+    kernel K1-bwd, which recomputes the forward and returns the input
+    and/or weight cotangents (f32 with dx alone on the tensor cores where
+    :func:`bwd_on_tensor_cores` says so);
   * on a CPU tensor it runs :func:`chain_reference`, the plain PyTorch
     version of the same math under ordinary autograd (the oracle the
     tests and ``chip_smoke.py`` hold the kernels against).
@@ -396,14 +399,18 @@ def _check_route(plan, kernel, for_last_skip):
 def _chain_fwd(plan, x, params, compute_dtype, tc, stash_route=False,
                with_stash=False):
     """Launches K1-fwd, K1r-fwd with ``stash_route`` or, for a last-skip
-    plan, K1w-fwd on ``x`` (N, raw_dim) CUDA f32: with ``tc`` (bf16) the
-    tensor-core kernel (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``,
-    ``nfk_chain_last_skip_fwd_tc``) over the weights padded to
-    :func:`mma_plan`'s widths where they differ, else the CUDA-core
-    ``nfk_chain_fwd``. Returns the (N, out_dim) f32 output, the
-    (N, trig_dim) stash at the operand type (``with_stash`` on the stash
-    route, else None), the transposed hidden weights the tensor-core
+    plan, K1w-fwd on ``x`` (N, raw_dim) CUDA f32: with ``tc`` the
+    tensor-core kernel (bf16: ``nfk_chain_fwd_tc``,
+    ``nfk_chain_stash_fwd_tc``, ``nfk_chain_last_skip_fwd_tc``; f32, which
+    the rule gives K1's route alone: :func:`_chain_fwd_f32_tc`) over the
+    weights padded to :func:`mma_plan`'s widths where they differ, else
+    the CUDA-core ``nfk_chain_fwd``. Returns the (N, out_dim) f32 output,
+    the (N, trig_dim) stash at the operand type (``with_stash`` on the
+    stash route, else None), the transposed hidden weights the tensor-core
     kernel read (else None) and whether a kernel ran (not for N == 0)."""
+    if tc and kernel_dtype(compute_dtype) == torch.float32:
+        y, wt, ran = _chain_fwd_f32_tc(plan, x, params)
+        return y, None, wt, ran
     kplan = mma_plan(plan) if tc else plan
     if kplan != plan:
         params = pad_params(plan, params)
@@ -415,7 +422,8 @@ def _chain_fwd(plan, x, params, compute_dtype, tc, stash_route=False,
     if stash_route and with_stash and trig_dim(plan):
         stash = torch.empty((n, trig_dim(plan)),
                             dtype=kernel_dtype(compute_dtype), device=x.device)
-    wt = transposed_weights(kplan, params, x.device) if tc else None
+    wt = transposed_weights(kplan, params, x.device, w_flat.dtype) \
+        if tc else None
     if n and tc:
         args = (x.data_ptr(), w_flat.data_ptr(), wt.data_ptr(),
                 b_flat.data_ptr(), y.data_ptr())
@@ -433,39 +441,80 @@ def _chain_fwd(plan, x, params, compute_dtype, tc, stash_route=False,
     return y, stash, wt, n > 0
 
 
-def _chain_kernel(plan, x, params, compute_dtype):
+def _chain_fwd_f32_tc(plan, x, params, terms=3):
+    """Launches ``nfk_chain_fwd_tc_f32``, f32 K1-fwd on the tensor cores
+    (``terms`` TF32 products: 3, or the control's 1), over the weights
+    padded to :func:`mma_plan`'s widths where they differ. Returns (the
+    (N, out_dim) f32 output, the f32 transposed hidden weights it read,
+    whether a kernel ran)."""
+    kplan = mma_plan(plan)
+    if kplan != plan:
+        params = pad_params(plan, params)
+    (x,), desc, _, w_flat, b_flat = prepare(
+        kplan, [('x', x, raw_dim(plan))], params, None)
+    n = x.shape[0]
+    y = torch.empty((n, out_dim(plan)), dtype=torch.float32, device=x.device)
+    wt = transposed_weights(kplan, params, x.device, torch.float32)
+    if n:
+        run('nfk_chain_fwd_tc_f32', x.device, ctypes.addressof(desc),
+            x.data_ptr(), w_flat.data_ptr(), wt.data_ptr(), b_flat.data_ptr(),
+            y.data_ptr(), terms, n)
+    return y, wt, n > 0
+
+
+def _chain_kernel(plan, x, params, compute_dtype, backward=None):
     """K1-fwd: the tensor-core kernel where :func:`fwd_on_tensor_cores`
-    says so, else the CUDA-core one. Returns (y, the transposed hidden
-    weights the tensor-core kernel read, else None); counts the launch as
-    :func:`chain_kernel` says."""
+    says so (``backward`` as it takes it), else the CUDA-core one. Returns
+    (y, the transposed hidden weights the tensor-core kernel read, else
+    None); counts the launch as :func:`chain_kernel` says."""
     _check_route(plan, 'K1-fwd', False)
-    tc = fwd_on_tensor_cores(plan, compute_dtype, x.device)
+    check_inputs([('x', x, raw_dim(plan))])  # before the rule asks the card
+    tc = fwd_on_tensor_cores(plan, compute_dtype, x.device, backward=backward,
+                             rows=x.shape[0])
     y, _, wt, ran = _chain_fwd(plan, x, params, compute_dtype, tc)
+    f32 = kernel_dtype(compute_dtype) == torch.float32
     chain_kernel.launches += ran
-    chain_kernel.tc_launches += int(ran and tc)
+    chain_kernel.tc_launches += int(ran and tc and not f32)
+    chain_kernel.f32_tc_launches += int(ran and tc and f32)
     return y, wt
 
 
 def chain_kernel(plan, x, params, compute_dtype=None):
     """Launches K1-fwd on ``x`` (N, raw_dim) CUDA f32; returns (N, out) f32.
-    In bf16 on the plans :func:`fwd_on_tensor_cores` takes, that is
-    ``chain_fwd_tc_kernel`` on the tensor cores; every other call runs the
-    CUDA-core ``chain_fwd_kernel``. Counts its launches in
-    ``chain_kernel.launches``, those of the tensor-core kernel also in
-    ``chain_kernel.tc_launches``."""
+    On the plans :func:`fwd_on_tensor_cores` takes, that is
+    ``chain_fwd_tc_kernel`` on the tensor cores in bf16 and
+    ``chain_fwd_f32_tc_kernel`` (split TF32) in f32; every other call runs
+    the CUDA-core ``chain_fwd_kernel``. Counts its launches in
+    ``chain_kernel.launches``, those of the bf16 tensor-core kernel also in
+    ``chain_kernel.tc_launches``, those of the f32 one in
+    ``chain_kernel.f32_tc_launches``."""
     return _chain_kernel(plan, x, params, compute_dtype)[0]
 
 
 chain_kernel.launches = chain_kernel.tc_launches = 0
+chain_kernel.f32_tc_launches = 0
 
 
 def chain_kernel_cuda_core(plan, x, params, compute_dtype=None):
     """The CUDA-core K1-fwd (``chain_fwd_kernel``) on any plan without a
     last skip, in either precision: what :func:`chain_kernel` runs off the
-    tensor cores, and in bf16 the kernel the tensor-core one is held
-    against. Counts no launch."""
+    tensor cores, and the kernel the tensor-core ones are held against.
+    Counts no launch."""
     _check_route(plan, 'K1-fwd', False)
     return _chain_fwd(plan, x, params, compute_dtype, False)[0]
+
+
+def chain_kernel_f32_tc(plan, x, params, terms=3):
+    """The f32 tensor-core K1-fwd (``chain_fwd_f32_tc_kernel``) with
+    ``terms`` TF32 products: 3, what :func:`chain_kernel` runs in f32 on
+    the plans :func:`fwd_on_tensor_cores` takes; 1, plain TF32, the control
+    that f32's limits must catch. Raises on a plan the kernel does not
+    take. Counts no launch."""
+    _check_route(plan, 'K1-fwd', False)
+    if not _f32_tc_runs(plan, x.device, dx=False):
+        raise ValueError("the f32 tensor-core K1-fwd does not take %s"
+                         % (plan,))
+    return _chain_fwd_f32_tc(plan, x, params, terms)[0]
 
 
 def _chain_kernel_stash(plan, x, params, compute_dtype, with_stash):
@@ -473,7 +522,7 @@ def _chain_kernel_stash(plan, x, params, compute_dtype, with_stash):
     stash or None, the transposed hidden weights the tensor-core kernel
     read, else None)."""
     _check_route(plan, 'K1r-fwd', False)
-    tc = fwd_on_tensor_cores(plan, compute_dtype, x.device)
+    tc = fwd_on_tensor_cores(plan, compute_dtype, x.device, stash_route=True)
     y, stash, wt, ran = _chain_fwd(plan, x, params, compute_dtype, tc,
                                    stash_route=True, with_stash=with_stash)
     chain_kernel_stash.launches += ran
@@ -612,15 +661,17 @@ def chain_dw_table(plan, device):
     return dw_table('nfk_chain_dw_table', make_desc(plan), device)
 
 
-def pack_transposed(ws, tab):
+def pack_transposed(ws, tab, dtype=torch.bfloat16):
     """The dense layers' weights ``ws`` (each (k1 + k2, n)) transposed for
-    phase 1's recompute, bf16: per layer of ``tab`` W^T, (n, round16(k1) +
+    the tensor-core kernels' forward products, at ``dtype`` (bf16, or f32
+    for K1's f32 kernels): per layer of ``tab`` W^T, (n, round16(k1) +
     round16(k2)), each K segment zero-padded to a multiple of 16, one after
-    another. Each segment is copied (and rounded to bf16) straight into
-    the one buffer: the forward kernels' wrappers pack at every launch."""
+    another. Each segment is copied (and rounded to ``dtype``) straight
+    into the one buffer: the forward kernels' wrappers pack at every
+    launch."""
     widths = [round16(l.k1) + round16(l.k2) for l in tab.dense()]
     out = ws[0].new_zeros(sum(l.n * k for l, k in zip(tab.dense(), widths)),
-                          dtype=torch.bfloat16)
+                          dtype=dtype)
     off = 0
     for w, l, k in zip(ws, tab.dense(), widths):
         t = out[off:off + l.n * k].view(l.n, k)
@@ -686,28 +737,77 @@ def _tc_runs(plan, device, bwd):
     return runs.value != 0
 
 
-def fwd_on_tensor_cores(plan, compute_dtype, device):
-    """Whether a K1-fwd, K1r-fwd or K1w-fwd launch on ``device`` runs the
-    tensor-core kernel (``nfk_chain_fwd_tc``, ``nfk_chain_stash_fwd_tc``,
-    ``nfk_chain_last_skip_fwd_tc``): bf16 operands and a plan the library
-    says it runs (:func:`_tc_runs`). Every other launch (f32, any other
-    plan) runs the CUDA-core ``chain_fwd_kernel``."""
-    if kernel_dtype(compute_dtype) != torch.bfloat16:
-        return False
+@functools.lru_cache(maxsize=None)
+def _f32_tc_runs(plan, device, dx):
+    """Whether the library's f32 tensor-core K1-fwd (``dx`` False) or
+    K1-bwd with dx only runs ``plan`` as :func:`mma_plan`'s
+    (``nfk_chain_f32_tc_runs``): no skip after the head, a head of at most
+    8 columns after at least one hidden layer, with no skip into it, f32
+    blocks that fit the card's shared memory and, for the backward, every
+    hidden act ReLU. Kept per plan and device, as :func:`_tc_runs`."""
+    desc, runs = make_desc(mma_plan(plan)), ctypes.c_int(0)
+    run('nfk_chain_f32_tc_runs', device, ctypes.addressof(desc), int(dx),
+        ctypes.byref(runs), stream=False)
+    return runs.value != 0
+
+
+# Rows from which an f32 K1-fwd with no backward to follow runs split TF32
+# on the tensor cores. On an H100 (chip_smoke.py f32_fwd_by_rows) the
+# wrapper's packing of the f32 transposed weights (~0.2 ms of host time a
+# launch) outlasts the kernel's saving on a 128 x 4 head up to ~32,768
+# rows (at the test chunk's 128 rows, 0.08 ms of device time), and the
+# gain is clear from 65,536; on NeRF's 256 x 8 sigma chain split TF32 is
+# faster at every size
+F32_TC_MIN_ROWS = 65536
+
+
+def fwd_on_tensor_cores(plan, compute_dtype, device, stash_route=False,
+                        backward=None, rows=None):
+    """Whether a K1-fwd, K1r-fwd (``stash_route``) or K1w-fwd launch on
+    ``device`` runs a tensor-core kernel: in bf16, a plan the library says
+    it runs (:func:`_tc_runs`; ``nfk_chain_fwd_tc``,
+    ``nfk_chain_stash_fwd_tc``, ``nfk_chain_last_skip_fwd_tc``); in f32,
+    K1's route (not the stash route, no skip after the head) and a plan
+    the f32 kernel runs (:func:`_f32_tc_runs`; ``nfk_chain_fwd_tc_f32``);
+    then a forward that autograd will differentiate (``backward``, the
+    (needs_dx, needs_dw) of its backward) takes it with a backward that
+    :func:`bwd_on_tensor_cores` sends to the tensor cores too (dx alone,
+    every hidden act ReLU), whatever its size: a CUDA-core backward
+    recomputes the forward on the CUDA cores, so the forward stays there
+    and both gate each ReLU alike. A forward alone (``backward`` None or
+    neither) takes it from :data:`F32_TC_MIN_ROWS` ``rows`` (None: the
+    plan alone). Every other launch (f32 K1r and K1w, f32 with dW, a small
+    f32 forward alone, any other plan) runs the CUDA-core
+    ``chain_fwd_kernel``."""
+    if kernel_dtype(compute_dtype) == torch.float32:
+        if backward is not None and any(backward):
+            if not bwd_on_tensor_cores(plan, compute_dtype, *backward,
+                                       device):
+                return False
+        elif rows is not None and rows < F32_TC_MIN_ROWS:
+            return False
+        return not stash_route and not last_skip(plan) \
+            and _f32_tc_runs(plan, device, dx=False)
     return _tc_runs(plan, device, bwd=False)
 
 
-def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device):
-    """Whether a K1-bwd, K1r-bwd or K1w-bwd launch on ``device`` runs the
-    tensor-core design (phase 1 and the dW pass, ``nfk_chain_bwd_tc``,
-    ``nfk_chain_stash_bwd_tc``; for a last-skip plan phase 1, the dW pass
-    and the dx pass, ``nfk_chain_last_skip_bwd_tc``): bf16 operands, a
-    plan that the library says phase 1 runs (:func:`_tc_runs`), and dW
-    without dx or, for a last-skip plan, dx or dW or both. Every other
-    launch (f32, dx on K1 or K1r, any other plan) runs the CUDA-core
-    ``chain_bwd_kernel``."""
-    if kernel_dtype(compute_dtype) != torch.bfloat16 \
-            or not (needs_dx or needs_dw) or (needs_dx and not last_skip(plan)):
+def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device,
+                        stash_route=False):
+    """Whether a K1-bwd, K1r-bwd (``stash_route``) or K1w-bwd launch on
+    ``device`` runs a tensor-core design. In bf16 (phase 1 and the dW
+    pass, ``nfk_chain_bwd_tc``, ``nfk_chain_stash_bwd_tc``; for a
+    last-skip plan phase 1, the dW pass and the dx pass,
+    ``nfk_chain_last_skip_bwd_tc``): a plan that the library says phase 1
+    runs (:func:`_tc_runs`), and dW without dx or, for a last-skip plan,
+    dx or dW or both. In f32 (``nfk_chain_bwd_dx_tc_f32``, one kernel): dx
+    without dW on K1's route (not the stash route, no skip after the head)
+    and a plan the f32 kernel runs (:func:`_f32_tc_runs`: every hidden act
+    ReLU). Every other launch (f32 with dW, f32 K1r and K1w, bf16 dx on K1
+    or K1r, any other plan) runs the CUDA-core ``chain_bwd_kernel``."""
+    if kernel_dtype(compute_dtype) == torch.float32:
+        return needs_dx and not needs_dw and not stash_route \
+            and not last_skip(plan) and _f32_tc_runs(plan, device, dx=True)
+    if not (needs_dx or needs_dw) or (needs_dx and not last_skip(plan)):
         return False
     return _tc_runs(plan, device, bwd=True)
 
@@ -753,12 +853,12 @@ def unpad_grads(plan, grads):
                 plan.widths)]
 
 
-def transposed_weights(kplan, params, device):
+def transposed_weights(kplan, params, device, dtype=torch.bfloat16):
     """The hidden layers' weights of ``params`` transposed for the
-    tensor-core kernels of ``kplan`` (an :func:`mma_plan`), as
+    tensor-core kernels of ``kplan`` (an :func:`mma_plan`) at ``dtype``, as
     :func:`pack_transposed` lays them out over the library's table."""
     tab, _ = chain_dw_table(kplan, device)
-    return pack_transposed([w for w, _ in params[:-1]], tab)
+    return pack_transposed([w for w, _ in params[:-1]], tab, dtype)
 
 
 def tc_bwd_sizes(plan, n, device):
@@ -826,13 +926,56 @@ def _chain_bwd_tc(plan, x, dy, params, wt=None, stash_route=False,
     return dx, grads if kplan == plan else unpad_grads(plan, grads)
 
 
+def tc_matmul_f32(a, b, terms=3):
+    """The f32 tensor-core building block alone (``nfk_tc_matmul_f32``): a
+    (M, K) @ b (N, K)^T in f32 with ``terms`` TF32 products (3: split
+    TF32; 1: plain TF32), through the split, fragments and pipeline of the
+    f32 K1 kernels. For tests; it counts no launch."""
+    m, k = a.shape
+    n = b.shape[0]
+    bt = b.new_zeros(n, round16(k), dtype=torch.float32)
+    bt[:, :k] = b
+    a, = check_inputs([('a', a, k)])
+    bt, = check_inputs([('b', bt, round16(k))])
+    c = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    run('nfk_tc_matmul_f32', a.device, a.data_ptr(), bt.data_ptr(),
+        c.data_ptr(), m, n, k, terms)
+    return c
+
+
+def _chain_bwd_dx_tc_f32(plan, x, dy, params, wt=None, terms=3):
+    """Launches ``nfk_chain_bwd_dx_tc_f32``, f32 K1-bwd with dx only on
+    the tensor cores (``terms`` TF32 products: 3, or the control's 1), over
+    the weights padded to :func:`mma_plan`'s widths where they differ and
+    their f32 transposes ``wt`` (packed here when None). Returns dx (N,
+    raw_dim) f32."""
+    kplan = mma_plan(plan)
+    if kplan != plan:
+        params = pad_params(plan, params)
+    (x, dy), desc, _, w_flat, b_flat = prepare(
+        kplan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
+        None)
+    if wt is None:
+        wt = transposed_weights(kplan, params, x.device, torch.float32)
+    if wt.dtype != torch.float32:
+        raise ValueError("the f32 tensor-core K1-bwd reads f32 transposed "
+                         "weights, got %s" % wt.dtype)
+    dx = torch.empty_like(x)
+    if x.shape[0]:
+        run('nfk_chain_bwd_dx_tc_f32', x.device, ctypes.addressof(desc),
+            x.data_ptr(), dy.data_ptr(), w_flat.data_ptr(), wt.data_ptr(),
+            b_flat.data_ptr(), dx.data_ptr(), terms, x.shape[0])
+    return dx
+
+
 def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw, tc,
                stash_route=False, stash=None, wt=None):
     """Launches K1-bwd, K1r-bwd over ``stash`` with ``stash_route`` or,
     for a last-skip plan, K1w-bwd, for the output cotangent ``dy`` (N,
     out_dim): with ``tc`` the tensor-core design (over ``wt``, see
-    :func:`chain_kernel_bwd`), else nfk_chain_bwd. Returns (dx or None,
-    [(dW, db)] or None, whether a kernel ran)."""
+    :func:`chain_kernel_bwd`; in f32 K1-bwd with dx only), else
+    nfk_chain_bwd. Returns (dx or None, [(dW, db)] or None, whether a
+    kernel ran)."""
     if not (needs_dx or needs_dw):
         raise ValueError("K1-bwd launched with nothing to compute")
     if stash_route and trig_dim(plan):
@@ -843,6 +986,9 @@ def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw, tc,
             raise ValueError("The stash must be a %s %s %s tensor" % (
                 x.device, kernel_dtype(compute_dtype), want))
         stash = stash.contiguous()
+    if tc and kernel_dtype(compute_dtype) == torch.float32:
+        return _chain_bwd_dx_tc_f32(plan, x, dy, params, wt), None, \
+            x.shape[0] > 0
     if tc:
         return (*_chain_bwd_tc(plan, x, dy, params, wt, stash_route, stash,
                                needs_dx, needs_dw), x.shape[0] > 0)
@@ -877,23 +1023,54 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
     are bit-identical for the same inputs on the same card. ``wt``: the
     transposed hidden weights that K1-fwd's tensor-core kernel read for
     these params, which the tensor-core backward then does not pack again.
-    Counts its launches in ``chain_kernel_bwd.launches``, those of the
-    tensor-core design also in ``chain_kernel_bwd.tc_launches``, and those
-    that compute dW/db (the tensor-core design's dW pass, or the CUDA-core
-    kernel's dW slices) in ``chain_kernel_bwd.dw_launches``."""
+    On the calls :func:`bwd_on_tensor_cores` takes, bf16 runs phase 1 and
+    the dW pass, f32 with dx alone ``chain_dx_f32_tc_kernel`` (split
+    TF32); every other call the CUDA-core ``chain_bwd_kernel``. Counts its
+    launches in ``chain_kernel_bwd.launches``, those of the bf16
+    tensor-core design also in ``chain_kernel_bwd.tc_launches``, those of
+    the f32 dx-only kernel in ``chain_kernel_bwd.dx_tc_launches``, and
+    those that compute dW/db (the tensor-core design's dW pass, or the
+    CUDA-core kernel's dW slices) in ``chain_kernel_bwd.dw_launches``."""
     _check_route(plan, 'K1-bwd', False)
+    if needs_dx or needs_dw:  # before the rule asks the card
+        check_inputs([('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))])
     tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
                              x.device)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
                                 needs_dw, tc, wt=wt)
+    f32 = kernel_dtype(compute_dtype) == torch.float32
     chain_kernel_bwd.launches += ran
-    chain_kernel_bwd.tc_launches += int(ran and tc)
+    chain_kernel_bwd.tc_launches += int(ran and tc and not f32)
+    chain_kernel_bwd.dx_tc_launches += int(ran and tc and f32)
     chain_kernel_bwd.dw_launches += int(ran and needs_dw)
     return dx, grads
 
 
 chain_kernel_bwd.launches = chain_kernel_bwd.tc_launches = 0
-chain_kernel_bwd.dw_launches = 0
+chain_kernel_bwd.dx_tc_launches = chain_kernel_bwd.dw_launches = 0
+
+
+def chain_kernel_bwd_cuda_core(plan, x, dy, params, compute_dtype=None,
+                               needs_dx=True, needs_dw=True):
+    """The CUDA-core K1-bwd (``chain_bwd_kernel``) in either precision:
+    what :func:`chain_kernel_bwd` runs off the tensor cores, and the kernel
+    the f32 dx-only tensor-core one is held against. Counts no launch."""
+    _check_route(plan, 'K1-bwd', False)
+    return _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
+                      False)[:2]
+
+
+def chain_kernel_bwd_dx_f32_tc(plan, x, dy, params, terms=3):
+    """The f32 tensor-core K1-bwd with dx only (``chain_dx_f32_tc_kernel``)
+    with ``terms`` TF32 products: 3, what :func:`chain_kernel_bwd` runs on
+    the calls :func:`bwd_on_tensor_cores` takes; 1, plain TF32, the
+    control. Returns dx. Raises on a plan the kernel does not take. Counts
+    no launch."""
+    _check_route(plan, 'K1-bwd', False)
+    if not _f32_tc_runs(plan, x.device, dx=True):
+        raise ValueError("the f32 tensor-core K1-bwd does not take %s"
+                         % (plan,))
+    return _chain_bwd_dx_tc_f32(plan, x, dy, params, terms=terms)
 
 
 def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,
@@ -910,7 +1087,8 @@ def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,
     ``chain_kernel_stash_bwd.launches``, those of the tensor-core design
     also in ``chain_kernel_stash_bwd.tc_launches``."""
     _check_route(plan, 'K1r-bwd', False)
-    tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, True, x.device)
+    tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, True, x.device,
+                             stash_route=True)
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
                                 True, tc, stash_route=True, stash=stash,
                                 wt=wt)
@@ -988,16 +1166,20 @@ def _pairs(flat):
     return list(zip(flat[0::2], flat[1::2]))
 
 
-def _forward(plan, x, params, compute_dtype, stash_route, with_stash=False):
+def _forward(plan, x, params, compute_dtype, stash_route, with_stash=False,
+             backward=None):
     """The route's forward kernel: K1r with ``stash_route``, K1w for a
-    last-skip plan, else K1. Returns (y, the K1r stash with
-    ``with_stash``, else None, the transposed weights the tensor-core
-    kernel read, else None)."""
+    last-skip plan, else K1 (``backward``, the (needs_dx, needs_dw) of the
+    backward to follow, as :func:`fwd_on_tensor_cores` takes it). Returns
+    (y, the K1r stash with ``with_stash``, else None, the transposed
+    weights the tensor-core kernel read, else None)."""
     if stash_route:
         return _chain_kernel_stash(plan, x, params, compute_dtype,
                                    with_stash)
-    y, wt = (_chain_kernel_last_skip if last_skip(plan) else _chain_kernel)(
-        plan, x, params, compute_dtype)
+    if last_skip(plan):
+        y, wt = _chain_kernel_last_skip(plan, x, params, compute_dtype)
+    else:
+        y, wt = _chain_kernel(plan, x, params, compute_dtype, backward)
     return y, None, wt
 
 
@@ -1015,7 +1197,8 @@ class ChainFunction(torch.autograd.Function):
     def forward(ctx, plan, compute_dtype, needs_dx, needs_dw, stash_route, x,
                 *flat):
         y, stash, ctx.wt = _forward(plan, x, _pairs(flat), compute_dtype,
-                                    stash_route, with_stash=True)
+                                    stash_route, with_stash=True,
+                                    backward=(needs_dx, needs_dw))
         ctx.save_for_backward(x, stash, *flat)
         ctx.plan, ctx.compute_dtype = plan, compute_dtype
         ctx.needs, ctx.stash_route = (needs_dx, needs_dw), stash_route

@@ -114,6 +114,11 @@ ARGTYPES = {
                       _PTR, _PTR, _PTR, _PTR, _I32, _I64, _PTR],
     'nfk_chain_tc_runs': [_PTR, _I32, _PTR],
     'nfk_chain_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _PTR],
+    'nfk_chain_f32_tc_runs': [_PTR, _I32, _PTR],
+    'nfk_chain_fwd_tc_f32': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I64,
+                             _PTR],
+    'nfk_chain_bwd_dx_tc_f32': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                _I32, _I64, _PTR],
     'nfk_chain_stash_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                                _PTR],
     'nfk_chain_last_skip_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
@@ -143,6 +148,7 @@ ARGTYPES = {
                      _PTR, _PTR, _PTR, _I32, _I32, _I64, _PTR],
     'nfk_nerf_dw_table': [_PTR, _PTR, _PTR],
     'nfk_tc_matmul': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
+    'nfk_tc_matmul_f32': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR],
     'nfk_dot_chain': [_I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR],
 }
 

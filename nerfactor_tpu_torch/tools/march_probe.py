@@ -59,8 +59,10 @@ def parse_args(argv=None):
 def k1_launches():
     return {'K1-fwd': fm.chain_kernel.launches,
             'K1-fwd tc': fm.chain_kernel.tc_launches,
+            'K1-fwd f32 tc': fm.chain_kernel.f32_tc_launches,
             'K1-bwd': fm.chain_kernel_bwd.launches,
             'K1-bwd tc': fm.chain_kernel_bwd.tc_launches,
+            'K1-bwd dx tc': fm.chain_kernel_bwd.dx_tc_launches,
             'K1-bwd dW': fm.chain_kernel_bwd.dw_launches}
 
 

@@ -67,22 +67,34 @@ def emulated(tmp_path_factory):
 def test_bwd_on_tensor_cores_rule(emulated):
     """bf16 with dW only takes the tensor cores, on either route
     (test_stash_route_takes_the_rules), and so does a skip after the head
-    (K1w) with dx or dW or both; f32, dx without a skip after the head, no
-    dW and no dx, a skip into the head, a head wider than 8, a head-only
-    chain and hidden layers too wide for phase 1's block (640; 512 fits)
-    keep the CUDA-core kernel."""
+    (K1w) with dx or dW or both; f32 with dx only takes the f32 tensor-core
+    kernel on K1's route where every hidden act is ReLU. f32 with dW, f32
+    on the stash route or with a skip after the head, f32 with a non-ReLU
+    hidden layer, bf16 dx without a skip after the head, no dW and no dx,
+    a skip into the head, a head wider than 8, a head-only chain and hidden
+    layers too wide for phase 1's block (640; 512 fits) keep the CUDA-core
+    kernel."""
     plan = fm.make_plan(*LVIS)
+    cpu = torch.device('cpu')
 
-    def rule(pl, cd, needs_dx, needs_dw):
-        return fm.bwd_on_tensor_cores(pl, cd, needs_dx, needs_dw,
-                                      torch.device('cpu'))
+    def rule(pl, cd, needs_dx, needs_dw, stash_route=False):
+        return fm.bwd_on_tensor_cores(pl, cd, needs_dx, needs_dw, cpu,
+                                      stash_route=stash_route)
     assert rule(plan, BF16, False, True)
     assert rule(fm.make_plan(*TC_PLANS['w24']), BF16, False, True)
     assert not rule(plan, None, False, True)
     assert not rule(plan, torch.float32, False, True)
+    for cd in (None, torch.float32):
+        assert rule(plan, cd, True, False)
+        assert not rule(plan, cd, True, True)
+        assert not rule(plan, cd, True, False, stash_route=True)
+        assert not rule(plan._replace(
+            acts=('relu', 'softplus') + plan.acts[2:]), cd, True, False)
+    assert rule(fm.make_plan(*TC_PLANS['w24']), None, True, False)
     assert not rule(plan, BF16, True, True)
     assert not rule(plan, BF16, True, False)
     assert not rule(plan, BF16, False, False)
+    assert not rule(plan, None, False, False)
     for skip_at in ((4,), (2, 4)):
         last = plan._replace(skip_at=skip_at)
         for needs_dx, needs_dw in ((False, True), (True, True), (True, False)):
@@ -106,29 +118,57 @@ def test_fwd_on_tensor_cores_rule(emulated):
     """bf16 K1-fwd takes the tensor cores, on either route
     (test_stash_route_takes_the_rules) and with a skip after the head
     (K1w), on the plans the backward's phase 1 takes (width 24 once
-    padded); f32, a skip into the head, a head wider than 8, a head-only
-    chain and hidden layers too wide for the block (640; 512 fits) keep the
-    CUDA-core kernel."""
+    padded); f32 K1-fwd takes the f32 tensor-core kernel on K1's route, on
+    the same plans where its f32 block fits (256 wide; 512 does not),
+    unless autograd's backward on it will run on the CUDA cores (with dW,
+    or dx through a non-ReLU hidden layer); alone, from F32_TC_MIN_ROWS
+    rows (under autograd the backward decides). f32 on the stash route or with
+    a skip after the head, a skip into the head, a head wider than 8, a
+    head-only chain and hidden layers too wide for the block (bf16: 640;
+    512 fits) keep the CUDA-core kernel."""
     plan = fm.make_plan(*LVIS)
+    cpu = torch.device('cpu')
 
-    def rule(pl, cd):
-        return fm.fwd_on_tensor_cores(pl, cd, torch.device('cpu'))
+    def rule(pl, cd, stash_route=False, backward=None, rows=None):
+        return fm.fwd_on_tensor_cores(pl, cd, cpu, stash_route=stash_route,
+                                      backward=backward, rows=rows)
     assert rule(plan, BF16)
     assert rule(fm.make_plan(*TC_PLANS['w24']), BF16)
-    assert not rule(plan, None)
-    assert not rule(plan, torch.float32)
+    assert rule(plan, None)
+    assert rule(plan, torch.float32)
+    assert rule(fm.make_plan(*TC_PLANS['w24']), None)
+    for backward, ok in (((True, False), True), ((False, False), True),
+                         ((True, True), False), ((False, True), False)):
+        assert rule(plan, None, backward=backward) == ok
+        assert rule(plan, BF16, backward=backward)
+    for rows, ok in ((1, False), (fm.F32_TC_MIN_ROWS - 1, False),
+                     (fm.F32_TC_MIN_ROWS, True)):
+        assert rule(plan, None, rows=rows) == ok
+        assert rule(plan, None, backward=(False, False), rows=rows) == ok
+        assert rule(plan, None, backward=(True, False), rows=rows)
+        assert not rule(plan, None, backward=(True, True), rows=rows)
+        assert rule(plan, BF16, rows=rows)
+    softplus = plan._replace(acts=('relu', 'softplus') + plan.acts[2:])
+    assert rule(softplus, None)
+    assert not rule(softplus, None, backward=(True, False))
+    assert not rule(plan, None, stash_route=True)
+    assert rule(plan, BF16, stash_route=True)
     for skip_at in ((4,), (2, 4)):
         assert rule(plan._replace(skip_at=skip_at), BF16)
         assert not rule(plan._replace(skip_at=skip_at), None)
-    assert not rule(plan._replace(skip_at=(3,)), BF16)
-    assert not rule(plan._replace(skip_at=(3, 4)), BF16)
-    for head, ok in ((8, True), (9, False)):
-        assert rule(plan._replace(widths=plan.widths[:-1] + (head,)),
-                    BF16) == ok
-    assert not rule(fm.make_plan([(3, 2)], (1,), ('sigmoid',), ()), BF16)
+    for cd in (BF16, None):
+        assert not rule(plan._replace(skip_at=(3,)), cd)
+        assert not rule(plan._replace(skip_at=(3, 4)), cd)
+        for head, ok in ((8, True), (9, False)):
+            assert rule(plan._replace(widths=plan.widths[:-1] + (head,)),
+                        cd) == ok
+        assert not rule(fm.make_plan([(3, 2)], (1,), ('sigmoid',), ()), cd)
     for width, ok in ((512, True), (640, False)):
         assert rule(plan._replace(widths=(width,) * 4 + plan.widths[-1:]),
                     BF16) == ok
+    for width, ok in ((256, True), (512, False)):
+        assert rule(plan._replace(widths=(width,) * 4 + plan.widths[-1:]),
+                    None) == ok
 
 
 def entries(launch):
