@@ -30,9 +30,9 @@ the step and relight tools.
    at the shapes one inference chunk gives them, and times both; the bf16
    lvis chain's K1-fwd and the bf16 BRDF chain's K2-fwd run on the tensor
    cores, and are also held against the CUDA-core kernels they replace and
-   timed beside them; the f32 heads, on the CUDA cores at this size, beside
-   the split-TF32 kernel, and f32 K1-fwd both ways on the normal head at
-   128-524,288 rows (``f32_fwd_by_rows``).
+   timed beside them; the f32 heads as the rule runs them at this size,
+   beside the split-TF32 kernel, and f32 K1-fwd both ways on the normal
+   head at 128-524,288 rows (``f32_fwd_by_rows``).
 5. Inference path: runs ``nerfactor_tpu_torch.test.main`` over the 3 test
    views (OLAT and probe relights on the last), with the kernels' launch
    counters set to 0 just before and read just after, and checks the
@@ -53,7 +53,17 @@ the step and relight tools.
    HMMA count of its kernels in the built library. bf16 K2-fwd and K2-bwd
    (the tensor cores) at the step's 524,288 rows beside the CUDA-core
    kernels they replace: errors, device ms, TFLOP/s; K2-bwd's cotangents
-   bit-identical across two launches.
+   bit-identical across two launches. The f32 heads' training pair in
+   split TF32 (``f32_head_readings``: the normal, albedo and brdf_z heads
+   at 2,048 rows and the pipeline's 64-wide plan at 1,024): the forward
+   within TOL_F32 and the backward with dW alone (phase 1 and the dW pass)
+   within DW_TOL_F32 of the plain f32 version (TF32 off), dW bit-identical
+   across two launches, the plain-TF32 control's and the CUDA-core
+   kernels' readings beside each limit (the control must break one of
+   them), ms, device ms, launches a backward and bounds, the CUDA-core
+   kernels' ms and device ms; the packing kernel (``nfk_pack_transposed``)
+   against ``pack_transposed``: the same bits in f32 and bf16, and both
+   timed.
 7. Training path: runs ``nerfactor_tpu_torch.trainvali.main`` on
    nerfactor.ini for 4 epochs (checkpoints every 2, vali at 4), with the
    four kernels' counters zeroed before and read after, checks its
@@ -99,7 +109,11 @@ the step and relight tools.
    calls run on the tensor cores (K1w-fwd; K1w-bwd's phase 1, dW pass and
    dx pass); beside them the CUDA-core kernels they replace: dx, times,
    and device ms (the forward; the backward's kernels apart), TFLOP/s,
-   and the backward with dW only and with dx only.
+   and the backward with dW only and with dx only. Then f32 K1-bwd with
+   dW alone on the lvis chain's weights at 2,048-65,536 rows
+   (``f32_dw_by_rows``): the split-TF32 design against the plain f32
+   version and float64 with the gates its phase 1 flipped, within
+   DW_TOL_F32 wherever the rule sends it there.
 15. The joint train step on the stash route (fused_mlp.TRANSPOSED_BOUNDARY
    = False): its loss and gradients against the default route's on one
    batch, then its steady-state step time, counters zeroed before and read
@@ -120,12 +134,13 @@ the step and relight tools.
    (128 x 4, 1024 rays, 512 lights, bf16 lvis chain, fused kernels) for 4
    epochs on the scene's surface buffers, counters zeroed before and read
    after (K1-fwd and K1-bwd on the tensor cores for lvis; the f32 normal
-   chain's training K1-fwd and K1-bwd with dW on the CUDA cores); checks
-   its losses, that every leaf of
+   chain's training K1-fwd and K1-bwd with dW in split TF32, no K1-bwd on
+   the CUDA cores); checks its losses, that every leaf of
    ckpt-2 and ckpt-4 moved, and its vali images, flipbooks and HTML. Holds
    one shape step's loss and every gradient leaf on the card against the
    port's plain version on the CPU (same batch and jitter), then times the
-   step with a profiler window (device ms by kernel).
+   step with a profiler window (device ms by kernel); the shape model's
+   normal head as phase 6 reads the joint model's (``f32_head_readings``).
 19. BRDF prior: writes synthetic MERL-format tables (3 materials; a test
    table of the characteristic slice and a 64 x 64 sphere render's rows),
    runs ``trainvali.main`` on brdf.ini at full width (128 x 4, z_dim 3,
@@ -177,17 +192,21 @@ the step and relight tools.
    nerfactor_microfacet.ini at full width (128 x 4, 1024 rays x 512
    lights, bf16 lvis chain, fused kernels) for 4 epochs from the seeded
    shape checkpoint, counters zeroed before and read after (K1 on the
-   tensor cores for lvis; for the albedo, roughness and normal heads on
-   the CUDA cores: in training, whose backward with dW recomputes the
-   forward there, and at the test chunk's 128 rows, below
-   F32_TC_MIN_ROWS; K2 never); its losses, checkpoints without BRDF-prior
+   tensor cores for lvis; for the albedo, roughness and normal heads in
+   split TF32 in training, forward and backward with dW, no K1-bwd on the
+   CUDA cores; K2 never); its losses, checkpoints without BRDF-prior
    leaves, every leaf of ckpt-4 moved from ckpt-2, the roughness image;
    ``test.main`` on ckpt-4 with OLAT and probe relights and the video; one
    step's loss and every gradient leaf on the card against the CPU plain
    port; ``microfacet_spec`` at 1024 x 512 pairs against float64 and the
-   CPU; the step's time with its idle share. The control of the lobe's
+   CPU; the step's time with its idle share; the roughness, albedo and
+   normal heads as phase 6 reads the joint model's
+   (``f32_head_readings``). The control of the lobe's
    two limits and the step's: the lobe in bf16 (``lobe_in_bf16``), which
-   must break each.
+   must break each. Beside the step's leaves, their distance from the CPU
+   step whose f32 heads run in float64, for the card's step, the same
+   step with the heads on the CUDA cores and the CPU's
+   (``f32_heads_witness``).
 27. The MVS path: ``tools/synth_dtu.py`` writes a DTU-style scan (an
    icosphere of 5,120 faces, 8 views at 128 px), ``dtu_surf_from_mvs.main``
    casts it on the card (--h 128 --light_h 16, 3 test views: seconds a
@@ -278,15 +297,27 @@ rows, or the lvis chain under the shape model's (glorot-uniform, zero
 biases) at 1,048,576 rows, on K1's route or the stash route (K1r, the
 forward with its stash); for K2, the sha256 of bf16 K2-bwd's cotangents
 and K2-fwd's output on the shipped BRDF chain at 524,288 rows
-(k2_field_readings). Each calls only its kernel's wrappers, so a copy of
-this script in an older checkout reads that checkout's kernels the same
-way.
+(k2_field_readings). Each calls only its kernel's wrappers.
+
+  python3 chip_smoke.py --f32_heads
+
+prints only phase 6's f32 heads readings (the split-TF32 training pair
+against the plain f32 version and the CUDA-core kernels, the packing
+kernel), ``f32_fwd_by_rows`` on the normal head and ``f32_dw_by_rows`` on
+the lvis chain.
+
+  python3 chip_smoke.py --steps 2
+
+prints only the joint, shape and microfacet train steps' ms, host CPU ms,
+device busy ms and idle share, each run twice in turns (steps_alone; it
+calls only the models).
 
   python3 chip_smoke.py --view_repeats 4
 
 prints only the seconds per view of test.py and nerf_test.py on the smoke's
 scene, each run 4 times in turns (view_readings; it calls only the entry
-points, so an older checkout reads the same way).
+points). To compare with an older checkout, run that checkout's own
+script beside this one.
 """
 
 import argparse
@@ -645,12 +676,14 @@ def step_inputs(model, g):
     return twins, lvis_x, (z, ldir, vdir)
 
 
-def chain_f64(plan, x, params):
+def chain_f64(plan, x, params, gates=None, pres=None):
     """The plain chain in float64 (the exact math the f32 kernels are held
     to), and per row the smallest |pre-activation| over its ReLU layers:
     a row whose gate sits within rounding of 0 may be gated differently
     by an f32 version, and its gradient then differs by that unit's whole
-    contribution."""
+    contribution. ``gates`` (a boolean tensor a ReLU layer) replaces each
+    ReLU's own gate with the given one; ``pres``, a list, receives each
+    ReLU layer's pre-activations."""
     e = fm._embed(plan, x)
     h, low = e, None
     for i, ((w, b), act) in enumerate(zip(params, plan.acts)):
@@ -662,6 +695,11 @@ def chain_f64(plan, x, params):
         if act == 'relu':
             m = pre.detach().abs().min(dim=1).values
             low = m if low is None else torch.minimum(low, m)
+            if pres is not None:
+                pres.append(pre.detach())
+            if gates is not None:
+                h = pre * gates[i]
+                continue
         h = fm._act(act, pre)
     return h, low
 
@@ -976,8 +1014,11 @@ def k2_limit_readings(model, seeds):
 # "K2-fwd tc", "K2-bwd tc" and "K3-fwd tc" those of the bf16 tensor-core
 # kernels among them (for K1-bwd and K1r-bwd without dx); "K1-fwd f32 tc"
 # and "K1-bwd dx tc" those of K1's f32 tensor-core kernels (split TF32:
-# the forward, and the backward with dx alone); the rest being the
-# CUDA-core kernels'; "K1-bwd dW" the K1-bwd launches that computed dW/db.
+# the forward, and the backward with dx alone), "K1-bwd dW f32 tc" those
+# of its f32 backward with dW alone (split TF32: phase 1 and the dW pass);
+# the rest being the CUDA-core kernels'; "K1-bwd dW" the K1-bwd launches
+# that computed dW/db; "K1 pack" the packing kernel's (the transposed
+# hidden weights of every tensor-core chain launch, K1 and K2, on the card).
 COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-fwd tc': (fm.chain_kernel, 'tc_launches'),
             'K1-fwd f32 tc': (fm.chain_kernel, 'f32_tc_launches'),
@@ -985,6 +1026,7 @@ COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1-bwd tc': (fm.chain_kernel_bwd, 'tc_launches'),
             'K1-bwd dx tc': (fm.chain_kernel_bwd, 'dx_tc_launches'),
             'K1-bwd dW': (fm.chain_kernel_bwd, 'dw_launches'),
+            'K1-bwd dW f32 tc': (fm.chain_kernel_bwd, 'dw_tc_f32_launches'),
             'K2-fwd': (fr.rusink_kernel, 'launches'),
             'K2-fwd tc': (fr.rusink_kernel, 'tc_launches'),
             'K2-bwd': (fr.rusink_kernel_bwd, 'launches'),
@@ -1000,6 +1042,7 @@ COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1w-fwd tc': (fm.chain_kernel_last_skip, 'tc_launches'),
             'K1w-bwd': (fm.chain_kernel_last_skip_bwd, 'launches'),
             'K1w-bwd tc': (fm.chain_kernel_last_skip_bwd, 'tc_launches'),
+            'K1 pack': (fm.pack_transposed_kernel, 'launches'),
             'P': (dp.dot_chain_kernel, 'launches')}
 JOINT_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K2-fwd', 'K2-fwd tc',
                  'K2-bwd', 'K2-bwd tc')
@@ -1012,6 +1055,23 @@ def zero_counters():
 
 def counts():
     return {k: getattr(f, attr) for k, (f, attr) in COUNTERS.items()}
+
+
+def cuda_core_k1_bwd(launches):
+    """K1-bwd's launches on the CUDA cores (chain_bwd_kernel): all of them
+    but the bf16 design's and K1's f32 tensor-core ones."""
+    return launches['K1-bwd'] - launches['K1-bwd tc'] \
+        - launches['K1-bwd dx tc'] - launches['K1-bwd dW f32 tc']
+
+
+def f32_training_kernels(launches, path):
+    """The f32 heads' training backward runs the split-TF32 design with dW
+    (K1-bwd dW f32 tc), and no K1-bwd on the CUDA cores: raises otherwise.
+    Returns ``launches``."""
+    if launches['K1-bwd dW f32 tc'] <= 0 or cuda_core_k1_bwd(launches):
+        raise AssertionError("%s: the f32 heads' K1-bwd with dW off the "
+                             "split-TF32 design: %s" % (path, launches))
+    return launches
 
 
 def read_counters(names, path):
@@ -1048,7 +1108,9 @@ def run_training(joint_override):
     run = trainvali.main(['--config', 'nerfactor.ini',
                           '--config_override', override])
     torch.cuda.synchronize()
-    launches = read_counters(JOINT_KERNELS, 'training')
+    launches = f32_training_kernels(read_counters(
+        JOINT_KERNELS + ('K1-fwd f32 tc', 'K1 pack'), 'training'),
+        'training')
     outdir = run['outdir']
     losses = train_scalars(outdir)
     config = configutil.Config(configutil.read_config(outdir + '.ini'))
@@ -1087,7 +1149,9 @@ def run_training(joint_override):
 def time_train_step(model, dataset, warmup=3, iters=20, profiled=5,
                     kernels=()):
     """Steady-state ms per make_train_step step of ``model`` (on the card)
-    on a batch of ``dataset``'s train views (the config's rays per step);
+    on a batch of ``dataset``'s train views (the config's rays per step),
+    and the CPU time the process spent a step (its host work, whatever
+    the host's other load);
     then a torch.profiler window for the device's idle share and time by
     kernel (the 12 longest, and each of ``kernels``: (label, a regular
     expression its profiler names match))."""
@@ -1106,11 +1170,12 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5,
         params, opt_state, loss = step(params, opt_state, arrays, gen)
     torch.cuda.synchronize()
     before = counts()
-    t0 = time.perf_counter()
+    t0, cpu0 = time.perf_counter(), time.process_time()
     for _ in range(iters):
         params, opt_state, loss = step(params, opt_state, arrays, gen)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / iters
+    cpu_ms = 1e3 * (time.process_time() - cpu0) / iters
     launches = {k: (v - before[k]) / iters for k, v in counts().items()
                 if v != before[k]}
     if not torch.isfinite(loss):
@@ -1134,6 +1199,7 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5,
     of = {label: sum(v for k, v in by_kernel.items() if re.search(pat, k))
           / 1e3 / profiled for label, pat in kernels}
     return {'rays': rays, 'ms_per_step': ms,
+            'host_cpu_ms_per_step': cpu_ms,
             'rays_per_sec': rays / (ms / 1e3), 'steps_timed': iters,
             'launches_per_step': launches,
             'profiled_steps': profiled,
@@ -1144,21 +1210,295 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5,
             **({'device_ms_per_step_of': of} if kernels else {})}
 
 
+# ------ the f32 heads' training pair in split TF32 ------
+
+# The pipeline's heads (tools/quality_e2e.py: the shipped INIs at
+# mlp_width 64, 512 rays a step, the jitter twins: 1,024 rows)
+PIPELINE_HEAD_PLAN = fm.make_plan([(3, 10)], (64,) * 4 + (3,),
+                                  ('relu',) * 4 + (None,), (2,))
+PIPELINE_HEAD_ROWS = 1024
+# The split-TF32 forward's readings of each head in the kernels line
+HEAD_FWD_KEYS = ('chain', 'rows', 'fwd_max_abs_err', 'fwd_control_beyond',
+                 'fwd_control_max_abs_err', 'fwd_ms', 'fwd_plain_ms',
+                 'fwd_device_ms', 'fwd_pack_device_ms', 'fwd_cuda_core_ms',
+                 'fwd_cuda_core_device_ms', 'fwd_bound', 'fwd_f32_bound_ms',
+                 'fwd_f64_rel_err')
+# The f32 design's kernels in a profiler window: phase 1 and the dW pass
+F32_DW_KERNELS = (('phase1_device_ms', 'chain_bwd_f32_tc_kernel'),
+                  ('dw_pass_device_ms', 'dw_f32_kernel'))
+
+
+def seeded_head_params(plan, seed):
+    """Glorot-uniform weights and small biases for ``plan`` from a seed, on
+    the card."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for din, w in zip(fm.layer_in_dims(plan), plan.widths):
+        lim = (6.0 / (din + w)) ** 0.5
+        out.append(((2 * torch.rand(din, w, generator=g) - 1) * lim,
+                    0.05 * torch.randn(w, generator=g)))
+    return [(w.cuda(), b.cuda()) for w, b in out]
+
+
+def device_ms_of(run, names, iters=5):
+    """Device ms per call of ``run`` of the kernels whose profiler names
+    hold one of ``names``, and the launches a call of them and of every
+    kernel (a profiler window over ``iters`` calls)."""
+    us, seen = profiled_device_us(run, iters)
+    keys = [k for k in us if any(n in k for n in names)]
+    return {'device_ms': sum(us[k] for k in keys) / 1e3 / iters,
+            'launches_per_call': sum(seen[k] for k in keys) / iters,
+            'all_launches_per_call': sum(seen.values()) / iters}
+
+
+def f32_head_readings(name, plan, p, x, dy, iters=10):
+    """K1's f32 training pair on one f32 head at a training step's rows, as
+    the rule runs it: the split-TF32 forward
+    (chain_fwd_f32_tc_kernel) within TOL_F32 of the plain f32 version
+    (TF32 off) and the backward with dW alone (chain_bwd_f32_tc_kernel +
+    dw_f32_kernel) within DW_TOL_F32 by relative norm of its autograd, dW
+    bit-identical across two launches; beside each limit the plain-TF32
+    control's reading (``terms`` 1) and the CUDA-core kernel's, and the
+    limits the control breaks (raises if none); the forward's output and
+    dW/db of the design, the CUDA-core kernels and the plain f32 version
+    from the float64 chain's (chain_f64), by relative norm; ms (CUDA
+    events, the wrapper's packing included, in turns with the plain
+    version), device ms, launches a call and the bounds (f32 and split
+    TF32), the CUDA-core kernels' ms and device ms in the same run; phase
+    1's blocks, the dW pass's chunks and the scratch."""
+    rows, no = x.shape[0], plan.widths[-1]
+    out = {'chain': name, 'rows': rows, 'dtype': 'f32'}
+    leaves64 = [t.double().requires_grad_() for t in flatten(p)]
+    y64 = chain_f64(plan, x.double(), pairs(leaves64))[0]
+    want64 = torch.autograd.grad(y64, leaves64, dy.double())
+    with torch.no_grad():
+        want_y = fm.chain_reference(plan, x, p)
+        got_y = fm.chain_kernel_f32_tc(plan, x, p)
+        core_y = fm.chain_kernel_cuda_core(plan, x, p)
+        out['fwd_max_abs_err'] = compare('K1-fwd f32 split TF32 ' + name,
+                                         got_y, want_y, TOL_F32)
+        out['fwd_control_beyond'], out['fwd_control_max_abs_err'] = beyond(
+            fm.chain_kernel_f32_tc(plan, x, p, 1), want_y, TOL_F32)
+        out['fwd_cuda_core_max_abs_err'] = (
+            core_y - want_y).abs().max().item()
+        out['fwd_f64_rel_err'] = {k: rel_norm(v.double(), y64) for k, v in (
+            ('split_tf32', got_y), ('cuda_core', core_y),
+            ('plain_f32', want_y))}
+    leaves = [t.clone().requires_grad_() for t in flatten(p)]
+    y_p = fm.chain_reference(plan, x, pairs(leaves))
+    want = torch.autograd.grad(y_p, leaves, dy, retain_graph=True)
+
+    def dw_err(grads, ref=want):
+        return max(rel_norm(a.to(b.dtype), b)
+                   for a, b in zip(flatten(grads), ref))
+    got = fm.chain_kernel_bwd_dw_f32_tc(plan, x, dy, p)
+    core = fm.chain_kernel_bwd_cuda_core(plan, x, dy, p, None,
+                                         needs_dx=False)[1]
+    out['dw_rel_err'] = check_norm('K1-bwd f32 dW ' + name,
+                                   [dw_err(got)], DW_TOL_F32)
+    out['dw_max_abs_err'] = max((a - b).abs().max().item()
+                                for a, b in zip(flatten(got), want))
+    out['dw_tol'] = DW_TOL_F32
+    out['dw_control_rel_err'] = dw_err(
+        fm.chain_kernel_bwd_dw_f32_tc(plan, x, dy, p, 1))
+    out['dw_cuda_core_rel_err'] = dw_err(core)
+    out['dw_f64_rel_err'] = {
+        'split_tf32': dw_err(got, want64), 'cuda_core': dw_err(core, want64),
+        'plain_f32': max(rel_norm(a.double(), b)
+                         for a, b in zip(want, want64))}
+    del y64, want64, leaves64, core
+    # The limits that part the control from the kernel: at least one must
+    out['control_broken_by'] = [k for k, broken in (
+        ('fwd', out['fwd_control_beyond'] > 0),
+        ('dw', out['dw_control_rel_err'] > DW_TOL_F32)) if broken]
+    if not out['control_broken_by']:
+        raise AssertionError("K1 f32 %s: the plain-TF32 control is within "
+                             "the forward's and dW's limits" % name)
+    again = fm.chain_kernel_bwd_dw_f32_tc(plan, x, dy, p)
+    out['dw_bit_identical'] = all(torch.equal(a, b) for a, b in zip(
+        flatten(got), flatten(again)))
+    if not out['dw_bit_identical']:
+        raise AssertionError("K1-bwd f32 dW %s: dW differs between two "
+                             "launches on the same inputs" % name)
+    del got, again
+    run_b = lambda: fm.chain_kernel_bwd_dw_f32_tc(plan, x, dy, p)  # noqa
+    run_bc = lambda: fm.chain_kernel_bwd_cuda_core(  # noqa: E731
+        plan, x, dy, p, None, needs_dx=False)
+    out['bwd_ms'], out['bwd_plain_ms'] = time_pair(
+        run_b, lambda: torch.autograd.grad(y_p, leaves, dy,
+                                           retain_graph=True), iters=iters)
+    out['bwd_cuda_core_ms'] = time_ms(run_bc, iters)
+    out.update(kernel_device_ms(run_b, F32_DW_KERNELS, rest='rest_device_ms'))
+    out['bwd_device_ms'] = out['phase1_device_ms'] + out['dw_pass_device_ms']
+    out['bwd_launches'] = device_ms_of(
+        run_b, ('chain_bwd_f32_tc', 'dw_f32'))['launches_per_call']
+    core = device_ms_of(run_bc, ('chain_bwd_kernel', 'sum_slices'))
+    out['bwd_cuda_core_device_ms'] = core['device_ms']
+    out['bwd_cuda_core_launches'] = core['launches_per_call']
+    del y_p
+    run_f = lambda: fm.chain_kernel_f32_tc(plan, x, p)  # noqa: E731
+    run_fc = lambda: fm.chain_kernel_cuda_core(plan, x, p)  # noqa: E731
+    with torch.no_grad():
+        out['fwd_ms'], out['fwd_plain_ms'] = time_pair(
+            run_f, lambda: fm.chain_reference(plan, x, p), iters=iters)
+        out['fwd_cuda_core_ms'] = time_ms(run_fc, iters)
+        fwd = device_ms_of(run_f, ('chain_fwd_f32_tc',))
+        out['fwd_device_ms'] = fwd['device_ms']
+        out['fwd_pack_device_ms'] = device_ms_of(
+            run_f, ('pack_transposed',))['device_ms']
+        out['fwd_cuda_core_device_ms'] = device_ms_of(
+            run_fc, ('chain_fwd_kernel',))['device_ms']
+    kplan = fm.mma_plan(plan)
+    size = fm.tc_bwd_f32_sizes(kplan, rows, x.device)
+    out.update(phase1_blocks=size['slices'], dw_chunks=size['chunks'],
+               scratch_bytes=4 * size['scratch'])
+    fb = chain_bound(plan, rows, 'f32', fm.raw_dim(plan), no)
+    bb = chain_bound(plan, rows, 'f32', fm.raw_dim(plan), no,
+                     bwd=(False, True))
+    out.update(fwd_bound=tf32x3_bound(fb), fwd_f32_bound_ms=fb['bound_ms'],
+               bwd_bound=tf32x3_bound(bb), bwd_f32_bound_ms=bb['bound_ms'])
+    return out
+
+
+def pack_readings(plan, p, iters=20):
+    """nfk_pack_transposed (one launch) against its plain version
+    pack_transposed on the packed weights of ``plan``'s f32 and bf16
+    kernels: the same bits, and each one's ms (CUDA events, host and
+    device, in turns) and the kernel's device ms."""
+    kplan = fm.mma_plan(plan)
+    kp = fm.pad_params(plan, p) if kplan != plan else p
+    tab, _ = fm.chain_dw_table(kplan, p[0][0].device)
+    out = {}
+    for dtype, name, bits in ((torch.float32, 'f32', torch.int32),
+                              (torch.bfloat16, 'bf16', torch.int16)):
+        w_flat, _ = fm.pack_params(kplan, kp, dtype)
+        ws = fm.hidden_weights(kplan, w_flat)
+        run_k = lambda: fm.pack_transposed_kernel(kplan, w_flat)  # noqa
+        run_p = lambda: fm.pack_transposed(ws, tab, dtype)  # noqa: E731
+        same = torch.equal(run_k().view(bits), run_p().view(bits))
+        if not same:
+            raise AssertionError("nfk_pack_transposed %s: not "
+                                 "pack_transposed's bits" % name)
+        ms, plain_ms = time_pair(run_k, run_p, iters=iters)
+        out[name] = {'same_bits': same, 'ms': ms, 'plain_ms': plain_ms,
+                     'device_ms': device_ms_of(
+                         run_k, ('pack_transposed',))['device_ms'],
+                     'values': run_k().numel()}
+    return out
+
+
+def f32_heads(cases, g):
+    """f32_head_readings of each (name, plan, params, rows) of ``cases``
+    on seeded inputs (points on the sphere and their jitter twins' spread,
+    a uniform cotangent)."""
+    out = []
+    for name, plan, p, rows in cases:
+        pts = torch.randn(rows, 3, generator=g)
+        x = (SPHERE_R * pts / pts.norm(dim=1, keepdim=True)).cuda()
+        dy = (2 * torch.rand(rows, plan.widths[-1], generator=g) - 1).cuda()
+        out.append(f32_head_readings(name, plan, p, x, dy))
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_head_cases(model, params, names, rows=2 * N_RAYS):
+    """f32_heads' cases of a model's f32 heads (each chain's plan and its
+    params) at a training step's rows."""
+    keys = {'normal': ('normal_mlp', 'normal_out'),
+            'albedo': ('albedo_mlp', 'albedo_out'),
+            'brdf_z': ('brdf_z_mlp', 'brdf_z_out')}
+    return [(n, model.plans[n], fm.params_from_tree(params[keys[n][0]],
+                                                   params[keys[n][1]]), rows)
+            for n in names]
+
+
+def joint_f32_heads(model, params):
+    """Phase 6's f32 heads: the joint model's three at a training step's
+    2,048 rows and the pipeline's 64-wide plan (seeded weights) at its
+    1,024 (f32_heads), and the packing kernel on the normal head's weights
+    (pack_readings)."""
+    cases = model_head_cases(model, params, ('normal', 'albedo', 'brdf_z'))
+    cases.append(('pipeline_64', PIPELINE_HEAD_PLAN,
+                  seeded_head_params(PIPELINE_HEAD_PLAN, 3),
+                  PIPELINE_HEAD_ROWS))
+    return {'heads': f32_heads(cases, torch.Generator().manual_seed(19)),
+            'pack': pack_readings(cases[0][1], cases[0][2])}
+
+
+def run_config(ini, override):
+    """A run's config from a shipped INI and an override, as trainvali
+    builds it."""
+    parser = configutil.read_config(configutil.resolve_config_path(ini))
+    configutil.apply_override(parser, override)
+    return configutil.Config(parser)
+
+
+def steps_alone(config, joint_override, data_root, nerf_root, repeats):
+    """--steps: the steady-state joint (nerfactor.ini), shape (shape.ini) and
+    microfacet (nerfactor_microfacet.ini) train steps at the smoke's
+    shapes from seeded weights (time_train_step: ms, device busy ms, idle
+    share, launches a step), each ``repeats`` times in turns. It builds
+    the configs as trainvali does and calls only the models."""
+    shape = run_config('shape.ini', ','.join([
+        'data_root=' + data_root, 'data_nerf_root=' + nerf_root,
+        'imh=%d' % IMH, 'light_h=%d' % LIGHT_H]))
+    micro = run_config('nerfactor_microfacet.ini', joint_override)
+    runs = (('joint', Model, config), ('shape', ShapeModel, shape),
+            ('microfacet', MicrofacetModel, micro))
+    zero_counters()
+    out = []
+    for i in range(repeats):
+        for name, cls, cfg in runs:
+            step = time_train_step(cls(cfg, device='cuda'),
+                                   Dataset(cfg, 'train'))
+            out.append({'step': name, 'repeat': i, **{
+                k: step[k] for k in ('ms_per_step', 'host_cpu_ms_per_step',
+                                     'device_busy_ms_per_step',
+                                     'device_idle_share',
+                                     'launches_per_step')}})
+            torch.cuda.empty_cache()
+    return out
+
+
+def f32_heads_alone(config, ckpt):
+    """--f32_heads: joint_f32_heads on the smoke's seeded joint checkpoint,
+    f32 K1-fwd by rows (f32_fwd_by_rows) on its normal head and f32 K1-bwd
+    with dW by rows on its lvis chain (f32_dw_by_rows)."""
+    model = Model(config, device='cuda')
+    params = ckptutil.restore_trained_params(
+        ckpt, model.init_params(torch.Generator()), device='cuda')
+    out = joint_f32_heads(model, params)
+    normal = model_head_cases(model, params, ('normal',))[0]
+    out['by_rows'] = f32_fwd_by_rows(normal[1], normal[2])
+    out['dw_by_rows'] = f32_dw_by_rows(params, step_inputs(
+        model, torch.Generator().manual_seed(6))[1])
+    out['ptxas'] = ptxas_report(('chain_bwd_f32_tc', 'dw_f32',
+                                 'pack_transposed', 'chain_fwd_f32_tc'))
+    out['sass_hmma'] = sass_hmma(('chain_bwd_f32_tc_kernel', 'dw_f32_kernel'))
+    return out
+
+
 # ------ the stages whose checkpoints the joint model restores ------
 
 # The shape step's kernels: the bf16 lvis chain on the tensor cores (K1-fwd
-# tc; K1-bwd tc, dW only), the f32 normal chain on the CUDA cores (the rest
-# of K1-fwd and K1-bwd)
+# tc; K1-bwd tc, dW only), the f32 normal chain in split TF32 on the tensor
+# cores (K1-fwd f32 tc; K1-bwd dW f32 tc, dW only)
 SHAPE_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K1-bwd tc')
 # Device ms a step by kernel, matched by name in the profiler's keys: the
-# CUDA-core kernels there are the f32 normal chain's
+# f32 kernels there are the normal chain's; the CUDA-core ones, which ran
+# it before the split-TF32 design, launch no more and read 0
 SHAPE_STEP_KERNELS = (
     ('K1-fwd chain_fwd_tc_kernel', r'(?<![a-z_])chain_fwd_tc_kernel'),
     ('K1-bwd chain_bwd_tc_kernel', r'(?<![a-z_])chain_bwd_tc_kernel'),
     ('K1-bwd dw_kernel', r'(?<![a-z_])dw_kernel'),
     ('K1 sum_slices_kernel', r'(?<![a-z_])sum_slices_kernel'),
-    ('K1-fwd chain_fwd_kernel (f32 normal)', r'(?<![a-z_])chain_fwd_kernel'),
-    ('K1-bwd chain_bwd_kernel (f32 normal)', r'(?<![a-z_])chain_bwd_kernel'))
+    ('K1-fwd chain_fwd_f32_tc_kernel (f32 normal)',
+     r'(?<![a-z_])chain_fwd_f32_tc_kernel'),
+    ('K1-bwd chain_bwd_f32_tc_kernel + dw_f32_kernel (f32 normal)',
+     r'(?<![a-z_])(chain_bwd_f32_tc_kernel|dw_f32_kernel)'),
+    ('K1 pack_transposed_kernel', r'(?<![a-z_])pack_transposed_kernel'),
+    ('K1-fwd chain_fwd_kernel (CUDA cores)', r'(?<![a-z_])chain_fwd_kernel'),
+    ('K1-bwd chain_bwd_kernel (CUDA cores)', r'(?<![a-z_])chain_bwd_kernel'))
 # The BRDF prior's synthetic MERL tables: materials, rows a table, and the
 # test table's sphere render (ims 64, the one cut: the MERL converter's
 # default is 128) under the 16 x 32 'point' light
@@ -1191,15 +1531,9 @@ def run_shape_training(data_root, nerf_root, imh=IMH, outname='shape_train'):
     outdir = trainvali.main(['--config', 'shape.ini',
                              '--config_override', override])['outdir']
     torch.cuda.synchronize()
-    launches = read_counters(SHAPE_KERNELS, 'shape training')
-    cuda_core = {k: launches[k] - launches[k + ' tc'] for k in ('K1-fwd',
-                                                              'K1-bwd')}
-    cuda_core['K1-fwd'] -= launches['K1-fwd f32 tc']
-    for k, c in cuda_core.items():
-        if c <= 0:
-            raise AssertionError("the f32 normal chain's training %s never "
-                                 "launched on the CUDA cores: %s"
-                                 % (k, launches))
+    launches = f32_training_kernels(read_counters(
+        SHAPE_KERNELS + ('K1-fwd f32 tc', 'K1 pack'), 'shape training'),
+        'shape training')
     losses = train_scalars(outdir)
     config = configutil.Config(configutil.read_config(outdir + '.ini'))
     init = ShapeModel(config, device='cpu').init_params(
@@ -2365,15 +2699,16 @@ def last_skip_vs_k1(x, dy, p, cd, y, got):
     run in split TF32 on the tensor cores; bit for bit, the CUDA-core
     kernel's relative norm reported beside), and K1w-bwd's dW/db ``got``
     against K1-bwd's with dy's head column (dy's embedding columns reach
-    dx alone): whether they are the same bits, and the worst leaf's
-    relative norm."""
+    dx alone; in f32 K1's CUDA-core kernel, which K1w-bwd shares, since
+    K1-bwd with dW alone runs split TF32): whether they are the same bits,
+    and the worst leaf's relative norm."""
     with torch.no_grad():
         head_core = fm.chain_kernel_cuda_core(NO_LAST_SKIP_PLAN, x, p, cd)
         head = head_core if cd is None \
             else fm.chain_kernel(NO_LAST_SKIP_PLAN, x, p, cd)
-    k1 = flatten(fm.chain_kernel_bwd(NO_LAST_SKIP_PLAN, x,
-                                     dy[:, :1].contiguous(), p, cd,
-                                     needs_dx=False)[1])
+    bwd = fm.chain_kernel_bwd_cuda_core if cd is None else fm.chain_kernel_bwd
+    k1 = flatten(bwd(NO_LAST_SKIP_PLAN, x, dy[:, :1].contiguous(), p, cd,
+                     needs_dx=False)[1])
     return {'head_same_as_k1': torch.equal(y[:, :1], head),
             'head_rel_err_vs_cuda_core': rel_norm(y[:, :1], head_core),
             'dw_same_as_k1': all(torch.equal(a, b)
@@ -2450,6 +2785,118 @@ def run_last_skip_path(cases, p):
         del ins, y, grads
     torch.cuda.synchronize()
     return read_counters(('K1w-fwd', 'K1w-bwd'), 'last-skip chain')
+
+
+def phase1_gates(plan, scratch, n):
+    """The ReLU gate that phase 1 of the f32 dW design applied on each
+    hidden layer of ``plan``'s ``n`` rows, read from its scratch: the post
+    above 0 where the scratch holds it (each hidden layer that feeds
+    another), the d_pre not 0 on the last (a boolean tensor a layer)."""
+    tab, _ = fm.chain_dw_table(fm.mma_plan(plan), scratch.device)
+    rows = scratch.view(-1, tab.total)[:n]
+    nh = len(plan.widths) - 1
+    out = []
+    for i in range(nh):
+        col = tab.layers[i + 1].seg1 if i < nh - 1 else tab.layers[i].dpre
+        cols = rows[:, col:col + plan.widths[i]]
+        out.append(cols > 0 if i < nh - 1 else cols != 0)
+    return out
+
+
+# Rows at which f32 K1-bwd with dW alone is held on the lvis chain's
+# weights (f32_dw_by_rows): the rule's largest size for the split-TF32
+# design (fused_mlp.F32_DW_TC_MAX_ROWS) and below
+F32_DW_SWEEP_ROWS = (2048, 8192, 16384, 32768, 65536)
+
+
+def f32_dw_by_rows(params, lvis_x, seed=8, iters=10):
+    """f32 K1-bwd with dW alone on the lvis chain's weights, on K1's plan
+    for K1w's head (NO_LAST_SKIP_PLAN, last_skip_params) and on the lvis
+    plan itself (LVIS_PLAN, what f32_chains = lvis runs), at
+    F32_DW_SWEEP_ROWS of the lvis rows with a seeded cotangent: the
+    split-TF32 design (chain_kernel_bwd_dw_f32_tc), the plain-TF32
+    control (``terms`` 1) and the CUDA-core kernel, each leaf's relative
+    norm from autograd of the plain f32 version (TF32 off, what
+    DW_TOL_F32 holds) and from autograd of the float64 chain (chain_f64),
+    the plain f32 version's own from float64 beside them; the rows whose
+    smallest |pre-activation| lies within KINK_F32 of a ReLU kink (an f32
+    version may gate them either way), the gates of the design's phase 1
+    (phase1_gates) that differ from float64's, by layer, and the design's
+    dW/db from the float64 gradient under those gates (the witness that
+    a gap is the flipped gates' alone); the design's ms against the
+    CUDA-core kernel's (CUDA events, in turns), the device ms of each and
+    whether the rule sends the launch to the design. Raises where the rule does and the design
+    reads beyond DW_TOL_F32."""
+    g = torch.Generator().manual_seed(seed)
+    p_lvis = fm.params_from_tree(params['lvis_mlp'], params['lvis_out'])
+    out = []
+    for name, plan, p in (('lvis_no_skip', NO_LAST_SKIP_PLAN,
+                           last_skip_params(p_lvis)),
+                          ('lvis', LVIS_PLAN, p_lvis)):
+        flat = flatten(p)
+        for n in F32_DW_SWEEP_ROWS:
+            x = lvis_x[:n].contiguous()
+            dy = (2 * torch.rand(n, fm.out_dim(plan), generator=g) - 1).cuda()
+            leaves = [t.clone().requires_grad_() for t in flat]
+            want = torch.autograd.grad(
+                fm.chain_reference(plan, x, pairs(leaves)), leaves, dy)
+            leaves64 = [t.double().requires_grad_() for t in flat]
+            pres = []
+            y64, low = chain_f64(plan, x.double(), pairs(leaves64), pres=pres)
+            want64 = torch.autograd.grad(y64, leaves64, dy.double())
+
+            def errs(grads):
+                got = flatten(grads)
+                return ([rel_norm(a, b) for a, b in zip(got, want)],
+                        [rel_norm(a.double(), b) for a, b in zip(got, want64)])
+            scratch = []
+            kernel = fm.chain_kernel_bwd_dw_f32_tc(plan, x, dy, p,
+                                                   scratch=scratch)
+            gates = phase1_gates(plan, scratch[0], n)
+            y64 = chain_f64(plan, x.double(), pairs(leaves64), gates=gates)[0]
+            gated = torch.autograd.grad(y64, leaves64, dy.double())
+            del y64, scratch
+            core = fm.chain_kernel_bwd_cuda_core(plan, x, dy, p, None,
+                                                 needs_dx=False)[1]
+            k32, k64 = errs(kernel)
+            c32, c64 = errs(core)
+            row = {'chain': name, 'rows': n, 'dw_tol': DW_TOL_F32,
+                   'rule_takes_split_tf32': fm.bwd_on_tensor_cores(
+                       plan, None, False, True, x.device, rows=n),
+                   'dw_rel_err': max(k32), 'dw_rel_err_by_leaf': k32,
+                   'dw_f64_rel_err': max(k64),
+                   'dw_f64_rel_err_by_leaf': k64,
+                   'cuda_core_dw_rel_err': max(c32),
+                   'cuda_core_dw_f64_rel_err': max(c64),
+                   'cuda_core_dw_f64_rel_err_by_leaf': c64,
+                   'plain_f32_f64_rel_err': max(
+                       rel_norm(a.double(), b) for a, b in zip(want, want64)),
+                   'control_dw_rel_err': max(errs(
+                       fm.chain_kernel_bwd_dw_f32_tc(plan, x, dy, p, 1))[0]),
+                   'rows_near_kink': int((low < KINK_F32).sum()),
+                   'gates_flipped_by_layer': [int((gt != (q > 0)).sum())
+                                              for gt, q in zip(gates, pres)],
+                   'dw_rel_err_vs_f64_under_its_gates': max(
+                       rel_norm(a.double(), b)
+                       for a, b in zip(flatten(kernel), gated))}
+            del kernel, core, want, want64, gated, leaves, leaves64, pres
+            run = lambda: fm.chain_kernel_bwd_dw_f32_tc(  # noqa: E731
+                plan, x, dy, p)
+            run_core = lambda: fm.chain_kernel_bwd_cuda_core(  # noqa: E731
+                plan, x, dy, p, None, needs_dx=False)
+            row['ms'], row['cuda_core_ms'] = time_pair(run, run_core,
+                                                       iters=iters)
+            row['device_ms'] = device_ms_of(
+                run, ('chain_bwd_f32_tc', 'dw_f32'))['device_ms']
+            row['cuda_core_device_ms'] = device_ms_of(
+                run_core, ('chain_bwd_kernel', 'sum_slices'))['device_ms']
+            out.append(row)
+            torch.cuda.empty_cache()
+    if any(r['rule_takes_split_tf32'] and r['dw_rel_err'] > DW_TOL_F32
+           for r in out):
+        raise AssertionError("f32 K1-bwd dW in split TF32 beyond %g where "
+                             "the rule sends it: %s" % (DW_TOL_F32, out))
+    return out
 
 
 def check_last_skip(params, lvis_x):
@@ -2707,7 +3154,8 @@ TC_KERNELS = ('chain_fwd_tc_kernel', 'chain_stash_fwd_tc_kernel',
               'chain_stash_bwd_tc_kernel', 'chain_last_skip_bwd_tc_kernel',
               'nerf_bwd_tc_kernel', 'rusink_chain_bwd_tc_kernel', 'dw_kernel',
               'chain_dx_pass_kernel', 'chain_fwd_f32_tc_kernel',
-              'chain_dx_f32_tc_kernel')
+              'chain_dx_f32_tc_kernel', 'chain_bwd_f32_tc_kernel',
+              'dw_f32_kernel')
 
 
 def hmma_of(kernels, *names):
@@ -3164,7 +3612,7 @@ def tf32x3_bound(bound_):
 # Rows at which f32 K1-fwd runs both ways (f32_fwd_by_rows): from the test
 # chunk's heads (128) and a training step's (2,048) to the order of a
 # depth/normal block
-F32_SWEEP_ROWS = (128, 2048, 32768, 65536, 131072, 524288)
+F32_SWEEP_ROWS = (128, 2048, 8192, 16384, 32768, 65536, 131072, 524288)
 
 
 def f32_fwd_by_rows(plan, p, seed=0, iters=10):
@@ -3588,8 +4036,9 @@ def run_microfacet(joint_override):
                              '--config_override', override])['outdir']
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {'microfacet_training': read_counters(
-        MICROFACET_KERNELS, 'microfacet training')}
+    launches = {'microfacet_training': f32_training_kernels(read_counters(
+        MICROFACET_KERNELS + ('K1-fwd f32 tc', 'K1 pack'),
+        'microfacet training'), 'microfacet training')}
     no_k2(launches['microfacet_training'], 'microfacet training')
     losses = train_scalars(outdir)
     config = configutil.Config(configutil.read_config(outdir + '.ini'))
@@ -3618,6 +4067,42 @@ def run_microfacet(joint_override):
         'loss_train': losses, 'seconds': seconds, 'leaves': len(
             ckptutil.tree_leaves(at2)),
         'test': check_relights(run, N_VIEWS, 'microfacet test.py')}
+
+
+def f32_heads_witness(config, params, arrays, noise, steps):
+    """How far each of ``steps`` ({name: [(key, gradient)]}) and the same
+    microfacet step on the card with the f32 heads' training pair on the
+    CUDA cores (the design split TF32 replaced; F32_DW_TC_MAX_ROWS set to
+    0 for that step) sit from the CPU plain port's step whose f32 chains
+    (the heads) run in float64 (chain_f64, their outputs rounded to f32):
+    a witness of which heads' rounding lies nearer their exact math. The
+    worst relative norm of each key's leaves, by step."""
+    max_rows = fm.F32_DW_TC_MAX_ROWS
+    fm.F32_DW_TC_MAX_ROWS = 0
+    try:
+        _, cuda_core = shape_step_loss_grads(
+            config, 'cuda', params, arrays, noise, cls=MicrofacetModel)
+    finally:
+        fm.F32_DW_TC_MAX_ROWS = max_rows
+    plain = fm.chain_reference
+
+    def heads_f64(plan, x, p, compute_dtype=None):
+        if compute_dtype is not None:
+            return plain(plan, x, p, compute_dtype)
+        return chain_f64(plan, x.double(), [(w.double(), b.double())
+                                            for w, b in p])[0].float()
+    fm.chain_reference = heads_f64
+    try:
+        _, exact = shape_step_loss_grads(config, 'cpu', params, arrays, noise,
+                                         cls=MicrofacetModel)
+    finally:
+        fm.chain_reference = plain
+    out = {}
+    for name, grads in dict(steps, card_cuda_core_heads=cuda_core).items():
+        errs = out.setdefault(name, {})
+        for (k, got), (_, want) in zip(grads, exact):
+            errs[k] = max(errs.get(k, 0.0), rel_norm(got, want))
+    return out
 
 
 def check_microfacet_step(config):
@@ -3655,7 +4140,10 @@ def check_microfacet_step(config):
         raise AssertionError("microfacet step: the bf16-lobe control is "
                              "within %g on every leaf: %s"
                              % (NORM_TOL_BF16, control))
+    witness = f32_heads_witness(config, params, arrays, noise, {
+        'card': grads_k, 'plain_cpu': grads_p})
     return {'control_bf16_lobe_grad_rel_err_by_key': control,
+            'f64_heads_witness_rel_err_by_key': witness,
         'rows_lvis': 2 * N_RAYS * N_LIGHTS, 'loss_card': loss_k,
         'loss_plain_cpu': loss_p,
         'loss_abs_err': compare('microfacet step loss',
@@ -4158,7 +4646,8 @@ def run_multidevice(joint_override, train_dir, launches_train, ini, ckpt,
         torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counters(JOINT_KERNELS, 'multidevice training')
-    tc = ('K1-fwd tc', 'K1-bwd tc', 'K2-fwd tc', 'K2-bwd tc')
+    tc = ('K1-fwd tc', 'K1-bwd tc', 'K2-fwd tc', 'K2-bwd tc',
+          'K1-bwd dW f32 tc')
     if any(launches[k] != launches_train[k] for k in tc):
         raise AssertionError("--multihost launches %s, the run without %s"
                              % (launches, launches_train))
@@ -4345,8 +4834,7 @@ def view_readings(ckpt, data_root, repeats):
     relights) and nerf_test.main on a NeRF checkpoint that trainvali.main
     trains here (nerf_override's run), each run ``repeats`` times in
     turns: the spread of a tree's own runs, which host work (image writes)
-    dominates. It calls nothing but the entry points, so it runs the same
-    against an older tree's package."""
+    dominates. It calls nothing but the entry points."""
     nerf_dir = trainvali.main(['--config', 'nerf.ini', '--config_override',
                                nerf_override(data_root)])['outdir']
     nerf_ckpt = join(nerf_dir, 'checkpoints', 'ckpt-4')
@@ -4381,9 +4869,11 @@ LIMIT_READINGS = {
 def shape_k1(step, plans, fwd):
     """K1-fwd's (``fwd``) or K1-bwd's reading in the shape step: launches
     a step on and off the tensor cores, and the device ms a step of the
-    bf16 lvis chain's kernels and the f32 normal chain's (CUDA-core)
-    kernel, each beside its bound (2N rows of the normal chain, 2N x L
-    of lvis; the backwards with dW only)."""
+    bf16 lvis chain's kernels and the f32 normal chain's (split TF32 on
+    the tensor cores; the CUDA-core kernels' beside, 0 where none
+    launched), each beside its bound (2N rows of the normal chain, 2N x L
+    of lvis; the backwards with dW only; the normal chain's f32 and split
+    TF32 bounds)."""
     name = 'K1-fwd' if fwd else 'K1-bwd'
     per_step = step['launches_per_step']
     of = step['device_ms_per_step_of']
@@ -4391,19 +4881,28 @@ def shape_k1(step, plans, fwd):
     rows = 2 * N_RAYS
     if fwd:
         lvis_ms = of['K1-fwd chain_fwd_tc_kernel']
-        normal_ms = of['K1-fwd chain_fwd_kernel (f32 normal)']
+        normal_ms = of['K1-fwd chain_fwd_f32_tc_kernel (f32 normal)']
+        core_ms = of['K1-fwd chain_fwd_kernel (CUDA cores)']
     else:
         lvis_ms = of['K1-bwd chain_bwd_tc_kernel'] + of['K1-bwd dw_kernel']
-        normal_ms = of['K1-bwd chain_bwd_kernel (f32 normal)']
+        normal_ms = of['K1-bwd chain_bwd_f32_tc_kernel + dw_f32_kernel '
+                       '(f32 normal)']
+        core_ms = of['K1-bwd chain_bwd_kernel (CUDA cores)']
+    normal_bound = chain_bound(plans['normal'], rows, 'f32', 3, 3, bwd=bwd)
     return {
         'launches_per_step': {'tc': per_step.get(name + ' tc', 0),
-                              'all': per_step.get(name, 0)},
+                              'all': per_step.get(name, 0),
+                              'f32_tc': per_step.get(
+                                  'K1-fwd f32 tc' if fwd
+                                  else 'K1-bwd dW f32 tc', 0)},
         'lvis_device_ms': lvis_ms,
         'lvis_bound_ms': chain_bound(plans['lvis'], rows * N_LIGHTS, 'bf16',
                                      6, 1, bwd=bwd)['bound_ms'],
         'normal_f32_device_ms': normal_ms,
-        'normal_f32_bound': chain_bound(plans['normal'], rows, 'f32', 3, 3,
-                                        bwd=bwd),
+        'normal_f32_bound': normal_bound,
+        'normal_f32_split_tf32_bound': tf32x3_bound(normal_bound),
+        'cuda_core_device_ms': core_ms,
+        'pack_device_ms': of['K1 pack_transposed_kernel'],
         'sum_slices_device_ms': of['K1 sum_slices_kernel']}
 
 
@@ -4420,6 +4919,17 @@ def main(argv=None):
         help="k1, k1r, k1w, k2 or k3 and comma-separated seeds: print only "
              "the readings behind that kernel's error bounds over them "
              "(LIMIT_READINGS), one JSON line each, and stop")
+    parser.add_argument(
+        '--f32_heads', action='store_true',
+        help="print only the f32 heads' training pair in split TF32 against "
+             "the plain f32 version and the CUDA-core kernels, the packing "
+             "kernel, f32 K1-fwd by rows and f32 K1-bwd with dW by rows "
+             "(f32_heads_alone), and stop")
+    parser.add_argument(
+        '--steps', type=int, metavar='N',
+        help="print only the joint, shape and microfacet train steps' ms, "
+             "host CPU ms, device busy ms and idle share, each run N times "
+             "in turns (steps_alone), one JSON line each, and stop")
     parser.add_argument(
         '--view_repeats', type=int, metavar='N',
         help="print only the serving entry points' seconds per view, each "
@@ -4453,6 +4963,16 @@ def main(argv=None):
                        join(probe_dir, name + '.npy'))
     config, ckpt, joint_override = write_experiments(
         data_root, nerf_root, probe_dir)
+    if args.f32_heads:
+        print(json.dumps(f32_heads_alone(config, ckpt)))
+        print(gpu)
+        return
+    if args.steps:
+        for r in steps_alone(config, joint_override, data_root, nerf_root,
+                             args.steps):
+            print(json.dumps(r))
+        print(gpu)
+        return
     if args.limit_seeds or args.view_repeats:
         if args.limit_seeds:
             kernel, seeds = args.limit_seeds
@@ -4501,9 +5021,12 @@ def main(argv=None):
     fwd_err = check_forward(model, model_cpu, params, Dataset(config, 'test'))
 
     k1b, k2b = check_backward(model, params)
+    heads = {'joint': joint_f32_heads(model, params)}
+    torch.cuda.empty_cache()
     k1r, x_last_skip = check_stash_route(model, params)
     torch.cuda.empty_cache()
     launches_last_skip, k1w = check_last_skip(params, x_last_skip)
+    f32_dw_rows = f32_dw_by_rows(params, x_last_skip)
     plans, z_dim = model.plans, model.z_dim
     del model, model_cpu, params, x_last_skip
     torch.cuda.empty_cache()
@@ -4534,6 +5057,11 @@ def main(argv=None):
     shape_step = time_train_step(ShapeModel(shape_config, device='cuda'),
                                  Dataset(shape_config, 'train'),
                                  kernels=SHAPE_STEP_KERNELS)
+    shape_model = ShapeModel(shape_config, device='cuda')
+    heads['shape'] = f32_heads(model_head_cases(
+        shape_model, shape_model.init_params(torch.Generator().manual_seed(0)),
+        ('normal',)), torch.Generator().manual_seed(18))
+    del shape_model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches_brdf, brdf_dir, brdf_train = run_brdf_training(
@@ -4611,6 +5139,11 @@ def main(argv=None):
     micro['train_step'] = time_train_step(
         MicrofacetModel(micro_config, device='cuda'),
         Dataset(micro_config, 'train'))
+    micro_model = MicrofacetModel(micro_config, device='cuda')
+    heads['microfacet'] = f32_heads(model_head_cases(
+        micro_model, micro_model.init_params(torch.Generator().manual_seed(0)),
+        ('brdf_z', 'albedo', 'normal')), torch.Generator().manual_seed(26))
+    del micro_model
     if set(micro['train_step']['launches_per_step']) & set(NO_K2):
         raise AssertionError("K2 launched in the microfacet step: %s"
                              % micro['train_step']['launches_per_step'])
@@ -4688,9 +5221,10 @@ def main(argv=None):
         """A kernel's CUDA-core launches by path: all of its launches but
         its tensor-core ones (K1's f32 ones too)."""
         def tc(c):
-            return c[kernel + ' tc'] + c.get(
-                {'K1-fwd': 'K1-fwd f32 tc', 'K1-bwd': 'K1-bwd dx tc'}.get(
-                    kernel, ''), 0)
+            return c[kernel + ' tc'] + sum(c.get(k, 0) for k in {
+                'K1-fwd': ('K1-fwd f32 tc',),
+                'K1-bwd': ('K1-bwd dx tc', 'K1-bwd dW f32 tc')}.get(
+                    kernel, ()))
         return {p: c[kernel] - tc(c) for p, c in paths.items()
                 if c[kernel] - tc(c)}
     def f32_entry(name, replaces, readings, keys, counter, kernel, **extra):
@@ -4712,6 +5246,11 @@ def main(argv=None):
                      sass_hmma=hmma_of(tc_sass, kernel + '_kernel'), **extra)
     k1w_bf16 = [r for r in k1w if r['dtype'] == 'bf16'][0]
     k1w_f = k1w_bf16['fwd']
+    # The f32 heads' training pair: every head of phases 6, 18 and 26; the
+    # joint step's normal head (2,048 rows) the row's numbers
+    all_heads = {k: v['heads'] if isinstance(v, dict) else v
+                 for k, v in heads.items()}
+    head_b = all_heads['joint'][0]
     k3_fine = [r for r in k3 if r['rows'] > NERF_RAYS * NERF_COARSE]
     k3_bf16 = [r for r in k3_fine if r['dtype'] == 'bf16'][0]
     result = json.dumps({'kernels': [
@@ -4760,11 +5299,43 @@ def main(argv=None):
                   ('depth_normal_f32', 'depth_normal_coarse_f32'),
                   'K1-fwd f32 tc', 'chain_fwd_f32_tc',
                   min_rows_alone=fm.F32_TC_MIN_ROWS,
-                  heads=[r for r in k1 if r['dtype'] == 'f32']),
+                  heads=[r for r in k1 if r['dtype'] == 'f32'],
+                  training_heads={
+                      k: [{f: r[f] for f in HEAD_FWD_KEYS} for r in v]
+                      for k, v in all_heads.items()},
+                  pack_transposed=dict(
+                      heads['joint']['pack'],
+                      launches_by_path={p: c['K1 pack'] for p, c in
+                                        paths.items() if c.get('K1 pack')})),
         f32_entry('K1-bwd dx chain_dx_f32_tc_kernel',
                   'nerfactor_tpu/ops/pallas_mlp.py:1497', sigma_bwd,
                   ('dx_only_f32', 'dx_only_coarse_f32'), 'K1-bwd dx tc',
                   'chain_dx_f32_tc'),
+        entry('K1-bwd dW f32 chain_bwd_f32_tc_kernel + dw_f32_kernel',
+              'chain_f32_tc.cu', 'nerfactor_tpu/ops/pallas_mlp.py:1497',
+              dict(head_b, ms=head_b['bwd_ms'],
+                   plain_ms=head_b['bwd_plain_ms']),
+              head_b['bwd_bound'], counter='K1-bwd dW f32 tc',
+              max_abs_err=max(r['dw_max_abs_err'] for v in all_heads.values()
+                              for r in v),
+              max_rel_err={'dW_db': max(r['dw_rel_err']
+                                        for v in all_heads.values()
+                                        for r in v)},
+              device_ms=head_b['bwd_device_ms'],
+              phase1_device_ms=head_b['phase1_device_ms'],
+              dw_pass_device_ms=head_b['dw_pass_device_ms'],
+              launches_per_backward=head_b['bwd_launches'],
+              phase1_blocks=head_b['phase1_blocks'],
+              dw_chunks=head_b['dw_chunks'],
+              scratch_bytes=head_b['scratch_bytes'],
+              f32_cuda_core_bound_ms=head_b['bwd_f32_bound_ms'],
+              cuda_core_ms=head_b['bwd_cuda_core_ms'],
+              cuda_core_device_ms=head_b['bwd_cuda_core_device_ms'],
+              cuda_core_launches_by_path=cuda_core_by_path('K1-bwd'),
+              ptxas=ptxas_report(('chain_bwd_f32_tc', 'dw_f32')),
+              sass_hmma=hmma_of(tc_sass, 'chain_bwd_f32_tc_kernel',
+                                'dw_f32_kernel'),
+              heads=all_heads, lvis_by_rows=f32_dw_rows),
         entry('K2-fwd rusink_chain_fwd_tc_kernel', 'fused_rusink.cu',
               'nerfactor_tpu/ops/pallas_rusink.py:187', k2,
               chain_bound(plans['brdf'], k2['rows'], k2['dtype'], z_dim + 6,
@@ -4956,6 +5527,7 @@ def main(argv=None):
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},
         'pipeline_e2e': e2e, 'microfacet': micro, 'mvs': mvs,
+        'f32_heads': all_heads,
         'data_gen': data_gen, 'multidevice': multidevice,
         'smoke_s': time.perf_counter() - t_start})
     # The whole line also goes to a file: the end of a long output may be

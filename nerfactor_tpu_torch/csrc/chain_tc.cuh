@@ -6,13 +6,15 @@
 // in fused_rusink.cu) and the input-cotangent backward of a frozen chain
 // (chain_tile_dx_tc: K2-bwd in fused_rusink.cu, K1-bwd with dx only in
 // fused_mlp.cu). Phase 1 with dW of K1-bwd, K1r-bwd and K1w-bwd
-// (chain_tile_bwd_tc) and K1w-bwd's dx pass stay in fused_mlp.cu.
+// (chain_tile_bwd_tc) and K1w-bwd's dx pass stay in fused_mlp.cu, f32
+// K1-bwd's with dW (chain_tile_bwd_f32_tc) in chain_f32_tc.cu: both run
+// this loop with its scratch store on.
 //
 // The loop, the two tiles and their layouts take tc_gemm's product policy
 // (mma_bf16.cuh) as a template argument P. MmaBf16, the default, is every
 // bf16 kernel's: embedding, posts and d_pre in bf16, as they were before
-// the policy existed. MmaTf32x3 (K1's f32 forward and dx-only backward,
-// the TPU kernels _fwd_kernel_trig_t and _bwd_kernel_trig_t in f32) keeps
+// the policy existed. MmaTf32x3 (K1's f32 forward and backwards, the TPU
+// kernels _fwd_kernel_trig_t and _bwd_kernel_trig_t in f32) keeps
 // every operand f32 in shared memory and streams f32 weights through the
 // same ring, a stage the same bytes (16 K rows where bf16 holds 32): the
 // sigma chain's dx block (8 x 256, embedding 63) takes ~175 KB, its
@@ -262,9 +264,10 @@ struct EmbedStash {
 // raw rows are in shared memory (layout L, at policy P): the embedding
 // (`embed`, one of the loaders above), then each hidden layer through
 // tc_gemm<P>, its epilogue writing T(act(v + b)) over its operand. kStore
-// (the bf16 backward's phase 1): the embedding and the posts that feed a
-// later hidden layer also go to the tile's scratch `st` (kPairs rows of the
-// caller's chain_cols, `cols`). kMask (an input-cotangent backward,
+// (a backward's phase 1 with dW): the embedding and the posts that feed a
+// later hidden layer also go to the tile's scratch `st` (the caller's
+// chain_cols, `cols`: in bf16 kPairs row pairs of 32-bit words, in f32
+// kTcRows rows of floats, `st` cast). kMask (an input-cotangent backward,
 // chain_tile_dx_tc; every hidden act ReLU): the posts that feed a later
 // hidden layer keep their signs in `mask` (relu_mask_epilogue,
 // dx_mask_stride words a layer). Returns the buffer that holds the last
@@ -281,7 +284,6 @@ __device__ typename P::T* chain_hidden_tc(const ChainDesc& d, const ChainTcLayou
                                           uint32_t* st, uint16_t* mask = nullptr,
                                           Embed embed = {}) {
   using T = typename P::T;
-  static_assert(!kStore || sizeof(T) == 2, "the scratch holds bf16");
   const float* xs = reinterpret_cast<const float*>(smem + L.xs);
   T* es = reinterpret_cast<T*>(smem + L.es);
   // h holds the latest result; each product writes ho, then the two swap.
@@ -293,7 +295,12 @@ __device__ typename P::T* chain_hidden_tc(const ChainDesc& d, const ChainTcLayou
   const int total = cols.total;
   embed(d, xs, es, L.lde);
   __syncthreads();
-  if constexpr (kStore) store_pairs(es, L.lde, e16, st, total, 0);
+  if constexpr (kStore) {
+    if constexpr (sizeof(T) == 2)
+      store_pairs(es, L.lde, e16, st, total, 0);
+    else
+      store_rows(es, L.lde, e16, reinterpret_cast<float*>(st), total, 0);
+  }
   tc::TcAOf<T> a{es, L.lde, e16, nullptr, 0, 0};
   for (int i = 0; i < nh; ++i) {
     const int act = d.acts[i], col = cols.post[i], k = a.k1 + a.k2;

@@ -11,6 +11,7 @@
 // (cudaGetLastError), as an out-of-range shared access faults on the card.
 #define NFK_EMU 1
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -83,6 +84,15 @@ inline const char* cudaGetErrorString(cudaError_t e) {
   return e == kEmuSmemOverrun ? "shared memory written past the launch's size (emulated)"
                               : "emulated";
 }
+// Blocks run one after another here, so a fence has nothing to order
+// across blocks; the counter's add is atomic all the same (the threads of a
+// block run at once)
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+template <typename T>
+T __ldcg(const T* p) { return *p; }
 using std::max;
 using std::min;
 inline void sincosf(float x, float* s, float* c) { *s = sinf(x); *c = cosf(x); }

@@ -21,12 +21,13 @@
 //     bounds phase 1: the weight ring's barrier every 32 K, the epilogues
 //     and the head on the CUDA cores, not the tensor cores' rate.
 //   * f32 on K1's route, on the same plans with an f32 block that fits,
-//     where no CUDA-core backward recomputes the forward (distillation's
-//     sigma chain, 8 x 256, whose backward is the dx-only kernel below,
-//     and its coarse pass: a forward autograd differentiates with dW
-//     stays on the CUDA cores, so both gate each ReLU alike; a forward
-//     alone from F32_TC_MIN_ROWS rows, below which packing the f32
-//     weights outlasts the kernel's saving):
+//     where no CUDA-core backward recomputes the forward: under autograd
+//     at any size where the backward is one of the split-TF32 designs
+//     below (the training heads, dW alone; distillation's sigma chain, 8
+//     x 256, dx alone), so the forward and the backward's recompute gate
+//     each ReLU alike; a forward alone from F32_TC_MIN_ROWS rows, below
+//     which the wrapper's host work (the packing kernel's launch among
+//     it) outlasts the kernel's saving:
 //     chain_fwd_f32_tc_kernel (chain_f32_tc.cu, built beside this
 //     source), the same
 //     tile at the split-TF32 policy (chain_tc.cuh, MmaTf32x3): f32
@@ -49,6 +50,8 @@
 //     head or into it; a head wider than 8; hidden layers too wide for
 //     the block):
 //     chain_fwd_kernel on the CUDA cores, described below.
+//   The tensor-core kernels read each hidden layer's W^T, which the
+//   wrapper packs on the card in one launch (pack_transposed.cu).
 //
 // K1-bwd replaces _pallas_backward_trig_t -> _bwd_kernel_trig_t (with
 // _bwd_layers_trig_t): it recomputes each tile's forward, then returns
@@ -57,7 +60,7 @@
 // and db is the column sum of the unrounded d_pre; a head of at most 8
 // columns is a tiny f32 product (the TPU kernel's _tiny_head). No float
 // atomicAdd: the same input gives bit-identical dW/db on the same card.
-// It runs as one of three designs, chosen by a rule on the plan and the
+// It runs as one of four designs, chosen by a rule on the plan and the
 // flags (ops/fused_mlp.py bwd_on_tensor_cores):
 //
 //   * bf16 with dW only, a head of at most 8 columns with no skip after it
@@ -109,10 +112,24 @@
 //     columns as two products, so one activation buffer holds); the trig
 //     chain rule (embed_bwd). ~175 KB of shared memory: one block an SM.
 //     Bound as the f32 forward.
-//   * every other call (f32 with dW, f32 K1r and K1w, bf16 dx on K1 and
-//     K1r, a non-ReLU hidden layer in f32 with dx only, a skip after the
-//     head or into it, a wider head, hidden layers too wide for phase 1's
-//     block, from ~600 columns): chain_bwd_kernel on the CUDA cores. A block keeps a
+//   * f32 with dW only (the training heads: the joint model's albedo and
+//     brdf_z, the shape model's normal, the microfacet roughness) on K1's
+//     route, every hidden act ReLU, a head of at most 8, up to
+//     F32_DW_TC_MAX_ROWS rows: the bf16 dW-only design in split TF32, two
+//     launches (chain_f32_tc.cu's header): phase 1
+//     chain_bwd_f32_tc_kernel, whose recompute is the f32 forward's own
+//     loop at its policy (each ReLU gates as in the output), writing an
+//     f32 scratch (~3.8 KB a row at 128 x 4); then dw_f32_kernel, X^T D
+//     in split TF32 over 64 x 64 tiles and up to 8 row chunks, the last
+//     chunk of a tile adding the partials in chunk order and the grid's
+//     last blocks phase 1's slices (no sum_slices). Bound, at 2,048 rows,
+//     by phase 1's 32 blocks (one a tile) and their products' latency,
+//     not by the tensor cores' rate.
+//   * every other call (f32 with dx and dW, f32 dW past
+//     F32_DW_TC_MAX_ROWS rows, f32 K1r and K1w, bf16 dx on K1 and K1r, a
+//     non-ReLU hidden layer in f32, a skip after the head or into it, a
+//     wider head, hidden layers too wide for phase 1's block, from ~600
+//     columns): chain_bwd_kernel on the CUDA cores. A block keeps a
 //     row tile's embedding, every hidden post and two f32 cotangent rows
 //     in shared memory, streams each layer's weights through a 32 x 128
 //     tile, and runs the recompute (layer_pass), d_pre @ W^T (dgrad_pass)

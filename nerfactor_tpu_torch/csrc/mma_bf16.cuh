@@ -585,6 +585,29 @@ __device__ inline void store_frag_pairs(const bf16 (&y)[tc::kTcM][4], uint32_t* 
     }
 }
 
+// The f32 backward's scratch (K1-bwd with dW in split TF32) keeps its rows
+// as they are: a tile is kTcRows rows of `total` floats. store_rows writes
+// columns [0, cols) of a tile's rows (f32 in shared memory, ld) from
+// column col0; store_frag_rows a tc_gemm result fragment's values y (rows
+// and columns as store_frag_pairs reads them) from column col.
+__device__ inline void store_rows(const float* src, int ld, int cols, float* st, int total,
+                                  int col0) {
+  for (int idx = threadIdx.x; idx < tc::kTcRows * cols; idx += kThreads) {
+    const int r = idx / cols, c = idx % cols;
+    st[r * total + col0 + c] = src[r * ld + c];
+  }
+}
+
+__device__ inline void store_frag_rows(const float (&y)[tc::kTcM][4], float* st, int total,
+                                       int col) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < tc::kTcM; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[(16 * m + g + 8 * (e >> 1)) * total + col + 2 * t + (e & 1)] = y[m][e];
+}
+
 // The bf16 value of row r, column c of the scratch tile `st`.
 __device__ __forceinline__ float scratch_at(const uint32_t* st, int total, int r, int c) {
   const uint32_t v = st[(r >> 1) * total + c];
@@ -593,7 +616,8 @@ __device__ __forceinline__ float scratch_at(const uint32_t* st, int total, int r
 }
 
 // A forward product's epilogue: out = T(act(v + b)) into the tile's buffer
-// (ld ldo) and, with kStore (bf16), its scratch columns from col. ReLU,
+// (ld ldo) and, with kStore, its scratch columns from col (bf16: row
+// pairs; f32: rows, store_frag_rows). ReLU,
 // every hidden layer's act in the shipped chains and fields, takes its own
 // loop: `activate`'s switch on each of the 16 values costs phase 1 more
 // than its products (the same values either way).
@@ -622,7 +646,12 @@ __device__ inline void fwd_epilogue(int c0, const float (&v)[tc::kTcM][4], int a
         out[r * ldo + c] = y[m][e];
       }
   }
-  if constexpr (kStore) store_frag_pairs(y, st, total, col + c0);
+  if constexpr (kStore) {
+    if constexpr (sizeof(T) == 2)
+      store_frag_pairs(y, st, total, col + c0);
+    else
+      store_frag_rows(y, reinterpret_cast<float*>(st), total, col + c0);
+  }
 }
 
 // A d_pre @ W^T product's epilogue, which makes the next layer's d_pre:

@@ -10,8 +10,10 @@ over rays x 512 lights. :func:`apply_chain` runs one such chain:
     f32 as split TF32 on K1's route where no CUDA-core backward
     recomputes it); under autograd the backward is
     kernel K1-bwd, which recomputes the forward and returns the input
-    and/or weight cotangents (f32 with dx alone on the tensor cores where
-    :func:`bwd_on_tensor_cores` says so);
+    and/or weight cotangents (f32 with dx alone or dW alone on the tensor
+    cores, split TF32, where :func:`bwd_on_tensor_cores` says so); the
+    tensor-core kernels read the hidden weights transposed, which
+    :func:`transposed_weights` packs on the card in one launch;
   * on a CPU tensor it runs :func:`chain_reference`, the plain PyTorch
     version of the same math under ordinary autograd (the oracle the
     tests and ``chip_smoke.py`` hold the kernels against).
@@ -422,8 +424,7 @@ def _chain_fwd(plan, x, params, compute_dtype, tc, stash_route=False,
     if stash_route and with_stash and trig_dim(plan):
         stash = torch.empty((n, trig_dim(plan)),
                             dtype=kernel_dtype(compute_dtype), device=x.device)
-    wt = transposed_weights(kplan, params, x.device, w_flat.dtype) \
-        if tc else None
+    wt = transposed_weights(kplan, w_flat, desc) if tc else None
     if n and tc:
         args = (x.data_ptr(), w_flat.data_ptr(), wt.data_ptr(),
                 b_flat.data_ptr(), y.data_ptr())
@@ -454,7 +455,7 @@ def _chain_fwd_f32_tc(plan, x, params, terms=3):
         kplan, [('x', x, raw_dim(plan))], params, None)
     n = x.shape[0]
     y = torch.empty((n, out_dim(plan)), dtype=torch.float32, device=x.device)
-    wt = transposed_weights(kplan, params, x.device, torch.float32)
+    wt = transposed_weights(kplan, w_flat, desc)
     if n:
         run('nfk_chain_fwd_tc_f32', x.device, ctypes.addressof(desc),
             x.data_ptr(), w_flat.data_ptr(), wt.data_ptr(), b_flat.data_ptr(),
@@ -667,8 +668,10 @@ def pack_transposed(ws, tab, dtype=torch.bfloat16):
     for K1's f32 kernels): per layer of ``tab`` W^T, (n, round16(k1) +
     round16(k2)), each K segment zero-padded to a multiple of 16, one after
     another. Each segment is copied (and rounded to ``dtype``) straight
-    into the one buffer: the forward kernels' wrappers pack at every
-    launch."""
+    into the one buffer. The plain version of ``nfk_pack_transposed``
+    (:func:`pack_transposed_kernel`), which the chain wrappers launch on
+    CUDA tensors, and what they run on the CPU; the fields' K3 wrappers
+    (``fused_nerf``) pack with it on the card too."""
     widths = [round16(l.k1) + round16(l.k2) for l in tab.dense()]
     out = ws[0].new_zeros(sum(l.n * k for l, k in zip(tab.dense(), widths)),
                           dtype=dtype)
@@ -738,27 +741,44 @@ def _tc_runs(plan, device, bwd):
 
 
 @functools.lru_cache(maxsize=None)
-def _f32_tc_runs(plan, device, dx):
-    """Whether the library's f32 tensor-core K1-fwd (``dx`` False) or
-    K1-bwd with dx only runs ``plan`` as :func:`mma_plan`'s
-    (``nfk_chain_f32_tc_runs``): no skip after the head, a head of at most
-    8 columns after at least one hidden layer, with no skip into it, f32
-    blocks that fit the card's shared memory and, for the backward, every
-    hidden act ReLU. Kept per plan and device, as :func:`_tc_runs`."""
+def _f32_tc_runs(plan, device, dx, dw=False):
+    """Whether the library's f32 tensor-core K1-fwd (``dx`` and ``dw``
+    False), K1-bwd with dx only (``dx``) or K1-bwd with dW only (``dw``)
+    runs ``plan`` as :func:`mma_plan`'s (``nfk_chain_f32_tc_runs``): no
+    skip after the head, a head of at most 8 columns after at least one
+    hidden layer, with no skip into it, f32 blocks that fit the card's
+    shared memory and, for the backwards, every hidden act ReLU. Kept per
+    plan and device, as :func:`_tc_runs`."""
     desc, runs = make_desc(mma_plan(plan)), ctypes.c_int(0)
-    run('nfk_chain_f32_tc_runs', device, ctypes.addressof(desc), int(dx),
-        ctypes.byref(runs), stream=False)
+    run('nfk_chain_f32_tc_runs', device, ctypes.addressof(desc),
+        2 if dw else int(dx), ctypes.byref(runs), stream=False)
     return runs.value != 0
 
 
 # Rows from which an f32 K1-fwd with no backward to follow runs split TF32
-# on the tensor cores. On an H100 (chip_smoke.py f32_fwd_by_rows) the
-# wrapper's packing of the f32 transposed weights (~0.2 ms of host time a
-# launch) outlasts the kernel's saving on a 128 x 4 head up to ~32,768
-# rows (at the test chunk's 128 rows, 0.08 ms of device time), and the
-# gain is clear from 65,536; on NeRF's 256 x 8 sigma chain split TF32 is
-# faster at every size
-F32_TC_MIN_ROWS = 65536
+# on the tensor cores. On an H100 (chip_smoke.py f32_fwd_by_rows, the
+# transposed weights packed on the card) a launch on a 128 x 4 head is
+# host-bound up to ~8,192 rows either way: split TF32 0.158-0.165 ms
+# against the CUDA cores' 0.142-0.161, though its device time is 0.048
+# ms against 0.126-0.133; from 16,384 rows it is faster (0.156 against
+# 0.169), from 32,768 clearly (0.198 against 0.331). On NeRF's 256 x 8
+# sigma chain split TF32 is faster at every size
+F32_TC_MIN_ROWS = 16384
+
+# Rows up to which f32 K1-bwd with dW runs split TF32 on the tensor cores.
+# Split TF32 rounds each pre-activation otherwise than f32 does, so the
+# more rows, the likelier a ReLU whose pre-activation lies within rounding
+# of 0 gates the other way, and one such gate moves its layer's dW/db, and
+# every layer's below, by that unit's whole contribution. On an H100
+# (chip_smoke.py f32_dw_by_rows, the lvis chain's weights) the design
+# reads within 1e-6 of float64 up to 8,192 rows; from 16,384 rows one
+# gate of 8.4 million flips and the first two layers' dW/db read up to
+# 5e-4 from float64 (the plain f32 version 5e-7), past DW_TOL_F32, though
+# within 7e-7 under the design's own gates. Past this limit the backward,
+# and so its forward, stay on the CUDA cores, which need no scratch either
+# (phase 1's f32 scratch of every hidden layer's input and d_pre takes
+# ~3.8 KB a row at 128 x 4: 7.9 MB at a training step's 2,048 rows)
+F32_DW_TC_MAX_ROWS = 8192
 
 
 def fwd_on_tensor_cores(plan, compute_dtype, device, stash_route=False,
@@ -772,17 +792,19 @@ def fwd_on_tensor_cores(plan, compute_dtype, device, stash_route=False,
     then a forward that autograd will differentiate (``backward``, the
     (needs_dx, needs_dw) of its backward) takes it with a backward that
     :func:`bwd_on_tensor_cores` sends to the tensor cores too (dx alone,
-    every hidden act ReLU), whatever its size: a CUDA-core backward
-    recomputes the forward on the CUDA cores, so the forward stays there
-    and both gate each ReLU alike. A forward alone (``backward`` None or
-    neither) takes it from :data:`F32_TC_MIN_ROWS` ``rows`` (None: the
-    plan alone). Every other launch (f32 K1r and K1w, f32 with dW, a small
-    f32 forward alone, any other plan) runs the CUDA-core
+    or dW alone up to :data:`F32_DW_TC_MAX_ROWS` ``rows``; every hidden act
+    ReLU), whatever its size: such a backward recomputes the forward with
+    the forward's own tile code, so both gate each ReLU alike, where a
+    CUDA-core backward recomputes it on the CUDA cores, and the forward
+    then stays there too. A forward alone (``backward`` None or neither)
+    takes it from :data:`F32_TC_MIN_ROWS` ``rows`` (None: the plan alone).
+    Every other launch (f32 K1r and K1w, f32 with dx and dW, a small f32
+    forward alone, any other plan) runs the CUDA-core
     ``chain_fwd_kernel``."""
     if kernel_dtype(compute_dtype) == torch.float32:
         if backward is not None and any(backward):
             if not bwd_on_tensor_cores(plan, compute_dtype, *backward,
-                                       device):
+                                       device, rows=rows):
                 return False
         elif rows is not None and rows < F32_TC_MIN_ROWS:
             return False
@@ -792,21 +814,28 @@ def fwd_on_tensor_cores(plan, compute_dtype, device, stash_route=False,
 
 
 def bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw, device,
-                        stash_route=False):
+                        stash_route=False, rows=None):
     """Whether a K1-bwd, K1r-bwd (``stash_route``) or K1w-bwd launch on
     ``device`` runs a tensor-core design. In bf16 (phase 1 and the dW
     pass, ``nfk_chain_bwd_tc``, ``nfk_chain_stash_bwd_tc``; for a
     last-skip plan phase 1, the dW pass and the dx pass,
     ``nfk_chain_last_skip_bwd_tc``): a plan that the library says phase 1
     runs (:func:`_tc_runs`), and dW without dx or, for a last-skip plan,
-    dx or dW or both. In f32 (``nfk_chain_bwd_dx_tc_f32``, one kernel): dx
-    without dW on K1's route (not the stash route, no skip after the head)
-    and a plan the f32 kernel runs (:func:`_f32_tc_runs`: every hidden act
-    ReLU). Every other launch (f32 with dW, f32 K1r and K1w, bf16 dx on K1
-    or K1r, any other plan) runs the CUDA-core ``chain_bwd_kernel``."""
+    dx or dW or both. In f32, split TF32, on K1's route (not the stash
+    route, no skip after the head) and a plan the f32 kernels run
+    (:func:`_f32_tc_runs`: every hidden act ReLU): dx without dW
+    (``nfk_chain_bwd_dx_tc_f32``, one kernel), or dW without dx over at
+    most :data:`F32_DW_TC_MAX_ROWS` ``rows`` (None: the plan alone;
+    ``nfk_chain_bwd_dw_tc_f32``: phase 1 and the dW pass). Every other
+    launch (f32 with dx and dW, f32 dW past that size, f32 K1r and K1w,
+    bf16 dx on K1 or K1r, any other plan) runs the CUDA-core
+    ``chain_bwd_kernel``."""
     if kernel_dtype(compute_dtype) == torch.float32:
-        return needs_dx and not needs_dw and not stash_route \
-            and not last_skip(plan) and _f32_tc_runs(plan, device, dx=True)
+        if needs_dx == needs_dw or stash_route or last_skip(plan):
+            return False
+        if needs_dw and rows is not None and rows > F32_DW_TC_MAX_ROWS:
+            return False
+        return _f32_tc_runs(plan, device, dx=needs_dx, dw=needs_dw)
     if not (needs_dx or needs_dw) or (needs_dx and not last_skip(plan)):
         return False
     return _tc_runs(plan, device, bwd=True)
@@ -853,12 +882,53 @@ def unpad_grads(plan, grads):
                 plan.widths)]
 
 
-def transposed_weights(kplan, params, device, dtype=torch.bfloat16):
-    """The hidden layers' weights of ``params`` transposed for the
-    tensor-core kernels of ``kplan`` (an :func:`mma_plan`) at ``dtype``, as
-    :func:`pack_transposed` lays them out over the library's table."""
+def hidden_weights(kplan, w_flat):
+    """The hidden layers' W, each (din, dout), as views of the packed
+    weights ``w_flat`` of ``kplan`` (:func:`pack_params`' layout)."""
+    out, off = [], 0
+    for din, dout in list(zip(layer_in_dims(kplan), kplan.widths))[:-1]:
+        out.append(w_flat[off:off + din * dout].view(din, dout))
+        off += din * dout
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _wt_numel(kplan, device):
+    """Values of :func:`pack_transposed`'s buffer for ``kplan``."""
     tab, _ = chain_dw_table(kplan, device)
-    return pack_transposed([w for w, _ in params[:-1]], tab, dtype)
+    return sum(l.n * (round16(l.k1) + round16(l.k2)) for l in tab.dense())
+
+
+def pack_transposed_kernel(kplan, w_flat, desc=None):
+    """Launches ``nfk_pack_transposed`` (``csrc/pack_transposed.cu``): the
+    hidden layers' W^T of the packed weights ``w_flat`` (bf16 or f32) of
+    ``kplan`` (an :func:`mma_plan`; ``desc`` its :func:`make_desc` where
+    the caller has it) in one launch, the bits :func:`pack_transposed`
+    gives. Counts its launches in ``pack_transposed_kernel.launches``."""
+    wt = torch.empty(_wt_numel(kplan, w_flat.device), dtype=w_flat.dtype,
+                     device=w_flat.device)
+    if desc is None:
+        desc = make_desc(kplan)
+    run('nfk_pack_transposed', w_flat.device, ctypes.addressof(desc),
+        int(w_flat.dtype == torch.bfloat16), w_flat.data_ptr(), wt.data_ptr())
+    pack_transposed_kernel.launches += 1
+    return wt
+
+
+pack_transposed_kernel.launches = 0
+
+
+def transposed_weights(kplan, w_flat, desc=None):
+    """The hidden layers' weights transposed for the tensor-core kernels of
+    ``kplan`` (an :func:`mma_plan`; ``desc`` as
+    :func:`pack_transposed_kernel` takes it), at the type of its packed
+    weights ``w_flat``: on a CUDA tensor one launch of the packing kernel
+    (:func:`pack_transposed_kernel`), on a CPU tensor its plain version
+    :func:`pack_transposed`, the same bits."""
+    if w_flat.is_cuda:
+        return pack_transposed_kernel(kplan, w_flat, desc)
+    tab, _ = chain_dw_table(kplan, w_flat.device)
+    return pack_transposed(hidden_weights(kplan, w_flat), tab, w_flat.dtype)
 
 
 def tc_bwd_sizes(plan, n, device):
@@ -895,7 +965,7 @@ def _chain_bwd_tc(plan, x, dy, params, wt=None, stash_route=False,
     size = tc_bwd_sizes(kplan, n, device)
     tab, _ = chain_dw_table(kplan, device)
     if wt is None:
-        wt = transposed_weights(kplan, params, device)
+        wt = transposed_weights(kplan, w_flat, desc)
     if wt.numel() != size['wt']:
         raise RuntimeError("transposed weights: %d values, the kernel reads "
                            "%d" % (wt.numel(), size['wt']))
@@ -956,7 +1026,7 @@ def _chain_bwd_dx_tc_f32(plan, x, dy, params, wt=None, terms=3):
         kplan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
         None)
     if wt is None:
-        wt = transposed_weights(kplan, params, x.device, torch.float32)
+        wt = transposed_weights(kplan, w_flat, desc)
     if wt.dtype != torch.float32:
         raise ValueError("the f32 tensor-core K1-bwd reads f32 transposed "
                          "weights, got %s" % wt.dtype)
@@ -968,13 +1038,69 @@ def _chain_bwd_dx_tc_f32(plan, x, dy, params, wt=None, terms=3):
     return dx
 
 
+@functools.lru_cache(maxsize=64)
+def tc_bwd_f32_sizes(plan, n, device):
+    """What one f32 tensor-core K1-bwd with dW launch over ``n`` rows
+    needs, as the library sizes it (``nfk_chain_bwd_dw_tc_f32_sizes``):
+    floats of the scratch and of ``part``, phase 1's slices and the dW
+    pass's row chunks. Kept per plan, rows and device (a training step's
+    heads ask it at every launch with the same rows)."""
+    desc = make_desc(plan)
+    scratch, part = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    slices, chunks = ctypes.c_int(0), ctypes.c_int(0)
+    run('nfk_chain_bwd_dw_tc_f32_sizes', device, ctypes.addressof(desc), n,
+        ctypes.byref(scratch), ctypes.byref(part), ctypes.byref(slices),
+        ctypes.byref(chunks), stream=False)
+    return {'scratch': scratch.value, 'part': part.value,
+            'slices': slices.value, 'chunks': chunks.value}
+
+
+def _chain_bwd_dw_tc_f32(plan, x, dy, params, wt=None, terms=3,
+                         scratch=None):
+    """Launches ``nfk_chain_bwd_dw_tc_f32``, f32 K1-bwd with dW only on
+    the tensor cores (``terms`` TF32 products: 3, or the control's 1):
+    phase 1 and the dW pass, over the weights padded to
+    :func:`mma_plan`'s widths where they differ and their f32 transposes
+    ``wt`` (packed here when None). ``scratch``: a list that receives
+    phase 1's scratch (kernel tests read its posts). Returns [(dW, db)] of
+    ``plan``, f32."""
+    kplan = mma_plan(plan)
+    if kplan != plan:
+        params = pad_params(plan, params)
+    (x, dy), desc, _, w_flat, b_flat = prepare(
+        kplan, [('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))], params,
+        None)
+    device, n = x.device, x.shape[0]
+    if wt is None:
+        wt = transposed_weights(kplan, w_flat, desc)
+    if wt.dtype != torch.float32:
+        raise ValueError("the f32 tensor-core K1-bwd reads f32 transposed "
+                         "weights, got %s" % wt.dtype)
+    size = tc_bwd_f32_sizes(kplan, n, device)
+    # The launch writes every value: the dW pass's tiles, phase 1's slices
+    alloc = torch.empty if n else torch.zeros
+    dwb = alloc(w_flat.numel() + b_flat.numel(), dtype=torch.float32,
+                device=device)
+    st = torch.empty(size['scratch'], dtype=torch.float32, device=device)
+    part = torch.empty(size['part'], dtype=torch.float32, device=device)
+    if n:
+        run('nfk_chain_bwd_dw_tc_f32', device, ctypes.addressof(desc),
+            x.data_ptr(), dy.data_ptr(), w_flat.data_ptr(), wt.data_ptr(),
+            b_flat.data_ptr(), st.data_ptr(), part.data_ptr(), dwb.data_ptr(),
+            terms, size['slices'], size['chunks'], n)
+    if scratch is not None:
+        scratch.append(st)
+    grads = unpack_grads(kplan, dwb)
+    return grads if kplan == plan else unpad_grads(plan, grads)
+
+
 def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw, tc,
                stash_route=False, stash=None, wt=None):
     """Launches K1-bwd, K1r-bwd over ``stash`` with ``stash_route`` or,
     for a last-skip plan, K1w-bwd, for the output cotangent ``dy`` (N,
     out_dim): with ``tc`` the tensor-core design (over ``wt``, see
-    :func:`chain_kernel_bwd`; in f32 K1-bwd with dx only), else
-    nfk_chain_bwd. Returns (dx or None, [(dW, db)] or None, whether a
+    :func:`chain_kernel_bwd`; in f32 K1-bwd with dx only or dW only),
+    else nfk_chain_bwd. Returns (dx or None, [(dW, db)] or None, whether a
     kernel ran)."""
     if not (needs_dx or needs_dw):
         raise ValueError("K1-bwd launched with nothing to compute")
@@ -987,6 +1113,9 @@ def _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw, tc,
                 x.device, kernel_dtype(compute_dtype), want))
         stash = stash.contiguous()
     if tc and kernel_dtype(compute_dtype) == torch.float32:
+        if needs_dw:
+            return None, _chain_bwd_dw_tc_f32(plan, x, dy, params, wt), \
+                x.shape[0] > 0
         return _chain_bwd_dx_tc_f32(plan, x, dy, params, wt), None, \
             x.shape[0] > 0
     if tc:
@@ -1024,37 +1153,43 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
     transposed hidden weights that K1-fwd's tensor-core kernel read for
     these params, which the tensor-core backward then does not pack again.
     On the calls :func:`bwd_on_tensor_cores` takes, bf16 runs phase 1 and
-    the dW pass, f32 with dx alone ``chain_dx_f32_tc_kernel`` (split
+    the dW pass, f32 with dx alone ``chain_dx_f32_tc_kernel`` and f32
+    with dW alone ``chain_bwd_f32_tc_kernel`` and ``dw_f32_kernel`` (split
     TF32); every other call the CUDA-core ``chain_bwd_kernel``. Counts its
     launches in ``chain_kernel_bwd.launches``, those of the bf16
     tensor-core design also in ``chain_kernel_bwd.tc_launches``, those of
-    the f32 dx-only kernel in ``chain_kernel_bwd.dx_tc_launches``, and
-    those that compute dW/db (the tensor-core design's dW pass, or the
+    the f32 dx-only kernel in ``chain_kernel_bwd.dx_tc_launches``, those
+    of the f32 dW-only design in ``chain_kernel_bwd.dw_tc_f32_launches``,
+    and those that compute dW/db (a tensor-core design's dW pass, or the
     CUDA-core kernel's dW slices) in ``chain_kernel_bwd.dw_launches``."""
     _check_route(plan, 'K1-bwd', False)
     if needs_dx or needs_dw:  # before the rule asks the card
         check_inputs([('x', x, raw_dim(plan)), ('dy', dy, out_dim(plan))])
     tc = bwd_on_tensor_cores(plan, compute_dtype, needs_dx, needs_dw,
-                             x.device)
+                             x.device, rows=x.shape[0])
     dx, grads, ran = _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx,
                                 needs_dw, tc, wt=wt)
     f32 = kernel_dtype(compute_dtype) == torch.float32
     chain_kernel_bwd.launches += ran
     chain_kernel_bwd.tc_launches += int(ran and tc and not f32)
-    chain_kernel_bwd.dx_tc_launches += int(ran and tc and f32)
+    chain_kernel_bwd.dx_tc_launches += int(ran and tc and f32 and needs_dx)
+    chain_kernel_bwd.dw_tc_f32_launches += int(ran and tc and f32
+                                               and needs_dw)
     chain_kernel_bwd.dw_launches += int(ran and needs_dw)
     return dx, grads
 
 
 chain_kernel_bwd.launches = chain_kernel_bwd.tc_launches = 0
 chain_kernel_bwd.dx_tc_launches = chain_kernel_bwd.dw_launches = 0
+chain_kernel_bwd.dw_tc_f32_launches = 0
 
 
 def chain_kernel_bwd_cuda_core(plan, x, dy, params, compute_dtype=None,
                                needs_dx=True, needs_dw=True):
     """The CUDA-core K1-bwd (``chain_bwd_kernel``) in either precision:
     what :func:`chain_kernel_bwd` runs off the tensor cores, and the kernel
-    the f32 dx-only tensor-core one is held against. Counts no launch."""
+    the f32 tensor-core designs (dx only, dW only) are held against.
+    Counts no launch."""
     _check_route(plan, 'K1-bwd', False)
     return _chain_bwd(plan, x, dy, params, compute_dtype, needs_dx, needs_dw,
                       False)[:2]
@@ -1071,6 +1206,21 @@ def chain_kernel_bwd_dx_f32_tc(plan, x, dy, params, terms=3):
         raise ValueError("the f32 tensor-core K1-bwd does not take %s"
                          % (plan,))
     return _chain_bwd_dx_tc_f32(plan, x, dy, params, terms=terms)
+
+
+def chain_kernel_bwd_dw_f32_tc(plan, x, dy, params, terms=3, scratch=None):
+    """The f32 tensor-core K1-bwd with dW only (``chain_bwd_f32_tc_kernel``
+    and ``dw_f32_kernel``) with ``terms`` TF32 products: 3, what
+    :func:`chain_kernel_bwd` runs on the calls :func:`bwd_on_tensor_cores`
+    takes; 1, plain TF32, the control. Returns [(dW, db)]; ``scratch`` as
+    :func:`_chain_bwd_dw_tc_f32` takes it. Raises on a plan the design
+    does not take. Counts no launch."""
+    _check_route(plan, 'K1-bwd', False)
+    if not _f32_tc_runs(plan, x.device, dx=False, dw=True):
+        raise ValueError("the f32 tensor-core K1-bwd with dW does not take "
+                         "%s" % (plan,))
+    return _chain_bwd_dw_tc_f32(plan, x, dy, params, terms=terms,
+                                scratch=scratch)
 
 
 def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,

@@ -89,7 +89,7 @@ def _rusink_fwd(plan, z, ldir, vdir, params, compute_dtype, tc):
         return y, None, True
     (z, ldir, vdir), desc, w_flat, b_flat, params, kplan = _tc_prepare(
         plan, inputs, params)
-    wt = fm.transposed_weights(kplan, params, z.device)
+    wt = fm.transposed_weights(kplan, w_flat, desc)
     n = z.shape[0]
     y = torch.empty((n, plan.widths[-1]), dtype=torch.float32,
                     device=z.device)
@@ -142,7 +142,7 @@ def _rusink_bwd(plan, z, ldir, vdir, dy, params, compute_dtype, tc, wt=None):
         (z, ldir, vdir, dy), desc, w_flat, b_flat, params, kplan = \
             _tc_prepare(plan, inputs, params)
         if wt is None:
-            wt = fm.transposed_weights(kplan, params, z.device)
+            wt = fm.transposed_weights(kplan, w_flat, desc)
         entry, flags, weights = 'nfk_rusink_chain_bwd_tc', (), (w_flat, wt)
     else:
         (z, ldir, vdir, dy), desc, bf16, w_flat, b_flat = fm.prepare(

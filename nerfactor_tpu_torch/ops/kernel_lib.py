@@ -119,6 +119,10 @@ ARGTYPES = {
                              _PTR],
     'nfk_chain_bwd_dx_tc_f32': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                                 _I32, _I64, _PTR],
+    'nfk_chain_bwd_dw_tc_f32_sizes': [_PTR, _I64, _PTR, _PTR, _PTR, _PTR],
+    'nfk_chain_bwd_dw_tc_f32': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                _PTR, _PTR, _I32, _I32, _I32, _I64, _PTR],
+    'nfk_pack_transposed': [_PTR, _I32, _PTR, _PTR, _PTR],
     'nfk_chain_stash_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                                _PTR],
     'nfk_chain_last_skip_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,

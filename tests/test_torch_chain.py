@@ -364,7 +364,7 @@ def test_build_key_tracks_the_sources():
     names = [p.rsplit('/', 1)[-1] for p in kernel_lib._sources()]
     assert names == ['chain_f32_tc.cu', 'chain_mlp.cuh', 'chain_tc.cuh',
                      'dot_probe.cu', 'fused_mlp.cu', 'fused_nerf.cu',
-                     'fused_rusink.cu', 'mma_bf16.cuh']
+                     'fused_rusink.cu', 'mma_bf16.cuh', 'pack_transposed.cu']
 
 
 # ------ on the card ------

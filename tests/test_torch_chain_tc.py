@@ -67,29 +67,35 @@ def emulated(tmp_path_factory):
 def test_bwd_on_tensor_cores_rule(emulated):
     """bf16 with dW only takes the tensor cores, on either route
     (test_stash_route_takes_the_rules), and so does a skip after the head
-    (K1w) with dx or dW or both; f32 with dx only takes the f32 tensor-core
-    kernel on K1's route where every hidden act is ReLU. f32 with dW, f32
-    on the stash route or with a skip after the head, f32 with a non-ReLU
-    hidden layer, bf16 dx without a skip after the head, no dW and no dx,
-    a skip into the head, a head wider than 8, a head-only chain and hidden
-    layers too wide for phase 1's block (640; 512 fits) keep the CUDA-core
-    kernel."""
+    (K1w) with dx or dW or both; f32 with dx only or with dW only (up to
+    F32_DW_TC_MAX_ROWS rows) takes the f32 tensor-core design on K1's
+    route where every hidden act is ReLU. f32 with dx and dW, f32 with dW
+    past F32_DW_TC_MAX_ROWS rows, f32 on the stash route or with a skip
+    after the head, f32 with a non-ReLU hidden layer, bf16 dx without a
+    skip after the head, no dW and no dx, a skip into the head, a head
+    wider than 8, a head-only chain and hidden layers too wide for phase
+    1's block (640; 512 fits) keep the CUDA-core kernel."""
     plan = fm.make_plan(*LVIS)
     cpu = torch.device('cpu')
 
-    def rule(pl, cd, needs_dx, needs_dw, stash_route=False):
+    def rule(pl, cd, needs_dx, needs_dw, stash_route=False, rows=None):
         return fm.bwd_on_tensor_cores(pl, cd, needs_dx, needs_dw, cpu,
-                                      stash_route=stash_route)
+                                      stash_route=stash_route, rows=rows)
     assert rule(plan, BF16, False, True)
     assert rule(fm.make_plan(*TC_PLANS['w24']), BF16, False, True)
-    assert not rule(plan, None, False, True)
-    assert not rule(plan, torch.float32, False, True)
     for cd in (None, torch.float32):
         assert rule(plan, cd, True, False)
+        assert rule(plan, cd, False, True)
+        assert rule(plan, cd, False, True, rows=fm.F32_DW_TC_MAX_ROWS)
+        assert not rule(plan, cd, False, True,
+                        rows=fm.F32_DW_TC_MAX_ROWS + 1)
+        assert rule(plan, cd, True, False, rows=fm.F32_DW_TC_MAX_ROWS + 1)
         assert not rule(plan, cd, True, True)
-        assert not rule(plan, cd, True, False, stash_route=True)
-        assert not rule(plan._replace(
-            acts=('relu', 'softplus') + plan.acts[2:]), cd, True, False)
+        for needs_dx, needs_dw in ((True, False), (False, True)):
+            assert not rule(plan, cd, needs_dx, needs_dw, stash_route=True)
+            assert not rule(plan._replace(
+                acts=('relu', 'softplus') + plan.acts[2:]), cd, needs_dx,
+                needs_dw)
     assert rule(fm.make_plan(*TC_PLANS['w24']), None, True, False)
     assert not rule(plan, BF16, True, True)
     assert not rule(plan, BF16, True, False)
@@ -120,9 +126,10 @@ def test_fwd_on_tensor_cores_rule(emulated):
     (K1w), on the plans the backward's phase 1 takes (width 24 once
     padded); f32 K1-fwd takes the f32 tensor-core kernel on K1's route, on
     the same plans where its f32 block fits (256 wide; 512 does not),
-    unless autograd's backward on it will run on the CUDA cores (with dW,
-    or dx through a non-ReLU hidden layer); alone, from F32_TC_MIN_ROWS
-    rows (under autograd the backward decides). f32 on the stash route or with
+    unless autograd's backward on it will run on the CUDA cores (dx and
+    dW, dW past F32_DW_TC_MAX_ROWS rows, or a non-ReLU hidden layer);
+    alone, from F32_TC_MIN_ROWS rows (under autograd the backward
+    decides). f32 on the stash route or with
     a skip after the head, a skip into the head, a head wider than 8, a
     head-only chain and hidden layers too wide for the block (bf16: 640;
     512 fits) keep the CUDA-core kernel."""
@@ -138,7 +145,7 @@ def test_fwd_on_tensor_cores_rule(emulated):
     assert rule(plan, torch.float32)
     assert rule(fm.make_plan(*TC_PLANS['w24']), None)
     for backward, ok in (((True, False), True), ((False, False), True),
-                         ((True, True), False), ((False, True), False)):
+                         ((True, True), False), ((False, True), True)):
         assert rule(plan, None, backward=backward) == ok
         assert rule(plan, BF16, backward=backward)
     for rows, ok in ((1, False), (fm.F32_TC_MIN_ROWS - 1, False),
@@ -146,11 +153,18 @@ def test_fwd_on_tensor_cores_rule(emulated):
         assert rule(plan, None, rows=rows) == ok
         assert rule(plan, None, backward=(False, False), rows=rows) == ok
         assert rule(plan, None, backward=(True, False), rows=rows)
+        assert rule(plan, None, backward=(False, True), rows=rows) == (
+            rows <= fm.F32_DW_TC_MAX_ROWS)
         assert not rule(plan, None, backward=(True, True), rows=rows)
         assert rule(plan, BF16, rows=rows)
+    assert rule(plan, None, backward=(False, True),
+                rows=fm.F32_DW_TC_MAX_ROWS)
+    assert not rule(plan, None, backward=(False, True),
+                    rows=fm.F32_DW_TC_MAX_ROWS + 1)
     softplus = plan._replace(acts=('relu', 'softplus') + plan.acts[2:])
     assert rule(softplus, None)
     assert not rule(softplus, None, backward=(True, False))
+    assert not rule(softplus, None, backward=(False, True))
     assert not rule(plan, None, stash_route=True)
     assert rule(plan, BF16, stash_route=True)
     for skip_at in ((4,), (2, 4)):

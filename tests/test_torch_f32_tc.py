@@ -157,10 +157,11 @@ def test_emulated_f32_rules_take_the_tensor_cores(emulated, monkeypatch):
     """f32 K1-fwd alone from F32_TC_MIN_ROWS rows (lowered to 3 here) and
     f32 K1-bwd with dx only on the sigma chains launch the split-TF32
     entries (one launch each, counted on their own counters), a forward
-    alone below that size the CUDA-core entry; f32 with dW keeps the
-    CUDA-core K1-bwd and, under autograd, the CUDA-core K1-fwd before it,
-    which the backward recomputes; under autograd with dx alone both run
-    split TF32 whatever the size."""
+    alone below that size the CUDA-core entry; f32 with dx and dW keeps
+    the CUDA-core K1-bwd and, under autograd, the CUDA-core K1-fwd before
+    it, which the backward recomputes; under autograd with dx alone both
+    run split TF32 whatever the size (with dW alone too:
+    tests/test_torch_f32_dw_tc.py)."""
     _, _, plan, p, x, dy = case(SIGMA_NARROW, 3, 40)
     x, dy = torch.from_numpy(x), torch.from_numpy(dy)
     monkeypatch.setattr(fm, 'F32_TC_MIN_ROWS', 3)

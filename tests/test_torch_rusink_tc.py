@@ -162,7 +162,10 @@ def test_apply_rusink_chain_hands_packed_weights_to_backward_on_card(
     grads = torch.autograd.grad(y, args + flat, dy)
     torch.cuda.synchronize()
     assert len(packs) == 1 and packs[0] is wt
-    assert torch.equal(wt, pack(fm.mma_plan(plan), p, cuda))
+    kplan = fm.mma_plan(plan)
+    w_flat, _ = fm.pack_params(
+        kplan, fm.pad_params(plan, p) if kplan != plan else p, BF16)
+    assert torch.equal(wt, pack(kplan, w_flat))
     assert (fr.rusink_kernel.tc_launches, fr.rusink_kernel_bwd.tc_launches) \
         == (launches[0] + 1, launches[1] + 1)
     want = fr.rusink_kernel_bwd(plan, *ins, dy, p, BF16)
