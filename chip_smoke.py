@@ -122,13 +122,18 @@ the step and relight tools.
 16. tools.chain_probe with --impl fused, fused_rowmajor and ref (both
    directions, bf16) through its entry point, each with the counters
    zeroed before and read after.
-17. Kernel P against its plain version (width 128, every mode): at 4,096
-   rows, depths 4 and 8, and at the probe's shapes (1,048,576 rows, block
+17. Kernel P (wgmma, TMA and an mbarrier ring) and its mma.sync control
+   against the plain version (width 128, every mode): at 4,096 rows,
+   depths 4 and 8, and at the probe's shapes (1,048,576 rows, block
    4,096, depths 12 and 32; the grid sweep's serial depth-8 chain at each
-   of its blocks); then tools.dot_probe's slope run and grid sweep at
-   their defaults through its entry point, counters zeroed before and read
-   after, and beside it the plain version's and one torch.matmul per
-   pass's slope (P's library yardstick, which the port never calls).
+   of its blocks); the build's ptxas report (no spill), wgmma
+   serialization notes and SASS (HGMMA, no HMMA); then tools.dot_probe's
+   slope run and grid sweep at their defaults through its entry point,
+   counters zeroed before and read after; the control's slopes and sweep
+   by the same tool in turns; the kernel's device ms a launch and
+   TFLOP/s; and beside it the plain version's and
+   one torch.matmul per pass's slope (P's library yardstick, which the
+   port never calls).
 
 18. Shape stage: runs ``trainvali.main`` on shape.ini at full width
    (128 x 4, 1024 rays, 512 lights, bf16 lvis chain, fused kernels) for 4
@@ -3130,8 +3135,9 @@ def k1w_limit_readings(model, seeds):
 
 def sass_hmma(names):
     """Per kernel of the built library whose mangled name holds one of
-    ``names``: its HMMA (tensor-core) instructions in ``cuobjdump
-    --dump-sass``, one entry per copy of the kernel."""
+    ``names``: its HMMA (mma.sync) and HGMMA (wgmma) tensor-core
+    instructions in ``cuobjdump --dump-sass``, one entry per copy of the
+    kernel."""
     tool = join(dirname(kernel_lib.find_nvcc()), 'cuobjdump')
     sass = subprocess.run([tool, '--dump-sass', kernel_lib.build()],
                           capture_output=True, text=True, check=True,
@@ -3142,9 +3148,11 @@ def sass_hmma(names):
         if m:
             fn = m.group(1) if any(n in m.group(1) for n in names) else None
             if fn:
-                out.append({'function': fn, 'hmma': 0})
+                out.append({'function': fn, 'hmma': 0, 'hgmma': 0})
         elif fn and 'HMMA' in line:
             out[-1]['hmma'] += 1
+        elif fn and 'HGMMA' in line:
+            out[-1]['hgmma'] += 1
     return out
 
 
@@ -3270,11 +3278,6 @@ def run_chain_probe():
     return records, launches
 
 
-# Kernel P against its plain version (relative norm): indep sums exact
-# bf16 products in f32, so only the order differs; serial and pair round
-# to bf16 after every pass, and a value the two f32 sums round to
-# neighbouring bf16 (2^-8 apart) carries on through the later passes.
-P_TOL = {'indep': 1e-5, 'serial': 1e-2, 'pair': 1e-2}
 P_COLS = 4096
 SLOPE_DEPTHS = (4, 16)
 
@@ -3286,20 +3289,67 @@ def slope_ms(run_at_depth):
     return (t[1] - t[0]) / (SLOPE_DEPTHS[1] - SLOPE_DEPTHS[0])
 
 
+def p_check(kernel, xs, ws, mode, block):
+    """One reading of a kernel P design against the plain version; raises
+    past dp.TOL or on a non-finite output."""
+    got = kernel(xs, ws, mode, block=block)
+    want = dp.dot_chain_reference(xs, ws, mode)
+    err = rel_norm(got, want)
+    if not torch.isfinite(got).all() or err > dp.TOL[mode]:
+        raise AssertionError(
+            "P (%s) %s depth %d, %d rows, block %d: relative error %.3g > %g"
+            % (kernel.__name__, mode, ws.shape[0], xs.shape[0], block, err,
+               dp.TOL[mode]))
+    return {'mode': mode, 'depth': ws.shape[0], 'rows': xs.shape[0],
+            'block': block, 'rel_err': err, 'tol': dp.TOL[mode],
+            'max_abs_err': (got - want).abs().max().item()}
+
+
+def p_build_report():
+    """Kernel P's build: ptxas's registers and spills, its notes that it
+    serialized wgmma (per kernel), and the SASS HGMMA / HMMA counts; raises
+    unless every copy of the wgmma kernel holds HGMMA and no HMMA and
+    spills nothing."""
+    with open(join(dirname(kernel_lib.build()), 'build.log')) as f:
+        log = f.read()
+    notes = sorted(set(re.findall(
+        r"\((C75\d\d)\) Potential Performance Loss: wgmma.mma_async "
+        r"instructions are serialized due to (.*?) in the function '(\w+)'",
+        log)))
+    ptxas = ptxas_report(('dot_chain_wg', 'dot_pack'))
+    sass = sass_hmma(('dot_chain_wg_kernel', 'dot_pack_kernel',
+                      'dot_chain_mma_kernel'))
+    wg_sass = [k for k in sass if 'dot_chain_wg_kernel' in k['function']]
+    if len(wg_sass) != 3 or not all(k['hgmma'] and not k['hmma']
+                                    for k in wg_sass):
+        raise AssertionError("P: the wgmma kernel's SASS: %s" % wg_sass)
+    if any(v['spill_stores'] or v['spill_loads'] for v in ptxas.values()):
+        raise AssertionError("P: ptxas spills: %s" % ptxas)
+    return {'ptxas': ptxas, 'sass': sass,
+            'wgmma_serialized': [{'note': n, 'why': why, 'function': fn}
+                                 for n, why, fn in notes
+                                 if 'dot_chain_wg' in fn]}
+
+
 def check_dot_probe():
-    """Kernel P against its plain version at width 128: at P_COLS rows,
-    depths 4 and 8, every mode; at the shapes the probe's path gives it
-    (its default rows and block at its shallowest and deepest default
-    depth, every mode; the grid sweep's serial depth-8 chain at each of
-    its blocks). Then the probe's path, tools.dot_probe at its defaults
-    (1,048,576 rows, depths 12-32, slope per mode) and its grid sweep,
-    with the counters zeroed before and read after; then the plain
-    version's and one torch.matmul per pass's slope (bf16 operands, bf16
-    out: the serial pass as cuBLAS computes it) on the probe's operand.
-    Returns (launches, record)."""
+    """Kernel P (wgmma) and its mma.sync control against the plain version
+    at width 128: at P_COLS rows, depths 4 and 8, every mode; at the shapes
+    the probe's path gives it (its default rows and block at its
+    shallowest and deepest default depth, every mode; the grid sweep's
+    serial depth-8 chain at each of its blocks). Then the probe's path,
+    tools.dot_probe at its defaults (1,048,576 rows, depths 12-32, slope
+    per mode) and its grid sweep, with the counters zeroed before and read
+    after; the control's slopes and sweep by the same tool in the same
+    run, in turns (kernel, control, control, kernel); the kernel's device
+    ms a launch at depth 32 from a profiler window (over the launches it
+    recorded) and its TFLOP/s; then the plain version's and one
+    torch.matmul per pass's slope (bf16 operands, bf16 out: the serial
+    pass as cuBLAS computes it) on the probe's operand. Returns (launches,
+    record)."""
     rng = np.random.RandomState(8)
     gen = torch.Generator(device='cuda').manual_seed(8)
     args = dot_probe.parse_args([])
+    sweep_args = dot_probe.parse_args(['--grid_sweep'])
     cols, depths = args.cols, [int(d) for d in args.depths.split(',')]
     x = 0.1 * torch.randn(P_COLS, dp.WIDTH, generator=gen, device='cuda')
     xl = 0.1 * torch.randn(cols, dp.WIDTH, generator=gen, device='cuda')
@@ -3307,25 +3357,40 @@ def check_dot_probe():
     shapes += [(xl, depth, mode, args.block)
                for depth in (min(depths), max(depths)) for mode in dp.MODES]
     shapes += [(xl, 8, 'serial', block) for block in dot_probe.SWEEP_BLOCKS]
-    checks = []
+    checks, control_checks = [], []
     for xs, depth, mode, block in shapes:
         ws = dot_probe.make_weights(rng, depth, dp.WIDTH, 'cuda')
-        got = dp.dot_chain_kernel(xs, ws, mode, block=block)
-        want = dp.dot_chain_reference(xs, ws, mode)
-        err = rel_norm(got, want)
-        if not torch.isfinite(got).all() or err > P_TOL[mode]:
-            raise AssertionError(
-                "P %s depth %d, %d rows, block %d: relative error %.3g > %g"
-                % (mode, depth, xs.shape[0], block, err, P_TOL[mode]))
-        checks.append({'mode': mode, 'depth': depth, 'rows': xs.shape[0],
-                       'block': block, 'rel_err': err, 'tol': P_TOL[mode],
-                       'max_abs_err': (got - want).abs().max().item()})
-        del got, want
+        checks.append(p_check(dp.dot_chain_kernel, xs, ws, mode, block))
+        control_checks.append(p_check(dp._dot_chain_mma, xs, ws, mode,
+                                      block))
+    build = p_build_report()
     zero_counters()
     summary = dot_probe.main([])
     sweep = dot_probe.main(['--grid_sweep'])
     torch.cuda.synchronize()
     launches = read_counters(('P',), 'dot_probe')
+    control = [dot_probe.run(args, chain=dp._dot_chain_mma)
+               for _ in range(2)]
+    control_sweep = dot_probe.run(sweep_args, chain=dp._dot_chain_mma)
+    summary_again = dot_probe.run(args)
+    # Device ms a launch over the launches the window recorded (a window
+    # late in the smoke records only some)
+    ws = dot_probe.make_weights(rng, max(depths), dp.WIDTH, 'cuda')
+    us, seen = profiled_device_us(
+        lambda: dp.dot_chain_kernel(xl, ws, 'serial', block=args.block), 10)
+    device = {'depth': max(depths), 'launches_run': 10}
+    for key, name in (('chain', 'dot_chain_wg_kernel'),
+                      ('pack', 'dot_pack_kernel')):
+        n = sum(c for k, c in seen.items() if name in k)
+        if not n:
+            raise AssertionError("P: the profiler window recorded no %s"
+                                 % name)
+        device[key + '_device_ms'] = sum(
+            v for k, v in us.items() if name in k) / 1e3 / n
+        device[key + '_recorded'] = n
+    pass_flop = 2 * dp.WIDTH * dp.WIDTH * cols
+    device['tflops'] = pass_flop * max(depths) / (
+        device['chain_device_ms'] * 1e-3) / 1e12
     ws = dot_probe.make_weights(rng, max(SLOPE_DEPTHS), dp.WIDTH,
                                 'cuda')
 
@@ -3338,9 +3403,14 @@ def check_dot_probe():
         plain = slope_ms(lambda d: dp.dot_chain_reference(xl, ws[:d],
                                                           'serial'))
         library = slope_ms(matmul_chain)
-    return launches, {'checks': checks, 'summary': summary, 'sweep': sweep,
-                      'cols': cols, 'plain_ms_per_pass': plain,
-                      'library_ms_per_pass': library}
+    return launches, {
+        'checks': checks, 'summary': summary, 'sweep': sweep,
+        'summary_again': summary_again,
+        'mma_sync_control': {'checks': control_checks, 'summary': control,
+                             'sweep': control_sweep},
+        'device_ms_a_launch': device, 'build': build,
+        'cols': cols, 'plain_ms_per_pass': plain,
+        'library_ms_per_pass': library}
 
 
 # ------ geometry distillation (the NeRF -> buffers stage) ------
@@ -5511,6 +5581,17 @@ def main(argv=None):
               max_abs_err=max(c['max_abs_err'] for c in p_run['checks']),
               max_rel_err={m: max(c['rel_err'] for c in p_run['checks']
                                   if c['mode'] == m) for m in dp.MODES},
+              ms_per_pass={m: [r[m]['ms_per_pass'] for r in (
+                  p_run['summary'], p_run['summary_again'])]
+                  for m in dp.MODES},
+              mma_sync_control_ms_per_pass={m: [
+                  r[m]['ms_per_pass']
+                  for r in p_run['mma_sync_control']['summary']]
+                  for m in dp.MODES},
+              device_ms=p_run['device_ms_a_launch'],
+              ptxas_report=p_run['build']['ptxas'],
+              sass_hgmma=p_run['build']['sass'],
+              wgmma_serialized=p_run['build']['wgmma_serialized'],
               probe=p_run)],
         'build_s': build_s, 'view_seconds': run['view_seconds'],
         'forward_max_abs_err': fwd_err, 'imh': IMH, 'n_lights': N_LIGHTS,

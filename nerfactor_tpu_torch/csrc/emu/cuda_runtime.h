@@ -6,7 +6,9 @@
 // by the test's source translation. The "device" has 3 SMs, one block per
 // SM, and 227 KB of opt-in shared memory, as an H100 block has. Each warp
 // of 32 threads has a std::barrier for __syncwarp() (the emulated mma.sync
-// and shuffles exchange values across the warp, mma_bf16.cuh). A block that
+// and shuffles exchange values across the warp, mma_bf16.cuh), and each
+// warpgroup of 128 a std::barrier for nfk_emu_wg_sync() (the emulated
+// wgmma pools the group's A fragments, wgmma.cuh). A block that
 // writes shared memory past its launch's dynamic size fails the launch
 // (cudaGetLastError), as an out-of-range shared access faults on the card.
 #define NFK_EMU 1
@@ -37,6 +39,8 @@ inline std::barrier<>* g_bar = nullptr;
 inline std::barrier<>* g_warp_bar[32];
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_bar[threadIdx.x >> 5]->arrive_and_wait(); }
+inline std::barrier<>* g_wg_bar[8];
+inline void nfk_emu_wg_sync() { g_wg_bar[threadIdx.x >> 7]->arrive_and_wait(); }
 alignas(16) inline unsigned char smem[240 * 1024];
 // __shfl_xor_sync of 32-bit values: each lane posts its value to its
 // warp's row and reads its partner's between two __syncwarp()s
@@ -116,6 +120,11 @@ inline void mock_launch(long long grid, int block, size_t smem_bytes, std::funct
     for (int w = 0; 32 * w < block; ++w) {
       warp_bars.emplace_back(new std::barrier<>(std::min(32, block - 32 * w)));
       g_warp_bar[w] = warp_bars.back().get();
+    }
+    std::vector<std::unique_ptr<std::barrier<>>> wg_bars;
+    for (int w = 0; 128 * w < block; ++w) {
+      wg_bars.emplace_back(new std::barrier<>(std::min(128, block - 128 * w)));
+      g_wg_bar[w] = wg_bars.back().get();
     }
     std::vector<std::thread> threads;
     for (int t = 0; t < block; ++t)

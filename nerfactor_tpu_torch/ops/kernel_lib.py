@@ -153,7 +153,10 @@ ARGTYPES = {
     'nfk_nerf_dw_table': [_PTR, _PTR, _PTR],
     'nfk_tc_matmul': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _PTR],
     'nfk_tc_matmul_f32': [_PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _PTR],
-    'nfk_dot_chain': [_I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR],
+    'nfk_dot_chain': [_I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR, _PTR],
+    'nfk_dot_chain_mma': [_I32, _PTR, _PTR, _I32, _I64, _I64, _PTR, _PTR],
+    'nfk_wgmma_tile': [_PTR, _PTR, _I32, _I32, _I32, _PTR, _PTR],
+    'nfk_dot_chain_plan': [_I32, _PTR, _PTR, _PTR],
 }
 
 
@@ -172,9 +175,9 @@ def load():
 def entry(name):
     """The library's C function ``name``, bound to its ARGTYPES on first
     use. Binding by name keeps a library that lacks an entry loadable: the
-    CPU emulation of the sources leaves out ``dot_probe.cu`` (kernel P's
-    inline ``mma.sync`` assembly needs the card), and an older tree's
-    sources lack later entries."""
+    CPU emulation of the sources leaves out ``dot_probe_mma.cu`` (kernel
+    P's ``mma.sync`` control, whose inline assembly needs the card), and an
+    older tree's sources lack later entries."""
     fn = getattr(load(), name)
     if fn.argtypes is None:
         fn.argtypes = ARGTYPES[name]

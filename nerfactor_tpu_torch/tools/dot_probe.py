@@ -1,8 +1,9 @@
 """Pass rate of chained 128 x 128 bf16 products on the card's tensor
 cores (counterpart of tools/mosaic_dot_probe.py).
 
-Kernel P (``ops/dot_probe.py``, ``csrc/dot_probe.cu``) runs D passes over
-a (cols, width) operand in three dependency structures:
+Kernel P (``ops/dot_probe.py``, ``csrc/dot_probe.cu``: the warpgroup
+product ``wgmma``) runs D passes over a (cols, width) operand in three
+dependency structures:
 
   serial:  y = bf16(y W_i^T)   (each pass needs the previous one: the
                                  chains' layer after layer)
@@ -92,7 +93,14 @@ def time_ms(run, steps, device):
 def main(argv=None):
     """Runs the probe; prints one JSON line per timing and a summary line,
     and returns the summary."""
-    args = parse_args(argv)
+    return run(parse_args(argv))
+
+
+def run(args, chain=dp.dot_chain):
+    """The probe over ``chain`` (x, ws, mode, block=) -> out: kernel P's
+    entry point for the command line; ``chip_smoke.py`` also passes the
+    ``mma.sync`` control (``dot_probe._dot_chain_mma``) to read both
+    designs in one run."""
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("dot_probe: no CUDA card (--device cpu runs the "
@@ -112,7 +120,7 @@ def main(argv=None):
 
     def time_one(mode, depth, block):
         ws = make_weights(rng, depth, args.width, device)
-        return time_ms(lambda: dp.dot_chain(x, ws, mode, block=block),
+        return time_ms(lambda: chain(x, ws, mode, block=block),
                        args.steps, device)
 
     results = {}

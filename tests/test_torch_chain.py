@@ -363,8 +363,9 @@ def test_build_key_tracks_the_sources():
     assert len(key) == 16 and key == kernel_lib.build_key()
     names = [p.rsplit('/', 1)[-1] for p in kernel_lib._sources()]
     assert names == ['chain_f32_tc.cu', 'chain_mlp.cuh', 'chain_tc.cuh',
-                     'dot_probe.cu', 'fused_mlp.cu', 'fused_nerf.cu',
-                     'fused_rusink.cu', 'mma_bf16.cuh', 'pack_transposed.cu']
+                     'dot_probe.cu', 'dot_probe_mma.cu', 'fused_mlp.cu',
+                     'fused_nerf.cu', 'fused_rusink.cu', 'mma_bf16.cuh',
+                     'pack_transposed.cu', 'wgmma.cuh']
 
 
 # ------ on the card ------

@@ -385,16 +385,45 @@ def test_last_skip_kernels_match_plain_on_card(name, mode, n, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize('mode', dp.MODES)
 def test_dot_chain_kernel_matches_plain_on_card(mode, cuda):
-    """Kernel P against its plain version at width 128 (depth 4, 1,000
-    rows, two blocks of 512 with a ragged end)."""
+    """Kernel P (wgmma) and its mma.sync control against the plain version
+    at width 128: 1, 255, 1,000 and 4,099 rows (ragged ends), blocks of
+    256 and 512, depth 4 and a depth past the weight ring; one launch
+    counted a call, and two launches bit-identical."""
     rng = np.random.RandomState(72)
-    ws = torch.as_tensor(np.stack([np.linalg.qr(rng.randn(128, 128))[0]
-                                   for _ in range(4)]),
-                         dtype=torch.bfloat16, device=cuda)
-    x = 0.1 * torch.randn(1000, 128, device=cuda)
-    launches = dp.dot_chain_kernel.launches
-    got = dp.dot_chain(x, ws, mode, block=512)
-    torch.cuda.synchronize()
-    assert dp.dot_chain_kernel.launches == launches + 1
-    want = dp.dot_chain_reference(x, ws, mode)
-    assert rel_norm(got, want) <= (1e-5 if mode == 'indep' else 1e-2)
+    tol = dp.TOL[mode]
+    assert dp.plan(mode) == (dp.RING_MATS, dp.STAGE_MATS[mode],
+                             dp.CHUNK_ROWS[mode])
+    for depth in (4, dp.ring_refill_depth(mode)):
+        ws = torch.as_tensor(np.stack([np.linalg.qr(rng.randn(128, 128))[0]
+                                       for _ in range(depth)]),
+                             dtype=torch.bfloat16, device=cuda)
+        for rows in (1, 255, 1000, 4099):
+            x = 0.1 * torch.randn(rows, 128, device=cuda)
+            want = dp.dot_chain_reference(x, ws, mode)
+            for block in (256, 512):
+                launches = dp.dot_chain_kernel.launches
+                got = dp.dot_chain(x, ws, mode, block=block)
+                again = dp.dot_chain_kernel(x, ws, mode, block=block)
+                control = dp._dot_chain_mma(x, ws, mode, block=block)
+                torch.cuda.synchronize()
+                case = (depth, rows, block)
+                assert dp.dot_chain_kernel.launches == launches + 2, case
+                assert torch.equal(got, again), case
+                assert torch.isfinite(got).all(), case
+                assert rel_norm(got, want) <= tol, case
+                assert rel_norm(control, want) <= tol, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ss', [False, True], ids=['rs', 'ss'])
+def test_wgmma_tile_matches_float64_on_card(ss, cuda):
+    """The wgmma building blocks (csrc/wgmma.cuh) on the card: A from
+    registers or shared memory, B through its 128-byte-swizzled
+    descriptor, within 1e-4 + 1e-4 rel of float64 (the layout the CPU
+    emulation decodes is the card's)."""
+    rng = np.random.RandomState(73 + ss)
+    a, w = (torch.as_tensor(rng.uniform(-1, 1, shape), dtype=torch.bfloat16)
+            for shape in ((64, 128), (128, 128)))
+    got = dp.wgmma_tile(a.to(cuda), w.to(cuda), ss=ss).double().cpu()
+    want = dp.wgmma_tile_reference(a, w)
+    assert ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()

@@ -73,8 +73,8 @@ def _translate(src):
     return LAUNCH.sub(launch, src).replace(SHARED, '')
 
 
-# Sources that only the card compiles: kernel P's inline mma.sync assembly
-CARD_ONLY = ('dot_probe.cu',)
+# Sources that only the card compiles: kernel P's mma.sync control
+CARD_ONLY = ('dot_probe_mma.cu',)
 
 
 def build(csrc_dir, out_dir):
