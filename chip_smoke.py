@@ -252,6 +252,40 @@ the step and relight tools.
    ``tools.step_time``, ``tools.profile_joint`` (counters zeroed before
    and read after each) and ``tools.bench_relight`` at their defaults,
    each printing its JSON line. Prints the phase's JSON line.
+30. The multi-step dispatch (``scan_dispatch``; it runs last): the
+   shipped ``scan_steps`` = 8, a group of steps as one CUDA graph launch
+   (``make_train_step_scan``). On a scene of its own (the sphere at imh
+   64 with SCAN_TRAIN = 19 train views, a batch a view: two groups and 3
+   single steps an epoch), for each of nerfactor.ini, nerf.ini,
+   shape.ini and nerfactor_microfacet.ini at full width: from one start
+   (parameters, optimizer state and the generator's state cloned) 11
+   steps two ways, the eager loop of ``make_train_step`` and one graph
+   replay of 8 steps (the graph's first call and its capture on groups of
+   their own first, then the start copied back into its storage) plus 3
+   eager steps; the losses, every parameter, the optimizer state and the
+   generator's state must be the eager loop's bit for bit, the replay
+   runs under ``torch.cuda.set_sync_debug_mode('error')``, and the
+   launches a step it counts (a replay counts every launch it runs, the
+   capture none) must equal the eager loop's. Then ms a step both ways
+   over 4 groups (CUDA events, the
+   host's issue inside), a profiler window of 2 groups each way (busy ms,
+   idle share of the window and of the timed ms, one ``cudaGraphLaunch``
+   a group), the capture's seconds and its pool's MiB. Then ``trainvali.main`` on each INI for 2 epochs on that
+   scene, counters zeroed before and read after: 4 groups, the graph
+   captured; each again with ``scan_steps`` = 1 (every step eager), its
+   ckpt-2 the graph run's bit for bit; nerfactor.ini
+   again with ``--multihost`` (one process, NCCL: the graph holds the
+   all-reduce), its ckpt-2 the run's without bit for bit; a gloo group's
+   scan on CUDA tensors must raise ValueError. Prints the phase's JSON
+   line. K3's transposed weights packed in one launch
+   (``nfk_pack_transposed_table``) are held against the plain packing bit
+   for bit at nerf.ini's width after 11 (``k3_pack_readings``).
+
+Every profiler window is ``card.profiler_window``: the profiler drops the
+first kernels of about every other window, more as the process ages
+(PERF.md §7), so a window first launches empty kernels, which the
+readings leave out (``card.device_events``), and holds host idle on each
+side of its work.
 
 Prints a JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for the same work; also written to
@@ -317,6 +351,10 @@ prints only the joint, shape and microfacet train steps' ms, host CPU ms,
 device busy ms and idle share, each run twice in turns (steps_alone; it
 calls only the models).
 
+  python3 chip_smoke.py --scan_dispatch
+
+prints only phase 30's JSON line (it writes the scene it needs).
+
   python3 chip_smoke.py --view_repeats 4
 
 prints only the seconds per view of test.py and nerf_test.py on the smoke's
@@ -374,7 +412,7 @@ from nerfactor_tpu_torch.ops import kernel_lib
 from nerfactor_tpu_torch.ops.microfacet import microfacet_spec
 from nerfactor_tpu_torch.parallel import mesh
 from nerfactor_tpu_torch.parallel.train import (
-    build_optimizer, make_train_step, upcast_batch)
+    build_optimizer, make_train_step, make_train_step_scan, upcast_batch)
 from nerfactor_tpu_torch.tools import (
     bench_model, bench_relight, chain_probe, dot_probe, march_probe,
     profile_joint, quality_e2e, step_time, synth_dtu, synth_llff,
@@ -1048,6 +1086,7 @@ COUNTERS = {'K1-fwd': (fm.chain_kernel, 'launches'),
             'K1w-bwd': (fm.chain_kernel_last_skip_bwd, 'launches'),
             'K1w-bwd tc': (fm.chain_kernel_last_skip_bwd, 'tc_launches'),
             'K1 pack': (fm.pack_transposed_kernel, 'launches'),
+            'K3 pack': (fn.transposed_weights, 'launches'),
             'P': (dp.dot_chain_kernel, 'launches')}
 JOINT_KERNELS = ('K1-fwd', 'K1-fwd tc', 'K1-bwd', 'K2-fwd', 'K2-fwd tc',
                  'K2-bwd', 'K2-bwd tc')
@@ -1090,13 +1129,13 @@ def read_counters(names, path):
     return launches
 
 
-def train_scalars(outdir):
+def train_scalars(outdir, steps=(2, 4)):
     """The train loss at each checkpoint; raises unless it is logged at
-    epochs 2 and 4 and finite."""
+    epochs ``steps`` and finite."""
     recs = [json.loads(line) for line in open(
         join(outdir, 'summary_train', 'scalars.jsonl'))]
     losses = [r['loss_train'] for r in recs]
-    if [r['step'] for r in recs] != [2, 4] \
+    if [r['step'] for r in recs] != list(steps) \
             or not np.all(np.isfinite(losses)):
         raise AssertionError("train scalars: %s" % recs)
     return losses
@@ -1151,6 +1190,11 @@ def run_training(joint_override):
                               'vali_psnr': meta['psnr']}
 
 
+# Every profiler window's activities (card.profiler_window pads each)
+PROFILER_ACTS = (torch.profiler.ProfilerActivity.CPU,
+                 torch.profiler.ProfilerActivity.CUDA)
+
+
 def time_train_step(model, dataset, warmup=3, iters=20, profiled=5,
                     kernels=()):
     """Steady-state ms per make_train_step step of ``model`` (on the card)
@@ -1185,19 +1229,16 @@ def time_train_step(model, dataset, warmup=3, iters=20, profiled=5,
                 if v != before[k]}
     if not torch.isfinite(loss):
         raise AssertionError("train step loss %r" % float(loss))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with card.profiler_window(PROFILER_ACTS) as prof:
         t0 = time.perf_counter()
         for _ in range(profiled):
             params, opt_state, loss = step(params, opt_state, arrays, gen)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + getattr(
-                e, 'self_device_time_total', 0.0)
+    for e in card.device_events(prof):
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + getattr(
+            e, 'self_device_time_total', 0.0)
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     rays = dataset.bs
@@ -1390,6 +1431,27 @@ def pack_readings(plan, p, iters=20):
                          run_k, ('pack_transposed',))['device_ms'],
                      'values': run_k().numel()}
     return out
+
+
+def k3_pack_readings(nplan, params, iters=20):
+    """nfk_pack_transposed_table (one launch: K3's transposed dense
+    weights, fused_nerf.transposed_weights) against its plain version
+    (transposed_weights_plain) on the bf16 packed weights of the field
+    ``params`` of ``nplan``: the same bits, each one's ms (CUDA events,
+    host and device, in turns) and the kernel's device ms."""
+    kplan, kp = fn._mma_params(nplan, params)
+    dense, _ = fn.pack_params(kplan, kp, torch.bfloat16)
+    run_k = lambda: fn.transposed_weights(kplan, dense)  # noqa: E731
+    run_p = lambda: fn.transposed_weights_plain(  # noqa: E731
+        kplan, kp, dense.device)
+    same = torch.equal(run_k().view(torch.int16), run_p().view(torch.int16))
+    if not same:
+        raise AssertionError("nfk_pack_transposed_table: not "
+                             "transposed_weights_plain's bits")
+    ms, plain_ms = time_pair(run_k, run_p, iters=iters)
+    return {'same_bits': same, 'ms': ms, 'plain_ms': plain_ms,
+            'device_ms': device_ms_of(run_k, ('pack_transposed',))[
+                'device_ms'], 'values': run_k().numel()}
 
 
 def f32_heads(cases, g):
@@ -1830,7 +1892,7 @@ def run_nerf_training(data_root):
     run = trainvali.main(['--config', 'nerf.ini', '--config_override',
                           nerf_override(data_root)])
     torch.cuda.synchronize()
-    launches = read_counters(('K3-fwd', 'K3-fwd tc', 'K3-bwd'),
+    launches = read_counters(('K3-fwd', 'K3-fwd tc', 'K3-bwd', 'K3 pack'),
                              'NeRF training')
     outdir = run['outdir']
     recs = [json.loads(line) for line in open(
@@ -2101,19 +2163,14 @@ def profiled_device_us(run, iters):
     outside it): ({kernel name: device us}, {kernel name: launches the
     window recorded})."""
     run()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with card.profiler_window(PROFILER_ACTS) as prof:
         for _ in range(iters):
             run()
-        torch.cuda.synchronize()
     us, seen = {}, {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us[e.key] = us.get(e.key, 0.0) + getattr(
-                e, 'self_device_time_total', 0.0)
-            seen[e.key] = seen.get(e.key, 0) + e.count
+    for e in card.device_events(prof):
+        us[e.key] = us.get(e.key, 0.0) + getattr(
+            e, 'self_device_time_total', 0.0)
+        seen[e.key] = seen.get(e.key, 0) + e.count
     return us, seen
 
 
@@ -3373,8 +3430,7 @@ def check_dot_probe():
                for _ in range(2)]
     control_sweep = dot_probe.run(sweep_args, chain=dp._dot_chain_mma)
     summary_again = dot_probe.run(args)
-    # Device ms a launch over the launches the window recorded (a window
-    # late in the smoke records only some)
+    # Device ms a launch over the launches the window recorded
     ws = dot_probe.make_weights(rng, max(depths), dp.WIDTH, 'cuda')
     us, seen = profiled_device_us(
         lambda: dp.dot_chain_kernel(xl, ws, 'serial', block=args.block), 10)
@@ -4481,6 +4537,10 @@ def run_nerf_on(name, data_root, imh, n_train):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counters(NERF_KERNELS, 'NeRF on ' + name)
+    # Two K3 launches each way a step (coarse and fine), replayed or eager
+    if launches['K3-fwd'] != 2 * n_train or launches['K3-bwd'] != 2 * n_train:
+        raise AssertionError("NeRF on %s: %d steps, launches %s"
+                             % (name, n_train, launches))
     recs = [json.loads(line) for line in open(
         join(outdir, 'summary_train', 'scalars.jsonl'))]
     if [r['step'] for r in recs] != [1] \
@@ -4811,6 +4871,337 @@ def run_tools():
     return launches, records
 
 
+# ------ the multi-step dispatch: a scan_steps group as one CUDA graph ------
+
+# Every shipped training INI's scan_steps; the steps after a group that an
+# epoch leaves over; the groups timed each way
+SCAN_STEPS = 8
+SCAN_EXTRA = 3
+SCAN_TIMED_GROUPS = 4
+SCAN_PROFILED_GROUPS = 2
+# The phase's scene: two groups and a remainder a training epoch (a train
+# batch is one view's rays), at 64 px (the rays a step are the config's)
+SCAN_TRAIN = 2 * SCAN_STEPS + SCAN_EXTRA
+SCAN_IMH = 64
+SCAN_DATA = join(WORK, 'data_scan')
+
+
+def scan_configs(joint_override, probe_dir):
+    """The four paths' configs on the phase's scene, as trainvali builds
+    them: (model class, dataset class, config, ini) by path."""
+    root, surf = SCAN_DATA, join(SCAN_DATA, 'surf')
+    on_scene = ','.join(['data_root=' + root, 'data_nerf_root=' + surf,
+                         'imh=%d' % SCAN_IMH, 'light_h=%d' % LIGHT_H])
+    joint = joint_override + ',' + on_scene + ',test_envmap_dir=' + probe_dir
+    return {
+        'joint': (Model, Dataset, 'nerfactor.ini', joint),
+        'nerf': (NerfModel, NerfDataset, 'nerf.ini', on_scene),
+        'shape': (ShapeModel, Dataset, 'shape.ini', on_scene),
+        'microfacet': (MicrofacetModel, Dataset, 'nerfactor_microfacet.ini',
+                       joint)}
+
+
+def scan_batches(dataset, n):
+    """``n`` train batches of ``dataset`` (its epochs in turn) as trainvali
+    makes them: host tensors, pinned."""
+    out = []
+    while len(out) < n:
+        for batch in dataset.build_pipeline(prefetch=0):
+            _, arrays = trainvali.split_batch(dataset, batch)
+            out.append({k: torch.from_numpy(np.ascontiguousarray(v))
+                         .pin_memory() for k, v in arrays.items()})
+    return out[:n]
+
+
+def stacked(batches):
+    return {k: torch.stack([b[k] for b in batches]).pin_memory()
+            for k in batches[0]}
+
+
+def copy_tree(dst, src):
+    for d, s in zip(ckptutil.tree_leaves(dst), ckptutil.tree_leaves(src)):
+        d.copy_(s)
+
+
+def events_ms(run, calls):
+    """Wall ms of ``calls`` calls of ``run`` by CUDA events recorded around
+    them, the host's work to issue them inside."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def profiled_window(run, calls):
+    """A torch.profiler window over ``calls`` calls of ``run``: (wall ms,
+    device busy ms, graph launches the host made)."""
+    with card.profiler_window(PROFILER_ACTS) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_us, graph_launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.key == 'cudaGraphLaunch':
+            graph_launches += e.count
+    for e in card.device_events(prof):
+        busy_us += getattr(e, 'self_device_time_total', 0.0)
+    return wall_ms, busy_us / 1e3, graph_launches
+
+
+def same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def scan_dispatch_path(name, cls, dataset_cls, cfg):
+    """One path's graph against its eager loop (see the docstring's phase
+    list). Returns its record."""
+    model = cls(cfg, device='cuda')
+    dataset = dataset_cls(cfg, 'train')
+    optimizer = build_optimizer(cfg)
+    start = model.init_params(torch.Generator().manual_seed(0))
+    start_opt = optimizer.init(start)
+    mask = model.trainable_mask(start) \
+        if hasattr(model, 'trainable_mask') else None
+    gen0 = torch.Generator(device='cuda').manual_seed(1)
+    n_cmp = SCAN_STEPS + SCAN_EXTRA
+    batches = scan_batches(dataset, n_cmp + 2 * SCAN_STEPS)
+    step = make_train_step(model, optimizer, mask)
+
+    def state():
+        p = ckptutil.tree_map(torch.clone, start)
+        o = ckptutil.tree_map(torch.clone, start_opt)
+        g = torch.Generator(device='cuda')
+        g.set_state(gen0.get_state())
+        return p, o, g
+
+    def eager(p, o, g, group):
+        return [step(p, o, trainvali.to_device(b, 'cuda'), g)[2]
+                for b in group]
+
+    # The eager loop: n_cmp steps from the start
+    pe, oe, ge = state()
+    zero_counters()
+    losses_e = torch.stack(eager(pe, oe, ge, batches[:n_cmp]))
+    torch.cuda.synchronize()
+    eager_counts = counts()
+    # The graph: its first call (eager) and its capture (and first replay)
+    # on groups of their own, then the start again in its storage, one
+    # replay and the remainder's eager steps
+    pg, og, gg = state()
+    scan = make_train_step_scan(model, optimizer, mask, n_steps=SCAN_STEPS)
+    scan(pg, og, stacked(batches[n_cmp:n_cmp + SCAN_STEPS]), gg)
+    zero_counters()
+    scan(pg, og, stacked(batches[n_cmp + SCAN_STEPS:]), gg)
+    torch.cuda.synchronize()
+    capture_counts = counts()
+    copy_tree((pg, og), (start, start_opt))
+    gg.set_state(gen0.get_state())
+    group = stacked(batches[:SCAN_STEPS])
+    zero_counters()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        _, _, losses_g = scan(pg, og, group, gg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    replay_counts = counts()
+    losses_g = torch.cat([losses_g, torch.stack(eager(
+        pg, og, gg, batches[SCAN_STEPS:n_cmp]))])
+    torch.cuda.synchronize()
+    pairs = {'losses': [(losses_g, losses_e)],
+             'params': list(zip(ckptutil.tree_leaves(pg),
+                                ckptutil.tree_leaves(pe))),
+             'opt_state': list(zip(ckptutil.tree_leaves(og),
+                                   ckptutil.tree_leaves(oe))),
+             'generator': [(gg.get_state(), ge.get_state())]}
+    bit_equal = {k: all(same_bits(a, b) for a, b in v)
+                 for k, v in pairs.items()}
+    max_abs = {k: max(float((a.double() - b.double()).abs().max())
+                      for a, b in v) for k, v in pairs.items()
+               if k != 'generator'}
+    if not all(bit_equal.values()):
+        raise AssertionError("%s: the graph's %s differ from the eager "
+                             "loop's (max |diff| %s)" % (
+                                 name, sorted(k for k, v in bit_equal.items()
+                                              if not v), max_abs))
+    # A replay counts the launches it runs; the call that captures counts
+    # its one replay, the capture itself nothing
+    if capture_counts != replay_counts:
+        raise AssertionError("%s: the capturing call counted %s, a replay %s"
+                             % (name, capture_counts, replay_counts))
+    per_step_e = {k: v / n_cmp for k, v in eager_counts.items() if v}
+    per_step_g = {k: v / SCAN_STEPS for k, v in replay_counts.items() if v}
+    if per_step_e != per_step_g:
+        raise AssertionError("%s: launches a step eager %s, replayed %s"
+                             % (name, per_step_e, per_step_g))
+    # ms a step both ways over SCAN_TIMED_GROUPS groups after warm-up, and
+    # a profiler window for the idle share
+    timed = batches[:SCAN_STEPS]
+    runs = {'eager': lambda: eager(pe, oe, ge, timed),
+            'graph': lambda: scan(pg, og, group, gg)}
+    readings = {}
+    for way, run in runs.items():
+        run()
+        ms = events_ms(run, SCAN_TIMED_GROUPS) / (
+            SCAN_TIMED_GROUPS * SCAN_STEPS)
+        wall_ms, busy_ms, launches = profiled_window(run,
+                                                     SCAN_PROFILED_GROUPS)
+        n = SCAN_PROFILED_GROUPS * SCAN_STEPS
+        readings[way] = {'ms_per_step': ms,
+                         'profiled_wall_ms_per_step': wall_ms / n,
+                         'device_busy_ms_per_step': busy_ms / n,
+                         'device_idle_share': 1 - busy_ms / wall_ms
+                         if busy_ms else None,
+                         'idle_share_of_timed_ms': 1 - busy_ms / n / ms
+                         if busy_ms else None,
+                         'graph_launches_in_window': launches}
+    if readings['graph']['graph_launches_in_window'] \
+            != SCAN_PROFILED_GROUPS:
+        raise AssertionError("%s: %d graph launches for %d groups" % (
+            name, readings['graph']['graph_launches_in_window'],
+            SCAN_PROFILED_GROUPS))
+    return {'bit_equal': bit_equal, 'max_abs_diff': max_abs,
+            'steps_compared': n_cmp, 'rays': dataset.bs, **readings,
+            'capture_s': scan.captured['seconds'],
+            'graph_pool_mib': scan.captured['pool_bytes'] / 2 ** 20,
+            'launches_per_step': per_step_g}
+
+
+def run_scan_training(name, ini, override, kernels, multihost=False,
+                      scan_steps=SCAN_STEPS):
+    """trainvali.main on ``ini`` on the phase's scene for 2 epochs (two
+    groups of SCAN_STEPS and SCAN_EXTRA single steps each), counters
+    zeroed before and read after (each of ``kernels`` must launch): the
+    graph captured, every group after the first a replay. With
+    ``scan_steps`` = 1 every step eager, no graph. Returns (launches,
+    record)."""
+    suffix = ('_multihost' if multihost else '') + (
+        '' if scan_steps == SCAN_STEPS else '_scan%d' % scan_steps)
+    outroot = join(WORK, 'out', 'scan_' + name + suffix)
+    argv = ['--config', ini, '--config_override', override + ',' + ','.join([
+        'outroot=' + outroot, 'epochs=2', 'ckpt_period=2',
+        'vali_period=0', 'scan_steps=%d' % scan_steps])]
+    if multihost:
+        argv += ['--multihost', '--coordinator', 'localhost:%d' % free_port(),
+                 '--num_processes', '1', '--process_id', '0']
+    zero_counters()
+    t0 = time.perf_counter()
+    run = trainvali.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    path = 'scan_%s_training%s' % (name, suffix)
+    launches = read_counters(kernels, path)
+    graph = scan_steps > 1
+    if run['scan_steps'] != scan_steps \
+            or run['scan_groups'] != (4 if graph else 0) \
+            or (run['scan_captured'] is None) == graph:
+        raise AssertionError("%s: scan_steps %s, %s groups, captured %s"
+                             % (name, run['scan_steps'], run['scan_groups'],
+                                run['scan_captured']))
+    losses = train_scalars(run['outdir'], steps=[2])
+    record = {'seconds': seconds, 'loss_train': losses,
+              'groups': run['scan_groups'], 'outdir': run['outdir']}
+    if graph:
+        record.update(capture_s=run['scan_captured']['seconds'],
+                      graph_pool_mib=run['scan_captured']['pool_bytes']
+                      / 2 ** 20)
+    return launches, record
+
+
+def same_ckpt(outdir_a, outdir_b):
+    """Whether two runs' ckpt-2 hold the same leaves bit for bit; also
+    the number of leaves that differ."""
+    same = [same_bits(torch.from_numpy(a), torch.from_numpy(b))
+            for a, b in zip(*(ckptutil.read_leaves(join(
+                d, 'checkpoints', 'ckpt-2')) for d in (outdir_a, outdir_b)))]
+    return all(same), same.count(False)
+
+
+SCAN_KERNELS = {'joint': JOINT_KERNELS + ('K1-fwd f32 tc', 'K1 pack'),
+                'nerf': ('K3-fwd', 'K3-fwd tc', 'K3-bwd', 'K3 pack'),
+                'shape': SHAPE_KERNELS + ('K1-fwd f32 tc', 'K1 pack'),
+                'microfacet': MICROFACET_KERNELS + ('K1-fwd f32 tc',
+                                                    'K1 pack')}
+
+
+def check_scan_dispatch(joint_override, probe_dir):
+    """The scan_dispatch phase. Returns (launches by path, record)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SCAN_DATA, ignore_errors=True)
+    synth_scene.make_scene(SCAN_DATA, n_train=SCAN_TRAIN, n_vali=1, n_test=1,
+                           imh=SCAN_IMH, with_buffers=True, light_h=LIGHT_H)
+    scene_s = time.perf_counter() - t0
+    record, launches = {'scene_s': scene_s}, {}
+    for name, (cls, dataset_cls, ini, override) in scan_configs(
+            joint_override, probe_dir).items():
+        cfg = run_config(ini, override)
+        got = scan_dispatch_path(name, cls, dataset_cls, cfg)
+        torch.cuda.empty_cache()
+        launches['scan_%s_training' % name], got['trainvali'] = \
+            run_scan_training(name, ini, override, SCAN_KERNELS[name])
+        # The same run with every step eager: the graph's replays after
+        # eager remainder steps, its groups filled from the prefetch
+        # thread's pinned memory and the epochs' checkpoint hold it bit
+        # for bit
+        launches['scan_%s_training_scan1' % name], eager = \
+            run_scan_training(name, ini, override, SCAN_KERNELS[name],
+                              scan_steps=1)
+        same, n_differ = same_ckpt(got['trainvali']['outdir'],
+                                   eager['outdir'])
+        eager['ckpt_bit_equal_to_graph_run'] = same
+        if not same:
+            raise AssertionError("%s: the scan_steps = %d run's ckpt-2 "
+                                 "differs from the scan_steps = 1 run's in "
+                                 "%d leaves" % (name, SCAN_STEPS, n_differ))
+        got['trainvali_scan1'] = eager
+        record[name] = got
+        torch.cuda.empty_cache()
+    # The joint path again with --multihost (one process, NCCL): the
+    # graph holds the gradient all-reduce; its checkpoint is the run's
+    # without --multihost bit for bit (a one-rank all-reduce copies)
+    cls, dataset_cls, ini, override = scan_configs(joint_override,
+                                                   probe_dir)['joint']
+    launches['scan_joint_training_multihost'], nccl = run_scan_training(
+        'joint', ini, override, SCAN_KERNELS['joint'], multihost=True)
+    same, n_differ = same_ckpt(nccl['outdir'],
+                               record['joint']['trainvali']['outdir'])
+    nccl['ckpt_bit_equal_to_single_process'] = same
+    if not same:
+        raise AssertionError("--multihost scan run's ckpt-2 differs from "
+                             "the single-process run's in %d leaves"
+                             % n_differ)
+    record['joint']['trainvali_multihost_nccl'] = nccl
+    # gloo cannot run in a graph: the scan raises on CUDA tensors
+    mesh.initialize('localhost:%d' % free_port(), 1, 0, device='cuda',
+                    backend='gloo', timeout_s=MD_TIMEOUT_S)
+    try:
+        cfg = run_config(ini, override)
+        model = cls(cfg, device='cuda')
+        params = model.init_params(torch.Generator().manual_seed(0))
+        optimizer = build_optimizer(cfg)
+        scan = make_train_step_scan(model, optimizer,
+                                    model.trainable_mask(params),
+                                    n_steps=SCAN_STEPS, group=mesh.group())
+        batch = scan_batches(dataset_cls(cfg, 'train'), SCAN_STEPS)
+        try:
+            scan(params, optimizer.init(params), stacked(batch),
+                 torch.Generator(device='cuda').manual_seed(1))
+        except ValueError as exc:
+            record['gloo_raises'] = str(exc)
+        else:
+            raise AssertionError("a gloo group's scan ran on CUDA tensors")
+    finally:
+        mesh.shutdown()
+    record['seconds'] = time.perf_counter() - t0
+    return launches, record
+
+
 # ------ the least time the card could take ------
 
 # Published H100 SXM peaks at 700 W (dense): bf16 and TF32 operands on the
@@ -5001,6 +5392,11 @@ def main(argv=None):
              "host CPU ms, device busy ms and idle share, each run N times "
              "in turns (steps_alone), one JSON line each, and stop")
     parser.add_argument(
+        '--scan_dispatch', action='store_true',
+        help="print only the scan_dispatch phase's JSON line (each training "
+             "path's scan_steps group as one CUDA graph against its eager "
+             "loop, and trainvali on the phase's scene), and stop")
+    parser.add_argument(
         '--view_repeats', type=int, metavar='N',
         help="print only the serving entry points' seconds per view, each "
              "run N times (view_readings), one JSON line each, and stop")
@@ -5035,6 +5431,11 @@ def main(argv=None):
         data_root, nerf_root, probe_dir)
     if args.f32_heads:
         print(json.dumps(f32_heads_alone(config, ckpt)))
+        print(gpu)
+        return
+    if args.scan_dispatch:
+        _, scan_record = check_scan_dispatch(joint_override, probe_dir)
+        print(json.dumps(dict(scan_record, phase='scan_dispatch', gpu=gpu)))
         print(gpu)
         return
     if args.steps:
@@ -5155,8 +5556,12 @@ def main(argv=None):
     launches_nerf_test, nerf_view_s = run_nerf_serving(nerf_ckpt)
     nerf_fwd_err = check_nerf_forward(nerf_dir, nerf_ckpt)
     nerf_model = NerfModel(nerf_config(nerf_dir), device='cuda')
-    k3 = check_nerf_kernels(nerf_model, ckptutil.restore_trained_params(
-        nerf_ckpt, nerf_model.init_params(torch.Generator()), device='cuda'))
+    nerf_trained = ckptutil.restore_trained_params(
+        nerf_ckpt, nerf_model.init_params(torch.Generator()), device='cuda')
+    k3 = check_nerf_kernels(nerf_model, nerf_trained)
+    k3_pack = k3_pack_readings(nerf_model.nerf_plan, nerf_params(
+        nerf_model, nerf_trained, 'fine'))
+    del nerf_trained
     torch.cuda.empty_cache()
     k1_no_views = check_no_views_chain(torch.Generator().manual_seed(5))
     torch.cuda.empty_cache()
@@ -5243,6 +5648,12 @@ def main(argv=None):
     print(json.dumps(dict(multidevice, phase='multidevice', gpu=gpu)))
     torch.cuda.empty_cache()
 
+    # The multi-step dispatch: each training path's scan_steps group as
+    # one CUDA graph against its eager loop, and trainvali through it
+    launches_scan, scan_dispatch = check_scan_dispatch(joint_override,
+                                                       probe_dir)
+    print(json.dumps(dict(scan_dispatch, phase='scan_dispatch', gpu=gpu)))
+
     paths = {'joint_inference': launches_infer,
              'joint_training': launches_train,
              'nerf_training': launches_nerf_train,
@@ -5258,7 +5669,7 @@ def main(argv=None):
              **{'chain_probe_' + k: v for k, v in launches_probe.items()},
              'dot_probe': launches_dot, **launches_e2e,
              **launches_micro, **launches_mvs, **launches_data_gen,
-             **launches_md, **launches_tools}
+             **launches_md, **launches_tools, **launches_scan}
     variant_paths = list(launches_micro) + list(launches_mvs)
 
     def on_variants(kernel):
@@ -5461,6 +5872,9 @@ def main(argv=None):
                                  / N_VIEWS},
               ptxas=ptxas_report(('nerf_fwd',)),
               sass_hmma=hmma_of(tc_sass, 'nerf_fwd_tc_kernel'),
+              pack=dict(k3_pack, launches_by_path={
+                  p: c['K3 pack'] for p, c in paths.items()
+                  if c['K3 pack']}),
               shapes=k3),
         entry('K3-bwd nerf_bwd_kernel', 'fused_nerf.cu',
               'nerfactor_tpu/ops/pallas_nerf.py:203',
@@ -5608,6 +6022,7 @@ def main(argv=None):
                  'view_seconds': nerf_view_s, 'forward_rel_err': nerf_fwd_err,
                  'train_step': nerf_step},
         'pipeline_e2e': e2e, 'microfacet': micro, 'mvs': mvs,
+        'scan_dispatch': scan_dispatch,
         'f32_heads': all_heads,
         'data_gen': data_gen, 'multidevice': multidevice,
         'smoke_s': time.perf_counter() - t_start})

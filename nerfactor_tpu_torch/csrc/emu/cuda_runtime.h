@@ -1,8 +1,9 @@
 #pragma once
 // CPU emulation of the CUDA subset that the kernels in csrc/ use, for
 // tests/test_torch_emu.py: a launch runs its blocks one after another,
-// each as blockDim std::threads sharing one shared-memory buffer, with a
-// std::barrier for __syncthreads(). Launches are rewritten to mock_launch
+// each on the launch's blockDim std::threads (started once a launch),
+// sharing one shared-memory buffer, with a std::barrier for
+// __syncthreads(). Launches are rewritten to mock_launch
 // by the test's source translation. The "device" has 3 SMs, one block per
 // SM, and 227 KB of opt-in shared memory, as an H100 block has. Each warp
 // of 32 threads has a std::barrier for __syncwarp() (the emulated mma.sync
@@ -110,30 +111,50 @@ inline void mock_launch(long long grid, int block, size_t smem_bytes, std::funct
     g_last_error = kEmuSmemOverrun;
     return;
   }
-  for (long long b = 0; b < grid; ++b) {
+  if (grid <= 0) return;
+  std::barrier<> bar(block);
+  g_bar = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  for (int w = 0; 32 * w < block; ++w) {
+    warp_bars.emplace_back(new std::barrier<>(std::min(32, block - 32 * w)));
+    g_warp_bar[w] = warp_bars.back().get();
+  }
+  std::vector<std::unique_ptr<std::barrier<>>> wg_bars;
+  for (int w = 0; 128 * w < block; ++w) {
+    wg_bars.emplace_back(new std::barrier<>(std::min(128, block - 128 * w)));
+    g_wg_bar[w] = wg_bars.back().get();
+  }
+  // One set of blockDim threads runs the blocks in turn: each block's
+  // threads start together once the host has laid out its shared memory
+  // and end together before the host checks it (a thread started for
+  // every block made a launch of a thousand blocks take seconds)
+  std::barrier<> gate(block + 1);
+  bool stop = false;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < block; ++t)
+    threads.emplace_back([&, t]() {
+      threadIdx.x = t;
+      for (;;) {
+        gate.arrive_and_wait();  // a block starts, or the launch ends
+        if (stop) return;
+        fn();
+        gate.arrive_and_wait();  // the block has ended
+      }
+    });
+  for (long long b = 0; b < grid && !stop; ++b) {
     blockIdx.x = b;
     std::memset(smem, 0xff, smem_bytes);  // stale contents, as on the card
     std::memset(smem + smem_bytes, kCanary, sizeof(smem) - smem_bytes);
-    std::barrier<> bar(block);
-    g_bar = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-    for (int w = 0; 32 * w < block; ++w) {
-      warp_bars.emplace_back(new std::barrier<>(std::min(32, block - 32 * w)));
-      g_warp_bar[w] = warp_bars.back().get();
-    }
-    std::vector<std::unique_ptr<std::barrier<>>> wg_bars;
-    for (int w = 0; 128 * w < block; ++w) {
-      wg_bars.emplace_back(new std::barrier<>(std::min(128, block - 128 * w)));
-      g_wg_bar[w] = wg_bars.back().get();
-    }
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([&, t]() { threadIdx.x = t; fn(); });
-    for (auto& t : threads) t.join();
+    gate.arrive_and_wait();
+    gate.arrive_and_wait();
     for (size_t i = smem_bytes; i < sizeof(smem); ++i)
       if (smem[i] != kCanary) {
         g_last_error = kEmuSmemOverrun;
-        return;
+        stop = true;
+        break;
       }
   }
+  stop = true;
+  gate.arrive_and_wait();
+  for (auto& t : threads) t.join();
 }

@@ -10,6 +10,8 @@ so a caller there turns ``torch.backends.cudnn.allow_tf32`` off, as the
 entry points do.
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -117,10 +119,16 @@ _RGB_TO_YUV = ((0.299, -0.14714119, 0.61497538),
                (0.114, 0.43601035, -0.10001026))
 
 
+@functools.lru_cache(maxsize=None)
+def _rgb_to_yuv_matrix(dtype, device):
+    """The matrix on ``device``, made once: a train step copies nothing
+    from the host (a CUDA graph cannot hold a copy from pageable memory)."""
+    return torch.tensor(_RGB_TO_YUV, dtype=dtype, device=device)
+
+
 def rgb_to_yuv(rgb):
     """BT.601 RGB -> YUV, as tf.image.rgb_to_yuv."""
-    m = torch.tensor(_RGB_TO_YUV, dtype=rgb.dtype, device=rgb.device)
-    return rgb @ m
+    return rgb @ _rgb_to_yuv_matrix(rgb.dtype, rgb.device)
 
 
 def uvl2(gt, pred, keep_batch=False, weights=None):

@@ -144,7 +144,7 @@ def dot_chain_kernel(x, ws, mode, block=4096):
     return out
 
 
-dot_chain_kernel.launches = 0
+kernel_lib.launch_counters(dot_chain_kernel, 'launches')
 
 
 def _dot_chain_mma(x, ws, mode, block=4096):
@@ -161,7 +161,7 @@ def _dot_chain_mma(x, ws, mode, block=4096):
     return out
 
 
-_dot_chain_mma.launches = 0
+kernel_lib.launch_counters(_dot_chain_mma, 'launches')
 
 # Descriptor layout types of the wgmma building blocks (csrc/wgmma.cuh)
 INTERLEAVE, SWIZZLE_128, SWIZZLE_64, SWIZZLE_32 = range(4)

@@ -492,8 +492,8 @@ def chain_kernel(plan, x, params, compute_dtype=None):
     return _chain_kernel(plan, x, params, compute_dtype)[0]
 
 
-chain_kernel.launches = chain_kernel.tc_launches = 0
-chain_kernel.f32_tc_launches = 0
+kernel_lib.launch_counters(chain_kernel, 'launches', 'tc_launches',
+                           'f32_tc_launches')
 
 
 def chain_kernel_cuda_core(plan, x, params, compute_dtype=None):
@@ -544,7 +544,7 @@ def chain_kernel_stash(plan, x, params, compute_dtype=None, with_stash=False):
     return _chain_kernel_stash(plan, x, params, compute_dtype, with_stash)[:2]
 
 
-chain_kernel_stash.launches = chain_kernel_stash.tc_launches = 0
+kernel_lib.launch_counters(chain_kernel_stash, 'launches', 'tc_launches')
 
 
 def chain_kernel_stash_cuda_core(plan, x, params, compute_dtype=None,
@@ -582,7 +582,8 @@ def chain_kernel_last_skip(plan, x, params, compute_dtype=None):
     return _chain_kernel_last_skip(plan, x, params, compute_dtype)[0]
 
 
-chain_kernel_last_skip.launches = chain_kernel_last_skip.tc_launches = 0
+kernel_lib.launch_counters(chain_kernel_last_skip, 'launches',
+                           'tc_launches')
 
 
 def chain_kernel_last_skip_cuda_core(plan, x, params, compute_dtype=None):
@@ -670,8 +671,9 @@ def pack_transposed(ws, tab, dtype=torch.bfloat16):
     another. Each segment is copied (and rounded to ``dtype``) straight
     into the one buffer. The plain version of ``nfk_pack_transposed``
     (:func:`pack_transposed_kernel`), which the chain wrappers launch on
-    CUDA tensors, and what they run on the CPU; the fields' K3 wrappers
-    (``fused_nerf``) pack with it on the card too."""
+    CUDA tensors, and what they run on the CPU; of
+    ``nfk_pack_transposed_table`` too, which the field's K3 wrappers
+    (``fused_nerf.transposed_weights``) launch."""
     widths = [round16(l.k1) + round16(l.k2) for l in tab.dense()]
     out = ws[0].new_zeros(sum(l.n * k for l, k in zip(tab.dense(), widths)),
                           dtype=dtype)
@@ -915,7 +917,7 @@ def pack_transposed_kernel(kplan, w_flat, desc=None):
     return wt
 
 
-pack_transposed_kernel.launches = 0
+kernel_lib.launch_counters(pack_transposed_kernel, 'launches')
 
 
 def transposed_weights(kplan, w_flat, desc=None):
@@ -1179,9 +1181,9 @@ def chain_kernel_bwd(plan, x, dy, params, compute_dtype=None, needs_dx=True,
     return dx, grads
 
 
-chain_kernel_bwd.launches = chain_kernel_bwd.tc_launches = 0
-chain_kernel_bwd.dx_tc_launches = chain_kernel_bwd.dw_launches = 0
-chain_kernel_bwd.dw_tc_f32_launches = 0
+kernel_lib.launch_counters(chain_kernel_bwd, 'launches', 'tc_launches',
+                           'dx_tc_launches', 'dw_launches',
+                           'dw_tc_f32_launches')
 
 
 def chain_kernel_bwd_cuda_core(plan, x, dy, params, compute_dtype=None,
@@ -1247,7 +1249,8 @@ def chain_kernel_stash_bwd(plan, x, dy, stash, params, compute_dtype=None,
     return dx, grads
 
 
-chain_kernel_stash_bwd.launches = chain_kernel_stash_bwd.tc_launches = 0
+kernel_lib.launch_counters(chain_kernel_stash_bwd, 'launches',
+                           'tc_launches')
 
 
 def chain_kernel_stash_bwd_cuda_core(plan, x, dy, stash, params,
@@ -1285,8 +1288,8 @@ def chain_kernel_last_skip_bwd(plan, x, dy, params, compute_dtype=None,
     return dx, grads
 
 
-chain_kernel_last_skip_bwd.launches = 0
-chain_kernel_last_skip_bwd.tc_launches = 0
+kernel_lib.launch_counters(chain_kernel_last_skip_bwd, 'launches',
+                           'tc_launches')
 
 
 def chain_kernel_last_skip_bwd_cuda_core(plan, x, dy, params,

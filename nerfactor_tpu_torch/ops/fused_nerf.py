@@ -33,6 +33,7 @@ import torch
 
 from nerfactor_tpu_torch.ops import encoding
 from nerfactor_tpu_torch.ops import fused_mlp as fm
+from nerfactor_tpu_torch.ops import kernel_lib
 
 # Static description (the JAX NerfPlan's fields). trunk_plan is a
 # fused_mlp.Plan over the points' embedding, with no head; n_freqs_view the
@@ -204,8 +205,8 @@ def _nerf_fwd(nplan, pts, views, params, compute_dtype):
         return rgb, sigma, None, ran
     kplan, params = _mma_params(nplan, params)
     pts, views = fm.check_inputs([('pts', pts, 3), ('views', views, 3)])
-    desc, _, _, aux = _prepare(kplan, params, compute_dtype, pts.device)
-    wt = transposed_weights(kplan, params, pts.device)
+    desc, _, dense, aux = _prepare(kplan, params, compute_dtype, pts.device)
+    wt = transposed_weights(kplan, dense)
     n = pts.shape[0]
     rgb = pts.new_empty((n, nplan.rgb_widths[-1]))
     sigma = pts.new_empty((n, 1))
@@ -251,7 +252,7 @@ def nerf_kernel(nplan, pts, views, params, compute_dtype=None):
     return _counted_fwd(nplan, pts, views, params, compute_dtype)[:2]
 
 
-nerf_kernel.launches = nerf_kernel.tc_launches = 0
+kernel_lib.launch_counters(nerf_kernel, 'launches', 'tc_launches')
 
 
 def nerf_kernel_cuda_core(nplan, pts, views, params, compute_dtype=None):
@@ -273,13 +274,36 @@ def dw_table(nplan, device):
     return fm.dw_table('nfk_nerf_dw_table', make_desc(nplan), device)
 
 
-def transposed_weights(kplan, params, device):
-    """The dense layers' weights of (trunk, sigma, bottleneck, rgb) params
-    transposed for the tensor-core kernels of ``kplan`` (an
-    :func:`mma_plan`), laid out over :func:`dw_table`'s layers."""
+def transposed_weights(kplan, dense):
+    """The dense layers' weights transposed for the tensor-core kernels of
+    ``kplan`` (an :func:`mma_plan`), laid out over :func:`dw_table`'s
+    layers, from ``dense``, the packed dense weights (:func:`pack_params`,
+    bf16) on the card: one launch of the packing kernel
+    (``nfk_pack_transposed_table``, ``csrc/pack_transposed.cu``), the bits
+    of ``fused_mlp.pack_transposed``, its plain version (see
+    :func:`transposed_weights_plain`). Counts its launches in
+    ``transposed_weights.launches``."""
+    tab = dw_table(kplan, dense.device)[0]
+    wt = torch.empty(sum(l.n * (fm.round16(l.k1) + fm.round16(l.k2))
+                         for l in tab.dense()),
+                     dtype=dense.dtype, device=dense.device)
+    fm.run('nfk_pack_transposed_table', dense.device, ctypes.addressof(tab),
+           int(dense.dtype == torch.bfloat16), dense.data_ptr(),
+           wt.data_ptr())
+    transposed_weights.launches += 1
+    return wt
+
+
+kernel_lib.launch_counters(transposed_weights, 'launches')
+
+
+def transposed_weights_plain(kplan, params, device, dtype=torch.bfloat16):
+    """The plain version of :func:`transposed_weights`: the dense layers'
+    weights of (trunk, sigma, bottleneck, rgb) ``params`` through
+    ``fused_mlp.pack_transposed``, one torch copy a weight segment."""
     trunk, _, bott_p, rgb_p = params
     dense = [w for w, _ in trunk] + [bott_p[0][0], rgb_p[0][0]]
-    return fm.pack_transposed(dense, dw_table(kplan, device)[0])
+    return fm.pack_transposed(dense, dw_table(kplan, device)[0], dtype)
 
 
 def check_tensor(name, t, dtype, numel):
@@ -410,7 +434,7 @@ def nerf_kernel_bwd(nplan, pts, views, drgb, dsigma, params,
     if not bf16:
         wt = None
     elif wt is None:
-        wt = transposed_weights(kplan, params, pts.device)
+        wt = transposed_weights(kplan, dense)
     if bf16 and wt.numel() != bufs['wt_numel']:
         raise RuntimeError("transposed weights: %d values, the kernel reads "
                            "%d" % (wt.numel(), bufs['wt_numel']))
@@ -426,7 +450,7 @@ def nerf_kernel_bwd(nplan, pts, views, drgb, dsigma, params,
     return grads if kplan is nplan else unpad_grads(nplan, grads)
 
 
-nerf_kernel_bwd.launches = 0
+kernel_lib.launch_counters(nerf_kernel_bwd, 'launches')
 
 
 def tc_matmul(a, b):

@@ -22,6 +22,7 @@ import torch
 
 from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import geom as geomops
+from nerfactor_tpu_torch.ops import kernel_lib
 
 
 def reference(plan, z, ldir, vdir, params, compute_dtype=None):
@@ -121,7 +122,7 @@ def rusink_kernel(plan, z, ldir, vdir, params, compute_dtype=None):
     return _rusink_kernel(plan, z, ldir, vdir, params, compute_dtype)[0]
 
 
-rusink_kernel.launches = rusink_kernel.tc_launches = 0
+kernel_lib.launch_counters(rusink_kernel, 'launches', 'tc_launches')
 
 
 def rusink_kernel_cuda_core(plan, z, ldir, vdir, params, compute_dtype=None):
@@ -176,7 +177,7 @@ def rusink_kernel_bwd(plan, z, ldir, vdir, dy, params, compute_dtype=None,
     return grads
 
 
-rusink_kernel_bwd.launches = rusink_kernel_bwd.tc_launches = 0
+kernel_lib.launch_counters(rusink_kernel_bwd, 'launches', 'tc_launches')
 
 
 def rusink_kernel_bwd_cuda_core(plan, z, ldir, vdir, dy, params,

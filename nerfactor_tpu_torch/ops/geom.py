@@ -1,11 +1,19 @@
 """Local shading frames, Rusinkiewicz coordinates and slerp (counterpart
 of nerfactor_tpu/ops/geom.py; reference nerfactor/util/geom.py:100-192)."""
 
+import functools
 import math
 
 import torch
 
 from nerfactor_tpu_torch.ops import math as mathops
+
+
+@functools.lru_cache(maxsize=None)
+def _axis(axis, dtype, device):
+    """The unit ``axis`` as a (1, 3) tensor on ``device``, made once (a
+    train step copies nothing from the host)."""
+    return torch.tensor(axis, dtype=dtype, device=device).reshape(1, 3)
 
 
 def gen_world2local(normal, eps=1e-6):
@@ -14,9 +22,8 @@ def gen_world2local(normal, eps=1e-6):
     where the normal is +Z."""
     normal = mathops.safe_l2_normalize(normal, dim=1)
     # Fixed up-ish axis, perturbed off colinearity with e.g. (0, 0, 1)
-    z = torch.tensor((0.0, 0.0, 1.0), dtype=normal.dtype,
-                     device=normal.device) + eps
-    z = z.expand_as(normal)
+    z = (_axis((0.0, 0.0, 1.0), normal.dtype, normal.device)
+         + eps).expand_as(normal)
     t = mathops.safe_l2_normalize(torch.linalg.cross(normal, z, dim=1),
                                   dim=1)
     b = mathops.safe_l2_normalize(torch.linalg.cross(normal, t, dim=1),
@@ -29,8 +36,7 @@ def _rot_vec(vector, axis, angle):
     per-row ``angle`` (N,)."""
     cos_ang = torch.cos(angle).reshape(-1, 1)
     sin_ang = torch.sin(angle).reshape(-1, 1)
-    axis = torch.tensor(axis, dtype=vector.dtype,
-                        device=vector.device).reshape(1, 3)
+    axis = _axis(axis, vector.dtype, vector.device)
     dot = vector @ axis.T  # (N, 1)
     return (vector * cos_ang
             + axis * dot * (1.0 - cos_ang)

@@ -123,6 +123,7 @@ ARGTYPES = {
     'nfk_chain_bwd_dw_tc_f32': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                                 _PTR, _PTR, _I32, _I32, _I32, _I64, _PTR],
     'nfk_pack_transposed': [_PTR, _I32, _PTR, _PTR, _PTR],
+    'nfk_pack_transposed_table': [_PTR, _I32, _PTR, _PTR, _PTR],
     'nfk_chain_stash_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
                                _PTR],
     'nfk_chain_last_skip_fwd_tc': [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64,
@@ -190,3 +191,31 @@ def check(code, what):
     if code != 0:
         msg = _lib.nfk_error_string(code).decode()
         raise RuntimeError("%s failed: %s (code %d)" % (what, msg, code))
+
+
+# Every wrapper's launch counters, (function, attribute) pairs, registered
+# where the wrapper is defined. A CUDA graph's capture launches nothing and
+# each of its replays launches every kernel it holds: make_train_step_scan
+# (parallel/train.py) takes back what its capture counted and adds that at
+# each replay, so the counters count what the card runs.
+COUNTERS = []
+
+
+def launch_counters(fn, *attrs):
+    """Registers ``fn.<attr>`` for each of ``attrs`` as a launch counter,
+    set to 0."""
+    for attr in attrs:
+        setattr(fn, attr, 0)
+        COUNTERS.append((fn, attr))
+
+
+def launch_counts():
+    """{(function, attribute): count} of every registered counter."""
+    return {(fn, attr): getattr(fn, attr) for fn, attr in COUNTERS}
+
+
+def add_launches(deltas):
+    """Adds each of ``deltas`` ({(function, attribute): launches}) to its
+    counter."""
+    for (fn, attr), n in deltas.items():
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -67,10 +67,30 @@ def divide_no_nan(num, denom):
     return torch.where(zero, torch.zeros_like(num * safe), num / safe)
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod along the last dim of a tensor with no zero element.
+    Its backward is the one torch.cumprod's takes for such an input,
+    reversed_cumsum(out * grad) / x, without torch's check for zeros (a
+    read of the device's answer back to the host every step, which a
+    CUDA graph cannot hold)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def safe_cumprod(x, eps=EPS):
     """Exclusive cumprod of ``x + eps`` along the last dim:
-    out[..., i] = prod_{j<i} (x[..., j] + eps), out[..., 0] = 1."""
-    cp = torch.cumprod(x + eps, dim=-1)
+    out[..., i] = prod_{j<i} (x[..., j] + eps), out[..., 0] = 1. ``x`` is
+    >= 0 (one minus an opacity), so ``x + eps`` has no zero."""
+    cp = _CumprodNonzero.apply(x + eps)
     return torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
 
 
@@ -81,9 +101,11 @@ def linspace01(n, device=None):
     posenc carries one ulp of a depth up to 2^9 ulps.)"""
     if n == 1:
         return torch.zeros(1, device=device)
-    step = torch.tensor(1.0 / (n - 1), dtype=torch.float32, device=device)
+    # Made on the device (a fill, no copy from the host), so that a CUDA
+    # graph can hold it
+    step = torch.full((), 1.0 / (n - 1), dtype=torch.float32, device=device)
     t = torch.arange(n, dtype=torch.float32, device=device) * step
-    t[-1] = 1.0
+    t[-1:].fill_(1.0)
     return t
 
 

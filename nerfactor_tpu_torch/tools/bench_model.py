@@ -29,7 +29,7 @@ from nerfactor_tpu_torch.ops import fused_mlp as fm
 from nerfactor_tpu_torch.ops import fused_nerf as fn
 from nerfactor_tpu_torch.ops import fused_rusink as fr
 from nerfactor_tpu_torch.parallel.train import (
-    build_optimizer, make_train_step)
+    build_optimizer, make_train_step, make_train_step_scan)
 from nerfactor_tpu_torch.utils import ckpt as ckptutil, config as configutil
 
 TINY = 'mlp_width=16,mlp_depth=2,mlp_skip_at=1'
@@ -123,21 +123,41 @@ def launches():
     return out
 
 
-def stepper(model, params, batch, device, group=None, seed=1):
+def stepper(model, params, batch, device, group=None, seed=1, scan=0):
     """``run() -> loss``: one ``make_train_step`` step (the config's
     optimizer, the model's trainable mask, the process ``group`` if any)
     on ``batch``, updating ``params`` in place; the train draws from a
-    generator on ``device`` seeded ``seed``."""
+    generator on ``device`` seeded ``seed``. With ``scan`` > 0, one call of
+    ``make_train_step_scan`` instead: ``scan`` steps on the batch repeated
+    (the JAX tool's stacked copies; pinned host memory for the card, copied
+    into the graph's buffers at every call), returning the last step's
+    loss. On the card its first call runs eagerly and its second captures
+    the CUDA graph (see make_train_step_scan); ``run.captured`` then holds
+    the capture's seconds and pool bytes."""
     optimizer = build_optimizer(model.config)
     state = [optimizer.init(params)]
     mask = model.trainable_mask(params) \
         if hasattr(model, 'trainable_mask') else None
-    step = make_train_step(model, optimizer, trainable_mask=mask,
-                           group=group)
-    arrays = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
     gen = torch.Generator(device=device).manual_seed(seed)
+    if not scan:
+        step = make_train_step(model, optimizer, trainable_mask=mask,
+                               group=group)
+        arrays = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+        def run():
+            _, state[0], loss = step(params, state[0], arrays, generator=gen)
+            return loss
+        return run
+    steps = make_train_step_scan(model, optimizer, trainable_mask=mask,
+                                 n_steps=scan, group=group)
+    stacked = {k: torch.from_numpy(np.stack([np.asarray(v)] * scan))
+               for k, v in batch.items()}
+    if torch.device(device).type == 'cuda':
+        stacked = {k: v.pin_memory() for k, v in stacked.items()}
 
     def run():
-        _, state[0], loss = step(params, state[0], arrays, generator=gen)
-        return loss
+        _, state[0], losses = steps(params, state[0], stacked, generator=gen)
+        run.captured = steps.captured
+        return losses[-1]
+    run.captured = None
     return run

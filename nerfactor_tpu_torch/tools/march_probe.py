@@ -74,17 +74,15 @@ def profile_window(run, device):
         return None
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize(device)
-    with torch.profiler.profile(activities=acts) as prof:
+    with card.profiler_window(acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize(device)
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + getattr(
-                e, 'self_device_time_total', 0.0)
+    for e in card.device_events(prof):
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + getattr(
+            e, 'self_device_time_total', 0.0)
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     return {'wall_ms': wall_us / 1e3, 'device_busy_ms': busy_us / 1e3,

@@ -3,16 +3,21 @@ tools/step_time.py) at bench.py's settings (tools/bench_model.py:
 1024 rays x 512 lights, 128 x 4 MLPs; NeRF at nerf.ini's), with config
 overrides.
 
-On the card: ``--warmup`` steps, then ``--steps`` steps chained through
+On the card: ``--warmup`` calls, then ``--steps`` calls chained through
 the parameters, timed by CUDA events around the run (the host's launch
-work included, as training pays it). One JSON line: ms per step, rays per
-second, each kernel's launches a step, the last loss, the card's name and
-power limit. ``--device cpu`` runs the plain versions as a check of the
-tool: its time is the host's (``clock``), not the card's. The JAX tool's
-``--scan`` (a lax.scan dispatch) has no counterpart: the port dispatches
-every step.
+work included, as training pays it). A call is one step, or with ``--scan
+N`` one ``make_train_step_scan`` call of N steps on the batch repeated
+(the JAX tool's lax.scan dispatch): on the card one CUDA graph launch, its
+first call eager and its second the capture, so at least 2 warm-up calls
+run. One JSON line: ``scan``, ms per step, rays per second, each kernel's
+launches a step over the timed steps (a graph replay counts the launches
+it runs), the capture's seconds and pool MiB, the last loss, the card's
+name and power limit. ``--device
+cpu`` runs the plain versions (and under ``--scan`` the plain loop) as a
+check of the tool: its time is the host's (``clock``), not the card's.
 
     python -m nerfactor_tpu_torch.tools.step_time
+    python -m nerfactor_tpu_torch.tools.step_time --scan 8
     python -m nerfactor_tpu_torch.tools.step_time --model nerf --steps 30
     python -m nerfactor_tpu_torch.tools.step_time \\
         --override bf16_big_chains=False
@@ -36,8 +41,14 @@ def parse_args(argv=None):
                     choices=['nerfactor', 'nerf'])
     ap.add_argument('--rays', type=int, default=1024)
     ap.add_argument('--light_h', type=int, default=16)
-    ap.add_argument('--steps', type=int, default=20)
-    ap.add_argument('--warmup', type=int, default=3)
+    ap.add_argument('--steps', type=int, default=20,
+                    help="timed calls (each --scan steps under --scan)")
+    ap.add_argument('--warmup', type=int, default=3,
+                    help="untimed calls first (at least 2 under --scan)")
+    ap.add_argument('--scan', type=int, default=0,
+                    help="steps a call through make_train_step_scan (one "
+                         "CUDA graph launch on the card); 0 = one "
+                         "make_train_step step a call")
     ap.add_argument('--device', default='cuda',
                     help="cuda (the kernels) or cpu (the plain versions)")
     return ap.parse_args(argv)
@@ -56,7 +67,7 @@ def setup(args):
         args.model, device, n_rays=args.rays, light_h=args.light_h,
         override=args.override)
     return device, gpu, model, bench_model.stepper(model, params, batch,
-                                                   device)
+                                                   device, scan=args.scan)
 
 
 def sync(device):
@@ -64,12 +75,33 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
+def warmup_calls(args):
+    """--warmup, at least 2 under --scan (the eager call and the
+    capture)."""
+    return max(args.warmup, 2) if args.scan else args.warmup
+
+
+def launches_per_step(before, steps):
+    """Each kernel's launches a step over the ``steps`` steps since
+    ``before``."""
+    return {k: (v - before[k]) / steps
+            for k, v in bench_model.launches().items() if v != before[k]}
+
+
+def capture_record(run):
+    captured = getattr(run, 'captured', None)
+    return None if captured is None else {
+        'seconds': captured['seconds'],
+        'pool_mib': captured['pool_bytes'] / 2 ** 20}
+
+
 def main(argv=None):
     """Prints and returns the JSON record."""
     args = parse_args(argv)
     device, gpu, model, run = setup(args)
+    n_steps = args.steps * max(1, args.scan)
     t0 = time.perf_counter()
-    for _ in range(args.warmup):
+    for _ in range(warmup_calls(args)):
         run()
     sync(device)
     warmup_s = time.perf_counter() - t0
@@ -82,25 +114,23 @@ def main(argv=None):
             loss = run()
         end.record()
         sync(device)
-        ms = start.elapsed_time(end) / args.steps
+        ms = start.elapsed_time(end) / n_steps
     else:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             loss = run()
-        ms = 1e3 * (time.perf_counter() - t0) / args.steps
+        ms = 1e3 * (time.perf_counter() - t0) / n_steps
     loss = float(loss)
     if not torch.isfinite(torch.tensor(loss)):
         raise FloatingPointError("step loss %r" % loss)
     record = {
         'tool': 'step_time', 'model': args.model, 'override': args.override,
-        'rays': args.rays, 'steps': args.steps, 'ms_per_step': ms,
-        'rays_per_sec': args.rays / (ms / 1e3),
+        'scan': args.scan, 'rays': args.rays, 'steps': n_steps,
+        'ms_per_step': ms, 'rays_per_sec': args.rays / (ms / 1e3),
         'clock': 'cuda events' if device.type == 'cuda' else 'host',
         'warmup_s': warmup_s, 'loss': loss,
-        'launches_per_step': {k: (v - before[k]) / args.steps
-                              for k, v in bench_model.launches().items()
-                              if v != before[k]},
-        'device': str(device), 'card': gpu}
+        'launches_per_step': launches_per_step(before, n_steps),
+        'capture': capture_record(run), 'device': str(device), 'card': gpu}
     if args.model == 'nerfactor':
         record['n_lights'] = model.n_lights
     print(json.dumps(record))

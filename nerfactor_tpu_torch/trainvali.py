@@ -7,6 +7,13 @@ and the joint NeRFactor model (nerfactor.ini):
       --config_override='data_root=...,outroot=...' [--debug] \
       [--device=cuda] [--profile_steps=N]
 
+The config's ``scan_steps`` (8 in every shipped INI but brdf.ini) groups
+that many batches into one call of ``make_train_step_scan``: on the card
+one CUDA graph launch takes the group's steps (the first group runs
+eagerly and the second captures the graph), on the CPU the plain loop;
+the batches an epoch leaves over take one step each, and --debug forces
+one step a call.
+
 With --multihost it trains data parallel over rays (parallel/mesh.py),
 one process a device, each feeding its local batch (global batch =
 processes x n_rays_per_step): launched by torchrun,
@@ -45,7 +52,7 @@ import torch
 from nerfactor_tpu_torch import datasets, models
 from nerfactor_tpu_torch.parallel import mesh as meshlib
 from nerfactor_tpu_torch.parallel.train import (
-    build_optimizer, make_train_step, make_eval_step)
+    build_optimizer, make_train_step, make_train_step_scan, make_eval_step)
 from nerfactor_tpu_torch.utils import config as configutil, io as ioutil
 from nerfactor_tpu_torch.utils.ckpt import CheckpointManager
 from nerfactor_tpu_torch.utils.logging import Logger
@@ -63,7 +70,8 @@ def parse_args(argv=None):
     p.add_argument('--device', default='cuda', help="torch device")
     p.add_argument('--profile_steps', type=int, default=0,
                    help="trace the first N train steps with torch.profiler "
-                        "into <outdir>/profile")
+                        "into <outdir>/profile (to the end of the scan_steps "
+                        "group that reaches N)")
     p.add_argument('--multihost', action='store_true',
                    help="join a torch.distributed process group and train "
                         "data parallel over rays, one process a device: each "
@@ -172,12 +180,16 @@ def to_device(arrays, device):
 
 def host_batches(dataset, datapipe, n_epochs=1, lookahead=3, group=1,
                  pin=False):
-    """Iterator of (group of (meta, arrays), epoch_done) made by a
-    background thread, which assembles the next ``lookahead`` items (pinned
-    host tensors for a CUDA device) while the device trains on the current
-    one. One producer spans ``n_epochs`` passes over ``datapipe``; the last
-    item of each pass carries epoch_done=True. ``group`` batches travel
-    together (the config's ``scan_steps``); each still is one step."""
+    """Iterator of (n_steps, metas, arrays, epoch_done) made by a
+    background thread, which assembles the next ``lookahead`` items
+    (pinned host tensors for a CUDA device) while the device trains on
+    the current one. One producer spans ``n_epochs`` passes over
+    ``datapipe``; the last item of each pass carries epoch_done=True. With
+    ``group`` > 1 (the config's ``scan_steps``) a full group of batches
+    travels stacked, each array with a leading axis of n_steps = group,
+    for one ``make_train_step_scan`` call (the JAX package's ``_emit``);
+    the batches an epoch leaves over travel one at a time (n_steps 1, the
+    arrays as one step takes them)."""
     q = queue.Queue(maxsize=lookahead)
     stop = threading.Event()
     sentinel = object()
@@ -192,31 +204,39 @@ def host_batches(dataset, datapipe, n_epochs=1, lookahead=3, group=1,
                 continue
         return False
 
-    def prepare(batch):
-        meta, arrays = split_batch(dataset, batch)
-        arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
-                  for k, v in arrays.items()}
+    def emit(pend, stacked):
+        if stacked:
+            arrays = {k: np.stack([a[k] for _, a in pend])
+                      for k in pend[0][1]}
+        else:
+            arrays = {k: np.ascontiguousarray(v)
+                      for k, v in pend[0][1].items()}
+        arrays = {k: torch.from_numpy(v) for k, v in arrays.items()}
         if pin:
             arrays = {k: v.pin_memory() for k, v in arrays.items()}
-        return meta, arrays
+        return len(pend), [m for m, _ in pend], arrays
 
     def worker():
         try:
             for _ in range(n_epochs):
                 pend, pending = [], None  # one-item lag tags the last
                 for batch in datapipe:
-                    pend.append(prepare(batch))
+                    pend.append(split_batch(dataset, batch))
                     if len(pend) == group:
-                        if pending is not None and not put((pending, False)):
+                        item = emit(pend, group > 1)
+                        pend = []
+                        if pending is not None \
+                                and not put(pending + (False,)):
                             return
-                        pending, pend = pend, []
-                if pend:
-                    if pending is not None and not put((pending, False)):
+                        pending = item
+                for one in pend:  # the remainder: one step each
+                    item = emit([one], False)
+                    if pending is not None and not put(pending + (False,)):
                         return
-                    pending = pend
+                    pending = item
                 if pending is None:
                     raise ValueError("Dataset is empty")
-                if not put((pending, True)):
+                if not put(pending + (True,)):
                     return
         except BaseException as e:  # re-raised on the consumer's side
             err.append(e)
@@ -246,7 +266,9 @@ def maintain_epoch_queue(epochs, new_epoch_dir):
 
 
 def main(argv=None):
-    """Trains; returns {'outdir'}."""
+    """Trains; returns {'outdir', 'scan_steps', 'scan_groups': the calls of
+    the multi-step dispatch, 'scan_captured': its CUDA graph's capture
+    (seconds, pool bytes) or None}."""
     args = parse_args(argv)
     if args.debug:
         logger.warn("Debug mode: on")
@@ -306,8 +328,7 @@ def train(args, device, group=None):
     seed = config.getint('seed', fallback=0) or 0
     params = model.init_params(torch.Generator().manual_seed(seed))
     optimizer = build_optimizer(config)
-    # Moments beside the params; the step count on the host, where the
-    # learning rate is computed
+    # Moments and the step count beside the params, on the device
     opt_state = optimizer.init(params)
 
     ckptdir = join(outdir, 'checkpoints')
@@ -333,6 +354,15 @@ def train(args, device, group=None):
     train_step = make_train_step(model, optimizer,
                                  trainable_mask=trainable_mask,
                                  group=group)
+    # Multi-step dispatch: scan_steps stacked batches a call, one CUDA
+    # graph launch on the card (the plain loop on the CPU); the batches an
+    # epoch leaves over take one step each. 1 disables it, and --debug
+    # forces 1 (it breaks after the first batch).
+    scan_steps = 1 if args.debug else config.getint('scan_steps',
+                                                     fallback=1)
+    train_step_scan = make_train_step_scan(
+        model, optimizer, trainable_mask=trainable_mask, n_steps=scan_steps,
+        group=group) if scan_steps > 1 else None
     vali_step = make_eval_step(model, mode='vali')
     # The train draws (jitter, NeRF's samples and noise), on the device;
     # seeded alike on every rank, each keeping its rows of the global draw
@@ -355,9 +385,6 @@ def train(args, device, group=None):
     epochs = config.getint('epochs')
     ckpt_period = config.getint('ckpt_period')
     vali_period = config.getint('vali_period')
-    # scan_steps groups host batches; every batch is still one step
-    scan_group = 1 if args.debug else config.getint('scan_steps',
-                                                     fallback=1)
 
     profiler = None
     profile_left = args.profile_steps if is_lead else 0
@@ -377,6 +404,7 @@ def train(args, device, group=None):
 
     step = step_restored
     period_t0, period_batches = time(), 0
+    scan_groups = 0
     # One producer across all epochs left (a resumed run numbers its
     # epochs from the checkpoint's, and its datapipe from 0, as JAX's);
     # debug mode breaks mid-epoch, so it gets one producer per epoch
@@ -384,24 +412,30 @@ def train(args, device, group=None):
     if not args.debug and epochs > step_restored:
         batches = host_batches(dataset_train, datapipe_train,
                                n_epochs=epochs - step_restored,
-                               group=scan_group,
+                               group=scan_steps,
                                pin=device.type == 'cuda')
     for _ in range(step_restored, epochs):
         # Losses stay on the device; one readback per epoch
         batch_loss, n_batches = [], 0
         epoch_iter = batches if batches is not None else host_batches(
-            dataset_train, datapipe_train, group=scan_group)
-        for items, epoch_done in epoch_iter:
-            for _, arrays in items:
+            dataset_train, datapipe_train, group=scan_steps)
+        for n_steps, _, arrays, epoch_done in epoch_iter:
+            if n_steps > 1:
+                params, opt_state, losses = train_step_scan(
+                    params, opt_state, arrays, generator=noise_gen)
+                loss = losses[-1]
+                scan_groups += 1
+            else:
                 params, opt_state, loss = train_step(
                     params, opt_state, to_device(arrays, device),
                     generator=noise_gen)
-                batch_loss.append(loss)
-                n_batches += 1
-                if profiler is not None and profile_left > 0:
-                    profile_left -= 1
-                    if profile_left == 0:
-                        stop_profiler()
+                losses = loss.reshape(1)
+            batch_loss.append(losses)
+            n_batches += n_steps
+            if profiler is not None and profile_left > 0:
+                profile_left -= n_steps
+                if profile_left <= 0:
+                    stop_profiler()
             if args.debug:
                 if not torch.isfinite(loss):
                     raise FloatingPointError(
@@ -412,7 +446,7 @@ def train(args, device, group=None):
                 break
         if not n_batches:
             raise ValueError("Dataset is empty")
-        last_loss = float(batch_loss[-1])
+        last_loss = float(batch_loss[-1][-1])
         if not np.isfinite(last_loss):
             raise FloatingPointError("Loss went non-finite at epoch %d: %r"
                                      % (step + 1, last_loss))
@@ -422,7 +456,7 @@ def train(args, device, group=None):
         if step % ckpt_period == 0:
             if is_lead:
                 # The losses are the global batch's means already
-                losses = torch.stack(batch_loss).cpu().numpy()
+                losses = torch.cat(batch_loss).cpu().numpy()
                 elapsed = time() - period_t0
                 saved = ckptmanager.save(step, {'params': params,
                                                 'opt_state': opt_state})
@@ -463,7 +497,9 @@ def train(args, device, group=None):
         writer_train.close()
         writer_vali.close()
     logger.info("Training done (%d epochs)", epochs)
-    return {'outdir': outdir}
+    return {'outdir': outdir, 'scan_steps': scan_steps,
+            'scan_groups': scan_groups, 'scan_captured': None
+            if train_step_scan is None else train_step_scan.captured}
 
 
 if __name__ == '__main__':
