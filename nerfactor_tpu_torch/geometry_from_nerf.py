@@ -49,9 +49,18 @@ from nerfactor_tpu_torch.ops import img as imgops, sampling
 from nerfactor_tpu_torch.ops.light import gen_light_xyz
 from nerfactor_tpu_torch.utils import buffers, ckpt as ckptutil
 from nerfactor_tpu_torch.utils import config as configutil, io as ioutil
+from nerfactor_tpu_torch.utils import trace
 from nerfactor_tpu_torch.utils.logging import Logger
 
 logger = Logger(loggee="geometry_from_nerf")
+
+# A pass over blocks and its parts on the host (utils/trace.py: recorded
+# while a torch profiler runs)
+DISTILL = trace.span('program.distill')
+DISTILL_INPUTS = trace.span('program.distill.inputs')
+DISTILL_BLOCK = trace.span('program.distill.block')
+DISTILL_COPY_OUT = trace.span('program.distill.copy_out')
+DISTILL_WAIT = trace.span('program.distill.wait')
 
 BUFFER_FILES = ('alpha.png', 'lvis.npy', 'lvis.png', 'normal.npy',
                 'normal.png', 'xyz.npy', 'xyz.png')
@@ -153,29 +162,43 @@ class GeometryDistiller:
         arrays of shapes (n,) + ``widths[i]``. The host never waits on a
         block: block i + 1 is issued before block i's outputs are copied
         (non-blocking) into pinned host memory, and the one wait is at the
-        end."""
-        n = inputs[0].shape[0]
-        on_card = self.device.type == 'cuda'
-        outs = [torch.empty((n,) + tuple(w), dtype=torch.float32,
-                            pin_memory=on_card) for w in widths]
-        if n:
-            inputs = [torch.as_tensor(np.asarray(a, np.float32)).to(
-                self.device) for a in inputs]
-            pending = None
-            for i in range(0, n, block):
-                res = fn(*(a[i:i + block] for a in inputs))
-                if pending is not None:
-                    self._copy_out(outs, *pending)
-                pending = (i, res)
-            self._copy_out(outs, *pending)
-            if on_card:
-                torch.cuda.current_stream(self.device).synchronize()
-        return tuple(o.numpy() for o in outs)
+        end. The call is the span ``program.distill``, its parts
+        ``program.distill.{inputs,block,copy_out,wait}``; the class's
+        counters count the rows (``points``) and the bytes moved to the
+        device and back."""
+        with DISTILL:
+            n = inputs[0].shape[0]
+            on_card = self.device.type == 'cuda'
+            outs = [torch.empty((n,) + tuple(w), dtype=torch.float32,
+                                pin_memory=on_card) for w in widths]
+            if n:
+                with DISTILL_INPUTS:
+                    inputs = [np.asarray(a, np.float32) for a in inputs]
+                    GeometryDistiller.h2d_bytes += sum(a.nbytes
+                                                       for a in inputs)
+                    inputs = [torch.as_tensor(a).to(self.device)
+                              for a in inputs]
+                pending = None
+                for i in range(0, n, block):
+                    with DISTILL_BLOCK:
+                        res = fn(*(a[i:i + block] for a in inputs))
+                    if pending is not None:
+                        self._copy_out(outs, *pending)
+                    pending = (i, res)
+                self._copy_out(outs, *pending)
+                GeometryDistiller.points += n
+                if on_card:
+                    with DISTILL_WAIT:
+                        torch.cuda.current_stream(self.device).synchronize()
+            return tuple(o.numpy() for o in outs)
 
     @staticmethod
     def _copy_out(outs, start, res):
-        for out, r in zip(outs, res):
-            out[start:start + r.shape[0]].copy_(r, non_blocking=True)
+        with DISTILL_COPY_OUT:
+            for out, r in zip(outs, res):
+                dst = out[start:start + r.shape[0]]
+                dst.copy_(r, non_blocking=True)
+                GeometryDistiller.d2h_bytes += dst.nbytes
 
     def _sigma_with_bounds(self, pts, use_fine, compute_dtype=None):
         """ReLU'd sigma (N, 1) at ``pts`` (N, 3), zero outside the scene
@@ -270,6 +293,9 @@ class GeometryDistiller:
         lvis, = self._map_blocks(self.lvis_block, [surf, normal],
                                  self.lvis_block_pts, [(self.n_lights,)])
         return np.clip(lvis, 0.0, 1.0)
+
+
+trace.counters(GeometryDistiller, 'points', 'h2d_bytes', 'd2h_bytes')
 
 
 class AsyncWriter:

@@ -17,6 +17,10 @@ import shutil
 import subprocess
 from os.path import abspath, dirname, exists, join
 
+# The wrappers' launch counters live in the program's one counter registry
+from nerfactor_tpu_torch.utils.trace import (  # noqa: F401
+    COUNTERS, add_launches, launch_counters, launch_counts)
+
 PKG_DIR = dirname(dirname(abspath(__file__)))
 CSRC_DIR = join(PKG_DIR, 'csrc')
 BUILD_ROOT = join(dirname(PKG_DIR), 'build')
@@ -192,30 +196,3 @@ def check(code, what):
         msg = _lib.nfk_error_string(code).decode()
         raise RuntimeError("%s failed: %s (code %d)" % (what, msg, code))
 
-
-# Every wrapper's launch counters, (function, attribute) pairs, registered
-# where the wrapper is defined. A CUDA graph's capture launches nothing and
-# each of its replays launches every kernel it holds: make_train_step_scan
-# (parallel/train.py) takes back what its capture counted and adds that at
-# each replay, so the counters count what the card runs.
-COUNTERS = []
-
-
-def launch_counters(fn, *attrs):
-    """Registers ``fn.<attr>`` for each of ``attrs`` as a launch counter,
-    set to 0."""
-    for attr in attrs:
-        setattr(fn, attr, 0)
-        COUNTERS.append((fn, attr))
-
-
-def launch_counts():
-    """{(function, attribute): count} of every registered counter."""
-    return {(fn, attr): getattr(fn, attr) for fn, attr in COUNTERS}
-
-
-def add_launches(deltas):
-    """Adds each of ``deltas`` ({(function, attribute): launches}) to its
-    counter."""
-    for (fn, attr), n in deltas.items():
-        setattr(fn, attr, getattr(fn, attr) + n)

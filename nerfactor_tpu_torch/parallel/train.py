@@ -17,9 +17,22 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from nerfactor_tpu_torch.ops import kernel_lib
 from nerfactor_tpu_torch.parallel import mesh
+from nerfactor_tpu_torch.utils import trace
 from nerfactor_tpu_torch.utils.ckpt import tree_leaves, tree_map
+
+# The host's phases of an eager step, and of a call of the multi-step
+# dispatch (utils/trace.py: recorded while a torch profiler runs). A graph
+# replay runs its steps without the host, so records no step span.
+STEP_FORWARD = trace.span('program.step.forward')
+STEP_BACKWARD = trace.span('program.step.backward')
+STEP_OPTIMIZER = trace.span('program.step.optimizer')
+DISPATCH = trace.span('program.dispatch')
+DISPATCH_CHECK = trace.span('program.dispatch.check')
+DISPATCH_FILL = trace.span('program.dispatch.fill')
+DISPATCH_REPLAY = trace.span('program.dispatch.replay')
+DISPATCH_WARM_UP = trace.span('program.dispatch.warm_up')
+DISPATCH_CAPTURE = trace.span('program.dispatch.capture')
 
 
 class TfAdamState(NamedTuple):
@@ -176,7 +189,9 @@ def _make_step(model, optimizer, trainable_mask, group):
     keyword arguments of the model's draws (``jitter_noise``, or NeRF's
     ``t_rand_coarse``, ``sigma_noise``, ``u_fine``) for this rank's rows.
     Its work is all on the parameters' device, read nothing back to the
-    host and copies nothing from it, so a CUDA graph can capture it."""
+    host and copies nothing from it, so a CUDA graph can capture it. Its
+    forward, backward and optimizer update are the spans
+    ``program.step.*``."""
     _check_needs_dw_invariant(model, trainable_mask)
 
     def step(params, opt_state, arrays, generator, draws):
@@ -196,11 +211,14 @@ def _make_step(model, optimizer, trainable_mask, group):
                     model.train_draws(generator, arrays, world), rank,
                     world))
         with torch.enable_grad():
-            pred, gt, loss_kwargs, _ = model.apply(
-                live, arrays, mode='train', generator=generator, **draws)
-            loss = torch.mean(model.compute_loss(live, pred, gt,
-                                                 **loss_kwargs))
-            got = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+            with STEP_FORWARD:
+                pred, gt, loss_kwargs, _ = model.apply(
+                    live, arrays, mode='train', generator=generator, **draws)
+                loss = torch.mean(model.compute_loss(live, pred, gt,
+                                                     **loss_kwargs))
+            with STEP_BACKWARD:
+                got = list(torch.autograd.grad(loss, wrt,
+                                               allow_unused=True))
         if group is not None:
             got = [torch.zeros_like(t) if g is None else g
                    for t, g in zip(wrt, got)]
@@ -210,7 +228,7 @@ def _make_step(model, optimizer, trainable_mask, group):
         for t, m in zip(leaves, mask):
             g = next(got) if m else None
             grads.append(torch.zeros_like(t) if g is None else g)
-        with torch.no_grad():
+        with torch.no_grad(), STEP_OPTIMIZER:
             steps, opt_state = optimizer.update(grads, opt_state)
             for p, s in zip(leaves, steps):
                 p.add_(s)
@@ -294,9 +312,13 @@ def make_train_step_scan(model, optimizer, trainable_mask=None, n_steps=8,
     gloo group on CUDA tensors raises, since gloo reduces through host
     copies, which a graph cannot hold. ``train_steps.captured`` holds,
     once captured, the capture's seconds and the bytes its memory pool
-    reserved. The kernels' launch counters count what the card runs: the
-    capture, which launches nothing, gives back what it counted, and each
-    replay adds those launches."""
+    reserved. The counters (utils/trace.py) count what the
+    card runs: the capture, which launches nothing, gives back what it
+    counted, and each replay adds those launches; ``_GraphSteps.groups``
+    and ``.h2d_bytes`` count the groups the static buffers took and the
+    bytes copied into them from host memory.
+    A call is the span ``program.dispatch``, its parts
+    ``program.dispatch.{check,fill,replay,warm_up,capture}``."""
     step = _make_step(model, optimizer, trainable_mask, group)
     state = {}
 
@@ -312,32 +334,35 @@ def make_train_step_scan(model, optimizer, trainable_mask=None, n_steps=8,
 
     def train_steps(params, opt_state, stacked_arrays, generator=None,
                     draws=None):
-        leaves = tree_leaves(params)
-        device = leaves[0].device
-        for k, v in dict(stacked_arrays, **(draws or {})).items():
-            if v.shape[0] != n_steps:
-                raise ValueError("%s: leading axis %d, not n_steps = %d"
-                                 % (k, v.shape[0], n_steps))
-        if device.type != 'cuda':
-            return loop(params, opt_state,
-                        {k: v.to(device) for k, v in stacked_arrays.items()},
-                        generator, None if draws is None
-                        else {k: v.to(device) for k, v in draws.items()})
-        if group is not None and dist.get_backend(group) != 'nccl':
-            raise ValueError(
-                "make_train_step_scan on CUDA tensors with a %s process "
-                "group: %s reduces through host copies, which a CUDA graph "
-                "cannot hold; use NCCL, or scan_steps = 1"
-                % (dist.get_backend(group), dist.get_backend(group)))
-        runner = state.get('runner')
-        if runner is None:
-            runner = state['runner'] = _GraphSteps(
-                loop, n_steps, params, opt_state, stacked_arrays, generator,
-                draws, device)
-            return runner.warm_up(params, opt_state)
-        out = runner(params, opt_state, stacked_arrays, generator, draws)
-        train_steps.captured = runner.captured
-        return out
+        with DISPATCH:
+            leaves = tree_leaves(params)
+            device = leaves[0].device
+            for k, v in dict(stacked_arrays, **(draws or {})).items():
+                if v.shape[0] != n_steps:
+                    raise ValueError("%s: leading axis %d, not n_steps = %d"
+                                     % (k, v.shape[0], n_steps))
+            if device.type != 'cuda':
+                return loop(
+                    params, opt_state,
+                    {k: v.to(device) for k, v in stacked_arrays.items()},
+                    generator, None if draws is None
+                    else {k: v.to(device) for k, v in draws.items()})
+            if group is not None and dist.get_backend(group) != 'nccl':
+                raise ValueError(
+                    "make_train_step_scan on CUDA tensors with a %s process "
+                    "group: %s reduces through host copies, which a CUDA "
+                    "graph cannot hold; use NCCL, or scan_steps = 1"
+                    % (dist.get_backend(group), dist.get_backend(group)))
+            runner = state.get('runner')
+            if runner is None:
+                runner = state['runner'] = _GraphSteps(
+                    loop, n_steps, params, opt_state, stacked_arrays,
+                    generator, draws, device)
+                with DISPATCH_WARM_UP:
+                    return runner.warm_up(params, opt_state)
+            out = runner(params, opt_state, stacked_arrays, generator, draws)
+            train_steps.captured = runner.captured
+            return out
 
     train_steps.captured = None
     return train_steps
@@ -376,12 +401,17 @@ class _GraphSteps:
 
     def fill(self, stacked, draws):
         """Copies one group's batches (and draws) into the static
-        buffers, on the current stream."""
-        for k, v in stacked.items():
-            self.stacked[k].copy_(v, non_blocking=True)
-        if draws is not None:
-            for k, v in draws.items():
-                self.draws[k].copy_(v, non_blocking=True)
+        buffers, on the current stream, and counts the group and the
+        bytes copied from host memory."""
+        with DISPATCH_FILL:
+            pairs = [(self.stacked[k], v) for k, v in stacked.items()]
+            if draws is not None:
+                pairs += [(self.draws[k], v) for k, v in draws.items()]
+            for static, v in pairs:
+                static.copy_(v, non_blocking=True)
+                if not v.is_cuda:
+                    _GraphSteps.h2d_bytes += v.nbytes
+            _GraphSteps.groups += 1
 
     def check(self, params, opt_state, stacked, generator, draws):
         if [t.data_ptr() for t in tree_leaves((params, opt_state))] \
@@ -418,37 +448,44 @@ class _GraphSteps:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        before = kernel_lib.launch_counts()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, stream=self.stream,
-                              capture_error_mode='thread_local'):
-            _, _, losses = self.loop(params, opt_state, self.stacked,
-                                     self.generator, self.draws)
-            self.losses.copy_(losses)
-        del losses
-        torch.cuda.synchronize(self.device)
+        before = trace.counts()
+        with DISPATCH_CAPTURE:
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode='thread_local'):
+                _, _, losses = self.loop(params, opt_state, self.stacked,
+                                         self.generator, self.draws)
+                self.losses.copy_(losses)
+            del losses
+            torch.cuda.synchronize(self.device)
+            seconds = time.perf_counter() - t0
         self.captured = {
-            'seconds': time.perf_counter() - t0,
+            'seconds': seconds,
             'pool_bytes': torch.cuda.memory_reserved(self.device) - reserved}
-        # The wrappers counted their launches as the capture recorded
-        # them; the card runs those at each replay
+        # The counters counted what the capture recorded (the wrappers'
+        # launches); the card runs that at each replay
         self.launches = {k: n - before.get(k, 0)
-                         for k, n in kernel_lib.launch_counts().items()
+                         for k, n in trace.counts().items()
                          if n != before.get(k, 0)}
-        kernel_lib.add_launches({k: -n for k, n in self.launches.items()})
+        trace.add_launches({k: -n for k, n in self.launches.items()})
         self.graph = graph
 
     def __call__(self, params, opt_state, stacked, generator, draws):
-        self.check(params, opt_state, stacked, generator, draws)
+        with DISPATCH_CHECK:
+            self.check(params, opt_state, stacked, generator, draws)
         self.fill(stacked, draws)
         if self.graph is None:
             self.capture(params, opt_state)
-        self.graph.replay()
-        kernel_lib.add_launches(self.launches)
+        with DISPATCH_REPLAY:
+            self.graph.replay()
+            trace.add_launches(self.launches)
         return params, opt_state, self.losses.clone()
+
+
+trace.counters(_GraphSteps, 'groups', 'h2d_bytes')
 
 
 def make_eval_step(model, mode='vali'):

@@ -10,7 +10,10 @@ over ``--steps`` calls: the device ms a step by kernel, the ``--top``
 longest, the device's busy ms a step and idle share over the window, the
 graph launches the host made, and each kernel of the port's (K1, K2, K3)
 with the launches the window recorded against those its wrapper counted
-in the window's steps (a graph replay counts the launches it runs).
+in the window's steps (a graph replay counts the launches it runs), and
+the device ms a step of each eager step's phases (``card.step_phases``:
+forward, backward, optimizer, each its span on the device and the busy
+part of it; ``--scan 0`` only: a graph replay records no host span).
 One JSON line, with ``scan`` and the card's name and
 power limit. ``--device cpu`` profiles the plain versions on the host
 (under ``--scan`` the plain loop) as a check of the tool
@@ -77,7 +80,7 @@ def main(argv=None):
         before, n_steps).items()}
     ms, seen, graph_launches = {}, {}, 0
     for e in prof.key_averages():
-        if card.is_filler(e):
+        if card.is_filler(e) or card.is_span(e):
             continue
         if on_card and e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, 'self_device_time_total', 0.0)
@@ -102,6 +105,9 @@ def main(argv=None):
             'device_idle_share': 1 - busy / (wall_ms / n_steps)
             if busy else None, 'graph_launches': graph_launches,
             'top_device_ms': [[k[:100], v] for k, v in top],
+            'phase_device_ms': {
+                phase: {k: v / n_steps for k, v in ms.items()}
+                for phase, ms in card.step_phases(prof).items()},
             'launches': {
                 name: {'ran': ran[name], 'recorded': sum(
                     n for k, n in seen.items() if re.search(pat, k))}

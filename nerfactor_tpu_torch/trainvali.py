@@ -54,10 +54,17 @@ from nerfactor_tpu_torch.parallel import mesh as meshlib
 from nerfactor_tpu_torch.parallel.train import (
     build_optimizer, make_train_step, make_train_step_scan, make_eval_step)
 from nerfactor_tpu_torch.utils import config as configutil, io as ioutil
+from nerfactor_tpu_torch.utils import trace
 from nerfactor_tpu_torch.utils.ckpt import CheckpointManager
 from nerfactor_tpu_torch.utils.logging import Logger
 
 logger = Logger(loggee="trainvali")
+
+# The loop's host phases (utils/trace.py: recorded while a torch profiler
+# runs): the wait for host_batches' next item, a checkpoint, a validation
+NEXT_BATCH = trace.span('program.train.next_batch')
+CHECKPOINT = trace.span('program.train.checkpoint')
+VALIDATE = trace.span('program.train.validate')
 
 
 def parse_args(argv=None):
@@ -71,7 +78,11 @@ def parse_args(argv=None):
     p.add_argument('--profile_steps', type=int, default=0,
                    help="trace the first N train steps with torch.profiler "
                         "into <outdir>/profile (to the end of the scan_steps "
-                        "group that reaches N)")
+                        "group that reaches N): trace.json, whose timeline "
+                        "holds the program's program.* spans beside the "
+                        "device's operations, and spans.json, each span's "
+                        "count, total and self ms and the program's "
+                        "counters")
     p.add_argument('--multihost', action='store_true',
                    help="join a torch.distributed process group and train "
                         "data parallel over rays, one process a device: each "
@@ -393,6 +404,7 @@ def train(args, device, group=None):
         if device.type == 'cuda':
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
+        trace.reset()
         profiler.start()
         logger.info("Profiling %d steps", profile_left)
 
@@ -400,6 +412,8 @@ def train(args, device, group=None):
         profiler.stop()
         os.makedirs(join(outdir, 'profile'), exist_ok=True)
         profiler.export_chrome_trace(join(outdir, 'profile', 'trace.json'))
+        with open(join(outdir, 'profile', 'spans.json'), 'w') as f:
+            json.dump(trace.summary(), f, indent=1)
         logger.info("Profiler trace written")
 
     step = step_restored
@@ -419,7 +433,12 @@ def train(args, device, group=None):
         batch_loss, n_batches = [], 0
         epoch_iter = batches if batches is not None else host_batches(
             dataset_train, datapipe_train, group=scan_steps)
-        for n_steps, _, arrays, epoch_done in epoch_iter:
+        while True:
+            with NEXT_BATCH:
+                item = next(epoch_iter, None)
+            if item is None:
+                break
+            n_steps, _, arrays, epoch_done = item
             if n_steps > 1:
                 params, opt_state, losses = train_step_scan(
                     params, opt_state, arrays, generator=noise_gen)
@@ -458,8 +477,9 @@ def train(args, device, group=None):
                 # The losses are the global batch's means already
                 losses = torch.cat(batch_loss).cpu().numpy()
                 elapsed = time() - period_t0
-                saved = ckptmanager.save(step, {'params': params,
-                                                'opt_state': opt_state})
+                with CHECKPOINT:
+                    saved = ckptmanager.save(step, {'params': params,
+                                                    'opt_state': opt_state})
                 logger.info("Checkpointed epoch %d:\n\t%s", step, saved)
                 writer_train.scalars(
                     step, loss_train=np.mean(losses),
@@ -471,23 +491,27 @@ def train(args, device, group=None):
 
         vali_now = vali_period > 0 and step % vali_period == 0
         if datapipe_vali is not None and vali_now:
-            vali_loss, vis_dirs = [], []
-            epoch_dir = vali_vis_epoch_dir.format(e=step)
-            for batch_i, batch in enumerate(datapipe_vali):
-                meta, arrays = split_batch(dataset_vali, batch)
-                loss, to_vis = vali_step(params, to_device(arrays, device))
-                vali_loss.append(float(loss))
-                to_vis_np = {k: v.cpu().numpy() for k, v in to_vis.items()}
-                to_vis_np.update(meta)
-                vis_dir = join(epoch_dir, 'batch{b:09d}'.format(b=batch_i))
-                model.vis_batch(to_vis_np, vis_dir, mode='vali')
-                vis_dirs.append(vis_dir)
-            writer_vali.scalars(step, loss_vali=np.mean(vali_loss))
-            view_at = model.compile_batch_vis(vis_dirs, join(epoch_dir, 'all'),
-                                              mode='vali')
-            if view_at is not None:
-                writer_vali.text(step, 'vis_vali', view_at)
-            maintain_epoch_queue(vali_epoch_deque, epoch_dir)
+            with VALIDATE:
+                vali_loss, vis_dirs = [], []
+                epoch_dir = vali_vis_epoch_dir.format(e=step)
+                for batch_i, batch in enumerate(datapipe_vali):
+                    meta, arrays = split_batch(dataset_vali, batch)
+                    loss, to_vis = vali_step(params,
+                                             to_device(arrays, device))
+                    vali_loss.append(float(loss))
+                    to_vis_np = {k: v.cpu().numpy()
+                                 for k, v in to_vis.items()}
+                    to_vis_np.update(meta)
+                    vis_dir = join(epoch_dir,
+                                   'batch{b:09d}'.format(b=batch_i))
+                    model.vis_batch(to_vis_np, vis_dir, mode='vali')
+                    vis_dirs.append(vis_dir)
+                writer_vali.scalars(step, loss_vali=np.mean(vali_loss))
+                view_at = model.compile_batch_vis(
+                    vis_dirs, join(epoch_dir, 'all'), mode='vali')
+                if view_at is not None:
+                    writer_vali.text(step, 'vis_vali', view_at)
+                maintain_epoch_queue(vali_epoch_deque, epoch_dir)
         if vali_now:
             barrier()
 

@@ -64,9 +64,56 @@ def is_filler(event):
         and FILLER_KERNEL in event.key
 
 
+def is_span(event):
+    """Whether a profiler event is one of the program's spans
+    (utils/trace.py), whose device-side copy is an annotation over the
+    work issued in it, not work."""
+    return event.key.startswith('program.')
+
+
 def device_events(prof):
-    """The device's events of ``prof.key_averages()``, the filler's left
-    out."""
+    """The device's events of ``prof.key_averages()``, the filler's and
+    the program's spans left out."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not is_filler(e)]
+            and not is_filler(e) and not is_span(e)]
+
+
+def step_phases(prof):
+    """Device ms of the eager steps' phases in ``prof``'s window, summed
+    over its steps: {'forward' | 'backward' | 'optimizer': {'span_ms',
+    'busy_ms'}}. The forward and the optimizer are the device-side copies
+    of their spans (``program.step.forward``, ``.optimizer``: from the
+    first to the last device operation issued inside); the backward, whose
+    kernels autograd's device thread launches outside the step's spans, is
+    the device's time between a step's forward and its optimizer (one
+    stream runs them in order). ``busy_ms``: the part of each in which some
+    kernel ran."""
+    marks = {'program.step.forward': [], 'program.step.optimizer': []}
+    kernels = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        if e.name in marks:
+            marks[e.name].append(iv)
+        elif not e.name.startswith('program.') and FILLER_KERNEL not in e.name:
+            kernels.append(iv)
+    fwd = sorted(marks['program.step.forward'])
+    opt = sorted(marks['program.step.optimizer'])
+    windows = {'forward': fwd,
+               'backward': [(f[1], o[0]) for f, o in zip(fwd, opt)],
+               'optimizer': opt}
+    busy = []
+    for s, e in sorted(kernels):
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    out = {}
+    for phase, ivs in windows.items():
+        out[phase] = {
+            'span_ms': sum(e - s for s, e in ivs) / 1e3,
+            'busy_ms': sum(max(0.0, min(e, be) - max(s, bs))
+                           for s, e in ivs for bs, be in busy) / 1e3}
+    return out

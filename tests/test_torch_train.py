@@ -15,8 +15,8 @@ written by the JAX package:
     clipping;
   * both packages' trainvali CLIs resume from one JAX-written ckpt-1 and
     reach the same ckpt-3, which restores in the JAX package; the port's
-    CLI writes a profiler trace and refuses --multihost without a process
-    group to join.
+    CLI writes a profiler trace with its spans' summary beside it and
+    refuses --multihost without a process group to join.
 """
 
 import json
@@ -294,6 +294,12 @@ def test_cli_resumes_jax_checkpoint_like_jax(scene):
         # epoch 1 from the JAX run the port resumed
         assert [json.loads(line)['step'] for line in f] == [1, 2, 3]
     assert exists(join(tdir, 'profile', 'trace.json'))
+    # Beside the trace, the program's spans of the profiled steps (the
+    # first call's wait for its batch among them) and its counters
+    with open(join(tdir, 'profile', 'spans.json')) as f:
+        spans = json.load(f)
+    assert spans['spans']['program.train.next_batch']['count'] >= 1
+    assert 'train._GraphSteps.groups' in spans['counters']
     with pytest.raises(ValueError, match='torchrun'):
         ttrainvali.main(['--config', 'nerfactor.ini', '--multihost'])
 
